@@ -1,0 +1,5 @@
+from repro_torch.kernels.flash_attention.ops import (attention_plain,
+                                                     flash_attention,
+                                                     flash_attention_cuda)
+
+__all__ = ["attention_plain", "flash_attention", "flash_attention_cuda"]

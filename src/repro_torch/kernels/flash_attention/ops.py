@@ -1,0 +1,147 @@
+"""Flash attention: ``softmax(q k^T / sqrt(D) + mask) v``, GQA aware.
+
+The port of ``repro.kernels.flash_attention`` (TPU kernel
+``kernel.py::flash_attention_fwd``).  Three layers:
+
+- :func:`attention_plain`: the plain PyTorch version, the same function as
+  the JAX ``ops._ref_gqa`` over ``ref.py::attention_reference`` (K/V heads
+  repeated, fp32 softmax, fully masked rows give zeros, result in
+  ``q.dtype``);
+- :func:`flash_attention_cuda`: the wrapper of the hand-written CUDA forward
+  kernel ``csrc/flash_attention.cu``; checks its inputs, launches on the
+  current stream, raises on a CUDA error and counts the launch;
+- :func:`flash_attention`: the differentiable op ``apply_attention`` calls
+  with ``use_flash``.  Its forward takes the plain version for CPU tensors
+  and the kernel for CUDA tensors (never falling back); its backward
+  recomputes through the plain version, as the JAX custom VJP does.  A
+  backward kernel is later work.
+
+All three take the model's layout: q ``(B, S, Hq, D)``, k and v
+``(B, T, Hkv, D)`` with ``Hq % Hkv == 0``; the output is ``(B, S, Hq, D)``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, build
+
+NAME = "flash_attention"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _mask(S: int, T: int, causal: bool, window: int | None,
+          device) -> torch.Tensor:
+    q_pos = torch.arange(S, device=device)[:, None]
+    k_pos = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """The plain version: (B,S,Hq,D), (B,T,Hkv,D) x2 -> (B,S,Hq,D)."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    groups = Hq // Hkv
+    if groups > 1:
+        k = k.repeat_interleave(groups, dim=2)
+        v = v.repeat_interleave(groups, dim=2)
+    logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / math.sqrt(D)
+    mask = _mask(S, T, causal, window, q.device)
+    row_any = mask.any(-1)[:, None]
+    # a row with no visible key takes finite logits (so neither softmax nor
+    # its gradient produce NaN) and is zeroed after the softmax
+    logits = torch.where(mask, logits, -math.inf)
+    logits = torch.where(row_any, logits, 0.0)
+    probs = torch.where(row_any, torch.softmax(logits, dim=-1), 0.0)
+    out = torch.einsum("bhst,bthd->bshd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def _check_cuda_args(q, k, v) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{NAME}: {name} is on {t.device}, not cuda")
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"{NAME}: {name} has dtype {t.dtype}; the "
+                            "kernel takes float32 or bfloat16")
+        if t.dim() != 4:
+            raise ValueError(f"{NAME}: {name} must be 4-D, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{NAME}: {name} must be contiguous")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"{NAME}: dtypes differ ({q.dtype}, {k.dtype}, "
+                        f"{v.dtype})")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"{NAME}: tensors on different devices")
+    B, S, Hq, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"{NAME}: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)}; want (B,S,Hq,D), (B,T,Hkv,D) x2")
+    if Hq % k.shape[2] != 0:
+        raise ValueError(f"{NAME}: Hq={Hq} is not a multiple of "
+                         f"Hkv={k.shape[2]}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{NAME}: head dim {D} not built; the kernel takes "
+                         f"{HEAD_DIMS}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True,
+                         window: int | None = None) -> torch.Tensor:
+    """Launch the CUDA forward kernel on contiguous (B,S,Hq,D) / (B,T,Hkv,D)
+    tensors of one dtype (float32 or bfloat16) on one card."""
+    _check_cuda_args(q, k, v)
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lib = build.load("flash_attention")
+    fn = lib.flash_attention_fwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, S, T, Hq, Hkv, D, int(causal), int(window is not None),
+                 int(window or 0), 1.0 / math.sqrt(D), _DTYPES[q.dtype],
+                 stream)
+    build.check(lib, err, NAME)
+    LAUNCHES[NAME] += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        if q.device.type == k.device.type == v.device.type == "cpu":
+            return attention_plain(q, k, v, causal, window)
+        return flash_attention_cuda(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+            out = attention_plain(qd, kd, vd, ctx.causal, ctx.window)
+        dq, dk, dv = torch.autograd.grad(out, (qd, kd, vd), g)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """(B,S,Hq,D), (B,T,Hkv,D) x2 -> (B,S,Hq,D), differentiable."""
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal, window)

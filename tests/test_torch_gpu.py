@@ -1,0 +1,105 @@
+"""The port's CUDA kernels held to their plain PyTorch versions on the card.
+
+Every test here needs a CUDA device and carries the ``gpu`` marker; without
+a card each skips.  The file imports neither jax nor the JAX package, so
+it runs on a GPU machine that has only PyTorch:
+
+    python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
+
+(``--noconftest``: the suite's conftest imports jax.)  fp32 is compared
+with TF32 off at rtol 1e-4; bf16 at rtol/atol 2e-2, for bf16 rounding in
+another summation order.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.flash_attention import (attention_plain,
+                                                 flash_attention,
+                                                 flash_attention_cuda)
+from repro_torch.kernels.skip_matmul import (skip_concat_matmul,
+                                             skip_concat_matmul_cuda,
+                                             skip_concat_matmul_plain)
+
+FLASH_CASES = [
+    # B, S, T, Hq, Hkv, D, causal, window
+    (2, 40, 40, 4, 4, 16, False, None),       # uvit-pp self-attention
+    (1, 37, 37, 2, 2, 32, True, None),        # causal, ragged length
+    (1, 50, 50, 2, 2, 16, True, 8),           # causal + sliding window
+    (2, 24, 24, 4, 1, 16, True, None),        # GQA (4 q heads per kv head)
+    (1, 33, 33, 4, 2, 64, False, 5),          # window, non-causal, GQA 2
+    (1, 258, 77, 2, 2, 16, False, None),      # ragged S=258 over T=77
+    (2, 258, 258, 20, 20, 128, False, None),  # UViT-H, b=2
+]
+
+
+@pytest.fixture(autouse=True)
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _tol(dtype):
+    return 1e-4 if dtype == "float32" else 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,D,N", [(516, 256, 256), (37, 24, 40),
+                                   (130, 72, 200), (516, 2560, 2560)])
+def test_skip_concat_matmul_kernel_matches_plain(M, D, N, dtype):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    h, s = (torch.randn(M, D, device="cuda", generator=gen).to(dt)
+            for _ in range(2))
+    w = (torch.randn(2 * D, N, device="cuda", generator=gen)
+         / (2 * D) ** 0.5).to(dt)
+    before = LAUNCHES["skip_concat_matmul"]
+    got = skip_concat_matmul_cuda(h, s, w)
+    torch.cuda.synchronize()
+    assert LAUNCHES["skip_concat_matmul"] == before + 1
+    want = skip_concat_matmul_plain(h, s, w)
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+    # the differentiable op launches the kernel for CUDA tensors too
+    x = skip_concat_matmul(h[None], s[None], w)
+    assert x.shape == (1, M, N)
+    assert LAUNCHES["skip_concat_matmul"] == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,D,causal,window", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(B, S, T, Hq, Hkv, D, causal,
+                                              window, dtype):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(B, S, Hq, D, device="cuda", generator=gen).to(dt)
+    k, v = (torch.randn(B, T, Hkv, D, device="cuda", generator=gen).to(dt)
+            for _ in range(2))
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention_cuda(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    want = attention_plain(q, k, v, causal, window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+    out = flash_attention(q.requires_grad_(True), k, v, causal, window)
+    out.float().sum().backward()
+    assert torch.isfinite(q.grad).all()
+
+
+@pytest.mark.gpu
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    x = torch.randn(8, 16, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        skip_concat_matmul_cuda(x, x, torch.randn(32, 8, device="cuda",
+                                                  dtype=torch.float16))
+    y = torch.randn(8, 16, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        skip_concat_matmul_cuda(y.t().contiguous().t(), y,
+                                torch.randn(32, 8, device="cuda"))
+    q = torch.randn(1, 4, 2, 48, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(q, q, q)
