@@ -4,42 +4,16 @@ with long skips), d=2560, 20 heads (head_dim 128), d_ff=10240, latent
 
 About 2.73e9 parameters: bf16 params and grads take 5.5 GB each and the
 fp32 AdamW moments 21.8 GB, so the model trains at full width and depth on
-one 80 GB card, with the pipeline's D devices sharing it.
+one 80 GB card, with the pipeline's D devices sharing it.  The trainer
+(``launch/train.py --arch uvit-h``) takes it through ``auto_pipeline``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.hw import H100_SXM
-from repro_torch.models import diffusion as dm
 from repro_torch.models.diffusion import UViTConfig
 
 CFG = UViTConfig(
     name="uvit-h", img_size=32, in_ch=4, patch=2, d_model=2560,
     n_layers=32, n_heads=20, d_ff=10240, n_classes=1001,
     dtype=torch.bfloat16, param_dtype=torch.bfloat16)
-
-
-def pipeline_graph(batch: int = 1, fwd_times=None, cfg: UViTConfig = CFG):
-    """Runtime-aligned block graph for the auto-pipeline compile path
-    (one block per enc/dec row, fully-paired skips), costed for an H100."""
-    return dm.uvit_pipeline_graph(cfg, batch, fwd_times=fwd_times,
-                                  hw=H100_SXM)
-
-
-def pipeline_model_fns(cfg: UViTConfig = CFG):
-    """Block-level compile-path callables for this config's model."""
-    from repro_torch.runtime.adapters import diffusion_model_fns
-    return diffusion_model_fns(cfg, "uvit")
-
-
-def auto_plan(N: int, *, cfg: UViTConfig = CFG, batch: int = 1, **kwargs):
-    """Plan + lower this config through the full compile path (graph ->
-    skip-aware partition -> validated schedule -> executor).  Keyword
-    arguments forward to :func:`repro_torch.runtime.compile.auto_pipeline`
-    (``pipeline_devices`` must be pinned; ``microbatches``, ``wire_dtype``,
-    ...).  ``cfg`` swaps in a variant, e.g. with the kernels switched on.
-    """
-    from repro_torch.runtime.compile import auto_pipeline
-    return auto_pipeline(pipeline_graph(batch, cfg=cfg),
-                         pipeline_model_fns(cfg), N, hw=H100_SXM, **kwargs)

@@ -965,8 +965,7 @@ def simulate(
     overlapped lowering: a producer hands its boundary activation to the
     ring and immediately starts its next task, so only the *receiver*
     waits out ``p2p_time``.  ``overlap=False`` models the synchronous
-    lowering (the ``PipelineConfig.overlap=False`` escape hatch), where
-    the producing device also blocks for ``p2p_time`` after every
+    lowering, where the producing device also blocks for ``p2p_time`` after every
     cross-device send before its next compute.
     """
     S = sched.S

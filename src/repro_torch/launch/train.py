@@ -4,10 +4,9 @@ table-driven wave executor -> DDPM loss -> AdamW, step after step.
 
 All ``--devices`` pipeline devices run in this one process on one card (or
 on the CPU with ``--device cpu``), as the JAX package runs them as
-host-simulated devices.  The kernels are on by default: the decoder
-skip-in goes through the fused skip-concat matmul and self-attention
-through flash attention (``--no-kernels`` takes the plain PyTorch paths;
-on the CPU the kernels' plain versions run either way).
+host-simulated devices.  The kernels are always on: the decoder skip-in
+goes through the fused skip-concat matmul and self-attention through
+flash attention (on the CPU, through the kernels' plain versions).
 
 Archs: ``uvit-pp`` (alias ``uvit``) and ``uvit-nano``, the JAX driver's
 small pipeline configs, and ``uvit-h``, the paper's UViT-2.7B at full
@@ -86,9 +85,6 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the pipeline runs (no silent CPU fallback)")
-    ap.add_argument("--no-kernels", action="store_true",
-                    help="plain PyTorch skip-in and attention instead of "
-                         "the CUDA kernels")
     ap.add_argument("--profile", default=None,
                     help="trace every step after the first with "
                          "torch.profiler and write device time by kernel, "
@@ -170,9 +166,7 @@ def _model_config(args):
         cfg = UViTConfig("uvit-pp", img_size=8, in_ch=4, patch=2,
                          d_model=64, n_layers=8, n_heads=4, d_ff=128,
                          n_classes=10)
-    kernels = not args.no_kernels
-    return dataclasses.replace(cfg, use_skip_kernel=kernels,
-                               use_flash=kernels)
+    return dataclasses.replace(cfg, use_skip_kernel=True, use_flash=True)
 
 
 def build_trainer(args):

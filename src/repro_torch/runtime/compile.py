@@ -332,7 +332,6 @@ class CompiledPipeline:
             kind += f", interleaved V={V}"
         tabs = self.step_tables()
         live_d, live_u = tabs.live_hops
-        mode = "overlapped" if self.pcfg.overlap else "synchronous"
         return "\n".join([
             f"auto_pipeline: S={part.num_stages} stages over "
             f"D={part.num_devices} devices ({kind}), "
@@ -348,7 +347,7 @@ class CompiledPipeline:
             f"{live_d}+{live_u}/{tabs.dense_hops} (down+up/dense), "
             f"windows W_down={tabs.W_down} W_up={tabs.W_up} "
             f"W_turn={tabs.W_turn} W_skip={tabs.W_skip} (M={sched.M})",
-            f"  comm: {mode}, exposed hops {tabs.exposed_hops} / "
+            f"  comm: exposed hops {tabs.exposed_hops} / "
             f"hidden {tabs.hidden_hops} (of {live_d + live_u} live)",
         ])
 
@@ -374,14 +373,12 @@ def auto_pipeline(
     use_ilp: bool = False,
     executor: str = "table",
     wire_dtype: str = "bfloat16",
-    overlap: bool = True,
 ) -> CompiledPipeline:
     """Plan, schedule and lower a pipeline for ``graph`` with the pipeline
     degree pinned to ``pipeline_devices`` (the partitioner is called
     directly; ``microbatches`` defaults to 2D).  ``interleave`` pins V
     stage-slot pairs per device (S = 2VD).  ``wire_dtype`` sets the
-    boundary-hop dtype (``"float32"`` is the exact-wire escape hatch) and
-    ``overlap`` the hop placement (values are identical either way).
+    boundary-hop dtype (``"float32"`` is the exact-wire escape hatch).
     """
     if pipeline_devices is None:
         raise _not_ported("the hybrid tuner (unpinned pipeline_devices)")
@@ -404,7 +401,7 @@ def auto_pipeline(
     sched = schedule_for_partition(part, M, use_ilp=use_ilp)
     pcfg = PipelineConfig(num_devices=D, num_microbatches=M,
                           remat=remat,
-                          wire_dtype=wire_dtype, overlap=overlap)
+                          wire_dtype=wire_dtype)
     layout = StageLayout.from_partition(part, graph)
     return CompiledPipeline(graph=graph, partition=part, schedule=sched,
                             layout=layout, pcfg=pcfg, model_fns=model_fns)

@@ -73,8 +73,3 @@ class PipelineConfig:
     num_microbatches: int       # M
     remat: bool = True          # recompute each stage call in backward
     wire_dtype: str = "bfloat16"      # boundary-hop dtype (WIRE_DTYPES)
-    overlap: bool = True              # issue each step's hop at the top of
-    #   the next step (double-buffered) rather than the bottom of its own;
-    #   values and arrival steps are identical either way.  In the
-    #   one-process executor the two orders differ only in where hop()
-    #   runs; the multi-process executor overlaps the sends with compute.

@@ -694,20 +694,12 @@ def make_wave_pipeline_from_schedule(
 
         pend_down, pend_up = [zero_w] * D, [zero_w] * D
         for t in range(T):
-            if cfg.overlap:
-                # double-buffered: step t-1's payloads hop at the top of t
-                down_in, up_in = hop(pend_down, pend_up, down_used=down_used,
-                                     up_used=up_used)
-            else:
-                down_in, up_in = pend_down, pend_up
+            # double-buffered: step t-1's payloads hop at the top of t
+            down_in, up_in = hop(pend_down, pend_up, down_used=down_used,
+                                 up_used=up_used)
             outs = [body(d, t, down_in[d], up_in[d]) for d in range(D)]
             pend_down = [o[0] for o in outs]
             pend_up = [o[1] for o in outs]
-            if not cfg.overlap:
-                # synchronous: hop at the bottom of the producing step
-                pend_down, pend_up = hop(pend_down, pend_up,
-                                         down_used=down_used,
-                                         up_used=up_used)
         if len(losses) != M:
             raise PlanError(f"the walk emitted {len(losses)} losses for "
                             f"M={M} microbatches", check="program-shape")

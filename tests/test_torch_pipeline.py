@@ -138,15 +138,6 @@ def test_wave_executor_matches_jax_single_device(wave):
                                    atol=1e-6, err_msg=f"{name}: {k}")
 
 
-def test_wave_synchronous_hops_equal_overlapped(wave):
-    """Hopping at the bottom of the producing step instead of the top of the
-    next (``overlap=False``) moves the same values: equal results."""
-    (lo, go), (ls, gs) = wave["port"], _variant(wave, overlap=False)
-    assert ls == lo
-    for k in go:
-        torch.testing.assert_close(gs[k], go[k], rtol=0, atol=0)
-
-
 def test_wave_bf16_wire_close_to_fp32_wire(wave):
     name, (lf, gf) = wave["name"], wave["port"]
     lb, gb = _variant(wave, wire_dtype="bfloat16")
@@ -219,8 +210,6 @@ def test_train_arch_configs(arch, d):
     argv = ["--arch", arch, "--pipeline"]
     cfg = train._model_config(train._parse_args(argv))
     assert cfg.d_model == d and cfg.use_skip_kernel and cfg.use_flash
-    off = train._model_config(train._parse_args(argv + ["--no-kernels"]))
-    assert not (off.use_skip_kernel or off.use_flash)
     if arch == "uvit-h":
         assert (cfg.n_layers, cfg.n_heads, cfg.d_ff, cfg.n_tokens) == \
             (32, 20, 10240, 258)
