@@ -9,27 +9,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and
    power limit;
-2. build: both CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+2. build: the three CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` (one process per source, started together), with ``-Xptxas -v``;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   UViT-H shapes, forward and gradients (fp32 with TF32 off at rtol = atol
-   = 1e-4; bf16 at rtol = atol = 2e-2, bf16 rounding in another summation
-   order; only the skip matmul's weight gradient, a sum over all M rows,
-   takes atol = rtol x max|value|), then timed with CUDA events beside its
-   bound, the plain version and a yardstick PyTorch call the port never
-   makes;
-4. pipeline parity: the port's wave executor at ``uvit-pp`` size (fp32,
-   fp32 wire, D=4, M=8, kernels on) on the card against the same step on
-   the CPU (plain versions): loss and grads at rtol 1e-3;
-5. train: ``repro_torch.launch.train`` with ``--arch uvit-h --pipeline
-   --devices 4 --microbatches 8 --global-batch 16 --steps 4`` (UViT-2.7B at
-   full width and depth, bf16, bf16 wire) with the launch counts reset just
-   before and read just after: every loss finite, both kernels launched;
-6. the ``kernels`` JSON line, then the device line as the last line.
+   the shapes of the UViT-H and Hunyuan-DiT-3B train steps (the gated
+   linear scan, which no train path calls, at zamba2-2.7b's Mamba2 width
+   over 4k steps), forward and gradients (fp32 with TF32 off at rtol =
+   atol = 1e-4; bf16 at rtol = atol = 2e-2, bf16 rounding in another
+   summation order; only the skip matmul's weight gradient, a sum over all
+   M rows, takes atol = rtol x max|value|), then timed with CUDA events
+   beside its bound, the plain version and a yardstick PyTorch call the
+   port never makes;
+4. pipeline parity: the port's wave executor at ``uvit-pp`` size (D=4, M=8)
+   and at ``hunyuan-pp`` size (D=2 and D=4, M=4), fp32, fp32 wire, kernels
+   on, on the card against the same step on the CPU (plain versions): loss
+   and grads at rtol 1e-3;
+5. train UViT-H: ``repro_torch.launch.train`` with ``--arch uvit-h
+   --pipeline --devices 4 --microbatches 8 --global-batch 16 --steps 4``
+   (UViT-2.7B at full width and depth, bf16, bf16 wire) with the launch
+   counts reset just before and read just after: every loss finite, both
+   kernels of the path launched; then every reference to the trainer is
+   dropped and the card's memory released;
+6. train Hunyuan-DiT-3B: the same with ``--arch hunyuan-dit`` (d=2048, 32
+   blocks, 1024 tokens, cross-attention over 77 text tokens, full width
+   and depth, bf16), after checking that less than 1 GB is still
+   allocated;
+7. the ``kernels`` JSON line, then the device line as the last line.
 
 The full record goes to ``chiprun_out/chip_smoke.json``.  Without a CUDA
 device the script exits 1 at once and prints no result.
 """
+import gc
 import json
 import math
 import os
@@ -41,9 +51,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 HBM_BYTES_PER_S = 3.35e12
-TRAIN_ARGV = ["--arch", "uvit-h", "--pipeline", "--devices", "4",
-              "--microbatches", "8", "--global-batch", "16", "--steps", "4",
-              "--log-every", "1", "--device", "cuda"]
+TRAIN_ARGV = ["--pipeline", "--devices", "4", "--microbatches", "8",
+              "--global-batch", "16", "--steps", "4", "--log-every", "1",
+              "--device", "cuda"]
+TRAIN_ARCHS = ("uvit-h", "hunyuan-dit")      # in this order, one at a time
+SOURCES = {   # kernel -> (CUDA source, the TPU kernel it replaces)
+    "skip_concat_matmul": ("src/repro_torch/kernels/csrc/skip_matmul.cu",
+                           "src/repro/kernels/skip_matmul/kernel.py:40"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:64"),
+    "gated_linear_scan": ("src/repro_torch/kernels/csrc/linear_scan.cu",
+                          "src/repro/kernels/linear_scan/kernel.py:45"),
+}
 
 
 def fail(msg: str) -> None:
@@ -70,7 +89,8 @@ def time_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
 
 
 def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
-    """Least time in ms: max(operations / peak, bytes / HBM rate)."""
+    """Least time in ms: max(operations / peak, bytes / HBM rate), with the
+    peak of the type the operations run in."""
     t_ops = flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -99,21 +119,37 @@ def check_close(torch, got, want, dtype: str, what: str,
 # phase 3: kernels
 # ---------------------------------------------------------------------------
 
+def _row_line(what: str, row: dict, lib_name: str) -> str:
+    lib = (f"{row['library_ms']:.4f} ms" if row["library_ms"] is not None
+           else "none")
+    grads = row.get("grad_max_abs_err") or {}
+    return (f"[kernels] {what}: max|err| {row['max_abs_err']:.3e}"
+            + ("  grads " + " ".join(f"{k} {v:.3e}" for k, v in grads.items())
+               if grads else "")
+            + f"  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms"
+            f"  {lib_name} {lib}  bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+
+
 def check_skip_matmul(torch, rec) -> dict:
+    """Returns the bf16 row of each train path's shape, by path."""
     from repro_torch.kernels.skip_matmul import (skip_concat_matmul,
                                                  skip_concat_matmul_cuda,
                                                  skip_concat_matmul_plain)
-    rows, main = [], None
+    rows, main = [], {}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    D = N = 2560
+    cases = [  # path, M, D=N: b=2 and b=16 at UViT-H's 258 tokens, and
+               # b=2 at Hunyuan-DiT's 1024 tokens
+        ("uvit-h", 516, 2560), (None, 4128, 2560), ("hunyuan-dit", 2048, 2048)]
     for dtype in ("bfloat16", "float32"):
-        for M in (516, 4128):                # b = 2 and b = 16 at 258 tokens
+        for path, M, D in cases:
+            N = D
             dt = getattr(torch, dtype)
             h = torch.randn(M, D, device="cuda", generator=gen).to(dt)
             s = torch.randn(M, D, device="cuda", generator=gen).to(dt)
             w = (torch.randn(2 * D, N, device="cuda", generator=gen)
                  / math.sqrt(2 * D)).to(dt)
-            what = f"skip_concat_matmul {dtype} M={M}"
+            what = f"skip_concat_matmul {dtype} M={M} D=N={D}"
             got = skip_concat_matmul_cuda(h, s, w)
             torch.cuda.synchronize()
             err = check_close(torch, got, skip_concat_matmul_plain(h, s, w),
@@ -135,119 +171,194 @@ def check_skip_matmul(torch, rec) -> dict:
             esz = h.element_size()
             b_ms, b_by = bound(4.0 * M * D * N,
                                esz * (2 * M * D + 2 * D * N + M * N), dtype)
-            row = dict(dtype=dtype, M=M, D=D, N=N, max_abs_err=err,
-                       grad_max_abs_err=grad_err, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            row = dict(path=path, dtype=dtype, M=M, D=D, N=N,
+                       max_abs_err=err, grad_max_abs_err=grad_err, ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       bound_by=b_by)
             rows.append(row)
-            log(f"[kernels] {what}: max|err| {err:.3e}  grads "
-                + " ".join(f"{k} {v:.3e}" for k, v in grad_err.items())
-                + f"  kernel {ms:.4f} ms  "
-                f"plain {plain_ms:.4f} ms  cat+matmul {lib_ms:.4f} ms  "
-                f"bound {b_ms:.4f} ms ({b_by})")
-            if dtype == "bfloat16" and M == 516:
-                main = row                   # the training step's shape
+            log(_row_line(what, row, "cat+matmul"))
+            if dtype == "bfloat16" and path:
+                main[path] = row             # the train step's shape
             del h, s, w, got
     rec["skip_concat_matmul"] = rows
     return main
 
 
 def check_flash(torch, rec) -> dict:
+    """Returns the bf16 row of each train path's shape, by path."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (attention_plain,
                                                      flash_attention,
                                                      flash_attention_cuda)
-    rows, main = [], None
+    rows, main = [], {}
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = [  # B, S, T, Hq, Hkv, D, causal, window, dtype
-        (2, 258, 258, 20, 20, 128, False, None, "bfloat16"),   # UViT-H, b=2
-        (2, 258, 258, 20, 20, 128, False, None, "float32"),
-        (1, 300, 300, 8, 2, 64, True, 96, "bfloat16"),         # causal+win+GQA
-        (1, 300, 300, 8, 2, 64, True, 96, "float32"),
+    cases = [  # path, B, S, T, Hq, Hkv, D, causal, window
+        ("uvit-h", 2, 258, 258, 20, 20, 128, False, None),      # b=2
+        ("hunyuan-dit", 2, 1024, 1024, 16, 16, 128, False, None),
+        ("hunyuan-dit cross", 2, 1024, 77, 16, 16, 128, False, None),
+        (None, 1, 300, 300, 8, 2, 64, True, 96),          # causal+win+GQA
     ]
-    for B, S, T, Hq, Hkv, D, causal, window, dtype in cases:
-        dt = getattr(torch, dtype)
-        q = torch.randn(B, S, Hq, D, device="cuda", generator=gen).to(dt)
-        k = torch.randn(B, T, Hkv, D, device="cuda", generator=gen).to(dt)
-        v = torch.randn(B, T, Hkv, D, device="cuda", generator=gen).to(dt)
-        what = (f"flash_attention {dtype} B={B} S={S} T={T} Hq={Hq} "
-                f"Hkv={Hkv} D={D} causal={causal} window={window}")
-        got = flash_attention_cuda(q, k, v, causal, window)
-        torch.cuda.synchronize()
-        err = check_close(torch, got, attention_plain(q, k, v, causal, window),
-                          dtype, what)
-        g = torch.randn(B, S, Hq, D, device="cuda", generator=gen).to(dt)
-        ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
-        flash_attention(*ins, causal, window).backward(g)
-        ref = [x.clone().requires_grad_(True) for x in (q, k, v)]
-        attention_plain(*ref, causal, window).backward(g)
-        grad_err = {nm: check_close(torch, a.grad, b.grad, dtype,
-                                    f"{what} {nm}")
-                    for a, b, nm in zip(ins, ref, ("dq", "dk", "dv"))}
-        del ins, ref, g
-        ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, causal,
-                                                         window))
-        plain_ms = time_ms(torch, lambda: attention_plain(q, k, v, causal,
-                                                          window))
-        lib_ms = None
-        if Hq == Hkv and window is None:
-            qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=causal))
-        # score pairs this data needs: every (query, visible key)
-        qp = torch.arange(S)[:, None]
-        kp = torch.arange(T)[None, :]
-        vis = torch.ones(S, T, dtype=torch.bool)
-        if causal:
-            vis &= kp <= qp
-        if window is not None:
-            vis &= kp > qp - window
-        pairs = int(vis.sum())
-        esz = q.element_size()
-        b_ms, b_by = bound(4.0 * B * Hq * pairs * D,
-                           esz * (2 * B * S * Hq * D + 2 * B * T * Hkv * D),
-                           dtype)
-        row = dict(dtype=dtype, B=B, S=S, T=T, Hq=Hq, Hkv=Hkv, D=D,
-                   causal=causal, window=window, max_abs_err=err,
-                   grad_max_abs_err=grad_err, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-        rows.append(row)
-        lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "n/a"
-        log(f"[kernels] {what}: max|err| {err:.3e}  grads "
-            + " ".join(f"{k} {v:.3e}" for k, v in grad_err.items())
-            + f"  kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms  sdpa {lib}  bound {b_ms:.4f} ms "
-            f"({b_by})")
-        if main is None:
-            main = row
-        del q, k, v, got
+    for path, B, S, T, Hq, Hkv, D, causal, window in cases:
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q = torch.randn(B, S, Hq, D, device="cuda", generator=gen).to(dt)
+            k = torch.randn(B, T, Hkv, D, device="cuda", generator=gen).to(dt)
+            v = torch.randn(B, T, Hkv, D, device="cuda", generator=gen).to(dt)
+            what = (f"flash_attention {dtype} B={B} S={S} T={T} Hq={Hq} "
+                    f"Hkv={Hkv} D={D} causal={causal} window={window}")
+            got = flash_attention_cuda(q, k, v, causal, window)
+            torch.cuda.synchronize()
+            err = check_close(torch, got,
+                              attention_plain(q, k, v, causal, window),
+                              dtype, what)
+            g = torch.randn(B, S, Hq, D, device="cuda", generator=gen).to(dt)
+            ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            flash_attention(*ins, causal, window).backward(g)
+            ref = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            attention_plain(*ref, causal, window).backward(g)
+            grad_err = {nm: check_close(torch, a.grad, b.grad, dtype,
+                                        f"{what} {nm}")
+                        for a, b, nm in zip(ins, ref, ("dq", "dk", "dv"))}
+            del ins, ref, g
+            ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, causal,
+                                                             window))
+            plain_ms = time_ms(torch, lambda: attention_plain(q, k, v, causal,
+                                                              window))
+            lib_ms = None
+            if Hq == Hkv and window is None:
+                qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+                lib_ms = time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh, is_causal=causal))
+            # score pairs this data needs: every (query, visible key)
+            qp = torch.arange(S)[:, None]
+            kp = torch.arange(T)[None, :]
+            vis = torch.ones(S, T, dtype=torch.bool)
+            if causal:
+                vis &= kp <= qp
+            if window is not None:
+                vis &= kp > qp - window
+            pairs = int(vis.sum())
+            esz = q.element_size()
+            b_ms, b_by = bound(
+                4.0 * B * Hq * pairs * D,
+                esz * (2 * B * S * Hq * D + 2 * B * T * Hkv * D), dtype)
+            row = dict(path=path, dtype=dtype, B=B, S=S, T=T, Hq=Hq, Hkv=Hkv,
+                       D=D, causal=causal, window=window, max_abs_err=err,
+                       grad_max_abs_err=grad_err, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            log(_row_line(what, row, "sdpa"))
+            if dtype == "bfloat16" and path:
+                main[path] = row
+            del q, k, v, got
     rec["flash_attention"] = rows
     return main
+
+
+def check_scan(torch, rec) -> tuple[dict, int]:
+    """The gated linear scan at zamba2-2.7b's Mamba2 width (R=4 rows of
+    C=5120 channels) over T=4096 steps, forward; its backward (the kernel
+    on the time-reversed scan) against autograd through the plain version
+    at T=512 and at a ragged shape.  No train path calls the scan, so this
+    phase is its path: returns the bf16 forward row and the launches of
+    the op's calls (the timing loops not counted)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.linear_scan import (gated_linear_scan,
+                                                 gated_linear_scan_cuda,
+                                                 gated_linear_scan_plain)
+    rows, main, launches = [], None, 0
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def inputs(R, T, C, dt):
+        a = torch.sigmoid(torch.randn(R, T, C, device="cuda",
+                                      generator=gen)).to(dt)
+        x = torch.randn(R, T, C, device="cuda", generator=gen).to(dt)
+        return a, x
+
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for R, T, C in ((4, 512, 5120), (3, 300, 200)):
+            a, x = inputs(R, T, C, dt)
+            g = torch.randn(R, T, C, device="cuda", generator=gen).to(dt)
+            what = f"gated_linear_scan backward {dtype} R={R} T={T} C={C}"
+            before = LAUNCHES["gated_linear_scan"]
+            ins = [t.clone().requires_grad_(True) for t in (a, x)]
+            gated_linear_scan(*ins).backward(g)
+            torch.cuda.synchronize()
+            launches += LAUNCHES["gated_linear_scan"] - before
+            ref = [t.clone().requires_grad_(True) for t in (a, x)]
+            gated_linear_scan_plain(*ref).backward(g)
+            grad_err = {nm: check_close(torch, i.grad, r.grad, dtype,
+                                        f"{what} {nm}")
+                        for i, r, nm in zip(ins, ref, ("da", "dx"))}
+            rec.setdefault("gated_linear_scan_backward", []).append(
+                dict(dtype=dtype, R=R, T=T, C=C, grad_max_abs_err=grad_err))
+            log(f"[kernels] {what}: grads "
+                + " ".join(f"{k} {v:.3e}" for k, v in grad_err.items()))
+            del a, x, g, ins, ref
+        R, T, C = 4, 4096, 5120
+        a, x = inputs(R, T, C, dt)
+        what = f"gated_linear_scan {dtype} R={R} T={T} C={C}"
+        before = LAUNCHES["gated_linear_scan"]
+        got = gated_linear_scan(a, x)
+        torch.cuda.synchronize()
+        launches += LAUNCHES["gated_linear_scan"] - before
+        err = check_close(torch, got, gated_linear_scan_plain(a, x), dtype,
+                          what)
+        ms = time_ms(torch, lambda: gated_linear_scan_cuda(a, x))
+        plain_ms = time_ms(torch, lambda: gated_linear_scan_plain(a, x),
+                           warmup=1, iters=3)
+        # fp32 arithmetic on the carry whatever the storage type
+        b_ms, b_by = bound(2.0 * R * T * C, 3.0 * R * T * C
+                           * a.element_size(), "float32")
+        row = dict(dtype=dtype, R=R, T=T, C=C, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                   bound_by=b_by)
+        rows.append(row)
+        log(_row_line(what, row, "library"))
+        if dtype == "bfloat16":
+            main = row
+        del a, x, got
+    rec["gated_linear_scan"] = rows
+    return main, launches
 
 
 # ---------------------------------------------------------------------------
 # phase 4: pipeline parity, card vs CPU
 # ---------------------------------------------------------------------------
 
-def pipeline_parity(torch, rec) -> None:
+def pipeline_parity(torch, rec, kind: str, D: int, M: int) -> None:
     import numpy as np
 
     from repro_torch.data import SyntheticLatentDataset
-    from repro_torch.models.diffusion import UViTConfig, uvit_pipeline_graph
+    from repro_torch.models import diffusion as dm
     from repro_torch.runtime.adapters import (diffusion_model_fns,
                                               make_diffusion_microbatches)
     from repro_torch.runtime.compile import auto_pipeline
     from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
-    cfg = UViTConfig("uvit-pp", img_size=8, in_ch=4, patch=2, d_model=64,
-                     n_layers=8, n_heads=4, d_ff=128, n_classes=10,
-                     use_skip_kernel=True, use_flash=True)
-    D, M, B = 4, 8, 16
-    cp = auto_pipeline(uvit_pipeline_graph(cfg, batch=B // M),
-                       diffusion_model_fns(cfg), D, pipeline_devices=D,
-                       microbatches=M, wire_dtype="float32")
+    B = 2 * M
+    if kind == "uvit":
+        cfg = dm.UViTConfig("uvit-pp", img_size=8, in_ch=4, patch=2,
+                            d_model=64, n_layers=8, n_heads=4, d_ff=128,
+                            n_classes=10, use_skip_kernel=True, use_flash=True)
+        graph = dm.uvit_pipeline_graph(cfg, batch=B // M)
+        ds = SyntheticLatentDataset(img_size=8, channels=4)
+    else:
+        cfg = dm.HunyuanDiTConfig("hunyuan-pp", img_size=8, in_ch=4, patch=2,
+                                  d_model=32, n_layers=8, n_heads=4, d_ff=64,
+                                  ctx_dim=16, ctx_len=4, use_skip_kernel=True,
+                                  use_flash=True)
+        graph = dm.hunyuan_pipeline_graph(cfg, batch=B // M)
+        ds = SyntheticLatentDataset(img_size=8, channels=4, text_dim=16,
+                                    text_len=4)
+    cp = auto_pipeline(graph, diffusion_model_fns(cfg, kind), D,
+                       pipeline_devices=D, microbatches=M,
+                       wire_dtype="float32")
     params = cp.model_fns.init_fn(torch.Generator().manual_seed(0), "cpu")
-    raw = SyntheticLatentDataset(img_size=8, channels=4).batch(0, 0, B)
+    raw = ds.batch(0, 0, B)
     gen = torch.Generator().manual_seed(1)
     t = torch.rand((B,), generator=gen)
     noise = torch.randn((B, 8, 8, 4), generator=gen)
@@ -257,42 +368,44 @@ def pipeline_parity(torch, rec) -> None:
     for dev in ("cpu", "cuda"):
         p = tree_map(lambda x: x.detach().to(dev).clone().requires_grad_(True),
                      cp.split_params(params))
-        batch = {"latents": torch.as_tensor(np.asarray(raw["latents"]),
-                                            device=dev),
-                 "labels": torch.as_tensor(np.asarray(raw["labels"]),
-                                           device=dev)}
-        mb, aux = make_diffusion_microbatches(batch, M, t=t.to(dev),
-                                              noise=noise.to(dev))
+        batch = {k: torch.as_tensor(np.asarray(v), device=dev)
+                 for k, v in raw.items()}
         (enc, dec), edge = p
+        mb, aux = make_diffusion_microbatches(batch, M, cfg, kind,
+                                              t=t.to(dev),
+                                              noise=noise.to(dev),
+                                              params=edge)
         loss = fn(enc, dec, edge, mb, aux)
         loss.backward()
-        grads = cp.merge_params(*tree_map(lambda x: x.grad, p))
+        grads = cp.merge_params(*tree_map(
+            lambda x: x.grad if x.grad is not None else torch.zeros_like(x),
+            p))
         out[dev] = (float(loss.detach()),
                     {k: v.detach().cpu() for k, v in tree_paths(grads)})
     launched = {k: _launches()[k] - before[k] for k in before}
-    if not all(launched.values()):
-        fail(f"pipeline parity: the card's run launched {launched}; both "
-             "kernels must run")
-    lc, gc = out["cpu"]
+    name = f"{cfg.name} D={D} M={M}"
+    for k in ("skip_concat_matmul", "flash_attention"):
+        if not launched[k]:
+            fail(f"pipeline parity {name}: the card's run launched "
+                 f"{launched}; both kernels of the path must run")
+    lc, gc_ = out["cpu"]
     lg, gg = out["cuda"]
     if not math.isclose(lg, lc, rel_tol=1e-3):
-        fail(f"pipeline parity: loss on the card {lg} vs CPU {lc}")
+        fail(f"pipeline parity {name}: loss on the card {lg} vs CPU {lc}")
     worst = 0.0
-    for k, want in gc.items():
+    for k, want in gc_.items():
         got = gg[k]
         try:
             torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-5)
         except AssertionError as e:
-            fail(f"pipeline parity: grad {k} differs:\n{e}")
+            fail(f"pipeline parity {name}: grad {k} differs:\n{e}")
         worst = max(worst, float((got - want).abs().max()))
     n = len(tree_leaves(gg))
-    rec["pipeline_parity"] = dict(loss_cuda=lg, loss_cpu=lc,
-                                  max_abs_grad_err=worst, grads=n,
-                                  launches=launched,
-                                  plan=cp.describe().splitlines()[0])
-    log(f"[parity] uvit-pp D={D} M={M} fp32 wire: loss card {lg:.7f} "
-        f"cpu {lc:.7f}; {n} grads, max|err| {worst:.3e}; launches "
-        f"{launched}")
+    rec.setdefault("pipeline_parity", {})[name] = dict(
+        loss_cuda=lg, loss_cpu=lc, max_abs_grad_err=worst, grads=n,
+        launches=launched, plan=cp.describe().splitlines()[0])
+    log(f"[parity] {name} fp32 wire: loss card {lg:.7f} cpu {lc:.7f}; {n} "
+        f"grads, max|err| {worst:.3e}; launches {launched}")
 
 
 def _launches() -> dict:
@@ -301,14 +414,15 @@ def _launches() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: train UViT-H
+# phases 5 and 6: train UViT-H, then Hunyuan-DiT-3B
 # ---------------------------------------------------------------------------
 
-def train(torch, rec) -> dict:
+def train(torch, rec, arch: str) -> dict:
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train as train_mod
 
-    args = train_mod._parse_args(TRAIN_ARGV)
+    argv = ["--arch", arch] + TRAIN_ARGV
+    args = train_mod._parse_args(argv)
     reset_launch_counts()
     t0 = time.perf_counter()
     res = train_mod.run(args)
@@ -316,28 +430,39 @@ def train(torch, rec) -> dict:
     counts = launch_counts()
     losses = [res.losses[s] for s in sorted(res.losses)]
     if len(losses) != args.steps or not all(math.isfinite(x) for x in losses):
-        fail(f"train: losses {losses}")
+        fail(f"train {arch}: losses {losses}")
     if res.skipped_steps:
-        fail(f"train: {res.skipped_steps} non-finite updates skipped")
-    if not all(counts.values()):
-        fail(f"train: kernel launch counts {counts}; every kernel of the "
-             "path must run")
+        fail(f"train {arch}: {res.skipped_steps} non-finite updates skipped")
+    for k in ("skip_concat_matmul", "flash_attention"):
+        if not counts[k]:
+            fail(f"train {arch}: kernel launch counts {counts}; every kernel "
+                 "of the path must run")
     steps = [res.step_seconds[s] for s in sorted(res.step_seconds)]
     steady = steps[1:] or steps
     sps = args.global_batch / (sum(steady) / len(steady))
     n_params = sum(x.numel() for x in _leaves(res.params))
-    rec["train"] = dict(argv=TRAIN_ARGV, losses=losses, step_seconds=steps,
-                        samples_per_s_after_first=sps,
-                        peak_bytes=res.peak_bytes, wall_s=wall,
-                        launches=counts,
-                        launches_per_step={k: v / args.steps
-                                           for k, v in counts.items()},
-                        params=n_params, plan=res.plan)
-    log(f"[train] uvit-h: {n_params} params; losses {losses}; step s "
+    rec.setdefault("train", {})[arch] = dict(
+        argv=argv, losses=losses, step_seconds=steps,
+        samples_per_s_after_first=sps, peak_bytes=res.peak_bytes, wall_s=wall,
+        launches=counts,
+        launches_per_step={k: v / args.steps for k, v in counts.items()},
+        params=n_params, plan=res.plan)
+    log(f"[train] {arch}: {n_params} params; losses {losses}; step s "
         f"{[round(x, 4) for x in steps]}; {sps:.3f} samples/s after step "
-        f"0; peak {res.peak_bytes / 1e9:.2f} GB; launches {counts}")
+        f"0; peak {res.peak_bytes / 1e9:.2f} GB; launches {counts} "
+        f"({ {k: v / args.steps for k, v in counts.items()} } per step)")
     del res
     return counts
+
+
+def release(torch) -> int:
+    """Drop what the last phase left and return the bytes still allocated
+    on the card (the trainer resets the peak statistics itself, so each
+    train phase reports its own peak)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
 
 
 def _leaves(tree):
@@ -358,6 +483,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(OUT_DIR, exist_ok=True)
     rec: dict = {}
+    t_start = time.perf_counter()
 
     # 1. card
     name = torch.cuda.get_device_name(0)
@@ -381,6 +507,8 @@ def main() -> None:
         os.remove(os.path.join(build.build_dir(), f))
     t0 = time.perf_counter()
     built = build.build(verbose=True)
+    if sorted(built) != sorted(build.SOURCES):
+        fail(f"build: built {sorted(built)}, want {sorted(build.SOURCES)}")
     rec["build"] = dict(wall_s=time.perf_counter() - t0,
                         seconds={k: v["seconds"] for k, v in built.items()})
     log(f"[build] {sorted(built)} in {rec['build']['wall_s']:.1f} s "
@@ -393,37 +521,50 @@ def main() -> None:
     # 3. kernels
     main_rows = {"skip_concat_matmul": check_skip_matmul(torch, rec),
                  "flash_attention": check_flash(torch, rec)}
+    scan_row, scan_launches = check_scan(torch, rec)
     torch.cuda.empty_cache()
 
     # 4. pipeline parity
-    pipeline_parity(torch, rec)
+    for kind, D, M in (("uvit", 4, 8), ("hunyuan", 2, 4), ("hunyuan", 4, 4)):
+        pipeline_parity(torch, rec, kind, D, M)
     torch.cuda.empty_cache()
 
-    # 5. train
-    counts = train(torch, rec)
+    # 5, 6. train, one model at a time
+    counts = {}
+    for arch in TRAIN_ARCHS:
+        left = release(torch)
+        log(f"[train] {left / 1e9:.3f} GB allocated before {arch}")
+        if left >= 1e9:
+            fail(f"train {arch}: {left / 1e9:.2f} GB still allocated; the "
+                 "previous phase was not released")
+        counts[arch] = train(torch, rec, arch)
 
-    # 6. results
-    src_of = {"skip_concat_matmul": ("src/repro_torch/kernels/csrc/"
-                                     "skip_matmul.cu",
-                                     "src/repro/kernels/skip_matmul/"
-                                     "kernel.py:40"),
-              "flash_attention": ("src/repro_torch/kernels/csrc/"
-                                  "flash_attention.cu",
-                                  "src/repro/kernels/flash_attention/"
-                                  "kernel.py:64")}
+    # 7. results: each kernel's numbers at the Hunyuan-DiT train step's
+    # shape (the scan: its own phase's), every train path's beside them
     kernels = []
-    for kname, row in main_rows.items():
-        source, replaces = src_of[kname]
-        kernels.append({"name": kname, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts[kname],
-                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                        "plain_ms": row["plain_ms"],
-                        "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"]})
+    for kname, (source, replaces) in SOURCES.items():
+        if kname == "gated_linear_scan":
+            row, by_path = scan_row, {"kernel phase": scan_launches}
+            by_shape = {"zamba2-2.7b mamba2, T=4096": scan_row}
+        else:
+            row = main_rows[kname]["hunyuan-dit"]
+            by_path = {arch: counts[arch][kname] for arch in TRAIN_ARCHS}
+            by_shape = main_rows[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "launches_by_path": by_path,
+            "by_shape": {k: {f: r[f] for f in (
+                "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")} for k, r in by_shape.items()}})
     rec["kernels"] = kernels
+    rec["wall_s"] = time.perf_counter() - t_start
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)
+    log(f"[done] {rec['wall_s']:.1f} s")
     log(smi_line)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

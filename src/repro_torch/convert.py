@@ -20,9 +20,10 @@ def _to_tensor(x, device) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_jax(tree, device="cpu"):
+def params_from_jax(tree, device="cuda"):
     """Nested dicts / lists / tuples of numpy arrays -> the same structure of
-    tensors on ``device``, dtypes kept (bf16 included)."""
+    tensors on ``device`` (the card unless the caller asks for the CPU),
+    dtypes kept (bf16 included)."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -1,12 +1,13 @@
 """Hand-written Hopper kernels (CUDA C++ under ``csrc/``), one per TPU kernel
-of the JAX package on the port's path, each beside its plain PyTorch version.
+of the JAX package, each beside its plain PyTorch version.
 
 Each wrapper adds one to its entry of :data:`LAUNCHES` where it launches its
 kernel, and nowhere else, so a run can show that its main path went through
 the kernels: reset the counts, drive the path, read them.
 """
 
-LAUNCHES: dict[str, int] = {"skip_concat_matmul": 0, "flash_attention": 0}
+LAUNCHES: dict[str, int] = {"skip_concat_matmul": 0, "flash_attention": 0,
+                             "gated_linear_scan": 0}
 
 
 def reset_launch_counts() -> None:

@@ -24,7 +24,7 @@ import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("skip_matmul", "flash_attention")
+SOURCES = ("skip_matmul", "flash_attention", "linear_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_fwd, body _attn_kernel), wired into the self-attention of
-// every UViT block (models/layers.py::apply_attention with use_flash).
+// every UViT and Hunyuan-DiT block and Hunyuan-DiT's cross-attention over
+// the text tokens (models/layers.py::apply_attention with use_flash).
 //
 // Layout: q (B, S, Hq, D), k and v (B, T, Hkv, D), out (B, S, Hq, D), all
 // contiguous -- the model's own layout, so no transpose is materialised.
@@ -196,6 +197,7 @@ int launch_dh(int D, const void* q, const void* k, const void* v, void* o,
               int B, int S, int Tk, int Hq, int Hkv, int causal,
               int has_window, int window, float scale, cudaStream_t st) {
   switch (D) {
+    case 8: launch<8, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st); break;
     case 16: launch<16, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st); break;
     case 32: launch<32, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st); break;
     case 64: launch<64, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st); break;
@@ -213,7 +215,8 @@ const char* pulse_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  D in {16, 32, 64, 128}; Hq % Hkv == 0.
+// dtype: 0 = float32, 1 = bfloat16.  D in {8, 16, 32, 64, 128};
+// Hq % Hkv == 0.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* o, int B, int S, int Tk, int Hq,
                                int Hkv, int D, int causal, int has_window,

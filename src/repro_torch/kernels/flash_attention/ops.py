@@ -30,7 +30,7 @@ from repro_torch.kernels import LAUNCHES, build
 
 NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128)
 
 
 def _mask(S: int, T: int, causal: bool, window: int | None,

@@ -10,7 +10,11 @@ flash attention (on the CPU, through the kernels' plain versions).
 
 Archs: ``uvit-pp`` (alias ``uvit``) and ``uvit-nano``, the JAX driver's
 small pipeline configs, and ``uvit-h``, the paper's UViT-2.7B at full
-width and depth (``configs/uvit_h.py``) in bf16.
+width and depth (``configs/uvit_h.py``) in bf16; ``hunyuan-pp``, the small
+Hunyuan-DiT of the JAX package's ``wave-hunyuan`` differential, and
+``hunyuan-dit``, Hunyuan-DiT-3B at full width and depth
+(``configs/hunyuan_dit.py``) in bf16, whose blocks also take cross-attention
+through the flash kernel and adaLN conditioning.
 
 Not ported yet, and refused with ``NotImplementedError``: checkpoints and
 resume, fault plans, heartbeats and multi-host workers, data parallelism
@@ -18,6 +22,8 @@ and ZeRO (``--dp``/``--zero-stage``), and the non-pipeline smoke archs.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch uvit-h \
+        --pipeline --devices 4 --microbatches 8 --global-batch 16 --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hunyuan-dit \
         --pipeline --devices 4 --microbatches 8 --global-batch 16 --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch uvit-pp \
         --pipeline --devices 2 --steps 20 --device cpu
@@ -30,7 +36,8 @@ import json
 import time
 from typing import Any
 
-ARCHS = ("uvit", "uvit-pp", "uvit-nano", "uvit-h")
+ARCHS = ("uvit", "uvit-pp", "uvit-nano", "uvit-h", "hunyuan-pp",
+         "hunyuan-dit")
 
 
 # flags of the JAX driver whose features are not ported yet: any value but
@@ -153,9 +160,20 @@ def _refuse_unported(args) -> None:
                                       "to repro_torch")
 
 
+def _kind(args) -> str:
+    return "hunyuan" if args.arch.startswith("hunyuan") else "uvit"
+
+
 def _model_config(args):
-    from repro_torch.models.diffusion import UViTConfig
-    if args.arch == "uvit-h":
+    from repro_torch.models.diffusion import HunyuanDiTConfig, UViTConfig
+    if args.arch == "hunyuan-dit":
+        from repro_torch.configs.hunyuan_dit import CFG
+        cfg = CFG
+    elif args.arch == "hunyuan-pp":
+        cfg = HunyuanDiTConfig("hunyuan-pp", img_size=8, in_ch=4, patch=2,
+                               d_model=32, n_layers=8, n_heads=4, d_ff=64,
+                               ctx_dim=16, ctx_len=4)
+    elif args.arch == "uvit-h":
         from repro_torch.configs.uvit_h import CFG
         cfg = CFG
     elif args.arch == "uvit-nano":
@@ -175,7 +193,8 @@ def build_trainer(args):
 
     from repro_torch.core.hw import H100_SXM
     from repro_torch.data import ShardedLoader, SyntheticLatentDataset
-    from repro_torch.models.diffusion import uvit_pipeline_graph
+    from repro_torch.models.diffusion import (hunyuan_pipeline_graph,
+                                              uvit_pipeline_graph)
     from repro_torch.optim import adamw_init
     from repro_torch.runtime.adapters import diffusion_model_fns
     from repro_torch.runtime.compile import auto_pipeline
@@ -191,9 +210,11 @@ def build_trainer(args):
     if args.global_batch % M:
         raise ValueError(f"--global-batch {args.global_batch} does not split "
                          f"into {M} microbatches")
-    graph = uvit_pipeline_graph(cfg, batch=args.global_batch // M,
-                                hw=H100_SXM)
-    compiled = auto_pipeline(graph, diffusion_model_fns(cfg, "uvit"), P,
+    kind = _kind(args)
+    graph_fn = (hunyuan_pipeline_graph if kind == "hunyuan"
+                else uvit_pipeline_graph)
+    graph = graph_fn(cfg, batch=args.global_batch // M, hw=H100_SXM)
+    compiled = auto_pipeline(graph, diffusion_model_fns(cfg, kind), P,
                              hw=H100_SXM, pipeline_devices=P, microbatches=M,
                              interleave=args.interleave,
                              wire_dtype=args.wire_dtype)
@@ -210,8 +231,10 @@ def build_trainer(args):
         (enc, dec), edge = params
         return fn(enc, dec, edge, mb, aux)
 
+    text = (dict(text_dim=cfg.ctx_dim, text_len=cfg.ctx_len)
+            if kind == "hunyuan" else {})
     ds = SyntheticLatentDataset(img_size=cfg.img_size, channels=cfg.in_ch,
-                                n_classes=10)
+                                n_classes=10, **text)
     loader = ShardedLoader(ds, global_batch=args.global_batch)
     return compiled, params, opt_state, loss_fn, loader, device
 
@@ -226,6 +249,8 @@ def run(args) -> TrainResult:
 
     compiled, params, opt_state, loss_fn, loader, device = \
         build_trainer(args)
+    kind = _kind(args)
+    cfg = _model_config(args)
     plan = compiled.describe()
     print("[train] " + plan.replace("\n", "\n[train] "), flush=True)
     opt_cfg = AdamWConfig(lr=args.lr)
@@ -249,13 +274,20 @@ def run(args) -> TrainResult:
             prof.__enter__()
         t_step = time.perf_counter()
         raw = loader.get(step)
-        batch = {"latents": torch.as_tensor(raw["latents"], device=device),
-                 "labels": torch.as_tensor(raw["labels"], device=device)}
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in raw.items()}
         gen = torch.Generator(device=device).manual_seed(step)
-        mb, aux = make_diffusion_microbatches(batch, M, generator=gen)
+        # Hunyuan's temb comes from the current edge params (time_mlp)
+        mb, aux = make_diffusion_microbatches(batch, M, cfg, kind,
+                                              generator=gen,
+                                              params=params[1])
         loss = loss_fn(params, mb, aux)
         loss.backward()
-        grads = tree_map(lambda p: p.grad, params)
+        # a leaf the step never reads (Hunyuan's time_mlp, whose temb
+        # enters as data, and the xattn wk/wv cross-attention ignores) has
+        # no grad: a zero gradient, as jax.grad gives it
+        grads = tree_map(lambda p: p.grad if p.grad is not None
+                         else torch.zeros_like(p), params)
         finite = bool(torch.isfinite(loss)) and all(
             bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
         lr = cosine_schedule(step, base_lr=args.lr, warmup=20,
@@ -284,7 +316,9 @@ def run(args) -> TrainResult:
     peak = torch.cuda.max_memory_allocated(device) if cuda else None
     final = losses[args.steps - 1] if args.steps else None
     if final is not None:
-        print(f"[train] done: final loss {final:.4f}", flush=True)
+        print(f"[train] done: final loss {final:.4f}"
+              + (f", peak device memory {peak / 1e9:.2f} GB" if cuda else ""),
+              flush=True)
     res = TrainResult(final_loss=final, losses=losses, step_seconds=step_s,
                       plan=plan, skipped_steps=skipped, peak_bytes=peak,
                       compiled=compiled, params=params)

@@ -1,16 +1,20 @@
-"""UViT diffusion backbone and the DDPM objective (the port of
-``repro.models.diffusion``, UViT only).
+"""UViT and Hunyuan-DiT diffusion backbones and the DDPM objective (the
+port of ``repro.models.diffusion``; SkipViT and the SDv2 UNet are not
+ported yet).
 
 Same structure as the JAX module: ``enc_blocks`` and ``dec_blocks`` are
 stacked ``[L/2, ...]`` parameter trees (the decoder's with an extra
 ``skip_proj``), decoder block j consumes the skip of encoder block
-``L/2-1-j``, and :func:`uvit_pipeline_graph` exports the runtime-aligned
-block graph the PULSE planner partitions.
+``L/2-1-j``, and :func:`uvit_pipeline_graph` / :func:`hunyuan_pipeline_graph`
+export the runtime-aligned block graphs the PULSE planner partitions.
+Hunyuan-DiT blocks add adaLN modulation from the time embedding ``temb``
+and cross-attention over the text tokens ``ctx``.
 
 ``use_skip_kernel`` routes the decoder skip-in through the fused
 skip-concat matmul kernel for every CUDA tensor (no TPU tiling gate: the
-CUDA kernel masks ragged edges); ``use_flash`` routes self-attention through
-the flash-attention kernel.  On CPU tensors both take their plain versions.
+CUDA kernel masks ragged edges); ``use_flash`` routes self- and
+cross-attention through the flash-attention kernel.  On CPU tensors both
+take their plain versions.
 
 Unlike the JAX ``ddpm_loss``, which draws ``t`` and the noise inside, the
 port's loss takes them as tensors, so a test can feed both the same numbers.
@@ -22,6 +26,7 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.graph import Block, BlockGraph, SkipEdge
 from repro_torch.core.hw import Hardware, H100_SXM
@@ -111,7 +116,8 @@ class UViTConfig:
 
 
 def _init_vit_block(gen: torch.Generator, cfg, d_ff: int, with_skip: bool,
-                    device="cuda", stack=()) -> Params:
+                    device="cuda", stack=(), cross_dim: int = 0,
+                    ada: bool = False) -> Params:
     d, pd = cfg.d_model, cfg.param_dtype
     ones = lambda: torch.ones((*stack, d), dtype=pd, device=device)
     p: Params = {
@@ -122,6 +128,13 @@ def _init_vit_block(gen: torch.Generator, cfg, d_ff: int, with_skip: bool,
     }
     if with_skip:
         p["skip_proj"] = L.dense_init(gen, 2 * d, d, pd, device, stack)
+    if cross_dim:
+        p["lnx"] = ones()
+        p["xattn"] = L.init_attention(gen, cfg.attn_cfg(), pd, device, stack)
+        p["ctx_kv"] = L.dense_init(gen, cross_dim, 2 * d, pd, device, stack)
+    if ada:
+        p["ada"] = L.normal(gen, (*stack, d, 6 * d), 0.02 / math.sqrt(d), pd,
+                            device)
     return p
 
 
@@ -141,14 +154,40 @@ def _skip_project(p: Params, x: torch.Tensor, skip: torch.Tensor,
 
 
 def _apply_vit_block(p: Params, x: torch.Tensor, cfg, *,
-                     skip: torch.Tensor | None = None) -> torch.Tensor:
+                     skip: torch.Tensor | None = None,
+                     ctx: torch.Tensor | None = None,
+                     temb: torch.Tensor | None = None) -> torch.Tensor:
+    """One ViT block.  With ``temb`` (and ``ada`` params: Hunyuan-DiT),
+    ``silu(temb) @ ada`` splits six ways into adaLN shift/scale/gate for
+    the attention and MLP halves; with ``ctx`` (and ``xattn``) an ungated
+    cross-attention over the text tokens sits between them."""
     if skip is not None:
         x = _skip_project(p, x, skip, cfg)
+    ada = temb is not None and "ada" in p
+    if ada:
+        mods = (F.silu(temb) @ p["ada"].to(temb.dtype))[:, None]
+        s1, b1, g1, s2, b2, g2 = torch.chunk(mods, 6, dim=-1)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if ada:
+        h = h * (1 + s1) + b1
     a, _ = L.apply_attention(p["attn"], h, cfg.attn_cfg())
-    x = x + a
+    x = x + (g1 * a if ada else a)
+    if ctx is not None and "xattn" in p:
+        h = L.rms_norm(x, p["lnx"], cfg.norm_eps)
+        kv = ctx @ p["ctx_kv"].to(ctx.dtype)
+        d = cfg.d_model
+        B, T = ctx.shape[0], ctx.shape[1]
+        hd = cfg.attn_cfg().head_dim
+        kx = kv[..., :d].reshape(B, T, cfg.n_heads, hd)
+        vx = kv[..., d:].reshape(B, T, cfg.n_heads, hd)
+        a, _ = L.apply_attention(p["xattn"], h, cfg.attn_cfg(),
+                                 cross_kv=(kx, vx))
+        x = x + a
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.apply_gelu_mlp(p["mlp"], h)
+    if ada:
+        h = h * (1 + s2) + b2
+    m = L.apply_gelu_mlp(p["mlp"], h)
+    return x + (g2 * m if ada else m)
 
 
 def init_uvit(gen: torch.Generator, cfg: UViTConfig,
@@ -224,7 +263,114 @@ def uvit_loss(params: Params, batch: dict, t: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# Block graph for the compile path
+# Hunyuan-DiT (paper [7]): DiT with adaLN + text cross-attention + skips
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HunyuanDiTConfig:
+    name: str
+    img_size: int = 64
+    in_ch: int = 4
+    patch: int = 2
+    d_model: int = 1024
+    n_layers: int = 24
+    n_heads: int = 16
+    d_ff: int = 4096
+    ctx_dim: int = 1024           # CLIP+T5 text embedding dim (stub input)
+    ctx_len: int = 77
+    norm_eps: float = 1e-6
+    use_skip_kernel: bool = False  # fused skip-in kernel (see _skip_project)
+    use_flash: bool = False        # flash attention, self and cross
+    dtype: Any = torch.float32
+    param_dtype: Any = torch.float32
+
+    @property
+    def n_tokens(self) -> int:
+        return (self.img_size // self.patch) ** 2
+
+    @property
+    def half(self) -> int:
+        return self.n_layers // 2
+
+    def attn_cfg(self) -> AttnConfig:
+        return AttnConfig(self.d_model, self.n_heads, self.n_heads,
+                          self.d_model // self.n_heads, rope_theta=0.0,
+                          causal=False, use_flash=self.use_flash)
+
+    def param_count(self) -> int:
+        d = self.d_model
+        per = 4 * d * d + 2 * d * self.d_ff + 4 * d * d + 6 * d * d \
+            + self.ctx_dim * 2 * d
+        return self.n_layers * per + self.half * 2 * d * d
+
+
+def init_hunyuan(gen: torch.Generator, cfg: HunyuanDiTConfig,
+                 device="cuda") -> Params:
+    d, pd = cfg.d_model, cfg.param_dtype
+    pp = cfg.patch ** 2 * cfg.in_ch
+    blocks = lambda skip: _init_vit_block(gen, cfg, cfg.d_ff, skip, device,
+                                          (cfg.half,), cross_dim=cfg.ctx_dim,
+                                          ada=True)
+    return {
+        "patch_embed": L.dense_init(gen, pp, d, pd, device),
+        "pos_embed": L.normal(gen, (cfg.n_tokens, d), 0.02, pd, device),
+        "time_mlp": L.init_gelu_mlp(gen, d, 4 * d, pd, device),
+        "enc_blocks": blocks(False),
+        "dec_blocks": blocks(True),
+        "out_norm": torch.ones((d,), dtype=pd, device=device),
+        "out_proj": L.dense_init(gen, d, pp, pd, device),
+    }
+
+
+def hunyuan_embed(params: Params, xt: torch.Tensor,
+                  cfg: HunyuanDiTConfig) -> torch.Tensor:
+    """Patch tokens plus positions (no time or class token: the time
+    enters every block through adaLN)."""
+    dt = cfg.dtype
+    tok = _patchify(xt.to(dt), cfg.patch) @ params["patch_embed"].to(dt)
+    return tok + params["pos_embed"].to(dt)[None]
+
+
+def hunyuan_temb(params: Params, t: torch.Tensor,
+                 cfg: HunyuanDiTConfig) -> torch.Tensor:
+    """The adaLN conditioning every block reads: ``time_mlp`` of the
+    sinusoidal features of t, (B, d)."""
+    return L.apply_gelu_mlp(params["time_mlp"],
+                            timestep_embedding(t, cfg.d_model).to(cfg.dtype))
+
+
+def hunyuan_output(params: Params, x: torch.Tensor,
+                   cfg: HunyuanDiTConfig) -> torch.Tensor:
+    x = L.rms_norm(x, params["out_norm"], cfg.norm_eps)
+    pix = x @ params["out_proj"].to(x.dtype)
+    return _unpatchify(pix, cfg.patch, cfg.img_size, cfg.in_ch)
+
+
+def hunyuan_apply(params: Params, xt: torch.Tensor, t: torch.Tensor,
+                  batch: dict, cfg: HunyuanDiTConfig) -> torch.Tensor:
+    """Reference (non-pipelined) forward; batch: {"text_embeds": (B,T,c)}."""
+    x = hunyuan_embed(params, xt, cfg)
+    kw = {"ctx": batch["text_embeds"].to(cfg.dtype),
+          "temb": hunyuan_temb(params, t, cfg)}
+    skips = []
+    for i in range(cfg.half):
+        x = _apply_vit_block(tree_index(params["enc_blocks"], i), x, cfg,
+                             **kw)
+        skips.append(x)
+    for j in range(cfg.half):
+        x = _apply_vit_block(tree_index(params["dec_blocks"], j), x, cfg,
+                             skip=skips[cfg.half - 1 - j], **kw)
+    return hunyuan_output(params, x, cfg)
+
+
+def hunyuan_loss(params: Params, batch: dict, t: torch.Tensor,
+                 noise: torch.Tensor, cfg: HunyuanDiTConfig) -> torch.Tensor:
+    return ddpm_loss(lambda p, xt, tt, b: hunyuan_apply(p, xt, tt, b, cfg),
+                     params, batch, t, noise)
+
+
+# --------------------------------------------------------------------------
+# Block graphs for the compile path
 # --------------------------------------------------------------------------
 
 def uvit_pipeline_graph(cfg: UViTConfig, batch: int = 1,
@@ -249,6 +395,34 @@ def uvit_pipeline_graph(cfg: UViTConfig, batch: int = 1,
     for i in range(cfg.half):
         blocks.append(Block(f"dec{i}", 0.0, per_param + 2 * d * d * 2, act, 0,
                             attn_fl + mlp_fl + 2 * batch * n * 2 * d * d))
+    return _runtime_graph(blocks,
+                          _paired_skips(2 * cfg.half, cfg.half, act),
+                          fwd_times, hw)
+
+
+def hunyuan_pipeline_graph(cfg: HunyuanDiTConfig, batch: int = 1,
+                           fwd_times=None,
+                           hw: Hardware = H100_SXM) -> BlockGraph:
+    """Runtime-aligned Hunyuan-DiT graph for the auto-pipeline compile path.
+
+    Like :func:`uvit_pipeline_graph`: exactly one block per
+    ``enc_blocks``/``dec_blocks`` row (embed/out live in edge params), with
+    the fully-paired skip edges enc i -> dec mirror.  ``fwd_times``
+    (length 2*half) injects profiled per-block times.
+    """
+    d, n, ff, lt = cfg.d_model, cfg.n_tokens, cfg.d_ff, cfg.ctx_len
+    act = batch * n * d * 2
+    blk_fl = 2 * batch * (4 * n * d * d + 2 * n * n * d + 2 * n * d * ff
+                          + 2 * n * d * d + cfg.ctx_dim * 2 * d * lt
+                          + 2 * n * lt * d)
+    per_param = (4 * d * d + 2 * d * ff + 2 * d * d + cfg.ctx_dim * 2 * d
+                 + 6 * d * d) * 2
+    blocks = []
+    for i in range(cfg.half):
+        blocks.append(Block(f"enc{i}", 0.0, per_param, act, act, blk_fl))
+    for i in range(cfg.half):
+        blocks.append(Block(f"dec{i}", 0.0, per_param + 2 * d * d * 2, act,
+                            0, blk_fl + 2 * batch * n * 2 * d * d))
     return _runtime_graph(blocks,
                           _paired_skips(2 * cfg.half, cfg.half, act),
                           fwd_times, hw)

@@ -17,6 +17,9 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention,
                                                  flash_attention_cuda)
+from repro_torch.kernels.linear_scan import (gated_linear_scan,
+                                             gated_linear_scan_cuda,
+                                             gated_linear_scan_plain)
 from repro_torch.kernels.skip_matmul import (skip_concat_matmul,
                                              skip_concat_matmul_cuda,
                                              skip_concat_matmul_plain)
@@ -30,6 +33,9 @@ FLASH_CASES = [
     (1, 33, 33, 4, 2, 64, False, 5),          # window, non-causal, GQA 2
     (1, 258, 77, 2, 2, 16, False, None),      # ragged S=258 over T=77
     (2, 258, 258, 20, 20, 128, False, None),  # UViT-H, b=2
+    (2, 16, 4, 4, 4, 8, False, None),         # hunyuan-pp cross
+    (2, 1024, 77, 16, 16, 128, False, None),  # Hunyuan-DiT cross, b=2
+    (1, 1024, 1024, 16, 16, 128, False, None),  # Hunyuan-DiT self
 ]
 
 
@@ -91,6 +97,37 @@ def test_flash_attention_kernel_matches_plain(B, S, T, Hq, Hkv, D, causal,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R,T,C", [(4, 512, 5120), (3, 300, 200),
+                                   (1, 1, 7)])
+def test_gated_linear_scan_kernel_matches_plain(R, T, C, dtype):
+    """Forward, and the op's backward (the kernel on the time-reversed
+    scan) against autograd through the plain version."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    a = torch.sigmoid(torch.randn(R, T, C, device="cuda",
+                                  generator=gen)).to(dt)
+    x = torch.randn(R, T, C, device="cuda", generator=gen).to(dt)
+    g = torch.randn(R, T, C, device="cuda", generator=gen).to(dt)
+    before = LAUNCHES["gated_linear_scan"]
+    got = gated_linear_scan_cuda(a, x)
+    torch.cuda.synchronize()
+    assert LAUNCHES["gated_linear_scan"] == before + 1
+    tol = _tol(dtype)
+    torch.testing.assert_close(got.float(),
+                               gated_linear_scan_plain(a, x).float(),
+                               rtol=tol, atol=tol)
+    ins = [t.clone().requires_grad_(True) for t in (a, x)]
+    gated_linear_scan(*ins).backward(g)
+    assert LAUNCHES["gated_linear_scan"] == before + 3   # forward + dx scan
+    ref = [t.clone().requires_grad_(True) for t in (a, x)]
+    gated_linear_scan_plain(*ref).backward(g)
+    for got_g, want_g in zip((i.grad for i in ins), (r.grad for r in ref)):
+        torch.testing.assert_close(got_g.float(), want_g.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.gpu
 def test_wrappers_reject_what_the_kernels_do_not_take():
     x = torch.randn(8, 16, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -103,3 +140,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.randn(1, 4, 2, 48, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_cuda(q, q, q)
+    a = torch.rand(2, 5, 3, device="cuda")
+    with pytest.raises(TypeError, match="dtypes differ"):
+        gated_linear_scan_cuda(a, a.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="3-D"):
+        gated_linear_scan_cuda(a[0], a[0])

@@ -2,7 +2,8 @@
 
 On the CPU every kernel wrapper takes its plain PyTorch version, so these
 tests hold the plain versions (and their autograd) to the JAX ``ref.py``
-oracles on the same numpy inputs.  The CUDA kernels themselves are held to
+oracles on the same numpy inputs, and the gated linear scan also to the
+JAX package's Pallas kernel, which runs in interpret mode here.  The CUDA kernels themselves are held to
 the plain versions on the card by ``test_torch_gpu.py``.
 (The JAX package's Pallas kernels are not the oracle: the installed
 ``jax.experimental.pallas`` has no ``load``, so they fail on this host.)
@@ -13,12 +14,17 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention.ops import _ref_gqa
+from repro.kernels.linear_scan import (gated_linear_scan as jax_scan,
+                                       gated_linear_scan_reference)
 from repro.kernels.flash_attention.ref import attention_reference
 from repro.kernels.skip_matmul.ref import skip_concat_matmul_reference
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention,
                                                  flash_attention_cuda)
+from repro_torch.kernels.linear_scan import (gated_linear_scan,
+                                             gated_linear_scan_cuda,
+                                             gated_linear_scan_plain)
 from repro_torch.kernels.skip_matmul import (skip_concat_matmul,
                                              skip_concat_matmul_cuda,
                                              skip_concat_matmul_plain)
@@ -84,7 +90,10 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     skip_concat_matmul(x, x, torch.randn(16, 8))
     q = torch.randn(1, 5, 2, 16)
     flash_attention(q, q, q, False, None)
-    assert launch_counts() == {"skip_concat_matmul": 0, "flash_attention": 0}
+    a = torch.rand(2, 6, 3)
+    gated_linear_scan(a, a)
+    assert launch_counts() == {"skip_concat_matmul": 0, "flash_attention": 0,
+                               "gated_linear_scan": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -96,6 +105,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     q = torch.randn(1, 5, 2, 16)
     with pytest.raises(ValueError, match="not cuda"):
         flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="not cuda"):
+        gated_linear_scan_cuda(torch.rand(2, 6, 3), torch.rand(2, 6, 3))
     assert launch_counts() == before
 
 
@@ -149,3 +160,46 @@ def test_attention_plain_fully_masked_rows_are_zero_and_finite():
     assert torch.all(out == 0)
     out.sum().backward()
     assert torch.isfinite(q.grad).all()
+
+
+# ---------------------------------------------------------------------------
+# (c) gated linear scan: plain version + the op's backward vs the JAX kernel
+#     (interpret mode) and linear_scan/ref.py
+# ---------------------------------------------------------------------------
+
+def _scan_inputs(R, T, C):
+    rng = np.random.default_rng(R * 10_000 + T * 10 + C)
+    a = (1 / (1 + np.exp(-rng.normal(size=(R, T, C))))).astype(np.float32)
+    x = rng.normal(size=(R, T, C)).astype(np.float32)
+    g = rng.normal(size=(R, T, C)).astype(np.float32)
+    return a, x, g
+
+
+def _check_scan(a, x, g, want, da_r, dx_r):
+    np.testing.assert_allclose(gated_linear_scan_plain(_t(a), _t(x)), want,
+                               rtol=1e-5, atol=1e-6)
+    at, xt = (_t(v).requires_grad_(True) for v in (a, x))
+    out = gated_linear_scan(at, xt)
+    np.testing.assert_allclose(out.detach(), want, rtol=1e-5, atol=1e-6)
+    out.backward(_t(g))
+    np.testing.assert_allclose(at.grad, da_r, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(xt.grad, dx_r, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("R,T,C", [(2, 128, 128), (1, 64, 256)])
+def test_gated_linear_scan_matches_jax_kernel_and_reference(R, T, C):
+    a, x, g = _scan_inputs(R, T, C)
+    ref, (da_r, dx_r) = _jax_value_and_vjp(gated_linear_scan_reference, g,
+                                           a, x)
+    kern, (da_k, dx_k) = _jax_value_and_vjp(jax_scan, g, a, x)
+    _check_scan(a, x, g, ref, da_r, dx_r)
+    _check_scan(a, x, g, kern, da_k, dx_k)
+
+
+def test_gated_linear_scan_ragged_matches_reference():
+    """T and C that no power-of-two tile divides: the JAX kernel asserts
+    divisibility, so only ref.py holds the port here."""
+    a, x, g = _scan_inputs(3, 37, 20)
+    ref, (da_r, dx_r) = _jax_value_and_vjp(gated_linear_scan_reference, g,
+                                           a, x)
+    _check_scan(a, x, g, ref, da_r, dx_r)

@@ -1,4 +1,5 @@
-"""The port's UViT, DDPM loss, AdamW and data pipeline held to the JAX package.
+"""The port's UViT, Hunyuan-DiT, DDPM loss, AdamW and data pipeline held to
+the JAX package.
 
 Parameters are drawn by the JAX package (``jax.random``) and carried into
 the port with ``params_from_jax``; inputs, t and noise are numpy arrays
@@ -82,7 +83,7 @@ def test_uvit_apply_matches_jax(jax_ref, kernels):
     r = jax_ref
     tcfg = tdm.UViTConfig("t", use_skip_kernel=kernels, use_flash=kernels,
                           **CFG_KW)
-    got = tdm.uvit_apply(params_from_jax(r["params"]),
+    got = tdm.uvit_apply(params_from_jax(r["params"], "cpu"),
                          torch.from_numpy(r["lat"]),
                          torch.from_numpy(r["t_apply"]),
                          {"labels": torch.from_numpy(r["labels"])}, tcfg)
@@ -99,7 +100,7 @@ def test_ddpm_loss_and_grads_match_jax(jax_ref, kernels):
     tcfg = tdm.UViTConfig("t", use_skip_kernel=kernels, use_flash=kernels,
                           **CFG_KW)
     tp = tree_map(lambda x: x.requires_grad_(True),
-                  params_from_jax(r["params"]))
+                  params_from_jax(r["params"], "cpu"))
     tb = {"latents": torch.from_numpy(r["lat"]),
           "labels": torch.from_numpy(r["labels"])}
     tl = tdm.uvit_loss(tp, tb, torch.from_numpy(r["t"]),
@@ -107,6 +108,81 @@ def test_ddpm_loss_and_grads_match_jax(jax_ref, kernels):
     tl.backward()
     np.testing.assert_allclose(float(tl.detach()), r["loss"], rtol=RTOL)
     _assert_tree_close(tree_map(lambda x: x.grad, tp), r["grads"], atol=1e-5)
+
+
+# Hunyuan-DiT at the size of the JAX package's wave-hunyuan differential
+HCFG_KW = dict(img_size=8, in_ch=4, patch=2, d_model=32, n_layers=8,
+               n_heads=4, d_ff=64, ctx_dim=16, ctx_len=4)
+
+
+@pytest.fixture(scope="module")
+def jax_hunyuan():
+    """Hunyuan-DiT params, output, and loss + grads (jitted) from the JAX
+    package, with the (t, noise) its ddpm_loss draws."""
+    jcfg = jdm.HunyuanDiTConfig("t", **HCFG_KW)
+    jp = jax.jit(lambda k: jdm.init_hunyuan(k, jcfg))(KEY)
+    rng = np.random.default_rng(12)
+    lat = rng.normal(size=(3, 8, 8, 4)).astype(np.float32)
+    ctx = rng.normal(size=(3, 4, 16)).astype(np.float32)
+    t_apply = np.array([0.1, 0.5, 0.9], np.float32)
+    out = jax.jit(lambda p: jdm.hunyuan_apply(p, lat, t_apply,
+                                              {"text_embeds": ctx}, jcfg))(jp)
+    batch = {"latents": jnp.asarray(lat), "text_embeds": jnp.asarray(ctx)}
+    key = jax.random.PRNGKey(9)
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: jdm.hunyuan_loss(p, batch, key, jcfg)))(jp)
+    rt, rn = jax.random.split(key)
+    t = np.array(jax.random.uniform(rt, (3,)))
+    noise = np.array(jax.random.normal(rn, lat.shape, jnp.float32))
+    return dict(params=jax.device_get(jp), lat=lat, ctx=ctx,
+                t_apply=t_apply, out=np.asarray(out), loss=float(loss),
+                grads=grads, t=t, noise=noise)
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+def test_hunyuan_apply_matches_jax(jax_hunyuan, kernels):
+    r = jax_hunyuan
+    tcfg = tdm.HunyuanDiTConfig("t", use_skip_kernel=kernels,
+                                use_flash=kernels, **HCFG_KW)
+    got = tdm.hunyuan_apply(params_from_jax(r["params"], "cpu"),
+                            torch.from_numpy(r["lat"]),
+                            torch.from_numpy(r["t_apply"]),
+                            {"text_embeds": torch.from_numpy(r["ctx"])}, tcfg)
+    assert got.shape == (3, 8, 8, 4)
+    np.testing.assert_allclose(got.detach().numpy(), r["out"], rtol=RTOL,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+def test_hunyuan_loss_and_grads_match_jax(jax_hunyuan, kernels):
+    """Every leaf, including ``xattn.wk``/``xattn.wv``, which cross-attention
+    never reads (zero gradients on both sides)."""
+    r = jax_hunyuan
+    tcfg = tdm.HunyuanDiTConfig("t", use_skip_kernel=kernels,
+                                use_flash=kernels, **HCFG_KW)
+    tp = tree_map(lambda x: x.requires_grad_(True),
+                  params_from_jax(r["params"], "cpu"))
+    tb = {"latents": torch.from_numpy(r["lat"]),
+          "text_embeds": torch.from_numpy(r["ctx"])}
+    tl = tdm.hunyuan_loss(tp, tb, torch.from_numpy(r["t"]),
+                          torch.from_numpy(r["noise"]), tcfg)
+    tl.backward()
+    np.testing.assert_allclose(float(tl.detach()), r["loss"], rtol=RTOL)
+    grads = tree_map(lambda x: x.grad if x.grad is not None
+                     else torch.zeros_like(x), tp)
+    _assert_tree_close(grads, r["grads"], atol=1e-5)
+    assert not grads["enc_blocks"]["xattn"]["wk"].any()
+
+
+def test_hunyuan_init_matches_jax_structure():
+    jcfg = jdm.HunyuanDiTConfig("t", param_dtype=jnp.bfloat16, **HCFG_KW)
+    jp = jax.device_get(jax.jit(lambda k: jdm.init_hunyuan(k, jcfg))(KEY))
+    tcfg = tdm.HunyuanDiTConfig("t", param_dtype=torch.bfloat16, **HCFG_KW)
+    mine = tdm.init_hunyuan(torch.Generator().manual_seed(0), tcfg, "cpu")
+    assert {k: (tuple(v.shape), v.dtype) for k, v in tree_paths(mine)} == \
+        {k: (tuple(v.shape), v.dtype)
+         for k, v in tree_paths(params_from_jax(jp, "cpu"))}
+    assert tcfg.param_count() == jcfg.param_count()
 
 
 def test_schedule_and_embedding_match_jax():
@@ -121,7 +197,7 @@ def test_schedule_and_embedding_match_jax():
 def test_params_from_jax_keeps_names_layouts_and_dtypes():
     jcfg = jdm.UViTConfig("t", param_dtype=jnp.bfloat16, **CFG_KW)
     jp = jax.device_get(jdm.init_uvit(KEY, jcfg))
-    tp = params_from_jax(jp)
+    tp = params_from_jax(jp, "cpu")
     tcfg = tdm.UViTConfig("t", param_dtype=torch.bfloat16, **CFG_KW)
     mine = tdm.init_uvit(torch.Generator().manual_seed(0), tcfg, "cpu")
     assert {k: (tuple(v.shape), v.dtype) for k, v in tree_paths(tp)} == \
@@ -143,14 +219,14 @@ def test_adamw_three_steps_match_jax():
     cfg_j = jopt.AdamWConfig(lr=1e-2, weight_decay=0.1)
     cfg_t = AdamWConfig(lr=1e-2, weight_decay=0.1)
     jp, js = params, jopt.adamw_init(params)
-    tp = params_from_jax(params)
+    tp = params_from_jax(params, "cpu")
     ts = adamw_init(tp)
     for k in range(3):
         lr_j = jopt.cosine_schedule(k, base_lr=1e-2, warmup=2, total=3)
         lr_t = cosine_schedule(k, base_lr=1e-2, warmup=2, total=3)
         assert lr_t == pytest.approx(float(lr_j), rel=1e-6)
         jp, js = jopt.adamw_update(jp, grads[k], js, cfg_j, lr=lr_j)
-        out_p, out_s = adamw_update(tp, params_from_jax(grads[k]), ts,
+        out_p, out_s = adamw_update(tp, params_from_jax(grads[k], "cpu"), ts,
                                     cfg_t, lr=lr_t)
         assert out_p is tp and out_s is ts          # updated in place
     _assert_tree_close(tp, jp, rtol=1e-5)
@@ -161,7 +237,8 @@ def test_adamw_three_steps_match_jax():
 
 def test_synthetic_latents_match_jax_package():
     for kw in (dict(img_size=8, channels=4), dict(img_size=32, channels=4,
-                                                   n_classes=10, seed=3)):
+                                                   n_classes=10, seed=3),
+               dict(img_size=8, channels=4, text_dim=16, text_len=4)):
         a = SyntheticLatentDataset(**kw).batch(7, 0, 5)
         b = JaxLatents(**kw).batch(7, 0, 5)
         assert a.keys() == b.keys()

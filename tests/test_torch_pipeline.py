@@ -1,4 +1,5 @@
-"""The port's wave executor and trainer held to the JAX package's UViT.
+"""The port's wave executor and trainer held to the JAX package's UViT and
+Hunyuan-DiT.
 
 The JAX package draws the parameters and the DDPM microbatches; the port
 runs them through ``auto_pipeline`` and its table-driven wave executor
@@ -8,6 +9,12 @@ equal the single-device JAX UViT loss and gradients: fp32 wire at rtol
 1e-4, the bar of the JAX package's own differentials, and the bf16 wire
 against the fp32 wire at rtol 5e-2 / atol 1e-3 (every hop rounds the
 activation, and its cotangent, to bf16).
+
+Hunyuan-DiT's loss is held to the end-to-end JAX ``hunyuan_apply``, and
+its gradients, every leaf including the zero ones, to a JAX block loop
+that takes the adaLN ``temb`` and the text ``ctx`` as data, as the
+executor does (the JAX package's ``wave-hunyuan`` differential: ``temb``
+is computed outside the loss, so ``time_mlp`` gets no gradient there).
 
 Also here: the training driver for a few steps on the CPU, the import
 boundary of the port (no jax, nothing of ``repro``), and ``chip_smoke.py``
@@ -32,7 +39,9 @@ from repro.models import diffusion as jdm
 from repro.runtime.adapters import make_diffusion_microbatches as jax_mbs
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import launch_counts
-from repro_torch.models.diffusion import UViTConfig, uvit_pipeline_graph
+from repro_torch.models.diffusion import (HunyuanDiTConfig,
+                                          hunyuan_pipeline_graph, UViTConfig,
+                                          uvit_pipeline_graph)
 from repro_torch.runtime.adapters import (diffusion_model_fns,
                                           make_diffusion_microbatches)
 from repro_torch.runtime.compile import auto_pipeline
@@ -92,14 +101,16 @@ def _jax_reference(M):
 
 
 def _port_step(cp, params_np, mb_aux):
-    """Loss and model-space grads of one port executor step."""
-    stacks, edge = cp.split_params(params_from_jax(params_np))
+    """Loss and model-space grads of one port executor step (a leaf the
+    step never reads gets a zero gradient, as under jax.grad)."""
+    stacks, edge = cp.split_params(params_from_jax(params_np, "cpu"))
     p = tree_map(lambda x: x.requires_grad_(True), (stacks, edge))
-    mb, aux = params_from_jax(mb_aux)
+    mb, aux = params_from_jax(mb_aux, "cpu")
     (enc, dec), edge = p
     loss = cp.build()(enc, dec, edge, mb, aux)
     loss.backward()
-    grads = cp.merge_params(*tree_map(lambda x: x.grad, p))
+    grads = cp.merge_params(*tree_map(
+        lambda x: x.grad if x.grad is not None else torch.zeros_like(x), p))
     return float(loss.detach()), dict(tree_paths(grads))
 
 
@@ -148,6 +159,142 @@ def test_wave_bf16_wire_close_to_fp32_wire(wave):
                                    err_msg=f"{name}[bf16-vs-fp32]: {k}")
 
 
+# ---------------------------------------------------------------------------
+# Hunyuan-DiT: the wave-hunyuan differential of the JAX package
+# ---------------------------------------------------------------------------
+
+HCFG_KW = dict(img_size=8, in_ch=4, patch=2, d_model=32, n_layers=8,
+               n_heads=4, d_ff=64, ctx_dim=16, ctx_len=4)
+HJCFG = jdm.HunyuanDiTConfig("t", **HCFG_KW)
+HUNYUAN_M = 4
+
+
+def _flat_grads(grads):
+    flat = jax.tree_util.tree_flatten_with_path(grads)[0]
+    return {"/".join(str(k.key) for k in path): np.asarray(v)
+            for path, v in flat}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_hunyuan_reference():
+    """JAX params and microbatches (temb and ctx in aux), the end-to-end
+    loss (``ref_true``: temb recomputed from the params) and the loss and
+    grads of the same dataflow as the executor (``ref_aux``: temb and ctx
+    enter as data), each the mean over microbatches."""
+    from repro.models.layers import rms_norm
+    cfg, M = HJCFG, HUNYUAN_M
+    params = jax.jit(lambda k: jdm.init_hunyuan(k, cfg))(KEY)
+    B = 2 * M
+    batch = {"latents": jax.random.normal(KEY, (B, 8, 8, 4)),
+             "text_embeds": jax.random.normal(KEY, (B, 4, 16))}
+    mb, aux = jax.jit(lambda b, p: jax_mbs(b, KEY, M, cfg, "hunyuan",
+                                           params=p))(batch, params)
+
+    @jax.jit
+    def ref_true(p, xt, t, ctx, noise):
+        pred = jdm.hunyuan_apply(p, xt, t, {"text_embeds": ctx}, cfg)
+        return jnp.mean(jnp.square(pred - noise))
+
+    @jax.jit
+    @jax.value_and_grad
+    def ref_aux(p, xt, noise, ctx, temb):
+        x = (jdm._patchify(xt, cfg.patch) @ p["patch_embed"]
+             + p["pos_embed"][None])
+        kw = {"ctx": ctx, "temb": temb}
+        skips = []
+        for r in range(cfg.half):
+            bp = jax.tree.map(lambda a: a[r], p["enc_blocks"])
+            x = jdm._apply_vit_block(bp, x, cfg, **kw)
+            skips.append(x)
+        for r in range(cfg.half):
+            bp = jax.tree.map(lambda a: a[r], p["dec_blocks"])
+            x = jdm._apply_vit_block(bp, x, cfg, skip=skips[cfg.half - 1 - r],
+                                     **kw)
+        h = rms_norm(x, p["out_norm"], cfg.norm_eps)
+        pred = jdm._unpatchify(h @ p["out_proj"], cfg.patch, cfg.img_size,
+                               cfg.in_ch)
+        return jnp.mean(jnp.square(pred - noise))
+
+    true = [ref_true(params, mb["xt"][m], aux["t"][m], aux["ctx"][m],
+                     mb["noise"][m]) for m in range(M)]
+    outs = [ref_aux(params, mb["xt"][m], mb["noise"][m], aux["ctx"][m],
+                    aux["temb"][m]) for m in range(M)]
+    grads = jax.tree.map(lambda *g: sum(g) / M, *(o[1] for o in outs))
+    return (jax.device_get(params), jax.device_get(batch),
+            jax.device_get((mb, aux)), sum(float(x) for x in true) / M,
+            sum(float(o[0]) for o in outs) / M, _flat_grads(grads))
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=lambda d: f"D{d}")
+def hunyuan_wave(request):
+    D = request.param
+    params, _, mb_aux, loss_true, loss_aux, grads = _jax_hunyuan_reference()
+    cfg = HunyuanDiTConfig("t", use_skip_kernel=True, use_flash=True,
+                           **HCFG_KW)
+    cp = auto_pipeline(hunyuan_pipeline_graph(cfg),
+                       diffusion_model_fns(cfg, "hunyuan"), D,
+                       pipeline_devices=D, microbatches=HUNYUAN_M, lam=0.0,
+                       wire_dtype="float32")
+    assert cp.partition.num_stages == 2 * D
+    before = launch_counts()
+    port = _port_step(cp, params, mb_aux)
+    assert launch_counts() == before          # CPU: plain versions only
+    return dict(name=f"hunyuan-D{D}", cp=cp, params=params, mb_aux=mb_aux,
+                loss_true=loss_true, loss_aux=loss_aux, grads=grads,
+                port=port)
+
+
+def test_hunyuan_wave_executor_matches_jax(hunyuan_wave):
+    w = hunyuan_wave
+    name, (got_loss, got) = w["name"], w["port"]
+    np.testing.assert_allclose(got_loss, w["loss_true"], rtol=RTOL,
+                               err_msg=name)
+    np.testing.assert_allclose(got_loss, w["loss_aux"], rtol=RTOL,
+                               err_msg=name)
+    assert sorted(got) == sorted(w["grads"])
+    for k, v in got.items():
+        np.testing.assert_allclose(v.numpy(), w["grads"][k], rtol=RTOL,
+                                   atol=1e-6, err_msg=f"{name}: {k}")
+    # temb enters as data: time_mlp gets no gradient, as in the reference
+    assert not any(got[k].any() for k in got if k.startswith("time_mlp/"))
+
+
+def test_hunyuan_wave_bf16_wire_close_to_fp32_wire(hunyuan_wave):
+    name, (lf, gf) = hunyuan_wave["name"], hunyuan_wave["port"]
+    lb, gb = _variant(hunyuan_wave, wire_dtype="bfloat16")
+    np.testing.assert_allclose(lb, lf, rtol=WIRE_RTOL, err_msg=name)
+    for k in gf:
+        np.testing.assert_allclose(gb[k].numpy(), gf[k].numpy(),
+                                   rtol=WIRE_RTOL, atol=WIRE_ATOL,
+                                   err_msg=f"{name}[bf16-vs-fp32]: {k}")
+
+
+def test_hunyuan_microbatches_match_jax():
+    """Given the JAX draw of t and noise, the port's split, xt, ctx and its
+    temb (from the edge params' time_mlp) equal the JAX package's."""
+    params, batch, (mb, aux), *_ = _jax_hunyuan_reference()
+    cfg = HunyuanDiTConfig("t", **HCFG_KW)
+    M = HUNYUAN_M
+    t = torch.tensor(np.asarray(aux["t"]).reshape(-1))
+    noise = torch.tensor(np.asarray(mb["noise"]).reshape(
+        (-1,) + mb["noise"].shape[2:]))
+    tp = params_from_jax(params, "cpu")
+    edge = {k: v for k, v in tp.items()
+            if k not in ("enc_blocks", "dec_blocks")}
+    got_mb, got_aux = make_diffusion_microbatches(
+        params_from_jax(batch, "cpu"), M, cfg, "hunyuan", t=t, noise=noise,
+        params=edge)
+    assert sorted(got_mb) == sorted(mb) and sorted(got_aux) == sorted(aux)
+    for got, want in ((got_mb, mb), (got_aux, aux)):
+        for k in want:
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                       rtol=1e-5, atol=1e-6, err_msg=k)
+    assert not got_aux["temb"].requires_grad
+    with pytest.raises(ValueError, match="time_mlp"):
+        make_diffusion_microbatches(params_from_jax(batch, "cpu"), M, cfg,
+                                    "hunyuan", t=t, noise=noise)
+
+
 def test_microbatches_take_given_or_drawn_noise():
     lat = torch.randn(4, 8, 8, 4)
     batch = {"latents": lat, "labels": torch.arange(4)}
@@ -168,6 +315,21 @@ def test_microbatches_take_given_or_drawn_noise():
 # ---------------------------------------------------------------------------
 # (g) the training driver on the CPU
 # ---------------------------------------------------------------------------
+
+def test_train_runs_hunyuan_three_steps_on_cpu():
+    from repro_torch.launch import train
+    args = train._parse_args([
+        "--arch", "hunyuan-pp", "--pipeline", "--devices", "2", "--steps",
+        "3", "--global-batch", "8", "--microbatches", "4", "--device", "cpu",
+        "--log-every", "1"])
+    before = launch_counts()
+    res = train.run(args)
+    assert launch_counts() == before
+    assert sorted(res.losses) == [0, 1, 2]
+    assert all(np.isfinite(v) for v in res.losses.values())
+    assert res.skipped_steps == 0
+    assert "S=4 stages over D=2 devices" in res.plan
+
 
 def test_train_runs_three_steps_on_cpu(tmp_path):
     from repro_torch.launch import train
@@ -204,7 +366,8 @@ def test_train_refuses_unported_paths(extra):
 
 
 @pytest.mark.parametrize("arch,d", [("uvit-h", 2560), ("uvit-pp", 64),
-                                   ("uvit-nano", 32)])
+                                   ("uvit-nano", 32), ("hunyuan-dit", 2048),
+                                   ("hunyuan-pp", 32)])
 def test_train_arch_configs(arch, d):
     from repro_torch.launch import train
     argv = ["--arch", arch, "--pipeline"]
@@ -214,6 +377,14 @@ def test_train_arch_configs(arch, d):
         assert (cfg.n_layers, cfg.n_heads, cfg.d_ff, cfg.n_tokens) == \
             (32, 20, 10240, 258)
         assert cfg.dtype == cfg.param_dtype == torch.bfloat16
+    if arch == "hunyuan-dit":
+        assert (cfg.n_layers, cfg.n_heads, cfg.d_ff, cfg.n_tokens,
+                cfg.ctx_dim, cfg.ctx_len) == (32, 16, 8192, 1024, 1024, 77)
+        assert cfg.dtype == cfg.param_dtype == torch.bfloat16
+        assert cfg.param_count() == 3_221_225_472
+    if arch == "hunyuan-pp":
+        assert (cfg.n_layers, cfg.n_heads, cfg.d_ff, cfg.ctx_dim,
+                cfg.ctx_len) == (8, 4, 64, 16, 4)
 
 
 def test_train_on_cuda_without_a_card_raises():
@@ -245,10 +416,17 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(len(mods), bad)\n"
+        "print(' '.join(mods))\n"
         "sys.exit(1 if bad or len(mods) < 20 else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    walked = proc.stdout.split()
+    for mod in ("repro_torch.configs.hunyuan_dit",
+                "repro_torch.kernels.linear_scan.ops",
+                "repro_torch.runtime.adapters",
+                "repro_torch.models.diffusion"):
+        assert mod in walked, mod
     # chip_smoke.py imports none of them either
     src = (REPO / "chip_smoke.py").read_text()
     for word in ("import jax", "from jax", "import repro\n", "from repro ",

@@ -1,6 +1,6 @@
 """The port's planner and lowering held to the JAX package's, array for array.
 
-The same UViT configuration goes through both packages' block graph,
+The same UViT or Hunyuan-DiT configuration goes through both packages' block graph,
 skip-aware partition, schedule synthesis, stage layout and step-table
 lowering (``auto_pipeline`` with the pipeline degree pinned); every
 partition cut, placement, layout table, ``StepTables`` array and liveness
@@ -14,17 +14,23 @@ import numpy as np
 import pytest
 
 from repro.analysis.certificate import certify_tables
+from repro.configs import hunyuan_dit as jax_hunyuan_dit
 from repro.configs import uvit_h as jax_uvit_h
 from repro.core import hw as jax_hw
 from repro.core.profiler import analytic_block_costs as jax_costs
+from repro.models.diffusion import HunyuanDiTConfig as JaxHunyuanDiTConfig
 from repro.models.diffusion import UViTConfig as JaxUViTConfig
+from repro.models.diffusion import hunyuan_pipeline_graph as jax_hunyuan_graph
 from repro.models.diffusion import uvit_pipeline_graph as jax_graph
 from repro.runtime.adapters import diffusion_model_fns as jax_model_fns
 from repro.runtime.compile import auto_pipeline as jax_auto_pipeline
+from repro_torch.configs import hunyuan_dit as torch_hunyuan_dit
 from repro_torch.configs import uvit_h as torch_uvit_h
 from repro_torch.core import hw as torch_hw
 from repro_torch.core.profiler import analytic_block_costs as torch_costs
-from repro_torch.models.diffusion import UViTConfig
+from repro_torch.models.diffusion import HunyuanDiTConfig, UViTConfig
+from repro_torch.models.diffusion import \
+    hunyuan_pipeline_graph as torch_hunyuan_graph
 from repro_torch.models.diffusion import uvit_pipeline_graph as torch_graph
 from repro_torch.runtime.adapters import diffusion_model_fns
 from repro_torch.runtime.compile import auto_pipeline
@@ -79,9 +85,7 @@ def _both(name):
     return jg, tg, jcp, tcp
 
 
-@pytest.mark.parametrize("name", sorted(PLANS))
-def test_plan_and_step_tables_match_jax(name):
-    jg, tg, jcp, tcp = _both(name)
+def _assert_plans_equal(jg, tg, jcp, tcp):
     assert [dataclasses.astuple(b) for b in tg.blocks] == \
         [dataclasses.astuple(b) for b in jg.blocks]
     assert [dataclasses.astuple(e) for e in tg.skips] == \
@@ -90,8 +94,6 @@ def test_plan_and_step_tables_match_jax(name):
     jp, tp = jcp.partition, tcp.partition
     assert (tp.cuts, tp.devices, tp.folded, tp.num_stages) == \
         (jp.cuts, jp.devices, jp.folded, jp.num_stages)
-    if PLANS[name][3] is not None and PLANS[name][2] == 1:
-        assert len(set(tcp.layout.counts)) > 1, "uneven plan came out even"
 
     key = lambda p: (p.virtual, p.microbatch, p.device, p.step)
     assert sorted(map(key, tcp.schedule.placements)) == \
@@ -117,6 +119,47 @@ def test_plan_and_step_tables_match_jax(name):
                           overlap=True,
                           wire_dtype=tcp.pcfg.wire_dtype)
     assert cert.ok, cert.violations
+
+
+@pytest.mark.parametrize("name", sorted(PLANS))
+def test_plan_and_step_tables_match_jax(name):
+    jg, tg, jcp, tcp = _both(name)
+    _assert_plans_equal(jg, tg, jcp, tcp)
+    if PLANS[name][3] is not None and PLANS[name][2] == 1:
+        assert len(set(tcp.layout.counts)) > 1, "uneven plan came out even"
+
+
+# (cfg, D, V, M): "full" is Hunyuan-DiT-3B, the trainer's --arch
+# hunyuan-dit; "small" the JAX package's wave-hunyuan differential config
+HUNYUAN_PLANS = {
+    "hunyuan-D2": ("full", 2, 1, 8),
+    "hunyuan-D4": ("full", 4, 1, 8),
+    "hunyuan-D8": ("full", 8, 1, 8),
+    "hunyuan-D4-V2": ("full", 4, 2, 8),
+    "hunyuan-small-D2": ("small", 2, 1, 4),
+    "hunyuan-small-D4": ("small", 4, 1, 4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HUNYUAN_PLANS))
+def test_hunyuan_plan_and_step_tables_match_jax(name):
+    size, D, V, M = HUNYUAN_PLANS[name]
+    if size == "full":
+        jcfg, tcfg = jax_hunyuan_dit.CFG, torch_hunyuan_dit.CFG
+    else:
+        kw = dict(img_size=8, in_ch=4, patch=2, d_model=32, n_layers=8,
+                  n_heads=4, d_ff=64, ctx_dim=16, ctx_len=4)
+        jcfg, tcfg = JaxHunyuanDiTConfig("t", **kw), HunyuanDiTConfig("t",
+                                                                      **kw)
+    jg = jax_hunyuan_graph(jcfg, batch=2, hw=jax_hw.TPU_V5E)
+    tg = torch_hunyuan_graph(tcfg, batch=2, hw=TPU)
+    kw = dict(pipeline_devices=D, microbatches=M, lam=0.0, interleave=V)
+    jcp = jax_auto_pipeline(jg, jax_model_fns(jcfg, "hunyuan"), D,
+                            jax_hw.TPU_V5E, **kw)
+    tcp = auto_pipeline(tg, diffusion_model_fns(tcfg, "hunyuan"), D, TPU,
+                        **kw)
+    assert tcp.partition.num_stages == 2 * V * D
+    _assert_plans_equal(jg, tg, jcp, tcp)
 
 
 def test_h100_preset_and_block_costs():
