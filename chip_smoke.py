@@ -11,19 +11,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    power limit;
 2. build: the three CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` (one process per source, started together), with ``-Xptxas -v``;
+   then the bf16 kernels' tiles, resident blocks per SM and grids at the
+   train steps' shapes;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes of the UViT-H and Hunyuan-DiT-3B train steps (the gated
    linear scan, which no train path calls, at zamba2-2.7b's Mamba2 width
    over 4k steps), forward and gradients (fp32 with TF32 off at rtol =
    atol = 1e-4; bf16 at rtol = atol = 2e-2, bf16 rounding in another
    summation order; only the skip matmul's weight gradient, a sum over all
-   M rows, takes atol = rtol x max|value|), then timed with CUDA events
-   beside its bound, the plain version and a yardstick PyTorch call the
-   port never makes;
+   M rows, takes atol = rtol x max|value|), then timed beside its bound,
+   the plain version and a yardstick PyTorch call the port never makes:
+   ``ms``, ``plain_ms`` and ``library_ms`` with CUDA events around 20
+   calls as issued from Python (host cost included, as a train step pays
+   it), and ``device_ms``, ``plain_device_ms`` and ``library_device_ms``
+   as the replay of the same 20 calls captured in one CUDA graph (the
+   device's time alone); each flash row names its route (``flash_route``);
 4. pipeline parity: the port's wave executor at ``uvit-pp`` size (D=4, M=8)
    and at ``hunyuan-pp`` size (D=2 and D=4, M=4), fp32, fp32 wire, kernels
    on, on the card against the same step on the CPU (plain versions): loss
-   and grads at rtol 1e-3;
+   and grads at rtol 1e-3; then in bf16 through the kernels' bf16 routes (a
+   Hunyuan-DiT config with 2 heads of 128, 4 blocks, 77 text tokens, D=2,
+   M=4) against the same params in fp32 on the CPU: loss at rtol 2e-2,
+   each gradient at ||err|| / ||g|| <= 5e-2;
 5. train UViT-H: ``repro_torch.launch.train`` with ``--arch uvit-h
    --pipeline --devices 4 --microbatches 8 --global-batch 16 --steps 4``
    (UViT-2.7B at full width and depth, bf16, bf16 wire) with the launch
@@ -74,15 +83,33 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
+def time_ms(torch, fn, warmup: int = 3, iters: int = 20,
+            graph: bool = False) -> float:
+    """Mean ms per call of ``fn``: CUDA events around ``iters`` calls as
+    issued from Python, so a call whose host cost exceeds its device time
+    is timed by the host.  With ``graph`` the ``iters`` calls are captured
+    in one CUDA graph and its replay is timed instead: the device's time
+    for the work alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    run = fn
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        run = g.replay
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    if graph:
+        run()
+    else:
+        for _ in range(iters):
+            run()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -119,16 +146,36 @@ def check_close(torch, got, want, dtype: str, what: str,
 # phase 3: kernels
 # ---------------------------------------------------------------------------
 
+def _ms(row: dict, key: str) -> str:
+    """``key`` as issued and, beside it, as a graph replay; "none" where
+    the row has no such call."""
+    if row[f"{key}ms"] is None:
+        return "none"
+    dev = row[f"{key}device_ms"]
+    return (f"{row[f'{key}ms']:.4f} ms"
+            + (f" (device {dev:.4f})" if dev is not None else ""))
+
+
 def _row_line(what: str, row: dict, lib_name: str) -> str:
-    lib = (f"{row['library_ms']:.4f} ms" if row["library_ms"] is not None
-           else "none")
     grads = row.get("grad_max_abs_err") or {}
     return (f"[kernels] {what}: max|err| {row['max_abs_err']:.3e}"
             + ("  grads " + " ".join(f"{k} {v:.3e}" for k, v in grads.items())
                if grads else "")
-            + f"  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms"
-            f"  {lib_name} {lib}  bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']})")
+            + f"  kernel {_ms(row, '')}  plain {_ms(row, 'plain_')}"
+            f"  {lib_name} {_ms(row, 'library_')}"
+            f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+            f"{row['bound_ms'] / row['device_ms']:.1%} of the device time)")
+
+
+def _times(torch, kernel, plain, library) -> dict:
+    """Each of the three timed as issued and as a graph replay."""
+    out = {}
+    for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
+        out[f"{key}ms"] = out[f"{key}device_ms"] = None
+        if fn is not None:
+            out[f"{key}ms"] = time_ms(torch, fn)
+            out[f"{key}device_ms"] = time_ms(torch, fn, graph=True)
+    return out
 
 
 def check_skip_matmul(torch, rec) -> dict:
@@ -165,16 +212,16 @@ def check_skip_matmul(torch, rec) -> dict:
                                         f"{what} {nm}", row_sum=nm == "dw")
                         for a, b, nm in zip(ins, ref, ("dh", "ds", "dw"))}
             del ins, ref, g
-            ms = time_ms(torch, lambda: skip_concat_matmul_cuda(h, s, w))
-            plain_ms = time_ms(torch, lambda: skip_concat_matmul_plain(h, s, w))
-            lib_ms = time_ms(torch, lambda: torch.cat([h, s], -1) @ w)
+            times = _times(torch, lambda: skip_concat_matmul_cuda(h, s, w),
+                           lambda: skip_concat_matmul_plain(h, s, w),
+                           lambda: torch.cat([h, s], -1) @ w)
             esz = h.element_size()
             b_ms, b_by = bound(4.0 * M * D * N,
                                esz * (2 * M * D + 2 * D * N + M * N), dtype)
             row = dict(path=path, dtype=dtype, M=M, D=D, N=N,
-                       max_abs_err=err, grad_max_abs_err=grad_err, ms=ms,
-                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                       bound_by=b_by)
+                       max_abs_err=err, grad_max_abs_err=grad_err, **times,
+                       device_tflops=4.0 * M * D * N / times["device_ms"] / 1e9,
+                       bound_ms=b_ms, bound_by=b_by)
             rows.append(row)
             log(_row_line(what, row, "cat+matmul"))
             if dtype == "bfloat16" and path:
@@ -190,7 +237,8 @@ def check_flash(torch, rec) -> dict:
 
     from repro_torch.kernels.flash_attention import (attention_plain,
                                                      flash_attention,
-                                                     flash_attention_cuda)
+                                                     flash_attention_cuda,
+                                                     flash_route)
     rows, main = [], {}
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [  # path, B, S, T, Hq, Hkv, D, causal, window
@@ -221,16 +269,16 @@ def check_flash(torch, rec) -> dict:
                                         f"{what} {nm}")
                         for a, b, nm in zip(ins, ref, ("dq", "dk", "dv"))}
             del ins, ref, g
-            ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, causal,
-                                                             window))
-            plain_ms = time_ms(torch, lambda: attention_plain(q, k, v, causal,
-                                                              window))
-            lib_ms = None
+            library = None
             if Hq == Hkv and window is None:
                 qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-                lib_ms = time_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        qh, kh, vh, is_causal=causal))
+
+                def library():
+                    return F.scaled_dot_product_attention(qh, kh, vh,
+                                                          is_causal=causal)
+            times = _times(
+                torch, lambda: flash_attention_cuda(q, k, v, causal, window),
+                lambda: attention_plain(q, k, v, causal, window), library)
             # score pairs this data needs: every (query, visible key)
             qp = torch.arange(S)[:, None]
             kp = torch.arange(T)[None, :]
@@ -245,11 +293,14 @@ def check_flash(torch, rec) -> dict:
                 4.0 * B * Hq * pairs * D,
                 esz * (2 * B * S * Hq * D + 2 * B * T * Hkv * D), dtype)
             row = dict(path=path, dtype=dtype, B=B, S=S, T=T, Hq=Hq, Hkv=Hkv,
-                       D=D, causal=causal, window=window, max_abs_err=err,
-                       grad_max_abs_err=grad_err, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                       D=D, causal=causal, window=window,
+                       route=flash_route(dt, D), max_abs_err=err,
+                       grad_max_abs_err=grad_err, **times,
+                       device_tflops=(4.0 * B * Hq * pairs * D
+                                      / times["device_ms"] / 1e9),
+                       bound_ms=b_ms, bound_by=b_by)
             rows.append(row)
-            log(_row_line(what, row, "sdpa"))
+            log(_row_line(f"{what} route={row['route']}", row, "sdpa"))
             if dtype == "bfloat16" and path:
                 main[path] = row
             del q, k, v, got
@@ -307,15 +358,16 @@ def check_scan(torch, rec) -> tuple[dict, int]:
         launches += LAUNCHES["gated_linear_scan"] - before
         err = check_close(torch, got, gated_linear_scan_plain(a, x), dtype,
                           what)
-        ms = time_ms(torch, lambda: gated_linear_scan_cuda(a, x))
-        plain_ms = time_ms(torch, lambda: gated_linear_scan_plain(a, x),
-                           warmup=1, iters=3)
+        times = _times(torch, lambda: gated_linear_scan_cuda(a, x), None,
+                       None)
+        # a Python loop of T steps: timed as issued only (3 calls)
+        times["plain_ms"] = time_ms(
+            torch, lambda: gated_linear_scan_plain(a, x), warmup=1, iters=3)
         # fp32 arithmetic on the carry whatever the storage type
         b_ms, b_by = bound(2.0 * R * T * C, 3.0 * R * T * C
                            * a.element_size(), "float32")
-        row = dict(dtype=dtype, R=R, T=T, C=C, max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                   bound_by=b_by)
+        row = dict(dtype=dtype, R=R, T=T, C=C, max_abs_err=err, **times,
+                   bound_ms=b_ms, bound_by=b_by)
         rows.append(row)
         log(_row_line(what, row, "library"))
         if dtype == "bfloat16":
@@ -329,67 +381,95 @@ def check_scan(torch, rec) -> tuple[dict, int]:
 # phase 4: pipeline parity, card vs CPU
 # ---------------------------------------------------------------------------
 
-def pipeline_parity(torch, rec, kind: str, D: int, M: int) -> None:
-    import numpy as np
-
+def _parity_model(kind: str, B: int, M: int, **over):
+    """(cfg, pipeline graph, dataset) of a small config of ``kind``, kernels
+    on; ``over`` replaces config fields."""
     from repro_torch.data import SyntheticLatentDataset
     from repro_torch.models import diffusion as dm
+    if kind == "uvit":
+        kw = dict(img_size=8, in_ch=4, patch=2, d_model=64, n_layers=8,
+                  n_heads=4, d_ff=128, n_classes=10)
+        kw.update(over)
+        cfg = dm.UViTConfig(kw.pop("name", "uvit-pp"), use_skip_kernel=True,
+                            use_flash=True, **kw)
+        return (cfg, dm.uvit_pipeline_graph(cfg, batch=B // M),
+                SyntheticLatentDataset(img_size=8, channels=4))
+    kw = dict(img_size=8, in_ch=4, patch=2, d_model=32, n_layers=8, n_heads=4,
+              d_ff=64, ctx_dim=16, ctx_len=4)
+    kw.update(over)
+    cfg = dm.HunyuanDiTConfig(kw.pop("name", "hunyuan-pp"),
+                              use_skip_kernel=True, use_flash=True, **kw)
+    return (cfg, dm.hunyuan_pipeline_graph(cfg, batch=B // M),
+            SyntheticLatentDataset(img_size=8, channels=4,
+                                   text_dim=cfg.ctx_dim,
+                                   text_len=cfg.ctx_len))
+
+
+def _pipeline_step(torch, cfg, graph, kind: str, D: int, M: int, params,
+                   raw, t, noise, dev: str, wire_dtype: str):
+    """One step of the port's wave executor for ``cfg`` on ``dev`` from the
+    merged fp32 ``params`` (cast to ``cfg.param_dtype``): the loss, every
+    gradient as fp32 on the CPU by path, and the plan's first line."""
+    import numpy as np
+
     from repro_torch.runtime.adapters import (diffusion_model_fns,
                                               make_diffusion_microbatches)
     from repro_torch.runtime.compile import auto_pipeline
-    from repro_torch.tree import tree_leaves, tree_map, tree_paths
+    from repro_torch.tree import tree_map, tree_paths
 
-    B = 2 * M
-    if kind == "uvit":
-        cfg = dm.UViTConfig("uvit-pp", img_size=8, in_ch=4, patch=2,
-                            d_model=64, n_layers=8, n_heads=4, d_ff=128,
-                            n_classes=10, use_skip_kernel=True, use_flash=True)
-        graph = dm.uvit_pipeline_graph(cfg, batch=B // M)
-        ds = SyntheticLatentDataset(img_size=8, channels=4)
-    else:
-        cfg = dm.HunyuanDiTConfig("hunyuan-pp", img_size=8, in_ch=4, patch=2,
-                                  d_model=32, n_layers=8, n_heads=4, d_ff=64,
-                                  ctx_dim=16, ctx_len=4, use_skip_kernel=True,
-                                  use_flash=True)
-        graph = dm.hunyuan_pipeline_graph(cfg, batch=B // M)
-        ds = SyntheticLatentDataset(img_size=8, channels=4, text_dim=16,
-                                    text_len=4)
     cp = auto_pipeline(graph, diffusion_model_fns(cfg, kind), D,
                        pipeline_devices=D, microbatches=M,
-                       wire_dtype="float32")
-    params = cp.model_fns.init_fn(torch.Generator().manual_seed(0), "cpu")
-    raw = ds.batch(0, 0, B)
+                       wire_dtype=wire_dtype)
+    p = tree_map(lambda x: x.detach().to(dev, cfg.param_dtype).clone()
+                 .requires_grad_(True), cp.split_params(params))
+    batch = {k: torch.as_tensor(np.asarray(v), device=dev)
+             for k, v in raw.items()}
+    (enc, dec), edge = p
+    mb, aux = make_diffusion_microbatches(batch, M, cfg, kind, t=t.to(dev),
+                                          noise=noise.to(dev), params=edge)
+    loss = cp.build()(enc, dec, edge, mb, aux)
+    loss.backward()
+    grads = cp.merge_params(*tree_map(
+        lambda x: x.grad if x.grad is not None else torch.zeros_like(x), p))
+    return (float(loss.detach().float()),
+            {k: v.detach().float().cpu() for k, v in tree_paths(grads)},
+            cp.describe().splitlines()[0])
+
+
+def _parity_inputs(torch, cfg, kind, M, ds):
+    """fp32 params on the CPU from seed 0, a batch, and (t, noise) from
+    seed 1."""
+    from repro_torch.runtime.adapters import diffusion_model_fns
+    B = 2 * M
+    params = diffusion_model_fns(cfg, kind).init_fn(
+        torch.Generator().manual_seed(0), "cpu")
     gen = torch.Generator().manual_seed(1)
     t = torch.rand((B,), generator=gen)
-    noise = torch.randn((B, 8, 8, 4), generator=gen)
-    fn = cp.build()
-    out = {}
-    before = dict(_launches())
-    for dev in ("cpu", "cuda"):
-        p = tree_map(lambda x: x.detach().to(dev).clone().requires_grad_(True),
-                     cp.split_params(params))
-        batch = {k: torch.as_tensor(np.asarray(v), device=dev)
-                 for k, v in raw.items()}
-        (enc, dec), edge = p
-        mb, aux = make_diffusion_microbatches(batch, M, cfg, kind,
-                                              t=t.to(dev),
-                                              noise=noise.to(dev),
-                                              params=edge)
-        loss = fn(enc, dec, edge, mb, aux)
-        loss.backward()
-        grads = cp.merge_params(*tree_map(
-            lambda x: x.grad if x.grad is not None else torch.zeros_like(x),
-            p))
-        out[dev] = (float(loss.detach()),
-                    {k: v.detach().cpu() for k, v in tree_paths(grads)})
-    launched = {k: _launches()[k] - before[k] for k in before}
-    name = f"{cfg.name} D={D} M={M}"
+    noise = torch.randn((B, cfg.img_size, cfg.img_size, cfg.in_ch),
+                        generator=gen)
+    return params, ds.batch(0, 0, B), t, noise
+
+
+def _check_launched(launched: dict, name: str) -> None:
     for k in ("skip_concat_matmul", "flash_attention"):
         if not launched[k]:
             fail(f"pipeline parity {name}: the card's run launched "
                  f"{launched}; both kernels of the path must run")
-    lc, gc_ = out["cpu"]
-    lg, gg = out["cuda"]
+
+
+def pipeline_parity(torch, rec, kind: str, D: int, M: int) -> None:
+    cfg, graph, ds = _parity_model(kind, 2 * M, M)
+    params, raw, t, noise = _parity_inputs(torch, cfg, kind, M, ds)
+    out = {}
+    before = dict(_launches())
+    for dev in ("cpu", "cuda"):
+        out[dev] = _pipeline_step(torch, cfg, graph, kind, D, M, params, raw,
+                                  t, noise, dev, "float32")
+    launched = {k: _launches()[k] - before[k] for k in before}
+    name = f"{cfg.name} D={D} M={M}"
+    _check_launched(launched, name)
+    lc, gc_, plan = out["cpu"]
+    lg, gg, _ = out["cuda"]
     if not math.isclose(lg, lc, rel_tol=1e-3):
         fail(f"pipeline parity {name}: loss on the card {lg} vs CPU {lc}")
     worst = 0.0
@@ -400,12 +480,65 @@ def pipeline_parity(torch, rec, kind: str, D: int, M: int) -> None:
         except AssertionError as e:
             fail(f"pipeline parity {name}: grad {k} differs:\n{e}")
         worst = max(worst, float((got - want).abs().max()))
-    n = len(tree_leaves(gg))
     rec.setdefault("pipeline_parity", {})[name] = dict(
-        loss_cuda=lg, loss_cpu=lc, max_abs_grad_err=worst, grads=n,
-        launches=launched, plan=cp.describe().splitlines()[0])
-    log(f"[parity] {name} fp32 wire: loss card {lg:.7f} cpu {lc:.7f}; {n} "
-        f"grads, max|err| {worst:.3e}; launches {launched}")
+        loss_cuda=lg, loss_cpu=lc, max_abs_grad_err=worst, grads=len(gg),
+        launches=launched, plan=plan)
+    log(f"[parity] {name} fp32 wire: loss card {lg:.7f} cpu {lc:.7f}; "
+        f"{len(gg)} grads, max|err| {worst:.3e}; launches {launched}")
+
+
+def pipeline_parity_bf16(torch, rec, D: int = 2, M: int = 4) -> None:
+    """The wave executor in bf16 on the card, through the kernels' bf16
+    routes (the skip matmul's wgmma kernel and flash attention's
+    tensor-core route, head dim 128: self-attention over 16 tokens and
+    cross-attention over 77 text tokens), against the same params in fp32
+    on the CPU (plain versions).  A Hunyuan-DiT config of d_model 256, 2
+    heads of 128, 4 blocks, 8x8 latents.  The loss is held at rtol 2e-2;
+    each gradient at ||g_card - g_cpu|| / ||g_cpu|| <= 5e-2: bf16 params,
+    activations and wire round at every op across the whole block stack
+    and back, so an elementwise bound would measure bf16's own rounding,
+    not the kernels.  A gradient that is zero on the CPU (time_mlp, the
+    unread xattn.wk/wv) must be zero on the card."""
+    over = dict(name="hunyuan-bf16", d_model=256, n_layers=4, n_heads=2,
+                d_ff=1024, ctx_dim=128, ctx_len=77)
+    cfg32, graph32, ds = _parity_model("hunyuan", 2 * M, M, **over)
+    cfg16, graph16, _ = _parity_model("hunyuan", 2 * M, M,
+                                      dtype=torch.bfloat16,
+                                      param_dtype=torch.bfloat16, **over)
+    params, raw, t, noise = _parity_inputs(torch, cfg32, "hunyuan", M, ds)
+    lc, gc_, plan = _pipeline_step(torch, cfg32, graph32, "hunyuan", D, M,
+                                   params, raw, t, noise, "cpu", "float32")
+    before = dict(_launches())
+    lg, gg, _ = _pipeline_step(torch, cfg16, graph16, "hunyuan", D, M,
+                               params, raw, t, noise, "cuda", "bfloat16")
+    torch.cuda.synchronize()
+    launched = {k: _launches()[k] - before[k] for k in before}
+    name = f"{cfg16.name} D={D} M={M}"
+    _check_launched(launched, name)
+    if not (math.isfinite(lg) and math.isclose(lg, lc, rel_tol=2e-2)):
+        fail(f"pipeline parity {name}: bf16 loss on the card {lg} vs fp32 "
+             f"CPU {lc} (rtol 2e-2)")
+    worst, worst_k = 0.0, None
+    for k, want in gc_.items():
+        got = gg[k]
+        ref = float(want.norm())
+        if ref == 0.0:
+            if float(got.norm()) != 0.0:
+                fail(f"pipeline parity {name}: grad {k} is zero on the CPU "
+                     f"but not on the card")
+            continue
+        rel = float((got - want).norm()) / ref
+        if not rel <= 5e-2:
+            fail(f"pipeline parity {name}: grad {k} relative error {rel:.3e}"
+                 " > 5e-2")
+        if rel > worst:
+            worst, worst_k = rel, k
+    rec.setdefault("pipeline_parity", {})[name] = dict(
+        loss_cuda=lg, loss_cpu=lc, max_rel_grad_err=worst,
+        worst_grad=worst_k, grads=len(gg), launches=launched, plan=plan)
+    log(f"[parity] {name} bf16 on the card vs fp32 CPU: loss card {lg:.7f} "
+        f"cpu {lc:.7f}; {len(gg)} grads, worst ||err||/||g|| {worst:.3e} "
+        f"({worst_k}); launches {launched}")
 
 
 def _launches() -> dict:
@@ -515,8 +648,28 @@ def main() -> None:
         f"(nvcc each: {rec['build']['seconds']})")
     for k, v in built.items():
         for line in v["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 log(f"[build] {k}: {line.strip()}")
+
+    # the bf16 kernels' tiling and the grids of the train steps' shapes
+    from repro_torch.kernels.flash_attention.ops import bf16_config as fcfg
+    from repro_torch.kernels.skip_matmul.ops import bf16_config as scfg
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiling = {"skip_concat_matmul bf16": scfg(),
+              "flash_attention bf16 D=64": fcfg(64),
+              "flash_attention bf16 D=128": fcfg(128)}
+    sk = tiling["skip_concat_matmul bf16"]
+    grids = {f"skip M={M} N={N}": -(-M // sk["tile_m"]) * -(-N // sk["tile_n"])
+             for M, N in ((516, 2560), (2048, 2048))}
+    fl = tiling["flash_attention bf16 D=128"]
+    grids.update({f"flash B*H={bh} S={S}": bh * -(-S // fl["query_rows"])
+                  for bh, S in ((40, 258), (32, 1024))})
+    rec["tiling"] = dict(kernels=tiling, grids=grids, sms=sms)
+    for k, v in tiling.items():
+        log(f"[tiling] {k}: {v}; {v['blocks_per_sm'] * sms} blocks resident "
+            f"on {sms} SMs")
+    log(f"[tiling] grids (blocks): {grids}")
 
     # 3. kernels
     main_rows = {"skip_concat_matmul": check_skip_matmul(torch, rec),
@@ -527,6 +680,7 @@ def main() -> None:
     # 4. pipeline parity
     for kind, D, M in (("uvit", 4, 8), ("hunyuan", 2, 4), ("hunyuan", 4, 4)):
         pipeline_parity(torch, rec, kind, D, M)
+    pipeline_parity_bf16(torch, rec)
     torch.cuda.empty_cache()
 
     # 5, 6. train, one model at a time
@@ -556,10 +710,14 @@ def main() -> None:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "device_ms": row["device_ms"],
+            "library_device_ms": row["library_device_ms"],
             "launches_by_path": by_path,
-            "by_shape": {k: {f: r[f] for f in (
-                "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms")} for k, r in by_shape.items()}})
+            "by_shape": {k: {f: r.get(f) for f in (
+                "dtype", "route", "max_abs_err", "ms", "device_ms",
+                "device_tflops", "plain_ms", "plain_device_ms", "bound_ms",
+                "bound_by", "library_ms", "library_device_ms")}
+                for k, r in by_shape.items()}})
     rec["kernels"] = kernels
     rec["wall_s"] = time.perf_counter() - t_start
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

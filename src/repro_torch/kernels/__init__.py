@@ -17,3 +17,10 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def tma_aligned(t):
+    """``t`` contiguous at a 16-byte-aligned base, as TMA loads need: a
+    view that starts elsewhere is copied to a fresh tensor."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t

@@ -6,8 +6,9 @@ interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded.  Libraries go to
+The library name carries a hash of its source, the shared headers under
+``csrc/`` (``hopper.cuh``) and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.  Libraries go to
 ``build/`` at the repository root (or ``$REPRO_TORCH_BUILD_DIR``); the
 first call that needs a kernel builds it, and :func:`build` builds several
 at once, one ``nvcc`` process per source, all started together.
@@ -29,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[tuple[str, str], object] = {}
 _LOCK = threading.Lock()
 
 
@@ -55,8 +57,12 @@ def _flags(verbose: bool) -> tuple[str, ...]:
 
 
 def lib_path(name: str) -> pathlib.Path:
+    # the hash covers the source, the shared headers it may include and the
+    # flags, so an edit to any of them rebuilds
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"lib{name}-{digest[:12]}.so"
 
 
@@ -112,3 +118,24 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.pulse_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def call(name: str, symbol: str, argtypes: list, device, what: str,
+         *args) -> None:
+    """Call the C launch function ``symbol`` of library ``name`` with
+    ``args`` and, as its last argument, the current stream of ``device``;
+    raise if it returns a CUDA error.  The function is looked up and its
+    argument types set once, so a launch costs little host time."""
+    import torch
+    fn = _FNS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[(name, symbol)] = fn
+    if device.index is not None and device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(_LIBS[name], err, what)

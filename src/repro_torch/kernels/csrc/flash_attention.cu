@@ -15,16 +15,36 @@
 // any power-of-two tile, where the TPU kernel asserts T % block_k == 0).
 // A query row that sees no key at all writes zeros, as the reference does.
 //
-// What bounds it on an H100: at UViT-H (S = T = 258, D = 128) one (b, h)
-// pair does 4*S*T*D operations on 4*S*D elements, ~130 operations per bf16
-// byte, below the bf16 ridge (~295 op/B) but far above what this kernel's
-// fp32 FMA arithmetic reaches, so its own arithmetic bounds it.  What the
-// design does: one block per (b*h, 16-query tile); 4 warps x 4 query rows;
-// K/V tiles of 32 keys staged in shared memory as fp32; lane j scores key j
-// (all four rows reuse each K element it loads) and lanes split the output
-// dims for the P.V update; running max and sum are fp32.  Blocks skip the
-// K/V tiles their causal/window mask hides entirely.  The simple first
-// version: tensor cores (mma/wgmma) and TMA come in a later version.
+// What bounds it on an H100: at Hunyuan-DiT self-attention (S = T = 1024,
+// D = 128) one (b, h) pair does 4*S*T*D operations on 4*S*D bf16 elements,
+// ~500 operations per byte, above the bf16 ridge (~295 op/B): the tensor
+// cores bound it (at UViT-H's S = T = 258 and the cross-attention's T = 77
+// the bytes do).
+//
+// Two routes, a pure function of (dtype, D) (flash_route in ops.py):
+//
+// - bf16 at D in {64, 128}: tensor cores.  One block per (b*h, 64-query
+//   tile): one consumer warpgroup and one producer warp.  Q, K and V come
+//   in by TMA through 4-D tensor maps over (B, S|T, H, D), 128-byte
+//   swizzled, a 128-wide head as two 64-column boxes; K/V tiles of 64 keys
+//   run through a 2-slot mbarrier ring, so the next tile loads while this
+//   one is computed.  S = Q K^T is wgmma m64n64k16 from shared memory (K is
+//   K-major: D is contiguous).  The online softmax runs in fp32 registers
+//   on the accumulator, in base 2 with log2(e) folded into the scale.  P is
+//   rounded to bf16 in registers and fed as wgmma's register A operand (one
+//   k16 column slice of the S accumulator is exactly the A fragment), so P
+//   never touches shared memory; V (T x D, D contiguous) is N-major and
+//   read through the transpose bit; O accumulates in fp32.  Rounding P to
+//   bf16 is the one numeric change from the Pallas body, which multiplies
+//   P V in fp32.
+// - fp32 at any D, and bf16 at D in {8, 16, 32} (the small test configs):
+//   SIMT.  One block per (b*h, 16-query tile); 4 warps x 4 query rows; K/V
+//   tiles of 32 keys staged in shared memory as fp32; lane j scores key j
+//   and lanes split the output dims for the P.V update.  fp32 stays off the
+//   tensor cores: TF32 would keep ~3 digits.
+//
+// Both routes skip the K/V tiles their causal/window mask hides entirely,
+// mask inside the rest, and keep the running max and sum in fp32.
 //
 // Plain C interface, loaded with ctypes (see kernels/build.py); the launch
 // runs on the caller's stream, allocates nothing and returns
@@ -33,6 +53,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -181,6 +206,236 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------- bf16 tensor-core route
+constexpr int FBQ = 64;          // query rows per block: one m64 warpgroup
+constexpr int FBKV = 64;         // keys per K/V tile
+constexpr int FSTAGES = 2;       // K/V ring slots
+constexpr int FTHREADS = 160;    // consumer warpgroup + producer warp
+
+template <int DH>
+struct FlashSmem {
+  static constexpr int BOXES = DH / 64;           // 64-column boxes a row
+  static constexpr int Q_BYTES = FBQ * DH * 2;
+  static constexpr int KV_BYTES = FBKV * DH * 2;  // one K or V tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int TOTAL =
+      Q_BYTES + FSTAGES * STAGE_BYTES + (1 + 2 * FSTAGES) * 8 + 1024;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(FTHREADS, 2)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       __nv_bfloat16* __restrict__ o, int S, int Tk, int Hq,
+                       int Hkv, int causal, int has_window, int window,
+                       float scale_log2) {
+  using L = FlashSmem<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sq = smem;
+  uint8_t* skv = smem + L::Q_BYTES;   // slot i: K, then V
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(skv + FSTAGES * L::STAGE_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + FSTAGES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int b = bh / Hq, hq = bh % Hq;
+  const int hk = hq / (Hq / Hkv);
+  const int q0 = blockIdx.y * FBQ;
+
+  // keys any row of this block can see
+  int kv_hi = Tk;
+  if (causal) kv_hi = min(Tk, q0 + FBQ);
+  int kv_lo = 0;
+  if (has_window) kv_lo = max(0, q0 - window + 1);
+  kv_lo = (kv_lo / FBKV) * FBKV;
+  const int n_t = kv_hi > kv_lo ? (kv_hi - kv_lo + FBKV - 1) / FBKV : 0;
+
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int i = 0; i < FSTAGES; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 4);   // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // producer: Q once, then K/V tiles through the ring
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(q_full, L::Q_BYTES);
+      for (int c = 0; c < L::BOXES; ++c)
+        hopper::tma_load_4d(sq + c * FBQ * 128, &tm_q, q_full, c * 64, hq, q0,
+                            b);
+      for (int it = 0; it < n_t; ++it) {
+        const int st = it % FSTAGES;
+        hopper::mbar_wait(&empty[st], ((it / FSTAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[st], L::STAGE_BYTES);
+        const int kt = kv_lo + it * FBKV;
+        uint8_t* kb = skv + st * L::STAGE_BYTES;
+        for (int c = 0; c < L::BOXES; ++c) {
+          hopper::tma_load_4d(kb + c * FBKV * 128, &tm_k, &full[st], c * 64,
+                              hk, kt, b);
+          hopper::tma_load_4d(kb + L::KV_BYTES + c * FBKV * 128, &tm_v,
+                              &full[st], c * 64, hk, kt, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: thread owns rows r_lo and r_lo + 8 of the tile
+  const int r_lo = 16 * warp + lane / 4;
+  float oacc[L::BOXES][32];
+#pragma unroll
+  for (int h = 0; h < L::BOXES; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[h][i] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+
+  hopper::mbar_wait(q_full, 0);
+  for (int it = 0; it < n_t; ++it) {
+    const int st = it % FSTAGES;
+    hopper::mbar_wait(&full[st], (it / FSTAGES) & 1);
+    const uint8_t* kb = skv + st * L::STAGE_BYTES;
+    const uint8_t* vb = kb + L::KV_BYTES;
+
+    // S = Q K^T over D, 64 x 64 fp32
+    float sacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = 0.0f;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      hopper::wgmma_m64n64k16_ss<0>(
+          sacc, hopper::desc_sw128(sq + (kk / 4) * FBQ * 128 + (kk % 4) * 32),
+          hopper::desc_sw128(kb + (kk / 4) * FBKV * 128 + (kk % 4) * 32));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+
+    // mask and scale (base 2), then the online softmax per row
+    const int kt = kv_lo + it * FBKV;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = kt + 8 * j + 2 * (lane % 4) + (i & 1);
+        const int qpos = q0 + r_lo + 8 * (i >> 1);
+        const bool valid = key < Tk && (!causal || key <= qpos) &&
+                           (!has_window || key > qpos - window);
+        const float x = valid ? sacc[4 * j + i] * scale_log2 : -INFINITY;
+        sacc[4 * j + i] = x;
+        mx[i >> 1] = fmaxf(mx[i >> 1], x);
+      }
+    float alpha[2], m_use[2], ls[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // m_new = -inf: no key seen yet by this row (oacc and l still zero)
+      alpha[r] = m_new == -INFINITY ? 1.0f : exp2f(m[r] - m_new);
+      m_use[r] = m_new == -INFINITY ? 0.0f : m_new;
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const float p = exp2f(sacc[i] - m_use[r]);
+      sacc[i] = p;
+      ls[r] += p;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
+#pragma unroll
+    for (int h = 0; h < L::BOXES; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) oacc[h][i] *= alpha[(i >> 1) & 1];
+
+    // P (bf16, registers) as the A operand of O += P V
+    uint32_t pa[FBKV / 16][4];
+#pragma unroll
+    for (int c = 0; c < FBKV / 16; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[c][e] = hopper::pack_bf16(sacc[8 * c + 2 * e],
+                                     sacc[8 * c + 2 * e + 1]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < FBKV / 16; ++c)
+#pragma unroll
+      for (int h = 0; h < L::BOXES; ++h)
+        hopper::wgmma_m64n64k16_rs<1>(
+            oacc[h], pa[c],
+            hopper::desc_sw128(vb + h * FBKV * 128 + c * 2048));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);
+  }
+
+  // epilogue: a row that saw no key writes zeros
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = l[r] > 0.0f ? 1.0f / l[r] : 0.0f;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = q0 + r_lo + 8 * r;
+    if (qpos >= S) continue;
+    __nv_bfloat16* orow = o + (((size_t)b * S + qpos) * Hq + hq) * DH;
+#pragma unroll
+    for (int h = 0; h < L::BOXES; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = h * 64 + 8 * j + 2 * (lane % 4);
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
+            oacc[h][4 * j + 2 * r] * inv[r],
+            oacc[h][4 * j + 2 * r + 1] * inv[r]);
+      }
+  }
+}
+
+template <int DH>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 int S, int Tk, int Hq, int Hkv, int causal, int has_window,
+                 int window, float scale, cudaStream_t st) {
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16)
+    return (int)cudaErrorInvalidValue;   // TMA needs 16-byte-aligned bases
+  using L = FlashSmem<DH>;
+  CUtensorMap tq, tk, tv;
+  const uint64_t dq[4] = {DH, (uint64_t)Hq, (uint64_t)S, (uint64_t)B};
+  const uint64_t sq[3] = {DH * 2, (uint64_t)Hq * DH * 2,
+                          (uint64_t)S * Hq * DH * 2};
+  const uint32_t bq[4] = {64, 1, FBQ, 1};
+  const uint64_t dk[4] = {DH, (uint64_t)Hkv, (uint64_t)Tk, (uint64_t)B};
+  const uint64_t sk[3] = {DH * 2, (uint64_t)Hkv * DH * 2,
+                          (uint64_t)Tk * Hkv * DH * 2};
+  const uint32_t bk[4] = {64, 1, FBKV, 1};
+  int err;
+  if ((err = hopper::make_tma_bf16(&tq, q, 4, dq, sq, bq)) ||
+      (err = hopper::make_tma_bf16(&tk, k, 4, dk, sk, bk)) ||
+      (err = hopper::make_tma_bf16(&tv, v, 4, dk, sk, bk)))
+    return err;
+  // the shared-memory opt-in holds per device context: set on every launch
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::TOTAL);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B * Hq, (S + FBQ - 1) / FBQ);
+  flash_fwd_wgmma_kernel<DH><<<grid, FTHREADS, L::TOTAL, st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Tk, Hq, Hkv, causal,
+      has_window, window, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------- SIMT launch
 template <int DH, typename T>
 void launch(const void* q, const void* k, const void* v, void* o, int B,
             int S, int Tk, int Hq, int Hkv, int causal, int has_window,
@@ -196,15 +451,41 @@ template <typename T>
 int launch_dh(int D, const void* q, const void* k, const void* v, void* o,
               int B, int S, int Tk, int Hq, int Hkv, int causal,
               int has_window, int window, float scale, cudaStream_t st) {
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
   switch (D) {
     case 8: launch<8, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st); break;
     case 16: launch<16, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st); break;
     case 32: launch<32, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st); break;
-    case 64: launch<64, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st); break;
-    case 128: launch<128, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st); break;
+    case 64:
+      if constexpr (bf16)
+        return launch_wgmma<64>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
+      else
+        launch<64, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
+      break;
+    case 128:
+      if constexpr (bf16)
+        return launch_wgmma<128>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
+      else
+        launch<128, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+template <int DH>
+int wgmma_config(int* out) {
+  using L = FlashSmem<DH>;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::TOTAL);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, flash_fwd_wgmma_kernel<DH>, FTHREADS, L::TOTAL);
+  const int v[6] = {FBQ, FBKV, FSTAGES, FTHREADS, L::TOTAL, blocks};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return (int)e;
 }
 
 }  // namespace
@@ -216,7 +497,8 @@ const char* pulse_error_string(int err) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  D in {8, 16, 32, 64, 128};
-// Hq % Hkv == 0.
+// Hq % Hkv == 0.  bf16 at D = 64 or 128 takes the tensor-core route and
+// needs 16-byte-aligned pointers (else cudaErrorInvalidValue).
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* o, int B, int S, int Tk, int Hq,
                                int Hkv, int D, int causal, int has_window,
@@ -231,6 +513,15 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
   if (dtype == 1)
     return launch_dh<__nv_bfloat16>(D, q, k, v, o, B, S, Tk, Hq, Hkv, causal,
                                     has_window, window, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 tensor-core route's tiling at head dim D (64 or 128): {query
+// rows, keys per tile, ring slots, threads per block, dynamic shared memory
+// bytes, resident blocks per SM}.
+int flash_attention_bf16_config(int D, int* out) {
+  if (D == 64) return wgmma_config<64>(out);
+  if (D == 128) return wgmma_config<128>(out);
   return (int)cudaErrorInvalidValue;
 }
 

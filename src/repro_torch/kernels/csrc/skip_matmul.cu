@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/skip_matmul/kernel.py
 // (skip_concat_matmul_fwd, body _kernel), the decoder skip-in projection of
-// every UViT decoder block (models/diffusion.py::_skip_project).
+// every UViT and Hunyuan-DiT decoder block (models/diffusion.py::_skip_project).
 //
 // h, s: (M, D) row-major; W: (2D, N) row-major; y: (M, N) in the input type.
 // fp32 accumulation for both input types.
@@ -13,14 +13,18 @@
 // ridge of ~295 op/B: the tensor cores bound it, not HBM.
 // What the design does about that: both operand pairs stream through one
 // fp32 accumulator tile, so the (M, 2D) concat the reference builds in HBM
-// (written once, read once) never exists; the bf16 path feeds the tensor
-// cores through warp-level mma (wmma 16x16x16, fp32 accumulate) from
-// shared-memory tiles.  It is the simple first version: one shared-memory
-// stage, no cp.async/TMA pipelining and no wgmma -- those come later.
+// never exists.  The bf16 path is a Hopper GEMM: TMA loads 128-byte-swizzled
+// tiles into a 4-slot mbarrier ring, one producer thread keeps them in
+// flight, and two consumer warpgroups issue wgmma m64n64k16 with the sums in
+// registers.  h and s are K-major A operands; W (N contiguous) is an N-major
+// B operand read through wgmma's transpose bit.  128 x 64 output tiles give
+// 200 blocks at M = 516, N = 2560, two resident per SM.
 //
 // Unlike the TPU kernel, which asserts M % 128 == N % 128 == D % 128 == 0,
-// every edge is masked: tiles are zero-filled past M, N and D, and stores
-// are bounds-checked (M = 258 * b is ragged at UViT-H).
+// every edge is handled: TMA zero-fills rows past M and the K edge of each
+// half, and stores are bounds-checked (M = 258 * b is ragged at UViT-H).
+// The bf16 path needs D % 8 == N % 8 == 0 and 16-byte-aligned bases (TMA's
+// stride rule); the wrapper raises on anything else.
 //
 // Plain C interface, loaded with ctypes (see kernels/build.py); the launch
 // runs on the caller's stream, allocates nothing and returns
@@ -28,122 +32,148 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int BM = 64;   // output tile rows
-constexpr int BN = 64;   // output tile cols
-
 // ---------------------------------------------------------------- bf16 path
-constexpr int BK16 = 32;     // K step of the bf16 tiles
-constexpr int APAD = 8;      // row padding (elements) of the A tile
-constexpr int BPAD = 8;      // row padding (elements) of the B tile
-constexpr int CPAD = 4;      // row padding (floats) of the epilogue tile
+// A 128 x 64 output tile per block: two consumer warpgroups of 64 rows each
+// and one producer warp.  The K loop walks (h, W[:D]) and then (s, W[D:])
+// in 64-deep steps, one tensor map per half of each operand, so the ragged
+// K edge of each half is zero-filled by TMA and no tile straddles the h/s
+// boundary.  A ring of SSTAGES slots, each an A tile (128 x 64, K-major)
+// and a B tile (64 x 64 of W, N-major), with full/empty mbarriers.
+constexpr int SBM = 128;                         // tile rows (2 x m64)
+constexpr int SBN = 64;                          // tile cols (n64)
+constexpr int SBK = 64;                          // K step: 128 bytes of bf16
+constexpr int SSTAGES = 4;                       // ring slots
+constexpr int SA_BYTES = SBM * SBK * 2;          // 16 KB
+constexpr int SB_BYTES = SBK * SBN * 2;          // 8 KB
+constexpr int SSTAGE_BYTES = SA_BYTES + SB_BYTES;
+constexpr int SCONSUMER_WARPS = 8;
+constexpr int STHREADS = SCONSUMER_WARPS * 32 + 32;
+constexpr int SKIP_SMEM = SSTAGES * SSTAGE_BYTES + 2 * SSTAGES * 8 + 1024;
 
-// 8 consecutive bf16 of row r, cols [c, c+8) of a (rows, cols) row-major
-// matrix with leading dimension ld, zero past the edges.  ``vec`` says the
-// whole matrix allows 16-byte loads (aligned base, ld % 8 == 0).
-__device__ __forceinline__ void load8_bf16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src, int r,
-                                           int c, int rows, int cols, int ld,
-                                           bool vec) {
-  if (vec && r < rows && c + 8 <= cols) {
-    *reinterpret_cast<uint4*>(dst) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c);
+__global__ void __launch_bounds__(STHREADS, 2)
+skip_mm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
+                     const __grid_constant__ CUtensorMap tm_s,
+                     const __grid_constant__ CUtensorMap tm_w0,
+                     const __grid_constant__ CUtensorMap tm_w1,
+                     __nv_bfloat16* __restrict__ y, int M, int D, int N) {
+  extern __shared__ uint8_t smem_raw[];
+  // TMA's 128-byte swizzle and the wgmma descriptors need 1024-byte tiles
+  uint8_t* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SSTAGES * SSTAGE_BYTES);
+  uint64_t* empty = full + SSTAGES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int m0 = blockIdx.y * SBM, n0 = blockIdx.x * SBN;
+  const int kt_half = (D + SBK - 1) / SBK, n_k = 2 * kt_half;
+
+  if (tid == 0) {
+    for (int i = 0; i < SSTAGES; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], SCONSUMER_WARPS);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == SCONSUMER_WARPS) {
+    // producer: one thread keeps up to SSTAGES tiles in flight
+    if (lane == 0) {
+      for (int it = 0; it < n_k; ++it) {
+        const int st = it % SSTAGES;
+        hopper::mbar_wait(&empty[st], ((it / SSTAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[st], SSTAGE_BYTES);
+        const int half = it >= kt_half;
+        const int k0 = (it - half * kt_half) * SBK;
+        uint8_t* a = smem + st * SSTAGE_BYTES;
+        hopper::tma_load_2d(a, half ? &tm_s : &tm_h, &full[st], k0, m0);
+        hopper::tma_load_2d(a + SA_BYTES, half ? &tm_w1 : &tm_w0, &full[st],
+                            n0, k0);
+      }
+    }
     return;
   }
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    dst[i] = (r < rows && c + i < cols) ? src[(size_t)r * ld + c + i] : zero;
-}
 
-// 128 threads = 4 warps; warp w owns the 32x32 quadrant (w / 2, w % 2) of
-// the 64x64 output tile as 2x2 wmma accumulator fragments.
-__global__ void __launch_bounds__(128)
-skip_mm_bf16_kernel(const __nv_bfloat16* __restrict__ h,
-                    const __nv_bfloat16* __restrict__ s,
-                    const __nv_bfloat16* __restrict__ w,
-                    __nv_bfloat16* __restrict__ y, int M, int D, int N,
-                    int vec) {
-  __shared__ __align__(128) __nv_bfloat16 As[BM][BK16 + APAD];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK16][BN + BPAD];
-  __shared__ __align__(128) float Cs[BM][BN + CPAD];
+  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile
+  const int wg = warp / 4;
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  for (int it = 0; it < n_k; ++it) {
+    const int st = it % SSTAGES;
+    hopper::mbar_wait(&full[st], (it / SSTAGES) & 1);
+    const uint8_t* a = smem + st * SSTAGE_BYTES + wg * 64 * 128;
+    const uint8_t* b = smem + st * SSTAGE_BYTES + SA_BYTES;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < SBK / 16; ++kk)
+      hopper::wgmma_m64n64k16_ss<1>(acc, hopper::desc_sw128(a + kk * 32),
+                                    hopper::desc_sw128(b + kk * 2048));
+    hopper::wgmma_commit();
+    // keep this step's products in flight; the previous step's are done,
+    // so its slot goes back to the producer
+    hopper::wgmma_wait<1>();
+    if (it > 0 && lane == 0) hopper::mbar_arrive(&empty[(it - 1) % SSTAGES]);
+  }
+  hopper::wgmma_wait<0>();
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int wm = (warp / 2) * 32;
-  const int wn = (warp % 2) * 32;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  // epilogue: bounds-checked bf16x2 stores (N % 8 == 0, so col + 1 < N)
+  const int row0 = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int j = 0; j < SBN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane % 4);
+    if (col >= N) continue;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  // half 0 streams (h, W[:D]), half 1 streams (s, W[D:]) into the same
-  // accumulator; each half runs its own masked K loop, so no tile straddles
-  // the h/s boundary when D is not a multiple of the K step.
-  for (int half = 0; half < 2; ++half) {
-    const __nv_bfloat16* a = half ? s : h;
-    const __nv_bfloat16* b = w + (size_t)half * D * N;
-    for (int k0 = 0; k0 < D; k0 += BK16) {
-      for (int c = tid; c < BM * BK16 / 8; c += 128) {
-        const int r = c / (BK16 / 8), cc = (c % (BK16 / 8)) * 8;
-        load8_bf16(&As[r][cc], a, m0 + r, k0 + cc, M, D, D, vec);
-      }
-      for (int c = tid; c < BK16 * BN / 8; c += 128) {
-        const int r = c / (BN / 8), cc = (c % (BN / 8)) * 8;
-        // rows past D are zero: (k0 + r) is masked against D, not 2D
-        load8_bf16(&Bs[r][cc], b, k0 + r, n0 + cc, D, N, N, vec);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK16; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], &As[wm + 16 * i][kk], BK16 + APAD);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], &Bs[kk][wn + 16 * j], BN + BPAD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < M)
+        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)row * N + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
     }
   }
+}
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm + 16 * i][wn + 16 * j], acc[i][j],
-                              BN + CPAD, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < BM * BN; e += 128) {
-    const int r = e / BN, c = e % BN;
-    const int gm = m0 + r, gn = n0 + c;
-    if (gm < M && gn < N) y[(size_t)gm * N + gn] = __float2bfloat16(Cs[r][c]);
-  }
+int launch_bf16(const void* h, const void* s, const void* w, void* y, int M,
+                int D, int N, cudaStream_t st) {
+  // the TMA stride rule: 16-byte aligned bases and row strides
+  const bool aligned = D % 8 == 0 && N % 8 == 0 &&
+                       ((uintptr_t)h | (uintptr_t)s | (uintptr_t)w |
+                        (uintptr_t)y) % 16 == 0;
+  if (!aligned) return (int)cudaErrorInvalidValue;
+  CUtensorMap th, ts, tw0, tw1;
+  const uint64_t da[2] = {(uint64_t)D, (uint64_t)M}, sa[1] = {(uint64_t)D * 2};
+  const uint32_t ba[2] = {SBK, SBM};
+  const uint64_t db[2] = {(uint64_t)N, (uint64_t)D}, sb[1] = {(uint64_t)N * 2};
+  const uint32_t bb[2] = {SBN, SBK};
+  const __nv_bfloat16* w1 = static_cast<const __nv_bfloat16*>(w) + (size_t)D * N;
+  int err;
+  if ((err = hopper::make_tma_bf16(&th, h, 2, da, sa, ba)) ||
+      (err = hopper::make_tma_bf16(&ts, s, 2, da, sa, ba)) ||
+      (err = hopper::make_tma_bf16(&tw0, w, 2, db, sb, bb)) ||
+      (err = hopper::make_tma_bf16(&tw1, w1, 2, db, sb, bb)))
+    return err;
+  // the shared-memory opt-in holds per device context: set on every launch
+  cudaError_t e = cudaFuncSetAttribute(
+      skip_mm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SKIP_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((N + SBN - 1) / SBN, (M + SBM - 1) / SBM);
+  skip_mm_wgmma_kernel<<<grid, STHREADS, SKIP_SMEM, st>>>(
+      th, ts, tw0, tw1, static_cast<__nv_bfloat16*>(y), M, D, N);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- fp32 path
 // fp32 has no tensor-core path that keeps full fp32 precision (TF32 keeps
 // ~3 digits), so this is a register-tiled FMA GEMM: 256 threads as 16x16,
 // each computing a 4x4 block of the 64x64 output tile.
+constexpr int BM = 64;   // output tile rows
+constexpr int BN = 64;   // output tile cols
 constexpr int BK32 = 16;
 
 __global__ void __launch_bounds__(256)
@@ -208,28 +238,35 @@ const char* pulse_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  vec: 16-byte loads allowed (bf16 only;
-// the caller checks pointer alignment and D % 8 == N % 8 == 0).
+// dtype: 0 = float32, 1 = bfloat16 (D % 8 == N % 8 == 0 and 16-byte-aligned
+// pointers, else cudaErrorInvalidValue).
 int skip_concat_matmul_launch(const void* h, const void* s, const void* w,
                               void* y, int M, int D, int N, int dtype,
-                              int vec, void* stream) {
+                              void* stream) {
   if (M <= 0 || D <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    skip_mm_f32_kernel<<<grid, 256, 0, st>>>(
-        static_cast<const float*>(h), static_cast<const float*>(s),
-        static_cast<const float*>(w), static_cast<float*>(y), M, D, N);
-  } else if (dtype == 1) {
-    skip_mm_bf16_kernel<<<grid, 128, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(h),
-        static_cast<const __nv_bfloat16*>(s),
-        static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(y),
-        M, D, N, vec);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 1) return launch_bf16(h, s, w, y, M, D, N, st);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  skip_mm_f32_kernel<<<grid, 256, 0, st>>>(
+      static_cast<const float*>(h), static_cast<const float*>(s),
+      static_cast<const float*>(w), static_cast<float*>(y), M, D, N);
   return (int)cudaGetLastError();
+}
+
+// The bf16 kernel's tiling: {tile rows, tile cols, K step, ring slots,
+// threads per block, dynamic shared memory bytes, resident blocks per SM}.
+int skip_concat_matmul_bf16_config(int* out) {
+  cudaError_t e = cudaFuncSetAttribute(
+      skip_mm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SKIP_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, skip_mm_wgmma_kernel, STHREADS, SKIP_SMEM);
+  const int v[7] = {SBM, SBN, SBK, SSTAGES, STHREADS, SKIP_SMEM, blocks};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return (int)e;
 }
 
 }  // extern "C"

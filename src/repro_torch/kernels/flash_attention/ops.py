@@ -8,8 +8,9 @@ The port of ``repro.kernels.flash_attention`` (TPU kernel
   repeated, fp32 softmax, fully masked rows give zeros, result in
   ``q.dtype``);
 - :func:`flash_attention_cuda`: the wrapper of the hand-written CUDA forward
-  kernel ``csrc/flash_attention.cu``; checks its inputs, launches on the
-  current stream, raises on a CUDA error and counts the launch;
+  kernels ``csrc/flash_attention.cu``; checks its inputs, launches on the
+  current stream the route :func:`flash_route` names for its dtype and head
+  dim, raises on a CUDA error and counts the launch;
 - :func:`flash_attention`: the differentiable op ``apply_attention`` calls
   with ``use_flash``.  Its forward takes the plain version for CPU tensors
   and the kernel for CUDA tensors (never falling back); its backward
@@ -26,11 +27,16 @@ import math
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, tma_aligned
 
 NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (8, 16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)     # bf16 head dims on the tensor-core route
+# q, k, v, out, B, S, T, Hq, Hkv, D, causal, has_window, window, scale,
+# dtype, stream
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _mask(S: int, T: int, causal: bool, window: int | None,
@@ -67,10 +73,24 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def flash_route(dtype: torch.dtype, D: int) -> str:
+    """Which CUDA kernel runs for inputs of ``dtype`` and head dim ``D``: a
+    pure function of the two, never a fallback on failure.  ``"wgmma"``,
+    the tensor-core route (TMA loads, wgmma, P kept in registers), for
+    bf16 at D in (64, 128); ``"simt"``, the FMA kernel, for fp32 at any
+    head dim and bf16 at D in (8, 16, 32), the small test configs."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"{NAME}: dtype {dtype}; the kernel takes float32 "
+                        "or bfloat16")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{NAME}: head dim {D} not built; the kernel takes "
+                         f"{HEAD_DIMS}")
+    return "wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS \
+        else "simt"
+
+
 def _check_cuda_args(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{NAME}: {name} is on {t.device}, not cuda")
         if t.dtype not in _DTYPES:
             raise TypeError(f"{NAME}: {name} has dtype {t.dtype}; the "
                             "kernel takes float32 or bfloat16")
@@ -81,8 +101,6 @@ def _check_cuda_args(q, k, v) -> None:
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"{NAME}: dtypes differ ({q.dtype}, {k.dtype}, "
                         f"{v.dtype})")
-    if not (q.device == k.device == v.device):
-        raise ValueError(f"{NAME}: tensors on different devices")
     B, S, Hq, D = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"{NAME}: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
@@ -90,9 +108,17 @@ def _check_cuda_args(q, k, v) -> None:
     if Hq % k.shape[2] != 0:
         raise ValueError(f"{NAME}: Hq={Hq} is not a multiple of "
                          f"Hkv={k.shape[2]}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{NAME}: head dim {D} not built; the kernel takes "
-                         f"{HEAD_DIMS}")
+    if flash_route(q.dtype, D) == "wgmma" and any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(
+            f"{NAME}: the bf16 route at head dim {D} loads through TMA, "
+            "which needs 16-byte-aligned bases (bases mod 16: "
+            f"{[t.data_ptr() % 16 for t in (q, k, v)]})")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{NAME}: {name} is on {t.device}, not cuda")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"{NAME}: tensors on different devices")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -104,20 +130,26 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention_fwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, S, T, Hq, Hkv, D, int(causal), int(window is not None),
-                 int(window or 0), 1.0 / math.sqrt(D), _DTYPES[q.dtype],
-                 stream)
-    build.check(lib, err, NAME)
+    build.call("flash_attention", "flash_attention_fwd_launch", _ARGTYPES,
+               q.device, NAME, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               out.data_ptr(), B, S, T, Hq, Hkv, D, int(causal),
+               int(window is not None), int(window or 0), 1.0 / math.sqrt(D),
+               _DTYPES[q.dtype])
     LAUNCHES[NAME] += 1
     return out
+
+
+def bf16_config(D: int) -> dict:
+    """The tensor-core route's tiling at head dim ``D`` (64 or 128) and its
+    resident blocks per SM on the current card (builds the kernel)."""
+    lib = build.load("flash_attention")
+    out = (ctypes.c_int * 6)()
+    fn = lib.flash_attention_bf16_config
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    build.check(lib, fn(D, ctypes.addressof(out)), NAME)
+    return dict(zip(("query_rows", "keys_per_tile", "stages", "threads",
+                     "smem_bytes", "blocks_per_sm"), out))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -143,5 +175,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
     """(B,S,Hq,D), (B,T,Hkv,D) x2 -> (B,S,Hq,D), differentiable."""
-    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), causal, window)
+    return _FlashAttention.apply(tma_aligned(q), tma_aligned(k), tma_aligned(v),
+                                 causal, window)

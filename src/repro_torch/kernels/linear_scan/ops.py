@@ -29,6 +29,8 @@ from repro_torch.kernels import LAUNCHES, build
 
 NAME = "gated_linear_scan"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# a, x, h, R, T, C, dtype, stream
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def gated_linear_scan_plain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -73,15 +75,9 @@ def gated_linear_scan_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _check_cuda_args(a, x)
     R, T, C = x.shape
     h = torch.empty_like(x)
-    lib = build.load("linear_scan")
-    fn = lib.gated_linear_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(a.data_ptr(), x.data_ptr(), h.data_ptr(), R, T, C,
-                 _DTYPES[x.dtype], stream)
-    build.check(lib, err, NAME)
+    build.call("linear_scan", "gated_linear_scan_launch", _ARGTYPES,
+               x.device, NAME, a.data_ptr(), x.data_ptr(), h.data_ptr(), R,
+               T, C, _DTYPES[x.dtype])
     LAUNCHES[NAME] += 1
     return h
 

@@ -20,10 +20,12 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, tma_aligned
 
 NAME = "skip_concat_matmul"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# h, s, w, y, M, D, N, dtype, stream
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def skip_concat_matmul_plain(h: torch.Tensor, s: torch.Tensor,
@@ -35,8 +37,6 @@ def skip_concat_matmul_plain(h: torch.Tensor, s: torch.Tensor,
 
 def _check_cuda_args(h, s, w) -> tuple[int, int, int]:
     for name, t in (("h", h), ("s", s), ("w", w)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{NAME}: {name} is on {t.device}, not cuda")
         if t.dtype not in _DTYPES:
             raise TypeError(f"{NAME}: {name} has dtype {t.dtype}; the "
                             "kernel takes float32 or bfloat16")
@@ -47,34 +47,50 @@ def _check_cuda_args(h, s, w) -> tuple[int, int, int]:
     if not (h.dtype == s.dtype == w.dtype):
         raise TypeError(f"{NAME}: dtypes differ ({h.dtype}, {s.dtype}, "
                         f"{w.dtype})")
-    if not (h.device == s.device == w.device):
-        raise ValueError(f"{NAME}: tensors on different devices")
     M, D = h.shape
     if tuple(s.shape) != (M, D) or w.shape[0] != 2 * D:
         raise ValueError(f"{NAME}: shapes h{tuple(h.shape)} s{tuple(s.shape)} "
                          f"w{tuple(w.shape)}; want (M, D), (M, D), (2D, N)")
-    return M, D, w.shape[1]
+    N = w.shape[1]
+    if h.dtype == torch.bfloat16 and (
+            D % 8 or N % 8 or any(t.data_ptr() % 16 for t in (h, s, w))):
+        raise ValueError(
+            f"{NAME}: the bf16 kernel loads through TMA, which needs D % 8 == "
+            f"N % 8 == 0 and 16-byte-aligned bases (D={D}, N={N}, bases mod "
+            f"16: {[t.data_ptr() % 16 for t in (h, s, w)]})")
+    for name, t in (("h", h), ("s", s), ("w", w)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{NAME}: {name} is on {t.device}, not cuda")
+    if not (h.device == s.device == w.device):
+        raise ValueError(f"{NAME}: tensors on different devices")
+    return M, D, N
 
 
 def skip_concat_matmul_cuda(h: torch.Tensor, s: torch.Tensor,
                             w: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel: h, s (M, D), w (2D, N) contiguous, same dtype
-    (float32 or bfloat16) on one card -> (M, N)."""
+    (float32 or bfloat16) on one card -> (M, N).  bf16 also needs D % 8 ==
+    N % 8 == 0 and 16-byte-aligned bases (TMA's stride rule)."""
     M, D, N = _check_cuda_args(h, s, w)
     y = torch.empty((M, N), dtype=h.dtype, device=h.device)
-    lib = build.load("skip_matmul")
-    fn = lib.skip_concat_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    vec = int(all(t.data_ptr() % 16 == 0 for t in (h, s, w, y))
-              and D % 8 == 0 and N % 8 == 0)
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = fn(h.data_ptr(), s.data_ptr(), w.data_ptr(), y.data_ptr(),
-                 M, D, N, _DTYPES[h.dtype], vec, stream)
-    build.check(lib, err, NAME)
+    build.call("skip_matmul", "skip_concat_matmul_launch", _ARGTYPES,
+               h.device, NAME, h.data_ptr(), s.data_ptr(), w.data_ptr(),
+               y.data_ptr(), M, D, N, _DTYPES[h.dtype])
     LAUNCHES[NAME] += 1
     return y
+
+
+def bf16_config() -> dict:
+    """The bf16 kernel's tiling and its resident blocks per SM on the
+    current card (builds the kernel)."""
+    lib = build.load("skip_matmul")
+    out = (ctypes.c_int * 7)()
+    fn = lib.skip_concat_matmul_bf16_config
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    build.check(lib, fn(ctypes.addressof(out)), NAME)
+    return dict(zip(("tile_m", "tile_n", "k_step", "stages", "threads",
+                     "smem_bytes", "blocks_per_sm"), out))
 
 
 def _forward_2d(h, s, w):
@@ -105,7 +121,7 @@ def skip_concat_matmul(h: torch.Tensor, s: torch.Tensor,
                        w: torch.Tensor) -> torch.Tensor:
     """h, s: (..., D); w: (2D, N) -> (..., N), differentiable."""
     D = h.shape[-1]
-    h2 = h.reshape(-1, D).contiguous()
-    s2 = s.reshape(-1, D).contiguous()
-    out = _SkipConcatMatmul.apply(h2, s2, w.contiguous())
+    h2 = tma_aligned(h.reshape(-1, D))
+    s2 = tma_aligned(s.reshape(-1, D))
+    out = _SkipConcatMatmul.apply(h2, s2, tma_aligned(w))
     return out.reshape(*h.shape[:-1], w.shape[1])

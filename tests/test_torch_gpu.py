@@ -16,7 +16,8 @@ import torch
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention,
-                                                 flash_attention_cuda)
+                                                 flash_attention_cuda,
+                                                 flash_route)
 from repro_torch.kernels.linear_scan import (gated_linear_scan,
                                              gated_linear_scan_cuda,
                                              gated_linear_scan_plain)
@@ -36,6 +37,12 @@ FLASH_CASES = [
     (2, 16, 4, 4, 4, 8, False, None),         # hunyuan-pp cross
     (2, 1024, 77, 16, 16, 128, False, None),  # Hunyuan-DiT cross, b=2
     (1, 1024, 1024, 16, 16, 128, False, None),  # Hunyuan-DiT self
+    # bf16 here takes the tensor-core route (D = 64, 128):
+    (1, 258, 77, 2, 2, 128, False, None),     # ragged S=258 over T=77
+    (2, 77, 200, 4, 4, 64, False, None),      # ragged, T > S
+    (1, 300, 300, 8, 2, 64, True, 96),        # causal + window + GQA 4
+    (1, 130, 130, 2, 2, 64, True, 0),         # every row fully masked
+    (1, 100, 300, 4, 2, 128, False, 40),      # window, non-causal, GQA 2
 ]
 
 
@@ -53,7 +60,8 @@ def _tol(dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("M,D,N", [(516, 256, 256), (37, 24, 40),
-                                   (130, 72, 200), (516, 2560, 2560)])
+                                   (130, 72, 200), (516, 2560, 2560),
+                                   (37, 2560, 2560)])
 def test_skip_concat_matmul_kernel_matches_plain(M, D, N, dtype):
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -84,6 +92,9 @@ def test_flash_attention_kernel_matches_plain(B, S, T, Hq, Hkv, D, causal,
     q = torch.randn(B, S, Hq, D, device="cuda", generator=gen).to(dt)
     k, v = (torch.randn(B, T, Hkv, D, device="cuda", generator=gen).to(dt)
             for _ in range(2))
+    # the route is a pure function of (dtype, head dim)
+    assert flash_route(dt, D) == ("wgmma" if dtype == "bfloat16"
+                                  and D in (64, 128) else "simt")
     before = LAUNCHES["flash_attention"]
     got = flash_attention_cuda(q, k, v, causal, window)
     torch.cuda.synchronize()
@@ -127,6 +138,66 @@ def test_gated_linear_scan_kernel_matches_plain(R, T, C, dtype):
                                    atol=tol)
 
 
+def _misaligned(shape, dtype):
+    """A contiguous view of ``shape`` whose base is 2 bytes past a 16-byte
+    boundary."""
+    n = 1
+    for d in shape:
+        n *= d
+    buf = torch.randn(n + 1, device="cuda").to(dtype)
+    t = buf[1:].view(shape)
+    assert t.data_ptr() % 16 != 0
+    return t
+
+
+@pytest.mark.gpu
+def test_misaligned_views_are_copied_by_the_ops_and_refused_by_wrappers():
+    """TMA needs 16-byte-aligned bases: the ops copy a view that starts
+    elsewhere, the wrappers name the rule."""
+    bf = torch.bfloat16
+    h, s = _misaligned((130, 72), bf), _misaligned((130, 72), bf)
+    w = (torch.randn(144, 200, device="cuda") / 12).to(bf)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        skip_concat_matmul_cuda(h, s, w)
+    torch.testing.assert_close(skip_concat_matmul(h, s, w).float(),
+                               skip_concat_matmul_plain(h, s, w).float(),
+                               rtol=2e-2, atol=2e-2)
+    q = _misaligned((1, 70, 2, 128), bf)
+    k = torch.randn(1, 50, 2, 128, device="cuda").to(bf)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        flash_attention_cuda(q, k, k, False, None)
+    torch.testing.assert_close(
+        flash_attention(q, k, k, False, None).float(),
+        attention_plain(q, k, k, False, None).float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_bf16_kernels_launch_on_each_card_after_a_device_switch():
+    """The tensor-core kernels' shared-memory opt-in holds per device
+    context, so each launch sets it: the bf16 routes run on every card in
+    turn, the current device switched between them, and again on the
+    first card after the others (on a one-card machine, that card)."""
+    bf = torch.bfloat16
+    n = torch.cuda.device_count()
+    for i in list(range(n)) + [0]:
+        with torch.cuda.device(i):
+            gen = torch.Generator(device="cuda").manual_seed(i)
+            h, s = (torch.randn(130, 72, device="cuda", generator=gen).to(bf)
+                    for _ in range(2))
+            w = (torch.randn(144, 200, device="cuda", generator=gen)
+                 / 12).to(bf)
+            torch.testing.assert_close(
+                skip_concat_matmul_cuda(h, s, w).float(),
+                skip_concat_matmul_plain(h, s, w).float(), rtol=2e-2,
+                atol=2e-2)
+            q, k = (torch.randn(1, 70, 2, 128, device="cuda",
+                                generator=gen).to(bf) for _ in range(2))
+            torch.testing.assert_close(
+                flash_attention_cuda(q, k, k, False, None).float(),
+                attention_plain(q, k, k, False, None).float(), rtol=2e-2,
+                atol=2e-2)
+
+
 @pytest.mark.gpu
 def test_wrappers_reject_what_the_kernels_do_not_take():
     x = torch.randn(8, 16, device="cuda", dtype=torch.float16)
@@ -140,6 +211,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.randn(1, 4, 2, 48, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_cuda(q, q, q)
+    z = torch.randn(8, 12, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="D % 8 == N % 8 == 0"):
+        skip_concat_matmul_cuda(z, z, torch.randn(
+            24, 8, device="cuda", dtype=torch.bfloat16))
     a = torch.rand(2, 5, 3, device="cuda")
     with pytest.raises(TypeError, match="dtypes differ"):
         gated_linear_scan_cuda(a, a.to(torch.bfloat16))

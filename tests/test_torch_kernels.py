@@ -8,6 +8,8 @@ the plain versions on the card by ``test_torch_gpu.py``.
 (The JAX package's Pallas kernels are not the oracle: the installed
 ``jax.experimental.pallas`` has no ``load``, so they fail on this host.)
 """
+import math
+
 import jax
 import numpy as np
 import pytest
@@ -21,7 +23,9 @@ from repro.kernels.skip_matmul.ref import skip_concat_matmul_reference
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention,
-                                                 flash_attention_cuda)
+                                                 flash_attention_cuda,
+                                                 flash_route)
+from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
 from repro_torch.kernels.linear_scan import (gated_linear_scan,
                                              gated_linear_scan_cuda,
                                              gated_linear_scan_plain)
@@ -160,6 +164,131 @@ def test_attention_plain_fully_masked_rows_are_zero_and_finite():
     assert torch.all(out == 0)
     out.sum().backward()
     assert torch.isfinite(q.grad).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_flash_route_is_a_function_of_dtype_and_head_dim(dtype, D):
+    """bf16 at head dim 64 or 128 takes the tensor-core route; fp32 at any
+    head dim and bf16 at the small test head dims take the SIMT kernel."""
+    want = ("wgmma" if dtype == torch.bfloat16 and D in (64, 128)
+            else "simt")
+    assert flash_route(dtype, D) == want
+
+
+def test_flash_route_refuses_what_is_not_built():
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash_route(torch.bfloat16, 48)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_route(torch.float16, 64)
+
+
+def _misaligned_cpu(shape, dtype):
+    n = int(np.prod(shape))
+    t = torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+    assert t.data_ptr() % 16 != 0
+    return t
+
+
+def test_wrappers_name_the_tma_layout_rule():
+    """The bf16 kernels load through TMA: D % 8 == N % 8 == 0 and 16-byte-
+    aligned bases for the skip matmul, aligned bases for flash attention's
+    tensor-core route; the wrappers raise on anything else before they look
+    at the device, and count nothing."""
+    before = launch_counts()
+    bf = torch.bfloat16
+    x = torch.zeros(4, 12, dtype=bf)
+    with pytest.raises(ValueError, match="D % 8 == N % 8 == 0"):
+        skip_concat_matmul_cuda(x, x, torch.zeros(24, 8, dtype=bf))
+    h = _misaligned_cpu((4, 16), bf)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        skip_concat_matmul_cuda(h, h, torch.zeros(32, 8, dtype=bf))
+    q = _misaligned_cpu((1, 5, 2, 128), bf)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash_attention_cuda(*(torch.zeros(1, 5, 2, 48),) * 3)
+    # fp32 and the SIMT route take any base
+    q32 = _misaligned_cpu((1, 5, 2, 16), bf)
+    with pytest.raises(ValueError, match="not cuda"):
+        flash_attention_cuda(q32, q32, q32)
+    assert launch_counts() == before
+
+
+def test_ops_copy_misaligned_views():
+    """The ops hand the kernels 16-byte-aligned copies of views that start
+    elsewhere; on the CPU the result is the plain version's."""
+    h = _misaligned_cpu((6, 16), torch.float32)
+    h.copy_(torch.randn(6, 16))
+    w = torch.randn(32, 8)
+    torch.testing.assert_close(skip_concat_matmul(h, h, w),
+                               skip_concat_matmul_plain(h, h, w))
+    q = _misaligned_cpu((1, 5, 2, 16), torch.float32)
+    q.copy_(torch.randn(1, 5, 2, 16))
+    torch.testing.assert_close(flash_attention(q, q, q, False, None),
+                               attention_plain(q, q, q, False, None))
+
+
+def _tensor_core_flash_emulation(q, k, v, causal, window, bq=64, bkv=64):
+    """The tensor-core route's arithmetic on the CPU: bf16 q, k, v; fp32
+    scores per (64-query, 64-key) tile, the K/V tiles visited in order from
+    the first one the mask does not hide; an online softmax in base 2 with
+    log2(e) folded into the scale; P rounded to bf16 before P.V, which
+    accumulates in fp32; 1/l at the end; output rounded to bf16."""
+    B, S, H, D = q.shape
+    T = k.shape[1]
+    qf, kf, vf = (x.to(torch.bfloat16).float() for x in (q, k, v))
+    scale_log2 = math.log2(math.e) / math.sqrt(D)
+    out = torch.zeros(B, S, H, D)
+    for q0 in range(0, S, bq):
+        rows = torch.arange(q0, min(q0 + bq, S))
+        kv_hi = min(T, q0 + bq) if causal else T
+        kv_lo = max(0, q0 - window + 1) if window is not None else 0
+        kv_lo = kv_lo // bkv * bkv
+        m = torch.full((B, H, len(rows)), -math.inf)
+        l = torch.zeros(B, H, len(rows))
+        acc = torch.zeros(B, H, len(rows), D)
+        for kt in range(kv_lo, kv_hi, bkv):
+            keys = torch.arange(kt, min(kt + bkv, T))
+            s = torch.einsum("bshd,bthd->bhst", qf[:, rows], kf[:, keys])
+            vis = torch.ones(len(rows), len(keys), dtype=torch.bool)
+            if causal:
+                vis &= keys[None, :] <= rows[:, None]
+            if window is not None:
+                vis &= keys[None, :] > rows[:, None] - window
+            s = torch.where(vis, s * scale_log2, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            seen = m_new > -math.inf
+            alpha = torch.where(seen, torch.exp2(m - m_new), 1.0)
+            p = torch.exp2(s - torch.where(seen, m_new, 0.0)[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhst,bthd->bhsd", p.to(torch.bfloat16).float(), vf[:, keys])
+            m = m_new
+        o = torch.where(l[..., None] > 0, acc / l[..., None], 0.0)
+        out[:, rows] = o.permute(0, 2, 1, 3)
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("S,T,causal,window", [(1024, 1024, False, None),
+                                               (258, 77, False, None),
+                                               (300, 300, True, 96)])
+def test_tensor_core_flash_numerics_meet_the_chip_tolerance(S, T, causal,
+                                                            window):
+    """Rounding P to bf16 before P.V (the Pallas body multiplies P.V in
+    fp32) keeps the route within chip_smoke's bf16 tolerance, rtol = atol
+    = 2e-2, of the JAX oracle ref.py on the same bf16 inputs, at the
+    Hunyuan-DiT self-attention length, the ragged cross-attention shape
+    and a causal sliding window (B=1, H=2, D=128)."""
+    rng = np.random.default_rng(S + T)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, n, 2, 128))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for n in (S, T, T))
+    got = _tensor_core_flash_emulation(q, k, v, causal, window)
+    want = attention_reference(*(np.asarray(x.float()) for x in (q, k, v)),
+                               causal=causal, window=window)
+    np.testing.assert_allclose(got.float(), np.asarray(want), rtol=2e-2,
+                               atol=2e-2)
 
 
 # ---------------------------------------------------------------------------
