@@ -11,12 +11,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    power limit;
 2. build: the three CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` (one process per source, started together), with ``-Xptxas -v``;
-   then the bf16 kernels' tiles, resident blocks per SM and grids at the
-   train steps' shapes;
+   then the bf16 kernels' and the scan's tiles, resident blocks per SM and
+   grids at the shapes they are timed at;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes of the UViT-H and Hunyuan-DiT-3B train steps (the gated
    linear scan, which no train path calls, at zamba2-2.7b's Mamba2 width
-   over 4k steps), forward and gradients (fp32 with TF32 off at rtol =
+   over 4k steps and at R=32 over 2k steps, forward and backward kernels,
+   with mixed dtypes of a and x, and with decays near 1, whose carry spans
+   many chunks; see ``check_scan``), forward and
+   gradients (fp32 with TF32 off at rtol =
    atol = 1e-4; bf16 at rtol = atol = 2e-2, bf16 rounding in another
    summation order; only the skip matmul's weight gradient, a sum over all
    M rows, takes atol = rtol x max|value|), then timed beside its bound,
@@ -49,6 +52,7 @@ The full record goes to ``chiprun_out/chip_smoke.json``.  Without a CUDA
 device the script exits 1 at once and prints no result.
 """
 import gc
+import itertools
 import json
 import math
 import os
@@ -308,71 +312,161 @@ def check_flash(torch, rec) -> dict:
     return main
 
 
+SCAN_SHAPES = {"zamba2-2.7b mamba2, T=4096": (4, 4096, 5120),
+               "wide, R=32 T=2048": (32, 2048, 5120)}
+# the decay a of each check: sigmoid(normal), whose product over a warp's 16
+# steps is ~3e-6, so h hardly depends on what came before; and
+# exp(-0.01 softplus(normal)), near 1 as Mamba2's exp(dt A) are, whose
+# product over a 64-step chunk is ~0.6, so the carry from warp to warp and
+# the look-back over many chunks decide h.  Timed on the second.
+SCAN_DECAYS = ("sigmoid", "near 1")
+
+
+def scan_inputs(torch, gen, R, T, C, dtype_a, dtype_x, decay):
+    """(a, x, g) of the scan on the card: a by ``decay`` (``SCAN_DECAYS``)
+    in ``dtype_a``, x and the cotangent g normal in ``dtype_x``.  Near 1,
+    x and g are scaled by sqrt(1 - a^2), as Mamba2 scales its input by dt,
+    so that h and the adjoint dX keep unit variance: unscaled, both reach
+    ~40, and two fp32 summation orders of the same scan (the plain loop
+    against an fp64 one, too) then differ by more than the checks' 1e-4
+    (``test_chunked_scan_is_no_less_accurate_than_the_loop``)."""
+    v = torch.randn(R, T, C, device="cuda", generator=gen)
+    x, g = (torch.randn(R, T, C, device="cuda", generator=gen)
+            for _ in range(2))
+    if decay == "sigmoid":
+        a = torch.sigmoid(v)
+    else:
+        a = torch.exp(-0.01 * torch.nn.functional.softplus(v))
+        x, g = (t * torch.sqrt(1 - a * a) for t in (x, g))
+    return a.to(dtype_a), x.to(dtype_x), g.to(dtype_x)
+
+
 def check_scan(torch, rec) -> tuple[dict, int]:
-    """The gated linear scan at zamba2-2.7b's Mamba2 width (R=4 rows of
-    C=5120 channels) over T=4096 steps, forward; its backward (the kernel
-    on the time-reversed scan) against autograd through the plain version
-    at T=512 and at a ragged shape.  No train path calls the scan, so this
-    phase is its path: returns the bf16 forward row and the launches of
-    the op's calls (the timing loops not counted)."""
+    """The gated linear scan.  No train path calls it, so this phase is its
+    path.  Each check runs at both decays of ``SCAN_DECAYS``.  (1) The
+    op's forward and backward (one kernel launch each) against the plain
+    versions at T=512 and at a ragged shape, for each pair of dtypes of a
+    and x (bf16 and fp32, and both mixed pairs: the mixed ones against the
+    plain transcription of the JAX VJP, which rounds g to a's dtype where
+    autograd through the plain forward does not).  (2) At zamba2-2.7b's
+    Mamba2 width (R=4 rows of C=5120 channels, T=4096) and at a wide shape
+    (R=32, T=2048), each of bf16 and fp32: the op's forward and backward,
+    and the forward and backward kernels called directly, each against its
+    plain version on the same inputs; on the decay near 1, each kernel
+    then timed beside its bound (forward 3 N elements moved, backward
+    5 N).  Returns the bf16 forward row at zamba2's shape and the launches
+    of the op's calls (not the direct kernel calls of checks and timing
+    loops)."""
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.linear_scan import (gated_linear_scan,
+                                                 gated_linear_scan_bwd_cuda,
+                                                 gated_linear_scan_bwd_plain,
                                                  gated_linear_scan_cuda,
                                                  gated_linear_scan_plain)
     rows, main, launches = [], None, 0
     gen = torch.Generator(device="cuda").manual_seed(2)
 
-    def inputs(R, T, C, dt):
-        a = torch.sigmoid(torch.randn(R, T, C, device="cuda",
-                                      generator=gen)).to(dt)
-        x = torch.randn(R, T, C, device="cuda", generator=gen).to(dt)
-        return a, x
+    def op(a, x, g):
+        """The op's h and (da, dx), counting its launches."""
+        nonlocal launches
+        before = LAUNCHES["gated_linear_scan"]
+        ins = [t.clone().requires_grad_(True) for t in (a, x)]
+        h = gated_linear_scan(*ins)
+        h.backward(g)
+        torch.cuda.synchronize()
+        launches += LAUNCHES["gated_linear_scan"] - before
+        return h.detach(), [t.grad for t in ins]
+
+    for dta, dtx in (("bfloat16", "bfloat16"), ("float32", "float32"),
+                     ("float32", "bfloat16"), ("bfloat16", "float32")):
+        # rtol = atol = 2e-2 where either side is bf16
+        tol_dtype = "float32" if dta == dtx == "float32" else "bfloat16"
+        for (R, T, C), decay in itertools.product(
+                ((4, 512, 5120), (3, 300, 200)), SCAN_DECAYS):
+            a, x, g = scan_inputs(torch, gen, R, T, C, getattr(torch, dta),
+                                  getattr(torch, dtx), decay)
+            what = (f"gated_linear_scan op a {dta} x {dtx} R={R} T={T} C={C} "
+                    f"a {decay}")
+            h, got = op(a, x, g)
+            want_h = gated_linear_scan_plain(a, x)
+            err = check_close(torch, h, want_h, tol_dtype, f"{what} h")
+            if dta == dtx:
+                ref = [t.clone().requires_grad_(True) for t in (a, x)]
+                gated_linear_scan_plain(*ref).backward(g)
+                want = [t.grad for t in ref]
+            else:
+                want = gated_linear_scan_bwd_plain(a, want_h, g)
+            grad_err = {nm: check_close(torch, i, r, tol_dtype, f"{what} {nm}")
+                        for i, r, nm in zip(got, want, ("da", "dx"))}
+            rec.setdefault("gated_linear_scan_op", []).append(
+                dict(dtype_a=dta, dtype_x=dtx, R=R, T=T, C=C, decay=decay,
+                     max_abs_err=err, grad_max_abs_err=grad_err))
+            log(f"[kernels] {what}: h {err:.3e}, grads "
+                + " ".join(f"{k} {v:.3e}" for k, v in grad_err.items()))
+            del a, x, g, h, got, want, want_h
 
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        for R, T, C in ((4, 512, 5120), (3, 300, 200)):
-            a, x = inputs(R, T, C, dt)
-            g = torch.randn(R, T, C, device="cuda", generator=gen).to(dt)
-            what = f"gated_linear_scan backward {dtype} R={R} T={T} C={C}"
-            before = LAUNCHES["gated_linear_scan"]
-            ins = [t.clone().requires_grad_(True) for t in (a, x)]
-            gated_linear_scan(*ins).backward(g)
-            torch.cuda.synchronize()
-            launches += LAUNCHES["gated_linear_scan"] - before
-            ref = [t.clone().requires_grad_(True) for t in (a, x)]
-            gated_linear_scan_plain(*ref).backward(g)
-            grad_err = {nm: check_close(torch, i.grad, r.grad, dtype,
-                                        f"{what} {nm}")
-                        for i, r, nm in zip(ins, ref, ("da", "dx"))}
-            rec.setdefault("gated_linear_scan_backward", []).append(
-                dict(dtype=dtype, R=R, T=T, C=C, grad_max_abs_err=grad_err))
-            log(f"[kernels] {what}: grads "
-                + " ".join(f"{k} {v:.3e}" for k, v in grad_err.items()))
-            del a, x, g, ins, ref
-        R, T, C = 4, 4096, 5120
-        a, x = inputs(R, T, C, dt)
-        what = f"gated_linear_scan {dtype} R={R} T={T} C={C}"
-        before = LAUNCHES["gated_linear_scan"]
-        got = gated_linear_scan(a, x)
-        torch.cuda.synchronize()
-        launches += LAUNCHES["gated_linear_scan"] - before
-        err = check_close(torch, got, gated_linear_scan_plain(a, x), dtype,
-                          what)
-        times = _times(torch, lambda: gated_linear_scan_cuda(a, x), None,
-                       None)
-        # a Python loop of T steps: timed as issued only (3 calls)
-        times["plain_ms"] = time_ms(
-            torch, lambda: gated_linear_scan_plain(a, x), warmup=1, iters=3)
-        # fp32 arithmetic on the carry whatever the storage type
-        b_ms, b_by = bound(2.0 * R * T * C, 3.0 * R * T * C
-                           * a.element_size(), "float32")
-        row = dict(dtype=dtype, R=R, T=T, C=C, max_abs_err=err, **times,
-                   bound_ms=b_ms, bound_by=b_by)
-        rows.append(row)
-        log(_row_line(what, row, "library"))
-        if dtype == "bfloat16":
-            main = row
-        del a, x, got
+        for shape_name, (R, T, C) in SCAN_SHAPES.items():
+            n = R * T * C
+            for decay in SCAN_DECAYS:
+                a, x, g = scan_inputs(torch, gen, R, T, C, dt, dt, decay)
+                esz = a.element_size()
+                what = f"gated_linear_scan {dtype} R={R} T={T} C={C} a {decay}"
+                # the op, then each kernel called directly, against the
+                # plain versions on the same inputs
+                h, (op_da, op_dx) = op(a, x, g)
+                want_h = gated_linear_scan_plain(a, x)
+                want_da, want_dx = gated_linear_scan_bwd_plain(a, h, g)
+                da, dx = gated_linear_scan_bwd_cuda(a, h, g)
+                err = {"forward": max(
+                    check_close(torch, h, want_h, dtype, f"{what} op h"),
+                    check_close(torch, gated_linear_scan_cuda(a, x), want_h,
+                                dtype, f"{what} forward kernel")),
+                       "backward": max(
+                    check_close(torch, op_da, want_da, dtype, f"{what} op da"),
+                    check_close(torch, op_dx, want_dx, dtype, f"{what} op dx"),
+                    check_close(torch, da, want_da, dtype,
+                                f"{what} backward kernel da"),
+                    check_close(torch, dx, want_dx, dtype,
+                                f"{what} backward kernel dx"))}
+                del op_da, op_dx, da, dx, want_h, want_da, want_dx
+                if decay != SCAN_DECAYS[-1]:
+                    log(f"[kernels] {what}: max|err| forward "
+                        f"{err['forward']:.3e}, backward {err['backward']:.3e}")
+                    del a, x, g, h
+                    continue
+                for direction in ("forward", "backward"):
+                    if direction == "forward":
+                        def kernel():
+                            return gated_linear_scan_cuda(a, x)
+
+                        def plain():
+                            return gated_linear_scan_plain(a, x)
+                        # fp32 arithmetic on the carry whatever the storage
+                        b_ms, b_by = bound(2.0 * n, 3.0 * n * esz, "float32")
+                    else:
+                        def kernel():
+                            return gated_linear_scan_bwd_cuda(a, h, g)
+
+                        def plain():
+                            return gated_linear_scan_bwd_plain(a, h, g)
+                        b_ms, b_by = bound(3.0 * n, 5.0 * n * esz, "float32")
+                    times = _times(torch, kernel, None, None)
+                    # a Python loop of T steps: timed as issued only (3 calls)
+                    times["plain_ms"] = time_ms(torch, plain, warmup=1, iters=3)
+                    row = dict(shape=shape_name, direction=direction,
+                               dtype=dtype, R=R, T=T, C=C, decay=decay,
+                               max_abs_err=err[direction], **times,
+                               bound_ms=b_ms, bound_by=b_by)
+                    rows.append(row)
+                    log(_row_line(f"gated_linear_scan {direction} {dtype} "
+                                  f"R={R} T={T} C={C} a {decay}", row,
+                                  "library"))
+                    if (dtype, direction, R) == ("bfloat16", "forward", 4):
+                        main = row
+                del a, x, g, h
+            torch.cuda.empty_cache()
     rec["gated_linear_scan"] = rows
     return main, launches
 
@@ -656,15 +750,24 @@ def main() -> None:
     from repro_torch.kernels.flash_attention.ops import bf16_config as fcfg
     from repro_torch.kernels.skip_matmul.ops import bf16_config as scfg
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    from repro_torch.kernels.linear_scan import scan_config
     tiling = {"skip_concat_matmul bf16": scfg(),
               "flash_attention bf16 D=64": fcfg(64),
               "flash_attention bf16 D=128": fcfg(128)}
+    for d in ("bfloat16", "float32"):
+        for bwd in (False, True):
+            tiling[f"gated_linear_scan {d} {('forward', 'backward')[bwd]}"] = (
+                scan_config(getattr(torch, d), getattr(torch, d), bwd))
     sk = tiling["skip_concat_matmul bf16"]
     grids = {f"skip M={M} N={N}": -(-M // sk["tile_m"]) * -(-N // sk["tile_n"])
              for M, N in ((516, 2560), (2048, 2048))}
     fl = tiling["flash_attention bf16 D=128"]
     grids.update({f"flash B*H={bh} S={S}": bh * -(-S // fl["query_rows"])
                   for bh, S in ((40, 258), (32, 1024))})
+    grids.update({f"{k} R={R} T={T} C={C}":
+                  R * -(-C // v["channels"]) * -(-T // v["chunk"])
+                  for k, v in tiling.items() if k.startswith("gated")
+                  for R, T, C in SCAN_SHAPES.values()})
     rec["tiling"] = dict(kernels=tiling, grids=grids, sms=sms)
     for k, v in tiling.items():
         log(f"[tiling] {k}: {v}; {v['blocks_per_sm'] * sms} blocks resident "
@@ -699,7 +802,8 @@ def main() -> None:
     for kname, (source, replaces) in SOURCES.items():
         if kname == "gated_linear_scan":
             row, by_path = scan_row, {"kernel phase": scan_launches}
-            by_shape = {"zamba2-2.7b mamba2, T=4096": scan_row}
+            by_shape = {f"{r['shape']} {r['direction']} {r['dtype']}": r
+                        for r in rec["gated_linear_scan"]}
         else:
             row = main_rows[kname]["hunyuan-dit"]
             by_path = {arch: counts[arch][kname] for arch in TRAIN_ARCHS}

@@ -1,10 +1,10 @@
-// Hopper (sm_90a) primitives shared by the tensor-core kernels of the port:
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors for the 128-byte
-// swizzle, wgmma fences, and the m64nNk16 bf16 wgmma issue wrappers.
+// Hopper (sm_90a) primitives shared by the kernels of the port: mbarriers,
+// TMA tile loads, wgmma shared-memory descriptors for the 128-byte swizzle,
+// wgmma fences, and the m64nNk16 bf16 wgmma issue wrappers.
 //
-// Included by skip_matmul.cu and flash_attention.cu (each is built into its
-// own shared library with a plain C interface; see kernels/build.py, whose
-// source hash covers this header).
+// Included by skip_matmul.cu, flash_attention.cu and linear_scan.cu (each
+// is built into its own shared library with a plain C interface; see
+// kernels/build.py, whose source hash covers this header).
 //
 // Tensor maps are encoded on the host inside each C launch function, from
 // the raw pointers and strides, through cuTensorMapEncodeTiled fetched with
@@ -62,6 +62,19 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 
+// Whether the phase of parity ``parity`` has completed, without waiting.
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
 // Spin until the phase of parity ``parity`` has completed.  A fresh
 // barrier is in phase 0: waiting with parity 1 passes at once (the
 // producer's first wait on an empty slot), with parity 0 it blocks until
@@ -109,6 +122,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
@@ -120,9 +144,9 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Host side: a bf16 tensor map with a 128-byte swizzle.  ``dims`` and
-// ``box`` innermost first; ``strides_bytes`` are the rank - 1 outer
-// strides.  Returns 0 or a CUDA error code.
+// Host side: a tensor map of element type ``dtype`` and ``swizzle``.
+// ``dims`` and ``box`` innermost first; ``strides_bytes`` are the rank - 1
+// outer strides.  Returns 0 or a CUDA error code.
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,
                                   const cuuint64_t*, const cuuint32_t*,
@@ -152,9 +176,10 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-inline int make_tma_bf16(CUtensorMap* map, const void* base, int rank,
-                         const uint64_t* dims, const uint64_t* strides_bytes,
-                         const uint32_t* box) {
+inline int make_tma(CUtensorMap* map, CUtensorMapDataType dtype,
+                    const void* base, int rank, const uint64_t* dims,
+                    const uint64_t* strides_bytes, const uint32_t* box,
+                    CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   cuuint64_t d[5], st[4];
@@ -165,12 +190,19 @@ inline int make_tma_bf16(CUtensorMap* map, const void* base, int rank,
     es[i] = 1;
     if (i + 1 < rank) st[i] = strides_bytes[i];
   }
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                  const_cast<void*>(base), d, st, bx, es,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult r = fn(map, dtype, (cuuint32_t)rank, const_cast<void*>(base), d,
+                  st, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// a bf16 tensor map with a 128-byte swizzle, as wgmma reads its tiles
+inline int make_tma_bf16(CUtensorMap* map, const void* base, int rank,
+                         const uint64_t* dims, const uint64_t* strides_bytes,
+                         const uint32_t* box) {
+  return make_tma(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                  strides_bytes, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ------------------------------------------------------------------- wgmma

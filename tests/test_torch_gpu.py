@@ -19,6 +19,8 @@ from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention_cuda,
                                                  flash_route)
 from repro_torch.kernels.linear_scan import (gated_linear_scan,
+                                             gated_linear_scan_bwd_cuda,
+                                             gated_linear_scan_bwd_plain,
                                              gated_linear_scan_cuda,
                                              gated_linear_scan_plain)
 from repro_torch.kernels.skip_matmul import (skip_concat_matmul,
@@ -107,35 +109,145 @@ def test_flash_attention_kernel_matches_plain(B, S, T, Hq, Hkv, D, causal,
     assert torch.isfinite(q.grad).all()
 
 
+SCAN_DTYPES = [("float32", "float32"), ("bfloat16", "bfloat16"),
+               ("float32", "bfloat16"), ("bfloat16", "float32")]
+
+
+def _scan_inputs(R, T, C, dtype_a, dtype_x, seed=2, misaligned=False,
+                 decay="sigmoid", scaled=True):
+    """a = sigmoid(normal) or, with ``decay="near 1"``,
+    exp(-0.01 softplus(normal)) (Mamba2's regime: a chunk's product of a is
+    ~0.6, so the carry between warps and the look-back over many chunks
+    decide h); x and the cotangent g normal, near 1 ``scaled`` by
+    sqrt(1 - a^2) to keep h and the adjoint at unit variance (see
+    ``chip_smoke.scan_inputs``).  With ``misaligned``, each a contiguous
+    view 2 or 4 bytes past a 16-byte boundary (the kernel's masked
+    path)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    make = _misaligned if misaligned else (
+        lambda shape, dt: torch.empty(shape, device="cuda", dtype=dt))
+    v, x, g = (torch.randn(R, T, C, device="cuda", generator=gen)
+               for _ in range(3))
+    if decay == "sigmoid":
+        a = torch.sigmoid(v)
+    else:
+        a = torch.exp(-0.01 * torch.nn.functional.softplus(v))
+        if scaled:
+            x, g = (t * torch.sqrt(1 - a * a) for t in (x, g))
+    out = []
+    for dt, val in ((dtype_a, a), (dtype_x, x), (dtype_x, g)):
+        t = make((R, T, C), getattr(torch, dt))
+        t.copy_(val)
+        out.append(t)
+    return out
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("R,T,C", [(4, 512, 5120), (3, 300, 200),
-                                   (1, 1, 7)])
-def test_gated_linear_scan_kernel_matches_plain(R, T, C, dtype):
-    """Forward, and the op's backward (the kernel on the time-reversed
-    scan) against autograd through the plain version."""
-    dt = getattr(torch, dtype)
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    a = torch.sigmoid(torch.randn(R, T, C, device="cuda",
-                                  generator=gen)).to(dt)
-    x = torch.randn(R, T, C, device="cuda", generator=gen).to(dt)
-    g = torch.randn(R, T, C, device="cuda", generator=gen).to(dt)
+@pytest.mark.parametrize("dtype_a,dtype_x", SCAN_DTYPES)
+@pytest.mark.parametrize("R,T,C,misaligned", [
+    (4, 512, 5120, False),     # zamba2-2.7b's Mamba2 width
+    (3, 300, 200, False),      # one ragged channel tile
+    (2, 100, 512, False),      # T ragged against every chunk length
+    (1, 1, 7, False),          # C % 8 != 0: the masked path
+    (2, 129, 7, False),        # the masked path over several chunks
+    (2, 70, 64, True),         # misaligned bases: the masked path
+    (70_000, 3, 8, False),     # R beyond the grid's y limit
+])
+@pytest.mark.parametrize("decay", ["sigmoid", "near 1"])
+def test_gated_linear_scan_kernel_matches_plain(R, T, C, misaligned,
+                                                dtype_a, dtype_x, decay):
+    """Forward and backward kernels against the plain versions on the
+    same inputs, and the op's forward and backward (one launch each)
+    against autograd through the plain version."""
+    a, x, g = _scan_inputs(R, T, C, dtype_a, dtype_x, misaligned=misaligned,
+                           decay=decay)
+    tol = max(_tol(dtype_a), _tol(dtype_x))
     before = LAUNCHES["gated_linear_scan"]
     got = gated_linear_scan_cuda(a, x)
     torch.cuda.synchronize()
     assert LAUNCHES["gated_linear_scan"] == before + 1
-    tol = _tol(dtype)
+    assert got.dtype == x.dtype
     torch.testing.assert_close(got.float(),
                                gated_linear_scan_plain(a, x).float(),
                                rtol=tol, atol=tol)
+    da, dx = gated_linear_scan_bwd_cuda(a, got, g)
+    torch.cuda.synchronize()
+    want_da, want_dx = gated_linear_scan_bwd_plain(a, got, g)
+    assert (da.dtype, dx.dtype) == (a.dtype, g.dtype)
+    torch.testing.assert_close(da.float(), want_da.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol,
+                               atol=tol)
+    before = LAUNCHES["gated_linear_scan"]
     ins = [t.clone().requires_grad_(True) for t in (a, x)]
     gated_linear_scan(*ins).backward(g)
-    assert LAUNCHES["gated_linear_scan"] == before + 3   # forward + dx scan
-    ref = [t.clone().requires_grad_(True) for t in (a, x)]
-    gated_linear_scan_plain(*ref).backward(g)
-    for got_g, want_g in zip((i.grad for i in ins), (r.grad for r in ref)):
+    assert LAUNCHES["gated_linear_scan"] == before + 2   # forward, backward
+    if dtype_a == dtype_x:
+        ref = [t.clone().requires_grad_(True) for t in (a, x)]
+        gated_linear_scan_plain(*ref).backward(g)
+        want = [r.grad for r in ref]
+    else:
+        # the JAX VJP rounds g to a's dtype before the reversed scan, which
+        # autograd through the plain version does not: hold the op to the
+        # plain transcription of that VJP
+        want = gated_linear_scan_bwd_plain(a, gated_linear_scan_plain(a, x),
+                                           g)
+    for got_g, want_g in zip((i.grad for i in ins), want):
         torch.testing.assert_close(got_g.float(), want_g.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gated_linear_scan_graph_replays_agree(dtype):
+    """The forward and backward captured in one CUDA graph and replayed
+    twice: the look-back's flags and ticket are zeroed inside the capture,
+    so each replay equals the plain version again."""
+    a, x, g = _scan_inputs(2, 300, 512, dtype, dtype)
+    tol = _tol(dtype)
+    gated_linear_scan_bwd_cuda(a, gated_linear_scan_cuda(a, x), g)
+    torch.cuda.synchronize()         # built and loaded outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        h = gated_linear_scan_cuda(a, x)
+        da, dx = gated_linear_scan_bwd_cuda(a, h, g)
+    want_h = gated_linear_scan_plain(a, x)
+    want_da, want_dx = gated_linear_scan_bwd_plain(a, want_h, g)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in ((h, want_h), (da, want_da), (dx, want_dx)):
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+
+
+@pytest.mark.gpu
+def test_gated_linear_scan_kernel_is_no_less_accurate_than_plain():
+    """fp32 at decays near 1 with unscaled x and g, where h and the adjoint
+    reach ~40: the kernel's h and dx are no further from an fp64 loop than
+    the plain version's fp32 loop is."""
+    a, x, g = _scan_inputs(4, 512, 5120, "float32", "float32",
+                           decay="near 1", scaled=False)
+
+    def loop64(av, xv):
+        state = torch.zeros(av.shape[0], av.shape[2], dtype=torch.float64,
+                            device="cuda")
+        out = torch.empty(av.shape, dtype=torch.float64, device="cuda")
+        for t in range(av.shape[1]):
+            state = av[:, t].double() * state + xv[:, t].double()
+            out[:, t] = state
+        return out
+
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+    want_h = loop64(a, x)
+    want_dx = loop64(a_next.flip(1), g.flip(1)).flip(1)
+    h = gated_linear_scan_cuda(a, x)
+    _, dx = gated_linear_scan_bwd_cuda(a, h, g)
+    plain_h = gated_linear_scan_plain(a, x)
+    _, plain_dx = gated_linear_scan_bwd_plain(a, plain_h, g)
+    for got, plain, want in ((h, plain_h, want_h), (dx, plain_dx, want_dx)):
+        assert ((got.double() - want).abs().max()
+                <= (plain.double() - want).abs().max())
 
 
 def _misaligned(shape, dtype):
@@ -216,7 +328,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         skip_concat_matmul_cuda(z, z, torch.randn(
             24, 8, device="cuda", dtype=torch.bfloat16))
     a = torch.rand(2, 5, 3, device="cuda")
-    with pytest.raises(TypeError, match="dtypes differ"):
-        gated_linear_scan_cuda(a, a.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gated_linear_scan_cuda(a, a.to(torch.float16))
     with pytest.raises(ValueError, match="3-D"):
         gated_linear_scan_cuda(a[0], a[0])
+    with pytest.raises(TypeError, match="output's dtype"):
+        gated_linear_scan_bwd_cuda(a, a, a.to(torch.bfloat16))

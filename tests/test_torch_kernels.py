@@ -27,6 +27,8 @@ from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_route)
 from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
 from repro_torch.kernels.linear_scan import (gated_linear_scan,
+                                             gated_linear_scan_bwd_cuda,
+                                             gated_linear_scan_bwd_plain,
                                              gated_linear_scan_cuda,
                                              gated_linear_scan_plain)
 from repro_torch.kernels.skip_matmul import (skip_concat_matmul,
@@ -111,6 +113,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         flash_attention_cuda(q, q, q)
     with pytest.raises(ValueError, match="not cuda"):
         gated_linear_scan_cuda(torch.rand(2, 6, 3), torch.rand(2, 6, 3))
+    with pytest.raises(ValueError, match="not cuda"):
+        gated_linear_scan_bwd_cuda(*(torch.rand(2, 6, 3),) * 3)
     assert launch_counts() == before
 
 
@@ -332,3 +336,146 @@ def test_gated_linear_scan_ragged_matches_reference():
     ref, (da_r, dx_r) = _jax_value_and_vjp(gated_linear_scan_reference, g,
                                            a, x)
     _check_scan(a, x, g, ref, da_r, dx_r)
+
+
+def _chunked_scan_emulation(a, x, L, reverse=False, warps=4, seed=0):
+    """``csrc/linear_scan.cu``'s algorithm in fp32 on the CPU.  Time is cut
+    into chunks of L steps (zero-filled past T, as TMA fills them; in
+    reverse the chunks keep their places in time and are taken last
+    first).  Each chunk's steps are split among ``warps`` warps, each of
+    which scans its steps from a zero state into the pair (A = prod a, B =
+    local h); the pairs combine in scan order, (A2 A1, A2 B1 + B2), into
+    the chunk's aggregate.  The carry-in comes from a look-back that
+    combines the aggregates of the chunks before until it meets one whose
+    inclusive prefix is already published (which ones are is drawn from
+    ``seed``; the first chunk's always is).  The fix-up runs each warp's
+    steps again from the carry through the warps before it."""
+    R, T, C = x.shape
+    nch = -(-T // L)
+    a, x = (torch.nn.functional.pad(v.float(), (0, 0, 0, nch * L - T))
+            for v in (a, x))
+    if reverse:
+        a, x = a.flip(1), x.flip(1)
+    rng = np.random.default_rng(seed)
+    one, zero = torch.ones(R, C), torch.zeros(R, C)
+    h = torch.empty(R, nch * L, C)
+    aggregates, inclusive = [], []
+    for k in range(nch):
+        segments = np.array_split(np.arange(k * L, (k + 1) * L), warps)
+        pairs = []
+        for seg in segments:
+            A, B = one, zero
+            for t in seg:
+                A, B = a[:, t] * A, a[:, t] * B + x[:, t]
+            pairs.append((A, B))
+        tA, tB = one, zero
+        for A, B in pairs:
+            tA, tB = A * tA, A * tB + B
+        carry = zero
+        if k > 0:
+            accA, accB = one, zero
+            for j in range(k - 1, -1, -1):
+                if j == 0 or rng.random() < 0.5:
+                    carry = accA * inclusive[j] + accB
+                    break
+                Aj, Bj = aggregates[j]
+                accA, accB = accA * Aj, accA * Bj + accB
+        aggregates.append((tA, tB))
+        inclusive.append(tA * carry + tB)
+        pA, pB = one, zero
+        for (A, B), seg in zip(pairs, segments):
+            state = pA * carry + pB
+            for t in seg:
+                state = a[:, t] * state + x[:, t]
+                h[:, t] = state
+            pA, pB = A * pA, A * pB + B
+    if reverse:
+        h = h.flip(1)
+    return h[:, :T]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("L", [1, 5, 16, 64])
+def test_chunked_scan_algorithm_matches_reference(L, reverse):
+    """The kernel's chunked local pass, pair combine, look-back and fix-up
+    equal ``ref.py`` in fp32 (T = 37 ragged against every chunk length
+    and below L = 64, C = 20 ragged against the lanes' 8 channels); in
+    reverse, as the backward runs it, they equal the reference on the
+    time-flipped inputs."""
+    a, x, _ = _scan_inputs(3, 37, 20)
+    if reverse:
+        want = np.asarray(gated_linear_scan_reference(
+            a[:, ::-1], x[:, ::-1]))[:, ::-1]
+    else:
+        want = np.asarray(gated_linear_scan_reference(a, x))
+    got = _chunked_scan_emulation(_t(a), _t(x), L, reverse=reverse, seed=L)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_chunked_scan_is_no_less_accurate_than_the_loop(reverse):
+    """At decays near 1 (exp(-0.01 softplus(normal)), Mamba2's regime) with
+    unit-variance x, h reaches ~40 and two fp32 summation orders of the
+    same scan differ by more than 1e-4 at the extremes.  There the
+    kernel's chunked order (L = 64 forward, 32 in reverse as the fp32
+    backward runs) is no further from an fp64 loop than the plain fp32
+    loop is: the card's checks scale x and g to keep h and the adjoint at
+    unit variance, and this is why."""
+    rng = np.random.default_rng(4)
+    R, T, C = 2, 512, 256
+    a = np.exp(-0.01 * np.logaddexp(0, rng.normal(size=(R, T, C))))
+    a, x = a.astype(np.float32), rng.normal(size=(R, T, C)).astype(np.float32)
+    if reverse:
+        a_s, x_s = a[:, ::-1], x[:, ::-1]
+    else:
+        a_s, x_s = a, x
+    want = np.zeros((R, T, C))
+    state = np.zeros((R, C))
+    for t in range(T):
+        state = a_s[:, t].astype(np.float64) * state + x_s[:, t]
+        want[:, t] = state
+    loop = gated_linear_scan_plain(_t(a_s.copy()), _t(x_s.copy())).numpy()
+    chunked = _chunked_scan_emulation(_t(a), _t(x), 32 if reverse else 64,
+                                      reverse=reverse, seed=1).numpy()
+    if reverse:
+        chunked = chunked[:, ::-1]
+    err_loop = np.abs(loop - want).max()
+    assert err_loop > 1e-5              # the regime where the orders differ
+    assert np.abs(chunked - want).max() <= err_loop
+
+
+@pytest.mark.parametrize("R,T,C", [(3, 37, 20), (2, 100, 13)])
+def test_gated_linear_scan_bwd_plain_matches_jax_vjp(R, T, C):
+    """The plain backward from (a, h, g) against ``jax.vjp`` of the JAX
+    kernel (interpret mode, its custom VJP) and of ``ref.py`` (autodiff
+    through the scan), ragged T and C."""
+    a, x, g = _scan_inputs(R, T, C)
+    for f in (jax_scan, gated_linear_scan_reference):
+        h, (da, dx) = _jax_value_and_vjp(f, g, a, x)
+        got_da, got_dx = gated_linear_scan_bwd_plain(_t(a), _t(h), _t(g))
+        np.testing.assert_allclose(got_da, da, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(got_dx, dx, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype_a,dtype_x", [("float32", "bfloat16"),
+                                             ("bfloat16", "float32")])
+def test_gated_linear_scan_mixed_dtypes_match_jax_kernel(dtype_a, dtype_x):
+    """a and x of different dtypes, as the JAX kernel takes them: h in
+    x's dtype, da in a's and dx in x's, equal to the JAX kernel (interpret
+    mode) and its VJP at bf16's 2e-2."""
+    a, x, g = _scan_inputs(2, 64, 24)
+    ja, jx, jg = (jax.numpy.asarray(v).astype(dt) for v, dt in
+                  ((a, dtype_a), (x, dtype_x), (g, dtype_x)))
+    h, (da, dx) = _jax_value_and_vjp(jax_scan, jg, ja, jx)
+    at, xt, gt = (_t(v).to(getattr(torch, dt)) for v, dt in
+                  ((a, dtype_a), (x, dtype_x), (g, dtype_x)))
+    at.requires_grad_(True)
+    xt.requires_grad_(True)
+    out = gated_linear_scan(at, xt)
+    out.backward(gt)
+    assert (out.dtype, at.grad.dtype, xt.grad.dtype) == (
+        xt.dtype, at.dtype, xt.dtype)
+    for got, want in ((out.detach(), h), (at.grad, da), (xt.grad, dx)):
+        np.testing.assert_allclose(got.float(),
+                                   np.asarray(want.astype("float32")),
+                                   rtol=2e-2, atol=2e-2)
