@@ -42,11 +42,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    counts reset just before and read just after: every loss finite, both
    kernels of the path launched; then every reference to the trainer is
    dropped and the card's memory released;
-6. train Hunyuan-DiT-3B: the same with ``--arch hunyuan-dit`` (d=2048, 32
-   blocks, 1024 tokens, cross-attention over 77 text tokens, full width
-   and depth, bf16), after checking that less than 1 GB is still
-   allocated;
-7. the ``kernels`` JSON line, then the device line as the last line.
+6. checkpoint UViT-H (``checkpoint_phase``), full width and depth, the
+   same argv plus a ``--ckpt-dir`` under ``build/``: A trains steps 0-1
+   and saves step 2 (27.8 GB), B resumes at the same plan (restored state
+   bitwise A's, steps 2-3 within 2e-2 of phase 5's losses), C resumes
+   elastically at D=2 (logical params bitwise A's, one finite step); the
+   launch counts are reset before B and before C and read after each;
+   prints bytes, the save's blocking and total seconds, write and verify
+   rates, each restore's seconds and peak device memory;
+7. train Hunyuan-DiT-3B: the same as 5 with ``--arch hunyuan-dit``
+   (d=2048, 32 blocks, 1024 tokens, cross-attention over 77 text tokens,
+   full width and depth, bf16), after checking that less than 1 GB is
+   still allocated;
+8. the ``kernels`` JSON line, then the device line as the last line.
 
 The full record goes to ``chiprun_out/chip_smoke.json``.  Without a CUDA
 device the script exits 1 at once and prints no result.
@@ -641,7 +649,7 @@ def _launches() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 5 and 6: train UViT-H, then Hunyuan-DiT-3B
+# phases 5 and 7: train UViT-H, then Hunyuan-DiT-3B
 # ---------------------------------------------------------------------------
 
 def train(torch, rec, arch: str) -> dict:
@@ -680,6 +688,205 @@ def train(torch, rec, arch: str) -> dict:
         f"({ {k: v / args.steps for k, v in counts.items()} } per step)")
     del res
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 6: checkpoint, exact and elastic resume of UViT-H (between the
+# train phases 5 and 7)
+# ---------------------------------------------------------------------------
+
+CKPT_STOP, CKPT_END = 2, 4          # A saves step 2; B trains steps 2-3
+
+
+def _host(tree):
+    """A host copy of every leaf (a copy on the CPU too)."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: x.detach().to("cpu", copy=True), tree)
+
+
+def _bitwise_equal(torch, got: list, want: list, what: str) -> int:
+    """Leaf by leaf, the same dtype, shape and bytes; returns the bytes
+    compared."""
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} leaves, want {len(want)}")
+    n = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.detach().cpu()
+        if g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"{what}: leaf {i} is {g.dtype}{list(g.shape)}, want "
+                 f"{w.dtype}{list(w.shape)}")
+        gb = g.contiguous().view(-1).view(torch.uint8)
+        wb = w.contiguous().view(-1).view(torch.uint8)
+        if not torch.equal(gb, wb):
+            fail(f"{what}: leaf {i} ({w.dtype}{list(w.shape)}) differs")
+        n += gb.numel()
+    return n
+
+
+def checkpoint_phase(torch, rec, smi_line: str) -> dict:
+    """UViT-H at full width and depth through ``repro_torch.launch.train``
+    with ``TRAIN_ARGV`` plus a fresh ``--ckpt-dir`` under ``build/``:
+
+    A. ``--ckpt-every 2 --faults stop@2``: steps 0-1, an async save of step
+       2 (host snapshot, then a background write of the verified
+       checkpoint), stop;
+    B. ``--resume --ckpt-every 100 --faults stop@4``: restores step 2 at the
+       same plan, trains steps 2-3.  The restored state must equal A's
+       state at the save bitwise, leaf by leaf on the host; the losses are
+       held to the uninterrupted UViT-H phase's steps 2-3 at rtol 2e-2;
+       both model kernels must launch;
+    C. ``--devices 2 --resume --faults stop@3``: restores step 2 elastically
+       (D=4 -> D=2); the restored params, merged to model space, must
+       equal A's bitwise; one step with a finite loss.
+
+    A degraded save, an unverifiable step or a missing launch fails the
+    run.  Prints the checkpoint's bytes, the save's blocking (snapshot) and
+    total seconds, its write rate, verify-and-restore seconds and the peak
+    device memory of each restore, beside ``nvidia-smi``'s line.  The
+    directory is removed at the end.  Returns the launch counts of B and
+    C."""
+    import shutil
+    import tempfile
+    import warnings
+
+    from repro_torch.checkpoint import verify_step
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as train_mod
+    from repro_torch.tree import tree_flatten
+
+    base = rec["train"]["uvit-h"]["losses"]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                             dir=os.path.join(ROOT, "build"))
+    out, counts = {}, {}
+
+    def run(what, extra, devices="4", on_restore=None):
+        argv = ["--arch", "uvit-h"] + TRAIN_ARGV + ["--ckpt-dir", ckdir] \
+            + extra
+        argv[argv.index("--devices") + 1] = devices
+        left = release(torch)
+        if left >= 1e9:
+            fail(f"checkpoint {what}: {left / 1e9:.2f} GB still allocated "
+                 "before the run; the previous one was not released")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = train_mod.run(train_mod._parse_args(argv),
+                                on_restore=on_restore)
+        counts[what] = launch_counts()
+        for w in caught:
+            if issubclass(w.category, RuntimeWarning):
+                fail(f"checkpoint {what}: warned: {w.message}")
+        losses = [res.losses[s] for s in sorted(res.losses)]
+        if not all(math.isfinite(x) for x in losses) or res.skipped_steps:
+            fail(f"checkpoint {what}: losses {res.losses}, "
+                 f"{res.skipped_steps} skipped")
+        out[what] = dict(argv=argv, losses=res.losses, start=res.start,
+                         wall_s=time.perf_counter() - t0,
+                         saves=res.saves, restore=res.restore,
+                         peak_bytes=res.peak_bytes, launches=counts[what])
+        return res
+
+    def log_restore(what, r):
+        log(f"[ckpt] {what}: verify-and-restore {r['total_s']:.2f} s "
+            f"(verify + read + place {r['restore_s']:.2f} s, copy into the "
+            f"live tensors {r['copy_s']:.2f} s), peak device memory "
+            f"{r['peak_bytes'] / 1e9:.2f} GB")
+
+    try:
+        # A: two steps, the save of step 2, stop
+        res = run("A", ["--ckpt-every", "2", "--faults",
+                        f"stop@{CKPT_STOP}"])
+        if sorted(res.losses) != list(range(CKPT_STOP)):
+            fail(f"checkpoint A: trained steps {sorted(res.losses)}")
+        saves = res.saves
+        if [s["step"] for s in saves] != [CKPT_STOP] or not saves[0]["path"]:
+            fail(f"checkpoint A: saves {saves}")
+        saved = _host({"params": res.params, "opt": res.opt_state})
+        logical = res.logical_params
+        del res
+        save = saves[0]
+        gb = save["bytes"] / 1e9
+        t0 = time.perf_counter()
+        leaves = verify_step(ckdir, CKPT_STOP)["num_leaves"]
+        verify_s = time.perf_counter() - t0
+        log(f"[ckpt] {smi_line}: uvit-h full width and depth, {leaves} "
+            f"leaves, {save['bytes']} bytes; save: snapshot "
+            f"{save['snapshot_s']:.2f} s (blocking), total "
+            f"{save['total_s']:.2f} s (shard write + its hash "
+            f"{save['write_s']:.2f} s = {gb / save['write_s']:.2f} GB/s, GC "
+            f"re-verify {save['gc_s']:.2f} s); one verify pass "
+            f"{verify_s:.2f} s ({gb / verify_s:.2f} GB/s)")
+
+        # B: exact resume at the same plan
+        checked = {}
+
+        def check_b(state, info):
+            if info.elastic or info.step != CKPT_STOP:
+                fail(f"checkpoint B: restored {info}")
+            checked["bytes"] = _bitwise_equal(
+                torch, tree_flatten(state)[0], tree_flatten(saved)[0],
+                "checkpoint B: restored vs saved state")
+
+        res = run("B", ["--resume", "--ckpt-every", "100", "--faults",
+                        f"stop@{CKPT_END}"], on_restore=check_b)
+        if not checked or res.start != CKPT_STOP or \
+                sorted(res.losses) != list(range(CKPT_STOP, CKPT_END)):
+            fail(f"checkpoint B: start {res.start}, steps "
+                 f"{sorted(res.losses)}, checked {checked}")
+        rel = max(abs(res.losses[s] - base[s]) / abs(base[s])
+                  for s in range(CKPT_STOP, CKPT_END))
+        if not rel <= 2e-2:
+            fail(f"checkpoint B: losses {res.losses} vs the uninterrupted "
+                 f"run's {base[CKPT_STOP:CKPT_END]} (largest relative "
+                 f"difference {rel:.3e} > 2e-2)")
+        out["B"].update(max_rel_loss_diff=rel, checked_bytes=checked["bytes"])
+        del res, saved
+        log_restore("B same plan", out["B"]["restore"])
+        log(f"[ckpt] B: restored state bitwise ({checked['bytes']} bytes), "
+            f"losses {list(out['B']['losses'].values())} vs "
+            f"{base[CKPT_STOP:CKPT_END]}, largest relative difference "
+            f"{rel:.3e}; launches {counts['B']}")
+
+        # C: elastic resume onto D=2
+        got = {}
+
+        def check_c(state, info):
+            if not info.elastic or info.step != CKPT_STOP:
+                fail(f"checkpoint C: restored {info}")
+            got["params"] = _host(state["params"])
+
+        res = run("C", ["--resume", "--faults", f"stop@{CKPT_STOP + 1}"],
+                  devices="2", on_restore=check_c)
+        if "params" not in got or sorted(res.losses) != [CKPT_STOP]:
+            fail(f"checkpoint C: steps {sorted(res.losses)}")
+        merged = res.compiled.merge_params(*got["params"])
+        out["C"]["checked_bytes"] = _bitwise_equal(
+            torch, tree_flatten(merged)[0], tree_flatten(logical)[0],
+            "checkpoint C: elastic logical params vs A's")
+        out["C"]["plan"] = res.plan.splitlines()[0]
+        del res, got, merged, logical
+        log_restore("C elastic D=4->2", out["C"]["restore"])
+        log(f"[ckpt] C: {out['C']['plan']}; logical params bitwise "
+            f"({out['C']['checked_bytes']} bytes); loss "
+            f"{out['C']['losses'][CKPT_STOP]:.4f}; launches {counts['C']}")
+        release(torch)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    for what in ("B", "C"):
+        for k in ("skip_concat_matmul", "flash_attention"):
+            if not counts[what][k]:
+                fail(f"checkpoint {what}: kernel launch counts "
+                     f"{counts[what]}; both model kernels must launch")
+    rec["checkpoint"] = dict(runs=out, summary=dict(
+        bytes=save["bytes"], leaves=leaves, snapshot_s=save["snapshot_s"],
+        save_total_s=save["total_s"], write_s=save["write_s"],
+        gc_s=save["gc_s"], write_GBps=gb / save["write_s"],
+        verify_s=verify_s, verify_GBps=gb / verify_s,
+        restore_B=out["B"]["restore"], restore_C=out["C"]["restore"],
+        card=smi_line))
+    return {"uvit-h resume": counts["B"], "uvit-h elastic": counts["C"]}
 
 
 def release(torch) -> int:
@@ -786,7 +993,7 @@ def main() -> None:
     pipeline_parity_bf16(torch, rec)
     torch.cuda.empty_cache()
 
-    # 5, 6. train, one model at a time
+    # 5-7. train, one model at a time; after UViT-H, its checkpoint phase
     counts = {}
     for arch in TRAIN_ARCHS:
         left = release(torch)
@@ -795,8 +1002,11 @@ def main() -> None:
             fail(f"train {arch}: {left / 1e9:.2f} GB still allocated; the "
                  "previous phase was not released")
         counts[arch] = train(torch, rec, arch)
+        if arch == "uvit-h":
+            release(torch)
+            counts.update(checkpoint_phase(torch, rec, smi_line))
 
-    # 7. results: each kernel's numbers at the Hunyuan-DiT train step's
+    # 8. results: each kernel's numbers at the Hunyuan-DiT train step's
     # shape (the scan: its own phase's), every train path's beside them
     kernels = []
     for kname, (source, replaces) in SOURCES.items():
@@ -806,7 +1016,7 @@ def main() -> None:
                         for r in rec["gated_linear_scan"]}
         else:
             row = main_rows[kname]["hunyuan-dit"]
-            by_path = {arch: counts[arch][kname] for arch in TRAIN_ARCHS}
+            by_path = {path: c[kname] for path, c in counts.items()}
             by_shape = main_rows[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,

@@ -16,9 +16,34 @@ Hunyuan-DiT of the JAX package's ``wave-hunyuan`` differential, and
 (``configs/hunyuan_dit.py``) in bf16, whose blocks also take cross-attention
 through the flash kernel and adaLN conditioning.
 
-Not ported yet, and refused with ``NotImplementedError``: checkpoints and
-resume, fault plans, heartbeats and multi-host workers, data parallelism
-and ZeRO (``--dp``/``--zero-stage``), and the non-pipeline smoke archs.
+Fault-tolerance contract, the JAX trainer's single-host one:
+
+- ``--ckpt-dir D --ckpt-every N --keep K`` saves every N steps
+  asynchronously (a host copy of params and AdamW state, then a background
+  write of a verified checkpoint in the JAX package's format) and once
+  more at the end, keeping the K newest verified steps;
+- ``--resume`` restores the newest *verified* step (a corrupt or partial
+  one is skipped, and said so) into the live tensors, in place, and
+  the step-indexed data and noise make the continuation exact; when the
+  manifest's plan fingerprint differs (another ``--devices``/``--pp``/
+  ``--interleave``), the saved stage stacks are de-stacked through the
+  saved plan's spec and re-stacked onto this one (``runtime.resilience``);
+- ``--faults`` (else ``$REPRO_FAULTS``): ``kill@K`` exits 42 after step K,
+  ``stop@K`` returns after step K without a final save, ``nan@K``
+  poisons step K's batch, ``corrupt@K[:shard]``/``truncate@K[:shard]``
+  damage the newest checkpoint, ``iofail@K:N`` fails the next N save
+  attempts (retries, then a warning), and the one-host forms of the
+  multi-host verbs (``hostdown@K:0``, ``hang@K``, ``slow@K:factor``) run
+  too; ``--simulate-failure K`` is ``kill@K``;
+- the GradGuard skips non-finite updates; more than
+  ``--nan-skip-budget`` in a row abort, or with ``--escalation rollback``
+  exit 43 for a supervisor to roll back;
+- ``--heartbeat-dir D`` writes a heartbeat per step (``--gen`` tags it).
+
+Not ported yet, and refused with ``NotImplementedError``: multi-host
+workers (``--host-id``/``--num-hosts``/``--commit-timeout``), data
+parallelism and ZeRO (``--dp``/``--zero-stage``), and the non-pipeline
+smoke archs.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch uvit-h \
@@ -27,12 +52,16 @@ Usage:
         --pipeline --devices 4 --microbatches 8 --global-batch 16 --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch uvit-pp \
         --pipeline --devices 2 --steps 20 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch uvit-pp \
+        --pipeline --devices 4 --steps 6 --device cpu --ckpt-dir /tmp/ck \
+        --ckpt-every 3 --faults stop@3          # then add --resume
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import time
 from typing import Any
 
@@ -42,13 +71,7 @@ ARCHS = ("uvit", "uvit-pp", "uvit-nano", "uvit-h", "hunyuan-pp",
 
 # flags of the JAX driver whose features are not ported yet: any value but
 # the default is refused (the non-pipeline path is refused separately)
-UNPORTED = {"ckpt_dir": "checkpoints", "ckpt_every": "checkpoints",
-            "keep": "checkpoints", "resume": "checkpoints and resume",
-            "faults": "fault plans", "simulate_failure": "fault plans",
-            "nan_skip_budget": "the GradGuard skip budget",
-            "escalation": "the GradGuard escalation",
-            "host_id": "multi-host workers", "num_hosts": "multi-host workers",
-            "heartbeat_dir": "heartbeats", "gen": "heartbeats",
+UNPORTED = {"host_id": "multi-host workers", "num_hosts": "multi-host workers",
             "commit_timeout": "multi-host checkpoint commits",
             "dp": "data parallelism", "zero_stage": "ZeRO"}
 
@@ -61,8 +84,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
-    ap.add_argument("--keep", type=int, default=3)
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--keep", type=int, default=3,
+                    help="checkpoint retention (verified-complete steps)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest verified step of --ckpt-dir "
+                         "(elastically when the plan changed)")
     ap.add_argument("--pipeline", action="store_true",
                     help="wave pipeline over --devices pipeline devices")
     ap.add_argument("--devices", type=int, default=8)
@@ -76,16 +102,26 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--wire-dtype", default="bfloat16",
                     help="boundary-hop dtype; float32 = exact wire")
     ap.add_argument("--microbatches", type=int, default=4)
-    ap.add_argument("--faults", default=None)
-    ap.add_argument("--nan-skip-budget", type=int, default=3)
+    ap.add_argument("--faults", default=None,
+                    help="fault plan, e.g. 'stop@6,nan@2,corrupt@4,"
+                         "iofail@2:2' (default: $REPRO_FAULTS)")
+    ap.add_argument("--nan-skip-budget", type=int, default=3,
+                    help="max consecutive non-finite steps before the "
+                         "escalation policy fires")
     ap.add_argument("--escalation", default="abort",
-                    choices=("abort", "rollback"))
+                    choices=("abort", "rollback"),
+                    help="exhausted GradGuard budget: 'abort' raises; "
+                         "'rollback' exits 43 for a supervisor to roll "
+                         "back to the last verified checkpoint")
     ap.add_argument("--host-id", type=int, default=0)
     ap.add_argument("--num-hosts", type=int, default=1)
-    ap.add_argument("--heartbeat-dir", default=None)
-    ap.add_argument("--gen", type=int, default=0)
+    ap.add_argument("--heartbeat-dir", default=None,
+                    help="write a heartbeat per step here")
+    ap.add_argument("--gen", type=int, default=0,
+                    help="supervisor generation stamped into heartbeats")
     ap.add_argument("--commit-timeout", type=float, default=60.0)
-    ap.add_argument("--simulate-failure", type=int, default=0)
+    ap.add_argument("--simulate-failure", type=int, default=0,
+                    help="legacy alias for --faults kill@K")
     ap.add_argument("--out-json", default=None,
                     help="write the step->loss trajectory and step times "
                          "here on exit")
@@ -137,10 +173,25 @@ class TrainResult:
     losses: dict                    # step -> float
     step_seconds: dict              # step -> wall seconds (device synced)
     plan: str                       # CompiledPipeline.describe()
-    skipped_steps: int = 0          # non-finite updates skipped
+    start: int = 0                  # first step this invocation ran
+    resumed: Any = None             # RestoreInfo | None
+    skipped_steps: int = 0          # non-finite updates the guard skipped
     peak_bytes: int | None = None   # torch.cuda.max_memory_allocated
     compiled: Any = None
     params: Any = None              # (stage stacks, edge) after training
+    opt_state: Any = None           # AdamW state after training
+    logical_params: Any = None      # model-space params (merge_params), CPU
+    saves: list = dataclasses.field(default_factory=list)  # manager history
+    restore: dict | None = None     # seconds and peak memory of the resume
+
+
+def _dump_losses(path: str, losses: dict, start: int) -> None:
+    doc = {"losses": {str(k): v for k, v in losses.items()},
+           "start": start, "partial": True}
+    tmp = path + f".tmp{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(doc, f)
+    os.replace(tmp, path)
 
 
 def main(argv=None):
@@ -239,11 +290,90 @@ def build_trainer(args):
     return compiled, params, opt_state, loss_fn, loader, device
 
 
-def run(args) -> TrainResult:
-    _refuse_unported(args)
+def _resume(args, compiled, state: dict, device) -> tuple[Any, dict]:
+    """Restore the newest verified step of ``--ckpt-dir`` into the live
+    tensors of ``state``, in place (they stay the leaves AdamW updates);
+    ``(None, None)`` when no step verifies.  Returns the RestoreInfo and
+    the resume's seconds (verifying, reading and placing, with the
+    elastic re-stack; copying into place) and its peak device memory.
+
+    The JAX trainer asks ``latest_step`` first, which hashes every kept
+    step, and then restores, which hashes the chosen one again.  Here the
+    restore walks back from the newest step itself, and ``latest_step``
+    runs only when it fails, to tell "nothing verifies" (start afresh, as
+    the JAX trainer does) from a verified step that does not load (raise):
+    the same outcomes, one hash pass fewer."""
     import torch
 
-    from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
+    from repro_torch.checkpoint import CheckpointError, latest_step
+    from repro_torch.runtime.resilience import restore_training_state
+    from repro_torch.tree import tree_flatten
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    try:
+        restored, info = restore_training_state(args.ckpt_dir, compiled,
+                                                state, strict=False)
+    except CheckpointError:
+        if latest_step(args.ckpt_dir) is None:
+            return None, None
+        raise
+    new = tree_flatten(restored)[0]
+    del restored
+    if cuda:
+        torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        for i, dst in enumerate(tree_flatten(state)[0]):
+            src = new[i]
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(
+                    f"checkpoint leaf {i} is {src.dtype}{list(src.shape)}, "
+                    f"the model's {dst.dtype}{list(dst.shape)}")
+            dst.copy_(src)
+            new[i] = None
+    if cuda:
+        torch.cuda.synchronize(device)
+    t2 = time.perf_counter()
+    return info, {"restore_s": t1 - t0, "copy_s": t2 - t1,
+                  "total_s": t2 - t0,
+                  "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                                 if cuda else None)}
+
+
+def run(args, on_restore=None) -> TrainResult:
+    """Train ``args.steps`` steps (from the restored step with
+    ``--resume``).  ``on_restore(state, info)``, when given, is called once
+    a resume has restored ``{"params", "opt"}`` in place, before the first
+    step."""
+    _refuse_unported(args)
+    from repro_torch.runtime.resilience import (EXIT_ESCALATE, FaultPlan,
+                                                GradGuard,
+                                                GradGuardEscalation,
+                                                Heartbeat, all_finite,
+                                                write_heartbeat)
+
+    faults = FaultPlan.parse(args.faults)
+    if args.simulate_failure:
+        faults = faults.with_kill(args.simulate_failure)
+    # malformed specs die here, not mid-training
+    faults = faults.for_host(args.host_id, args.num_hosts)
+
+    def beat(step, phase, loss=None, gnorm=None, step_s=None):
+        if args.heartbeat_dir:
+            write_heartbeat(args.heartbeat_dir, Heartbeat(
+                args.host_id, step, phase, loss=loss, grad_norm=gnorm,
+                step_s=step_s, gen=args.gen))
+
+    beat(-1, "init")
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim import (AdamWConfig, adamw_update,
+                                   cosine_schedule, global_norm)
     from repro_torch.runtime.adapters import make_diffusion_microbatches
     from repro_torch.tree import tree_leaves, tree_map
 
@@ -256,16 +386,71 @@ def run(args) -> TrainResult:
     opt_cfg = AdamWConfig(lr=args.lr)
     M = compiled.pcfg.num_microbatches
     cuda = device.type == "cuda"
+    mgr = CheckpointManager(args.ckpt_dir, keep=args.keep,
+                            plan=compiled.state_spec(),
+                            io_fault=faults.io_fault) if args.ckpt_dir \
+        else None
+
+    start, resumed, restore = 0, None, None
+    if args.resume and args.ckpt_dir:
+        state = {"params": params, "opt": opt_state}
+        resumed, restore = _resume(args, compiled, state, device)
+        if resumed is not None:
+            start = resumed.step
+            print(f"[train] resumed from step {start}"
+                  + (" (elastic restore: plan changed)" if resumed.elastic
+                     else "")
+                  + f" in {restore['total_s']:.2f} s", flush=True)
+            if on_restore is not None:
+                on_restore(state, resumed)
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
 
+    guard = GradGuard(budget=args.nan_skip_budget)
     losses: dict[int, float] = {}
     step_s: dict[int, float] = {}
-    skipped = 0
     prof = None
+
+    def finish(loss) -> TrainResult:
+        beat(args.steps, "done")
+        peak = torch.cuda.max_memory_allocated(device) if cuda else None
+        final = None if loss is None else float(loss.detach())
+        with torch.no_grad():
+            logical = tree_map(lambda x: x.detach().cpu(),
+                               compiled.merge_params(*params))
+        res = TrainResult(
+            final_loss=final, losses=losses, step_seconds=step_s, plan=plan,
+            start=start, resumed=resumed, skipped_steps=guard.skipped_total,
+            peak_bytes=peak, compiled=compiled, params=params,
+            opt_state=opt_state, logical_params=logical,
+            saves=mgr.history if mgr else [], restore=restore)
+        if args.out_json:
+            with open(args.out_json, "w") as f:
+                json.dump({"final_loss": final,
+                           "losses": {str(k): v for k, v in losses.items()},
+                           "step_seconds": {str(k): v
+                                            for k, v in step_s.items()},
+                           "start": start,
+                           "resumed_step": resumed.step if resumed else None,
+                           "elastic": bool(resumed.elastic) if resumed
+                           else False,
+                           "skipped_steps": res.skipped_steps,
+                           "peak_bytes": peak}, f)
+        return res
+
+    if start >= args.steps:
+        print(f"[train] nothing to do: resumed step {start} >= "
+              f"--steps {args.steps}")
+        return finish(None)
+
+    loss = None
+    stopped = False
+    last_save = None
     t0 = time.perf_counter()
-    for step in range(args.steps):
-        if args.profile and step == 1:
+    for step in range(start, args.steps):
+        if faults.hang_before(step):
+            print(f"[train] fault plan: woke from hang at step {step}")
+        if args.profile and step == start + 1:
             from torch.profiler import ProfilerActivity, profile
             # device kernels only on a card (host op events would slow
             # the step they measure); host ops on the CPU
@@ -274,8 +459,9 @@ def run(args) -> TrainResult:
             prof.__enter__()
         t_step = time.perf_counter()
         raw = loader.get(step)
-        batch = {k: torch.as_tensor(v, device=device)
-                 for k, v in raw.items()}
+        batch = faults.poison_batch(
+            {k: torch.as_tensor(v, device=device) for k, v in raw.items()},
+            step)
         gen = torch.Generator(device=device).manual_seed(step)
         # Hunyuan's temb comes from the current edge params (time_mlp)
         mb, aux = make_diffusion_microbatches(batch, M, cfg, kind,
@@ -288,47 +474,71 @@ def run(args) -> TrainResult:
         # no grad: a zero gradient, as jax.grad gives it
         grads = tree_map(lambda p: p.grad if p.grad is not None
                          else torch.zeros_like(p), params)
-        finite = bool(torch.isfinite(loss)) and all(
-            bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+        finite = bool(all_finite(loss, grads))
+        gnorm = float(global_norm(grads)) if args.heartbeat_dir else None
         lr = cosine_schedule(step, base_lr=args.lr, warmup=20,
                              total=args.steps)
         if finite:
             adamw_update(params, grads, opt_state, opt_cfg, lr=lr)
-        else:
-            skipped += 1            # the JAX step's all_finite gate
         for p in tree_leaves(params):
             p.grad = None
+        del grads
         if cuda:
             torch.cuda.synchronize(device)
         step_s[step] = time.perf_counter() - t_step
+        try:
+            guard.observe(finite, step)     # skipped above when not finite
+        except GradGuardEscalation as e:
+            if args.escalation == "rollback":
+                print(f"[train] {e}; requesting supervisor rollback",
+                      flush=True)
+                if mgr:
+                    mgr.wait()
+                beat(step, "done")
+                raise SystemExit(EXIT_ESCALATE) from None
+            raise
         losses[step] = float(loss.detach())
+        if args.out_json:
+            # an atomic per-step dump: a killed run still leaves its losses
+            _dump_losses(args.out_json, losses, start)
+        slow = faults.slow_factor(step)
+        if slow > 1.0:     # straggle: stretch this step by the factor
+            time.sleep(min((time.perf_counter() - t_step) * (slow - 1.0),
+                           5.0))
+        beat(step, "train", loss=losses[step], gnorm=gnorm,
+             step_s=step_s[step])
         if step % args.log_every == 0 or step == args.steps - 1:
-            sps = (step + 1) * args.global_batch / (time.perf_counter() - t0)
+            sps = ((step - start + 1) * args.global_batch
+                   / (time.perf_counter() - t0))
             print(f"[train] step {step:5d} loss {losses[step]:.4f} "
                   f"lr {lr:.2e} step {step_s[step]:.3f}s "
                   f"({sps:.2f} samples/s)", flush=True)
+        if mgr and (step + 1) % args.ckpt_every == 0:
+            beat(step + 1, "ckpt")
+            mgr.save_async(step + 1, {"params": params, "opt": opt_state})
+            last_save = step + 1
+        if faults.post_step(step + 1, ckpt_dir=args.ckpt_dir,
+                            flush=mgr.wait if mgr else None) == "stop":
+            print(f"[train] fault plan: abrupt stop after step {step} "
+                  "(no final save)", flush=True)
+            stopped = True
+            break
     if prof is not None:
         prof.__exit__(None, None, None)
-        traced = [step_s[s] for s in range(1, args.steps)]
+        traced = [step_s[s] for s in step_s if s > start]
         with open(args.profile, "w") as f:
             json.dump(_profile_summary(prof, sum(traced), len(traced),
                                        device), f, indent=1)
-    peak = torch.cuda.max_memory_allocated(device) if cuda else None
-    final = losses[args.steps - 1] if args.steps else None
-    if final is not None:
-        print(f"[train] done: final loss {final:.4f}"
-              + (f", peak device memory {peak / 1e9:.2f} GB" if cuda else ""),
-              flush=True)
-    res = TrainResult(final_loss=final, losses=losses, step_seconds=step_s,
-                      plan=plan, skipped_steps=skipped, peak_bytes=peak,
-                      compiled=compiled, params=params)
-    if args.out_json:
-        with open(args.out_json, "w") as f:
-            json.dump({"final_loss": final,
-                       "losses": {str(k): v for k, v in losses.items()},
-                       "step_seconds": {str(k): v
-                                        for k, v in step_s.items()},
-                       "skipped_steps": skipped, "peak_bytes": peak}, f)
+    if mgr and not stopped:
+        if last_save != args.steps:       # the last periodic save may be it
+            beat(args.steps, "ckpt")
+            mgr.save_async(args.steps, {"params": params, "opt": opt_state})
+        mgr.wait()
+    res = finish(loss)
+    if not stopped:
+        print(f"[train] done: final loss {res.final_loss:.4f}"
+              + (f", peak device memory {res.peak_bytes / 1e9:.2f} GB"
+                 if cuda else ""), flush=True)
     return res
 
 

@@ -119,4 +119,5 @@ def diffusion_model_fns(cfg: Any, kind: str = "uvit") -> PipelineModelFns:
         init_fn=lambda gen, device: init(gen, cfg, device),
         embed_fn=embed_fn, loss_fn=loss_fn,
         enc_block_fn=enc_block_fn, dec_block_fn=dec_block_fn,
-        split_blocks=split_blocks, merge_blocks=merge_blocks)
+        split_blocks=split_blocks, merge_blocks=merge_blocks,
+        num_param_stacks=2)

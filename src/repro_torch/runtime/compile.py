@@ -16,10 +16,15 @@ pipeline degree, then
    (:class:`StageLayout`), and builds the table-driven wave executor
    (``runtime.schedule_exec``) over the validated schedule.
 
+:meth:`CompiledPipeline.state_spec` and :meth:`~CompiledPipeline.fingerprint`
+record how the plan lays training state out at rest, equal to the JAX
+package's for the same graph and plan: checkpoints carry the spec, and a
+restore onto another plan de-stacks through it (``runtime.resilience``).
+
 Not ported yet (they raise ``NotImplementedError``): the hybrid tuner
 (unpinned ``pipeline_devices``), data parallelism and ZeRO (``dp_size > 1``,
-``zero_stage > 0``), the closed-form executors and the linear (skip-free)
-executor.
+``zero_stage > 0``; a state spec records ``dp = 1`` and ``zero_stage = 0``),
+the closed-form executors and the linear (skip-free) executor.
 """
 from __future__ import annotations
 
@@ -61,7 +66,8 @@ class PipelineModelFns:
     encoder and decoder blocks have different parameter structures (UViT's
     decoder blocks carry ``skip_proj``); ``merge_blocks`` is the exact
     inverse.  (The JAX package's homogeneous one-stack models, SkipViT and
-    the LMs, are not ported yet.)
+    the LMs, are not ported yet.)  ``num_param_stacks`` is
+    ``len(split_blocks(params)[0])``, which a state spec records.
     """
 
     init_fn: Callable        # (generator, device) -> params
@@ -71,6 +77,7 @@ class PipelineModelFns:
     merge_blocks: Callable   # ((enc_blocks, dec_blocks), edge) -> params
     enc_block_fn: Callable   # (block_p, x, aux) -> (x, skip)
     dec_block_fn: Callable   # (block_p, x, skip, aux) -> x
+    num_param_stacks: int = 2               # len(split_blocks(params)[0])
 
 
 # ===========================================================================
@@ -300,6 +307,23 @@ class CompiledPipeline:
         return StepTables.from_schedule(
             self.schedule, folded=True, devices=self.partition.devices,
             skip_consumers=self.layout.skip_consumers())
+
+    def state_spec(self) -> dict:
+        """JSON-serializable spec of how this plan lays out training state
+        at rest: partition cuts, stage->device map, the layout's
+        slot/count/pad tables, (dp, zero_stage, V, M, wire_dtype) -- what
+        ``checkpoint.store`` records in every manifest and
+        ``runtime.resilience`` de-stacks saved state through when the
+        restore-time plan differs."""
+        from repro_torch.runtime.resilience import compiled_state_spec
+        return compiled_state_spec(self)
+
+    def fingerprint(self) -> str:
+        """Digest of the state-layout-relevant subset of :meth:`state_spec`:
+        equal fingerprints mean a checkpoint loads directly; different ones
+        route through the elastic de-stack/re-stack path."""
+        from repro_torch.runtime.resilience import plan_fingerprint
+        return plan_fingerprint(self.state_spec())
 
     # ---- executor ----------------------------------------------------------
     def build(self) -> Callable:

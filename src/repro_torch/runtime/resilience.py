@@ -1,0 +1,683 @@
+"""Elastic fault tolerance for the compiled pipeline (the port of sections
+1-3 of ``repro.runtime.resilience`` and the worker half of section 4).
+
+1. **Plan state-specs + fingerprints.**  :func:`compiled_state_spec`
+   serializes everything that determines how a
+   :class:`~repro_torch.runtime.compile.CompiledPipeline`'s training state
+   is laid out at rest -- partition cuts, stage->device map, the
+   :class:`~repro_torch.runtime.compile.StageLayout` slot/count/pad tables
+   -- and :func:`plan_fingerprint` hashes the layout-relevant subset.  Both
+   equal the JAX package's for the same graph and plan, so a checkpoint
+   of either package takes the fast path in the other when the plans
+   agree.  ``M``/``wire_dtype``/``dp``/``zero_stage`` are recorded but not
+   hashed (the port runs ``dp = 1``, ``zero_stage = 0``).
+
+2. **Elastic restore.**  When the restore-time plan differs,
+   :func:`state_to_logical` de-stacks the saved ``[D, V, pad, ...]`` stage
+   stacks through the *saved* layout spec back to the model's block
+   stacks, and :func:`logical_to_state` re-stacks them onto the new plan
+   via its own ``StageLayout.split``.  AdamW state mirrors params
+   leaf-wise, so the same mapping applies to ``m``/``v``.
+   :func:`restore_training_state` orchestrates: fast path when
+   fingerprints match, de-stack/re-stack when they don't, one
+   ``(stacks, edge)`` tree at a time.
+
+3. **Fault injection + a NaN guard.**  :class:`FaultPlan` parses the
+   flag/env fault script (``kill@K``, ``stop@K``, ``nan@K``,
+   ``corrupt@K[:shard]``, ``truncate@K[:shard]``, ``iofail@K:N``, and the
+   multi-host verbs ``hostdown@K:h``, ``hang@K[:h]``, ``slow@K:factor[:h]``)
+   that the trainer consults each step, and :class:`GradGuard` is
+   the skip-and-log guard for non-finite grads with a bounded
+   consecutive-skip budget and an escalation.
+
+4. **Heartbeats** (the worker half): :func:`write_heartbeat` /
+   :func:`read_heartbeats` over atomic per-host files.  The supervisor's
+   ``Watchdog`` and ``StragglerDetector`` are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import os
+import re
+import sys
+import time
+from typing import Any
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map
+
+Pytree = Any
+
+STATE_SPEC_SCHEMA = "repro.state-spec/v1"
+
+#: spec keys that determine the at-rest array layout (and hence whether a
+#: saved checkpoint can be loaded directly or must be de-/re-stacked).
+_FINGERPRINT_FIELDS = ("P", "V", "folded", "cuts", "devices",
+                       "num_param_stacks", "enc_slots", "dec_slots",
+                       "enc_counts", "dec_counts", "enc_pad", "dec_pad")
+
+
+def plan_fingerprint(spec: dict) -> str:
+    """Stable 16-hex-digit digest of a state spec's layout fields.
+
+    Computed over the canonical JSON of :data:`_FINGERPRINT_FIELDS` only,
+    so it is identical whether the spec came fresh off a plan (tuples)
+    or round-tripped through a manifest (lists).
+    """
+    doc = {k: spec[k] for k in _FINGERPRINT_FIELDS}
+    blob = json.dumps(doc, sort_keys=True, separators=(",", ":"))
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def compiled_state_spec(plan) -> dict:
+    """JSON-serializable layout spec for a CompiledPipeline's state."""
+    part, lay, pcfg = plan.partition, plan.layout, plan.pcfg
+    spec = {
+        "schema": STATE_SPEC_SCHEMA,
+        "P": int(part.num_devices),
+        "S": int(part.num_stages),
+        "V": int(lay.V),
+        "folded": bool(part.folded),
+        "cuts": [int(c) for c in part.cuts],
+        "devices": [int(d) for d in part.devices],
+        "dp": 1,
+        "zero_stage": 0,
+        "M": int(pcfg.num_microbatches),
+        "wire_dtype": str(pcfg.wire_dtype),
+        "num_param_stacks": int(plan.model_fns.num_param_stacks),
+        "enc_slots": [[int(s) for s in ss] for ss in lay.enc_slots],
+        "dec_slots": [[int(s) for s in ss] for ss in lay.dec_slots],
+        "enc_counts": [[int(c) for c in cc] for cc in lay.enc_counts],
+        "dec_counts": [[int(c) for c in cc] for cc in lay.dec_counts],
+        "enc_pad": int(lay.enc_pad),
+        "dec_pad": int(lay.dec_pad),
+    }
+    spec["fingerprint"] = plan_fingerprint(spec)
+    return spec
+
+
+# ===========================================================================
+# Elastic de-stack / re-stack
+# ===========================================================================
+
+def _spec_enc_ranges(spec: dict) -> list:
+    cuts = spec["cuts"]
+    return [[(cuts[s], cuts[s + 1]) for s in ss]
+            for ss in spec["enc_slots"]]
+
+
+def _spec_dec_ranges(spec: dict) -> list:
+    cuts = spec["cuts"]
+    mid = cuts[(len(cuts) - 1) // 2]
+    return [[(cuts[s] - mid, cuts[s + 1] - mid) for s in ss]
+            for ss in spec["dec_slots"]]
+
+
+def _destack(stacked: Pytree, ranges: list) -> Pytree:
+    """``StageLayout._unstack`` driven by a serialized spec: ``[D, V, pad,
+    ...]`` stage stacks -> flat block stack in graph order."""
+    order = sorted(((d, v) for d in range(len(ranges))
+                    for v in range(len(ranges[d]))),
+                   key=lambda dv: ranges[dv[0]][dv[1]][0])
+
+    def f(x):
+        return torch.cat([x[d, v, : ranges[d][v][1] - ranges[d][v][0]]
+                          for d, v in order], 0)
+
+    return tree_map(f, stacked)
+
+
+def destack_stage_stacks(stage_stacks: tuple, spec: dict) -> tuple:
+    """Saved per-(device, slot) stage stacks -> the model's logical block
+    stacks, through the *saved* plan's layout spec."""
+    if not spec["folded"]:
+        return (_destack(stage_stacks[0], _spec_enc_ranges(spec)),)
+    enc_b = _destack(stage_stacks[0], _spec_enc_ranges(spec))
+    dec_b = _destack(stage_stacks[1], _spec_dec_ranges(spec))
+    if spec["num_param_stacks"] == 1:
+        return (tree_map(lambda a, b: torch.cat([a, b], 0), enc_b, dec_b),)
+    return (enc_b, dec_b)
+
+
+def _logical_pt(pt, spec: dict) -> dict:
+    stacks, edge = pt
+    return {"stacks": destack_stage_stacks(tuple(stacks), spec),
+            "edge": edge}
+
+
+def _state_pt(d: dict, plan) -> tuple:
+    return (plan.layout.split(tuple(d["stacks"])), d["edge"])
+
+
+def state_to_logical(state: dict, spec: dict) -> dict:
+    """Training state saved under ``spec`` -> plan-independent logical view.
+
+    ``state`` is the tree ``launch/train.py`` checkpoints: ``{"params":
+    (stage_stacks, edge), "opt": {"m": ..., "v": ..., "step": ...}}``
+    where AdamW's ``m``/``v`` mirror ``params`` leaf-wise.
+    """
+    out = {"params": _logical_pt(state["params"], spec)}
+    if state.get("opt") is not None:
+        o = state["opt"]
+        out["opt"] = {"m": _logical_pt(o["m"], spec),
+                      "v": _logical_pt(o["v"], spec), "step": o["step"]}
+    return out
+
+
+def logical_to_state(logical: dict, plan) -> dict:
+    """Inverse of :func:`state_to_logical`, onto the *new* plan."""
+    state = {"params": _state_pt(logical["params"], plan)}
+    if logical.get("opt") is not None:
+        o = logical["opt"]
+        state["opt"] = {"m": _state_pt(o["m"], plan),
+                        "v": _state_pt(o["v"], plan), "step": o["step"]}
+    return state
+
+
+def _relayout(state: dict, spec: dict, plan) -> dict:
+    """``logical_to_state(state_to_logical(state, spec), plan)``, one
+    ``(stacks, edge)`` tree at a time, each saved tree dropped from
+    ``state`` as soon as its logical view exists: at full size the saved
+    state, its logical view and the new layout of all of it would not fit
+    on one card beside the trainer's own state."""
+    def move(holder: dict, key: str):
+        logical = _logical_pt(holder.pop(key), spec)
+        return _state_pt(logical, plan)
+
+    out = {"params": move(state, "params")}
+    if state.get("opt") is not None:
+        o = state.pop("opt")
+        out["opt"] = {"m": move(o, "m"), "v": move(o, "v"),
+                      "step": o["step"]}
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class RestoreInfo:
+    """What :func:`restore_training_state` did."""
+    step: int                       # checkpoint step restored
+    elastic: bool                   # True when saved plan != current plan
+    saved_fingerprint: str | None
+    fingerprint: str
+
+
+def restore_training_state(directory: str, plan, like_state: dict, *,
+                           step: int | None = None,
+                           strict: bool = True) -> tuple[dict, RestoreInfo]:
+    """Restore training state for ``plan``, elastically if needed.
+
+    Loads the newest fully-verified checkpoint (``strict=False`` falls
+    back past corrupt/partial steps) onto the devices of ``like_state``'s
+    leaves, then compares the manifest's saved state spec against
+    ``plan``'s: identical fingerprints load directly (the tree topology is
+    plan-invariant, only leaf shapes differ); different fingerprints route
+    through the logical view (:func:`state_to_logical` with the *saved*
+    spec, then :func:`logical_to_state` onto ``plan``).
+    """
+    from repro_torch.checkpoint.store import (CheckpointError, read_manifest,
+                                              restore_checkpoint)
+
+    state, got = restore_checkpoint(directory, like_state, step=step,
+                                    strict=strict, expect_shapes=False)
+    man = read_manifest(directory, got)
+    saved = man.get("plan")
+    if saved is None:
+        raise CheckpointError(
+            "checkpoint carries no plan state-spec; cannot verify it "
+            "matches the compiled pipeline (save through "
+            "CheckpointManager(..., plan=compiled.state_spec()))",
+            step=got, reason="no-plan-spec")
+    cur = compiled_state_spec(plan)
+    if saved["fingerprint"] == cur["fingerprint"]:
+        return state, RestoreInfo(got, False, saved["fingerprint"],
+                                  cur["fingerprint"])
+    print(f"[resilience] plan changed since step {got} "
+          f"({saved['fingerprint']} -> {cur['fingerprint']}): de-stacking "
+          f"P={saved['P']} V={saved['V']} dp={saved['dp']} "
+          f"zero={saved['zero_stage']} state onto P={cur['P']} V={cur['V']} "
+          f"dp={cur['dp']} zero={cur['zero_stage']}")
+    return _relayout(state, saved, plan), RestoreInfo(
+        got, True, saved["fingerprint"], cur["fingerprint"])
+
+
+# ===========================================================================
+# Fault injection
+# ===========================================================================
+
+#: seconds a ``hang@K`` fault sleeps -- long enough that any reasonable
+#: watchdog declares the host hung first (SIGTERM interrupts the sleep).
+HANG_SECONDS = 3600.0
+
+#: process exit codes a supervisor branches on.
+EXIT_KILLED = 42      # kill@K / hostdown@K:h -- a node died
+EXIT_ESCALATE = 43    # GradGuard skip budget exhausted, rollback requested
+
+_FAULT_KINDS = ("kill", "stop", "nan", "corrupt", "truncate", "iofail",
+                "hostdown", "hang", "slow")
+_FAULT_RE = re.compile(r"([a-z]+)@(-?\d+)(?::([\w.\-:]+))?")
+
+
+class FaultPlanError(ValueError):
+    """Structured fault-spec failure naming the offending token.
+
+    Raised by :meth:`FaultPlan.parse` / :meth:`FaultPlan.for_host` so a
+    malformed ``--faults`` spec fails at startup with the bad token in
+    hand, instead of deep inside the training loop.  ``token``/``reason``
+    survive as fields; subclasses ``ValueError``.
+    """
+
+    def __init__(self, message: str, *, token: str | None = None,
+                 reason: str | None = None):
+        self.token = token
+        self.reason = reason
+        ctx = ", ".join(f"{k}={v!r}" for k, v in
+                        (("token", token), ("reason", reason))
+                        if v is not None)
+        super().__init__(f"[faultplan{'; ' + ctx if ctx else ''}] {message}")
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultAction:
+    kind: str            # kill | stop | nan | corrupt | truncate | iofail
+    #                      | hostdown | hang | slow
+    step: int
+    arg: str | None = None   # corrupt/truncate: shard name
+    count: int = 1           # iofail: number of injected IO failures
+    host: int | None = None  # hostdown/hang/slow: target host rank
+    factor: float = 1.0      # slow: per-step slowdown factor
+    token: str = ""          # the spec token this action parsed from
+
+
+class FaultPlan:
+    """Env/flag-driven fault script for the trainer.
+
+    Comma-separated tokens, each ``kind@step`` with an optional arg:
+
+    - ``kill@K``      -- hard-kill the process (``os._exit``) after step K,
+      flushing any in-flight checkpoint first (a node dies between steps);
+    - ``stop@K``      -- abrupt in-process stop after step K, *without* a
+      final save (same recovery surface as kill, usable by in-process
+      drills);
+    - ``nan@K``       -- poison step K's batch with NaNs, so the step's
+      grads go non-finite and the :class:`GradGuard` path runs;
+    - ``corrupt@K[:shard]``  -- after step K, flip one byte in the named
+      (default: first) shard of the newest complete checkpoint;
+    - ``truncate@K[:shard]`` -- same, but truncate the shard to half;
+    - ``iofail@K:N``  -- the next N checkpoint-save attempts at/after
+      step K raise a transient ``OSError`` (exercises the manager's
+      retry/backoff path);
+    - ``hostdown@K:h`` -- host ``h`` hard-exits after step K (the
+      multi-host ``kill``);
+    - ``hang@K[:h]``   -- host ``h`` (default 0) stalls before step K for
+      :data:`HANG_SECONDS`;
+    - ``slow@K:factor[:h]`` -- from step K on, host ``h`` (default 0)
+      runs each step ``factor``x slower (a straggler).
+
+    Malformed specs raise :class:`FaultPlanError` naming the offending
+    token: unknown kinds, negative steps, duplicate ``kind@step`` pairs,
+    and (once the host count is known -- :meth:`for_host`) host indices
+    outside ``[0, num_hosts)``.
+
+    Source: the ``--faults`` flag, else the ``REPRO_FAULTS`` env var.
+    """
+
+    def __init__(self, actions=(), exit_code: int = EXIT_KILLED):
+        self.actions: tuple[FaultAction, ...] = tuple(actions)
+        self.exit_code = exit_code
+        self._io_left = {i: a.count for i, a in enumerate(self.actions)
+                         if a.kind == "iofail"}
+
+    @classmethod
+    def parse(cls, spec: str | None = None, *,
+              env: str = "REPRO_FAULTS") -> "FaultPlan":
+        if spec is None:
+            spec = os.environ.get(env, "")
+        actions: list[FaultAction] = []
+        seen: set[tuple[str, int]] = set()
+        for tok in filter(None, (t.strip() for t in spec.split(","))):
+            m = _FAULT_RE.fullmatch(tok)
+            if not m:
+                raise FaultPlanError(
+                    f"unparseable fault token {tok!r}; expected "
+                    f"kind@step[:arg] with kind in {'|'.join(_FAULT_KINDS)}",
+                    token=tok, reason="syntax")
+            kind, step, arg = m.group(1), int(m.group(2)), m.group(3)
+            if kind not in _FAULT_KINDS:
+                raise FaultPlanError(
+                    f"unparseable fault token {tok!r}: unknown kind "
+                    f"{kind!r} (known: {'|'.join(_FAULT_KINDS)})",
+                    token=tok, reason="unknown-kind")
+            if step < 0:
+                raise FaultPlanError(
+                    f"negative step in token {tok!r}: faults fire at "
+                    "step indices >= 0", token=tok, reason="negative-step")
+            if (kind, step) in seen:
+                raise FaultPlanError(
+                    f"duplicate {kind}@{step} (token {tok!r}): each verb "
+                    "may fire at most once per step",
+                    token=tok, reason="duplicate")
+            seen.add((kind, step))
+            actions.append(cls._parse_action(kind, step, arg, tok))
+        return cls(actions)
+
+    @staticmethod
+    def _parse_action(kind: str, step: int, arg: str | None,
+                      tok: str) -> FaultAction:
+        def bad(msg, reason="bad-arg"):
+            return FaultPlanError(f"{msg} (token {tok!r})", token=tok,
+                                  reason=reason)
+
+        count, host, factor = 1, None, 1.0
+        if kind in ("kill", "stop", "nan"):
+            if arg is not None:
+                raise bad(f"{kind}@K takes no argument")
+        elif kind == "iofail":
+            try:
+                count = int(arg) if arg else 1
+            except ValueError:
+                raise bad("iofail@K:N needs an integer failure count, "
+                          f"got {arg!r}") from None
+            if count < 1:
+                raise bad(f"iofail@K:N needs N >= 1, got {count}")
+            arg = None
+        elif kind == "hostdown":
+            if arg is None:
+                raise bad("hostdown@K:h needs a host index",
+                          reason="missing-host")
+            try:
+                host = int(arg)
+            except ValueError:
+                raise bad("hostdown@K:h needs an integer host index, "
+                          f"got {arg!r}") from None
+            arg = None
+        elif kind == "hang":
+            try:
+                host = int(arg) if arg is not None else 0
+            except ValueError:
+                raise bad("hang@K[:h] needs an integer host index, "
+                          f"got {arg!r}") from None
+            arg = None
+        elif kind == "slow":
+            if arg is None:
+                raise bad("slow@K:factor[:h] needs a slowdown factor",
+                          reason="missing-factor")
+            head, _, tail = arg.partition(":")
+            try:
+                factor = float(head)
+                host = int(tail) if tail else 0
+            except ValueError:
+                raise bad("slow@K:factor[:h] needs a float factor and an "
+                          f"optional integer host, got {arg!r}") from None
+            if factor < 1.0:
+                raise bad(f"slow factor must be >= 1.0, got {factor}")
+            arg = None
+        return FaultAction(kind, step, arg, count, host, factor, tok)
+
+    def for_host(self, host_id: int, num_hosts: int) -> "FaultPlan":
+        """The sub-plan host ``host_id`` of ``num_hosts`` executes: every
+        host-scoped token is validated against the real host count
+        (:class:`FaultPlanError` on out-of-range indices), and host-less
+        actions plus those targeting ``host_id`` are kept."""
+        for a in self.actions:
+            if a.host is not None and not (0 <= a.host < num_hosts):
+                raise FaultPlanError(
+                    f"host index {a.host} out of range for num_hosts="
+                    f"{num_hosts} (token {a.token!r})", token=a.token,
+                    reason="unknown-host")
+        keep = tuple(a for a in self.actions
+                     if a.host is None or a.host == host_id)
+        return FaultPlan(keep, self.exit_code)
+
+    def with_kill(self, step: int) -> "FaultPlan":
+        """Legacy ``--simulate-failure K`` alias."""
+        return FaultPlan(self.actions + (FaultAction("kill", step),),
+                         self.exit_code)
+
+    # ---- hooks the trainer calls -------------------------------------
+    def wants_nan(self, step: int) -> bool:
+        return any(a.kind == "nan" and a.step == step for a in self.actions)
+
+    def hang_before(self, step: int, *, sleep=time.sleep,
+                    seconds: float = HANG_SECONDS) -> bool:
+        """``hang@K`` hook, called at the TOP of step K (before compute):
+        sleeps ``seconds`` so the process stays alive while its heartbeat
+        step stops advancing.  Returns whether it fired."""
+        if not any(a.kind == "hang" and a.step == step
+                   for a in self.actions):
+            return False
+        print(f"[resilience] fault plan: hanging before step {step} "
+              f"(sleep {seconds:.0f}s -- simulated stuck collective)")
+        sys.stdout.flush()
+        sleep(seconds)
+        return True
+
+    def slow_factor(self, step: int) -> float:
+        """Largest active ``slow@K:factor`` slowdown at ``step`` (1.0 =
+        none)."""
+        return max((a.factor for a in self.actions
+                    if a.kind == "slow" and step >= a.step), default=1.0)
+
+    def poison_batch(self, batch: Pytree, step: int) -> Pytree:
+        """NaN every floating tensor of ``batch`` when a ``nan@step``
+        fires."""
+        if not self.wants_nan(step):
+            return batch
+        print(f"[resilience] fault plan: poisoning step {step}'s batch "
+              "with NaNs")
+        return tree_map(
+            lambda x: torch.full_like(x, float("nan"))
+            if x.is_floating_point() else x, batch)
+
+    def io_fault(self, step: int) -> None:
+        """Checkpoint-save hook (``CheckpointManager(io_fault=...)``):
+        raises a transient OSError while an ``iofail`` budget remains."""
+        for i, a in enumerate(self.actions):
+            if a.kind == "iofail" and step >= a.step \
+                    and self._io_left.get(i, 0) > 0:
+                self._io_left[i] -= 1
+                raise OSError(
+                    f"[faultplan] injected transient IO failure at step "
+                    f"{step} ({self._io_left[i]} more to come)")
+
+    def post_step(self, step: int, *, ckpt_dir: str | None = None,
+                  flush=None) -> str | None:
+        """Fire end-of-step actions; returns ``"stop"`` on a stop fault."""
+        stop = False
+        for a in self.actions:
+            if a.step != step:
+                continue
+            if a.kind in ("corrupt", "truncate"):
+                if flush is not None:
+                    flush()
+                if ckpt_dir:
+                    what = corrupt_checkpoint(
+                        ckpt_dir, shard=a.arg,
+                        truncate=(a.kind == "truncate"))
+                    print(f"[resilience] fault plan: {a.kind}d {what}")
+            elif a.kind in ("kill", "hostdown"):
+                if flush is not None:
+                    flush()
+                who = (f"host {a.host} down" if a.kind == "hostdown"
+                       else "hard node failure")
+                print(f"[resilience] fault plan: {who} after "
+                      f"step {step} (os._exit({self.exit_code}))")
+                sys.stdout.flush()
+                os._exit(self.exit_code)
+            elif a.kind == "stop":
+                # like kill, a stop "dies" only between checkpoint writes:
+                # flush the in-flight save so the recovery point is
+                # deterministic
+                if flush is not None:
+                    flush()
+                stop = True
+        return "stop" if stop else None
+
+
+def corrupt_checkpoint(directory: str, *, step: int | None = None,
+                       shard: str | None = None,
+                       truncate: bool = False) -> str:
+    """Flip one byte in (or truncate) a shard of the newest complete
+    checkpoint -- the mutation the SHA-256 verification must catch."""
+    from repro_torch.checkpoint.store import complete_steps, read_manifest
+
+    if step is None:
+        steps = complete_steps(directory)
+        if not steps:
+            raise FileNotFoundError(
+                f"no complete checkpoint under {directory} to corrupt")
+        step = steps[-1]
+    man = read_manifest(directory, step)
+    names = man["shards"]
+    name = shard if shard is not None else names[0]
+    if not name.endswith(".npz"):
+        name += ".npz"
+    if name not in names:
+        raise ValueError(f"shard {name!r} not in step {step}'s manifest "
+                         f"({names})")
+    path = os.path.join(directory, f"step_{step:09d}", name)
+    size = os.path.getsize(path)
+    if truncate:
+        with open(path, "r+b") as f:
+            f.truncate(size // 2)
+        return f"{path} (truncated {size} -> {size // 2} bytes)"
+    with open(path, "r+b") as f:
+        f.seek(size // 2)
+        b = f.read(1)
+        f.seek(size // 2)
+        f.write(bytes([b[0] ^ 0xFF]))
+    return f"{path} (flipped byte {size // 2})"
+
+
+# ===========================================================================
+# Non-finite gradient guard
+# ===========================================================================
+
+def all_finite(*trees) -> torch.Tensor:
+    """0-d bool tensor: every floating leaf of every tree is finite (one
+    reduction on the leaves' device; ``bool()`` of it is the one sync)."""
+    flags = [torch.isfinite(x).all() for x in tree_leaves(list(trees))
+             if isinstance(x, torch.Tensor) and x.is_floating_point()]
+    if not flags:
+        return torch.tensor(True)
+    return torch.stack([f.to(flags[0].device) for f in flags]).all()
+
+
+class GradGuardEscalation(RuntimeError):
+    """Raised when :class:`GradGuard`'s consecutive-skip budget is
+    exhausted.  A ``RuntimeError``, so a caller that does not opt into
+    escalation aborts; the trainer's ``--escalation rollback`` catches it
+    and exits :data:`EXIT_ESCALATE` for a supervisor to roll back to the
+    last verified checkpoint."""
+
+    def __init__(self, message: str, *, step: int, consecutive: int,
+                 budget: int):
+        self.step = step
+        self.consecutive = consecutive
+        self.budget = budget
+        super().__init__(message)
+
+
+class GradGuard:
+    """Skip-and-log guard for non-finite updates.
+
+    The step skips the optimizer update when loss/grads contain
+    non-finite values (:func:`all_finite`); the host-side guard counts
+    *consecutive* skipped steps and raises :class:`GradGuardEscalation`
+    once they exceed ``budget`` -- a single poisoned batch is survivable,
+    a divergence or persistently bad data pipeline is not.
+    """
+
+    def __init__(self, budget: int = 3):
+        self.budget = budget
+        self.consecutive = 0
+        self.skipped_total = 0
+
+    def observe(self, finite: bool, step: int) -> bool:
+        """Record one step's finite flag; returns whether it applied."""
+        if finite:
+            self.consecutive = 0
+            return True
+        self.consecutive += 1
+        self.skipped_total += 1
+        print(f"[resilience] non-finite loss/grads at step {step}: update "
+              f"skipped ({self.consecutive}/{self.budget} consecutive)")
+        if self.consecutive > self.budget:
+            raise GradGuardEscalation(
+                f"{self.consecutive} consecutive non-finite steps exceed "
+                f"the skip budget ({self.budget}): aborting -- bad data "
+                "stream or diverged optimizer state",
+                step=step, consecutive=self.consecutive,
+                budget=self.budget)
+        return False
+
+
+# ===========================================================================
+# Heartbeats (the worker half of the supervisor's detection primitives)
+# ===========================================================================
+
+@dataclasses.dataclass
+class Heartbeat:
+    """One worker's liveness/progress record, written atomically per step.
+
+    ``step`` is the last COMPLETED step (-1 before the first), ``phase``
+    one of ``init``, ``train``, ``ckpt``, ``done``.  ``gen`` is the
+    supervisor generation that launched the worker, so a monitor never
+    confuses a stale file from a torn-down generation with a live worker.
+    """
+    host_id: int
+    step: int
+    phase: str = "init"             # init | train | ckpt | done
+    t: float = 0.0                  # wall-clock at write (time.time())
+    loss: float | None = None
+    grad_norm: float | None = None
+    step_s: float | None = None     # worker-measured duration of `step`
+    pid: int | None = None
+    gen: int = 0
+
+
+def _heartbeat_path(directory: str, host_id: int) -> str:
+    return os.path.join(directory, f"hb_h{host_id:05d}.json")
+
+
+def write_heartbeat(directory: str, hb: Heartbeat) -> None:
+    """Atomic (tmp + ``os.replace``) write -- monitors never read a torn
+    record.  Fills ``t``/``pid`` when unset."""
+    os.makedirs(directory, exist_ok=True)
+    if not hb.t:
+        hb.t = time.time()
+    if hb.pid is None:
+        hb.pid = os.getpid()
+    path = _heartbeat_path(directory, hb.host_id)
+    tmp = os.path.join(directory, f".hb_h{hb.host_id:05d}.tmp{os.getpid()}")
+    with open(tmp, "w") as f:
+        json.dump(dataclasses.asdict(hb), f)
+    os.replace(tmp, path)
+
+
+def read_heartbeats(directory: str, *, gen: int | None = None
+                    ) -> dict[int, Heartbeat]:
+    """All readable heartbeats under ``directory`` keyed by host id.
+
+    Unreadable/torn files are skipped (the next poll sees the replaced
+    record); ``gen`` filters out stale records from earlier supervisor
+    generations."""
+    out: dict[int, Heartbeat] = {}
+    if not os.path.isdir(directory):
+        return out
+    for name in os.listdir(directory):
+        m = re.fullmatch(r"hb_h(\d+)\.json", name)
+        if not m:
+            continue
+        try:
+            with open(os.path.join(directory, name)) as f:
+                doc = json.load(f)
+            hb = Heartbeat(**doc)
+        except (OSError, json.JSONDecodeError, TypeError):
+            continue
+        if gen is not None and hb.gen != gen:
+            continue
+        out[hb.host_id] = hb
+    return out

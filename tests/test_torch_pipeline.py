@@ -352,9 +352,9 @@ def test_train_runs_three_steps_on_cpu(tmp_path):
             res.step_seconds[1] + res.step_seconds[2])}
 
 
-@pytest.mark.parametrize("extra", [["--ckpt-dir", "x"], ["--dp", "2"],
-                                   ["--faults", "kill@2"], ["--keep", "5"],
-                                   ["--escalation", "rollback"], []])
+@pytest.mark.parametrize("extra", [["--num-hosts", "2"], ["--dp", "2"],
+                                   ["--host-id", "1"], ["--zero-stage", "1"],
+                                   ["--commit-timeout", "5"], []])
 def test_train_refuses_unported_paths(extra):
     from repro_torch.launch import train
     argv = ["--arch", "uvit-nano", "--devices", "2", "--steps", "1",
@@ -425,7 +425,9 @@ def test_port_imports_neither_jax_nor_repro():
     for mod in ("repro_torch.configs.hunyuan_dit",
                 "repro_torch.kernels.linear_scan.ops",
                 "repro_torch.runtime.adapters",
-                "repro_torch.models.diffusion"):
+                "repro_torch.models.diffusion",
+                "repro_torch.checkpoint.store",
+                "repro_torch.runtime.resilience"):
         assert mod in walked, mod
     # chip_smoke.py imports none of them either
     src = (REPO / "chip_smoke.py").read_text()
