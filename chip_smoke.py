@@ -14,7 +14,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    then the bf16 kernels' and the scan's tiles, resident blocks per SM and
    grids at the shapes they are timed at;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the shapes of the UViT-H and Hunyuan-DiT-3B train steps (the gated
+   the shapes of the UViT-H, Hunyuan-DiT-3B and SDv2 UNet train steps
+   (flash attention at the UNet's six: self and cross at head dim 112 and
+   224, B=16; both dtypes on the SIMT route) (the gated
    linear scan, which no train path calls, at zamba2-2.7b's Mamba2 width
    over 4k steps and at R=32 over 2k steps, forward and backward kernels,
    with mixed dtypes of a and x, and with decays near 1, whose carry spans
@@ -35,7 +37,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and grads at rtol 1e-3; then in bf16 through the kernels' bf16 routes (a
    Hunyuan-DiT config with 2 heads of 128, 4 blocks, 77 text tokens, D=2,
    M=4) against the same params in fp32 on the CPU: loss at rtol 2e-2,
-   each gradient at ||err|| / ||g|| <= 5e-2;
+   each gradient at ||err|| / ||g|| <= 5e-2; then a narrow SDv2 UNet
+   whose single heads are 112 and 224 wide (``UNET_PARITY``), flash on,
+   on the card against the CPU: fp32 loss and grads at rtol 1e-4, bf16
+   loss at rtol 2e-2, two flash launches per attention block;
 5. train UViT-H: ``repro_torch.launch.train`` with ``--arch uvit-h
    --pipeline --devices 4 --microbatches 8 --global-batch 16 --steps 4``
    (UViT-2.7B at full width and depth, bf16, bf16 wire) with the launch
@@ -54,7 +59,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (d=2048, 32 blocks, 1024 tokens, cross-attention over 77 text tokens,
    full width and depth, bf16), after checking that less than 1 GB is
    still allocated;
-8. the ``kernels`` JSON line, then the device line as the last line.
+8. train the SDv2 UNet: ``--arch sdv2-unet-full`` without ``--pipeline``
+   (1.84e9 params at full width, bf16, global batch 16, 4 steps, random
+   weights from seed 0, nothing cut): every loss finite, exactly 32 flash
+   launches a step (every attention call through the kernel), peak
+   device memory printed;
+9. the ``kernels`` JSON line, then the device line as the last line.
 
 The full record goes to ``chiprun_out/chip_smoke.json``.  Without a CUDA
 device the script exits 1 at once and prints no result.
@@ -76,6 +86,10 @@ TRAIN_ARGV = ["--pipeline", "--devices", "4", "--microbatches", "8",
               "--global-batch", "16", "--steps", "4", "--log-every", "1",
               "--device", "cuda"]
 TRAIN_ARCHS = ("uvit-h", "hunyuan-dit")      # in this order, one at a time
+# the SDv2 UNet at full width, the whole model in one step (no --pipeline)
+UNET_ARGV = ["--arch", "sdv2-unet-full", "--global-batch", "16", "--steps",
+             "4", "--log-every", "1", "--device", "cuda"]
+UNET_FLASH_PER_STEP = 32     # 16 attention blocks, self + cross each
 SOURCES = {   # kernel -> (CUDA source, the TPU kernel it replaces)
     "skip_concat_matmul": ("src/repro_torch/kernels/csrc/skip_matmul.cu",
                            "src/repro/kernels/skip_matmul/kernel.py:40"),
@@ -258,6 +272,15 @@ def check_flash(torch, rec) -> dict:
         ("hunyuan-dit", 2, 1024, 1024, 16, 16, 128, False, None),
         ("hunyuan-dit cross", 2, 1024, 77, 16, 16, 128, False, None),
         (None, 1, 300, 300, 8, 2, 64, True, 96),          # causal+win+GQA
+        # the SDv2 UNet's train step (sdv2-unet-full, B=16, 8 heads): self
+        # and cross-attention over 77 text tokens at 16x16 (head dim 112),
+        # 8x8 and 4x4 (level 3 and the middle block; head dim 224)
+        ("sdv2-unet L1 self", 16, 256, 256, 8, 8, 112, False, None),
+        ("sdv2-unet L1 cross", 16, 256, 77, 8, 8, 112, False, None),
+        ("sdv2-unet L2 self", 16, 64, 64, 8, 8, 224, False, None),
+        ("sdv2-unet L2 cross", 16, 64, 77, 8, 8, 224, False, None),
+        ("sdv2-unet L3+mid self", 16, 16, 16, 8, 8, 224, False, None),
+        ("sdv2-unet L3+mid cross", 16, 16, 77, 8, 8, 224, False, None),
     ]
     for path, B, S, T, Hq, Hkv, D, causal, window in cases:
         for dtype in ("bfloat16", "float32"):
@@ -649,14 +672,123 @@ def _launches() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the UNet, card vs CPU
+# ---------------------------------------------------------------------------
+
+# a narrow SDv2 UNet whose single heads are exactly the full model's head
+# dims: 112 at level 1 (16x16), 224 at level 2 (8x8) and in the middle
+UNET_PARITY = dict(img_size=16, base_ch=56, ch_mults=(1, 2, 4),
+                   attn_levels=(1, 2), n_heads=1, ctx_dim=64, ctx_len=77)
+
+
+def _unet_step(torch, cfg, params, batch, t, noise, dev):
+    """The UNet's loss and every gradient (fp32, on the CPU, by path; an
+    unread leaf, the cross-attention's wk/wv, gets zeros) on ``dev``."""
+    from repro_torch.models.diffusion import unet_loss
+    from repro_torch.tree import tree_map, tree_paths
+    p = tree_map(lambda x: x.detach().to(dev).clone().requires_grad_(True),
+                 params)
+    b = {k: v.to(dev) for k, v in batch.items()}
+    loss = unet_loss(p, b, t.to(dev), noise.to(dev), cfg)
+    loss.backward()
+    return (float(loss.detach().float()),
+            {k: (x.grad if x.grad is not None else torch.zeros_like(x))
+             .detach().float().cpu() for k, x in tree_paths(p)})
+
+
+def unet_parity(torch, rec) -> None:
+    """``UNET_PARITY`` with flash attention on (head dims 112 and 224):
+    fp32 on the card (the kernel, cuDNN's convs, TF32 off) against the
+    same step on the CPU (plain versions): loss at rtol 1e-4, each gradient
+    at rtol 1e-4 with atol 1e-4 x its largest entry (a conv weight's
+    gradient sums over every pixel of the batch, so its entries near zero
+    keep no relative precision in another summation order); then bf16
+    params (norm leaves fp32, as ``init_unet`` makes them) and activations
+    on the card against the fp32 CPU step: loss at rtol 2e-2, the worst
+    gradient's ||err|| / ||g|| reported.  Each card run must launch the
+    kernel twice per attention block."""
+    import numpy as np
+
+    from repro_torch.data import SyntheticLatentDataset
+    from repro_torch.models.diffusion import UNetConfig, init_unet
+    from repro_torch.tree import tree_map, tree_paths
+    B = 4
+    cfg32 = UNetConfig("sdv2-parity", use_flash=True, **UNET_PARITY)
+    cfg16 = UNetConfig("sdv2-parity-bf16", use_flash=True,
+                       dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                       **UNET_PARITY)
+    params = init_unet(torch.Generator().manual_seed(0), cfg32, "cpu")
+    # one launch per attention (self and cross: each has its own wq)
+    want_launches = sum(k.endswith("/wq") for k, _ in tree_paths(params))
+    like16 = init_unet(torch.Generator().manual_seed(0), cfg16, "cpu")
+    params16 = tree_map(lambda x, y: x.to(y.dtype), params, like16)
+    del like16
+    ds = SyntheticLatentDataset(img_size=16, channels=4,
+                                text_dim=cfg32.ctx_dim,
+                                text_len=cfg32.ctx_len)
+    batch = {k: torch.as_tensor(np.asarray(v))
+             for k, v in ds.batch(0, 0, B).items() if k != "labels"}
+    gen = torch.Generator().manual_seed(1)
+    t = torch.rand((B,), generator=gen)
+    noise = torch.randn((B, 16, 16, 4), generator=gen)
+    lc, gc_ = _unet_step(torch, cfg32, params, batch, t, noise, "cpu")
+    out = {}
+    for name, cfg, p in (("fp32", cfg32, params), ("bf16", cfg16, params16)):
+        before = _launches()["flash_attention"]
+        lg, gg = _unet_step(torch, cfg, p, batch, t, noise, "cuda")
+        torch.cuda.synchronize()
+        launched = _launches()["flash_attention"] - before
+        if launched != want_launches:
+            fail(f"unet parity {name}: {launched} flash launches, want "
+                 f"{want_launches} (self and cross in every attention "
+                 "block)")
+        tol = 1e-4 if name == "fp32" else 2e-2
+        if not (math.isfinite(lg) and math.isclose(lg, lc, rel_tol=tol)):
+            fail(f"unet parity {name}: loss on the card {lg} vs fp32 CPU "
+                 f"{lc} (rtol {tol})")
+        worst, worst_k = 0.0, None
+        for k, want in gc_.items():
+            got = gg[k]
+            if name == "fp32":
+                try:
+                    torch.testing.assert_close(
+                        got, want, rtol=1e-4,
+                        atol=1e-4 * float(want.abs().max()))
+                except AssertionError as e:
+                    fail(f"unet parity fp32: grad {k} differs:\n{e}")
+            ref = float(want.norm())
+            if ref == 0.0:
+                if float(got.norm()) != 0.0:
+                    fail(f"unet parity {name}: grad {k} is zero on the CPU "
+                         "but not on the card")
+                continue
+            rel = float((got - want).norm()) / ref
+            if rel > worst:
+                worst, worst_k = rel, k
+        out[name] = dict(loss_cuda=lg, loss_cpu=lc, launches=launched,
+                         max_rel_grad_err=worst, worst_grad=worst_k,
+                         grads=len(gg))
+        log(f"[parity] {cfg.name} (heads 112/224) {name} on the card vs "
+            f"fp32 CPU: loss card {lg:.7f} cpu {lc:.7f}; {len(gg)} grads, "
+            f"worst ||err||/||g|| {worst:.3e} ({worst_k}); flash launches "
+            f"{launched}")
+    rec["unet_parity"] = out
+
+
+# ---------------------------------------------------------------------------
 # phases 5 and 7: train UViT-H, then Hunyuan-DiT-3B
 # ---------------------------------------------------------------------------
 
 def train(torch, rec, arch: str) -> dict:
+    """``arch`` through ``repro_torch.launch.train``: the pipeline archs
+    with ``TRAIN_ARGV`` (both model kernels must launch), the full UNet
+    with ``UNET_ARGV`` (flash attention exactly ``UNET_FLASH_PER_STEP``
+    times a step: every attention call through the kernel)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train as train_mod
 
-    argv = ["--arch", arch] + TRAIN_ARGV
+    unet = arch == "sdv2-unet-full"
+    argv = UNET_ARGV if unet else ["--arch", arch] + TRAIN_ARGV
     args = train_mod._parse_args(argv)
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -668,10 +800,15 @@ def train(torch, rec, arch: str) -> dict:
         fail(f"train {arch}: losses {losses}")
     if res.skipped_steps:
         fail(f"train {arch}: {res.skipped_steps} non-finite updates skipped")
-    for k in ("skip_concat_matmul", "flash_attention"):
-        if not counts[k]:
-            fail(f"train {arch}: kernel launch counts {counts}; every kernel "
-                 "of the path must run")
+    if unet:
+        if counts["flash_attention"] != UNET_FLASH_PER_STEP * args.steps:
+            fail(f"train {arch}: kernel launch counts {counts}; want "
+                 f"{UNET_FLASH_PER_STEP} flash launches a step")
+    else:
+        for k in ("skip_concat_matmul", "flash_attention"):
+            if not counts[k]:
+                fail(f"train {arch}: kernel launch counts {counts}; every "
+                     "kernel of the path must run")
     steps = [res.step_seconds[s] for s in sorted(res.step_seconds)]
     steady = steps[1:] or steps
     sps = args.global_batch / (sum(steady) / len(steady))
@@ -987,10 +1124,11 @@ def main() -> None:
     scan_row, scan_launches = check_scan(torch, rec)
     torch.cuda.empty_cache()
 
-    # 4. pipeline parity
+    # 4. pipeline parity, then the UNet's card-vs-CPU parity
     for kind, D, M in (("uvit", 4, 8), ("hunyuan", 2, 4), ("hunyuan", 4, 4)):
         pipeline_parity(torch, rec, kind, D, M)
     pipeline_parity_bf16(torch, rec)
+    unet_parity(torch, rec)
     torch.cuda.empty_cache()
 
     # 5-7. train, one model at a time; after UViT-H, its checkpoint phase
@@ -1006,7 +1144,15 @@ def main() -> None:
             release(torch)
             counts.update(checkpoint_phase(torch, rec, smi_line))
 
-    # 8. results: each kernel's numbers at the Hunyuan-DiT train step's
+    # 8. train the SDv2 UNet at full width, without the pipeline
+    left = release(torch)
+    if left >= 1e9:
+        fail(f"train sdv2-unet-full: {left / 1e9:.2f} GB still allocated; "
+             "the previous phase was not released")
+    counts["sdv2-unet-full"] = train(torch, rec, "sdv2-unet-full")
+    release(torch)
+
+    # 9. results: each kernel's numbers at the Hunyuan-DiT train step's
     # shape (the scan: its own phase's), every train path's beside them
     kernels = []
     for kname, (source, replaces) in SOURCES.items():

@@ -3,8 +3,9 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_fwd, body _attn_kernel), wired into the self-attention of
-// every UViT and Hunyuan-DiT block and Hunyuan-DiT's cross-attention over
-// the text tokens (models/layers.py::apply_attention with use_flash).
+// every UViT and Hunyuan-DiT block, Hunyuan-DiT's cross-attention over
+// the text tokens, and the SDv2 UNet's self- and cross-attention
+// (models/layers.py::apply_attention with use_flash).
 //
 // Layout: q (B, S, Hq, D), k and v (B, T, Hkv, D), out (B, S, Hq, D), all
 // contiguous -- the model's own layout, so no transpose is materialised.
@@ -19,7 +20,7 @@
 // D = 128) one (b, h) pair does 4*S*T*D operations on 4*S*D bf16 elements,
 // ~500 operations per byte, above the bf16 ridge (~295 op/B): the tensor
 // cores bound it (at UViT-H's S = T = 258 and the cross-attention's T = 77
-// the bytes do).
+// the bytes do, and at every SDv2 UNet shape: S = T <= 256 in bf16).
 //
 // Two routes, a pure function of (dtype, D) (flash_route in ops.py):
 //
@@ -37,11 +38,14 @@
 //   read through the transpose bit; O accumulates in fp32.  Rounding P to
 //   bf16 is the one numeric change from the Pallas body, which multiplies
 //   P V in fp32.
-// - fp32 at any D, and bf16 at D in {8, 16, 32} (the small test configs):
-//   SIMT.  One block per (b*h, 16-query tile); 4 warps x 4 query rows; K/V
-//   tiles of 32 keys staged in shared memory as fp32; lane j scores key j
-//   and lanes split the output dims for the P.V update.  fp32 stays off the
-//   tensor cores: TF32 would keep ~3 digits.
+// - fp32 at any D, and bf16 at D in {8, 16, 32} (the small test configs)
+//   and {112, 224} (the SDv2 UNet's 896- and 1792-wide attention over 8
+//   heads): SIMT.  One block per (b*h, 16-query tile); 4 warps x 4 query
+//   rows; K/V tiles of 32 keys staged in dynamic shared memory as fp32
+//   (72 KB at D = 224, past the 48 KB static limit); lane j scores key j
+//   and lanes split the output dims for the P.V update, ceil(D / 32) each,
+//   those past D masked (at D = 112 lanes 16-31 hold no fourth dim).  fp32
+//   stays off the tensor cores: TF32 would keep ~3 digits.
 //
 // Both routes skip the K/V tiles their causal/window mask hides entirely,
 // mask inside the rest, and keep the running max and sum in fp32.
@@ -65,6 +69,13 @@ constexpr int NWARP = 4;           // warps per block
 constexpr int ROWS = 4;            // query rows per warp
 constexpr int BQ = NWARP * ROWS;   // query rows per block
 constexpr int BKV = 32;            // keys per K/V tile (one per lane)
+
+// the SIMT kernel's shared memory at head dim DH: the scaled Q tile and the
+// K and V tiles in fp32, rows padded by one word
+template <int DH>
+struct SimtSmem {
+  static constexpr int BYTES = (BQ * DH + 2 * BKV * (DH + 1)) * 4;
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -99,9 +110,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int Hq, int Hkv, int causal, int has_window, int window,
                  float scale) {
   constexpr int DPL = (DH + 31) / 32;   // output dims per lane
-  __shared__ float qs[BQ][DH];
-  __shared__ float ks[BKV][DH + 1];     // +1: lane j reads row j conflict-free
-  __shared__ float vs[BKV][DH + 1];
+  // dynamic shared memory (SimtSmem<DH>): at DH = 224 the tiles take 72 KB,
+  // over the 48 KB a static array may hold
+  extern __shared__ float simt_smem[];
+  float(*qs)[DH] = reinterpret_cast<float(*)[DH]>(simt_smem);
+  // +1: lane j reads row j conflict-free
+  float(*ks)[DH + 1] = reinterpret_cast<float(*)[DH + 1]>(simt_smem + BQ * DH);
+  float(*vs)[DH + 1] = ks + BKV;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -423,10 +438,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
       (err = hopper::make_tma_bf16(&tk, k, 4, dk, sk, bk)) ||
       (err = hopper::make_tma_bf16(&tv, v, 4, dk, sk, bk)))
     return err;
-  // the shared-memory opt-in holds per device context: set on every launch
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<DH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, L::TOTAL);
+  static std::atomic<uint64_t> opted{0};
+  cudaError_t e = hopper::opt_in_smem(
+      opted, (const void*)flash_fwd_wgmma_kernel<DH>, L::TOTAL);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * Hq, (S + FBQ - 1) / FBQ);
   flash_fwd_wgmma_kernel<DH><<<grid, FTHREADS, L::TOTAL, st>>>(
@@ -437,14 +451,23 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
 
 // ------------------------------------------------------------- SIMT launch
 template <int DH, typename T>
-void launch(const void* q, const void* k, const void* v, void* o, int B,
-            int S, int Tk, int Hq, int Hkv, int causal, int has_window,
-            int window, float scale, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int S, int Tk, int Hq, int Hkv, int causal, int has_window,
+           int window, float scale, cudaStream_t st) {
+  constexpr int smem = SimtSmem<DH>::BYTES;
+  if constexpr (smem > 48 * 1024) {
+    // past 48 KB a kernel must opt in
+    static std::atomic<uint64_t> opted{0};
+    cudaError_t e = hopper::opt_in_smem(
+        opted, (const void*)flash_fwd_kernel<DH, T>, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   const dim3 grid(B * Hq, (S + BQ - 1) / BQ);
-  flash_fwd_kernel<DH, T><<<grid, NWARP * 32, 0, st>>>(
+  flash_fwd_kernel<DH, T><<<grid, NWARP * 32, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, Tk, Hq, Hkv, causal,
       has_window, window, scale);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -453,24 +476,23 @@ int launch_dh(int D, const void* q, const void* k, const void* v, void* o,
               int has_window, int window, float scale, cudaStream_t st) {
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
   switch (D) {
-    case 8: launch<8, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st); break;
-    case 16: launch<16, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st); break;
-    case 32: launch<32, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st); break;
+    case 8: return launch<8, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
+    case 16: return launch<16, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
+    case 32: return launch<32, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
     case 64:
       if constexpr (bf16)
         return launch_wgmma<64>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
       else
-        launch<64, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
-      break;
+        return launch<64, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
+    case 112: return launch<112, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
     case 128:
       if constexpr (bf16)
         return launch_wgmma<128>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
       else
-        launch<128, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
-      break;
+        return launch<128, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
+    case 224: return launch<224, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 template <int DH>
@@ -496,7 +518,7 @@ const char* pulse_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  D in {8, 16, 32, 64, 128};
+// dtype: 0 = float32, 1 = bfloat16.  D in {8, 16, 32, 64, 112, 128, 224};
 // Hq % Hkv == 0.  bf16 at D = 64 or 128 takes the tensor-core route and
 // needs 16-byte-aligned pointers (else cudaErrorInvalidValue).
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,

@@ -22,6 +22,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace hopper {
 
 // ------------------------------------------------------------------ basics
@@ -35,6 +37,25 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ----------------------------------------------------- launch-time set-up
+
+// Opts ``kernel`` into ``bytes`` of dynamic shared memory, once per device:
+// the attribute holds for the device's context, so a later launch only
+// reads the bit of its device in ``done``, a flag word that each launch
+// function keeps as its own static.  Devices past 63 set it every time.
+inline cudaError_t opt_in_smem(std::atomic<uint64_t>& done,
+                               const void* kernel, int bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return e;
 }
 
 // ---------------------------------------------------------------- mbarrier

@@ -492,9 +492,8 @@ int launch(const void* a, const void* x, const void* hin, void* out,
         (BWD && (err = make_map<TX>(&tm_h, hin, R, Tn, C, K::L))))
       return err;
   }
-  // the shared-memory opt-in holds per device context: set on every launch
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
+  static std::atomic<uint64_t> opted{0};
+  cudaError_t e = hopper::opt_in_smem(opted, (const void*)kernel, K::SMEM);
   if (e != cudaSuccess) return (int)e;
   kernel<<<(unsigned)blocks, THREADS, K::SMEM, st>>>(
       tm_a, tm_x, tm_h, static_cast<const TA*>(a), static_cast<const TX*>(x),

@@ -157,10 +157,9 @@ int launch_bf16(const void* h, const void* s, const void* w, void* y, int M,
       (err = hopper::make_tma_bf16(&tw0, w, 2, db, sb, bb)) ||
       (err = hopper::make_tma_bf16(&tw1, w1, 2, db, sb, bb)))
     return err;
-  // the shared-memory opt-in holds per device context: set on every launch
-  cudaError_t e = cudaFuncSetAttribute(
-      skip_mm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SKIP_SMEM);
+  static std::atomic<uint64_t> opted{0};
+  cudaError_t e = hopper::opt_in_smem(
+      opted, (const void*)skip_mm_wgmma_kernel, SKIP_SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((N + SBN - 1) / SBN, (M + SBM - 1) / SBM);
   skip_mm_wgmma_kernel<<<grid, STHREADS, SKIP_SMEM, st>>>(

@@ -31,7 +31,7 @@ from repro_torch.kernels import LAUNCHES, build, tma_aligned
 
 NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 112, 128, 224)
 WGMMA_HEAD_DIMS = (64, 128)     # bf16 head dims on the tensor-core route
 # q, k, v, out, B, S, T, Hq, Hkv, D, causal, has_window, window, scale,
 # dtype, stream
@@ -78,7 +78,8 @@ def flash_route(dtype: torch.dtype, D: int) -> str:
     pure function of the two, never a fallback on failure.  ``"wgmma"``,
     the tensor-core route (TMA loads, wgmma, P kept in registers), for
     bf16 at D in (64, 128); ``"simt"``, the FMA kernel, for fp32 at any
-    head dim and bf16 at D in (8, 16, 32), the small test configs."""
+    head dim and bf16 at D in (8, 16, 32), the small test configs, and
+    (112, 224), the SDv2 UNet's heads."""
     if dtype not in _DTYPES:
         raise TypeError(f"{NAME}: dtype {dtype}; the kernel takes float32 "
                         "or bfloat16")

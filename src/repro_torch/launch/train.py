@@ -1,20 +1,31 @@
-"""Pipelined diffusion training driver (the port of ``repro.launch.train``,
-``--pipeline`` path): graph -> skip-aware partition -> validated schedule ->
-table-driven wave executor -> DDPM loss -> AdamW, step after step.
+"""Diffusion trainer (the port of ``repro.launch.train``): AdamW
+step after step, on the wave pipeline (``--pipeline``) or on the whole
+model at once.
 
-All ``--devices`` pipeline devices run in this one process on one card (or
-on the CPU with ``--device cpu``), as the JAX package runs them as
-host-simulated devices.  The kernels are always on: the decoder skip-in
-goes through the fused skip-concat matmul and self-attention through
-flash attention (on the CPU, through the kernels' plain versions).
-
-Archs: ``uvit-pp`` (alias ``uvit``) and ``uvit-nano``, the JAX driver's
-small pipeline configs, and ``uvit-h``, the paper's UViT-2.7B at full
-width and depth (``configs/uvit_h.py``) in bf16; ``hunyuan-pp``, the small
-Hunyuan-DiT of the JAX package's ``wave-hunyuan`` differential, and
+``--pipeline``: graph -> skip-aware partition -> validated schedule ->
+table-driven wave executor -> DDPM loss.  All ``--devices`` pipeline
+devices run in this one process on one card (or on the CPU with
+``--device cpu``), as the JAX package runs them as host-simulated
+devices.  Archs: ``uvit-pp`` (alias ``uvit``) and ``uvit-nano``, the JAX
+trainer's small pipeline configs, and ``uvit-h``, the paper's UViT-2.7B at
+full width and depth (``configs/uvit_h.py``) in bf16; ``hunyuan-pp``, the
+small Hunyuan-DiT of the JAX package's ``wave-hunyuan`` differential, and
 ``hunyuan-dit``, Hunyuan-DiT-3B at full width and depth
-(``configs/hunyuan_dit.py``) in bf16, whose blocks also take cross-attention
-through the flash kernel and adaLN conditioning.
+(``configs/hunyuan_dit.py``) in bf16, whose blocks also take
+cross-attention through the flash kernel and adaLN conditioning.
+
+Without ``--pipeline`` (the JAX trainer's ``_build_smoke_trainer``): one
+value-and-grad of the whole model's loss per step, the GradGuard's finite
+check, the grad norm, AdamW.  Archs: the JAX smoke configs of the three
+diffusion models (``uvit-h`` (alias ``uvit``), ``hunyuan-dit``,
+``sdv2-unet``: ``configs/smoke.py``), so the two trainers can be held to
+each other, and ``sdv2-unet-full``, the SDv2 UNet at full width
+(``configs/sdv2_unet.py``, 1.84e9 params) in bf16.  The LM smoke keys of
+the JAX trainer are refused: not ported yet.
+
+The kernels are always on: the decoder skip-in of UViT and Hunyuan-DiT
+goes through the fused skip-concat matmul and every attention through
+flash attention (on the CPU, through the kernels' plain versions).
 
 Fault-tolerance contract, the JAX trainer's single-host one:
 
@@ -24,10 +35,11 @@ Fault-tolerance contract, the JAX trainer's single-host one:
   more at the end, keeping the K newest verified steps;
 - ``--resume`` restores the newest *verified* step (a corrupt or partial
   one is skipped, and said so) into the live tensors, in place, and
-  the step-indexed data and noise make the continuation exact; when the
-  manifest's plan fingerprint differs (another ``--devices``/``--pp``/
-  ``--interleave``), the saved stage stacks are de-stacked through the
-  saved plan's spec and re-stacked onto this one (``runtime.resilience``);
+  the step-indexed data and noise make the continuation exact; on the
+  pipeline path, when the manifest's plan fingerprint differs (another
+  ``--devices``/``--pp``/``--interleave``), the saved stage stacks are
+  de-stacked through the saved plan's spec and re-stacked onto this one
+  (``runtime.resilience``);
 - ``--faults`` (else ``$REPRO_FAULTS``): ``kill@K`` exits 42 after step K,
   ``stop@K`` returns after step K without a final save, ``nan@K``
   poisons step K's batch, ``corrupt@K[:shard]``/``truncate@K[:shard]``
@@ -42,16 +54,19 @@ Fault-tolerance contract, the JAX trainer's single-host one:
 
 Not ported yet, and refused with ``NotImplementedError``: multi-host
 workers (``--host-id``/``--num-hosts``/``--commit-timeout``), data
-parallelism and ZeRO (``--dp``/``--zero-stage``), and the non-pipeline
-smoke archs.
+parallelism and ZeRO (``--dp``/``--zero-stage``), and the LM smoke archs.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch uvit-h \
         --pipeline --devices 4 --microbatches 8 --global-batch 16 --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch hunyuan-dit \
         --pipeline --devices 4 --microbatches 8 --global-batch 16 --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch sdv2-unet-full \
+        --global-batch 16 --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch uvit-pp \
         --pipeline --devices 2 --steps 20 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch sdv2-unet \
+        --global-batch 4 --steps 5 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch uvit-pp \
         --pipeline --devices 4 --steps 6 --device cpu --ckpt-dir /tmp/ck \
         --ckpt-every 3 --faults stop@3          # then add --resume
@@ -63,14 +78,22 @@ import dataclasses
 import json
 import os
 import time
-from typing import Any
+from typing import Any, Callable
 
-ARCHS = ("uvit", "uvit-pp", "uvit-nano", "uvit-h", "hunyuan-pp",
-         "hunyuan-dit")
+PIPELINE_ARCHS = ("uvit", "uvit-pp", "uvit-nano", "uvit-h", "hunyuan-pp",
+                  "hunyuan-dit")
+# without --pipeline: the JAX trainer's diffusion smoke keys ("uvit" is its
+# alias of "uvit-h") and the UNet at full width
+SMOKE_ARCHS = ("uvit", "uvit-h", "hunyuan-dit", "sdv2-unet", "sdv2-unet-full")
+# the JAX trainer's other smoke keys, refused until their models are ported
+LM_SMOKE_ARCHS = ("smollm-360m", "h2o-danube-1.8b", "internlm2-20b",
+                  "granite-34b", "whisper-base", "xlstm-125m", "internvl2-2b",
+                  "qwen3-moe-30b-a3b", "deepseek-v3-671b", "zamba2-2.7b")
+ARCHS = tuple(dict.fromkeys(PIPELINE_ARCHS + SMOKE_ARCHS + LM_SMOKE_ARCHS))
 
 
-# flags of the JAX driver whose features are not ported yet: any value but
-# the default is refused (the non-pipeline path is refused separately)
+# flags of the JAX trainer whose features are not ported yet: any value but
+# the default is refused (the LM smoke archs are refused separately)
 UNPORTED = {"host_id": "multi-host workers", "num_hosts": "multi-host workers",
             "commit_timeout": "multi-host checkpoint commits",
             "dp": "data parallelism", "zero_stage": "ZeRO"}
@@ -90,7 +113,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="restore the newest verified step of --ckpt-dir "
                          "(elastically when the plan changed)")
     ap.add_argument("--pipeline", action="store_true",
-                    help="wave pipeline over --devices pipeline devices")
+                    help="wave pipeline over --devices pipeline devices "
+                         "(else the whole model in one step)")
     ap.add_argument("--devices", type=int, default=8)
     ap.add_argument("--dp", type=int, default=1,
                     help="data-parallel degree (only 1 is ported)")
@@ -127,7 +151,7 @@ def _parser() -> argparse.ArgumentParser:
                          "here on exit")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="where the pipeline runs (no silent CPU fallback)")
+                    help="where the model runs (no silent CPU fallback)")
     ap.add_argument("--profile", default=None,
                     help="trace every step after the first with "
                          "torch.profiler and write device time by kernel, "
@@ -168,17 +192,17 @@ def _profile_summary(prof, wall_s: float, steps: int, device) -> dict:
 
 @dataclasses.dataclass
 class TrainResult:
-    """What one driver invocation did."""
+    """What one trainer run did."""
     final_loss: float | None
     losses: dict                    # step -> float
     step_seconds: dict              # step -> wall seconds (device synced)
-    plan: str                       # CompiledPipeline.describe()
+    plan: str                       # the plan's text (Trainer.plan)
     start: int = 0                  # first step this invocation ran
     resumed: Any = None             # RestoreInfo | None
     skipped_steps: int = 0          # non-finite updates the guard skipped
     peak_bytes: int | None = None   # torch.cuda.max_memory_allocated
-    compiled: Any = None
-    params: Any = None              # (stage stacks, edge) after training
+    compiled: Any = None            # CompiledPipeline (pipeline path)
+    params: Any = None              # Trainer.params after training
     opt_state: Any = None           # AdamW state after training
     logical_params: Any = None      # model-space params (merge_params), CPU
     saves: list = dataclasses.field(default_factory=list)  # manager history
@@ -199,10 +223,14 @@ def main(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    if not args.pipeline:
-        raise NotImplementedError("the non-pipeline smoke-arch path is not "
-                                  "yet ported to repro_torch (pass "
-                                  "--pipeline)")
+    if args.arch in LM_SMOKE_ARCHS:
+        raise NotImplementedError(f"the LM smoke arch {args.arch!r} is not "
+                                  "yet ported to repro_torch")
+    if args.pipeline and args.arch not in PIPELINE_ARCHS:
+        raise ValueError(f"--arch {args.arch} has no pipeline path; the "
+                         "pipeline archs are " + ", ".join(PIPELINE_ARCHS))
+    if not args.pipeline and args.arch not in SMOKE_ARCHS:
+        raise ValueError(f"--arch {args.arch} trains only with --pipeline")
     ap = _parser()
     for dest, what in UNPORTED.items():
         if getattr(args, dest) != ap.get_default(dest):
@@ -216,6 +244,7 @@ def _kind(args) -> str:
 
 
 def _model_config(args):
+    """The pipeline path's model config of ``args``, kernels on."""
     from repro_torch.models.diffusion import HunyuanDiTConfig, UViTConfig
     if args.arch == "hunyuan-dit":
         from repro_torch.configs.hunyuan_dit import CFG
@@ -238,23 +267,66 @@ def _model_config(args):
     return dataclasses.replace(cfg, use_skip_kernel=True, use_flash=True)
 
 
-def build_trainer(args):
-    """(compiled, params, opt_state, loss_fn, loader, device) for ``args``."""
+def _smoke_bundle(args):
+    """The non-pipeline path's ``(loss_fn, init_fn, make_batch, cfg)`` of
+    ``args``, kernels on: a JAX smoke config's (``configs/smoke.py``), or
+    the full-width UNet's (``configs/sdv2_unet.py``)."""
+    if args.arch == "sdv2-unet-full":
+        from repro_torch.configs.sdv2_unet import factory
+    else:
+        from repro_torch.configs.smoke import SMOKE_FACTORIES
+        factory = SMOKE_FACTORIES[{"uvit": "uvit-h"}.get(args.arch,
+                                                         args.arch)]
+    return factory(kernels=True)
+
+
+@dataclasses.dataclass
+class Trainer:
+    """What a step needs, on either path: ``params`` is the tree AdamW
+    updates and checkpoints save (``(stage stacks, edge)`` on the pipeline
+    path, the model's own tree without it), ``loss(params, batch, t,
+    noise)`` the step's DDPM loss from given draws, ``logical(params)`` the
+    model-space tree, ``plan`` the plan's text."""
+    params: Any
+    opt_state: Any
+    loss: Callable
+    logical: Callable
+    split: Callable                 # model-space tree -> ``params``' form
+    loader: Any
+    device: Any
+    plan: str
+    compiled: Any = None            # CompiledPipeline (pipeline path)
+
+
+def _device(args):
+    import torch
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but no CUDA device is visible; "
+                           "pass --device cpu to train on the CPU")
+    return torch.device(args.device)
+
+
+def _with_grads(params):
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    return params, adamw_init(params)
+
+
+def build_trainer(args) -> Trainer:
+    """The pipeline path's :class:`Trainer` for ``args``."""
     import torch
 
     from repro_torch.core.hw import H100_SXM
     from repro_torch.data import ShardedLoader, SyntheticLatentDataset
     from repro_torch.models.diffusion import (hunyuan_pipeline_graph,
                                               uvit_pipeline_graph)
-    from repro_torch.optim import adamw_init
-    from repro_torch.runtime.adapters import diffusion_model_fns
+    from repro_torch.runtime.adapters import (diffusion_model_fns,
+                                              make_diffusion_microbatches)
     from repro_torch.runtime.compile import auto_pipeline
-    from repro_torch.tree import tree_leaves
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but no CUDA device is visible; "
-                           "pass --device cpu to train on the CPU")
-    device = torch.device(args.device)
+    device = _device(args)
     cfg = _model_config(args)
     P = args.pp or args.devices
     M = args.microbatches
@@ -271,14 +343,14 @@ def build_trainer(args):
                              wire_dtype=args.wire_dtype)
     gen = torch.Generator(device=device).manual_seed(0)
     with torch.no_grad():
-        stacks, edge = compiled.init_pipeline_params(gen, device)
-    params = (stacks, edge)
-    for leaf in tree_leaves(params):
-        leaf.requires_grad_(True)
-    opt_state = adamw_init(params)
+        params = compiled.init_pipeline_params(gen, device)
+    params, opt_state = _with_grads(params)
     fn = compiled.build()
 
-    def loss_fn(params, mb, aux):
+    def loss(params, batch, t, noise):
+        # Hunyuan's temb comes from the current edge params (time_mlp)
+        mb, aux = make_diffusion_microbatches(batch, M, cfg, kind, t=t,
+                                              noise=noise, params=params[1])
         (enc, dec), edge = params
         return fn(enc, dec, edge, mb, aux)
 
@@ -286,8 +358,49 @@ def build_trainer(args):
             if kind == "hunyuan" else {})
     ds = SyntheticLatentDataset(img_size=cfg.img_size, channels=cfg.in_ch,
                                 n_classes=10, **text)
-    loader = ShardedLoader(ds, global_batch=args.global_batch)
-    return compiled, params, opt_state, loss_fn, loader, device
+    return Trainer(params, opt_state, loss,
+                   lambda p: compiled.merge_params(*p), compiled.split_params,
+                   ShardedLoader(ds, global_batch=args.global_batch), device,
+                   compiled.describe(), compiled)
+
+
+def build_smoke_trainer(args) -> Trainer:
+    """The non-pipeline path's :class:`Trainer` (the JAX trainer's
+    ``_build_smoke_trainer``): the model's params from seed 0, the
+    synthetic dataset at the config's batch shapes."""
+    import torch
+
+    from repro_torch.data import ShardedLoader, SyntheticLatentDataset
+    from repro_torch.tree import tree_leaves
+
+    device = _device(args)
+    loss_fn, init_fn, make_batch, cfg = _smoke_bundle(args)
+    # the batch's keys and shapes, read from a prototype batch (a small
+    # one), as the JAX trainer reads them
+    proto = {k: tuple(v.shape) for k, v in
+             make_batch(torch.Generator().manual_seed(0), "cpu").items()}
+    gen = torch.Generator(device=device).manual_seed(0)
+    with torch.no_grad():
+        params = init_fn(gen, device)
+    params, opt_state = _with_grads(params)
+    text = proto.get("text_embeds")
+    ds = SyntheticLatentDataset(img_size=proto["latents"][1],
+                                channels=proto["latents"][-1], n_classes=10,
+                                text_dim=text[-1] if text else 0,
+                                text_len=text[1] if text else 77)
+    n = sum(x.numel() for x in tree_leaves(params))
+    plan = (f"non-pipeline: {cfg.name}, {n} params "
+            f"({str(cfg.param_dtype).replace('torch.', '')}), flash "
+            f"attention" + (", skip-in kernel" if getattr(
+                cfg, "use_skip_kernel", False) else ""))
+
+    def loss(params, batch, t, noise):
+        return loss_fn(params, {k: v for k, v in batch.items()
+                                if k in proto}, t, noise)
+
+    return Trainer(params, opt_state, loss, lambda p: p, lambda p: p,
+                   ShardedLoader(ds, global_batch=args.global_batch), device,
+                   plan)
 
 
 def _resume(args, compiled, state: dict, device) -> tuple[Any, dict]:
@@ -296,6 +409,9 @@ def _resume(args, compiled, state: dict, device) -> tuple[Any, dict]:
     ``(None, None)`` when no step verifies.  Returns the RestoreInfo and
     the resume's seconds (verifying, reading and placing, with the
     elastic re-stack; copying into place) and its peak device memory.
+    On the non-pipeline path (``compiled`` None) the checkpoint holds the
+    model's own tree and restores as it is (``restore_checkpoint``,
+    ``strict=False``).
 
     The JAX trainer asks ``latest_step`` first, which hashes every kept
     step, and then restores, which hashes the chosen one again.  Here the
@@ -305,8 +421,10 @@ def _resume(args, compiled, state: dict, device) -> tuple[Any, dict]:
     the same outcomes, one hash pass fewer."""
     import torch
 
-    from repro_torch.checkpoint import CheckpointError, latest_step
-    from repro_torch.runtime.resilience import restore_training_state
+    from repro_torch.checkpoint import (CheckpointError, latest_step,
+                                        restore_checkpoint)
+    from repro_torch.runtime.resilience import (RestoreInfo,
+                                                restore_training_state)
     from repro_torch.tree import tree_flatten
 
     cuda = device.type == "cuda"
@@ -315,8 +433,13 @@ def _resume(args, compiled, state: dict, device) -> tuple[Any, dict]:
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     try:
-        restored, info = restore_training_state(args.ckpt_dir, compiled,
-                                                state, strict=False)
+        if compiled is not None:
+            restored, info = restore_training_state(args.ckpt_dir, compiled,
+                                                    state, strict=False)
+        else:
+            restored, step = restore_checkpoint(args.ckpt_dir, state,
+                                                strict=False)
+            info = RestoreInfo(step, False, None, None)
     except CheckpointError:
         if latest_step(args.ckpt_dir) is None:
             return None, None
@@ -344,11 +467,18 @@ def _resume(args, compiled, state: dict, device) -> tuple[Any, dict]:
                                  if cuda else None)}
 
 
-def run(args, on_restore=None) -> TrainResult:
+def run(args, on_restore=None, init_params=None, draw=None) -> TrainResult:
     """Train ``args.steps`` steps (from the restored step with
     ``--resume``).  ``on_restore(state, info)``, when given, is called once
     a resume has restored ``{"params", "opt"}`` in place, before the first
-    step."""
+    step.
+
+    ``init_params`` (a model-space tree of numpy arrays, as
+    ``jax.device_get`` gives it, in any dict order) replaces the seed-0
+    params; ``draw(step)`` returns the step's DDPM ``(t, noise)`` in place
+    of the per-step generator's.  With both, another trainer's params and
+    draws (the JAX trainer's ``fold_in(PRNGKey(0), step)``) go through this
+    one."""
     _refuse_unported(args)
     from repro_torch.runtime.resilience import (EXIT_ESCALATE, FaultPlan,
                                                 GradGuard,
@@ -372,24 +502,28 @@ def run(args, on_restore=None) -> TrainResult:
     import torch
 
     from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models.diffusion import ddpm_draw
     from repro_torch.optim import (AdamWConfig, adamw_update,
                                    cosine_schedule, global_norm)
-    from repro_torch.runtime.adapters import make_diffusion_microbatches
     from repro_torch.tree import tree_leaves, tree_map
 
-    compiled, params, opt_state, loss_fn, loader, device = \
-        build_trainer(args)
-    kind = _kind(args)
-    cfg = _model_config(args)
-    plan = compiled.describe()
+    tr = (build_trainer if args.pipeline else build_smoke_trainer)(args)
+    params, opt_state, compiled, device = (tr.params, tr.opt_state,
+                                           tr.compiled, tr.device)
+    if init_params is not None:
+        from repro_torch.convert import params_from_jax
+        src = tr.split(params_from_jax(init_params, device))
+        with torch.no_grad():
+            tree_map(lambda dst, x: dst.copy_(x), params, src)
+        del src
+    plan = tr.plan
     print("[train] " + plan.replace("\n", "\n[train] "), flush=True)
     opt_cfg = AdamWConfig(lr=args.lr)
-    M = compiled.pcfg.num_microbatches
     cuda = device.type == "cuda"
-    mgr = CheckpointManager(args.ckpt_dir, keep=args.keep,
-                            plan=compiled.state_spec(),
-                            io_fault=faults.io_fault) if args.ckpt_dir \
-        else None
+    mgr = CheckpointManager(
+        args.ckpt_dir, keep=args.keep,
+        plan=compiled.state_spec() if compiled is not None else None,
+        io_fault=faults.io_fault) if args.ckpt_dir else None
 
     start, resumed, restore = 0, None, None
     if args.resume and args.ckpt_dir:
@@ -416,8 +550,7 @@ def run(args, on_restore=None) -> TrainResult:
         peak = torch.cuda.max_memory_allocated(device) if cuda else None
         final = None if loss is None else float(loss.detach())
         with torch.no_grad():
-            logical = tree_map(lambda x: x.detach().cpu(),
-                               compiled.merge_params(*params))
+            logical = tree_map(lambda x: x.detach().cpu(), tr.logical(params))
         res = TrainResult(
             final_loss=final, losses=losses, step_seconds=step_s, plan=plan,
             start=start, resumed=resumed, skipped_steps=guard.skipped_total,
@@ -458,20 +591,19 @@ def run(args, on_restore=None) -> TrainResult:
                                        else ProfilerActivity.CPU])
             prof.__enter__()
         t_step = time.perf_counter()
-        raw = loader.get(step)
+        raw = tr.loader.get(step)
         batch = faults.poison_batch(
             {k: torch.as_tensor(v, device=device) for k, v in raw.items()},
             step)
-        gen = torch.Generator(device=device).manual_seed(step)
-        # Hunyuan's temb comes from the current edge params (time_mlp)
-        mb, aux = make_diffusion_microbatches(batch, M, cfg, kind,
-                                              generator=gen,
-                                              params=params[1])
-        loss = loss_fn(params, mb, aux)
+        if draw is None:
+            t, noise = ddpm_draw(batch["latents"], step)
+        else:
+            t, noise = (torch.as_tensor(x, device=device) for x in draw(step))
+        loss = tr.loss(params, batch, t, noise)
         loss.backward()
-        # a leaf the step never reads (Hunyuan's time_mlp, whose temb
-        # enters as data, and the xattn wk/wv cross-attention ignores) has
-        # no grad: a zero gradient, as jax.grad gives it
+        # a leaf the step never reads (the xattn wk/wv cross-attention
+        # ignores, and on the pipeline path Hunyuan's time_mlp, whose temb
+        # enters as data) has no grad: a zero gradient, as jax.grad gives it
         grads = tree_map(lambda p: p.grad if p.grad is not None
                          else torch.zeros_like(p), params)
         finite = bool(all_finite(loss, grads))

@@ -1,6 +1,6 @@
-"""UViT and Hunyuan-DiT diffusion backbones and the DDPM objective (the
-port of ``repro.models.diffusion``; SkipViT and the SDv2 UNet are not
-ported yet).
+"""UViT, Hunyuan-DiT and the SDv2 UNet diffusion backbones and the DDPM
+objective (the port of ``repro.models.diffusion``; SkipViT is not ported
+yet).
 
 Same structure as the JAX module: ``enc_blocks`` and ``dec_blocks`` are
 stacked ``[L/2, ...]`` parameter trees (the decoder's with an extra
@@ -10,11 +10,18 @@ export the runtime-aligned block graphs the PULSE planner partitions.
 Hunyuan-DiT blocks add adaLN modulation from the time embedding ``temb``
 and cross-attention over the text tokens ``ctx``.
 
+The UNet keeps the JAX package's leaf layouts: NHWC activations and HWIO
+conv weights (``conv2d`` permutes to PyTorch's NCHW/OIHW views inside),
+nested ``down``/``up`` lists of dicts whose keys differ per entry, and
+fp32 norm leaves (``gn*``/``gb*``, ``lnx``, ``ln2``) beside
+``param_dtype`` ones, so a JAX params tree or checkpoint carries over with
+no transposes.
+
 ``use_skip_kernel`` routes the decoder skip-in through the fused
 skip-concat matmul kernel for every CUDA tensor (no TPU tiling gate: the
 CUDA kernel masks ragged edges); ``use_flash`` routes self- and
-cross-attention through the flash-attention kernel.  On CPU tensors both
-take their plain versions.
+cross-attention through the flash-attention kernel (the UNet's attention
+blocks too).  On CPU tensors both take their plain versions.
 
 Unlike the JAX ``ddpm_loss``, which draws ``t`` and the noise inside, the
 port's loss takes them as tensors, so a test can feed both the same numbers.
@@ -53,6 +60,20 @@ def noisy_latents(x0: torch.Tensor, t: torch.Tensor,
     """``x_t = sqrt(ab) x0 + sqrt(1 - ab) noise`` for (B,H,W,C) latents."""
     ab = cosine_alpha_bar(t)[:, None, None, None]
     return torch.sqrt(ab) * x0 + torch.sqrt(1 - ab) * noise
+
+
+def ddpm_draw(latents: torch.Tensor, step: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training step ``step``'s DDPM draws for a batch of latents: a uniform
+    t (B,) and standard normal noise like the latents, from a generator on
+    their device seeded with the step (so a resumed run draws what an
+    uninterrupted one drew)."""
+    dev = latents.device
+    gen = torch.Generator(device=dev).manual_seed(step)
+    t = torch.rand((latents.shape[0],), generator=gen, device=dev)
+    noise = torch.randn(latents.shape, generator=gen, device=dev,
+                        dtype=latents.dtype)
+    return t, noise
 
 
 def ddpm_loss(apply_fn, params: Params, batch: dict, t: torch.Tensor,
@@ -370,8 +391,344 @@ def hunyuan_loss(params: Params, batch: dict, t: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# SDv2-style UNet (heterogeneous conv + attention blocks)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    name: str
+    img_size: int = 32
+    in_ch: int = 4
+    base_ch: int = 128
+    ch_mults: tuple[int, ...] = (1, 2, 4, 4)
+    blocks_per_level: int = 2
+    attn_levels: tuple[int, ...] = (1, 2, 3)
+    ctx_dim: int = 512            # CLIP text embedding dim
+    ctx_len: int = 77
+    n_heads: int = 8
+    norm_eps: float = 1e-5
+    use_flash: bool = False        # flash attention, self and cross
+    dtype: Any = torch.float32
+    param_dtype: Any = torch.float32
+
+    def level_ch(self, lvl: int) -> int:
+        return self.base_ch * self.ch_mults[lvl]
+
+    def attn_cfg(self, c: int) -> AttnConfig:
+        return AttnConfig(c, self.n_heads, self.n_heads, c // self.n_heads,
+                          rope_theta=0.0, causal=False,
+                          use_flash=self.use_flash)
+
+    def param_count(self) -> int:
+        """The JAX package's closed form, kept as it is: it counts neither
+        the decoder's extra block per level nor its wider skip-in convs,
+        so it is below what :func:`init_unet` makes (980,008,960 against
+        1,839,817,728 at ``configs/sdv2_unet.CFG``)."""
+        total = 0
+        for lvl, m in enumerate(self.ch_mults):
+            c = self.base_ch * m
+            total += self.blocks_per_level * (2 * 9 * c * c + c * c)
+            if lvl in self.attn_levels:
+                total += self.blocks_per_level * (4 * c * c + self.ctx_dim * 2 * c
+                                                  + 8 * c * c)
+        return 2 * total + 10 * self.base_ch ** 2 * self.ch_mults[-1] ** 2
+
+
+def _conv_init(gen: torch.Generator, kh: int, kw: int, cin: int, cout: int,
+               dtype, device) -> torch.Tensor:
+    return L.normal(gen, (kh, kw, cin, cout), 1.0 / math.sqrt(kh * kw * cin),
+                    dtype, device)
+
+
+def _same_pads(n: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's "SAME" padding of one spatial dim: ``ceil(n / stride)``
+    outputs, the odd pad element at the end (a 3x3 stride-2 conv of an
+    even size pads (0, 1), not PyTorch's symmetric (1, 1))."""
+    total = max((-(-n // stride) - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """NHWC ``x`` and HWIO ``w`` -> NHWC, "SAME" padding as
+    ``lax.conv_general_dilated``.  The permutes are views: the NCHW view of
+    an NHWC tensor is channels-last, and cuDNN takes it as such."""
+    kh, kw = w.shape[0], w.shape[1]
+    (ht, hb), (wl, wr) = (_same_pads(x.shape[1], kh, stride),
+                          _same_pads(x.shape[2], kw, stride))
+    xc = x.permute(0, 3, 1, 2)
+    if ht or hb or wl or wr:
+        xc = F.pad(xc, (wl, wr, ht, hb))
+    y = F.conv2d(xc, w.to(x.dtype).permute(3, 2, 0, 1), stride=stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               groups: int = 8, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over NHWC ``x`` in fp32 (population variance), the affine
+    in fp32 whatever the leaves' dtype, the result in ``x.dtype``."""
+    xc = x.permute(0, 3, 1, 2).float()
+    out = F.group_norm(xc, groups, scale.float(), bias.float(), eps)
+    return out.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def _init_resblock(gen: torch.Generator, cin: int, cout: int, temb_dim: int,
+                   dtype, device) -> Params:
+    f32 = dict(dtype=torch.float32, device=device)
+    p = {
+        "gn1": torch.ones((cin,), **f32), "gb1": torch.zeros((cin,), **f32),
+        "conv1": _conv_init(gen, 3, 3, cin, cout, dtype, device),
+        "temb": L.dense_init(gen, temb_dim, cout, dtype, device),
+        "gn2": torch.ones((cout,), **f32), "gb2": torch.zeros((cout,), **f32),
+        "conv2": _conv_init(gen, 3, 3, cout, cout, dtype, device),
+    }
+    if cin != cout:
+        p["skip_conv"] = _conv_init(gen, 1, 1, cin, cout, dtype, device)
+    return p
+
+
+def _apply_resblock(p: Params, x: torch.Tensor, temb: torch.Tensor,
+                    cfg: UNetConfig) -> torch.Tensor:
+    h = F.silu(group_norm(x, p["gn1"], p["gb1"], eps=cfg.norm_eps))
+    h = conv2d(h, p["conv1"])
+    h = h + (F.silu(temb) @ p["temb"].to(temb.dtype))[:, None, None]
+    h = F.silu(group_norm(h, p["gn2"], p["gb2"], eps=cfg.norm_eps))
+    h = conv2d(h, p["conv2"])
+    if "skip_conv" in p:
+        x = conv2d(x, p["skip_conv"])
+    return x + h
+
+
+def _init_attnblock(gen: torch.Generator, c: int, cfg: UNetConfig,
+                    device) -> Params:
+    pd, acfg = cfg.param_dtype, cfg.attn_cfg(c)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "gn": torch.ones((c,), **f32), "gb": torch.zeros((c,), **f32),
+        "attn": L.init_attention(gen, acfg, pd, device),
+        "lnx": torch.ones((c,), **f32),
+        "ctx_kv": L.dense_init(gen, cfg.ctx_dim, 2 * c, pd, device),
+        "xattn": L.init_attention(gen, acfg, pd, device),
+        "ln2": torch.ones((c,), **f32),
+        "mlp": L.init_gelu_mlp(gen, c, 4 * c, pd, device),
+    }
+
+
+def _apply_attnblock(p: Params, x: torch.Tensor, ctx: torch.Tensor,
+                     cfg: UNetConfig) -> torch.Tensor:
+    """Self-attention on the group-normed pixels, cross-attention over the
+    text tokens, a GELU MLP; each residual.  With ``cfg.use_flash`` both
+    attentions run the flash kernel, at head dim ``C / n_heads``."""
+    B, H, W, C = x.shape
+    acfg = cfg.attn_cfg(C)
+    t = group_norm(x, p["gn"], p["gb"], eps=cfg.norm_eps).reshape(B, H * W, C)
+    a, _ = L.apply_attention(p["attn"], t, acfg)
+    t = x.reshape(B, H * W, C) + a
+    h = L.rms_norm(t, p["lnx"], cfg.norm_eps)
+    kv = ctx @ p["ctx_kv"].to(ctx.dtype)
+    hd = C // cfg.n_heads
+    kx = kv[..., :C].reshape(B, -1, cfg.n_heads, hd)
+    vx = kv[..., C:].reshape(B, -1, cfg.n_heads, hd)
+    a, _ = L.apply_attention(p["xattn"], h, acfg, cross_kv=(kx, vx))
+    t = t + a
+    h = L.rms_norm(t, p["ln2"], cfg.norm_eps)
+    t = t + L.apply_gelu_mlp(p["mlp"], h)
+    return t.reshape(B, H, W, C)
+
+
+def init_unet(gen: torch.Generator, cfg: UNetConfig, device="cuda") -> Params:
+    pd = cfg.param_dtype
+    temb_dim = 4 * cfg.base_ch
+    p: Params = {
+        "time_mlp": {
+            "w1": L.dense_init(gen, cfg.base_ch, temb_dim, pd, device),
+            "b1": torch.zeros((temb_dim,), dtype=pd, device=device),
+            "w2": L.dense_init(gen, temb_dim, temb_dim, pd, device),
+            "b2": torch.zeros((temb_dim,), dtype=pd, device=device)},
+        "in_conv": _conv_init(gen, 3, 3, cfg.in_ch, cfg.base_ch, pd, device),
+        "down": [], "up": [],
+    }
+    c = cfg.base_ch
+    chans = [c]
+    for lvl, m in enumerate(cfg.ch_mults):
+        cout = cfg.base_ch * m
+        level = []
+        for _ in range(cfg.blocks_per_level):
+            blk = {"res": _init_resblock(gen, c, cout, temb_dim, pd, device)}
+            if lvl in cfg.attn_levels:
+                blk["attn"] = _init_attnblock(gen, cout, cfg, device)
+            level.append(blk)
+            c = cout
+            chans.append(c)
+        if lvl < len(cfg.ch_mults) - 1:
+            level.append({"downsample": _conv_init(gen, 3, 3, c, c, pd,
+                                                   device)})
+            chans.append(c)
+        p["down"].append(level)
+    p["mid"] = {
+        "res1": _init_resblock(gen, c, c, temb_dim, pd, device),
+        "attn": _init_attnblock(gen, c, cfg, device),
+        "res2": _init_resblock(gen, c, c, temb_dim, pd, device),
+    }
+    for lvl in reversed(range(len(cfg.ch_mults))):
+        cout = cfg.base_ch * cfg.ch_mults[lvl]
+        level = []
+        for _ in range(cfg.blocks_per_level + 1):
+            cskip = chans.pop()
+            blk = {"res": _init_resblock(gen, c + cskip, cout, temb_dim, pd,
+                                         device)}
+            if lvl in cfg.attn_levels:
+                blk["attn"] = _init_attnblock(gen, cout, cfg, device)
+            level.append(blk)
+            c = cout
+        if lvl > 0:
+            level.append({"upsample": _conv_init(gen, 3, 3, c, c, pd,
+                                                 device)})
+        p["up"].append(level)
+    p["out_gn"] = torch.ones((c,), dtype=torch.float32, device=device)
+    p["out_gb"] = torch.zeros((c,), dtype=torch.float32, device=device)
+    p["out_conv"] = _conv_init(gen, 3, 3, c, cfg.in_ch, pd, device)
+    return p
+
+
+def _upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x resize of NHWC ``x`` (``jax.image.resize``
+    "nearest": output pixel i reads input pixel i // 2)."""
+    B, H, W, C = x.shape
+    return x[:, :, None, :, None].expand(B, H, 2, W, 2, C).reshape(
+        B, 2 * H, 2 * W, C)
+
+
+def unet_apply(params: Params, xt: torch.Tensor, t: torch.Tensor,
+               batch: dict, cfg: UNetConfig) -> torch.Tensor:
+    """batch: {"text_embeds": (B, ctx_len, ctx_dim)}.  Every down-path
+    output is a skip; the up path's res blocks pop them LIFO and concat
+    them on channels."""
+    dt = cfg.dtype
+    ctx = batch["text_embeds"].to(dt)
+    tm = params["time_mlp"]
+    temb = timestep_embedding(t, cfg.base_ch).to(dt)
+    # jax.nn.gelu defaults to the tanh approximation
+    temb = F.gelu(temb @ tm["w1"].to(dt) + tm["b1"], approximate="tanh")
+    temb = temb @ tm["w2"].to(dt) + tm["b2"]
+    x = conv2d(xt.to(dt), params["in_conv"])
+    skips = [x]
+    for level in params["down"]:
+        for blk in level:
+            if "downsample" in blk:
+                x = conv2d(x, blk["downsample"], stride=2)
+            else:
+                x = _apply_resblock(blk["res"], x, temb, cfg)
+                if "attn" in blk:
+                    x = _apply_attnblock(blk["attn"], x, ctx, cfg)
+            skips.append(x)
+    x = _apply_resblock(params["mid"]["res1"], x, temb, cfg)
+    x = _apply_attnblock(params["mid"]["attn"], x, ctx, cfg)
+    x = _apply_resblock(params["mid"]["res2"], x, temb, cfg)
+    for level in params["up"]:
+        for blk in level:
+            if "upsample" in blk:
+                x = conv2d(_upsample2x(x), blk["upsample"])
+            else:
+                x = torch.cat([x, skips.pop()], dim=-1)
+                x = _apply_resblock(blk["res"], x, temb, cfg)
+                if "attn" in blk:
+                    x = _apply_attnblock(blk["attn"], x, ctx, cfg)
+    x = F.silu(group_norm(x, params["out_gn"], params["out_gb"],
+                          eps=cfg.norm_eps))
+    return conv2d(x, params["out_conv"])
+
+
+def unet_loss(params: Params, batch: dict, t: torch.Tensor,
+              noise: torch.Tensor, cfg: UNetConfig) -> torch.Tensor:
+    return ddpm_loss(lambda p, xt, tt, b: unet_apply(p, xt, tt, b, cfg),
+                     params, batch, t, noise)
+
+
+# --------------------------------------------------------------------------
 # Block graphs for the compile path
 # --------------------------------------------------------------------------
+
+def unet_block_graph(cfg: UNetConfig, batch: int,
+                     hw: Hardware = H100_SXM) -> BlockGraph:
+    """Exports the UNet as a heterogeneous BlockGraph (paper Fig. 6: per-block
+    cost varies ~3x across resolutions): ``in_conv``, each down-path block
+    and downsample, ``mid``, each up-path block and upsample, ``out_conv``;
+    skip edges from every down-path output to the up-path res block that
+    pops it (nested, LIFO)."""
+    blocks: list[Block] = []
+    skip_meta: list[tuple[int, int]] = []   # (blk_index, bytes)
+    res = cfg.img_size
+
+    def res_cost(cin, cout, r):
+        fl = 2 * batch * r * r * 9 * cin * cout + 2 * batch * r * r * 9 * cout * cout
+        return fl, batch * r * r * cout * 2
+
+    def attn_cost(c, r):
+        n = r * r
+        fl = 2 * batch * (8 * n * c * c + 4 * n * n * c + 8 * n * c * c
+                          + cfg.ctx_len * n * c * 2)
+        return fl
+
+    c = cfg.base_ch
+    fl, act = res_cost(cfg.in_ch, c, res)
+    blocks.append(Block("in_conv", 0.0, 9 * cfg.in_ch * c * 2, act, act, fl))
+    skip_meta.append((0, act))
+    for lvl, m in enumerate(cfg.ch_mults):
+        cout = cfg.base_ch * m
+        for b in range(cfg.blocks_per_level):
+            fl, act = res_cost(c, cout, res)
+            pbytes = (9 * c * cout + 9 * cout * cout) * 2
+            if lvl in cfg.attn_levels:
+                fl += attn_cost(cout, res)
+                pbytes += (16 * cout * cout + cfg.ctx_dim * 2 * cout) * 2
+            blocks.append(Block(f"d{lvl}b{b}", 0.0, pbytes, act, act, fl))
+            skip_meta.append((len(blocks) - 1, act))
+            c = cout
+        if lvl < len(cfg.ch_mults) - 1:
+            fl = 2 * batch * (res // 2) ** 2 * 9 * c * c
+            act = batch * (res // 2) ** 2 * c * 2
+            blocks.append(Block(f"down{lvl}", 0.0, 9 * c * c * 2, act, act, fl))
+            skip_meta.append((len(blocks) - 1, act))
+            res //= 2
+    fl, act = res_cost(c, c, res)
+    blocks.append(Block("mid", 0.0, (18 * c * c + 16 * c * c) * 2, act, 0,
+                        2 * fl + attn_cost(c, res)))
+    for lvl in reversed(range(len(cfg.ch_mults))):
+        cout = cfg.base_ch * cfg.ch_mults[lvl]
+        for b in range(cfg.blocks_per_level + 1):
+            src, sbytes = skip_meta.pop()
+            cin = c + sbytes // (batch * res * res * 2)
+            fl, act = res_cost(cin, cout, res)
+            pbytes = (9 * cin * cout + 9 * cout * cout) * 2
+            if lvl in cfg.attn_levels:
+                fl += attn_cost(cout, res)
+                pbytes += (16 * cout * cout + cfg.ctx_dim * 2 * cout) * 2
+            blocks.append(Block(f"u{lvl}b{b}", 0.0, pbytes, act, 0, fl))
+            c = cout
+        if lvl > 0:
+            res *= 2
+            fl = 2 * batch * res * res * 9 * c * c
+            act = batch * res * res * c * 2
+            blocks.append(Block(f"up{lvl}", 0.0, 9 * c * c * 2, act, 0, fl))
+    blocks.append(Block("out_conv", 0.0, 9 * c * cfg.in_ch * 2,
+                        batch * cfg.img_size ** 2 * cfg.in_ch * 2, 0,
+                        2 * batch * cfg.img_size ** 2 * 9 * c * cfg.in_ch))
+    # skip edges follow the UNet's LIFO stack discipline (nested by
+    # construction): producers are the down-path blocks with skip_bytes > 0,
+    # consumers are the up-path res blocks, popping in reverse order
+    producers = [i for i, b in enumerate(blocks) if b.skip_bytes > 0]
+    consumers = [i for i, b in enumerate(blocks)
+                 if b.name.startswith("u") and not b.name.startswith("up")]
+    edges = []
+    stack = list(producers)
+    for cons in consumers:
+        if stack:
+            src = stack.pop()
+            edges.append(SkipEdge(src, cons, blocks[src].skip_bytes))
+    return BlockGraph(analytic_block_costs(blocks, hw),
+                      tuple(sorted(edges, key=lambda e: e.src)))
+
+
 
 def uvit_pipeline_graph(cfg: UViTConfig, batch: int = 1,
                         fwd_times=None, hw: Hardware = H100_SXM) -> BlockGraph:

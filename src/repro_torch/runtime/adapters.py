@@ -23,16 +23,14 @@ def _check_kind(kind: str) -> None:
 
 def make_diffusion_microbatches(batch: dict, M: int, cfg=None,
                                 kind: str = "uvit", *,
-                                t: torch.Tensor | None = None,
-                                noise: torch.Tensor | None = None,
-                                generator: torch.Generator | None = None,
+                                t: torch.Tensor, noise: torch.Tensor,
                                 params: Pytree | None = None
                                 ) -> tuple[dict, dict]:
     """DDPM (t, noise) for a batch, split [B, ...] -> [M, B/M, ...].
 
-    ``t`` (B,) and ``noise`` (like the latents) are taken as given, or
-    drawn from ``generator`` (uniform t, standard normal noise) where
-    missing.  Returns ``(mb, aux)``: ``mb`` holds ``xt`` and ``noise``
+    ``t`` (B,) and ``noise`` (like the latents) are the step's draws (the
+    trainer's :func:`repro_torch.models.diffusion.ddpm_draw`).  Returns
+    ``(mb, aux)``: ``mb`` holds ``xt`` and ``noise``
     (and UViT's ``labels``); ``aux`` holds ``t`` (UViT builds its time
     token in embed).
 
@@ -48,16 +46,9 @@ def make_diffusion_microbatches(batch: dict, M: int, cfg=None,
     B = lat.shape[0]
     if B % M:
         raise ValueError(f"batch {B} does not split into {M} microbatches")
-    if (t is None or noise is None) and generator is None:
-        raise ValueError("pass t and noise, or a generator to draw them")
     if kind == "hunyuan" and (cfg is None or params is None):
         raise ValueError("hunyuan microbatches need cfg and the edge params "
                          "(time_mlp) to compute temb")
-    if t is None:
-        t = torch.rand((B,), generator=generator, device=lat.device)
-    if noise is None:
-        noise = torch.randn(lat.shape, generator=generator,
-                            device=lat.device, dtype=lat.dtype)
     xt = diff_mod.noisy_latents(lat, t, noise)
     split = lambda x: x.reshape(M, B // M, *x.shape[1:])
     mb = {"xt": split(xt), "noise": split(noise)}

@@ -45,6 +45,17 @@ FLASH_CASES = [
     (1, 300, 300, 8, 2, 64, True, 96),        # causal + window + GQA 4
     (1, 130, 130, 2, 2, 64, True, 0),         # every row fully masked
     (1, 100, 300, 4, 2, 128, False, 40),      # window, non-causal, GQA 2
+    # the SDv2 UNet's heads (896 / 8 = 112, 1792 / 8 = 224), SIMT in both
+    # dtypes: self and cross at each resolution, b=2, then ragged lengths,
+    # causal + window + GQA
+    (2, 256, 256, 8, 8, 112, False, None),    # level 1 self, 16x16
+    (2, 256, 77, 8, 8, 112, False, None),     # level 1 cross
+    (2, 64, 64, 8, 8, 224, False, None),      # level 2 self, 8x8
+    (2, 64, 77, 8, 8, 224, False, None),      # level 2 cross
+    (2, 16, 16, 8, 8, 224, False, None),      # level 3 and mid self, 4x4
+    (2, 16, 77, 8, 8, 224, False, None),      # level 3 and mid cross
+    (1, 45, 45, 4, 2, 112, True, 9),          # causal + window + GQA 2
+    (1, 37, 70, 4, 1, 224, False, 20),        # window, non-causal, GQA 4
 ]
 
 

@@ -16,7 +16,7 @@ that takes the adaLN ``temb`` and the text ``ctx`` as data, as the
 executor does (the JAX package's ``wave-hunyuan`` differential: ``temb``
 is computed outside the loss, so ``time_mlp`` gets no gradient there).
 
-Also here: the training driver for a few steps on the CPU, the import
+Also here: the trainer for a few steps on the CPU, the import
 boundary of the port (no jax, nothing of ``repro``), and ``chip_smoke.py``
 refusing to run without a card.
 """
@@ -39,7 +39,7 @@ from repro.models import diffusion as jdm
 from repro.runtime.adapters import make_diffusion_microbatches as jax_mbs
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import launch_counts
-from repro_torch.models.diffusion import (HunyuanDiTConfig,
+from repro_torch.models.diffusion import (HunyuanDiTConfig, ddpm_draw,
                                           hunyuan_pipeline_graph, UViTConfig,
                                           uvit_pipeline_graph)
 from repro_torch.runtime.adapters import (diffusion_model_fns,
@@ -303,17 +303,19 @@ def test_microbatches_take_given_or_drawn_noise():
     mb, aux = make_diffusion_microbatches(batch, 2, t=t, noise=noise)
     assert mb["xt"].shape == (2, 2, 8, 8, 4) and aux["t"].shape == (2, 2)
     torch.testing.assert_close(mb["noise"].reshape(4, 8, 8, 4), noise)
-    g1 = torch.Generator().manual_seed(3)
-    g2 = torch.Generator().manual_seed(3)
-    a, _ = make_diffusion_microbatches(batch, 2, generator=g1)
-    b, _ = make_diffusion_microbatches(batch, 2, generator=g2)
-    torch.testing.assert_close(a["xt"], b["xt"])
-    with pytest.raises(ValueError, match="generator"):
-        make_diffusion_microbatches(batch, 2)
+    # the trainer's draw: step-seeded, so a resumed step draws it again
+    t3, n3 = ddpm_draw(lat, 3)
+    assert t3.shape == (4,) and n3.shape == lat.shape
+    assert bool(((t3 >= 0) & (t3 < 1)).all())
+    t3b, n3b = ddpm_draw(lat, 3)
+    assert torch.equal(t3, t3b) and torch.equal(n3, n3b)
+    assert not torch.equal(ddpm_draw(lat, 4)[1], n3)
+    mb, _ = make_diffusion_microbatches(batch, 2, t=t3, noise=n3)
+    torch.testing.assert_close(mb["noise"].reshape(4, 8, 8, 4), n3)
 
 
 # ---------------------------------------------------------------------------
-# (g) the training driver on the CPU
+# (g) the trainer on the CPU
 # ---------------------------------------------------------------------------
 
 def test_train_runs_hunyuan_three_steps_on_cpu():
@@ -357,7 +359,9 @@ def test_train_runs_three_steps_on_cpu(tmp_path):
                                    ["--commit-timeout", "5"], []])
 def test_train_refuses_unported_paths(extra):
     from repro_torch.launch import train
-    argv = ["--arch", "uvit-nano", "--devices", "2", "--steps", "1",
+    # [] is the JAX trainer's non-pipeline path of an LM smoke arch
+    arch = "uvit-nano" if extra else "smollm-360m"
+    argv = ["--arch", arch, "--devices", "2", "--steps", "1",
             "--device", "cpu"] + extra
     if extra:
         argv.append("--pipeline")
@@ -427,7 +431,9 @@ def test_port_imports_neither_jax_nor_repro():
                 "repro_torch.runtime.adapters",
                 "repro_torch.models.diffusion",
                 "repro_torch.checkpoint.store",
-                "repro_torch.runtime.resilience"):
+                "repro_torch.runtime.resilience",
+                "repro_torch.configs.sdv2_unet",
+                "repro_torch.configs.smoke"):
         assert mod in walked, mod
     # chip_smoke.py imports none of them either
     src = (REPO / "chip_smoke.py").read_text()
