@@ -16,7 +16,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes of the UViT-H, Hunyuan-DiT-3B and SDv2 UNet train steps
    (flash attention at the UNet's six: self and cross at head dim 112 and
-   224, B=16; both dtypes on the SIMT route) (the gated
+   224, B=16; bf16 on the tensor-core route, the head padded to 128 and
+   256 in shared memory, fp32 on the SIMT route) (the gated
    linear scan, which no train path calls, at zamba2-2.7b's Mamba2 width
    over 4k steps and at R=32 over 2k steps, forward and backward kernels,
    with mixed dtypes of a and x, and with decays near 1, whose carry spans
@@ -704,7 +705,8 @@ def unet_parity(torch, rec) -> None:
     gradient sums over every pixel of the batch, so its entries near zero
     keep no relative precision in another summation order); then bf16
     params (norm leaves fp32, as ``init_unet`` makes them) and activations
-    on the card against the fp32 CPU step: loss at rtol 2e-2, the worst
+    on the card, flash attention on its tensor-core route at both head
+    dims, against the fp32 CPU step: loss at rtol 2e-2, the worst
     gradient's ||err|| / ||g|| reported.  Each card run must launch the
     kernel twice per attention block."""
     import numpy as np
@@ -1096,8 +1098,8 @@ def main() -> None:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     from repro_torch.kernels.linear_scan import scan_config
     tiling = {"skip_concat_matmul bf16": scfg(),
-              "flash_attention bf16 D=64": fcfg(64),
-              "flash_attention bf16 D=128": fcfg(128)}
+              **{f"flash_attention bf16 D={d}": fcfg(d)
+                 for d in (64, 112, 128, 224)}}
     for d in ("bfloat16", "float32"):
         for bwd in (False, True):
             tiling[f"gated_linear_scan {d} {('forward', 'backward')[bwd]}"] = (
@@ -1105,9 +1107,13 @@ def main() -> None:
     sk = tiling["skip_concat_matmul bf16"]
     grids = {f"skip M={M} N={N}": -(-M // sk["tile_m"]) * -(-N // sk["tile_n"])
              for M, N in ((516, 2560), (2048, 2048))}
-    fl = tiling["flash_attention bf16 D=128"]
-    grids.update({f"flash B*H={bh} S={S}": bh * -(-S // fl["query_rows"])
-                  for bh, S in ((40, 258), (32, 1024))})
+    # UViT-H, Hunyuan-DiT (D=128) and the UNet's levels (B*H = 16*8, S =
+    # 256 at D=112, 64 and 16 at D=224)
+    grids.update({
+        f"flash D={d} B*H={bh} S={S}":
+            bh * -(-S // tiling[f"flash_attention bf16 D={d}"]["query_rows"])
+        for d, bh, S in ((128, 40, 258), (128, 32, 1024), (112, 128, 256),
+                         (224, 128, 64), (224, 128, 16))})
     grids.update({f"{k} R={R} T={T} C={C}":
                   R * -(-C // v["channels"]) * -(-T // v["chunk"])
                   for k, v in tiling.items() if k.startswith("gated")

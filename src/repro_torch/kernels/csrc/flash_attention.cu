@@ -19,33 +19,55 @@
 // What bounds it on an H100: at Hunyuan-DiT self-attention (S = T = 1024,
 // D = 128) one (b, h) pair does 4*S*T*D operations on 4*S*D bf16 elements,
 // ~500 operations per byte, above the bf16 ridge (~295 op/B): the tensor
-// cores bound it (at UViT-H's S = T = 258 and the cross-attention's T = 77
-// the bytes do, and at every SDv2 UNet shape: S = T <= 256 in bf16).
+// cores bound it.  At UViT-H's S = T = 258, at the cross-attention's
+// T = 77 and at every SDv2 UNet shape the bytes do: there one (b, h) pair
+// does S*T*D*4 operations on 2*(S + T)*D*2 bytes, S*T/(S + T) op/B, at
+// most 128 at S = T = 256 (D = 112, B = 16, H = 8: 29.4 MB of Q, K, V
+// and O, 0.0088 ms at 3.35 TB/s; D = 224, S = T = 64: 14.7 MB, 0.0044 ms).
+// What the design does about it: TMA brings Q once and K and V once per
+// 64-query tile (the repeats hit L2: K and V of one (b, h) are 115 KB at
+// D = 112), O is written once, and the (S, T) scores stay in registers;
+// what is left is latency (a 64-query tile walks at most 4 K/V tiles at
+// the UNet's shapes), not bandwidth.
 //
 // Two routes, a pure function of (dtype, D) (flash_route in ops.py):
 //
-// - bf16 at D in {64, 128}: tensor cores.  One block per (b*h, 64-query
-//   tile): one consumer warpgroup and one producer warp.  Q, K and V come
-//   in by TMA through 4-D tensor maps over (B, S|T, H, D), 128-byte
-//   swizzled, a 128-wide head as two 64-column boxes; K/V tiles of 64 keys
+// - bf16 at D in {64, 112, 128, 224}: tensor cores.  One block per (b*h,
+//   64-query tile): one consumer warpgroup and one producer warp.  Q, K
+//   and V come in by TMA through 4-D tensor maps over (B, S|T, H, D),
+//   128-byte swizzled, the head as 64-column boxes; K/V tiles of 64 keys
 //   run through a 2-slot mbarrier ring, so the next tile loads while this
 //   one is computed.  S = Q K^T is wgmma m64n64k16 from shared memory (K is
-//   K-major: D is contiguous).  The online softmax runs in fp32 registers
-//   on the accumulator, in base 2 with log2(e) folded into the scale.  P is
-//   rounded to bf16 in registers and fed as wgmma's register A operand (one
-//   k16 column slice of the S accumulator is exactly the A fragment), so P
-//   never touches shared memory; V (T x D, D contiguous) is N-major and
-//   read through the transpose bit; O accumulates in fp32.  Rounding P to
-//   bf16 is the one numeric change from the Pallas body, which multiplies
-//   P V in fp32.
-// - fp32 at any D, and bf16 at D in {8, 16, 32} (the small test configs)
-//   and {112, 224} (the SDv2 UNet's 896- and 1792-wide attention over 8
-//   heads): SIMT.  One block per (b*h, 16-query tile); 4 warps x 4 query
-//   rows; K/V tiles of 32 keys staged in dynamic shared memory as fp32
-//   (72 KB at D = 224, past the 48 KB static limit); lane j scores key j
-//   and lanes split the output dims for the P.V update, ceil(D / 32) each,
-//   those past D masked (at D = 112 lanes 16-31 hold no fourth dim).  fp32
-//   stays off the tensor cores: TF32 would keep ~3 digits.
+//   K-major: D is contiguous), D/16 k-steps.  The online softmax runs in
+//   fp32 registers on the accumulator, in base 2 with log2(e) folded into
+//   the scale (1/sqrt(D) of the true head dim).  P is rounded to bf16 in
+//   registers and fed as wgmma's register A operand (one k16 column slice
+//   of the S accumulator is exactly the A fragment), so P never touches
+//   shared memory; V (T x D, D contiguous) is N-major and read through the
+//   transpose bit; O accumulates in fp32.  Rounding P to bf16 is the one
+//   numeric change from the Pallas body, which multiplies P V in fp32.
+//   The SDv2 UNet's heads, 112 (896 / 8) and 224 (1792 / 8), are padded
+//   in shared memory to whole boxes, DP = 128 and 256: the box at column
+//   64 (or 192) runs past the tensor's inner dimension D and TMA fills the
+//   columns past D with zeros (and counts them in the barrier's bytes).
+//   Q K^T stops at D; P V computes DP columns, those past D zero, and the
+//   epilogue stores only d < D (at D = 112 columns 112-127 of head h would
+//   be columns 0-15 of head h + 1).  Shared memory: 83 KB at DP = 128
+//   (2 blocks an SM, as at 128), 161 KB at DP = 256 (1 block an SM, with
+//   up to 255 registers a thread for the 128-register O accumulator); at
+//   the UNet's D = 224 shapes the grid is B*H = 128 blocks, under 132 SMs,
+//   so a second resident block (32-key tiles would fit two) would find
+//   nothing to run.  ptxas: 139 registers at D = 112 (as at 128), 200 at
+//   224, no spills.  The last box runs a full n64 P V, its pad columns
+//   zero: n48/n32 tails would save 1/8 of P V's work, under the noise of
+//   a latency-bound tile.
+// - fp32 at any D, and bf16 at D in {8, 16, 32} (the small test configs):
+//   SIMT.  One block per (b*h, 16-query tile); 4 warps x 4 query rows;
+//   K/V tiles of 32 keys staged in dynamic shared memory as fp32 (72 KB at
+//   D = 224, past the 48 KB static limit); lane j scores key j and lanes
+//   split the output dims for the P.V update, ceil(D / 32) each, those
+//   past D masked (at D = 112 lanes 16-31 hold no fourth dim).  fp32 stays
+//   off the tensor cores: TF32 would keep ~3 digits.
 //
 // Both routes skip the K/V tiles their causal/window mask hides entirely,
 // mask inside the rest, and keep the running max and sum in fp32.
@@ -227,18 +249,26 @@ constexpr int FBKV = 64;         // keys per K/V tile
 constexpr int FSTAGES = 2;       // K/V ring slots
 constexpr int FTHREADS = 160;    // consumer warpgroup + producer warp
 
+// The tensor-core route's shared memory at head dim DH: a row is DP =
+// 64 * ceil(DH / 64) columns, whole 64-column boxes, the columns past DH
+// zero-filled by TMA (and counted in each box's bytes).
 template <int DH>
 struct FlashSmem {
-  static constexpr int BOXES = DH / 64;           // 64-column boxes a row
-  static constexpr int Q_BYTES = FBQ * DH * 2;
-  static constexpr int KV_BYTES = FBKV * DH * 2;  // one K or V tile
+  static constexpr int BOXES = (DH + 63) / 64;    // 64-column boxes a row
+  static constexpr int DP = 64 * BOXES;           // padded head width
+  static constexpr int Q_BYTES = FBQ * DP * 2;
+  static constexpr int KV_BYTES = FBKV * DP * 2;  // one K or V tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   static constexpr int TOTAL =
       Q_BYTES + FSTAGES * STAGE_BYTES + (1 + 2 * FSTAGES) * 8 + 1024;
+  // resident blocks an SM asks of the register allocator: 2 while two
+  // blocks' shared memory fits in the SM's 228 KB (DP <= 128), else 1,
+  // which lets a thread keep DP = 256's 128 fp32 O registers unspilled
+  static constexpr int MIN_BLOCKS = 2 * TOTAL <= 228 * 1024 ? 2 : 1;
 };
 
 template <int DH>
-__global__ void __launch_bounds__(FTHREADS, 2)
+__global__ void __launch_bounds__(FTHREADS, FlashSmem<DH>::MIN_BLOCKS)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
@@ -318,7 +348,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint8_t* kb = skv + st * L::STAGE_BYTES;
     const uint8_t* vb = kb + L::KV_BYTES;
 
-    // S = Q K^T over D, 64 x 64 fp32
+    // S = Q K^T over D, 64 x 64 fp32: DH / 16 k-steps, four to a box (the
+    // zero pad columns past DH need no step)
     float sacc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) sacc[i] = 0.0f;
@@ -392,7 +423,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane == 0) hopper::mbar_arrive(&empty[st]);
   }
 
-  // epilogue: a row that saw no key writes zeros
+  // epilogue: a row that saw no key writes zeros; the pad columns past DH
+  // are never stored (DH is even, so a bf16 pair never straddles DH)
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -410,9 +442,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int d = h * 64 + 8 * j + 2 * (lane % 4);
-        *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
-            oacc[h][4 * j + 2 * r] * inv[r],
-            oacc[h][4 * j + 2 * r + 1] * inv[r]);
+        if (d < DH)
+          *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+              __floats2bfloat162_rn(oacc[h][4 * j + 2 * r] * inv[r],
+                                    oacc[h][4 * j + 2 * r + 1] * inv[r]);
       }
   }
 }
@@ -484,13 +517,21 @@ int launch_dh(int D, const void* q, const void* k, const void* v, void* o,
         return launch_wgmma<64>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
       else
         return launch<64, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
-    case 112: return launch<112, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
+    case 112:
+      if constexpr (bf16)
+        return launch_wgmma<112>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
+      else
+        return launch<112, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
     case 128:
       if constexpr (bf16)
         return launch_wgmma<128>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
       else
         return launch<128, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
-    case 224: return launch<224, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
+    case 224:
+      if constexpr (bf16)
+        return launch_wgmma<224>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
+      else
+        return launch<224, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -519,8 +560,8 @@ const char* pulse_error_string(int err) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  D in {8, 16, 32, 64, 112, 128, 224};
-// Hq % Hkv == 0.  bf16 at D = 64 or 128 takes the tensor-core route and
-// needs 16-byte-aligned pointers (else cudaErrorInvalidValue).
+// Hq % Hkv == 0.  bf16 at D = 64, 112, 128 or 224 takes the tensor-core
+// route and needs 16-byte-aligned pointers (else cudaErrorInvalidValue).
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* o, int B, int S, int Tk, int Hq,
                                int Hkv, int D, int causal, int has_window,
@@ -538,13 +579,17 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The bf16 tensor-core route's tiling at head dim D (64 or 128): {query
-// rows, keys per tile, ring slots, threads per block, dynamic shared memory
-// bytes, resident blocks per SM}.
+// The bf16 tensor-core route's tiling at head dim D (64, 112, 128 or 224):
+// {query rows, keys per tile, ring slots, threads per block, dynamic shared
+// memory bytes, resident blocks per SM}.
 int flash_attention_bf16_config(int D, int* out) {
-  if (D == 64) return wgmma_config<64>(out);
-  if (D == 128) return wgmma_config<128>(out);
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 64: return wgmma_config<64>(out);
+    case 112: return wgmma_config<112>(out);
+    case 128: return wgmma_config<128>(out);
+    case 224: return wgmma_config<224>(out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

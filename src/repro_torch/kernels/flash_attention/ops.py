@@ -32,7 +32,9 @@ from repro_torch.kernels import LAUNCHES, build, tma_aligned
 NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (8, 16, 32, 64, 112, 128, 224)
-WGMMA_HEAD_DIMS = (64, 128)     # bf16 head dims on the tensor-core route
+# bf16 head dims on the tensor-core route (112 and 224, the SDv2 UNet's,
+# padded to whole 64-column boxes inside the kernel)
+WGMMA_HEAD_DIMS = (64, 112, 128, 224)
 # q, k, v, out, B, S, T, Hq, Hkv, D, causal, has_window, window, scale,
 # dtype, stream
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
@@ -77,9 +79,9 @@ def flash_route(dtype: torch.dtype, D: int) -> str:
     """Which CUDA kernel runs for inputs of ``dtype`` and head dim ``D``: a
     pure function of the two, never a fallback on failure.  ``"wgmma"``,
     the tensor-core route (TMA loads, wgmma, P kept in registers), for
-    bf16 at D in (64, 128); ``"simt"``, the FMA kernel, for fp32 at any
-    head dim and bf16 at D in (8, 16, 32), the small test configs, and
-    (112, 224), the SDv2 UNet's heads."""
+    bf16 at D in ``WGMMA_HEAD_DIMS``: 64, 128, and the SDv2 UNet's heads
+    112 and 224; ``"simt"``, the FMA kernel, for fp32 at any head dim and
+    bf16 at D in (8, 16, 32), the small test configs."""
     if dtype not in _DTYPES:
         raise TypeError(f"{NAME}: dtype {dtype}; the kernel takes float32 "
                         "or bfloat16")
@@ -141,8 +143,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def bf16_config(D: int) -> dict:
-    """The tensor-core route's tiling at head dim ``D`` (64 or 128) and its
-    resident blocks per SM on the current card (builds the kernel)."""
+    """The tensor-core route's tiling at head dim ``D`` (one of
+    ``WGMMA_HEAD_DIMS``) and its resident blocks per SM on the current card
+    (builds the kernel)."""
     lib = build.load("flash_attention")
     out = (ctypes.c_int * 6)()
     fn = lib.flash_attention_bf16_config

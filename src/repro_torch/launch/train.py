@@ -187,7 +187,7 @@ def _profile_summary(prof, wall_s: float, steps: int, device) -> dict:
     return {"device": str(device), "steps": steps, "wall_s": wall_s,
             "device_busy_s": busy_s,
             "idle_share": (1.0 - busy_s / wall_s) if wall_s else None,
-            "kernels": rows[:40]}
+            "kernels": rows}
 
 
 @dataclasses.dataclass

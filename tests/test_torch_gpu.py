@@ -10,14 +10,19 @@ it runs on a GPU machine that has only PyTorch:
 with TF32 off at rtol 1e-4; bf16 at rtol/atol 2e-2, for bf16 rounding in
 another summation order.
 """
+import math
+
 import pytest
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, build
 from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention,
                                                  flash_attention_cuda,
                                                  flash_route)
+from repro_torch.kernels.flash_attention.ops import (_ARGTYPES,
+                                                     WGMMA_HEAD_DIMS,
+                                                     bf16_config)
 from repro_torch.kernels.linear_scan import (gated_linear_scan,
                                              gated_linear_scan_bwd_cuda,
                                              gated_linear_scan_bwd_plain,
@@ -45,8 +50,9 @@ FLASH_CASES = [
     (1, 300, 300, 8, 2, 64, True, 96),        # causal + window + GQA 4
     (1, 130, 130, 2, 2, 64, True, 0),         # every row fully masked
     (1, 100, 300, 4, 2, 128, False, 40),      # window, non-causal, GQA 2
-    # the SDv2 UNet's heads (896 / 8 = 112, 1792 / 8 = 224), SIMT in both
-    # dtypes: self and cross at each resolution, b=2, then ragged lengths,
+    # the SDv2 UNet's heads (896 / 8 = 112, 1792 / 8 = 224), the tensor-core
+    # route in bf16 (the head padded to 128 and 256 in shared memory), SIMT
+    # in fp32: self and cross at each resolution, b=2, then ragged lengths,
     # causal + window + GQA
     (2, 256, 256, 8, 8, 112, False, None),    # level 1 self, 16x16
     (2, 256, 77, 8, 8, 112, False, None),     # level 1 cross
@@ -107,7 +113,7 @@ def test_flash_attention_kernel_matches_plain(B, S, T, Hq, Hkv, D, causal,
             for _ in range(2))
     # the route is a pure function of (dtype, head dim)
     assert flash_route(dt, D) == ("wgmma" if dtype == "bfloat16"
-                                  and D in (64, 128) else "simt")
+                                  and D in WGMMA_HEAD_DIMS else "simt")
     before = LAUNCHES["flash_attention"]
     got = flash_attention_cuda(q, k, v, causal, window)
     torch.cuda.synchronize()
@@ -118,6 +124,54 @@ def test_flash_attention_kernel_matches_plain(B, S, T, Hq, Hkv, D, causal,
     out = flash_attention(q.requires_grad_(True), k, v, causal, window)
     out.float().sum().backward()
     assert torch.isfinite(q.grad).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,T,D", [(256, 256, 112), (256, 77, 112),
+                                   (64, 64, 224), (16, 77, 224)])
+def test_flash_tensor_core_route_stores_no_pad_column(S, T, D):
+    """At D = 112 and 224 the kernel computes 128 and 256 columns, those
+    past D zero; it must store only the first D.  With one head, the last
+    row's pad columns would land past the output tensor: the launch writes
+    into the head of a larger buffer filled with a sentinel, which must
+    stay untouched behind the output, and the output must equal the plain
+    version (the full-tensor comparison alone can miss a pad store that a
+    later row's correct store overwrites)."""
+    assert flash_route(torch.bfloat16, D) == "wgmma"
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(2, S, 1, D, device="cuda", generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(2, T, 1, D, device="cuda", generator=gen)
+            .to(torch.bfloat16) for _ in range(2))
+    sentinel = 12345.0                       # exact in bf16, no output's value
+    buf = torch.full((q.numel() + 4096,), sentinel, device="cuda",
+                     dtype=torch.bfloat16)
+    out = buf[:q.numel()].view(q.shape)
+    build.call("flash_attention", "flash_attention_fwd_launch", _ARGTYPES,
+               q.device, "flash_attention", q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), out.data_ptr(), 2, S, T, 1, 1, D, 0, 0, 0,
+               1.0 / math.sqrt(D), 1)
+    torch.cuda.synchronize()
+    assert torch.all(buf[q.numel():] == sentinel)
+    torch.testing.assert_close(out.float(),
+                               attention_plain(q, k, v, False).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", WGMMA_HEAD_DIMS)
+def test_flash_bf16_config_fits_the_card(D):
+    """The tensor-core route's tiling at each of its head dims: 64 queries
+    by 64 keys, a 2-slot ring, a warpgroup and a producer warp, the head
+    padded to whole 64-column boxes in shared memory (Q and the ring,
+    barriers and 1 KB of alignment slack), and at least one resident
+    block an SM (two at D <= 128)."""
+    cfg = bf16_config(D)
+    dp = -(-D // 64) * 64
+    assert (cfg["query_rows"], cfg["keys_per_tile"], cfg["stages"],
+            cfg["threads"]) == (64, 64, 2, 160)
+    assert cfg["smem_bytes"] == 64 * dp * 2 * 5 + 5 * 8 + 1024
+    assert cfg["smem_bytes"] <= 227 * 1024
+    assert cfg["blocks_per_sm"] >= (2 if D <= 128 else 1)
 
 
 SCAN_DTYPES = [("float32", "float32"), ("bfloat16", "bfloat16"),

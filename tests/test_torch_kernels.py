@@ -25,7 +25,8 @@ from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention,
                                                  flash_attention_cuda,
                                                  flash_route)
-from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS,
+                                                     WGMMA_HEAD_DIMS)
 from repro_torch.kernels.linear_scan import (gated_linear_scan,
                                              gated_linear_scan_bwd_cuda,
                                              gated_linear_scan_bwd_plain,
@@ -173,9 +174,11 @@ def test_attention_plain_fully_masked_rows_are_zero_and_finite():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", HEAD_DIMS)
 def test_flash_route_is_a_function_of_dtype_and_head_dim(dtype, D):
-    """bf16 at head dim 64 or 128 takes the tensor-core route; fp32 at any
-    head dim and bf16 at the small test head dims take the SIMT kernel."""
-    want = ("wgmma" if dtype == torch.bfloat16 and D in (64, 128)
+    """bf16 at the head dims of WGMMA_HEAD_DIMS (64, 128 and the SDv2
+    UNet's 112 and 224) takes the tensor-core route; fp32 at any head dim
+    and bf16 at the small test head dims take the SIMT kernel."""
+    assert WGMMA_HEAD_DIMS == (64, 112, 128, 224)
+    want = ("wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS
             else "simt")
     assert flash_route(dtype, D) == want
 
@@ -234,16 +237,21 @@ def test_ops_copy_misaligned_views():
 
 
 def _tensor_core_flash_emulation(q, k, v, causal, window, bq=64, bkv=64):
-    """The tensor-core route's arithmetic on the CPU: bf16 q, k, v; fp32
-    scores per (64-query, 64-key) tile, the K/V tiles visited in order from
-    the first one the mask does not hide; an online softmax in base 2 with
-    log2(e) folded into the scale; P rounded to bf16 before P.V, which
-    accumulates in fp32; 1/l at the end; output rounded to bf16."""
+    """The tensor-core route's arithmetic on the CPU: bf16 q, k, v, the head
+    zero-padded to whole 64-column boxes (112 -> 128, 224 -> 256) as TMA
+    fills them, the scale 1/sqrt(D) of the true head dim; fp32 scores per
+    (64-query, 64-key) tile, the K/V tiles visited in order from the first
+    one the mask does not hide; an online softmax in base 2 with log2(e)
+    folded into the scale; P rounded to bf16 before P.V, which accumulates
+    in fp32 over the padded width; 1/l at the end; the first D columns
+    stored, rounded to bf16."""
     B, S, H, D = q.shape
     T = k.shape[1]
-    qf, kf, vf = (x.to(torch.bfloat16).float() for x in (q, k, v))
+    DP = -(-D // 64) * 64
+    qf, kf, vf = (torch.nn.functional.pad(x.to(torch.bfloat16).float(),
+                                          (0, DP - D)) for x in (q, k, v))
     scale_log2 = math.log2(math.e) / math.sqrt(D)
-    out = torch.zeros(B, S, H, D)
+    out = torch.zeros(B, S, H, DP)
     for q0 in range(0, S, bq):
         rows = torch.arange(q0, min(q0 + bq, S))
         kv_hi = min(T, q0 + bq) if causal else T
@@ -251,7 +259,7 @@ def _tensor_core_flash_emulation(q, k, v, causal, window, bq=64, bkv=64):
         kv_lo = kv_lo // bkv * bkv
         m = torch.full((B, H, len(rows)), -math.inf)
         l = torch.zeros(B, H, len(rows))
-        acc = torch.zeros(B, H, len(rows), D)
+        acc = torch.zeros(B, H, len(rows), DP)
         for kt in range(kv_lo, kv_hi, bkv):
             keys = torch.arange(kt, min(kt + bkv, T))
             s = torch.einsum("bshd,bthd->bhst", qf[:, rows], kf[:, keys])
@@ -271,21 +279,31 @@ def _tensor_core_flash_emulation(q, k, v, causal, window, bq=64, bkv=64):
             m = m_new
         o = torch.where(l[..., None] > 0, acc / l[..., None], 0.0)
         out[:, rows] = o.permute(0, 2, 1, 3)
-    return out.to(torch.bfloat16)
+    assert torch.all(out[..., D:] == 0)     # the pad columns add nothing
+    return out[..., :D].to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("S,T,causal,window", [(1024, 1024, False, None),
-                                               (258, 77, False, None),
-                                               (300, 300, True, 96)])
-def test_tensor_core_flash_numerics_meet_the_chip_tolerance(S, T, causal,
+# D = 128: the Hunyuan-DiT self-attention length, the ragged cross-attention
+# shape, a causal sliding window; D = 112 and 224: the SDv2 UNet's level-1
+# self and cross, level-2 self, level-3 cross, and a causal window
+FLASH_NUMERICS = [(128, 1024, 1024, False, None), (128, 258, 77, False, None),
+                  (128, 300, 300, True, 96), (112, 256, 256, False, None),
+                  (112, 256, 77, False, None), (224, 64, 64, False, None),
+                  (224, 16, 77, False, None), (224, 130, 130, True, 40)]
+
+
+@pytest.mark.parametrize(
+    "D,S,T,causal,window", FLASH_NUMERICS,
+    ids=["-".join(map(str, c[1:] if c[0] == 128 else c))
+         for c in FLASH_NUMERICS])
+def test_tensor_core_flash_numerics_meet_the_chip_tolerance(D, S, T, causal,
                                                             window):
     """Rounding P to bf16 before P.V (the Pallas body multiplies P.V in
-    fp32) keeps the route within chip_smoke's bf16 tolerance, rtol = atol
-    = 2e-2, of the JAX oracle ref.py on the same bf16 inputs, at the
-    Hunyuan-DiT self-attention length, the ragged cross-attention shape
-    and a causal sliding window (B=1, H=2, D=128)."""
+    fp32) and padding the head to whole 64-column boxes keep the route
+    within chip_smoke's bf16 tolerance, rtol = atol = 2e-2, of the JAX
+    oracle ref.py on the same bf16 inputs (B=1, H=2)."""
     rng = np.random.default_rng(S + T)
-    q, k, v = (torch.from_numpy(rng.normal(size=(1, n, 2, 128))
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, n, 2, D))
                                 .astype(np.float32)).to(torch.bfloat16)
                for n in (S, T, T))
     got = _tensor_core_flash_emulation(q, k, v, causal, window)
