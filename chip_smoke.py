@@ -17,7 +17,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the shapes of the UViT-H, Hunyuan-DiT-3B and SDv2 UNet train steps
    (flash attention at the UNet's six: self and cross at head dim 112 and
    224, B=16; bf16 on the tensor-core route, the head padded to 128 and
-   256 in shared memory, fp32 on the SIMT route) (the gated
+   256 in shared memory, fp32 on the SIMT route) and of the plan phase
+   (batch 8: flash self and cross, the skip matmul at M=2064 and 8192;
+   rows under path ``plan``) (the gated
    linear scan, which no train path calls, at zamba2-2.7b's Mamba2 width
    over 4k steps and at R=32 over 2k steps, forward and backward kernels,
    with mixed dtypes of a and x, and with decays near 1, whose carry spans
@@ -42,30 +44,47 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    whose single heads are 112 and 224 wide (``UNET_PARITY``), flash on,
    on the card against the CPU: fp32 loss and grads at rtol 1e-4, bf16
    loss at rtol 2e-2, two flash launches per attention block;
-5. train UViT-H: ``repro_torch.launch.train`` with ``--arch uvit-h
+5. plan (``plan_phase``): every one of the 32 blocks of UViT-H and of
+   Hunyuan-DiT-3B (full width, bf16, seed 0) timed forward by
+   ``core.profiler.measure_block_times`` at batch 8 (one microbatch of
+   global batch 16 at the tuner's M=2), every block through flash
+   attention and every decoder block through the skip matmul (launches
+   counted exactly); the measured graphs (``fwd_times``) beside the
+   roofline ones: block ms, the cuts at D=4 V=1 and ``tune``'s top five
+   choices and drops at N=2 and 4 on both; ``auto_pipeline(graph, fns, 4)``
+   on the measured graphs must refuse the tuner's choice by name where it
+   has G > 1 (and otherwise plan and certify); then UViT-H on the tuner's
+   own N=2 plan (``auto_pipeline(graph, fns, 2)``, certified), 4 steps
+   through ``repro_torch.launch.train.run(args, compiled=plan)`` at global
+   batch 16, the plan's M, bf16 wire, both pipeline
+   devices on the one card: losses finite, both kernels launched, the
+   peak device memory beside twice the busiest device's Eq. 14
+   prediction;
+6. train UViT-H: ``repro_torch.launch.train`` with ``--arch uvit-h
    --pipeline --devices 4 --microbatches 8 --global-batch 16 --steps 4``
    (UViT-2.7B at full width and depth, bf16, bf16 wire) with the launch
    counts reset just before and read just after: every loss finite, both
    kernels of the path launched; then every reference to the trainer is
    dropped and the card's memory released;
-6. checkpoint UViT-H (``checkpoint_phase``), full width and depth, the
+7. checkpoint UViT-H (``checkpoint_phase``), full width and depth, the
    same argv plus a ``--ckpt-dir`` under ``build/``: A trains steps 0-1
    and saves step 2 (27.8 GB), B resumes at the same plan (restored state
-   bitwise A's, steps 2-3 within 2e-2 of phase 5's losses), C resumes
+   bitwise A's, steps 2-3 within 2e-2 of phase 6's losses), C resumes
    elastically at D=2 (logical params bitwise A's, one finite step); the
    launch counts are reset before B and before C and read after each;
    prints bytes, the save's blocking and total seconds, write and verify
    rates, each restore's seconds and peak device memory;
-7. train Hunyuan-DiT-3B: the same as 5 with ``--arch hunyuan-dit``
+8. train Hunyuan-DiT-3B: the same as 6 with ``--arch hunyuan-dit``
    (d=2048, 32 blocks, 1024 tokens, cross-attention over 77 text tokens,
    full width and depth, bf16), after checking that less than 1 GB is
    still allocated;
-8. train the SDv2 UNet: ``--arch sdv2-unet-full`` without ``--pipeline``
+9. train the SDv2 UNet: ``--arch sdv2-unet-full`` without ``--pipeline``
    (1.84e9 params at full width, bf16, global batch 16, 4 steps, random
    weights from seed 0, nothing cut): every loss finite, exactly 32 flash
    launches a step (every attention call through the kernel), peak
    device memory printed;
-9. the ``kernels`` JSON line, then the device line as the last line.
+10. the ``kernels`` JSON line (each kernel's launches by path, ``plan``
+    among them), then the device line as the last line.
 
 The full record goes to ``chiprun_out/chip_smoke.json``.  Without a CUDA
 device the script exits 1 at once and prints no result.
@@ -213,8 +232,9 @@ def check_skip_matmul(torch, rec) -> dict:
     rows, main = [], {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [  # path, M, D=N: b=2 and b=16 at UViT-H's 258 tokens, and
-               # b=2 at Hunyuan-DiT's 1024 tokens
-        ("uvit-h", 516, 2560), (None, 4128, 2560), ("hunyuan-dit", 2048, 2048)]
+               # b=2 at Hunyuan-DiT's 1024 tokens; the plan phase's b=8
+        ("uvit-h", 516, 2560), (None, 4128, 2560), ("hunyuan-dit", 2048, 2048),
+        ("plan uvit-h", 2064, 2560), ("plan hunyuan-dit", 8192, 2048)]
     for dtype in ("bfloat16", "float32"):
         for path, M, D in cases:
             N = D
@@ -272,6 +292,10 @@ def check_flash(torch, rec) -> dict:
         ("uvit-h", 2, 258, 258, 20, 20, 128, False, None),      # b=2
         ("hunyuan-dit", 2, 1024, 1024, 16, 16, 128, False, None),
         ("hunyuan-dit cross", 2, 1024, 77, 16, 16, 128, False, None),
+        # the plan phase's b=8: its block profiles and its steps
+        ("plan uvit-h", 8, 258, 258, 20, 20, 128, False, None),
+        ("plan hunyuan-dit", 8, 1024, 1024, 16, 16, 128, False, None),
+        ("plan hunyuan-dit cross", 8, 1024, 77, 16, 16, 128, False, None),
         (None, 1, 300, 300, 8, 2, 64, True, 96),          # causal+win+GQA
         # the SDv2 UNet's train step (sdv2-unet-full, B=16, 8 heads): self
         # and cross-attention over 77 text tokens at 16x16 (head dim 112),
@@ -778,7 +802,273 @@ def unet_parity(torch, rec) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 5 and 7: train UViT-H, then Hunyuan-DiT-3B
+# phase 5: plan -- measured block costs, the hybrid tuner, and UViT-H
+# trained on the plan the tuner picks
+# ---------------------------------------------------------------------------
+
+PLAN_ARCHS = ("uvit-h", "hunyuan-dit")
+PLAN_BATCH = 16          # global batch of the steps on the tuner's plan
+PLAN_STEPS = 4
+PLAN_M = 2               # the tuner's M at N=2 (M = P, P = 2)
+PLAN_PROFILE = dict(warmup=2, iters=10)
+
+
+def _plan_model(arch: str):
+    """(cfg, kind, model fns) of ``arch`` as the trainer configures it:
+    full width and depth, bf16, both kernels on."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.runtime.adapters import diffusion_model_fns
+    args = train_mod._parse_args(["--arch", arch, "--pipeline"])
+    cfg, kind = train_mod._model_config(args), train_mod._kind(args)
+    return cfg, kind, diffusion_model_fns(cfg, kind)
+
+
+def _graph(cfg, kind: str, fwd_times=None):
+    """The pipeline graph at the microbatch the steps run (``PLAN_BATCH //
+    PLAN_M`` samples, the batch the trainer builds its graph at), with the
+    roofline's costs or measured ones."""
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.models.diffusion import (hunyuan_pipeline_graph,
+                                              uvit_pipeline_graph)
+    fn = hunyuan_pipeline_graph if kind == "hunyuan" else uvit_pipeline_graph
+    return fn(cfg, batch=PLAN_BATCH // PLAN_M, fwd_times=fwd_times,
+              hw=H100_SXM)
+
+
+def measure_blocks(torch, cfg, kind: str, fns) -> list:
+    """Seconds per forward call of each of the model's blocks, in graph
+    order, by ``measure_block_times`` on the card at the graph's batch:
+    random bf16 weights from seed 0, random activations (and for
+    Hunyuan-DiT the 77 text tokens and the adaLN conditioning), no
+    autograd."""
+    from repro_torch.core.profiler import measure_block_times
+    from repro_torch.models.diffusion import hunyuan_temb
+    from repro_torch.tree import tree_map
+    B = PLAN_BATCH // PLAN_M
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        params = fns.init_fn(gen, "cuda")
+        (enc, dec), edge = fns.split_blocks(params)
+        x = torch.randn(B, cfg.n_tokens, cfg.d_model, device="cuda",
+                        generator=gen).to(cfg.dtype)
+        skip = torch.randn(x.shape, device="cuda", generator=gen).to(
+            cfg.dtype)
+        aux = {}
+        if kind == "hunyuan":
+            t = torch.rand((B,), device="cuda", generator=gen)
+            aux = {"ctx": torch.randn(B, cfg.ctx_len, cfg.ctx_dim,
+                                      device="cuda", generator=gen).to(
+                                          cfg.dtype),
+                   "temb": hunyuan_temb(edge, t, cfg)}
+        calls = ([(fns.enc_block_fn,
+                   (tree_map(lambda a: a[r], enc), x, aux))
+                  for r in range(cfg.half)]
+                 + [(fns.dec_block_fn,
+                     (tree_map(lambda a: a[r], dec), x, skip, aux))
+                    for r in range(cfg.half)])
+        times = measure_block_times([f for f, _ in calls],
+                                    [a for _, a in calls], **PLAN_PROFILE)
+        torch.cuda.synchronize()
+    del params, enc, dec, edge, calls
+    return times
+
+
+def _choice_row(c) -> dict:
+    return dict(P=c.P, G=c.G, b=c.b, V=c.V, M=c.M, zero_stage=c.zero_stage,
+                t_sample=c.t_sample, t_sched=c.t_sched,
+                peak_gb=c.peak_mem / 1e9,
+                cuts=list(c.partition.cuts) if c.partition else None)
+
+
+def _choice_text(c) -> str:
+    return (f"P={c.P} G={c.G} b={c.b} V={c.V} M={c.M} "
+            f"zero_stage={c.zero_stage}")
+
+
+def plans_of(graph, what: str) -> dict:
+    """The cuts at D=4, V=1 and the tuner's ranked choices at N=2 and 4
+    (top five, the best with P > 1, the drops), printed and returned."""
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.core.partition import partition
+    from repro_torch.core.tuner import tune
+    out = {"cuts_D4": list(partition(graph, 4, hw=H100_SXM).cuts)}
+    log(f"[plan] {what}: cuts at D=4 V=1 {out['cuts_D4']}")
+    for N in (2, 4):
+        drops: list = []
+        choices = tune(graph, N, hw=H100_SXM, drops=drops)
+        pipe = [c for c in choices if c.partition is not None and c.P > 1]
+        out[f"N{N}"] = dict(top5=[_choice_row(c) for c in choices[:5]],
+                            best_pipeline=_choice_row(pipe[0]) if pipe
+                            else None, drops=drops, n=len(choices))
+        for i, c in enumerate(choices[:5]):
+            log(f"[plan] {what}: N={N} #{i} {_choice_text(c)} t/sample "
+                f"{c.t_sample:.6e} s t_sched {c.t_sched:.6e} s peak "
+                f"{c.peak_mem / 1e9:.3f} GB")
+        if pipe:
+            c = pipe[0]
+            log(f"[plan] {what}: N={N} best with P>1 (#"
+                f"{choices.index(c)}): {_choice_text(c)} t/sample "
+                f"{c.t_sample:.6e} s peak {c.peak_mem / 1e9:.3f} GB cuts "
+                f"{list(c.partition.cuts)}")
+        log(f"[plan] {what}: N={N} drops {drops or 'none'}")
+    return out
+
+
+def check_n4(graph, fns, arch: str) -> dict:
+    """``auto_pipeline(graph, fns, 4)`` against the tuner's own choice: a
+    choice with G > 1 or a ZeRO stage must be refused by name
+    (``NotImplementedError``), a G = 1 choice must plan and certify."""
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.core.tuner import tune
+    from repro_torch.runtime.compile import auto_pipeline
+    keep = [c for c in tune(graph, 4, hw=H100_SXM) if c.partition is not None
+            and c.P > 1]
+    want = keep[0]
+    refused = want.G > 1 or want.zero_stage > 0
+    try:
+        cp = auto_pipeline(graph, fns, 4, hw=H100_SXM)
+    except NotImplementedError as e:
+        if not refused or _choice_text(want) not in str(e):
+            fail(f"plan {arch} N=4: refused ({e}) but the tuner's choice is "
+                 f"{_choice_text(want)}")
+        log(f"[plan] {arch} measured N=4: the tuner's choice "
+            f"{_choice_text(want)} has data parallelism, refused as "
+            f"expected: {e}")
+        return dict(choice=_choice_row(want), outcome="refused",
+                    error=str(e))
+    if refused:
+        fail(f"plan {arch} N=4: planned {cp.describe()} but the tuner's "
+             f"choice {_choice_text(want)} needs data parallelism")
+    cert = cp.certify(name=f"{arch}-N4")
+    if _choice_text(cp.choice) != _choice_text(want) or not cert.ok:
+        fail(f"plan {arch} N=4: choice {_choice_text(cp.choice)} vs tuner "
+             f"{_choice_text(want)}; certificate {cert.summary()}")
+    log(f"[plan] {arch} measured N=4: planned {_choice_text(cp.choice)}; "
+        f"{cert.summary()}")
+    return dict(choice=_choice_row(want), outcome="planned",
+                certificate=cert.summary())
+
+
+def train_on_plan(torch, arch: str, graph, fns) -> dict:
+    """``auto_pipeline(graph, fns, 2)``: the tuner's plan, certified, then
+    ``PLAN_STEPS`` steps of the model at full width on it through the
+    trainer (``train.run(args, compiled=cp)``: global batch
+    ``PLAN_BATCH``, the tuner's M, bf16 wire, both pipeline devices in
+    this process on the one card): every loss finite, no step skipped, the
+    peak device memory against twice the busiest device's Eq. 14
+    prediction at the executed microbatch."""
+    from repro_torch.core.comm_model import WIRE_BYTES
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.core.tuner import peak_memory, profile_partition
+    from repro_torch.launch import train as train_mod
+    from repro_torch.runtime.compile import auto_pipeline
+
+    cp = auto_pipeline(graph, fns, 2, hw=H100_SXM)
+    c = cp.choice
+    cert = cp.certify(name=f"{arch}-tuner-N2")
+    log(f"[plan] tuner's plan at N=2: {_choice_text(c)}; "
+        + cp.describe().replace("\n", "\n[plan]   "))
+    log(f"[plan] {cert.summary()}")
+    if not cert.ok:
+        fail(f"plan: the tuner's plan does not certify: {cert.summary()}")
+    if c.G != 1 or cp.pcfg.num_microbatches != PLAN_M:
+        fail(f"plan: the tuner's N=2 choice {_choice_text(c)} is not the "
+             f"one-replica M={PLAN_M} plan the graph's batch was built for")
+    # Eq. 14 for the busiest device at the executed microbatch: one
+    # microbatch of the graph's batch is b = 1
+    tabs = cp.step_tables()
+    predicted = peak_memory(
+        profile_partition(graph, cp.partition), c.P, 1, wave=True, V=c.V,
+        windows=(tabs.W_down + tabs.W_up, tabs.W_turn, tabs.W_skip),
+        wire_bytes=WIRE_BYTES[cp.pcfg.wire_dtype])
+    args = train_mod._parse_args([
+        "--arch", arch, "--pipeline", "--global-batch", str(PLAN_BATCH),
+        "--steps", str(PLAN_STEPS), "--log-every", "1", "--device", "cuda"])
+    res = train_mod.run(args, compiled=cp)
+    losses = [res.losses[s] for s in sorted(res.losses)]
+    if len(losses) != PLAN_STEPS or not all(math.isfinite(x)
+                                            for x in losses):
+        fail(f"plan: losses on the tuner's plan {losses}")
+    if res.skipped_steps:
+        fail(f"plan: {res.skipped_steps} non-finite updates skipped")
+    step_s = [res.step_seconds[s] for s in sorted(res.step_seconds)]
+    peak = res.peak_bytes
+    del res
+    return dict(choice=_choice_row(c), describe=cp.describe(),
+                certificate=cert.to_dict(), losses=losses,
+                step_seconds=step_s, predicted_device_bytes=predicted,
+                predicted_card_bytes=2 * predicted, peak_bytes=peak,
+                peak_over_prediction=peak / (2 * predicted))
+
+
+def plan_phase(torch, rec) -> dict:
+    """Phase 5: measure every block of UViT-H and Hunyuan-DiT-3B, print the
+    plans on analytic and measured costs, check N=4 against the tuner's
+    choice, and train UViT-H on the tuner's N=2 plan.  Returns the kernel
+    launches of the phase (profiling and training)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    out: dict = {}
+    reset_launch_counts()
+    models = {}
+    for arch in PLAN_ARCHS:
+        cfg, kind, fns = _plan_model(arch)
+        before = launch_counts()
+        times = measure_blocks(torch, cfg, kind, fns)
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        calls = PLAN_PROFILE["warmup"] + PLAN_PROFILE["iters"]
+        want = {"flash_attention": (2 if kind == "hunyuan" else 1)
+                * 2 * cfg.half * calls,
+                "skip_concat_matmul": cfg.half * calls}
+        if any(launched[k] != v for k, v in want.items()):
+            fail(f"plan {arch}: profiling launched {launched}, want {want} "
+                 "(every block through flash, every decoder block through "
+                 "the skip matmul)")
+        analytic = _graph(cfg, kind)
+        graph = _graph(cfg, kind, fwd_times=times)
+        models[arch] = (cfg, kind, fns, graph)
+        ana_ms = [b.fwd_time * 1e3 for b in analytic.blocks]
+        ms = [t * 1e3 for t in times]
+        ratio = [m / a for m, a in zip(ms, ana_ms)]
+        log(f"[plan] {arch}: block forward ms at batch "
+            f"{PLAN_BATCH // PLAN_M}, measured {[round(x, 4) for x in ms]}")
+        log(f"[plan] {arch}: roofline ms {[round(x, 4) for x in ana_ms]}")
+        log(f"[plan] {arch}: measured / roofline: enc mean "
+            f"{sum(ratio[:cfg.half]) / cfg.half:.3f}, dec mean "
+            f"{sum(ratio[cfg.half:]) / cfg.half:.3f}, min {min(ratio):.3f}"
+            f", max {max(ratio):.3f}; sum {sum(ms):.4f} ms vs "
+            f"{sum(ana_ms):.4f} ms; launches {launched}")
+        out[arch] = dict(batch=PLAN_BATCH // PLAN_M, measured_ms=ms,
+                         roofline_ms=ana_ms, launches=launched,
+                         analytic=plans_of(analytic, f"{arch} roofline"),
+                         measured=plans_of(graph, f"{arch} measured"))
+        torch.cuda.empty_cache()
+    for arch in PLAN_ARCHS:
+        cfg, kind, fns, graph = models[arch]
+        out[arch]["N4"] = check_n4(graph, fns, arch)
+    _, _, fns, graph = models["uvit-h"]
+    before = launch_counts()
+    out["train"] = train_on_plan(torch, "uvit-h", graph, fns)
+    counts = launch_counts()
+    launched = {k: v - before[k] for k, v in counts.items()}
+    if not (launched["flash_attention"] and launched["skip_concat_matmul"]):
+        fail(f"plan: training on the tuner's plan launched {launched}; both "
+             "kernels of the path must run")
+    tr = out["train"]
+    tr["launches"] = launched
+    log(f"[plan] uvit-h on the tuner's plan: losses {tr['losses']}; step s "
+        f"{[round(x, 4) for x in tr['step_seconds']]}; launches {launched}")
+    log(f"[plan] peak device memory {tr['peak_bytes'] / 1e9:.3f} GB against "
+        f"2 x {tr['predicted_device_bytes'] / 1e9:.3f} GB = "
+        f"{tr['predicted_card_bytes'] / 1e9:.3f} GB predicted (Eq. 14, both "
+        f"pipeline devices on one card): ratio "
+        f"{tr['peak_over_prediction']:.3f}")
+    out["launches"] = counts
+    rec["plan"] = out
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 8: train UViT-H, then Hunyuan-DiT-3B
 # ---------------------------------------------------------------------------
 
 def train(torch, rec, arch: str) -> dict:
@@ -830,8 +1120,8 @@ def train(torch, rec, arch: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: checkpoint, exact and elastic resume of UViT-H (between the
-# train phases 5 and 7)
+# phase 7: checkpoint, exact and elastic resume of UViT-H (between the
+# train phases 6 and 8)
 # ---------------------------------------------------------------------------
 
 CKPT_STOP, CKPT_END = 2, 4          # A saves step 2; B trains steps 2-3
@@ -1137,8 +1427,14 @@ def main() -> None:
     unet_parity(torch, rec)
     torch.cuda.empty_cache()
 
-    # 5-7. train, one model at a time; after UViT-H, its checkpoint phase
+    # 5. plan: measured block costs, the tuner, UViT-H on the tuner's plan
     counts = {}
+    left = release(torch)
+    if left >= 1e9:
+        fail(f"plan: {left / 1e9:.2f} GB still allocated before the phase")
+    counts["plan"] = plan_phase(torch, rec)
+
+    # 6-8. train, one model at a time; after UViT-H, its checkpoint phase
     for arch in TRAIN_ARCHS:
         left = release(torch)
         log(f"[train] {left / 1e9:.3f} GB allocated before {arch}")
@@ -1150,7 +1446,7 @@ def main() -> None:
             release(torch)
             counts.update(checkpoint_phase(torch, rec, smi_line))
 
-    # 8. train the SDv2 UNet at full width, without the pipeline
+    # 9. train the SDv2 UNet at full width, without the pipeline
     left = release(torch)
     if left >= 1e9:
         fail(f"train sdv2-unet-full: {left / 1e9:.2f} GB still allocated; "
@@ -1158,7 +1454,7 @@ def main() -> None:
     counts["sdv2-unet-full"] = train(torch, rec, "sdv2-unet-full")
     release(torch)
 
-    # 9. results: each kernel's numbers at the Hunyuan-DiT train step's
+    # 10. results: each kernel's numbers at the Hunyuan-DiT train step's
     # shape (the scan: its own phase's), every train path's beside them
     kernels = []
     for kname, (source, replaces) in SOURCES.items():

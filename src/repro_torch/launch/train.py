@@ -314,8 +314,13 @@ def _with_grads(params):
     return params, adamw_init(params)
 
 
-def build_trainer(args) -> Trainer:
-    """The pipeline path's :class:`Trainer` for ``args``."""
+def build_trainer(args, compiled=None) -> Trainer:
+    """The pipeline path's :class:`Trainer` for ``args``.  ``compiled``, a
+    :class:`~repro_torch.runtime.compile.CompiledPipeline` of the same
+    model (the tuner's plan from ``auto_pipeline(graph, fns, N)``), takes
+    the place of the plan pinned by ``--devices``/``--pp``,
+    ``--microbatches``, ``--interleave`` and ``--wire-dtype``: its M
+    splits the global batch."""
     import torch
 
     from repro_torch.core.hw import H100_SXM
@@ -328,19 +333,21 @@ def build_trainer(args) -> Trainer:
 
     device = _device(args)
     cfg = _model_config(args)
-    P = args.pp or args.devices
-    M = args.microbatches
+    M = (args.microbatches if compiled is None
+         else compiled.pcfg.num_microbatches)
     if args.global_batch % M:
         raise ValueError(f"--global-batch {args.global_batch} does not split "
                          f"into {M} microbatches")
     kind = _kind(args)
-    graph_fn = (hunyuan_pipeline_graph if kind == "hunyuan"
-                else uvit_pipeline_graph)
-    graph = graph_fn(cfg, batch=args.global_batch // M, hw=H100_SXM)
-    compiled = auto_pipeline(graph, diffusion_model_fns(cfg, kind), P,
-                             hw=H100_SXM, pipeline_devices=P, microbatches=M,
-                             interleave=args.interleave,
-                             wire_dtype=args.wire_dtype)
+    if compiled is None:
+        P = args.pp or args.devices
+        graph_fn = (hunyuan_pipeline_graph if kind == "hunyuan"
+                    else uvit_pipeline_graph)
+        graph = graph_fn(cfg, batch=args.global_batch // M, hw=H100_SXM)
+        compiled = auto_pipeline(graph, diffusion_model_fns(cfg, kind), P,
+                                 hw=H100_SXM, pipeline_devices=P,
+                                 microbatches=M, interleave=args.interleave,
+                                 wire_dtype=args.wire_dtype)
     gen = torch.Generator(device=device).manual_seed(0)
     with torch.no_grad():
         params = compiled.init_pipeline_params(gen, device)
@@ -467,7 +474,8 @@ def _resume(args, compiled, state: dict, device) -> tuple[Any, dict]:
                                  if cuda else None)}
 
 
-def run(args, on_restore=None, init_params=None, draw=None) -> TrainResult:
+def run(args, on_restore=None, init_params=None, draw=None,
+        compiled=None) -> TrainResult:
     """Train ``args.steps`` steps (from the restored step with
     ``--resume``).  ``on_restore(state, info)``, when given, is called once
     a resume has restored ``{"params", "opt"}`` in place, before the first
@@ -478,8 +486,12 @@ def run(args, on_restore=None, init_params=None, draw=None) -> TrainResult:
     params; ``draw(step)`` returns the step's DDPM ``(t, noise)`` in place
     of the per-step generator's.  With both, another trainer's params and
     draws (the JAX trainer's ``fold_in(PRNGKey(0), step)``) go through this
-    one."""
+    one.  ``compiled`` trains the pipeline path on a given plan
+    (:func:`build_trainer`).
+    """
     _refuse_unported(args)
+    if compiled is not None and not args.pipeline:
+        raise ValueError("a compiled pipeline plan needs --pipeline")
     from repro_torch.runtime.resilience import (EXIT_ESCALATE, FaultPlan,
                                                 GradGuard,
                                                 GradGuardEscalation,
@@ -507,7 +519,8 @@ def run(args, on_restore=None, init_params=None, draw=None) -> TrainResult:
                                    cosine_schedule, global_norm)
     from repro_torch.tree import tree_leaves, tree_map
 
-    tr = (build_trainer if args.pipeline else build_smoke_trainer)(args)
+    tr = (build_trainer(args, compiled) if args.pipeline
+          else build_smoke_trainer(args))
     params, opt_state, compiled, device = (tr.params, tr.opt_state,
                                            tr.compiled, tr.device)
     if init_params is not None:

@@ -2,11 +2,13 @@
 (the port of ``repro.runtime.compile``).
 
 :func:`auto_pipeline` takes a :class:`~repro_torch.core.graph.BlockGraph`,
-a block-level model description (:class:`PipelineModelFns`) and a pinned
-pipeline degree, then
+a block-level model description (:class:`PipelineModelFns`) and a device
+budget, then
 
-1. **plans**: the skip-aware partitioner (§IV, Algorithm 1) cuts the graph
-   into stages with skip pairs collocated on one device;
+1. **plans**: runs the hybrid tuner (§VI, ``core.tuner.tune``) -- or a
+   pinned partitioner call -- to pick (P, G, b, V, M) and the skip-aware
+   partition (§IV, Algorithm 1), which cuts the graph into stages with
+   skip pairs collocated on one device;
 2. **schedules**: synthesizes the pipeline schedule from the partition's
    stage->device mapping (§V, greedy or the exact ILP) and validates every
    constraint family before anything executes;
@@ -20,11 +22,14 @@ pipeline degree, then
 record how the plan lays training state out at rest, equal to the JAX
 package's for the same graph and plan: checkpoints carry the spec, and a
 restore onto another plan de-stacks through it (``runtime.resilience``).
+:meth:`CompiledPipeline.certify` proves the lowered step tables race- and
+deadlock-free without running them (``repro_torch.analysis``).
 
-Not ported yet (they raise ``NotImplementedError``): the hybrid tuner
-(unpinned ``pipeline_devices``), data parallelism and ZeRO (``dp_size > 1``,
-``zero_stage > 0``; a state spec records ``dp = 1`` and ``zero_stage = 0``),
-the closed-form executors and the linear (skip-free) executor.
+Not ported yet (they raise ``NotImplementedError``): data parallelism and
+ZeRO (``dp_size > 1``, ``zero_stage > 0``, and a tuner choice with G > 1 or
+a ZeRO stage, which is refused rather than replaced by a lower-ranked one;
+a state spec records ``dp = 1`` and ``zero_stage = 0``), the closed-form
+executors and the linear (skip-free) executor.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from repro_torch.core.graph import BlockGraph
 from repro_torch.core.hw import Hardware, H100_SXM
 from repro_torch.core.partition import Partition, partition as partition_graph
 from repro_torch.core.schedule import Schedule, schedule_for_partition
+from repro_torch.core.tuner import TunerChoice, tune
 from repro_torch.runtime.pipeline import (PipelineConfig, scan_blocks_consume,
                                           scan_blocks_emit)
 from repro_torch.runtime.schedule_exec import (StepTables,
@@ -282,6 +288,7 @@ class CompiledPipeline:
     layout: StageLayout
     pcfg: PipelineConfig
     model_fns: PipelineModelFns
+    choice: TunerChoice | None = None      # set when the tuner drove the plan
 
     @property
     def folded(self) -> bool:
@@ -325,6 +332,20 @@ class CompiledPipeline:
         from repro_torch.runtime.resilience import plan_fingerprint
         return plan_fingerprint(self.state_spec())
 
+    def certify(self, *, name: str | None = None):
+        """Statically verify the lowered plan and return the
+        :class:`~repro_torch.analysis.certificate.PlanCertificate`.
+
+        Abstractly interprets the step tables (no execution): race- and
+        deadlock-freedom of the ring hops, store/read matching on every
+        rotating buffer, wire-dtype flow, and the liveness-window bounds.
+        Raises nothing on failure; inspect ``cert.ok`` /
+        ``cert.violations`` (a freshly planned pipeline always certifies
+        clean -- a FAIL here means a planner/lowering bug).
+        """
+        from repro_torch.analysis.certificate import certify_plan
+        return certify_plan(self, name=name)
+
     # ---- executor ----------------------------------------------------------
     def build(self) -> Callable:
         """``fn(enc_stack, dec_stack, edge, mbs, aux) -> loss`` over the
@@ -356,7 +377,7 @@ class CompiledPipeline:
             kind += f", interleaved V={V}"
         tabs = self.step_tables()
         live_d, live_u = tabs.live_hops
-        return "\n".join([
+        lines = [
             f"auto_pipeline: S={part.num_stages} stages over "
             f"D={part.num_devices} devices ({kind}), "
             f"M={self.pcfg.num_microbatches} microbatches",
@@ -373,7 +394,13 @@ class CompiledPipeline:
             f"W_turn={tabs.W_turn} W_skip={tabs.W_skip} (M={sched.M})",
             f"  comm: exposed hops {tabs.exposed_hops} / "
             f"hidden {tabs.hidden_hops} (of {live_d + live_u} live)",
-        ])
+        ]
+        if self.choice is not None:
+            c = self.choice
+            lines.append(f"  tuner: P={c.P} G={c.G} b={c.b} M={c.M} "
+                         f"zero={c.zero_stage} "
+                         f"t/sample={c.t_sample*1e3:.3f} ms")
+        return "\n".join(lines)
 
 
 # ===========================================================================
@@ -398,28 +425,85 @@ def auto_pipeline(
     executor: str = "table",
     wire_dtype: str = "bfloat16",
 ) -> CompiledPipeline:
-    """Plan, schedule and lower a pipeline for ``graph`` with the pipeline
-    degree pinned to ``pipeline_devices`` (the partitioner is called
-    directly; ``microbatches`` defaults to 2D).  ``interleave`` pins V
-    stage-slot pairs per device (S = 2VD).  ``wire_dtype`` sets the
+    """Plan, schedule and lower a pipeline for ``graph`` on ``N`` devices.
+
+    By default the hybrid tuner (§VI) picks (P, G, b) -- and the
+    interleave degree V -- and supplies its partition; ``microbatches``
+    then defaults to the M the tuner's iteration-time score assumed
+    (``TunerChoice.M``), so the executed iteration is the scored one.  The
+    port runs one pipeline replica (G = 1) without ZeRO: where the tuner's
+    best choice has G > 1 or a ZeRO stage, this raises
+    ``NotImplementedError`` naming it, and never falls back to a
+    lower-ranked choice (that would be another plan than the JAX
+    package's).  Pinning ``interleave`` or ``zero_stage`` restricts the
+    tuner's search to that value.
+
+    Pass ``pipeline_devices`` to pin the pipeline degree and call the
+    partitioner directly (deterministic; used by the tests and the
+    trainer; ``microbatches`` defaults to 2D).  ``interleave`` pins
+    V stage-slot pairs per device (S = 2VD).  ``wire_dtype`` sets the
     boundary-hop dtype (``"float32"`` is the exact-wire escape hatch).
     """
-    if pipeline_devices is None:
-        raise _not_ported("the hybrid tuner (unpinned pipeline_devices)")
+    if zero_stage is not None and zero_stage not in (0, 1, 2):
+        raise ValueError(f"zero_stage must be in (0, 1, 2), got {zero_stage}")
     if dp_size not in (None, 1):
         raise _not_ported("data parallelism (dp_size > 1)")
-    if zero_stage not in (None, 0):
-        raise _not_ported("ZeRO (zero_stage > 0)")
     if executor != "table":
         raise _not_ported(f"the {executor!r} executor")
-    del N                       # the budget only matters to the tuner
-    part = partition_graph(graph, pipeline_devices, hw=hw, lam=lam,
-                           force_wave=force_wave,
-                           interleave=interleave or 1)
+    choice: TunerChoice | None = None
+    if pipeline_devices is not None:
+        if zero_stage not in (None, 0):
+            raise _not_ported("ZeRO (zero_stage > 0)")
+        part = partition_graph(graph, pipeline_devices, hw=hw, lam=lam,
+                               force_wave=force_wave,
+                               interleave=interleave or 1)
+    else:
+        if force_wave is not None:
+            raise ValueError(
+                "force_wave requires pipeline_devices: the tuner derives "
+                "wave vs linear from graph.skips and would ignore it")
+        drops: list[str] = []
+        # overlap=True: the tuner prices the JAX package's default,
+        # overlapped hop lowering, as the reference's auto_pipeline does
+        choices = tune(graph, N, hw=hw, lam=lam, drops=drops,
+                       zero_stages=((zero_stage,) if zero_stage is not None
+                                    else (0, 1, 2)),
+                       interleave_options=(
+                           (interleave,) if interleave is not None
+                           else None),
+                       overlap=True)
+        pure_dp = sorted({(c.P, c.G, c.zero_stage) for c in choices
+                          if c.partition is None or c.P <= 1})
+        drops += [f"P={p} G={g}" + (f" zero{z}" if z else "")
+                  + ": pure data parallelism "
+                  "(P=1 plans carry no pipeline to lower)"
+                  for p, g, z in pure_dp]
+        keep = [c for c in choices if c.partition is not None and c.P > 1]
+        if not keep:
+            # every per-candidate drop reason the tuner and the P>1 filter
+            # collected, in full
+            detail = "\n  ".join(drops) or "tuner enumerated no candidates"
+            raise ValueError(
+                f"tuner found no feasible pipeline plan for N={N}; "
+                f"candidates considered:\n  {detail}")
+        choice = keep[0]
+        if choice.G > 1 or choice.zero_stage > 0:
+            raise _not_ported(
+                f"the tuner's choice P={choice.P} G={choice.G} b={choice.b} "
+                f"V={choice.V} M={choice.M} zero_stage={choice.zero_stage} "
+                "(data parallelism and ZeRO)")
+        part = choice.partition
     if not part.folded:
         raise _not_ported("the linear (skip-free) executor")
     D = part.num_devices
-    M = microbatches if microbatches is not None else 2 * D
+    if microbatches is not None:
+        M = microbatches
+    elif choice is not None:
+        # execute the M the tuner scored -- the planner and the executor
+        # must agree on the iteration shape
+        M = choice.M
+    else:
+        M = 2 * D
     # schedule synthesis + full constraint validation happens here; an
     # invalid plan raises before any executor is built
     sched = schedule_for_partition(part, M, use_ilp=use_ilp)
@@ -428,4 +512,5 @@ def auto_pipeline(
                           wire_dtype=wire_dtype)
     layout = StageLayout.from_partition(part, graph)
     return CompiledPipeline(graph=graph, partition=part, schedule=sched,
-                            layout=layout, pcfg=pcfg, model_fns=model_fns)
+                            layout=layout, pcfg=pcfg, model_fns=model_fns,
+                            choice=choice)

@@ -399,3 +399,120 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         gated_linear_scan_cuda(a[0], a[0])
     with pytest.raises(TypeError, match="output's dtype"):
         gated_linear_scan_bwd_cuda(a, a, a.to(torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# the profiler and the tuner's plan on the card
+# ---------------------------------------------------------------------------
+
+def _uvit(dtype, **over):
+    from repro_torch.models.diffusion import UViTConfig
+    kw = dict(img_size=8, in_ch=4, patch=2, d_model=32, n_layers=8,
+              n_heads=4, d_ff=64, n_classes=10)
+    kw.update(over)
+    return UViTConfig("t", use_skip_kernel=True, use_flash=True, dtype=dtype,
+                      param_dtype=dtype, **kw)
+
+
+@pytest.mark.gpu
+def test_measure_block_times_on_cuda_agrees_with_cuda_events():
+    """Every block's forward through the kernels (bf16: flash attention's
+    tensor-core route at head dim 128, the skip matmul's wgmma GEMM in each
+    decoder block), timed by ``measure_block_times`` three ways, each
+    within 2x of the others: first on blocks never called before, with only
+    the profiler's own warm-up (the cold run); then again, warm; then by a
+    CUDA event pair around the same calls.  The blocks are wide enough
+    (batch 32 of 258 tokens, d_model 1024) that the device, not the host's
+    issue rate, sets their time."""
+    from repro_torch.core.profiler import measure_block_times
+    from repro_torch.runtime.adapters import diffusion_model_fns
+    from repro_torch.tree import tree_map
+
+    cfg = _uvit(torch.bfloat16, img_size=32, d_model=1024, n_heads=8,
+                d_ff=4096, n_layers=4)
+    fns = diffusion_model_fns(cfg)
+    params = fns.init_fn(torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    (enc, dec), _ = fns.split_blocks(params)
+    x = torch.randn(32, cfg.n_tokens, cfg.d_model, device="cuda").to(
+        torch.bfloat16)
+    calls = ([(fns.enc_block_fn, (tree_map(lambda a: a[r], enc), x, {}))
+              for r in range(cfg.half)]
+             + [(fns.dec_block_fn, (tree_map(lambda a: a[r], dec), x, x, {}))
+                for r in range(cfg.half)])
+    iters = 10
+    with torch.no_grad():
+        before = dict(LAUNCHES)
+        cold = measure_block_times([f for f, _ in calls],
+                                   [a for _, a in calls], iters=iters)
+        launched = {k: LAUNCHES[k] - before[k] for k in before}
+        warm = measure_block_times([f for f, _ in calls],
+                                   [a for _, a in calls], iters=iters)
+        want = []
+        for f, a in calls:
+            f(*a)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                f(*a)
+            end.record()
+            end.synchronize()
+            want.append(start.elapsed_time(end) / 1e3 / iters)
+    assert launched["flash_attention"] == 2 * cfg.half * (1 + iters)
+    assert launched["skip_concat_matmul"] == cfg.half * (1 + iters)
+    assert len(cold) == len(warm) == len(calls)
+    for c, g, w in zip(cold, warm, want):
+        assert isinstance(c, float) and c > 0
+        assert g / 2 <= c <= 2 * g, (cold, warm, want)
+        assert w / 2 <= g <= 2 * w, (cold, warm, want)
+
+
+@pytest.mark.gpu
+def test_tuner_plan_step_on_cuda_matches_cpu():
+    """``auto_pipeline(graph, fns, 2)`` plans by itself (P=2, V=2, M=2) and
+    one fp32 step of that plan on the card equals the same step on the CPU
+    at rtol 1e-4, with both kernels launched on the card."""
+    from repro_torch.data import SyntheticLatentDataset
+    from repro_torch.models.diffusion import uvit_pipeline_graph
+    from repro_torch.runtime.adapters import (diffusion_model_fns,
+                                              make_diffusion_microbatches)
+    from repro_torch.runtime.compile import auto_pipeline
+    from repro_torch.tree import tree_map, tree_paths
+
+    cfg = _uvit(torch.float32)
+    cp = auto_pipeline(uvit_pipeline_graph(cfg, batch=2),
+                       diffusion_model_fns(cfg), 2, wire_dtype="float32")
+    assert (cp.choice.P, cp.choice.G, cp.layout.V) == (2, 1, 2)
+    assert cp.certify().ok
+    M = cp.pcfg.num_microbatches
+    params = cp.model_fns.init_fn(torch.Generator().manual_seed(0), "cpu")
+    raw = SyntheticLatentDataset(img_size=8, channels=4).batch(0, 0, 2 * M)
+    gen = torch.Generator().manual_seed(1)
+    t = torch.rand((2 * M,), generator=gen)
+    noise = torch.randn((2 * M, 8, 8, 4), generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda a: a.detach().to(dev).clone().requires_grad_(True),
+                     cp.split_params(params))
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+        mb, aux = make_diffusion_microbatches(batch, M, t=t.to(dev),
+                                              noise=noise.to(dev))
+        (enc, dec), edge = p
+        before = dict(LAUNCHES)
+        loss = cp.build()(enc, dec, edge, mb, aux)
+        loss.backward()
+        launched = {k: LAUNCHES[k] - before[k] for k in before}
+        grads = cp.merge_params(*tree_map(
+            lambda a: a.grad if a.grad is not None else torch.zeros_like(a),
+            p))
+        out[dev] = (float(loss.detach()),
+                    {k: v.cpu() for k, v in tree_paths(grads)},
+                    launched)
+    assert out["cpu"][2] == {k: 0 for k in LAUNCHES}
+    assert out["cuda"][2]["flash_attention"] > 0
+    assert out["cuda"][2]["skip_concat_matmul"] > 0
+    assert math.isclose(out["cuda"][0], out["cpu"][0], rel_tol=1e-4)
+    for k, want in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], want, rtol=1e-4,
+                                   atol=1e-6)

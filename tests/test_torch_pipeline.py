@@ -52,14 +52,18 @@ RTOL = 1e-4
 WIRE_RTOL, WIRE_ATOL = 5e-2, 1e-3
 KEY = jax.random.PRNGKey(0)
 
-# (D, fwd_times, M): the wave-even / wave-uneven shapes of the JAX
-# package's auto_pipeline differentials (UViT, 8 blocks) at D = 2, and the
-# even and M < D (wave-short) shapes at D = 4
+# (D, fwd_times, M, V, use_ilp): the wave-even / wave-uneven shapes of the
+# JAX package's auto_pipeline differentials (UViT, 8 blocks) at D = 2, the
+# even and M < D (wave-short) shapes at D = 4, the interleaved wave (V = 2:
+# two (enc, dec) stage-slot pairs per device, the plan the tuner picks on
+# two devices) and the exact ILP schedule (the JAX package's wave-ilp)
 WAVES = {
-    "wave-even-D2": (2, None, 4),
-    "wave-uneven-D2": (2, [3, 1, 1, 1, 1, 1, 1, 3], 4),
-    "wave-even-D4": (4, None, 4),
-    "wave-short-D4": (4, None, 3),
+    "wave-even-D2": (2, None, 4, 1, False),
+    "wave-uneven-D2": (2, [3, 1, 1, 1, 1, 1, 1, 3], 4, 1, False),
+    "wave-even-D4": (4, None, 4, 1, False),
+    "wave-short-D4": (4, None, 3, 1, False),
+    "wave-interleaved-D2": (2, None, 4, 2, False),
+    "wave-ilp-D2": (2, None, 2, 1, True),
 }
 CFG_KW = dict(img_size=8, in_ch=4, patch=2, d_model=32, n_layers=8,
               n_heads=4, d_ff=64, n_classes=10)
@@ -117,13 +121,14 @@ def _port_step(cp, params_np, mb_aux):
 @pytest.fixture(scope="module", params=sorted(WAVES))
 def wave(request):
     """The JAX reference, the port's plan and its fp32-wire step."""
-    D, ft, M = WAVES[request.param]
+    D, ft, M, V, ilp = WAVES[request.param]
     params, mb_aux, loss, grads = _jax_reference(M)
     cfg = UViTConfig("t", use_skip_kernel=True, use_flash=True, **CFG_KW)
     cp = auto_pipeline(uvit_pipeline_graph(cfg, fwd_times=ft),
                        diffusion_model_fns(cfg), D, pipeline_devices=D,
-                       microbatches=M, lam=0.0, wire_dtype="float32")
-    assert cp.partition.num_stages == 2 * D
+                       microbatches=M, lam=0.0, wire_dtype="float32",
+                       interleave=V, use_ilp=ilp)
+    assert cp.partition.num_stages == 2 * V * D and cp.layout.V == V
     assert (len(set(cp.layout.counts)) > 1) == (ft is not None)
     before = launch_counts()
     port = _port_step(cp, params, mb_aux)
@@ -225,21 +230,24 @@ def _jax_hunyuan_reference():
             sum(float(o[0]) for o in outs) / M, _flat_grads(grads))
 
 
-@pytest.fixture(scope="module", params=[2, 4], ids=lambda d: f"D{d}")
+# (D, V): two and four pipeline devices, and the interleaved wave at D = 2
+@pytest.fixture(scope="module", params=[(2, 1), (4, 1), (2, 2)],
+                ids=lambda p: f"D{p[0]}" + (f"-V{p[1]}" if p[1] > 1 else ""))
 def hunyuan_wave(request):
-    D = request.param
+    D, V = request.param
     params, _, mb_aux, loss_true, loss_aux, grads = _jax_hunyuan_reference()
     cfg = HunyuanDiTConfig("t", use_skip_kernel=True, use_flash=True,
                            **HCFG_KW)
     cp = auto_pipeline(hunyuan_pipeline_graph(cfg),
                        diffusion_model_fns(cfg, "hunyuan"), D,
                        pipeline_devices=D, microbatches=HUNYUAN_M, lam=0.0,
-                       wire_dtype="float32")
-    assert cp.partition.num_stages == 2 * D
+                       wire_dtype="float32", interleave=V)
+    assert cp.partition.num_stages == 2 * V * D and cp.layout.V == V
     before = launch_counts()
     port = _port_step(cp, params, mb_aux)
     assert launch_counts() == before          # CPU: plain versions only
-    return dict(name=f"hunyuan-D{D}", cp=cp, params=params, mb_aux=mb_aux,
+    name = f"hunyuan-D{D}" + (f"-V{V}" if V > 1 else "")
+    return dict(name=name, cp=cp, params=params, mb_aux=mb_aux,
                 loss_true=loss_true, loss_aux=loss_aux, grads=grads,
                 port=port)
 

@@ -183,8 +183,10 @@ def test_h100_preset_and_block_costs():
 def test_unported_options_raise():
     _, tcfg = _cfgs(8)
     g, fns = torch_graph(tcfg), diffusion_model_fns(tcfg)
-    for kw in (dict(), dict(pipeline_devices=2, dp_size=2),
-               dict(pipeline_devices=2, zero_stage=1),
-               dict(pipeline_devices=2, executor="closed_form")):
+    # (N, keywords): on four devices the tuner's best plan is P=2 with two
+    # data-parallel replicas (G=2), which the port does not run yet
+    for N, kw in ((4, dict()), (2, dict(pipeline_devices=2, dp_size=2)),
+                  (2, dict(pipeline_devices=2, zero_stage=1)),
+                  (2, dict(pipeline_devices=2, executor="closed_form"))):
         with pytest.raises(NotImplementedError, match="not yet ported"):
-            auto_pipeline(g, fns, 2, **kw)
+            auto_pipeline(g, fns, N, **kw)
