@@ -19,7 +19,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    224, B=16; bf16 on the tensor-core route, the head padded to 128 and
    256 in shared memory, fp32 on the SIMT route) and of the plan phase
    (batch 8: flash self and cross, the skip matmul at M=2064 and 8192;
-   rows under path ``plan``) (the gated
+   rows under path ``plan``) and of the small models the ``skipvit`` and
+   ``supervisor`` phases train (``uvit-nano``: flash at 6 tokens, 2 heads
+   of 16, the skip matmul at M=12 D=N=32; ``skipvit``: flash at 18
+   tokens, 4 heads of 16; microbatch 2) (the gated
    linear scan, which no train path calls, at zamba2-2.7b's Mamba2 width
    over 4k steps and at R=32 over 2k steps, forward and backward kernels,
    with mixed dtypes of a and x, and with decays near 1, whose carry spans
@@ -34,10 +37,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    it), and ``device_ms``, ``plain_device_ms`` and ``library_device_ms``
    as the replay of the same 20 calls captured in one CUDA graph (the
    device's time alone); each flash row names its route (``flash_route``);
-4. pipeline parity: the port's wave executor at ``uvit-pp`` size (D=4, M=8)
-   and at ``hunyuan-pp`` size (D=2 and D=4, M=4), fp32, fp32 wire, kernels
-   on, on the card against the same step on the CPU (plain versions): loss
-   and grads at rtol 1e-3; then in bf16 through the kernels' bf16 routes (a
+4. pipeline parity: the port's wave executor at ``uvit-pp`` size (D=4, M=8),
+   at ``hunyuan-pp`` size (D=2 and D=4, M=4) and at the supervisor drills'
+   ``uvit-nano`` plan (D=4, M=4, global batch 8), each config the trainer's
+   own, fp32, fp32 wire, kernels on, on the card against the same step on
+   the CPU (plain versions): loss and grads at rtol 1e-3; then in bf16 through the kernels' bf16 routes (a
    Hunyuan-DiT config with 2 heads of 128, 4 blocks, 77 text tokens, D=2,
    M=4) against the same params in fp32 on the CPU: loss at rtol 2e-2,
    each gradient at ||err|| / ||g|| <= 5e-2; then a narrow SDv2 UNet
@@ -83,8 +87,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    weights from seed 0, nothing cut): every loss finite, exactly 32 flash
    launches a step (every attention call through the kernel), peak
    device memory printed;
-10. the ``kernels`` JSON line (each kernel's launches by path, ``plan``
-    among them), then the device line as the last line.
+10. skipvit (``skipvit_train``, ``skipvit_wave_asym``): ``repro_torch.launch.train.run`` with
+    ``--arch skipvit --pipeline --devices 2`` (M=4, global batch 8, 3
+    steps, fp32 wire) on the card, launch counts reset just before, against
+    the same argv, params and draws on the CPU: losses at rtol 1e-3; then
+    the SkipViT wave step on the JAX package's ``wave-asym`` config with its
+    block costs (the fold's turnaround cut off-centre), card against CPU,
+    fp32, loss and grads at rtol 1e-3; flash attention must launch in both,
+    the skip matmul never (SkipViT's skip is additive);
+11. supervisor (``supervisor_phase``), after releasing this process's
+    memory: (a) ``repro_torch.launch.supervisor.Supervisor`` over two
+    ``uvit-nano`` workers on the card (2 hosts x 2 devices, dp=1 pp=4,
+    M=4, global batch 8, 12 steps, fp32 wire, a checkpoint every 4
+    steps): ``hostdown@8:1`` must detect, roll back to 8, shrink to
+    (1, 2, 0) on one host and finish; ``hang@6`` the same with the hang on
+    host 0 within ``stall_timeout x miss_budget`` + 5 polls and a rollback
+    to 4; each merged trajectory at rtol 1e-4 to the port's uninterrupted
+    run on the card; (b) one full-width UViT-H worker (the phase-6 plan)
+    with ``hang@3`` and no checkpoint: launch, gen-live, heartbeat-miss
+    only after the step-2 beat, hang (host 0, step 2), rollback (None),
+    abort (no surviving hosts), and the worker's memory back within 1 GB;
+    the workers load the kernels phase 2 built (``REPRO_TORCH_BUILD_DIR``
+    inherited, ``REPRO_TORCH_NO_BUILD=1``; the build directory must hold
+    the same files after the phase) and every worker log must name its
+    CUDA device;
+12. the ``kernels`` JSON line (each kernel's launches by path: ``plan``,
+    ``skipvit train``, ``skipvit wave-asym`` and ``supervisor workers``,
+    the last read from the workers' result files, among them), then the
+    device line as the last line.
 
 The full record goes to ``chiprun_out/chip_smoke.json``.  Without a CUDA
 device the script exits 1 at once and prints no result.
@@ -234,7 +264,8 @@ def check_skip_matmul(torch, rec) -> dict:
     cases = [  # path, M, D=N: b=2 and b=16 at UViT-H's 258 tokens, and
                # b=2 at Hunyuan-DiT's 1024 tokens; the plan phase's b=8
         ("uvit-h", 516, 2560), (None, 4128, 2560), ("hunyuan-dit", 2048, 2048),
-        ("plan uvit-h", 2064, 2560), ("plan hunyuan-dit", 8192, 2048)]
+        ("plan uvit-h", 2064, 2560), ("plan hunyuan-dit", 8192, 2048),
+        ("uvit-nano", 12, 32)]   # the supervisor drills' b=2 x 6 tokens
     for dtype in ("bfloat16", "float32"):
         for path, M, D in cases:
             N = D
@@ -306,6 +337,9 @@ def check_flash(torch, rec) -> dict:
         ("sdv2-unet L2 cross", 16, 64, 77, 8, 8, 224, False, None),
         ("sdv2-unet L3+mid self", 16, 16, 16, 8, 8, 224, False, None),
         ("sdv2-unet L3+mid cross", 16, 16, 77, 8, 8, 224, False, None),
+        # the small models of the skipvit and supervisor phases, b=2
+        ("uvit-nano", 2, 6, 6, 2, 2, 16, False, None),
+        ("skipvit", 2, 18, 18, 4, 4, 16, False, None),
     ]
     for path, B, S, T, Hq, Hkv, D, causal, window in cases:
         for dtype in ("bfloat16", "float32"):
@@ -555,28 +589,33 @@ def _parity_model(kind: str, B: int, M: int, **over):
                                    text_len=cfg.ctx_len))
 
 
+def _model_fns(cfg, kind: str):
+    from repro_torch.runtime.adapters import model_fns
+    return model_fns(cfg, kind)
+
+
 def _pipeline_step(torch, cfg, graph, kind: str, D: int, M: int, params,
-                   raw, t, noise, dev: str, wire_dtype: str):
+                   raw, t, noise, dev: str, wire_dtype: str, **plan_kw):
     """One step of the port's wave executor for ``cfg`` on ``dev`` from the
     merged fp32 ``params`` (cast to ``cfg.param_dtype``): the loss, every
-    gradient as fp32 on the CPU by path, and the plan's first line."""
+    gradient as fp32 on the CPU by path, and the plan's first line.
+    ``plan_kw`` goes to ``auto_pipeline``."""
     import numpy as np
 
-    from repro_torch.runtime.adapters import (diffusion_model_fns,
-                                              make_diffusion_microbatches)
+    from repro_torch.runtime.adapters import make_diffusion_microbatches
     from repro_torch.runtime.compile import auto_pipeline
     from repro_torch.tree import tree_map, tree_paths
 
-    cp = auto_pipeline(graph, diffusion_model_fns(cfg, kind), D,
+    cp = auto_pipeline(graph, _model_fns(cfg, kind), D,
                        pipeline_devices=D, microbatches=M,
-                       wire_dtype=wire_dtype)
+                       wire_dtype=wire_dtype, **plan_kw)
     p = tree_map(lambda x: x.detach().to(dev, cfg.param_dtype).clone()
                  .requires_grad_(True), cp.split_params(params))
     batch = {k: torch.as_tensor(np.asarray(v), device=dev)
              for k, v in raw.items()}
     (enc, dec), edge = p
-    mb, aux = make_diffusion_microbatches(batch, M, cfg, kind, t=t.to(dev),
-                                          noise=noise.to(dev), params=edge)
+    mb, aux = make_diffusion_microbatches(
+        batch, M, cfg, kind, t=t.to(dev), noise=noise.to(dev), params=edge)
     loss = cp.build()(enc, dec, edge, mb, aux)
     loss.backward()
     grads = cp.merge_params(*tree_map(
@@ -589,9 +628,8 @@ def _pipeline_step(torch, cfg, graph, kind: str, D: int, M: int, params,
 def _parity_inputs(torch, cfg, kind, M, ds):
     """fp32 params on the CPU from seed 0, a batch, and (t, noise) from
     seed 1."""
-    from repro_torch.runtime.adapters import diffusion_model_fns
     B = 2 * M
-    params = diffusion_model_fns(cfg, kind).init_fn(
+    params = _model_fns(cfg, kind).init_fn(
         torch.Generator().manual_seed(0), "cpu")
     gen = torch.Generator().manual_seed(1)
     t = torch.rand((B,), generator=gen)
@@ -607,8 +645,20 @@ def _check_launched(launched: dict, name: str) -> None:
                  f"{launched}; both kernels of the path must run")
 
 
-def pipeline_parity(torch, rec, kind: str, D: int, M: int) -> None:
-    cfg, graph, ds = _parity_model(kind, 2 * M, M)
+# (kind, D, M, config fields): uvit-pp, hunyuan-pp, and the supervisor
+# drills' uvit-nano at their plan (D=4, M=4, global batch 8)
+PARITY_CASES = (("uvit", 4, 8, {}), ("hunyuan", 2, 4, {}),
+                ("hunyuan", 4, 4, {}),
+                ("uvit", 4, 4, dict(name="uvit-nano", patch=4, d_model=32,
+                                    n_heads=2, d_ff=64)))
+
+
+def pipeline_parity(torch, rec, kind: str, D: int, M: int, **over) -> None:
+    from repro_torch.launch import train as train_mod
+    cfg, graph, ds = _parity_model(kind, 2 * M, M, **over)
+    if cfg != train_mod._model_config(train_mod._parse_args(
+            ["--arch", cfg.name, "--pipeline"])):
+        fail(f"pipeline parity: {cfg} is not the trainer's {cfg.name}")
     params, raw, t, noise = _parity_inputs(torch, cfg, kind, M, ds)
     out = {}
     before = dict(_launches())
@@ -1318,6 +1368,374 @@ def checkpoint_phase(torch, rec, smi_line: str) -> dict:
     return {"uvit-h resume": counts["B"], "uvit-h elastic": counts["C"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: SkipViT on the wave pipeline, card vs CPU
+# ---------------------------------------------------------------------------
+
+SKIPVIT_ARGV = ["--arch", "skipvit", "--pipeline", "--devices", "2",
+                "--microbatches", "4", "--global-batch", "8", "--steps", "3",
+                "--wire-dtype", "float32", "--log-every", "100"]
+# the JAX package's wave-asym differential: its block costs pull the fold's
+# turnaround cut off-centre (D=2, M=4, lam 0)
+WAVE_ASYM = dict(n_enc=3, n_mid=2, n_dec=3)
+WAVE_ASYM_TIMES = [1, 1, 4, 0.5, 0.5, 0.5, 1, 1]
+
+
+def _skipvit_launched(launched: dict, what: str) -> None:
+    if not launched["flash_attention"] or launched["skip_concat_matmul"]:
+        fail(f"{what}: the card's run launched {launched}; flash attention "
+             "must run, the skip matmul must not (SkipViT's skip is "
+             "additive)")
+
+
+def skipvit_train(torch, rec) -> dict:
+    """The trainer's entry point, ``--arch skipvit --pipeline`` at D=2, on
+    the card (launch counts reset just before, read just after) and on the
+    CPU from the same params (seed 0, made on the CPU) and draws: the
+    losses at rtol 1e-3.  Returns the card's launches."""
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as train_mod
+    from repro_torch.runtime.adapters import model_fns
+    from repro_torch.tree import tree_map
+
+    args = train_mod._parse_args(SKIPVIT_ARGV)
+    cfg = train_mod._model_config(args)
+    init = tree_map(lambda x: x.numpy(), model_fns(cfg, "skipvit").init_fn(
+        torch.Generator().manual_seed(0), "cpu"))
+    shape = (args.global_batch, cfg.img_size, cfg.img_size, cfg.in_ch)
+
+    def draw(step):
+        rng = np.random.default_rng(step)
+        return (rng.random(shape[0], dtype=np.float32),
+                rng.standard_normal(shape, dtype=np.float32))
+
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        a = train_mod._parse_args(SKIPVIT_ARGV + ["--device", dev])
+        reset_launch_counts()
+        res = train_mod.run(a, init_params=init, draw=draw)
+        launched = launch_counts()
+        losses[dev] = [res.losses[s] for s in sorted(res.losses)]
+        plan = res.plan.splitlines()[0]
+        del res
+    what = "skipvit train"
+    _skipvit_launched(launched, what)
+    lc, lg = losses["cpu"], losses["cuda"]
+    if len(lg) != args.steps or not all(
+            math.isfinite(g) and math.isclose(g, c, rel_tol=1e-3)
+            for g, c in zip(lg, lc)):
+        fail(f"{what}: losses on the card {lg} vs CPU {lc} (rtol 1e-3)")
+    worst = max(abs(g - c) / abs(c) for g, c in zip(lg, lc))
+    rec.setdefault("skipvit_parity", {})["train"] = dict(
+        argv=SKIPVIT_ARGV, losses_cuda=lg, losses_cpu=lc, max_rel_err=worst,
+        launches=launched, plan=plan)
+    log(f"[skipvit] train {' '.join(SKIPVIT_ARGV)}: {plan}; losses card "
+        f"{lg} cpu {lc}; max rel err {worst:.3e}; launches {launched}")
+    return launched
+
+
+def skipvit_wave_asym(torch, rec) -> dict:
+    """The SkipViT wave step on ``wave-asym`` on the card against the same
+    step on the CPU, fp32, fp32 wire, at ``pipeline_parity``'s tolerance
+    (loss rtol 1e-3, grads rtol 1e-3 atol 1e-5); its cuts must not be
+    mirror-symmetric.  Returns the card's launches."""
+    from repro_torch.data import SyntheticLatentDataset
+    from repro_torch.models import diffusion as dm
+    from repro_torch.runtime.compile import auto_pipeline
+    name, D, M = "wave-asym", 2, 4
+    cfg = dm.SkipViTConfig(name, use_flash=True, **WAVE_ASYM)
+    graph = dm.skipvit_pipeline_graph(cfg, batch=2, fwd_times=WAVE_ASYM_TIMES)
+    ds = SyntheticLatentDataset(img_size=8, channels=4)
+    params, raw, t, noise = _parity_inputs(torch, cfg, "skipvit", M, ds)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        before = dict(_launches())
+        out[dev] = _pipeline_step(torch, cfg, graph, "skipvit", D, M, params,
+                                  raw, t, noise, dev, "float32", lam=0.0)
+        torch.cuda.synchronize()
+        launched = {k: _launches()[k] - before[k] for k in before}
+    _skipvit_launched(launched, f"skipvit {name}")
+    lc, gc_, plan = out["cpu"]
+    lg, gg, _ = out["cuda"]
+    part = auto_pipeline(graph, _model_fns(cfg, "skipvit"), D,
+                         pipeline_devices=D, microbatches=M,
+                         lam=0.0).partition
+    if part.mirror_symmetric():
+        fail(f"skipvit {name}: cuts {part.cuts} are symmetric")
+    plan += f", cuts {part.cuts}"
+    if not math.isclose(lg, lc, rel_tol=1e-3):
+        fail(f"skipvit {name}: loss on the card {lg} vs CPU {lc}")
+    worst = 0.0
+    for k, want in gc_.items():
+        try:
+            torch.testing.assert_close(gg[k], want, rtol=1e-3, atol=1e-5)
+        except AssertionError as e:
+            fail(f"skipvit {name}: grad {k} differs:\n{e}")
+        worst = max(worst, float((gg[k] - want).abs().max()))
+    rec.setdefault("skipvit_parity", {})[name] = dict(
+        loss_cuda=lg, loss_cpu=lc, max_abs_grad_err=worst, grads=len(gg),
+        launches=launched, plan=plan)
+    log(f"[skipvit] {name} D={D} M={M} fp32 wire: {plan}; loss card "
+        f"{lg:.7f} cpu {lc:.7f}; {len(gg)} grads, max|err| {worst:.3e}; "
+        f"launches {launched}")
+    return launched
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the supervisor -- recovery drills at uvit-nano, then a
+# supervised UViT-H worker at full width
+# ---------------------------------------------------------------------------
+
+DRILL_STEPS = 12
+DRILL_PLAN = ["--arch", "uvit-nano", "--pipeline", "--devices", "4", "--pp",
+              "4", "--microbatches", "4", "--global-batch", "8", "--steps",
+              str(DRILL_STEPS), "--lr", "1e-3", "--wire-dtype", "float32",
+              "--log-every", "4", "--device", "cuda"]
+# (faults, rollback step, detecting event)
+DRILLS = (("hostdown@8:1", 8, "hostdown"), ("hang@6", 4, "hang"))
+
+
+def _free_bytes(torch) -> int:
+    return torch.cuda.mem_get_info()[0]
+
+
+def _wait_memory_back(torch, free0: int, what: str) -> int:
+    """Wait (at most 60 s) until the card's free memory is back within 1 GB
+    of ``free0``: a torn-down worker's memory returns when its process
+    ends."""
+    deadline = time.time() + 60.0
+    while True:
+        free = _free_bytes(torch)
+        if free >= free0 - 1e9:
+            return free
+        if time.time() > deadline:
+            fail(f"{what}: {(free0 - free) / 1e9:.2f} GB of the card's "
+                 "memory not returned after teardown")
+        time.sleep(0.5)
+
+
+def _worker_results(logs_dir: str) -> dict:
+    out = {}
+    for n in sorted(os.listdir(logs_dir)):
+        if n.startswith("result_") and n.endswith(".json"):
+            try:
+                with open(os.path.join(logs_dir, n)) as f:
+                    out[n[len("result_"):-len(".json")]] = json.load(f)
+            except (OSError, ValueError):
+                pass
+    return out
+
+
+def _check_worker_logs(logs_dir: str, what: str) -> list:
+    """Every worker's log names the CUDA device it ran on."""
+    names = []
+    for n in sorted(os.listdir(logs_dir)):
+        if not n.endswith(".log"):
+            continue
+        with open(os.path.join(logs_dir, n)) as f:
+            text = f.read()
+        line = next((x for x in text.splitlines()
+                     if x.startswith("[train] device: cuda:")), None)
+        if line is None:
+            fail(f"{what}: worker log {n} names no CUDA device:\n"
+                 f"{text[-3000:]}")
+        names.append(f"{n}: {line[len('[train] device: '):]}")
+    return names
+
+
+def _gen_timing(events: list) -> dict:
+    """Seconds from each generation's launch to its gen-live, and from the
+    detection (hostdown/hang/escalate) to the next generation's gen-live."""
+    launch = {e["gen"]: e["t"] for e in events if e["kind"] == "launch"}
+    live = {e["gen"]: e["t"] for e in events if e["kind"] == "gen-live"}
+    detect = [e for e in events
+              if e["kind"] in ("hostdown", "hang", "escalate")]
+    out = {"launch_to_live_s": {g: live[g] - launch[g] for g in live}}
+    if detect and 1 in live:
+        out["detect_to_next_live_s"] = live[1] - detect[0]["t"]
+    return out
+
+
+def supervisor_phase(torch, rec, smi_line: str) -> dict:
+    """(a) the two drills of the JAX supervisor at the port's plan on the
+    card, each merged trajectory at rtol 1e-4 to the port's uninterrupted
+    run; (b) a supervisor over one full-width UViT-H worker with hang@3.
+    The workers load the kernels phase 2 built (``REPRO_TORCH_BUILD_DIR``
+    inherited, ``REPRO_TORCH_NO_BUILD=1``: a worker may not run nvcc, and
+    the build directory must hold the same files after the phase).
+    Returns the workers' launches, read from their result files."""
+    import shutil
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import supervisor as sup
+    from repro_torch.launch import train as train_mod
+
+    out = {"card": smi_line}
+    libs = sorted(os.listdir(build.build_dir()))
+    base = os.path.join(ROOT, "build", "chip_smoke_supervisor")
+    shutil.rmtree(base, ignore_errors=True)
+    worker_env = {"REPRO_TORCH_NO_BUILD": "1"}
+    launched = dict.fromkeys(_launches(), 0)
+
+    # (a) reference, then the drills
+    t0 = time.perf_counter()
+    ref = train_mod.run(train_mod._parse_args(DRILL_PLAN))
+    ref_losses = dict(ref.losses)
+    del ref
+    release(torch)
+    out["reference_s"] = time.perf_counter() - t0
+    free0 = _free_bytes(torch)
+    drills = {}
+    for faults, rollback, detect in DRILLS:
+        t0 = time.perf_counter()
+        run_dir = os.path.join(base, detect)
+        cfg = sup.SupervisorConfig(
+            run_dir=run_dir, num_hosts=2, devices_per_host=2,
+            steps=DRILL_STEPS, global_batch=8, arch="uvit-nano", dp=1, pp=4,
+            microbatches=4, wire_dtype="float32", lr=1e-3, ckpt_every=4,
+            faults=faults, stall_timeout=8.0, miss_budget=2, poll=0.2,
+            backoff_base=0.2, log_every=4, device="cuda",
+            worker_env=worker_env)
+        res = sup.Supervisor(cfg).run()
+        wall = time.perf_counter() - t0
+        events = sup.read_events(res.events_path)
+        kinds = [e["kind"] for e in events]
+        what = f"supervisor drill {faults}"
+        if not (res.ok and res.outcome == "done"
+                and (res.generations, res.restarts) == (2, 1)
+                and (res.final_hosts, tuple(res.final_plan)) == (1,
+                                                                 (1, 2, 0))):
+            fail(f"{what}: {res} events {kinds}")
+        for k in (detect, "rollback", "shrink", "restart", "gen-live",
+                  "done"):
+            if k not in kinds:
+                fail(f"{what}: no {k!r} event in {kinds}")
+        rb = next(e for e in events if e["kind"] == "rollback")
+        if rb["step"] != rollback:
+            fail(f"{what}: rolled back to {rb['step']}, want {rollback}")
+        hit = next(e for e in events if e["kind"] == detect)
+        budget = cfg.stall_timeout * cfg.miss_budget + 5 * cfg.poll
+        if hit["host"] != (1 if detect == "hostdown" else 0) or (
+                detect == "hang" and hit["age"] > budget):
+            fail(f"{what}: {hit} (hang budget {budget} s)")
+        if sorted(res.losses) != list(range(DRILL_STEPS)):
+            fail(f"{what}: merged trajectory {sorted(res.losses)}")
+        for s in range(DRILL_STEPS):
+            a, b = ref_losses[s], res.losses[s]
+            if not (math.isfinite(b) and abs(a - b) <= 1e-4 * abs(a)):
+                fail(f"{what}: step {s} loss {b} vs uninterrupted {a} "
+                     "(rtol 1e-4)")
+        logs_dir = os.path.join(run_dir, "logs")
+        devices = _check_worker_logs(logs_dir, what)
+        results = _worker_results(logs_dir)
+        for doc in results.values():
+            for k, v in doc.get("launches", {}).items():
+                launched[k] += v
+        free = _wait_memory_back(torch, free0, what)
+        timing = _gen_timing(events)
+        drills[faults] = dict(
+            wall_s=wall, kinds=kinds, rollback=rb["step"],
+            detect={k: hit[k] for k in ("host", "age", "step") if k in hit},
+            final_plan=list(res.final_plan), devices=devices,
+            worker_launches={k: d.get("launches") for k, d in
+                             results.items()},
+            max_rel_err=max(abs(res.losses[s] - ref_losses[s])
+                            / abs(ref_losses[s]) for s in range(DRILL_STEPS)),
+            free_gb_after=free / 1e9, **timing)
+        log(f"[supervisor] drill {faults}: {' -> '.join(kinds)}; "
+            f"rollback({rb['step']}) shrink(1, 2, 0); detection "
+            f"{drills[faults]['detect']}; launch->gen-live s "
+            f"{ {g: round(v, 3) for g, v in timing['launch_to_live_s'].items()} }"
+            f"; detect->next gen-live {timing.get('detect_to_next_live_s', 0):.3f}"
+            f" s; max rel err {drills[faults]['max_rel_err']:.2e}; "
+            f"{wall:.1f} s")
+        for d in devices:
+            log(f"[supervisor]   {d}")
+    out["drills"] = drills
+
+    # (b) full width: one supervised UViT-H worker, hang@3, no checkpoint
+    steady = rec["train"]["uvit-h"]["step_seconds"][1:]
+    step_max = max(steady)
+    # the watchdog judges steps after the first train beat on
+    # stall_timeout: 4x the slowest steady UViT-H step of phase 6, at least
+    # 5 s, leaves room for a slower step than any measured without letting
+    # a hang go unseen for long; startup_timeout stays 300 s, which the
+    # cold start (import, CUDA context, 2.78e9 params, plan) and steps 0-1
+    # are judged on
+    stall = max(5.0, 4.0 * step_max)
+    release(torch)
+    free0 = _free_bytes(torch)
+    t0 = time.perf_counter()
+    run_dir = os.path.join(base, "uvit-h")
+    cfg = sup.SupervisorConfig(
+        run_dir=run_dir, num_hosts=1, devices_per_host=4, steps=8,
+        global_batch=16, arch="uvit-h", dp=1, pp=4, microbatches=8,
+        wire_dtype="bfloat16", ckpt_every=1000, faults="hang@3",
+        stall_timeout=stall, startup_timeout=300.0, miss_budget=2, poll=0.2,
+        log_every=1, device="cuda", worker_env=worker_env)
+    res = sup.Supervisor(cfg).run()
+    wall = time.perf_counter() - t0
+    events = sup.read_events(res.events_path)
+    kinds = [e["kind"] for e in events]
+    what = "supervisor uvit-h"
+    logs_dir = os.path.join(run_dir, "logs")
+    devices = _check_worker_logs(logs_dir, what)
+    doc = _worker_results(logs_dir).get("h0.g0", {})
+    beat_t = {int(k): v for k, v in doc.get("beat_t", {}).items()}
+    steps = {int(k): v for k, v in doc.get("step_seconds", {}).items()}
+    for k, v in doc.get("launches", {}).items():
+        launched[k] += v
+    want = ["launch", "gen-live", "heartbeat-miss", "hang", "rollback",
+            "abort"]
+    if kinds != want:
+        fail(f"{what}: events {kinds}, want {want}")
+    hang = next(e for e in events if e["kind"] == "hang")
+    miss = next(e for e in events if e["kind"] == "heartbeat-miss")
+    budget = stall * cfg.miss_budget + 5 * cfg.poll
+    if (hang["host"], hang["step"]) != (0, 2) or hang["age"] > budget:
+        fail(f"{what}: {hang}, want host 0 step 2 within {budget} s")
+    if sorted(beat_t) != [0, 1, 2] or miss["t"] <= beat_t[2]:
+        fail(f"{what}: heartbeat-miss at {miss['t']} before the step-2 beat "
+             f"(beats {beat_t})")
+    rb = next(e for e in events if e["kind"] == "rollback")
+    abort = events[-1]
+    if rb["step"] is not None or abort["reason"] != "no surviving hosts":
+        fail(f"{what}: rollback {rb}, abort {abort}")
+    if res.ok or res.final_hosts != 0:
+        fail(f"{what}: {res}")
+    free = _wait_memory_back(torch, free0, what)
+    launch_t = events[0]["t"]
+    out["uvit_h"] = dict(
+        wall_s=wall, kinds=kinds, stall_timeout=stall,
+        steady_step_s_phase6=steady, startup_s=beat_t[0] - launch_t,
+        step_seconds=steps, detection_age=hang["age"],
+        miss_age=miss["age"], devices=devices,
+        launches=doc.get("launches"), free_gb_before=free0 / 1e9,
+        free_gb_after=free / 1e9)
+    log(f"[supervisor] uvit-h: {' -> '.join(kinds)}; stall_timeout "
+        f"{stall:.2f} s (4 x the slowest steady step of the UViT-H phase, "
+        f"{step_max:.3f} s; at least 5 s); first train beat "
+        f"{beat_t[0] - launch_t:.2f} s after launch; step s "
+        f"{[round(steps[s], 4) for s in sorted(steps)]}; heartbeat-miss "
+        f"age {miss['age']} s; hang detected at age {hang['age']} s "
+        f"(budget {budget:.2f} s); free memory {free0 / 1e9:.2f} GB before, "
+        f"{free / 1e9:.2f} GB after teardown; {wall:.1f} s")
+    for d in devices:
+        log(f"[supervisor]   {d}")
+    log(f"[supervisor] worker launches, read from the workers' result files "
+        f"(other processes; a killed worker's count stops at its last "
+        f"step's dump): {launched}")
+    out["worker_launches"] = launched
+    if sorted(os.listdir(build.build_dir())) != libs:
+        fail(f"supervisor: the build directory changed under the workers: "
+             f"{libs} -> {sorted(os.listdir(build.build_dir()))}")
+    rec["supervisor"] = out
+    shutil.rmtree(base, ignore_errors=True)
+    return launched
+
+
 def release(torch) -> int:
     """Drop what the last phase left and return the bytes still allocated
     on the card (the trainer resets the peak statistics itself, so each
@@ -1421,8 +1839,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 4. pipeline parity, then the UNet's card-vs-CPU parity
-    for kind, D, M in (("uvit", 4, 8), ("hunyuan", 2, 4), ("hunyuan", 4, 4)):
-        pipeline_parity(torch, rec, kind, D, M)
+    for kind, D, M, over in PARITY_CASES:
+        pipeline_parity(torch, rec, kind, D, M, **over)
     pipeline_parity_bf16(torch, rec)
     unet_parity(torch, rec)
     torch.cuda.empty_cache()
@@ -1454,7 +1872,24 @@ def main() -> None:
     counts["sdv2-unet-full"] = train(torch, rec, "sdv2-unet-full")
     release(torch)
 
-    # 10. results: each kernel's numbers at the Hunyuan-DiT train step's
+    # 10. SkipViT on the wave pipeline, card vs CPU
+    t0 = time.perf_counter()
+    counts["skipvit train"] = skipvit_train(torch, rec)
+    counts["skipvit wave-asym"] = skipvit_wave_asym(torch, rec)
+    rec.setdefault("phase_s", {})["skipvit"] = time.perf_counter() - t0
+    log(f"[skipvit] phase {rec['phase_s']['skipvit']:.1f} s")
+
+    # 11. the supervisor: drills at uvit-nano, a supervised UViT-H worker
+    left = release(torch)
+    if left >= 1e9:
+        fail(f"supervisor: {left / 1e9:.2f} GB still allocated; the "
+             "previous phase was not released")
+    t0 = time.perf_counter()
+    counts["supervisor workers"] = supervisor_phase(torch, rec, smi_line)
+    rec["phase_s"]["supervisor"] = time.perf_counter() - t0
+    log(f"[supervisor] phase {rec['phase_s']['supervisor']:.1f} s")
+
+    # 12. results: each kernel's numbers at the Hunyuan-DiT train step's
     # shape (the scan: its own phase's), every train path's beside them
     kernels = []
     for kname, (source, replaces) in SOURCES.items():

@@ -11,7 +11,10 @@ The library name carries a hash of its source, the shared headers under
 rebuilt and a stale library is never loaded.  Libraries go to
 ``build/`` at the repository root (or ``$REPRO_TORCH_BUILD_DIR``); the
 first call that needs a kernel builds it, and :func:`build` builds several
-at once, one ``nvcc`` process per source, all started together.
+at once, one ``nvcc`` process per source, all started together.  With
+``$REPRO_TORCH_NO_BUILD=1`` (a supervisor's workers, which must load what
+their parent built) a library that is not built yet raises instead of
+being compiled.
 """
 from __future__ import annotations
 
@@ -79,6 +82,10 @@ def build(names=SOURCES, *, verbose: bool = False) -> dict[str, dict]:
     todo = [n for n in names if not lib_path(n).exists()]
     if not todo:
         return {}
+    if os.environ.get("REPRO_TORCH_NO_BUILD") == "1":
+        raise RuntimeError(
+            f"kernel libraries {[str(lib_path(n)) for n in todo]} are not "
+            "built and $REPRO_TORCH_NO_BUILD=1 forbids compiling them here")
     nvcc = nvcc_path()
     procs = {}
     for n in todo:

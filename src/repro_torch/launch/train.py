@@ -12,7 +12,11 @@ full width and depth (``configs/uvit_h.py``) in bf16; ``hunyuan-pp``, the
 small Hunyuan-DiT of the JAX package's ``wave-hunyuan`` differential, and
 ``hunyuan-dit``, Hunyuan-DiT-3B at full width and depth
 (``configs/hunyuan_dit.py``) in bf16, whose blocks also take
-cross-attention through the flash kernel and adaLN conditioning.
+cross-attention through the flash kernel and adaLN conditioning; and
+``skipvit``, the JAX trainer's SkipViT (d_model 64, 4 heads, 4/2/4
+encoder/bottleneck/decoder blocks over one parameter stack, additive skips:
+no skip-concat kernel), its real size, since the JAX package has no larger
+SkipViT config.
 
 Without ``--pipeline`` (the JAX trainer's ``_build_smoke_trainer``): one
 value-and-grad of the whole model's loss per step, the GradGuard's finite
@@ -52,9 +56,26 @@ Fault-tolerance contract, the JAX trainer's single-host one:
   exit 43 for a supervisor to roll back;
 - ``--heartbeat-dir D`` writes a heartbeat per step (``--gen`` tags it).
 
-Not ported yet, and refused with ``NotImplementedError``: multi-host
-workers (``--host-id``/``--num-hosts``/``--commit-timeout``), data
-parallelism and ZeRO (``--dp``/``--zero-stage``), and the LM smoke archs.
+Multi-host worker mode (how ``launch/supervisor.py`` runs this trainer, one
+process per host; the JAX trainer's contract):
+
+- ``--host-id h --num-hosts H`` makes this process host ``h`` of ``H``: it
+  writes ONLY its own checkpoint shard (``shard_{h:05d}.npz``; host 0
+  owns the manifest and GC) with a blocking save at each checkpoint step,
+  then waits on ``wait_step_complete`` -- the commit barrier that keeps
+  any host from racing past a step its peers have not durably finished --
+  for at most ``--commit-timeout`` seconds; a barrier that does not close
+  degrades to a warning (the supervisor's watchdog owns declaring a peer
+  dead).  It prints ``HostTopology(H, devices // H).describe()``, and with
+  ``--heartbeat-dir`` meets its peers at the ``FileBarrier``
+  ``start.g<gen>`` before the first step.  Host-scoped fault tokens are
+  validated against ``H`` before any step runs.
+- Every worker of the port is a whole replica: the ``--devices`` pipeline
+  devices of the plan run in the one process (``--dp`` stays 1), and every
+  host draws the full global batch, as the JAX workers do.
+
+Not ported yet, and refused with ``NotImplementedError``: data parallelism
+and ZeRO (``--dp``/``--zero-stage``), and the LM smoke archs.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch uvit-h \
@@ -81,7 +102,7 @@ import time
 from typing import Any, Callable
 
 PIPELINE_ARCHS = ("uvit", "uvit-pp", "uvit-nano", "uvit-h", "hunyuan-pp",
-                  "hunyuan-dit")
+                  "hunyuan-dit", "skipvit")
 # without --pipeline: the JAX trainer's diffusion smoke keys ("uvit" is its
 # alias of "uvit-h") and the UNet at full width
 SMOKE_ARCHS = ("uvit", "uvit-h", "hunyuan-dit", "sdv2-unet", "sdv2-unet-full")
@@ -94,9 +115,7 @@ ARCHS = tuple(dict.fromkeys(PIPELINE_ARCHS + SMOKE_ARCHS + LM_SMOKE_ARCHS))
 
 # flags of the JAX trainer whose features are not ported yet: any value but
 # the default is refused (the LM smoke archs are refused separately)
-UNPORTED = {"host_id": "multi-host workers", "num_hosts": "multi-host workers",
-            "commit_timeout": "multi-host checkpoint commits",
-            "dp": "data parallelism", "zero_stage": "ZeRO"}
+UNPORTED = {"dp": "data parallelism", "zero_stage": "ZeRO"}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -137,13 +156,18 @@ def _parser() -> argparse.ArgumentParser:
                     help="exhausted GradGuard budget: 'abort' raises; "
                          "'rollback' exits 43 for a supervisor to roll "
                          "back to the last verified checkpoint")
-    ap.add_argument("--host-id", type=int, default=0)
-    ap.add_argument("--num-hosts", type=int, default=1)
+    ap.add_argument("--host-id", type=int, default=0,
+                    help="this process's host rank (multi-host worker "
+                         "mode; writes shard_<host-id>.npz only)")
+    ap.add_argument("--num-hosts", type=int, default=1,
+                    help="total host processes cooperating on the run")
     ap.add_argument("--heartbeat-dir", default=None,
                     help="write a heartbeat per step here")
     ap.add_argument("--gen", type=int, default=0,
                     help="supervisor generation stamped into heartbeats")
-    ap.add_argument("--commit-timeout", type=float, default=60.0)
+    ap.add_argument("--commit-timeout", type=float, default=60.0,
+                    help="multi-host barrier timeout (s): the start "
+                         "barrier and each checkpoint step's commit")
     ap.add_argument("--simulate-failure", type=int, default=0,
                     help="legacy alias for --faults kill@K")
     ap.add_argument("--out-json", default=None,
@@ -209,9 +233,16 @@ class TrainResult:
     restore: dict | None = None     # seconds and peak memory of the resume
 
 
-def _dump_losses(path: str, losses: dict, start: int) -> None:
+def _dump_losses(path: str, losses: dict, start: int, step_s: dict,
+                 beat_t: dict) -> None:
+    """The atomic per-step dump: losses, step seconds, each train beat's
+    wall-clock time and this process's kernel launches so far (a worker
+    that is killed leaves them for its supervisor)."""
+    from repro_torch.kernels import launch_counts
     doc = {"losses": {str(k): v for k, v in losses.items()},
-           "start": start, "partial": True}
+           "step_seconds": {str(k): v for k, v in step_s.items()},
+           "beat_t": {str(k): v for k, v in beat_t.items()},
+           "launches": launch_counts(), "start": start, "partial": True}
     tmp = path + f".tmp{os.getpid()}"
     with open(tmp, "w") as f:
         json.dump(doc, f)
@@ -240,12 +271,20 @@ def _refuse_unported(args) -> None:
 
 
 def _kind(args) -> str:
+    if args.arch == "skipvit":
+        return "skipvit"
     return "hunyuan" if args.arch.startswith("hunyuan") else "uvit"
 
 
 def _model_config(args):
     """The pipeline path's model config of ``args``, kernels on."""
-    from repro_torch.models.diffusion import HunyuanDiTConfig, UViTConfig
+    from repro_torch.models.diffusion import (HunyuanDiTConfig, SkipViTConfig,
+                                              UViTConfig)
+    if args.arch == "skipvit":
+        # the JAX trainer's own SkipViT; no skip-concat kernel to switch on
+        return SkipViTConfig("skipvit-pp", img_size=8, in_ch=4, patch=2,
+                             d_model=64, n_heads=4, d_ff=128, n_classes=10,
+                             n_enc=4, n_mid=2, n_dec=4, use_flash=True)
     if args.arch == "hunyuan-dit":
         from repro_torch.configs.hunyuan_dit import CFG
         cfg = CFG
@@ -326,9 +365,10 @@ def build_trainer(args, compiled=None) -> Trainer:
     from repro_torch.core.hw import H100_SXM
     from repro_torch.data import ShardedLoader, SyntheticLatentDataset
     from repro_torch.models.diffusion import (hunyuan_pipeline_graph,
+                                              skipvit_pipeline_graph,
                                               uvit_pipeline_graph)
-    from repro_torch.runtime.adapters import (diffusion_model_fns,
-                                              make_diffusion_microbatches)
+    from repro_torch.runtime.adapters import (make_diffusion_microbatches,
+                                              model_fns)
     from repro_torch.runtime.compile import auto_pipeline
 
     device = _device(args)
@@ -341,10 +381,11 @@ def build_trainer(args, compiled=None) -> Trainer:
     kind = _kind(args)
     if compiled is None:
         P = args.pp or args.devices
-        graph_fn = (hunyuan_pipeline_graph if kind == "hunyuan"
-                    else uvit_pipeline_graph)
+        graph_fn = {"skipvit": skipvit_pipeline_graph,
+                    "hunyuan": hunyuan_pipeline_graph}.get(kind,
+                                                           uvit_pipeline_graph)
         graph = graph_fn(cfg, batch=args.global_batch // M, hw=H100_SXM)
-        compiled = auto_pipeline(graph, diffusion_model_fns(cfg, kind), P,
+        compiled = auto_pipeline(graph, model_fns(cfg, kind), P,
                                  hw=H100_SXM, pipeline_devices=P,
                                  microbatches=M, interleave=args.interleave,
                                  wire_dtype=args.wire_dtype)
@@ -356,8 +397,8 @@ def build_trainer(args, compiled=None) -> Trainer:
 
     def loss(params, batch, t, noise):
         # Hunyuan's temb comes from the current edge params (time_mlp)
-        mb, aux = make_diffusion_microbatches(batch, M, cfg, kind, t=t,
-                                              noise=noise, params=params[1])
+        mb, aux = make_diffusion_microbatches(
+            batch, M, cfg, kind, t=t, noise=noise, params=params[1])
         (enc, dec), edge = params
         return fn(enc, dec, edge, mb, aux)
 
@@ -514,6 +555,7 @@ def run(args, on_restore=None, init_params=None, draw=None,
     import torch
 
     from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import launch_counts
     from repro_torch.models.diffusion import ddpm_draw
     from repro_torch.optim import (AdamWConfig, adamw_update,
                                    cosine_schedule, global_norm)
@@ -530,13 +572,30 @@ def run(args, on_restore=None, init_params=None, draw=None,
             tree_map(lambda dst, x: dst.copy_(x), params, src)
         del src
     plan = tr.plan
+    cuda = device.type == "cuda"
+    where = (f"cuda:{torch.cuda.current_device()} "
+             f"({torch.cuda.get_device_name(device)})" if cuda else "cpu")
+    print(f"[train] device: {where}", flush=True)
     print("[train] " + plan.replace("\n", "\n[train] "), flush=True)
     opt_cfg = AdamWConfig(lr=args.lr)
-    cuda = device.type == "cuda"
     mgr = CheckpointManager(
-        args.ckpt_dir, keep=args.keep,
+        args.ckpt_dir, keep=args.keep, host_id=args.host_id,
+        num_hosts=args.num_hosts,
         plan=compiled.state_spec() if compiled is not None else None,
         io_fault=faults.io_fault) if args.ckpt_dir else None
+
+    multi_host = args.num_hosts > 1
+    if multi_host:
+        from repro_torch.launch.mesh import FileBarrier, HostTopology
+        topo = HostTopology(args.num_hosts,
+                            max(args.devices // args.num_hosts, 1))
+        print("[train] " + topo.describe().replace("\n", "\n[train] "),
+              flush=True)
+        if args.heartbeat_dir:
+            FileBarrier(os.path.join(args.heartbeat_dir, "barrier"),
+                        host_id=args.host_id, num_hosts=args.num_hosts
+                        ).wait(f"start.g{args.gen}",
+                               timeout=args.commit_timeout)
 
     start, resumed, restore = 0, None, None
     if args.resume and args.ckpt_dir:
@@ -556,6 +615,7 @@ def run(args, on_restore=None, init_params=None, draw=None,
     guard = GradGuard(budget=args.nan_skip_budget)
     losses: dict[int, float] = {}
     step_s: dict[int, float] = {}
+    beat_t: dict[int, float] = {}
     prof = None
 
     def finish(loss) -> TrainResult:
@@ -581,13 +641,36 @@ def run(args, on_restore=None, init_params=None, draw=None,
                            "elastic": bool(resumed.elastic) if resumed
                            else False,
                            "skipped_steps": res.skipped_steps,
-                           "peak_bytes": peak}, f)
+                           "peak_bytes": peak,
+                           "beat_t": {str(k): v for k, v in beat_t.items()},
+                           "launches": launch_counts()}, f)
         return res
 
     if start >= args.steps:
         print(f"[train] nothing to do: resumed step {start} >= "
               f"--steps {args.steps}")
         return finish(None)
+
+    def save_at(step_next: int) -> None:
+        """Single host: async save.  Multi-host: blocking shard write, then
+        the rendezvous on step completeness (the commit barrier)."""
+        from repro_torch.checkpoint import CheckpointError, wait_step_complete
+        state = {"params": params, "opt": opt_state}
+        # a save is progress: the watchdog must not read a slow commit as a
+        # stalled step loop
+        beat(step_next, "ckpt")
+        if not multi_host:
+            mgr.save_async(step_next, state)
+            return
+        if mgr.save(step_next, state) is None:
+            return                  # degraded save: no barrier to meet
+        try:
+            wait_step_complete(args.ckpt_dir, step_next,
+                               timeout=args.commit_timeout)
+        except CheckpointError as e:
+            # degrade and warn, as a failed single-host save does
+            print(f"[train] WARNING: commit barrier at step {step_next} "
+                  f"did not close: {e}", flush=True)
 
     loss = None
     stopped = False
@@ -643,15 +726,16 @@ def run(args, on_restore=None, init_params=None, draw=None,
                 raise SystemExit(EXIT_ESCALATE) from None
             raise
         losses[step] = float(loss.detach())
-        if args.out_json:
-            # an atomic per-step dump: a killed run still leaves its losses
-            _dump_losses(args.out_json, losses, start)
         slow = faults.slow_factor(step)
         if slow > 1.0:     # straggle: stretch this step by the factor
             time.sleep(min((time.perf_counter() - t_step) * (slow - 1.0),
                            5.0))
+        beat_t[step] = time.time()
         beat(step, "train", loss=losses[step], gnorm=gnorm,
              step_s=step_s[step])
+        if args.out_json:
+            # an atomic per-step dump: a killed run still leaves its losses
+            _dump_losses(args.out_json, losses, start, step_s, beat_t)
         if step % args.log_every == 0 or step == args.steps - 1:
             sps = ((step - start + 1) * args.global_batch
                    / (time.perf_counter() - t0))
@@ -659,8 +743,7 @@ def run(args, on_restore=None, init_params=None, draw=None,
                   f"lr {lr:.2e} step {step_s[step]:.3f}s "
                   f"({sps:.2f} samples/s)", flush=True)
         if mgr and (step + 1) % args.ckpt_every == 0:
-            beat(step + 1, "ckpt")
-            mgr.save_async(step + 1, {"params": params, "opt": opt_state})
+            save_at(step + 1)
             last_save = step + 1
         if faults.post_step(step + 1, ckpt_dir=args.ckpt_dir,
                             flush=mgr.wait if mgr else None) == "stop":
@@ -676,8 +759,7 @@ def run(args, on_restore=None, init_params=None, draw=None,
                                        device), f, indent=1)
     if mgr and not stopped:
         if last_save != args.steps:       # the last periodic save may be it
-            beat(args.steps, "ckpt")
-            mgr.save_async(args.steps, {"params": params, "opt": opt_state})
+            save_at(args.steps)
         mgr.wait()
     res = finish(loss)
     if not stopped:

@@ -1,6 +1,5 @@
-"""UViT, Hunyuan-DiT and the SDv2 UNet diffusion backbones and the DDPM
-objective (the port of ``repro.models.diffusion``; SkipViT is not ported
-yet).
+"""UViT, Hunyuan-DiT, SkipViT and the SDv2 UNet diffusion backbones and
+the DDPM objective (the port of ``repro.models.diffusion``).
 
 Same structure as the JAX module: ``enc_blocks`` and ``dec_blocks`` are
 stacked ``[L/2, ...]`` parameter trees (the decoder's with an extra
@@ -9,6 +8,14 @@ stacked ``[L/2, ...]`` parameter trees (the decoder's with an extra
 export the runtime-aligned block graphs the PULSE planner partitions.
 Hunyuan-DiT blocks add adaLN modulation from the time embedding ``temb``
 and cross-attention over the text tokens ``ctx``.
+
+SkipViT is one homogeneous ``blocks`` stack with an arbitrary (possibly
+sparse, mid-block) skip topology; every block carries ``skip_in`` and
+consumes additively (``x + skip @ skip_in``), so it never reaches the
+skip-concat kernel, in JAX or here.  Unlike the JAX config, the port's
+``SkipViTConfig`` has ``use_flash`` (every block's attention through the
+flash kernel), and :func:`skipvit_pipeline_graph` defaults to
+``H100_SXM`` where the JAX one defaults to its TPU preset.
 
 The UNet keeps the JAX package's leaf layouts: NHWC activations and HWIO
 conv weights (``conv2d`` permutes to PyTorch's NCHW/OIHW views inside),
@@ -801,3 +808,120 @@ def _paired_skips(n_total: int, n_pairs: int, act: int
                   ) -> tuple[SkipEdge, ...]:
     """Fully-paired UNet edges: block i -> its mirror ``n_total-1-i``."""
     return tuple(SkipEdge(i, n_total - 1 - i, act) for i in range(n_pairs))
+
+
+# --------------------------------------------------------------------------
+# SkipViT: homogeneous ViT stack with an arbitrary (possibly sparse) skip
+# topology -- the asymmetric-fold workload (mid-block bottlenecks, sparse
+# skips, odd block counts)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SkipViTConfig:
+    """UNet-shaped ViT over ONE homogeneous block stack.
+
+    ``n_enc`` skip-emitting blocks, ``n_mid`` bottleneck blocks (no skip
+    endpoints), ``n_dec`` blocks that may consume a skip.  ``skip_pairs``
+    (block-index ``(src, dst)`` tuples) defaults to full pairing
+    ``(i, n-1-i)``; pass a subset for sparse-skip variants.  Every block
+    carries a ``skip_in`` projection and consumes *additively*
+    (``x + skip @ skip_in``), so blocks without an incoming skip see zeros
+    and reduce to a plain ViT block -- one block body covers emitters,
+    bottlenecks and consumers, which is what lets the fold's turnaround
+    cut land anywhere the partitioner puts it.
+    """
+
+    name: str
+    img_size: int = 8
+    in_ch: int = 4
+    patch: int = 2
+    d_model: int = 32
+    n_heads: int = 4
+    d_ff: int = 64
+    n_classes: int = 10
+    n_enc: int = 3
+    n_mid: int = 2
+    n_dec: int = 3
+    skip_pairs: tuple[tuple[int, int], ...] | None = None
+    norm_eps: float = 1e-6
+    use_flash: bool = False        # flash-attention kernel in every block
+    dtype: Any = torch.float32
+    param_dtype: Any = torch.float32
+
+    @property
+    def n_blocks(self) -> int:
+        return self.n_enc + self.n_mid + self.n_dec
+
+    @property
+    def n_tokens(self) -> int:
+        return (self.img_size // self.patch) ** 2 + 2  # + time/class tokens
+
+    def attn_cfg(self) -> AttnConfig:
+        return AttnConfig(self.d_model, self.n_heads, self.n_heads,
+                          self.d_model // self.n_heads, rope_theta=0.0,
+                          causal=False, use_flash=self.use_flash)
+
+    def skip_edges(self) -> tuple[tuple[int, int], ...]:
+        if self.skip_pairs is not None:
+            return self.skip_pairs
+        k = min(self.n_enc, self.n_dec)
+        return tuple((i, self.n_blocks - 1 - i) for i in range(k))
+
+
+def init_skipvit(gen: torch.Generator, cfg: SkipViTConfig,
+                 device="cuda") -> Params:
+    d, pd = cfg.d_model, cfg.param_dtype
+    pp = cfg.patch ** 2 * cfg.in_ch
+    blocks = _init_vit_block(gen, cfg, cfg.d_ff, False, device,
+                             (cfg.n_blocks,))
+    blocks["skip_in"] = L.dense_init(gen, d, d, pd, device, (cfg.n_blocks,))
+    return {
+        "patch_embed": L.dense_init(gen, pp, d, pd, device),
+        "pos_embed": L.normal(gen, (cfg.n_tokens, d), 0.02, pd, device),
+        "time_mlp": L.init_gelu_mlp(gen, d, 4 * d, pd, device),
+        "class_embed": L.dense_init(gen, cfg.n_classes, d, pd, device),
+        "blocks": blocks,
+        "out_norm": torch.ones((d,), dtype=pd, device=device),
+        "out_proj": L.dense_init(gen, d, pp, pd, device),
+    }
+
+
+def skipvit_apply(params: Params, xt: torch.Tensor, t: torch.Tensor,
+                  batch: dict, cfg: SkipViTConfig) -> torch.Tensor:
+    """Single-device reference; the wave executor must match it for every
+    legal partition, mirror-symmetric or not."""
+    x = uvit_embed(params, xt, t, batch, cfg)
+    consumes = {dst: src for src, dst in cfg.skip_edges()}
+    stash: dict[int, torch.Tensor] = {}
+    for b in range(cfg.n_blocks):
+        bp = tree_index(params["blocks"], b)
+        if b in consumes:
+            x = x + stash[consumes[b]] @ bp["skip_in"].to(x.dtype)
+        x = _apply_vit_block(bp, x, cfg)
+        stash[b] = x
+    return uvit_output(params, x, cfg)
+
+
+def skipvit_loss(params: Params, batch: dict, t: torch.Tensor,
+                 noise: torch.Tensor, cfg: SkipViTConfig) -> torch.Tensor:
+    return ddpm_loss(lambda p, xt, tt, b: skipvit_apply(p, xt, tt, b, cfg),
+                     params, batch, t, noise)
+
+
+def skipvit_pipeline_graph(cfg: SkipViTConfig, batch: int = 1,
+                           fwd_times=None,
+                           hw: Hardware = H100_SXM) -> BlockGraph:
+    """Runtime-aligned SkipViT graph: one block per ``params['blocks']``
+    row with the config's (possibly sparse / mid-block) skip edges."""
+    d, n, ff = cfg.d_model, cfg.n_tokens, cfg.d_ff
+    act = batch * n * d * 2
+    blk_fl = 2 * batch * (4 * n * d * d + 2 * n * n * d + 2 * n * d * ff)
+    per_param = (4 * d * d + 2 * d * ff + d * d) * 2
+    edges = cfg.skip_edges()
+    srcs = {s for s, _ in edges}
+    blocks = [Block(f"blk{i}", 0.0, per_param, act,
+                    act if i in srcs else 0, blk_fl)
+              for i in range(cfg.n_blocks)]
+    return _runtime_graph(blocks,
+                          (SkipEdge(s, t, act) for s, t in edges),
+                          fwd_times, hw)

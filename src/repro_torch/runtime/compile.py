@@ -68,19 +68,21 @@ class PipelineModelFns:
     per row of the model's stacked block parameters (edge params -- embed,
     head, norms -- live outside the graph).
 
-    ``split_blocks(params) -> ((enc_blocks, dec_blocks), edge)``: the
-    encoder and decoder blocks have different parameter structures (UViT's
-    decoder blocks carry ``skip_proj``); ``merge_blocks`` is the exact
-    inverse.  (The JAX package's homogeneous one-stack models, SkipViT and
-    the LMs, are not ported yet.)  ``num_param_stacks`` is
-    ``len(split_blocks(params)[0])``, which a state spec records.
+    ``split_blocks(params) -> (stacks, edge)`` where ``stacks`` is a
+    1-tuple ``(blocks,)`` for a homogeneous stack (SkipViT: rows 0..n-1 in
+    graph order) or a 2-tuple ``(enc_blocks, dec_blocks)`` when encoder
+    and decoder blocks have different parameter structures (UViT's decoder
+    blocks carry ``skip_proj``); ``merge_blocks`` is the exact inverse.
+    ``num_param_stacks`` is ``len(split_blocks(params)[0])``, which a
+    state spec records.  (The JAX package's default is 1; the port's is
+    2, the two-stack models it ported first.)
     """
 
     init_fn: Callable        # (generator, device) -> params
     embed_fn: Callable       # (edge_p, mb, aux) -> x
     loss_fn: Callable        # (edge_p, x, mb, aux) -> scalar
-    split_blocks: Callable   # params -> ((enc_blocks, dec_blocks), edge)
-    merge_blocks: Callable   # ((enc_blocks, dec_blocks), edge) -> params
+    split_blocks: Callable   # params -> (stacks, edge)
+    merge_blocks: Callable   # (stacks, edge) -> params
     enc_block_fn: Callable   # (block_p, x, aux) -> (x, skip)
     dec_block_fn: Callable   # (block_p, x, skip, aux) -> x
     num_param_stacks: int = 2               # len(split_blocks(params)[0])
@@ -254,24 +256,35 @@ class StageLayout:
         return tree_map(f, stacked)
 
     def split(self, stacks: tuple) -> tuple:
-        """``(enc_blocks, dec_blocks)`` model stacks -> per-(device, slot)
-        padded stage stacks."""
+        """Model block stacks -> per-(device, slot) padded stage stacks.
+
+        ``stacks`` is ``(blocks,)`` for a homogeneous stack (SkipViT: cut
+        at the partition's turnaround, wherever it lands) or
+        ``(enc_blocks, dec_blocks)`` (UViT, Hunyuan-DiT)."""
         part = self.partition
         mid = part.cuts[part.num_stages // 2]
-        enc_b, dec_b = stacks
-        enc_rows = tree_leaves(enc_b)[0].shape[0]
-        if enc_rows != mid:
-            raise ValueError(
-                f"partition turnaround cut at block {mid} but the model's "
-                f"encoder stack has {enc_rows} rows; two-stack models need "
-                "the mid cut on the stack boundary")
+        if len(stacks) == 1:
+            enc_b = tree_map(lambda x: x[:mid], stacks[0])
+            dec_b = tree_map(lambda x: x[mid:], stacks[0])
+        else:
+            enc_b, dec_b = stacks
+            enc_rows = tree_leaves(enc_b)[0].shape[0]
+            if enc_rows != mid:
+                raise ValueError(
+                    f"partition turnaround cut at block {mid} but the "
+                    f"model's encoder stack has {enc_rows} rows; two-stack "
+                    "models need the mid cut on the stack boundary")
         return (self._stack(enc_b, self.enc_ranges(), self.enc_pad),
                 self._stack(dec_b, self.dec_ranges(), self.dec_pad))
 
-    def merge(self, stage_stacks: tuple) -> tuple:
+    def merge(self, stage_stacks: tuple, n_model_stacks: int) -> tuple:
         """Inverse of :meth:`split` (also correct for gradients)."""
-        return (self._unstack(stage_stacks[0], self.enc_ranges()),
-                self._unstack(stage_stacks[1], self.dec_ranges()))
+        enc_b = self._unstack(stage_stacks[0], self.enc_ranges())
+        dec_b = self._unstack(stage_stacks[1], self.dec_ranges())
+        if n_model_stacks == 1:
+            return (tree_map(lambda a, b: torch.cat([a, b], 0), enc_b,
+                             dec_b),)
+        return (enc_b, dec_b)
 
 
 # ===========================================================================
@@ -301,7 +314,8 @@ class CompiledPipeline:
 
     def merge_params(self, stage_stacks: tuple, edge: Pytree) -> Pytree:
         return self.model_fns.merge_blocks(
-            self.layout.merge(tuple(stage_stacks)), edge)
+            self.layout.merge(tuple(stage_stacks),
+                              self.model_fns.num_param_stacks), edge)
 
     def init_pipeline_params(self, gen: torch.Generator,
                              device="cuda") -> tuple:

@@ -30,9 +30,13 @@
    the skip-and-log guard for non-finite grads with a bounded
    consecutive-skip budget and an escalation.
 
-4. **Heartbeats** (the worker half): :func:`write_heartbeat` /
-   :func:`read_heartbeats` over atomic per-host files.  The supervisor's
-   ``Watchdog`` and ``StragglerDetector`` are not ported yet.
+4. **Supervisor detection primitives**: :func:`write_heartbeat` /
+   :func:`read_heartbeats` over atomic per-host files (the worker half),
+   and the supervisor's :class:`Watchdog` (progress-based ``suspect`` /
+   ``hung`` verdicts, lenient until a host moves past its first ``train``
+   beat) and :class:`StragglerDetector` (per-step ``step_s`` samples
+   against the peers' median).  Both are the JAX classes line for line:
+   the same inputs give the same verdicts, ages and ratios.
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ import sys
 import time
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.tree import tree_leaves, tree_map
@@ -615,7 +620,7 @@ class GradGuard:
 
 
 # ===========================================================================
-# Heartbeats (the worker half of the supervisor's detection primitives)
+# Supervisor detection primitives: heartbeats, watchdog, stragglers
 # ===========================================================================
 
 @dataclasses.dataclass
@@ -681,3 +686,146 @@ def read_heartbeats(directory: str, *, gen: int | None = None
             continue
         out[hb.host_id] = hb
     return out
+
+
+class Watchdog:
+    """Progress watchdog over per-host heartbeats.
+
+    A host is judged on the age of its last *progress* (a heartbeat whose
+    ``(phase, step)`` advanced), not of its last write -- a hung collective
+    leaves the process alive (and able to write) but its step frozen:
+
+    - age > deadline                 -> ``suspect`` (a missed heartbeat);
+    - age > deadline * miss_budget   -> ``hung`` (persistent stall).
+
+    The deadline is ``startup_timeout`` until the host advances *past*
+    its first ``train`` heartbeat and the tight ``stall_timeout``
+    afterwards: a worker's cold start (CUDA context, kernel loads, the
+    first step's allocations) runs arbitrarily long before step 0, and the
+    step in flight right after the first beat still carries residual
+    warmup, so both are judged leniently.  Hosts expected but never seen
+    at all are judged from the watchdog's construction time against
+    ``startup_timeout``.  Poll-rate independent: thresholds are wall-clock
+    ages, not poll counts.
+    """
+
+    def __init__(self, hosts, *, stall_timeout: float = 10.0,
+                 startup_timeout: float = 300.0, miss_budget: int = 3,
+                 now: float | None = None):
+        self.hosts = tuple(hosts)
+        self.stall_timeout = float(stall_timeout)
+        self.startup_timeout = float(startup_timeout)
+        self.miss_budget = int(miss_budget)
+        t0 = time.time() if now is None else now
+        self._last: dict[int, tuple[str, int, float]] = {
+            h: ("unseen", -2, t0) for h in self.hosts}
+        self._first_train: dict[int, int] = {}
+
+    def observe(self, heartbeats: dict[int, Heartbeat],
+                now: float | None = None) -> None:
+        now = time.time() if now is None else now
+        for h, hb in heartbeats.items():
+            if h not in self._last:
+                continue
+            if hb.phase == "train":
+                self._first_train.setdefault(h, hb.step)
+            phase, step, _ = self._last[h]
+            if (hb.phase, hb.step) != (phase, step):
+                self._last[h] = (hb.phase, hb.step, now)
+
+    def _deadline(self, host: int) -> float:
+        phase, step, _ = self._last[host]
+        if phase in ("ckpt", "done"):
+            return self.stall_timeout
+        if phase == "train" and step != self._first_train.get(host):
+            return self.stall_timeout
+        # init / unseen, or sitting on the first train step (the next
+        # step still pays warmup): lenient
+        return self.startup_timeout
+
+    def age(self, host: int, now: float | None = None) -> float:
+        now = time.time() if now is None else now
+        return now - self._last[host][2]
+
+    def progress(self, host: int) -> tuple[str, int]:
+        """Last observed (phase, step) progress point for ``host`` -- what
+        a supervisor uses to tell a ROOT hung host (least progress: it
+        wedged its peers) from victims blocked on it further along."""
+        phase, step, _ = self._last[host]
+        return phase, step
+
+    def check(self, now: float | None = None) -> dict[int, str]:
+        """Per-host verdict: ``ok`` | ``suspect`` | ``hung`` (``done``
+        once a clean final heartbeat landed)."""
+        now = time.time() if now is None else now
+        out: dict[int, str] = {}
+        for h in self.hosts:
+            phase, _, _ = self._last[h]
+            if phase == "done":
+                out[h] = "done"
+                continue
+            age, deadline = self.age(h, now), self._deadline(h)
+            if age > deadline * self.miss_budget:
+                out[h] = "hung"
+            elif age > deadline:
+                out[h] = "suspect"
+            else:
+                out[h] = "ok"
+        return out
+
+
+class StragglerDetector:
+    """Flag hosts persistently slower than the cluster median step time.
+
+    Duration samples prefer the worker-measured ``Heartbeat.step_s`` (a
+    monitor starved of poll slots observes beats in multi-step jumps --
+    time-derived averages would wash a slowdown out against warmup),
+    falling back to successive ``(step, t)`` pair deltas for writers that
+    don't report it.  Each host keeps a rolling window and its median
+    (p50) duration is compared against the median of the *other* hosts'
+    medians: ratio >= ``factor`` sustained over ``patience`` completed
+    steps flags the host (streaks are counted in steps advanced, not in
+    observations, for the same sparse-poll reason).  Needs >= 2 hosts (a
+    cluster of one has no peers to straggle behind).
+    """
+
+    def __init__(self, *, factor: float = 2.0, patience: int = 3,
+                 window: int = 16):
+        self.factor = float(factor)
+        self.patience = int(patience)
+        self.window = int(window)
+        self._prev: dict[int, tuple[int, float]] = {}   # host -> (step, t)
+        self._durs: dict[int, list[float]] = {}
+        self._streak: dict[int, int] = {}
+
+    def observe(self, heartbeats: dict[int, Heartbeat]) -> None:
+        for h, hb in heartbeats.items():
+            if hb.phase != "train" or hb.step < 0:
+                continue
+            prev = self._prev.get(h)
+            self._prev[h] = (hb.step, hb.t)
+            if prev is None or hb.step <= prev[0]:
+                continue
+            advanced = hb.step - prev[0]
+            dur = (hb.step_s if hb.step_s is not None
+                   else (hb.t - prev[1]) / advanced)
+            durs = self._durs.setdefault(h, [])
+            durs.append(dur)
+            del durs[:-self.window]
+            ratio = self._ratio(h)
+            self._streak[h] = (self._streak.get(h, 0) + advanced
+                               if ratio >= self.factor else 0)
+
+    def _ratio(self, host: int) -> float:
+        mine = self._durs.get(host)
+        peers = [float(np.median(d)) for h, d in self._durs.items()
+                 if h != host and d]
+        if not mine or not peers:
+            return 0.0
+        p50 = float(np.median(peers))
+        return float(np.median(mine)) / p50 if p50 > 0 else 0.0
+
+    def stragglers(self) -> dict[int, float]:
+        """Hosts flagged ``patience`` consecutive steps -> slowdown ratio."""
+        return {h: self._ratio(h) for h, n in self._streak.items()
+                if n >= self.patience}
