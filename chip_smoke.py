@@ -44,7 +44,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the CPU (plain versions): loss and grads at rtol 1e-3; then in bf16 through the kernels' bf16 routes (a
    Hunyuan-DiT config with 2 heads of 128, 4 blocks, 77 text tokens, D=2,
    M=4) against the same params in fp32 on the CPU: loss at rtol 2e-2,
-   each gradient at ||err|| / ||g|| <= 5e-2; then a narrow SDv2 UNet
+   each gradient at ||err|| / ||g|| <= 5e-2; then the linear (skip-free)
+   executors, table and closed form, on a graph of UViT encoder blocks
+   (D=2, M=4, uneven cuts, fp32, fp32 wire) against the CPU: loss and
+   grads at rtol 1e-3, flash launched; then a narrow SDv2 UNet
    whose single heads are 112 and 224 wide (``UNET_PARITY``), flash on,
    on the card against the CPU: fp32 loss and grads at rtol 1e-4, bf16
    loss at rtol 2e-2, two flash launches per attention block;
@@ -70,6 +73,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    counts reset just before and read just after: every loss finite, both
    kernels of the path launched; then every reference to the trainer is
    dropped and the card's memory released;
+6b. baseline (``baseline_phase``), after checking that less than 1 GB is
+   still allocated: UViT-H at full width and depth (bf16, random weights
+   from seed 0, the trainer's plan D=4 M=8, global batch 16) through the
+   table wave executor (fp32 wire), the same plan's closed-form wave and
+   the paper's skip-carry baseline, one at a time from the same params
+   and microbatches, the card released between them; each one warm-up
+   and 3 timed forward+backward steps: step ms (median, spread), peak
+   memory, flash and skip launches a step, the bytes handed to the ring
+   (dense and live, forward only), beside ``partition_comm_volume`` of
+   the PULSE and the sequential partitions; closed form vs table at loss
+   rtol 1e-3 and ||err||/||g|| <= 1e-2 per gradient, skip-carry vs table
+   at 2e-2 and 5e-2;
 7. checkpoint UViT-H (``checkpoint_phase``), full width and depth, the
    same argv plus a ``--ckpt-dir`` under ``build/``: A trains steps 0-1
    and saves step 2 (27.8 GB), B resumes at the same plan (restored state
@@ -112,7 +127,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     the same files after the phase) and every worker log must name its
     CUDA device;
 12. the ``kernels`` JSON line (each kernel's launches by path: ``plan``,
-    ``skipvit train``, ``skipvit wave-asym`` and ``supervisor workers``,
+    ``baseline``, ``skipvit train``, ``skipvit wave-asym`` and
+    ``supervisor workers``,
     the last read from the workers' result files, among them), then the
     device line as the last line.
 
@@ -216,6 +232,29 @@ def check_close(torch, got, want, dtype: str, what: str,
         fail(f"{what}: kernel disagrees with its plain version "
              f"(max abs err {err:.3e}, rtol={tol}, atol={atol:.3e}):\n{e}")
     return err
+
+
+def rel_errs(torch, got: dict, want: dict, bar: float, what: str) -> tuple:
+    """||got - want|| / ||want|| for every gradient by path, each at most
+    ``bar`` (one zero in ``want`` must be zero in ``got``): bf16 rounds at
+    every op, so an elementwise bound would measure bf16's own rounding.
+    Returns the worst and its path."""
+    if sorted(got) != sorted(want):
+        fail(f"{what}: gradient leaves differ")
+    worst, worst_k = 0.0, None
+    for k, w in want.items():
+        ref = float(torch.linalg.vector_norm(w.float()))
+        err = float(torch.linalg.vector_norm(got[k].float() - w.float()))
+        if ref == 0.0:
+            if err != 0.0:
+                fail(f"{what}: grad {k} is zero in the reference but not "
+                     "here")
+            continue
+        if not err / ref <= bar:
+            fail(f"{what}: grad {k} relative error {err / ref:.3e} > {bar}")
+        if err / ref > worst:
+            worst, worst_k = err / ref, k
+    return worst, worst_k
 
 
 # ---------------------------------------------------------------------------
@@ -718,27 +757,109 @@ def pipeline_parity_bf16(torch, rec, D: int = 2, M: int = 4) -> None:
     if not (math.isfinite(lg) and math.isclose(lg, lc, rel_tol=2e-2)):
         fail(f"pipeline parity {name}: bf16 loss on the card {lg} vs fp32 "
              f"CPU {lc} (rtol 2e-2)")
-    worst, worst_k = 0.0, None
-    for k, want in gc_.items():
-        got = gg[k]
-        ref = float(want.norm())
-        if ref == 0.0:
-            if float(got.norm()) != 0.0:
-                fail(f"pipeline parity {name}: grad {k} is zero on the CPU "
-                     f"but not on the card")
-            continue
-        rel = float((got - want).norm()) / ref
-        if not rel <= 5e-2:
-            fail(f"pipeline parity {name}: grad {k} relative error {rel:.3e}"
-                 " > 5e-2")
-        if rel > worst:
-            worst, worst_k = rel, k
+    worst, worst_k = rel_errs(torch, gg, gc_, 5e-2, f"pipeline parity {name}")
     rec.setdefault("pipeline_parity", {})[name] = dict(
         loss_cuda=lg, loss_cpu=lc, max_rel_grad_err=worst,
         worst_grad=worst_k, grads=len(gg), launches=launched, plan=plan)
     log(f"[parity] {name} bf16 on the card vs fp32 CPU: loss card {lg:.7f} "
         f"cpu {lc:.7f}; {len(gg)} grads, worst ||err||/||g|| {worst:.3e} "
         f"({worst_k}); launches {launched}")
+
+
+# the linear executors' skip-free model: the 8 encoder blocks of a 16-layer
+# UViT (no skip projection), its embedding reading t from the microbatch,
+# on a hand-built graph whose costs cut it unevenly (D=2, M=4)
+LINEAR_TIMES = (4, 2, 1, 1, 1, 1, 1, 1)
+
+
+def _linear_model(torch):
+    """(cfg, model fns, graph) of the linear parity model, flash on."""
+    from repro_torch.core.graph import Block, BlockGraph
+    from repro_torch.models import diffusion as dm
+    from repro_torch.runtime.compile import PipelineModelFns
+    cfg = dm.UViTConfig("linear-uvit", img_size=8, in_ch=4, patch=2,
+                        d_model=64, n_layers=16, n_heads=4, d_ff=128,
+                        n_classes=10, use_flash=True)
+    fns = PipelineModelFns(
+        init_fn=lambda gen, device: {
+            k: v for k, v in dm.init_uvit(gen, cfg, device).items()
+            if k != "dec_blocks"},
+        embed_fn=lambda e, mb, aux: dm.uvit_embed(e, mb["xt"], mb["t"], mb,
+                                                  cfg),
+        loss_fn=lambda e, x, mb, aux: torch.mean(torch.square(
+            dm.uvit_output(e, x, cfg).float() - mb["noise"].float())),
+        split_blocks=lambda p: ((p["enc_blocks"],), {
+            k: v for k, v in p.items() if k != "enc_blocks"}),
+        merge_blocks=lambda st, e: {**e, "enc_blocks": st[0]},
+        block_fn=lambda bp, x, aux: dm._apply_vit_block(bp, x, cfg),
+        num_param_stacks=1)
+    graph = BlockGraph(tuple(Block(f"b{i}", float(c), param_bytes=1 << 10,
+                                   act_bytes=1 << 10)
+                             for i, c in enumerate(LINEAR_TIMES)))
+    return cfg, fns, graph
+
+
+def linear_parity(torch, rec, D: int = 2, M: int = 4) -> None:
+    """The linear (skip-free) executors, table and closed form, fp32 and
+    fp32 wire, one step on the card against the same step on the CPU
+    (plain versions): loss and grads at rtol 1e-3, flash attention
+    launched on the card (no block projects a skip)."""
+    import numpy as np
+
+    from repro_torch.data import SyntheticLatentDataset
+    from repro_torch.runtime.adapters import make_diffusion_microbatches
+    from repro_torch.runtime.compile import auto_pipeline
+    from repro_torch.tree import tree_map, tree_paths
+
+    cfg, fns, graph = _linear_model(torch)
+    params = fns.init_fn(torch.Generator().manual_seed(0), "cpu")
+    B = 2 * M
+    raw = SyntheticLatentDataset(img_size=8, channels=4).batch(0, 0, B)
+    gen = torch.Generator().manual_seed(1)
+    t, noise = torch.rand((B,), generator=gen), torch.randn(
+        (B, 8, 8, 4), generator=gen)
+    for executor in ("table", "closed_form"):
+        cp = auto_pipeline(graph, fns, D, pipeline_devices=D,
+                           microbatches=M, lam=0.0, wire_dtype="float32",
+                           executor=executor)
+        out = {}
+        before = dict(_launches())
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda x: x.detach().to(dev).clone()
+                         .requires_grad_(True), cp.split_params(params))
+            batch = {k: torch.as_tensor(np.asarray(v), device=dev)
+                     for k, v in raw.items()}
+            mb, aux = make_diffusion_microbatches(
+                batch, M, t=t.to(dev), noise=noise.to(dev))
+            (stack,), edge = p
+            loss = cp.build()(stack, edge, {**mb, "t": aux["t"]})
+            loss.backward()
+            grads = cp.merge_params(*tree_map(
+                lambda x: x.grad if x.grad is not None
+                else torch.zeros_like(x), p))
+            out[dev] = (float(loss.detach()),
+                        {k: v.detach().cpu() for k, v in tree_paths(grads)})
+        launched = {k: _launches()[k] - before[k] for k in before}
+        name = f"linear {executor} D={D} M={M} cuts {cp.partition.cuts}"
+        if not launched["flash_attention"] or launched["skip_concat_matmul"]:
+            fail(f"pipeline parity {name}: launches {launched}; flash must "
+                 "run, the skip matmul must not (no skips)")
+        (lc, gc_), (lg, gg) = out["cpu"], out["cuda"]
+        if not math.isclose(lg, lc, rel_tol=1e-3):
+            fail(f"pipeline parity {name}: loss on the card {lg} vs CPU {lc}")
+        worst = 0.0
+        for k, want in gc_.items():
+            try:
+                torch.testing.assert_close(gg[k], want, rtol=1e-3, atol=1e-5)
+            except AssertionError as e:
+                fail(f"pipeline parity {name}: grad {k} differs:\n{e}")
+            worst = max(worst, float((gg[k] - want).abs().max()))
+        rec.setdefault("pipeline_parity", {})[name] = dict(
+            loss_cuda=lg, loss_cpu=lc, max_abs_grad_err=worst,
+            grads=len(gg), launches=launched,
+            plan=cp.describe().splitlines()[0])
+        log(f"[parity] {name} fp32 wire: loss card {lg:.7f} cpu {lc:.7f}; "
+            f"{len(gg)} grads, max|err| {worst:.3e}; launches {launched}")
 
 
 def _launches() -> dict:
@@ -1167,6 +1288,193 @@ def train(torch, rec, arch: str) -> dict:
         f"({ {k: v / args.steps for k, v in counts.items()} } per step)")
     del res
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: baseline -- PULSE against the paper's skip-carry baseline, at
+# UViT-H's full width and depth
+# ---------------------------------------------------------------------------
+
+BASELINE_D, BASELINE_M, BASELINE_B = 4, 8, 16     # the trainer's plan
+BASELINE_TIMED = 3
+
+
+def _skip_carry_merged(stacks, edge, D: int) -> dict:
+    """The skip-carry layout's gradients merged back to the model's tree
+    (encoder rows on devices < D/2, decoder rows on the rest)."""
+    from repro_torch.tree import tree_map
+    enc, dec = stacks
+    return {**edge,
+            "enc_blocks": tree_map(lambda x: x[:D // 2].flatten(0, 1), enc),
+            "dec_blocks": tree_map(lambda x: x[D // 2:].flatten(0, 1), dec)}
+
+
+def baseline_phase(torch, rec) -> dict:
+    """UViT-H at full width and depth (bf16, random weights from seed 0)
+    through three executors, one at a time, from the same params and the
+    same microbatches (the trainer's plan: D=4, M=8, global batch 16):
+    the table wave executor (fp32 wire), the same plan with
+    ``executor="closed_form"``, and the paper's skip-carry baseline
+    (``DiffusionPipelineAdapter.build_skip_carry_baseline``).  For each,
+    one warm-up forward+backward and ``BASELINE_TIMED`` timed ones
+    (synchronized, host clock): step ms, peak device memory, flash and skip
+    launches a step, and the bytes each handed to its ring (dense: every
+    payload a ppermute would move; live: what a receiver stores; forward
+    only).  Beside them the analytic volumes of the PULSE and sequential
+    partitions (``partition_comm_volume``).  Closed form vs table: loss at
+    rtol 1e-3, each merged gradient at ||err||/||g|| <= 1e-2; skip-carry
+    vs table: 2e-2 and 5e-2 (bf16).  Returns the phase's launches."""
+    from repro_torch.core.comm_model import partition_comm_volume
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.core.partition import blockwise_partition
+    from repro_torch.data import SyntheticLatentDataset
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.diffusion import ddpm_draw, uvit_pipeline_graph
+    from repro_torch.runtime import pipeline as rp
+    from repro_torch.runtime.adapters import (DiffusionPipelineAdapter,
+                                              make_diffusion_microbatches,
+                                              model_fns)
+    from repro_torch.runtime.compile import auto_pipeline
+    from repro_torch.tree import tree_leaves, tree_map, tree_paths
+
+    t_phase = time.perf_counter()
+    D, M, B = BASELINE_D, BASELINE_M, BASELINE_B
+    cfg = train_mod._model_config(train_mod._parse_args(
+        ["--arch", "uvit-h", "--pipeline"]))
+    fns = model_fns(cfg, "uvit")
+    graph = uvit_pipeline_graph(cfg, batch=B // M, hw=H100_SXM)
+    plan = dict(hw=H100_SXM, pipeline_devices=D, microbatches=M,
+                wire_dtype="float32")
+    cps = {"table": auto_pipeline(graph, fns, D, **plan),
+           "closed_form": auto_pipeline(graph, fns, D,
+                                        executor="closed_form", **plan)}
+    ad = DiffusionPipelineAdapter(cfg, cps["table"].pcfg, "uvit")
+    with torch.no_grad():
+        params = fns.init_fn(torch.Generator(device="cuda").manual_seed(0),
+                             "cuda")
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    raw = SyntheticLatentDataset(img_size=cfg.img_size,
+                                 channels=cfg.in_ch).batch(0, 0, B)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in raw.items()}
+    t, noise = ddpm_draw(batch["latents"], 0)
+    mb, aux = make_diffusion_microbatches(batch, M, cfg, "uvit", t=t,
+                                          noise=noise)
+    b = B // M
+    act_elems = b * cfg.n_tokens * cfg.d_model        # one microbatch's
+    # the payloads' dtype: the table executor's wire, the closed forms' the
+    # model's own
+    executors = {
+        "table": (cps["table"].split_params, cps["table"].build,
+                  cps["table"].merge_params, torch.float32),
+        "closed_form": (cps["closed_form"].split_params,
+                        cps["closed_form"].build,
+                        cps["closed_form"].merge_params, cfg.dtype),
+        "skip_carry": (ad.split_params_skip_carry,
+                       ad.build_skip_carry_baseline,
+                       lambda st, e: _skip_carry_merged(st, e, D), cfg.dtype)}
+    out, ref, launched_all = {}, None, {}
+    for name, (split, build, merge, payload_dtype) in executors.items():
+        left = release(torch)
+        p = tree_map(lambda x: x.detach().requires_grad_(True),
+                     split(params))
+        (enc, dec), edge = p
+        fn = build()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        rp.reset_hop_bytes()
+        losses, secs = [], []
+        for i in range(1 + BASELINE_TIMED):
+            for x in tree_leaves(p):
+                x.grad = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = fn(enc, dec, edge, mb, aux)
+            loss.backward()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(loss.detach().float()))
+            del loss
+        steps = 1 + BASELINE_TIMED
+        launched = launch_counts()
+        hops = rp.hop_bytes()
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"baseline {name}: losses {losses}")
+        for k in ("skip_concat_matmul", "flash_attention"):
+            if not launched[k]:
+                fail(f"baseline {name}: launches {launched}; both kernels "
+                     "of the path must run")
+        grads = dict(tree_paths(merge(*tree_map(
+            lambda x: x.grad if x.grad is not None else torch.zeros_like(x),
+            p))))
+        timed = sorted(x * 1e3 for x in secs[1:])
+        unit = act_elems * payload_dtype.itemsize
+        row = dict(
+            loss=losses[-1], losses=losses, step_ms=timed[len(timed) // 2],
+            step_ms_all=[x * 1e3 for x in secs],
+            spread_ms=timed[-1] - timed[0],
+            peak_bytes=peak, held_bytes_before=base, bytes_left_before=left,
+            launches_per_step={k: v / steps for k, v in launched.items()},
+            hop_bytes_per_step={k: v / steps for k, v in hops.items()},
+            hop_activations_per_microbatch={
+                k: v / steps / unit / M for k, v in hops.items()},
+            payload_dtype=str(payload_dtype).removeprefix("torch."))
+        if name == "table":
+            ref = (losses[-1], grads)
+        else:
+            close_loss, bar = ((1e-3, 1e-2) if name == "closed_form"
+                               else (2e-2, 5e-2))
+            if not math.isclose(losses[-1], ref[0], rel_tol=close_loss):
+                fail(f"baseline {name}: loss {losses[-1]} vs the table "
+                     f"executor's {ref[0]} (rtol {close_loss})")
+            row["worst_rel_grad_err"], row["worst_grad"] = rel_errs(
+                torch, grads, ref[1], bar, f"baseline {name} vs table")
+        out[name] = row
+        for k, v in launched.items():
+            launched_all[k] = launched_all.get(k, 0) + v
+        log(f"[baseline] {name}: loss {losses[-1]:.6f}; step "
+            f"{row['step_ms']:.1f} ms median of {BASELINE_TIMED} (spread "
+            f"{row['spread_ms']:.1f}; warm-up {secs[0] * 1e3:.1f}); peak "
+            f"{peak / 1e9:.2f} GB ({base / 1e9:.2f} held before); launches a "
+            f"step {row['launches_per_step']}; hop bytes a step (forward; "
+            f"the backward moves the same in reverse on a real ring) dense "
+            f"{hops['dense'] / steps:.0f} live {hops['live'] / steps:.0f} = "
+            f"{row['hop_activations_per_microbatch']['dense']:.3f} / "
+            f"{row['hop_activations_per_microbatch']['live']:.3f} "
+            f"{row['payload_dtype']} activations per microbatch"
+            + (f"; ||err||/||g|| worst {row['worst_rel_grad_err']:.3e} "
+               f"({row['worst_grad']})" if name != "table" else ""))
+        del p, enc, dec, edge, fn, grads
+    del ref, params
+    act = graph.blocks[0].act_bytes
+    pulse = partition_comm_volume(graph, cps["table"].partition)
+    seq = partition_comm_volume(graph, blockwise_partition(graph, D))
+    analytic = dict(pulse=pulse.fwd_total / act,
+                    sequential=seq.fwd_total / act,
+                    sequential_skip=seq.skip_bytes / act)
+    analytic["reduction"] = 1 - analytic["pulse"] / analytic["sequential"]
+    live = {k: out[k]["hop_activations_per_microbatch"]["live"]
+            for k in ("closed_form", "skip_carry")}
+    dense = {k: out[k]["hop_activations_per_microbatch"]["dense"]
+             for k in ("closed_form", "skip_carry")}
+    measured = dict(live=1 - live["closed_form"] / live["skip_carry"],
+                    dense=1 - dense["closed_form"] / dense["skip_carry"])
+    rec["baseline"] = dict(params=n_params, plan=cps["table"].describe(),
+                           executors=out, analytic=analytic,
+                           measured_reduction=measured, launches=launched_all,
+                           wall_s=time.perf_counter() - t_phase)
+    log(f"[baseline] UViT-H {n_params} params, D={D} M={M} b={b}; "
+        f"analytic forward volume per microbatch (partition_comm_volume): "
+        f"PULSE {analytic['pulse']:.3f} activations, sequential "
+        f"{analytic['sequential']:.3f} ({analytic['sequential_skip']:.3f} of "
+        f"them skips): {100 * analytic['reduction']:.1f} % less; the "
+        f"executors' payloads, closed-form wave against skip-carry: "
+        f"live {100 * measured['live']:.1f} % less, dense "
+        f"{100 * measured['dense']:.1f} % less; phase "
+        f"{rec['baseline']['wall_s']:.1f} s")
+    return launched_all
 
 
 # ---------------------------------------------------------------------------
@@ -1842,6 +2150,7 @@ def main() -> None:
     for kind, D, M, over in PARITY_CASES:
         pipeline_parity(torch, rec, kind, D, M, **over)
     pipeline_parity_bf16(torch, rec)
+    linear_parity(torch, rec)
     unet_parity(torch, rec)
     torch.cuda.empty_cache()
 
@@ -1861,6 +2170,12 @@ def main() -> None:
                  "previous phase was not released")
         counts[arch] = train(torch, rec, arch)
         if arch == "uvit-h":
+            # 6b. PULSE against the skip-carry baseline at UViT-H's width
+            left = release(torch)
+            if left >= 1e9:
+                fail(f"baseline: {left / 1e9:.2f} GB still allocated; the "
+                     "previous phase was not released")
+            counts["baseline"] = baseline_phase(torch, rec)
             release(torch)
             counts.update(checkpoint_phase(torch, rec, smi_line))
 

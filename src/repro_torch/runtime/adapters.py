@@ -1,17 +1,24 @@
-"""Model -> compile-path adapters (the port of ``repro.runtime.adapters``
-for UViT, Hunyuan-DiT and SkipViT): block-level callables for
-:func:`runtime.compile.auto_pipeline` and the DDPM microbatch split.
-SkipViT's microbatches are UViT's (class labels and a time token), as in
-the JAX trainer; :func:`model_fns` picks the callables of a model kind.
+"""Model -> pipeline adapters (the port of ``repro.runtime.adapters`` for
+UViT, Hunyuan-DiT and SkipViT): :class:`DiffusionPipelineAdapter`, which
+regroups a model's block stacks into even per-device stage stacks for the
+closed-form wave executor and for the paper's skip-carry baseline;
+block-level callables for :func:`runtime.compile.auto_pipeline`; and the
+DDPM microbatch split.  SkipViT's microbatches are UViT's (class labels
+and a time token), as in the JAX trainer; :func:`model_fns` picks the
+callables of a model kind.
 """
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+from typing import Any, Callable
 
 import torch
 
 from repro_torch.models import diffusion as diff_mod
 from repro_torch.runtime.compile import PipelineModelFns
+from repro_torch.runtime.pipeline import (PipelineConfig, make_wave_pipeline,
+                                          make_skip_carry_pipeline)
+from repro_torch.tree import tree_map
 
 Pytree = Any
 KINDS = ("uvit", "hunyuan")
@@ -22,6 +29,148 @@ def _check_kind(kind: str, kinds: tuple = KINDS) -> None:
     if kind not in kinds:
         raise NotImplementedError(f"{kind!r} diffusion models are not yet "
                                   f"ported (ported: {kinds})")
+
+
+def _regroup(stack: Pytree, D: int, reverse: bool = False) -> Pytree:
+    """[L, ...] stacked params -> [D, L/D, ...]; optionally flip device order
+    (decoder stacks execute in reverse device order under the fold)."""
+
+    def f(x):
+        L = x.shape[0]
+        assert L % D == 0, f"layer count {L} not divisible by {D} stages"
+        y = x.reshape(D, L // D, *x.shape[1:])
+        return y.flip(0) if reverse else y
+
+    return tree_map(f, stack)
+
+
+def _ungroup(stack: Pytree, reverse: bool = False) -> Pytree:
+    def f(x):
+        y = x.flip(0) if reverse else x
+        return y.reshape(y.shape[0] * y.shape[1], *y.shape[2:])
+    return tree_map(f, stack)
+
+
+# ===========================================================================
+# UViT / Hunyuan-DiT (wave with real skip tensors)
+# ===========================================================================
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionPipelineAdapter:
+    """Closed-form folded wave pipeline (and the skip-carry baseline) for
+    UViT / Hunyuan-DiT.
+
+    Microbatch inputs (all stacked [M, b, ...]):
+      mb:  {"xt", "noise", plus model conditioning ("labels" | nothing)}
+      aux: {"t"} for UViT (time token built in embed); Hunyuan additionally
+           carries {"temb", "ctx"} to every stage.
+
+    ``pcfg=None`` gives the callbacks only (:func:`diffusion_model_fns`
+    borrows embed / loss / ``_blk_kwargs``); ``build`` and the splits need
+    a real :class:`PipelineConfig`.  Decoder blocks go through
+    ``diffusion._skip_project``, so the card's path launches the skip
+    matmul kernel, and every block's attention flash attention when the
+    config turns them on.
+    """
+
+    cfg: Any                     # UViTConfig | HunyuanDiTConfig
+    pcfg: PipelineConfig | None
+    kind: str = "uvit"           # "uvit" | "hunyuan"
+
+    def __post_init__(self):
+        _check_kind(self.kind)
+
+    def init_pipeline_params(self, gen: torch.Generator,
+                             device="cuda") -> tuple:
+        init = (diff_mod.init_uvit if self.kind == "uvit"
+                else diff_mod.init_hunyuan)
+        return self.split_params(init(gen, self.cfg, device))
+
+    def split_params(self, params: Pytree) -> tuple:
+        """Even ``[D, L/D, ...]`` stage stacks: encoder stage d on device
+        d, decoder stage 2D-1-d beside it."""
+        D = self.pcfg.num_devices
+        enc = _regroup(params["enc_blocks"], D)
+        dec = _regroup(params["dec_blocks"], D, reverse=True)
+        edge = {k: v for k, v in params.items()
+                if k not in ("enc_blocks", "dec_blocks")}
+        return (enc, dec), edge
+
+    def merge_params(self, stacks: tuple, edge: Pytree) -> Pytree:
+        return {**edge,
+                "enc_blocks": _ungroup(stacks[0]),
+                "dec_blocks": _ungroup(stacks[1], reverse=True)}
+
+    # ---- callbacks ----
+    def embed_fn(self, edge_p, mb, aux):
+        if self.kind == "uvit":
+            return diff_mod.uvit_embed(edge_p, mb["xt"], aux["t"], mb,
+                                       self.cfg)
+        return diff_mod.hunyuan_embed(edge_p, mb["xt"], self.cfg)
+
+    def _blk_kwargs(self, aux):
+        if self.kind == "uvit":
+            return {}
+        return {"ctx": aux["ctx"], "temb": aux["temb"]}
+
+    def enc_stage_fn(self, rows, x, aux, d=None):
+        """A stage's encoder blocks in order; each block's output is its
+        skip."""
+        kw = self._blk_kwargs(aux)
+        skips = []
+        for bp in rows:
+            x = diff_mod._apply_vit_block(bp, x, self.cfg, **kw)
+            skips.append(x)
+        return x, skips
+
+    def dec_stage_fn(self, rows, x, skips, aux, d=None):
+        """A stage's decoder blocks, consuming the collocated encoder
+        stage's skips last-first."""
+        kw = self._blk_kwargs(aux)
+        for bp, skip in zip(rows, skips[::-1]):
+            x = diff_mod._apply_vit_block(bp, x, self.cfg, skip=skip, **kw)
+        return x
+
+    def loss_fn(self, edge_p, x, mb, aux):
+        output = (diff_mod.uvit_output if self.kind == "uvit"
+                  else diff_mod.hunyuan_output)
+        pred = output(edge_p, x, self.cfg)
+        return torch.mean(torch.square(pred.float() - mb["noise"].float()))
+
+    # ---- builders ----
+    def build(self) -> Callable:
+        """The closed-form wave executor on :meth:`split_params`' stacks."""
+        return make_wave_pipeline(
+            self.pcfg, embed_fn=self.embed_fn,
+            enc_stage_fn=self.enc_stage_fn, dec_stage_fn=self.dec_stage_fn,
+            loss_fn=self.loss_fn)
+
+    def build_skip_carry_baseline(self) -> Callable:
+        """Paper-baseline executor: sequential partition + skip payload,
+        on :meth:`split_params_skip_carry`' stacks."""
+        D = self.pcfg.num_devices
+        half = self.cfg.half
+        assert half % (D // 2) == 0
+        k = half // (D // 2)
+        return make_skip_carry_pipeline(
+            self.pcfg, n_skip_slots=half,
+            embed_fn=self.embed_fn,
+            enc_stage_fn=self.enc_stage_fn, dec_stage_fn=self.dec_stage_fn,
+            loss_fn=self.loss_fn, skips_per_stage=k)
+
+    def split_params_skip_carry(self, params: Pytree) -> tuple:
+        """Sequential layout for the baseline: devices 0..D/2-1 hold enc
+        stages, D/2..D-1 hold dec stages; stacks are padded to D rows."""
+        D = self.pcfg.num_devices
+        enc = _regroup(params["enc_blocks"], D // 2)
+        dec = _regroup(params["dec_blocks"], D // 2)
+        enc_padded = tree_map(
+            lambda x: torch.cat([x, torch.zeros_like(x)], 0), enc)
+        dec_padded = tree_map(
+            lambda x: torch.cat([torch.zeros_like(x), x], 0), dec)
+        edge = {k: v for k, v in params.items()
+                if k not in ("enc_blocks", "dec_blocks")}
+        return (enc_padded, dec_padded), edge
 
 
 def make_diffusion_microbatches(batch: dict, M: int, cfg=None,
@@ -76,30 +225,16 @@ def diffusion_model_fns(cfg: Any, kind: str = "uvit") -> PipelineModelFns:
     partitions).  Hunyuan blocks read ``ctx`` and ``temb`` from ``aux``.
     """
     _check_kind(kind)
-    if kind == "uvit":
-        def embed_fn(edge_p, mb, aux):
-            return diff_mod.uvit_embed(edge_p, mb["xt"], aux["t"], mb, cfg)
-
-        output, init = diff_mod.uvit_output, diff_mod.init_uvit
-        blk_kwargs = lambda aux: {}
-    else:
-        def embed_fn(edge_p, mb, aux):
-            return diff_mod.hunyuan_embed(edge_p, mb["xt"], cfg)
-
-        output, init = diff_mod.hunyuan_output, diff_mod.init_hunyuan
-        blk_kwargs = lambda aux: {"ctx": aux["ctx"], "temb": aux["temb"]}
+    ad = DiffusionPipelineAdapter(cfg, None, kind)   # callbacks only
+    init = diff_mod.init_uvit if kind == "uvit" else diff_mod.init_hunyuan
 
     def enc_block_fn(bp, x, aux):
-        y = diff_mod._apply_vit_block(bp, x, cfg, **blk_kwargs(aux))
+        y = diff_mod._apply_vit_block(bp, x, cfg, **ad._blk_kwargs(aux))
         return y, y
 
     def dec_block_fn(bp, x, skip, aux):
         return diff_mod._apply_vit_block(bp, x, cfg, skip=skip,
-                                         **blk_kwargs(aux))
-
-    def loss_fn(edge_p, x, mb, aux):
-        pred = output(edge_p, x, cfg)
-        return torch.mean(torch.square(pred.float() - mb["noise"].float()))
+                                         **ad._blk_kwargs(aux))
 
     def split_blocks(params):
         edge = {k: v for k, v in params.items()
@@ -111,7 +246,7 @@ def diffusion_model_fns(cfg: Any, kind: str = "uvit") -> PipelineModelFns:
 
     return PipelineModelFns(
         init_fn=lambda gen, device: init(gen, cfg, device),
-        embed_fn=embed_fn, loss_fn=loss_fn,
+        embed_fn=ad.embed_fn, loss_fn=ad.loss_fn,
         enc_block_fn=enc_block_fn, dec_block_fn=dec_block_fn,
         split_blocks=split_blocks, merge_blocks=merge_blocks,
         num_param_stacks=2)

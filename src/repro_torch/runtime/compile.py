@@ -15,8 +15,12 @@ budget, then
 3. **lowers**: lays the model's block stacks out as padded per-device
    ``[D, V, pad, ...]`` stage stacks with true per-slot block counts and a
    skip-stash pairing derived from the graph's skip edges
-   (:class:`StageLayout`), and builds the table-driven wave executor
-   (``runtime.schedule_exec``) over the validated schedule.
+   (:class:`StageLayout`), and builds the table-driven executor
+   (``runtime.schedule_exec``) over the validated schedule: the wave
+   executor for folded plans, the linear one for skip-free linear plans.
+   ``executor="closed_form"`` selects the closed-form wave / 1F1B
+   executors (``runtime.pipeline``) instead, kept as differential
+   references.
 
 :meth:`CompiledPipeline.state_spec` and :meth:`~CompiledPipeline.fingerprint`
 record how the plan lays training state out at rest, equal to the JAX
@@ -28,8 +32,7 @@ deadlock-free without running them (``repro_torch.analysis``).
 Not ported yet (they raise ``NotImplementedError``): data parallelism and
 ZeRO (``dp_size > 1``, ``zero_stage > 0``, and a tuner choice with G > 1 or
 a ZeRO stage, which is refused rather than replaced by a lower-ranked one;
-a state spec records ``dp = 1`` and ``zero_stage = 0``), the closed-form
-executors and the linear (skip-free) executor.
+a state spec records ``dp = 1`` and ``zero_stage = 0``).
 """
 from __future__ import annotations
 
@@ -43,10 +46,13 @@ from repro_torch.core.hw import Hardware, H100_SXM
 from repro_torch.core.partition import Partition, partition as partition_graph
 from repro_torch.core.schedule import Schedule, schedule_for_partition
 from repro_torch.core.tuner import TunerChoice, tune
-from repro_torch.runtime.pipeline import (PipelineConfig, scan_blocks_consume,
+from repro_torch.runtime.pipeline import (PipelineConfig, make_linear_pipeline,
+                                          make_wave_pipeline, scan_blocks,
+                                          scan_blocks_consume,
                                           scan_blocks_emit)
-from repro_torch.runtime.schedule_exec import (StepTables,
-                                               make_wave_pipeline_from_schedule)
+from repro_torch.runtime.schedule_exec import (
+    StepTables, make_linear_pipeline_from_schedule,
+    make_wave_pipeline_from_schedule)
 from repro_torch.tree import tree_leaves, tree_map
 
 Pytree = Any
@@ -76,6 +82,10 @@ class PipelineModelFns:
     ``num_param_stacks`` is ``len(split_blocks(params)[0])``, which a
     state spec records.  (The JAX package's default is 1; the port's is
     2, the two-stack models it ported first.)
+
+    Folded plans need ``enc_block_fn`` and ``dec_block_fn`` (or a
+    skip-free ``block_fn`` standing in for both); linear plans need
+    ``block_fn``, called with ``aux=None``.
     """
 
     init_fn: Callable        # (generator, device) -> params
@@ -83,8 +93,9 @@ class PipelineModelFns:
     loss_fn: Callable        # (edge_p, x, mb, aux) -> scalar
     split_blocks: Callable   # params -> (stacks, edge)
     merge_blocks: Callable   # (stacks, edge) -> params
-    enc_block_fn: Callable   # (block_p, x, aux) -> (x, skip)
-    dec_block_fn: Callable   # (block_p, x, skip, aux) -> x
+    block_fn: Callable | None = None       # (block_p, x, aux) -> x
+    enc_block_fn: Callable | None = None   # (block_p, x, aux) -> (x, skip)
+    dec_block_fn: Callable | None = None   # (block_p, x, skip, aux) -> x
     num_param_stacks: int = 2               # len(split_blocks(params)[0])
 
 
@@ -95,19 +106,21 @@ class PipelineModelFns:
 @dataclasses.dataclass(frozen=True)
 class StageLayout:
     """Mapping between a model's flat block stack and per-device stage-slot
-    stacks for a (possibly uneven, mirror-asymmetric, interleaved) folded
+    stacks for a (possibly uneven, mirror-asymmetric, interleaved)
     partition.
 
-    Device ``d`` runs ``V`` encoder-half (prefix) stage slots and ``V``
-    decoder-half (suffix) slots; ``enc_slots[d][v]`` / ``dec_slots[d][v]``
-    name the pipeline stages in slot order and ``enc_counts[d][v]`` /
-    ``dec_counts[d][v]`` their true block counts.  All slots pad to
-    ``enc_pad`` / ``dec_pad`` rows.
+    Device ``d`` runs ``V`` encoder-half (prefix) stage slots and -- for
+    folded partitions -- ``V`` decoder-half (suffix) slots;
+    ``enc_slots[d][v]`` / ``dec_slots[d][v]`` name the pipeline stages in
+    slot order and ``enc_counts[d][v]`` / ``dec_counts[d][v]`` their true
+    block counts.  All slots pad to ``enc_pad`` / ``dec_pad`` rows.
 
     ``skip_rows[d][v][i]`` is the *flat* stash row device d's decoder slot
     v consumes at its row ``i``: ``src_slot * enc_pad + src_row`` into the
     device's ``[V * enc_pad]`` skip stash -- derived from the partition's
     skip edges; ``-1`` marks rows without a skip (they receive zeros).
+    Linear partitions use only ``enc_slots`` / ``enc_counts`` /
+    ``enc_pad``.
     """
 
     partition: Partition
@@ -132,12 +145,25 @@ class StageLayout:
     @classmethod
     def from_partition(cls, part: Partition,
                        graph: BlockGraph) -> "StageLayout":
-        """Lay out a folded ``part``; ``graph`` supplies the skip edges that
-        define the stash pairing."""
-        if not part.folded:
-            raise _not_ported("the linear (skip-free) pipeline layout")
+        """Lay out ``part``; ``graph`` supplies the skip edges that define
+        a folded layout's stash pairing."""
         D = part.num_devices
         sizes = part.stage_sizes()
+        if not part.folded:
+            slots: list[list[int]] = [[] for _ in range(D)]
+            for s in range(part.num_stages):
+                slots[part.device_of_stage(s)].append(s)
+            V = len(slots[0])
+            if any(len(ss) != V for ss in slots):
+                raise ValueError(
+                    "linear partition is not an even interleave: devices "
+                    f"hold {[len(ss) for ss in slots]} stage slots")
+            enc_slots = tuple(map(tuple, slots))
+            enc_counts = tuple(tuple(sizes[s] for s in ss)
+                               for ss in enc_slots)
+            pad = max(c for cs in enc_counts for c in cs)
+            return cls(part, enc_slots, ((),) * D, enc_counts, ((),) * D,
+                       pad, 0)
         S = part.num_stages
         half = S // 2
         enc: list[list[int]] = [[] for _ in range(D)]
@@ -260,8 +286,13 @@ class StageLayout:
 
         ``stacks`` is ``(blocks,)`` for a homogeneous stack (SkipViT: cut
         at the partition's turnaround, wherever it lands) or
-        ``(enc_blocks, dec_blocks)`` (UViT, Hunyuan-DiT)."""
+        ``(enc_blocks, dec_blocks)`` (UViT, Hunyuan-DiT); a linear
+        partition takes one stack."""
         part = self.partition
+        if not part.folded:
+            if len(stacks) != 1:
+                raise ValueError("linear pipeline needs one block stack")
+            return (self._stack(stacks[0], self.enc_ranges(), self.enc_pad),)
         mid = part.cuts[part.num_stages // 2]
         if len(stacks) == 1:
             enc_b = tree_map(lambda x: x[:mid], stacks[0])
@@ -279,6 +310,8 @@ class StageLayout:
 
     def merge(self, stage_stacks: tuple, n_model_stacks: int) -> tuple:
         """Inverse of :meth:`split` (also correct for gradients)."""
+        if not self.partition.folded:
+            return (self._unstack(stage_stacks[0], self.enc_ranges()),)
         enc_b = self._unstack(stage_stacks[0], self.enc_ranges())
         dec_b = self._unstack(stage_stacks[1], self.dec_ranges())
         if n_model_stacks == 1:
@@ -293,7 +326,7 @@ class StageLayout:
 
 @dataclasses.dataclass(frozen=True)
 class CompiledPipeline:
-    """Planner output lowered to a runnable wave pipeline."""
+    """Planner output lowered to a runnable pipeline."""
 
     graph: BlockGraph
     partition: Partition
@@ -302,6 +335,7 @@ class CompiledPipeline:
     pcfg: PipelineConfig
     model_fns: PipelineModelFns
     choice: TunerChoice | None = None      # set when the tuner drove the plan
+    executor: str = "table"                # "table" | "closed_form"
 
     @property
     def folded(self) -> bool:
@@ -325,6 +359,9 @@ class CompiledPipeline:
     def step_tables(self) -> StepTables:
         """The lowered (memoized) step tables: step programs, channel
         activity masks and the proven liveness windows."""
+        if not self.folded:
+            return StepTables.from_schedule(
+                self.schedule, folded=False, devices=self.partition.devices)
         return StepTables.from_schedule(
             self.schedule, folded=True, devices=self.partition.devices,
             skip_consumers=self.layout.skip_consumers())
@@ -362,53 +399,130 @@ class CompiledPipeline:
 
     # ---- executor ----------------------------------------------------------
     def build(self) -> Callable:
-        """``fn(enc_stack, dec_stack, edge, mbs, aux) -> loss`` over the
-        validated schedule's step tables."""
-        fns, layout = self.model_fns, self.layout
+        """Lower to an executor.
 
-        # every slot carries its own count and the stash pairing comes from
-        # the partition's skip edges, resolved per (device, slot)
-        def enc_stage_fn(rows, x, aux, d, slot):
-            return scan_blocks_emit(fns.enc_block_fn, rows, x,
-                                    layout.enc_counts[d][slot], aux)
+        ``executor="table"`` (default) walks the *validated schedule
+        itself* through its step tables (``runtime.schedule_exec``), so
+        greedy and ILP schedules alike execute as synthesized.
+        ``executor="closed_form"`` selects the closed-form wave / 1F1B
+        executors (``runtime.pipeline``), whose index arithmetic realizes
+        the template orders -- kept as differential references (folded:
+        V = 1 and M >= D).
 
-        def dec_stage_fn(rows, x, skips, aux, d, slot):
-            return scan_blocks_consume(fns.dec_block_fn, rows, skips, x,
-                                       layout.dec_counts[d][slot],
-                                       layout.skip_rows[d][slot], aux)
+        Folded: ``fn(enc_stack, dec_stack, edge, mbs, aux) -> loss``.
+        Linear: ``fn(stack, edge, mbs) -> loss``.
+        """
+        if self.executor not in ("table", "closed_form"):
+            raise ValueError(
+                f"unknown executor {self.executor!r}; expected 'table' or "
+                "'closed_form'")
+        fns, pcfg, layout = self.model_fns, self.pcfg, self.layout
+        if self.executor == "closed_form" and layout.V > 1:
+            raise ValueError(
+                f"closed-form executors realize one (enc, dec) stage slot "
+                f"pair per device; this plan interleaves V={layout.V} "
+                "slots -- lower through executor='table'")
 
-        return make_wave_pipeline_from_schedule(
-            self.pcfg, self.schedule, embed_fn=fns.embed_fn,
-            enc_stage_fn=enc_stage_fn, dec_stage_fn=dec_stage_fn,
-            loss_fn=fns.loss_fn, devices=self.partition.devices,
-            skip_consumers=layout.skip_consumers())
+        def squeeze_slot(stack):
+            # closed-form executors predate the slot axis: drop the V=1 dim
+            return tree_map(lambda t: t[:, 0], stack)
+
+        if self.folded:
+            if fns.block_fn is None and (fns.enc_block_fn is None
+                                         or fns.dec_block_fn is None):
+                raise ValueError(
+                    "folded pipeline needs model_fns.block_fn or both "
+                    "enc_block_fn and dec_block_fn")
+            enc_block = fns.enc_block_fn or (
+                lambda bp, x, aux: (fns.block_fn(bp, x, aux), None))
+            dec_block = fns.dec_block_fn or (
+                lambda bp, x, skip, aux: fns.block_fn(bp, x, aux))
+
+            if self.executor == "table":
+                # every slot carries its own count and the stash pairing
+                # comes from the partition's skip edges, per (device, slot)
+                def enc_stage_fn(rows, x, aux, d, slot):
+                    return scan_blocks_emit(enc_block, rows, x,
+                                            layout.enc_counts[d][slot], aux)
+
+                def dec_stage_fn(rows, x, skips, aux, d, slot):
+                    return scan_blocks_consume(dec_block, rows, skips, x,
+                                               layout.dec_counts[d][slot],
+                                               layout.skip_rows[d][slot], aux)
+
+                return make_wave_pipeline_from_schedule(
+                    pcfg, self.schedule, embed_fn=fns.embed_fn,
+                    enc_stage_fn=enc_stage_fn, dec_stage_fn=dec_stage_fn,
+                    loss_fn=fns.loss_fn, devices=self.partition.devices,
+                    skip_consumers=layout.skip_consumers())
+
+            def enc_stage_cf(rows, x, aux, d):
+                return scan_blocks_emit(enc_block, rows, x,
+                                        layout.enc_counts[d][0], aux)
+
+            def dec_stage_cf(rows, x, skips, aux, d):
+                return scan_blocks_consume(dec_block, rows, skips, x,
+                                           layout.dec_counts[d][0],
+                                           layout.skip_rows[d][0], aux)
+
+            wave = make_wave_pipeline(
+                pcfg, embed_fn=fns.embed_fn, enc_stage_fn=enc_stage_cf,
+                dec_stage_fn=dec_stage_cf, loss_fn=fns.loss_fn)
+            return lambda enc, dec, edge, mbs, aux: wave(
+                squeeze_slot(enc), squeeze_slot(dec), edge, mbs, aux)
+
+        if fns.block_fn is None:
+            raise ValueError("linear pipeline needs model_fns.block_fn")
+        embed = lambda e, mb: fns.embed_fn(e, mb, None)
+        loss = lambda e, x, mb: fns.loss_fn(e, x, mb, None)
+        if self.executor == "table":
+            def stage_fn(rows, x, d, slot):
+                return scan_blocks(fns.block_fn, rows, x,
+                                   layout.enc_counts[d][slot], None)
+
+            return make_linear_pipeline_from_schedule(
+                pcfg, self.schedule, embed_fn=embed, stage_fn=stage_fn,
+                loss_fn=loss, devices=self.partition.devices)
+
+        def stage_cf(rows, x, d):
+            return scan_blocks(fns.block_fn, rows, x, layout.enc_counts[d][0],
+                               None)
+
+        linear = make_linear_pipeline(pcfg, embed_fn=embed, stage_fn=stage_cf,
+                                      loss_fn=loss)
+        return lambda stack, edge, mbs: linear(squeeze_slot(stack), edge, mbs)
 
     def describe(self) -> str:
         part, sched = self.partition, self.schedule
         V = self.layout.V
-        kind = "folded wave"
+        kind = "folded wave" if part.folded else "linear 1F1B"
         if V > 1:
             kind += f", interleaved V={V}"
-        tabs = self.step_tables()
-        live_d, live_u = tabs.live_hops
         lines = [
             f"auto_pipeline: S={part.num_stages} stages over "
             f"D={part.num_devices} devices ({kind}), "
             f"M={self.pcfg.num_microbatches} microbatches",
             f"  cuts={part.cuts} stage sizes={part.stage_sizes()}",
-            f"  layout: enc counts={self.layout.enc_counts} "
-            f"dec counts={self.layout.dec_counts}"
-            + ("" if part.mirror_symmetric() else " (asymmetric fold)"),
+            (f"  layout: enc counts={self.layout.enc_counts} "
+             f"dec counts={self.layout.dec_counts}"
+             + ("" if part.mirror_symmetric() else " (asymmetric fold)")
+             if part.folded else
+             f"  layout: stage counts={self.layout.enc_counts}"),
             f"  schedule: makespan={sched.makespan} slots, "
             f"bubble={sched.bubble_ratio():.2f}",
-            "  executor: table (one process, devices share one card)",
-            f"  wire: {self.pcfg.wire_dtype}, live hops "
-            f"{live_d}+{live_u}/{tabs.dense_hops} (down+up/dense), "
-            f"windows W_down={tabs.W_down} W_up={tabs.W_up} "
-            f"W_turn={tabs.W_turn} W_skip={tabs.W_skip} (M={sched.M})",
-            f"  comm: exposed hops {tabs.exposed_hops} / "
-            f"hidden {tabs.hidden_hops} (of {live_d + live_u} live)",
+            f"  executor: {self.executor} (one process, devices share one "
+            "card)",
         ]
+        if self.executor == "table":
+            tabs = self.step_tables()
+            live_d, live_u = tabs.live_hops
+            lines += [
+                f"  wire: {self.pcfg.wire_dtype}, live hops "
+                f"{live_d}+{live_u}/{tabs.dense_hops} (down+up/dense), "
+                f"windows W_down={tabs.W_down} W_up={tabs.W_up} "
+                f"W_turn={tabs.W_turn} W_skip={tabs.W_skip} (M={sched.M})",
+                f"  comm: exposed hops {tabs.exposed_hops} / "
+                f"hidden {tabs.hidden_hops} (of {live_d + live_u} live)"]
         if self.choice is not None:
             c = self.choice
             lines.append(f"  tuner: P={c.P} G={c.G} b={c.b} M={c.M} "
@@ -454,16 +568,23 @@ def auto_pipeline(
 
     Pass ``pipeline_devices`` to pin the pipeline degree and call the
     partitioner directly (deterministic; used by the tests and the
-    trainer; ``microbatches`` defaults to 2D).  ``interleave`` pins
-    V stage-slot pairs per device (S = 2VD).  ``wire_dtype`` sets the
-    boundary-hop dtype (``"float32"`` is the exact-wire escape hatch).
+    trainer; ``microbatches`` defaults to 2D folded, max(D, 2) linear).
+    ``interleave`` pins V stage slots per device and kind (S = 2VD
+    folded, VD linear).
+
+    ``executor`` selects the lowering: ``"table"`` (default) executes the
+    validated schedule through per-device step tables;
+    ``"closed_form"`` uses the closed-form wave / 1F1B executors as
+    differential references (folded plans need M >= D and V = 1;
+    ``build()`` raises ``ValueError`` otherwise, and for an unknown
+    name).  ``wire_dtype`` sets the table executors' boundary-hop dtype
+    (``"float32"`` is the exact-wire escape hatch); the closed forms carry
+    the model's dtype.
     """
     if zero_stage is not None and zero_stage not in (0, 1, 2):
         raise ValueError(f"zero_stage must be in (0, 1, 2), got {zero_stage}")
     if dp_size not in (None, 1):
         raise _not_ported("data parallelism (dp_size > 1)")
-    if executor != "table":
-        raise _not_ported(f"the {executor!r} executor")
     choice: TunerChoice | None = None
     if pipeline_devices is not None:
         if zero_stage not in (None, 0):
@@ -471,6 +592,11 @@ def auto_pipeline(
         part = partition_graph(graph, pipeline_devices, hw=hw, lam=lam,
                                force_wave=force_wave,
                                interleave=interleave or 1)
+        if graph.skips and not part.folded:
+            raise ValueError(
+                "graph has skip edges but the plan is linear: the linear "
+                "executor has no skip transport, so skips would be "
+                "silently dropped -- skip graphs need a folded plan")
     else:
         if force_wave is not None:
             raise ValueError(
@@ -507,8 +633,6 @@ def auto_pipeline(
                 f"V={choice.V} M={choice.M} zero_stage={choice.zero_stage} "
                 "(data parallelism and ZeRO)")
         part = choice.partition
-    if not part.folded:
-        raise _not_ported("the linear (skip-free) executor")
     D = part.num_devices
     if microbatches is not None:
         M = microbatches
@@ -517,7 +641,7 @@ def auto_pipeline(
         # must agree on the iteration shape
         M = choice.M
     else:
-        M = 2 * D
+        M = 2 * D if part.folded else max(D, 2)
     # schedule synthesis + full constraint validation happens here; an
     # invalid plan raises before any executor is built
     sched = schedule_for_partition(part, M, use_ilp=use_ilp)
@@ -527,4 +651,4 @@ def auto_pipeline(
     layout = StageLayout.from_partition(part, graph)
     return CompiledPipeline(graph=graph, partition=part, schedule=sched,
                             layout=layout, pcfg=pcfg, model_fns=model_fns,
-                            choice=choice)
+                            choice=choice, executor=executor)

@@ -1,27 +1,156 @@
-"""Pipeline configuration, wire formats, remat and the masked block loops
-(the port of the parts of ``repro.runtime.pipeline`` the table executor
-uses; the closed-form executors are not ported yet).
+"""Pipeline configuration, wire formats, remat, the ring hop and its byte
+counts, the masked block loops, and the closed-form executors (the port of
+``repro.runtime.pipeline``).
 
 A stage's blocks arrive as a list of per-row param trees (views of the
-``[D, V, pad, ...]`` stage stacks, see ``runtime.schedule_exec``).  The
-JAX scans run every padded row and mask rows ``>= count`` out with
-``where``; here the device, slot and count are host integers, so the loops
-simply stop at ``count``: padded rows never run and get zero gradients.
+stage stacks, see :func:`unbind_rows`).  The JAX scans run every padded
+row and mask rows ``>= count`` out with ``where``; here the device, slot
+and count are host integers, so the loops simply stop at ``count``:
+padded rows never run and get zero gradients.
+
+All D pipeline devices live in one process here, so a device's payloads
+are entries of per-device lists and a ring hop (:func:`hop`) moves them
+between the lists.  :func:`hop` adds the bytes of every payload it moves
+to :data:`HOP_BYTES` -- the one-process counterpart of the JAX package's
+collective-permute bytes read from the compiled HLO
+(``runtime/hlo_analysis.collective_bytes``).  It counts the forward walk
+only; on a real ring the backward moves the same bytes in reverse.
+
+The closed-form executors realize the wave / 1F1B template orders through
+index arithmetic (``my_mb = t - d``, ``skip_row = t2 - (D-1) + 2d``), the
+JAX package's differential references for the table executors:
+
+- :func:`make_wave_pipeline`: PULSE's folded schedule.  Device d owns
+  encoder stage d and decoder stage 2D-1-d.  Phase 1 goes *down* the ring
+  with skips and the turnaround stream stashed locally; phase 2 goes *up*,
+  each device consuming its own stash.  2(D-1) activations cross a ring
+  per microbatch.
+- :func:`make_linear_pipeline`: S = D sequential stages for skip-free
+  models.
+- :func:`make_skip_carry_pipeline`: the paper's *baseline* (sequential
+  1F1B on a UNet): every skip tensor rides the boundary payload across
+  each hop until its consumer pops it.
+
+Microbatch indices are host integers here, so the ticks whose clipped
+microbatch the JAX scans compute only to discard are not run: their
+devices send a zero payload, which the dense count still counts (a
+``ppermute`` moves it) and the live count does not.  Closed forms carry
+activations in the model's dtype (the JAX package's "fp32 wire": no cast;
+``wire_dtype`` is ignored).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.tree import tree_index, tree_leaves, tree_map
+
+Pytree = Any
 
 # Wire formats the table executor may put on the ring.  bf16 halves the
 # bytes of every boundary hop (forward and, through the cast's backward,
 # the cotangents); float32 is the exact-wire escape hatch the strict
 # differential tests pin.
 WIRE_DTYPES = ("bfloat16", "float32")
+
+# Bytes the forward walks handed to ring hops: "dense" counts every payload
+# a ppermute would move (quiescent zeros included, as the HLO counts them),
+# "live" the payloads a receiver stores.
+HOP_BYTES: dict[str, int] = {"dense": 0, "live": 0}
+
+
+def reset_hop_bytes() -> None:
+    for k in HOP_BYTES:
+        HOP_BYTES[k] = 0
+
+
+def hop_bytes() -> dict[str, int]:
+    return dict(HOP_BYTES)
+
+
+def ring_perms(D: int, *, wrap: bool = False
+               ) -> tuple[list[tuple[int, int]], list[tuple[int, int]]]:
+    """(down, up) ``(src, dst)`` pairs of a D-device pipeline ring.
+
+    ``wrap=True`` closes the ring (D-1 -> 0 down, 0 -> D-1 up): the table
+    executors use the closed ring so interleaved (V > 1) plans can hand an
+    activation from the last device's slot to the first device's next
+    slot.  The closed forms keep the open ring (their index arithmetic
+    assumes no wraparound).
+    """
+    if D <= 1:
+        return [], []
+    if wrap:
+        return ([(i, (i + 1) % D) for i in range(D)],
+                [(i, (i - 1) % D) for i in range(D)])
+    return [(i, i + 1) for i in range(D - 1)], [(i, i - 1)
+                                                 for i in range(1, D)]
+
+
+def _nbytes(payload: Pytree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(payload))
+
+
+def _move(payloads: list, pairs, live) -> list:
+    out: list = [None] * len(payloads)
+    for src, dst in pairs:
+        n = _nbytes(payloads[src])
+        HOP_BYTES["dense"] += n
+        if live is None or live[src]:
+            HOP_BYTES["live"] += n
+        out[dst] = payloads[src]
+    return out
+
+
+def hop(down_pl: list | None, up_pl: list | None, *, down_used: bool = True,
+        up_used: bool = True, wrap: bool = True, down_live=None,
+        up_live=None) -> tuple[list | None, list | None]:
+    """One ring hop: device d's down payload arrives at device d+1 and its
+    up payload at device d-1 (``wrap``: both rings closed).  All devices
+    share one process here, so the hop moves payloads between the devices'
+    lists (the multi-process executor swaps point-to-point sends in here
+    and nothing else).  A ring no message ever rides is not hopped (its
+    payloads are all zeros anyway); on the open ring the device no pair
+    sends to receives ``None`` (a ``ppermute`` gives it zeros, which the
+    closed forms never read).  ``down_live`` / ``up_live`` flag the
+    senders whose payload a receiver stores (``None``: all)."""
+    return (_move(down_pl, ring_perms(len(down_pl), wrap=wrap)[0], down_live)
+            if down_used else down_pl,
+            _move(up_pl, ring_perms(len(up_pl), wrap=wrap)[1], up_live)
+            if up_used else up_pl)
+
+
+def unbind_rows(stack: Pytree, levels: int = 3) -> list:
+    """A stage stack with ``levels`` leading axes (``[D, V, pad, ...]`` for
+    the table executors, ``[D, rows, ...]`` for the closed forms) -> nested
+    lists of row param trees, ``rows[d][v][i]`` / ``rows[d][i]``.
+
+    Each leaf is unbound once per level, so autograd gathers a leaf's
+    gradient with one stack per level instead of one full-size scatter per
+    row use (what indexing the stack row by row would cost).
+    """
+    leaves = tree_leaves(stack)
+    shape = leaves[0].shape[:levels]
+
+    def split(x, n):
+        return x if n == 0 else [split(y, n - 1) for y in x.unbind(0)]
+
+    parts = {id(x): split(x, levels) for x in leaves}
+
+    def pick(nested, idx):
+        for i in idx:
+            nested = nested[i]
+        return nested
+
+    def build(idx: tuple):
+        if len(idx) == levels:
+            return tree_map(lambda x: pick(parts[id(x)], idx), stack)
+        return [build(idx + (i,)) for i in range(shape[len(idx)])]
+
+    return build(())
 
 
 def _wrap_remat(fn: Callable, cfg: "PipelineConfig") -> Callable:
@@ -33,6 +162,17 @@ def _wrap_remat(fn: Callable, cfg: "PipelineConfig") -> Callable:
     def wrapped(*args):
         return checkpoint(fn, *args, use_reentrant=False)
     return wrapped
+
+
+# ===========================================================================
+# Masked block loops (uneven-partition stages over padded stacks)
+# ===========================================================================
+
+def scan_blocks(block_fn: Callable, rows: list, x, count: int, *args):
+    """``block_fn(bp, x, *args) -> x`` over rows ``[0, count)``."""
+    for i in range(count):
+        x = block_fn(rows[i], x, *args)
+    return x
 
 
 def scan_blocks_emit(block_fn: Callable, rows: list, x, count: int, *args):
@@ -72,4 +212,220 @@ class PipelineConfig:
     num_devices: int            # D pipeline devices
     num_microbatches: int       # M
     remat: bool = True          # recompute each stage call in backward
-    wire_dtype: str = "bfloat16"      # boundary-hop dtype (WIRE_DTYPES)
+    wire_dtype: str = "bfloat16"      # table executors' boundary-hop dtype
+    #   (WIRE_DTYPES); the closed forms ignore it
+
+
+def _zero_activation(embed_fn: Callable, *args) -> torch.Tensor:
+    """Zeros shaped like the embedding (the payload of a tick that runs
+    nothing), from one embedding without autograd."""
+    with torch.no_grad():
+        return torch.zeros_like(embed_fn(*args))
+
+
+def _mean_loss(losses: list, M: int) -> torch.Tensor:
+    if len(losses) != M:
+        raise ValueError(f"the walk emitted {len(losses)} losses for M={M} "
+                         "microbatches")
+    return torch.stack(losses).sum() / M
+
+
+# ===========================================================================
+# Wave pipeline (PULSE)
+# ===========================================================================
+
+def make_wave_pipeline(
+    cfg: PipelineConfig,
+    *,
+    embed_fn: Callable,       # (edge_p, mb, aux) -> tokens (b, n, d)
+    enc_stage_fn: Callable,   # (rows, x, aux, device) -> (x_out, skips)
+    dec_stage_fn: Callable,   # (rows, x, skips, aux, device) -> x_out
+    loss_fn: Callable,        # (edge_p, x_final, mb, aux) -> scalar
+) -> Callable:
+    """``fn(enc_stack, dec_stack, edge_p, mbs, aux) -> loss``.
+
+    - ``enc_stack``/``dec_stack``: ``[D, rows, ...]`` per-device stage
+      params; ``dec_stack`` is ordered so index d = decoder stage 2D-1-d
+      (the stage collocated with encoder stage d).
+    - ``mbs``: ``[M, ...]`` microbatch inputs; ``aux``: ``[M, ...]``
+      per-microbatch conditioning every stage sees (may be ``{}``).
+    """
+    D, M = cfg.num_devices, cfg.num_microbatches
+    if M < D:
+        # phase 2's turn/skip row arithmetic (t2 + D - 1, t2 - (D-1) + 2d)
+        # stays within rows phase 1 produced only for M >= D
+        raise ValueError(
+            f"closed-form wave executor requires M >= D (got M={M}, "
+            f"D={D}): its skip/turn row arithmetic reads stale rows for "
+            "short iterations.  Lower through the table-driven executor "
+            "(auto_pipeline(executor='table')) or raise num_microbatches.")
+    T = M + D - 1
+    enc_stage = _wrap_remat(enc_stage_fn, cfg)
+    dec_stage = _wrap_remat(dec_stage_fn, cfg)
+
+    def fn(enc_stack, dec_stack, edge_p, mbs, aux):
+        enc_rows = unbind_rows(enc_stack, 2)
+        dec_rows = unbind_rows(dec_stack, 2)
+        zero_x = _zero_activation(embed_fn, edge_p, tree_index(mbs, 0),
+                                  tree_index(aux, 0))
+        # phase 1, encoder half, down the ring: device d runs microbatch
+        # t - d at tick t and stashes its skips (and, on device D-1, the
+        # turnaround output) under row t
+        skip_ys = [[None] * T for _ in range(D)]
+        turn_ys: list = [None] * T
+        down_in: list = [None] * D
+        for t in range(T):
+            out, live = [zero_x] * D, [False] * D
+            for d in range(D):
+                m = t - d
+                if not 0 <= m < M:
+                    continue
+                a = tree_index(aux, m)
+                x_in = (embed_fn(edge_p, tree_index(mbs, m), a) if d == 0
+                        else down_in[d])
+                out[d], skip_ys[d][t] = enc_stage(enc_rows[d], x_in, a, d)
+                live[d] = True
+            turn_ys[t] = out[D - 1]
+            down_in, _ = hop(out, None, up_used=False, wrap=False,
+                             down_live=live)
+        # phase 2, decoder half, up the ring: device d runs microbatch
+        # m = t2 - (D-1-d); its stashed skip row is m + d = t2 - (D-1) + 2d
+        losses = []
+        up_in: list = [None] * D
+        for t2 in range(T):
+            out, live = [zero_x] * D, [False] * D
+            for d in range(D):
+                m = t2 - (D - 1 - d)
+                if not 0 <= m < M:
+                    continue
+                a = tree_index(aux, m)
+                x_in = turn_ys[t2 + D - 1] if d == D - 1 else up_in[d]
+                skips = skip_ys[d][t2 - (D - 1) + 2 * d]
+                out[d] = dec_stage(dec_rows[d], x_in, skips, a, d)
+                live[d] = True
+                if d == 0:
+                    losses.append(loss_fn(edge_p, out[d],
+                                          tree_index(mbs, m), a))
+            _, up_in = hop(None, out, down_used=False, wrap=False,
+                           up_live=live)
+        return _mean_loss(losses, M)
+
+    return fn
+
+
+# ===========================================================================
+# Linear pipeline (1F1B dataflow; skip-free models)
+# ===========================================================================
+
+def make_linear_pipeline(
+    cfg: PipelineConfig,
+    *,
+    embed_fn: Callable,       # (edge_p, mb) -> x (b, s, d)
+    stage_fn: Callable,       # (rows, x, device) -> x
+    loss_fn: Callable,        # (edge_p, x_final, mb) -> scalar
+) -> Callable:
+    """``fn(stack, edge_p, mbs) -> loss`` over a ``[D, rows, ...]`` stack.
+    S = D stages; embedding on device 0, head and loss on device D-1."""
+    D, M = cfg.num_devices, cfg.num_microbatches
+    T = M + D - 1
+    stage = _wrap_remat(stage_fn, cfg)
+
+    def fn(stack, edge_p, mbs):
+        rows = unbind_rows(stack, 2)
+        zero_x = _zero_activation(embed_fn, edge_p, tree_index(mbs, 0))
+        losses = []
+        h_in: list = [None] * D
+        for t in range(T):
+            out, live = [zero_x] * D, [False] * D
+            for d in range(D):
+                m = t - d
+                if not 0 <= m < M:
+                    continue
+                mb = tree_index(mbs, m)
+                x_in = embed_fn(edge_p, mb) if d == 0 else h_in[d]
+                out[d] = stage(rows[d], x_in, d)
+                live[d] = True
+                if d == D - 1:
+                    losses.append(loss_fn(edge_p, out[d], mb))
+            h_in, _ = hop(out, None, up_used=False, wrap=False,
+                          down_live=live)
+        return _mean_loss(losses, M)
+
+    return fn
+
+
+# ===========================================================================
+# Baseline: sequential partition with skip-carry payload (paper baseline)
+# ===========================================================================
+
+def make_skip_carry_pipeline(
+    cfg: PipelineConfig,
+    *,
+    n_skip_slots: int,        # total skip tensors riding the payload
+    embed_fn: Callable,
+    enc_stage_fn: Callable,   # (rows, x, aux, device) -> (x, k skips)
+    dec_stage_fn: Callable,   # (rows, x, skips, aux, device) -> x
+    loss_fn: Callable,
+    skips_per_stage: int,
+) -> Callable:
+    """Sequential block-wise partition of a skip model over D devices:
+    the first D/2 devices run encoder stages, the last D/2 decoder stages,
+    and every skip activation is carried in the hop payload
+    ``(activation, skip stack of n_skip_slots)`` across all intermediate
+    boundaries (stacked / transferred / popped -- §VII baselines; the
+    paper's Fig. 3 communication blow-up).  Encoder device d writes stack
+    rows ``d*k .. d*k+k-1``; decoder device d reads rows ``(D-1-d)*k ..``.
+
+    ``fn(enc_stack, dec_stack, edge_p, mbs, aux) -> loss``; both stacks
+    are padded to D rows (enc rows valid on devices < D/2, dec rows on
+    the rest).
+    """
+    D, M = cfg.num_devices, cfg.num_microbatches
+    assert D % 2 == 0, "skip-carry baseline assumes half enc / half dec"
+    T = M + D - 1
+    k = skips_per_stage
+    enc_stage = _wrap_remat(enc_stage_fn, cfg)
+    dec_stage = _wrap_remat(dec_stage_fn, cfg)
+
+    def fn(enc_stack, dec_stack, edge_p, mbs, aux):
+        enc_rows = unbind_rows(enc_stack, 2)
+        dec_rows = unbind_rows(dec_stack, 2)
+        zero_x = _zero_activation(embed_fn, edge_p, tree_index(mbs, 0),
+                                  tree_index(aux, 0))
+        zero_stack = [zero_x] * n_skip_slots
+        losses = []
+        recv: list = [None] * D
+        for t in range(T):
+            out, live = [(zero_x, zero_stack)] * D, [False] * D
+            for d in range(D):
+                m = t - d
+                if not 0 <= m < M:
+                    continue
+                a = tree_index(aux, m)
+                if d == 0:
+                    x_in = embed_fn(edge_p, tree_index(mbs, m), a)
+                    stack = zero_stack
+                else:
+                    x_in, stack = recv[d]
+                if d < D // 2:
+                    # encoder: push k skips at rows d*k ..
+                    x_out, skips = enc_stage(enc_rows[d], x_in, a, d)
+                    stack = list(stack)
+                    stack[d * k:(d + 1) * k] = [s.to(zero_x.dtype)
+                                                for s in skips]
+                else:
+                    # decoder: read this stage's k skips (dec_stage_fn
+                    # reverses them); the stack rides on unchanged
+                    row = (D - 1 - d) * k
+                    x_out = dec_stage(dec_rows[d], x_in,
+                                      stack[row:row + k], a, d)
+                out[d], live[d] = (x_out, stack), True
+                if d == D - 1:
+                    losses.append(loss_fn(edge_p, x_out, tree_index(mbs, m),
+                                          a))
+            # the whole (activation, skip-stack) payload crosses the boundary
+            recv, _ = hop(out, None, up_used=False, wrap=False,
+                          down_live=live)
+        return _mean_loss(losses, M)
+
+    return fn

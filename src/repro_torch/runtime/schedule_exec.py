@@ -1,5 +1,5 @@
-"""Table-driven wave executor lowered from a validated Schedule (the port
-of ``repro.runtime.schedule_exec``).
+"""Table-driven wave and linear executors lowered from a validated
+Schedule (the port of ``repro.runtime.schedule_exec``).
 
 :class:`StepTables` (with :class:`PlanError`, ``_color_intervals`` and the
 memoized ``_tables_cached``) is a copy of the JAX module's numpy lowering:
@@ -11,18 +11,21 @@ of both rings and the proven liveness windows ``W_down`` / ``W_up`` /
 ``W_turn`` / ``W_skip``.  It is copied because the JAX module imports jax
 at its top.
 
-:func:`make_wave_pipeline_from_schedule` walks those tables step by step.
-All D pipeline devices live in one process on one card here -- the
-counterpart of the JAX package running D host-simulated devices on one
-CPU -- so each device's rotating receive, turnaround and skip-stash
-buffers are Python lists of tensors sized by the proven windows, and a
-ring hop is a move between the devices' lists, kept behind the single
-:func:`hop` function (the multi-process executor swaps NCCL point-to-point
-sends in there and nothing else).  Boundary activations are cast to
-``PipelineConfig.wire_dtype`` on send (the cast's backward rounds the
-cotangents the same way) and quiescent hops carry zero payloads.  The
-backward pass is PyTorch autograd over the whole walk, with each stage call
-recomputed under ``torch.utils.checkpoint`` when ``remat`` is on.
+:func:`make_wave_pipeline_from_schedule` (folded plans) and
+:func:`make_linear_pipeline_from_schedule` (skip-free linear plans) walk
+those tables step by step.  All D pipeline devices live in one process on
+one card here -- the counterpart of the JAX package running D
+host-simulated devices on one CPU -- so each device's rotating receive,
+turnaround and skip-stash buffers are Python lists of tensors sized by the
+proven windows, and a ring hop is a move between the devices' lists, kept
+behind the single :func:`~repro_torch.runtime.pipeline.hop` function (the
+multi-process executor swaps NCCL point-to-point sends in there and
+nothing else; it also counts the bytes each hop moves).  Boundary
+activations are cast to ``PipelineConfig.wire_dtype`` on send (the cast's
+backward rounds the cotangents the same way) and quiescent hops carry zero
+payloads.  The backward pass is PyTorch autograd over the whole walk, with
+each stage call recomputed under ``torch.utils.checkpoint`` when ``remat``
+is on.
 """
 from __future__ import annotations
 
@@ -36,8 +39,8 @@ import torch
 from repro_torch.core.schedule import (Schedule, placement_bounds_error,
                                        slot_maps)
 from repro_torch.runtime.pipeline import (WIRE_DTYPES, PipelineConfig,
-                                          _wrap_remat)
-from repro_torch.tree import tree_index, tree_leaves, tree_map
+                                          _wrap_remat, hop, unbind_rows)
+from repro_torch.tree import tree_index
 
 Pytree = Any
 
@@ -554,33 +557,6 @@ def _wire_dtype(cfg: PipelineConfig) -> torch.dtype:
     return getattr(torch, cfg.wire_dtype)
 
 
-def unbind_rows(stack: Pytree) -> list:
-    """``[D, V, pad, ...]`` stage stack -> ``rows[d][v][i]`` row param trees.
-
-    Each leaf is unbound once per level, so autograd gathers a leaf's
-    gradient with one stack per level instead of one full-size scatter per
-    row use (what indexing the stack row by row would cost).
-    """
-    leaves = tree_leaves(stack)
-    D, V, pad = leaves[0].shape[:3]
-    split = {id(x): [[xv.unbind(0) for xv in xd.unbind(0)]
-                     for xd in x.unbind(0)] for x in leaves}
-    return [[[tree_map(lambda x: split[id(x)][d][v][i], stack)
-              for i in range(pad)] for v in range(V)] for d in range(D)]
-
-
-def hop(down_pl: list, up_pl: list, *, down_used: bool = True,
-        up_used: bool = True) -> tuple[list, list]:
-    """One ring hop: device d's down payload arrives at device d+1 and its up
-    payload at device d-1 (both rings wrap).  All devices share one process
-    here, so the hop moves tensors between the devices' lists; a ring no
-    message ever rides is not hopped (its payloads are all zeros anyway)."""
-    D = len(down_pl)
-    down_in = [down_pl[(d - 1) % D] for d in range(D)] if down_used else down_pl
-    up_in = [up_pl[(d + 1) % D] for d in range(D)] if up_used else up_pl
-    return down_in, up_in
-
-
 def make_wave_pipeline_from_schedule(
     cfg: PipelineConfig,
     sched: Schedule,
@@ -693,13 +669,97 @@ def make_wave_pipeline_from_schedule(
                     payload if tab["up_send"][d][t] else zero_w)
 
         pend_down, pend_up = [zero_w] * D, [zero_w] * D
+        live_down = live_up = [False] * D
         for t in range(T):
             # double-buffered: step t-1's payloads hop at the top of t
             down_in, up_in = hop(pend_down, pend_up, down_used=down_used,
-                                 up_used=up_used)
+                                 up_used=up_used, down_live=live_down,
+                                 up_live=live_up)
             outs = [body(d, t, down_in[d], up_in[d]) for d in range(D)]
             pend_down = [o[0] for o in outs]
             pend_up = [o[1] for o in outs]
+            live_down = [tab["down_send"][d][t] for d in range(D)]
+            live_up = [tab["up_send"][d][t] for d in range(D)]
+        if len(losses) != M:
+            raise PlanError(f"the walk emitted {len(losses)} losses for "
+                            f"M={M} microbatches", check="program-shape")
+        return torch.stack(losses).sum() / M
+
+    return fn
+
+
+# ===========================================================================
+# Linear executor from tables
+# ===========================================================================
+
+def make_linear_pipeline_from_schedule(
+    cfg: PipelineConfig,
+    sched: Schedule,
+    *,
+    embed_fn: Callable,       # (edge_p, mb) -> x
+    stage_fn: Callable,       # (rows, x, device, slot) -> x
+    loss_fn: Callable,        # (edge_p, x_final, mb) -> scalar
+    device_of_stage=None,     # partition's explicit stage->device mapping
+    devices=None,             # ...same, as a tuple (memoized lowering)
+) -> Callable:
+    """Lower a linear S=VD schedule to ``fn(stack, edge_p, mbs) -> loss``
+    (the call of :func:`~repro_torch.runtime.pipeline.make_linear_pipeline`;
+    the stack carries a slot axis, ``[D, V, pad, ...]``, and ``stage_fn``
+    receives the device and slot).  The down ring wraps so interleaved
+    (V > 1) plans cross the D-1 -> 0 slot boundary; arrivals land in a
+    rotating ``W_down`` receive buffer in ``cfg.wire_dtype``, stored only
+    where the tables mark them, and quiescent hops carry zeros."""
+    D, M = cfg.num_devices, cfg.num_microbatches
+    if sched.M != M or sched.D != D:
+        raise PlanError(
+            f"schedule (M={sched.M}, D={sched.D}) does not match the "
+            f"pipeline config (M={M}, D={D})",
+            check="program-shape")
+    tables = StepTables.from_schedule(sched, folded=False,
+                                      device_of_stage=device_of_stage,
+                                      devices=devices)
+    T = tables.num_steps
+    wire = _wire_dtype(cfg)
+    down_used = bool(tables.down_send.any())
+    W_down = max(tables.W_down, 1)
+    stage = _wrap_remat(stage_fn, cfg)
+    tab = {k: getattr(tables, k).tolist() for k in (
+        "sel", "slot", "mb", "down_valid", "down_slot", "rx_slot",
+        "down_send", "loss", "embed")}
+
+    def fn(stack, edge_p, mbs):
+        rows = unbind_rows(stack)              # [D][V][pad] row trees
+        with torch.no_grad():
+            proto = embed_fn(edge_p, tree_index(mbs, 0))
+        x_dtype = proto.dtype
+        zero_w = torch.zeros(proto.shape, dtype=wire, device=proto.device)
+        del proto
+        rx = [[None] * W_down for _ in range(D)]   # arrivals (wire)
+        losses = []
+
+        def body(d, t, h_in):
+            if tab["down_valid"][d][t]:
+                rx[d][tab["down_slot"][d][t]] = h_in
+            if tab["sel"][d][t] == IDLE:
+                return zero_w
+            vslot, mb_m = tab["slot"][d][t], tree_index(mbs, tab["mb"][d][t])
+            if tab["embed"][d][t]:
+                x_in = embed_fn(edge_p, mb_m)
+            else:
+                x_in = rx[d][tab["rx_slot"][d][t]].to(x_dtype)
+            x_out = stage(rows[d][vslot], x_in, d, vslot)
+            if tab["loss"][d][t]:
+                losses.append(loss_fn(edge_p, x_out, mb_m))
+            # cast-on-send; quiescent hops carry zeros
+            return x_out.to(wire) if tab["down_send"][d][t] else zero_w
+
+        pend, live = [zero_w] * D, [False] * D
+        for t in range(T):
+            # double-buffered: step t-1's payloads hop at the top of t
+            h_in, _ = hop(pend, None, down_used=down_used, up_used=False,
+                          down_live=live)
+            pend = [body(d, t, h_in[d]) for d in range(D)]
+            live = [tab["down_send"][d][t] for d in range(D)]
         if len(losses) != M:
             raise PlanError(f"the walk emitted {len(losses)} losses for "
                             f"M={M} microbatches", check="program-shape")

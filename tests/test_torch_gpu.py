@@ -516,3 +516,136 @@ def test_tuner_plan_step_on_cuda_matches_cpu():
     for k, want in out["cpu"][1].items():
         torch.testing.assert_close(out["cuda"][1][k], want, rtol=1e-4,
                                    atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the closed-form executors, the skip-carry baseline and the linear
+# executors on the card
+# ---------------------------------------------------------------------------
+
+def _uvit_inputs(cfg, M):
+    """fp32 UViT params on the CPU from seed 0, and one step's batch."""
+    from repro_torch.data import SyntheticLatentDataset
+    from repro_torch.runtime.adapters import diffusion_model_fns
+    params = diffusion_model_fns(cfg).init_fn(
+        torch.Generator().manual_seed(0), "cpu")
+    raw = SyntheticLatentDataset(img_size=8, channels=4).batch(0, 0, 2 * M)
+    gen = torch.Generator().manual_seed(1)
+    return (params, raw, torch.rand((2 * M,), generator=gen),
+            torch.randn((2 * M, 8, 8, 4), generator=gen))
+
+
+def _card_vs_cpu(step, kernels):
+    """``step(dev) -> (loss, grads by path)`` on the CPU and on the card:
+    loss and every gradient at rtol 1e-4, the ``kernels`` launched on the
+    card only."""
+    out = {}
+    for dev in ("cpu", "cuda"):
+        before = dict(LAUNCHES)
+        loss, grads = step(dev)
+        launched = {k: LAUNCHES[k] - before[k] for k in before}
+        out[dev] = (loss, grads, launched)
+    assert out["cpu"][2] == {k: 0 for k in LAUNCHES}
+    for k in kernels:
+        assert out["cuda"][2][k] > 0, out["cuda"][2]
+    assert math.isclose(out["cuda"][0], out["cpu"][0], rel_tol=1e-4)
+    assert sorted(out["cuda"][1]) == sorted(out["cpu"][1])
+    for k, want in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], want, rtol=1e-4,
+                                   atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("executor", ["closed_form", "skip_carry"])
+def test_closed_form_and_skip_carry_on_cuda_match_cpu(executor):
+    """The closed-form wave (``auto_pipeline(..., executor="closed_form")``,
+    D=4, M=4) and the paper's skip-carry baseline
+    (``DiffusionPipelineAdapter``, D=4, M=4) in fp32, one step on the card
+    against the same step on the CPU, both kernels launched on the card."""
+    from repro_torch.models.diffusion import uvit_pipeline_graph
+    from repro_torch.runtime.adapters import (DiffusionPipelineAdapter,
+                                              diffusion_model_fns,
+                                              make_diffusion_microbatches)
+    from repro_torch.runtime.compile import auto_pipeline
+    from repro_torch.runtime.pipeline import PipelineConfig
+    from repro_torch.tree import tree_map, tree_paths
+
+    D, M = 4, 4
+    cfg = _uvit(torch.float32)
+    params, raw, t, noise = _uvit_inputs(cfg, M)
+    if executor == "closed_form":
+        cp = auto_pipeline(uvit_pipeline_graph(cfg, batch=2),
+                           diffusion_model_fns(cfg), D, pipeline_devices=D,
+                           microbatches=M, executor="closed_form")
+        split, build = cp.split_params, cp.build
+    else:
+        ad = DiffusionPipelineAdapter(cfg, PipelineConfig(D, M), "uvit")
+        split, build = ad.split_params_skip_carry, ad.build_skip_carry_baseline
+
+    def step(dev):
+        p = tree_map(lambda a: a.detach().to(dev).clone().requires_grad_(True),
+                     split(params))
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+        mb, aux = make_diffusion_microbatches(batch, M, t=t.to(dev),
+                                              noise=noise.to(dev))
+        (enc, dec), edge = p
+        loss = build()(enc, dec, edge, mb, aux)
+        loss.backward()
+        grads = tree_map(lambda a: a.grad if a.grad is not None
+                         else torch.zeros_like(a), p)
+        return float(loss.detach()), {k: v.cpu()
+                                      for k, v in tree_paths(grads)}
+
+    _card_vs_cpu(step, ("flash_attention", "skip_concat_matmul"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("executor", ["table", "closed_form"])
+def test_linear_executors_on_cuda_match_cpu(executor):
+    """The linear executors on a skip-free graph of UViT encoder blocks
+    (D=2, M=4, uneven cuts, fp32, fp32 wire), card against CPU; flash
+    attention launches on the card (no block has a skip to project)."""
+    from repro_torch.core.graph import Block, BlockGraph
+    from repro_torch.models import diffusion as dm
+    from repro_torch.runtime.adapters import make_diffusion_microbatches
+    from repro_torch.runtime.compile import PipelineModelFns, auto_pipeline
+    from repro_torch.tree import tree_map, tree_paths
+
+    D, M = 2, 4
+    cfg = _uvit(torch.float32, n_layers=16)
+    fns = PipelineModelFns(
+        init_fn=None,
+        embed_fn=lambda e, mb, aux: dm.uvit_embed(e, mb["xt"], mb["t"], mb,
+                                                  cfg),
+        loss_fn=lambda e, x, mb, aux: torch.mean(torch.square(
+            dm.uvit_output(e, x, cfg) - mb["noise"])),
+        split_blocks=lambda p: ((p["enc_blocks"],), {
+            k: v for k, v in p.items() if k != "enc_blocks"}),
+        merge_blocks=lambda s, e: {**e, "enc_blocks": s[0]},
+        block_fn=lambda bp, x, aux: dm._apply_vit_block(bp, x, cfg),
+        num_param_stacks=1)
+    graph = BlockGraph(tuple(Block(f"b{i}", float(c), param_bytes=1 << 10,
+                                   act_bytes=1 << 10)
+                             for i, c in enumerate([4, 2, 1, 1, 1, 1, 1, 1])))
+    cp = auto_pipeline(graph, fns, D, pipeline_devices=D, microbatches=M,
+                       lam=0.0, wire_dtype="float32", executor=executor)
+    assert not cp.folded and len(set(cp.partition.stage_sizes())) > 1
+    params, raw, t, noise = _uvit_inputs(cfg, M)
+    params = {k: v for k, v in params.items() if k != "dec_blocks"}
+
+    def step(dev):
+        p = tree_map(lambda a: a.detach().to(dev).clone().requires_grad_(True),
+                     cp.split_params(params))
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+        mb, aux = make_diffusion_microbatches(batch, M, t=t.to(dev),
+                                              noise=noise.to(dev))
+        (stack,), edge = p
+        loss = cp.build()(stack, edge, {**mb, "t": aux["t"]})
+        loss.backward()
+        grads = cp.merge_params(*tree_map(
+            lambda a: a.grad if a.grad is not None else torch.zeros_like(a),
+            p))
+        return float(loss.detach()), {k: v.cpu()
+                                      for k, v in tree_paths(grads)}
+
+    _card_vs_cpu(step, ("flash_attention",))

@@ -186,7 +186,9 @@ def test_unported_options_raise():
     # (N, keywords): on four devices the tuner's best plan is P=2 with two
     # data-parallel replicas (G=2), which the port does not run yet
     for N, kw in ((4, dict()), (2, dict(pipeline_devices=2, dp_size=2)),
-                  (2, dict(pipeline_devices=2, zero_stage=1)),
-                  (2, dict(pipeline_devices=2, executor="closed_form"))):
+                  (2, dict(pipeline_devices=2, zero_stage=1))):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             auto_pipeline(g, fns, N, **kw)
+    # the closed-form executor is ported: the route plans and builds
+    cp = auto_pipeline(g, fns, 2, pipeline_devices=2, executor="closed_form")
+    assert cp.executor == "closed_form" and callable(cp.build())
