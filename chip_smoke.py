@@ -71,8 +71,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    --pipeline --devices 4 --microbatches 8 --global-batch 16 --steps 4``
    (UViT-2.7B at full width and depth, bf16, bf16 wire) with the launch
    counts reset just before and read just after: every loss finite, both
-   kernels of the path launched; then every reference to the trainer is
-   dropped and the card's memory released;
+   kernels of the path launched; recorded for phase 12: step 0's gradient
+   fingerprints before its update and the ``HOP_BYTES`` a step; then
+   every reference to the trainer is dropped and the card's memory
+   released;
 6b. baseline (``baseline_phase``), after checking that less than 1 GB is
    still allocated: UViT-H at full width and depth (bf16, random weights
    from seed 0, the trainer's plan D=4 M=8, global batch 16) through the
@@ -126,11 +128,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     inherited, ``REPRO_TORCH_NO_BUILD=1``; the build directory must hold
     the same files after the phase) and every worker log must name its
     CUDA device;
-12. the ``kernels`` JSON line (each kernel's launches by path: ``plan``,
-    ``baseline``, ``skipvit train``, ``skipvit wave-asym`` and
-    ``supervisor workers``,
-    the last read from the workers' result files, among them), then the
-    device line as the last line.
+12. ranks (``ranks_phase``), after checking that less than 1 GB is still
+    allocated: ``python -m torch.distributed.run --standalone
+    --nproc-per-node 4 -m repro_torch.launch.train`` with phase 6's UViT-H
+    plan and ``--ring gloo --device cuda --rank-report``: four processes,
+    one per pipeline device, on the one card, the ring's payloads staged
+    through pinned host memory, each running its own stage rows with the
+    skip and flash kernels in its own process (they load what phase 2
+    built).  Each rank runs one forward+backward of step 0 without an
+    update, 3 AdamW steps, then one forward+backward of the skip-carry
+    baseline from the seed-0 params.  Held: the first loss to phase 6's
+    at rtol 1e-5 and AdamW steps 1-2 at 2e-2; every gradient leaf's
+    fingerprint (norm and 8 seeded random dots) to phase 6's step 0 at
+    ||err||/||g|| <= 1e-2; the ring bytes, forward and backward, sent and
+    received, to phase 6's ``HOP_BYTES`` live count a step (table walk,
+    bf16 wire) and to the baseline phase's (skip-carry), exactly; the
+    ranks' flash and skip launches of one forward+backward to phase 6's a
+    step; the skip-carry loss to the table walk's at rtol 1e-5.  Prints
+    each rank's peak memory beside Eq. 14's per-device prediction, the
+    step seconds, and that NCCL was not run (one card);
+13. the ``kernels`` JSON line (each kernel's launches by path: ``plan``,
+    ``baseline``, ``skipvit train``, ``skipvit wave-asym``,
+    ``supervisor workers`` and ``ranks``,
+    the last two read from the workers' and ranks' result files, among
+    them), then the device line as the last line.
 
 The full record goes to ``chiprun_out/chip_smoke.json``.  Without a CUDA
 device the script exits 1 at once and prints no result.
@@ -1249,15 +1270,26 @@ def train(torch, rec, arch: str) -> dict:
     times a step: every attention call through the kernel)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train as train_mod
+    from repro_torch.runtime import pipeline as rp
 
     unet = arch == "sdv2-unet-full"
     argv = UNET_ARGV if unet else ["--arch", arch] + TRAIN_ARGV
     args = train_mod._parse_args(argv)
+    # UViT-H's record for the ranks phase: step 0's gradient fingerprints
+    # before its update, and the ring bytes of the one-process walk
+    fingerprints = {}
+
+    def on_grads(step, grads):
+        if step == 0:
+            fingerprints.update(train_mod.grad_fingerprints(grads))
+
     reset_launch_counts()
+    rp.reset_hop_bytes()
     t0 = time.perf_counter()
-    res = train_mod.run(args)
+    res = train_mod.run(args, on_grads=on_grads if arch == "uvit-h" else None)
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    hops = rp.hop_bytes()
     losses = [res.losses[s] for s in sorted(res.losses)]
     if len(losses) != args.steps or not all(math.isfinite(x) for x in losses):
         fail(f"train {arch}: losses {losses}")
@@ -1281,7 +1313,9 @@ def train(torch, rec, arch: str) -> dict:
         samples_per_s_after_first=sps, peak_bytes=res.peak_bytes, wall_s=wall,
         launches=counts,
         launches_per_step={k: v / args.steps for k, v in counts.items()},
-        params=n_params, plan=res.plan)
+        params=n_params, plan=res.plan,
+        hop_bytes_per_step={k: v / args.steps for k, v in hops.items()},
+        fingerprints=fingerprints)
     log(f"[train] {arch}: {n_params} params; losses {losses}; step s "
         f"{[round(x, 4) for x in steps]}; {sps:.3f} samples/s after step "
         f"0; peak {res.peak_bytes / 1e9:.2f} GB; launches {counts} "
@@ -2044,6 +2078,245 @@ def supervisor_phase(torch, rec, smi_line: str) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 12: ranks -- UViT-H with one process per pipeline device, four
+# ranks on the one card over the gloo ring staged through host memory
+# ---------------------------------------------------------------------------
+
+RANKS_D = 4
+RANKS_STEPS = 3
+RANKS_ARGV = ["--arch", "uvit-h", "--pipeline", "--devices", str(RANKS_D),
+              "--microbatches", "8", "--global-batch", "16", "--steps",
+              str(RANKS_STEPS), "--log-every", "1", "--ring", "gloo",
+              "--device", "cuda"]
+RANKS_TIMEOUT = 900          # seconds for the whole torchrun (a rank
+#                              waiting on a peer fails after 600 s)
+FINGERPRINT_BAR = 1e-2       # ||err|| / ||g|| per gradient leaf
+
+
+def _fingerprint_errs(got: dict, want: dict) -> tuple[float, str]:
+    """Worst ||err|| / ||g|| over the leaves, each estimated from the
+    fingerprints (``train.grad_fingerprints``): the larger of the norms'
+    difference and the root mean square of the probe dots' differences.
+    A leaf whose gradient is zero in ``want`` must be zero in ``got``."""
+    worst, at = 0.0, ""
+    for k, w in want.items():
+        g = got[k]
+        dots = [a - b for a, b in zip(g[1:], w[1:])]
+        err = max(abs(g[0] - w[0]),
+                  math.sqrt(sum(x * x for x in dots) / len(dots)))
+        rel = err / w[0] if w[0] else (0.0 if err == 0 else math.inf)
+        if rel > worst or not at:
+            worst, at = rel, k
+    return worst, at
+
+
+def ranks_phase(torch, rec, smi_line: str) -> dict:
+    """Four ranks of ``repro_torch.launch.train`` on the one card
+    (``torch.distributed.run --standalone --nproc-per-node 4``, ``--ring
+    gloo --device cuda``: payloads staged through pinned host memory), the
+    UViT-H plan of phase 6.  Each rank (``--rank-report``) runs one
+    forward+backward of step 0 without an update, then ``RANKS_STEPS``
+    AdamW steps from the same seed-0 params and batches as phase 6, then
+    one forward+backward of the skip-carry baseline from those params.
+    Held: the first loss to phase 6's at rtol 1e-5, AdamW steps 1-2 at
+    2e-2; each gradient leaf's fingerprint to phase 6's step 0 at
+    ``FINGERPRINT_BAR``; the table walk's ring bytes, each direction, to
+    phase 6's ``HOP_BYTES`` live count a step, exactly, and the
+    baseline's to the baseline phase's; the ranks' flash and skip
+    launches of the probe to phase 6's a step (more would mean some op
+    back-propagated twice); the baseline's loss to the table walk's at
+    rtol 1e-5.  Printed: each rank's peaks beside Eq. 14's per-device
+    prediction, and the step seconds.  The ranks load the kernels phase 2
+    built (``REPRO_TORCH_NO_BUILD=1``).  Returns the ranks' launches."""
+    import shutil
+
+    from repro_torch.core.comm_model import WIRE_BYTES
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.core.tuner import peak_memory, profile_partition
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.diffusion import uvit_pipeline_graph
+    from repro_torch.runtime.adapters import model_fns
+    from repro_torch.runtime.compile import auto_pipeline
+
+    t_phase = time.perf_counter()
+    one = rec["train"]["uvit-h"]
+    base_row = rec["baseline"]["executors"]["skip_carry"]
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_ranks")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, REPRO_TORCH_NO_BUILD="1",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(ROOT, "src")]
+                   + [p for p in os.environ.get("PYTHONPATH", "").split(
+                       os.pathsep) if p]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(RANKS_D), "-m", "repro_torch.launch.train",
+           *RANKS_ARGV, "--rank-report", out_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                          text=True, timeout=RANKS_TIMEOUT)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, "ranks.log"), "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"ranks: torchrun exited {proc.returncode}:\n"
+             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    docs = []
+    for r in range(RANKS_D):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            docs.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    for d in docs:
+        if not d["device"].startswith("cuda") or d["ring"] != "gloo" \
+                or not d["staged"]:
+            fail(f"ranks: rank {d['rank']} ran on {d['device']} over "
+                 f"{d['ring']} (staged {d['staged']})")
+    what = "ranks"
+
+    # losses
+    first = one["losses"][0]
+    probe_losses = [d["probe"]["loss"] for d in docs]
+    train_losses = [[d["train"]["losses"][str(s)] for s in range(RANKS_STEPS)]
+                    for d in docs]
+    if len({*probe_losses}) != 1 or any(x != train_losses[0]
+                                         for x in train_losses):
+        fail(f"{what}: the ranks disagree on the loss: probe "
+             f"{probe_losses}, steps {train_losses}")
+    loss0 = probe_losses[0]
+    if not math.isclose(loss0, first, rel_tol=1e-5) or not math.isclose(
+            train_losses[0][0], first, rel_tol=1e-5):
+        fail(f"{what}: first loss {loss0} (step 0 {train_losses[0][0]}) vs "
+             f"phase 6's {first} (rtol 1e-5)")
+    for s in (1, 2):
+        a, b = train_losses[0][s], one["losses"][s]
+        if not (math.isfinite(a) and abs(a - b) <= 2e-2 * abs(b)):
+            fail(f"{what}: AdamW step {s} loss {a} vs phase 6's {b} "
+                 "(rtol 2e-2)")
+    if any(d["train"]["skipped_steps"] for d in docs):
+        fail(f"{what}: a rank skipped a step")
+
+    # gradient fingerprints against phase 6's step 0
+    got = {}
+    for d in docs:
+        for k, v in d["probe"]["fingerprints"].items():
+            if k.startswith("edge/"):
+                k = f"{k} (rank {d['rank']})"
+            got[k] = v
+    want = {}
+    for k, v in one["fingerprints"].items():
+        if k.startswith("edge/"):
+            want.update({f"{k} (rank {r})": v for r in range(RANKS_D)})
+        else:
+            want[k] = v
+    if sorted(got) != sorted(want):
+        fail(f"{what}: fingerprint keys differ: "
+             f"{sorted(set(got) ^ set(want))[:10]}")
+    worst, worst_at = _fingerprint_errs(got, want)
+    if worst > FINGERPRINT_BAR:
+        fail(f"{what}: gradient {worst_at} ||err||/||g|| {worst:.3e} "
+             f"against phase 6's step 0 (bar {FINGERPRINT_BAR})")
+
+    # ring bytes, each direction, exact
+    def ring_sum(key):
+        return {f"{p} {k}": sum(d[key]["ring_bytes"][p][k] for d in docs)
+                for p in ("fwd", "bwd") for k in ("sent", "received")}
+
+    table_bytes, base_bytes = ring_sum("probe"), ring_sum("baseline")
+    live = one["hop_bytes_per_step"]["live"]
+    base_live = base_row["hop_bytes_per_step"]["live"]
+    if set(table_bytes.values()) != {live}:
+        fail(f"{what}: table walk ring bytes {table_bytes}, want "
+             f"{live} (phase 6's HOP_BYTES live a step) each")
+    if set(base_bytes.values()) != {base_live}:
+        fail(f"{what}: skip-carry ring bytes {base_bytes}, want "
+             f"{base_live} (the baseline phase's live a step) each")
+
+    # launches: the probe's, summed over the ranks, are phase 6's a step
+    probe_launches = {k: sum(d["probe"]["launches"][k] for d in docs)
+                      for k in docs[0]["probe"]["launches"]}
+    for k in ("flash_attention", "skip_concat_matmul"):
+        if probe_launches[k] != one["launches_per_step"][k]:
+            fail(f"{what}: {k} launched {probe_launches[k]} times in the "
+                 f"ranks' forward+backward, phase 6's step "
+                 f"{one['launches_per_step'][k]}")
+    base_launches = {k: sum(d["baseline"]["launches"][k] for d in docs)
+                     for k in docs[0]["baseline"]["launches"]}
+    for k in ("flash_attention", "skip_concat_matmul"):
+        if base_launches[k] != one["launches_per_step"][k]:
+            fail(f"{what}: the baseline launched {k} {base_launches[k]} "
+                 f"times, phase 6's step {one['launches_per_step'][k]}")
+    base_loss = docs[0]["baseline"]["loss"]
+    if not math.isclose(base_loss, loss0, rel_tol=1e-5):
+        fail(f"{what}: skip-carry loss {base_loss} vs the table walk's "
+             f"{loss0} (rtol 1e-5)")
+    launched = {k: sum(d["launches"][k] for d in docs)
+                for k in docs[0]["launches"]}
+
+    # Eq. 14's per-device prediction for the plan (prints, not gates)
+    cfg = train_mod._model_config(train_mod._parse_args(RANKS_ARGV))
+    graph = uvit_pipeline_graph(cfg, batch=2, hw=H100_SXM)
+    cp = auto_pipeline(graph, model_fns(cfg, "uvit"), RANKS_D, hw=H100_SXM,
+                       pipeline_devices=RANKS_D, microbatches=8,
+                       wire_dtype="bfloat16")
+    tabs = cp.step_tables()
+    # one microbatch of the graph's batch (2 samples) is b = 1
+    predicted = peak_memory(
+        profile_partition(graph, cp.partition), RANKS_D, 1, wave=True,
+        windows=(tabs.W_down + tabs.W_up, tabs.W_turn, tabs.W_skip),
+        wire_bytes=WIRE_BYTES["bfloat16"])
+    steps = {s: [d["train"]["step_seconds"][str(s)] for d in docs]
+             for s in range(RANKS_STEPS)}
+    step_max = [max(v) for v in steps.values()]
+    steady = step_max[1:]
+    out = dict(
+        card=smi_line, argv=RANKS_ARGV, wall_s=wall,
+        first_loss=loss0, phase6_first_loss=first, losses=train_losses[0],
+        phase6_losses=one["losses"][:RANKS_STEPS],
+        worst_rel_grad_err=worst, worst_grad=worst_at,
+        ring_bytes_table=table_bytes, ring_bytes_skip_carry=base_bytes,
+        hop_bytes_live=live, hop_bytes_live_skip_carry=base_live,
+        reduction=1 - table_bytes["fwd sent"] / base_bytes["fwd sent"],
+        probe_launches=probe_launches, baseline_launches=base_launches,
+        baseline_loss=base_loss, launches=launched,
+        probe_seconds=[d["probe"]["seconds"] for d in docs],
+        baseline_seconds=[d["baseline"]["seconds"] for d in docs],
+        step_seconds=steps, step_seconds_max=step_max,
+        spread_after_first=(max(steady) - min(steady)) if steady else None,
+        peaks={d["rank"]: dict(init=d["probe"]["init_peak_bytes"],
+                               probe=d["probe"]["peak_bytes"],
+                               train=d["train"]["peak_bytes"],
+                               baseline=d["baseline"]["peak_bytes"])
+               for d in docs},
+        eq14_per_device_bytes=predicted, nccl="not run (1 card)")
+    rec["ranks"] = out
+    log(f"[ranks] UViT-H D={RANKS_D} M=8 b=2, four ranks on one card over "
+        f"the gloo ring (staged through pinned host memory); torchrun "
+        f"{wall:.1f} s; {smi_line}")
+    log(f"[ranks] first loss {loss0!r} (phase 6 {first!r}); AdamW losses "
+        f"{train_losses[0]} (phase 6 {one['losses'][:RANKS_STEPS]}); "
+        f"skip-carry loss {base_loss!r}")
+    log(f"[ranks] gradient fingerprints vs phase 6's step 0: worst "
+        f"||err||/||g|| {worst:.3e} ({worst_at}) over {len(want)} leaves")
+    log(f"[ranks] ring bytes, table walk (bf16 wire): {table_bytes} = "
+        f"HOP_BYTES live {live}; skip-carry: {base_bytes} = {base_live}; "
+        f"PULSE moves {100 * out['reduction']:.1f} % less")
+    log(f"[ranks] launches of the forward+backward summed over the ranks: "
+        f"table {probe_launches}, skip-carry {base_launches}; whole run "
+        f"{launched}")
+    for d in docs:
+        pk = out["peaks"][d["rank"]]
+        log(f"[ranks] rank {d['rank']}: peak GB set-up (the whole model "
+            f"drawn, then its rows kept) {pk['init'] / 1e9:.3f}, probe "
+            f"{pk['probe'] / 1e9:.3f}, train {pk['train'] / 1e9:.3f}, "
+            f"skip-carry {pk['baseline'] / 1e9:.3f}; Eq. 14 per device "
+            f"{predicted / 1e9:.3f}; probe {d['probe']['seconds']:.3f} s, "
+            f"skip-carry {d['baseline']['seconds']:.3f} s")
+    log(f"[ranks] step s (slowest rank) {[round(x, 4) for x in step_max]}; "
+        f"spread after step 0 {out['spread_after_first']}; "
+        f"nccl: not run (1 card); phase {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 def release(torch) -> int:
     """Drop what the last phase left and return the bytes still allocated
     on the card (the trainer resets the peak statistics itself, so each
@@ -2204,7 +2477,16 @@ def main() -> None:
     rec["phase_s"]["supervisor"] = time.perf_counter() - t0
     log(f"[supervisor] phase {rec['phase_s']['supervisor']:.1f} s")
 
-    # 12. results: each kernel's numbers at the Hunyuan-DiT train step's
+    # 12. ranks: one process per pipeline device, four on the one card
+    left = release(torch)
+    if left >= 1e9:
+        fail(f"ranks: {left / 1e9:.2f} GB still allocated; the previous "
+             "phase was not released")
+    t0 = time.perf_counter()
+    counts["ranks"] = ranks_phase(torch, rec, smi_line)
+    rec["phase_s"]["ranks"] = time.perf_counter() - t0
+
+    # 13. results: each kernel's numbers at the Hunyuan-DiT train step's
     # shape (the scan: its own phase's), every train path's beside them
     kernels = []
     for kname, (source, replaces) in SOURCES.items():

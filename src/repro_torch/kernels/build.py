@@ -11,14 +11,19 @@ The library name carries a hash of its source, the shared headers under
 rebuilt and a stale library is never loaded.  Libraries go to
 ``build/`` at the repository root (or ``$REPRO_TORCH_BUILD_DIR``); the
 first call that needs a kernel builds it, and :func:`build` builds several
-at once, one ``nvcc`` process per source, all started together.  With
+at once, one ``nvcc`` process per source, all started together.  A build
+holds an exclusive ``fcntl`` lock on ``.build.lock`` in the build
+directory, so processes started together (the ranks of one ``torchrun``)
+compile each library once and load the same file.  With
 ``$REPRO_TORCH_NO_BUILD=1`` (a supervisor's workers, which must load what
 their parent built) a library that is not built yet raises instead of
 being compiled.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -69,13 +74,26 @@ def lib_path(name: str) -> pathlib.Path:
     return build_dir() / f"lib{name}-{digest[:12]}.so"
 
 
+@contextlib.contextmanager
+def _build_lock(out_dir: pathlib.Path):
+    """An exclusive lock on the build directory, across processes."""
+    with open(out_dir / ".build.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names=SOURCES, *, verbose: bool = False) -> dict[str, dict]:
     """Build the named libraries that are not built yet, concurrently.
 
     Returns ``{name: {"seconds": s, "log": compiler output}}`` for each
     library it compiled (``verbose`` adds ``-Xptxas -v``: registers and
     shared memory per kernel).  Raises ``RuntimeError`` with the
-    compiler's output if any build fails.
+    compiler's output if any build fails.  Another process building into
+    the same directory is waited for (:func:`_build_lock`), and what it
+    built is not built again.
     """
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -86,6 +104,14 @@ def build(names=SOURCES, *, verbose: bool = False) -> dict[str, dict]:
         raise RuntimeError(
             f"kernel libraries {[str(lib_path(n)) for n in todo]} are not "
             "built and $REPRO_TORCH_NO_BUILD=1 forbids compiling them here")
+    with _build_lock(out_dir):
+        return _build_locked(names, verbose)
+
+
+def _build_locked(names, verbose: bool) -> dict[str, dict]:
+    todo = [n for n in names if not lib_path(n).exists()]
+    if not todo:
+        return {}
     nvcc = nvcc_path()
     procs = {}
     for n in todo:

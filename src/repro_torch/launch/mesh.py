@@ -19,15 +19,80 @@ supervisor can import them on a node whose accelerator runtime is wedged.
 The marker names are the JAX package's, so a worker of either package
 meets a worker of the other at one barrier.
 
-Left out: ``make_production_mesh``, ``mesh_axis_sizes`` and ``dp_size``,
-which build and read a JAX device ``Mesh``; their counterpart is the
-process-group mesh of the multi-card executor, not ported yet.
+The rank grid is the counterpart of ``make_production_mesh``,
+``mesh_axis_sizes`` and ``dp_size``, which build and read a JAX device
+``Mesh``: :func:`make_rank_grid` lays the world's processes out as a
+``(data, model)`` grid of process groups (rank = data index x pp + pipeline
+index, the JAX mesh's row-major device order), one process per pipeline
+device.  Only ``data = 1`` is ported (dp > 1 raises).  ``torch.distributed``
+is imported inside the function, so the rest of the module stays
+importable without it.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import time
+
+
+# ---------------------------------------------------------------------------
+# The rank grid: (data, model) process groups, one process per device
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RankGrid:
+    """This process's place in a ``(data, model)`` grid of ``world =
+    dp x pp`` processes: ``model_group`` is its pipeline (the ranks of its
+    data row, in pipeline order), ``data_group`` its data-parallel peers
+    (the ranks of its pipeline column)."""
+
+    world: int
+    dp: int
+    pp: int
+    rank: int
+    model_group: object = None
+    data_group: object = None
+
+    @property
+    def pipe_index(self) -> int:
+        return self.rank % self.pp
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.pp
+
+
+def make_rank_grid(pp: int, *, dp: int = 1) -> RankGrid:
+    """The grid of the initialized default process group's world, which
+    must hold ``dp x pp`` processes.  Every rank calls it (it creates the
+    groups).  ``dp > 1`` is not ported yet (ROADMAP A3)."""
+    import torch.distributed as dist
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if dp != 1:
+        raise NotImplementedError(
+            f"data parallelism over ranks (dp={dp}) is not yet ported to "
+            "repro_torch (ROADMAP A3)")
+    if world != dp * pp:
+        raise ValueError(f"a (data={dp}, model={pp}) grid needs "
+                         f"{dp * pp} processes; the world has {world}")
+    model_groups = [dist.new_group(list(range(i * pp, (i + 1) * pp)))
+                    for i in range(dp)]
+    data_groups = [dist.new_group(list(range(j, world, pp)))
+                   for j in range(pp)]
+    return RankGrid(world, dp, pp, rank, model_groups[rank // pp],
+                    data_groups[rank % pp])
+
+
+def mesh_axis_sizes(grid: RankGrid) -> dict:
+    return {"data": grid.dp, "model": grid.pp}
+
+
+def dp_size(grid: RankGrid, batch_axes=("pod", "data")) -> int:
+    sizes = mesh_axis_sizes(grid)
+    out = 1
+    for a in batch_axes:
+        out *= sizes.get(a, 1)
+    return out
 
 
 # ---------------------------------------------------------------------------

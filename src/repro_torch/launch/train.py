@@ -74,6 +74,24 @@ process per host; the JAX trainer's contract):
   devices of the plan run in the one process (``--dp`` stays 1), and every
   host draws the full global batch, as the JAX workers do.
 
+One process per pipeline device (ranks): under ``torchrun`` (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK`` and ``MASTER_ADDR`` set) ``--pipeline
+--devices D`` runs as rank ``RANK`` of a world of D processes (the rank
+grid of ``launch/mesh.py``, data = 1).  Each rank holds its own stage rows
+and the edge params, runs its rows of the step tables, and moves the ring
+hops over ``--ring``: ``nccl`` (the default on ``cuda``; one card a rank)
+or ``gloo`` (the default on ``cpu``; on ``cuda`` the one-card ring, its
+payloads staged through pinned host memory).  The backward is the rank
+walk of ``runtime/ring.py``, not ``loss.backward()``; the GradGuard's
+finite flag and the grad norm (AdamW's clip) are reduced over the group, so
+the ranks skip and clip alike; every rank draws the full global batch, and
+rank 0 prints.  ``--rank-report DIR`` adds, per rank, one forward+backward
+of step 0 without an update before training (loss, gradient fingerprints,
+ring bytes, launches, peak memory) and one of the paper's skip-carry
+baseline from the initial params after it.  Without torchrun's environment
+the one-process executor runs, as before.  Checkpoints (``--ckpt-dir``,
+``--resume``) and ``--num-hosts > 1`` with ranks are not ported yet.
+
 Not ported yet, and refused with ``NotImplementedError``: data parallelism
 and ZeRO (``--dp``/``--zero-stage``), and the LM smoke archs.
 
@@ -91,6 +109,10 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch uvit-pp \
         --pipeline --devices 4 --steps 6 --device cpu --ckpt-dir /tmp/ck \
         --ckpt-every 3 --faults stop@3          # then add --resume
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train --arch uvit-h \
+        --pipeline --devices 4 --microbatches 8 --global-batch 16 \
+        --steps 4 --ring gloo --device cuda      # four ranks on one card
 """
 from __future__ import annotations
 
@@ -116,6 +138,11 @@ ARCHS = tuple(dict.fromkeys(PIPELINE_ARCHS + SMOKE_ARCHS + LM_SMOKE_ARCHS))
 # flags of the JAX trainer whose features are not ported yet: any value but
 # the default is refused (the LM smoke archs are refused separately)
 UNPORTED = {"dp": "data parallelism", "zero_stage": "ZeRO"}
+# torchrun's environment: with all of it set, --pipeline runs as one rank
+RANK_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR")
+# seconds a rank waits on a peer before its collective fails: a receive
+# posted for a send that never comes ends the run instead of hanging it
+RING_TIMEOUT_S = 600.0
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -180,6 +207,15 @@ def _parser() -> argparse.ArgumentParser:
                     help="trace every step after the first with "
                          "torch.profiler and write device time by kernel, "
                          "busy and idle share here (JSON)")
+    ap.add_argument("--ring", default=None, choices=("nccl", "gloo"),
+                    help="ranks (under torchrun): the pipeline ring's "
+                         "transport; nccl (default on cuda, a card a rank) "
+                         "or gloo (default on cpu; on cuda the one-card "
+                         "ring, staged through pinned host memory)")
+    ap.add_argument("--rank-report", default=None,
+                    help="ranks: write DIR/rank<r>.json with a probe "
+                         "forward+backward of step 0 (no update) before "
+                         "training and the skip-carry baseline's after it")
     return ap
 
 
@@ -270,6 +306,113 @@ def _refuse_unported(args) -> None:
                                       "to repro_torch")
 
 
+def rank_env(environ=None) -> dict | None:
+    """``{"rank", "world", "local_rank"}`` from torchrun's environment, or
+    None when any of :data:`RANK_ENV` is missing (one process)."""
+    env = os.environ if environ is None else environ
+    if not all(k in env for k in RANK_ENV):
+        return None
+    return {"rank": int(env["RANK"]), "world": int(env["WORLD_SIZE"]),
+            "local_rank": int(env["LOCAL_RANK"])}
+
+
+def _refuse_rank_options(args, env: dict) -> None:
+    """What a run over ranks does not do yet, refused before any process
+    group exists."""
+    for flag, on in (("--ckpt-dir", args.ckpt_dir), ("--resume", args.resume),
+                     ("--num-hosts > 1", args.num_hosts > 1)):
+        if on:
+            raise NotImplementedError(
+                f"{flag} with one process per pipeline device is not yet "
+                "ported to repro_torch: a rank holds only its own stage "
+                "rows (ROADMAP A1, multi-rank checkpoints and the "
+                "supervisor over ranks)")
+    P = args.pp or args.devices
+    if env["world"] != P:
+        if env["world"] % P == 0:
+            raise NotImplementedError(
+                f"{env['world']} processes for a {P}-device pipeline is "
+                "data parallelism over ranks, not yet ported to "
+                "repro_torch (ROADMAP A3)")
+        raise ValueError(f"{env['world']} processes cannot run a "
+                         f"{P}-device pipeline")
+
+
+@dataclasses.dataclass
+class Ranks:
+    """This process's rank of a pipeline run over ranks: its grid
+    (``launch.mesh.RankGrid``), its ring and device, and the ring's kind."""
+    grid: Any
+    ring: Any
+    device: Any
+    kind: str                      # "nccl" | "gloo"
+
+    @property
+    def leader(self) -> bool:
+        return self.grid.rank == 0
+
+    def describe(self) -> str:
+        how = ("a card a rank" if self.kind == "nccl" else
+               "staged through pinned host memory" if self.ring.staged
+               else "CPU tensors")
+        return (f"ranks: rank {self.grid.rank} of {self.grid.world} "
+                f"(pipeline index {self.grid.pipe_index}), {self.kind} ring "
+                f"({how}) on {self.device}")
+
+    def reduce(self, loss, grads) -> tuple[bool, Any]:
+        """(finite, global norm) of the step's gradient over the group:
+        each rank's stage leaves, the edge leaves (equal on every rank
+        after their all-reduce) counted once."""
+        import torch
+
+        from repro_torch.runtime.resilience import all_finite
+        from repro_torch.tree import tree_leaves
+        stacks, edge = grads
+        leaves = tree_leaves(stacks) + (tree_leaves(edge)
+                                        if self.grid.pipe_index == 0 else [])
+        sq = torch.stack([torch.linalg.vector_norm(
+            g, dtype=torch.float32).square() for g in leaves]).sum()
+        bad = (~all_finite(loss, grads)).to(sq.device, torch.float32)
+        buf = torch.stack([sq, bad])
+        self.ring.all_reduce_([buf])
+        return bool(buf[1] == 0), torch.sqrt(buf[0])
+
+
+def _init_ranks(args, env: dict) -> Ranks:
+    """Join the process group of torchrun's world, build the rank grid and
+    this rank's ring.  No fallback: a missing card or backend raises."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_rank_grid
+    from repro_torch.runtime.ring import Ring
+    kind = args.ring or ("nccl" if args.device == "cuda" else "gloo")
+    if args.device == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda but no CUDA device is visible")
+        n = torch.cuda.device_count()
+        if kind == "nccl" and env["local_rank"] >= n:
+            raise RuntimeError(
+                f"local rank {env['local_rank']} has no card of its own "
+                f"({n} visible): NCCL refuses two ranks on one card; run "
+                "one rank a card, or --ring gloo for the one-card ring")
+        device = torch.device("cuda", env["local_rank"] % n)
+        torch.cuda.set_device(device)
+    else:
+        if kind == "nccl":
+            raise ValueError("--ring nccl needs --device cuda")
+        device = torch.device("cpu")
+    dist.init_process_group(
+        kind, rank=env["rank"], world_size=env["world"],
+        timeout=datetime.timedelta(seconds=RING_TIMEOUT_S))
+    grid = make_rank_grid(args.pp or args.devices)
+    ring = Ring(grid.model_group, grid.pipe_index, grid.pp, device,
+                staged=kind == "gloo" and device.type == "cuda")
+    return Ranks(grid, ring, device, kind)
+
+
 def _kind(args) -> str:
     if args.arch == "skipvit":
         return "skipvit"
@@ -335,6 +478,7 @@ class Trainer:
     device: Any
     plan: str
     compiled: Any = None            # CompiledPipeline (pipeline path)
+    ranks: Ranks | None = None      # one process per pipeline device
 
 
 def _device(args):
@@ -353,13 +497,16 @@ def _with_grads(params):
     return params, adamw_init(params)
 
 
-def build_trainer(args, compiled=None) -> Trainer:
+def build_trainer(args, compiled=None, ranks: Ranks | None = None
+                  ) -> Trainer:
     """The pipeline path's :class:`Trainer` for ``args``.  ``compiled``, a
     :class:`~repro_torch.runtime.compile.CompiledPipeline` of the same
     model (the tuner's plan from ``auto_pipeline(graph, fns, N)``), takes
     the place of the plan pinned by ``--devices``/``--pp``,
     ``--microbatches``, ``--interleave`` and ``--wire-dtype``: its M
-    splits the global batch."""
+    splits the global batch.  With ``ranks`` the trainer is that rank's:
+    its params are the rank's rows and the edge params, and its loss fills
+    the gradients itself."""
     import torch
 
     from repro_torch.core.hw import H100_SXM
@@ -371,7 +518,7 @@ def build_trainer(args, compiled=None) -> Trainer:
                                               model_fns)
     from repro_torch.runtime.compile import auto_pipeline
 
-    device = _device(args)
+    device = ranks.device if ranks is not None else _device(args)
     cfg = _model_config(args)
     M = (args.microbatches if compiled is None
          else compiled.pcfg.num_microbatches)
@@ -389,11 +536,13 @@ def build_trainer(args, compiled=None) -> Trainer:
                                  hw=H100_SXM, pipeline_devices=P,
                                  microbatches=M, interleave=args.interleave,
                                  wire_dtype=args.wire_dtype)
+    if ranks is not None:
+        compiled = compiled.for_rank(ranks.ring.index)
     gen = torch.Generator(device=device).manual_seed(0)
     with torch.no_grad():
         params = compiled.init_pipeline_params(gen, device)
     params, opt_state = _with_grads(params)
-    fn = compiled.build()
+    fn = compiled.build(ranks.ring if ranks is not None else None)
 
     def loss(params, batch, t, noise):
         # Hunyuan's temb comes from the current edge params (time_mlp)
@@ -406,10 +555,13 @@ def build_trainer(args, compiled=None) -> Trainer:
             if kind == "hunyuan" else {})
     ds = SyntheticLatentDataset(img_size=cfg.img_size, channels=cfg.in_ch,
                                 n_classes=10, **text)
+    plan = compiled.describe()
+    if ranks is not None:
+        plan += "\n  " + ranks.describe()
     return Trainer(params, opt_state, loss,
                    lambda p: compiled.merge_params(*p), compiled.split_params,
                    ShardedLoader(ds, global_batch=args.global_batch), device,
-                   compiled.describe(), compiled)
+                   plan, compiled, ranks)
 
 
 def build_smoke_trainer(args) -> Trainer:
@@ -515,8 +667,165 @@ def _resume(args, compiled, state: dict, device) -> tuple[Any, dict]:
                                  if cuda else None)}
 
 
+FINGERPRINT_PROBES = 8
+
+
+def grad_fingerprints(grads, *, rank: int | None = None,
+                      probes: int = FINGERPRINT_PROBES) -> dict:
+    """``key -> [norm, dot_1, ..., dot_probes]`` for each leaf of a
+    pipeline gradient tree ``(stage stacks, edge)``: every stage leaf per
+    pipeline device (``stack[d]`` of a one-process tree, or a rank's own
+    rows with ``rank=d``), keyed ``stage<i>/<path>@<d>``, and every edge
+    leaf whole (``edge/<path>``).  The dots are with standard normal
+    tensors drawn on the gradient's device from a seed of the key, row by
+    row, so a rank's leaves and the one-process tree's slices of them
+    fingerprint alike; ``sqrt(mean((dot_a - dot_b)^2))`` estimates
+    ``||g_a - g_b||``."""
+    import zlib
+
+    import torch
+
+    from repro_torch.tree import tree_paths
+    stacks, edge = grads
+
+    def fp(key, rows):
+        g = torch.Generator(device=rows.device).manual_seed(
+            zlib.crc32(key.encode()))
+        dots = torch.zeros(probes, dtype=torch.float64, device=rows.device)
+        for r in rows:
+            z = torch.randn((probes, r.numel()), generator=g,
+                            dtype=torch.float32, device=rows.device)
+            dots += torch.mv(z, r.reshape(-1).float()).double()
+            del z
+        norm = torch.linalg.vector_norm(rows, dtype=torch.float32)
+        return [float(norm)] + dots.tolist()
+
+    out = {}
+    for i, st in enumerate(stacks):
+        for path, x in tree_paths(st):
+            per = ([(rank, x)] if rank is not None
+                   else list(enumerate(x.unbind(0))))
+            for d, xd in per:
+                key = f"stage{i}/{path}@{d}"
+                out[key] = fp(key, xd.reshape(-1, *xd.shape[2:]))
+    for path, x in tree_paths(edge):
+        key = f"edge/{path}"
+        out[key] = fp(key, x.reshape(1, *x.shape))
+    return out
+
+
+def _step_inputs(tr: Trainer, step: int, draw) -> tuple:
+    """Step ``step``'s batch on the trainer's device and its DDPM draws."""
+    import torch
+
+    from repro_torch.models.diffusion import ddpm_draw
+    batch = {k: torch.as_tensor(v, device=tr.device)
+             for k, v in tr.loader.get(step).items()}
+    if draw is None:
+        t, noise = ddpm_draw(batch["latents"], step)
+    else:
+        t, noise = (torch.as_tensor(x, device=tr.device) for x in draw(step))
+    return batch, t, noise
+
+
+def _timed_walk(tr: Trainer, walk: Callable) -> dict:
+    """One rank walk (``walk()`` returns its reduced loss): its loss,
+    seconds (device synchronized), ring bytes, kernel launches and peak
+    device memory."""
+    import copy
+
+    import torch
+
+    from repro_torch.kernels import launch_counts
+    ring, cuda = tr.ranks.ring, tr.device.type == "cuda"
+    ring.reset_bytes()
+    before = launch_counts()
+    if cuda:
+        torch.cuda.synchronize(tr.device)
+        torch.cuda.reset_peak_memory_stats(tr.device)
+    t0 = time.perf_counter()
+    loss = walk()
+    if cuda:
+        torch.cuda.synchronize(tr.device)
+    secs = time.perf_counter() - t0
+    after = launch_counts()
+    return dict(loss=float(loss), seconds=secs,
+                ring_bytes=copy.deepcopy(ring.bytes),
+                launches={k: v - before.get(k, 0) for k, v in after.items()},
+                peak_bytes=(torch.cuda.max_memory_allocated(tr.device)
+                            if cuda else None))
+
+
+def _rank_probe(tr: Trainer, params, draw) -> dict:
+    """Step 0's forward+backward on this rank without an update, and the
+    fingerprints of its gradient (:func:`grad_fingerprints`)."""
+    import torch
+
+    from repro_torch.tree import tree_leaves, tree_map
+    # nothing reset the peak since the process began: it is the set-up's,
+    # the whole model drawn on the card before the rank kept its rows
+    init_peak = (torch.cuda.max_memory_allocated(tr.device)
+                 if tr.device.type == "cuda" else None)
+    batch, t, noise = _step_inputs(tr, 0, draw)
+    rec = _timed_walk(tr, lambda: tr.loss(params, batch, t, noise))
+    rec["init_peak_bytes"] = init_peak
+    grads = tree_map(lambda p: p.grad if p.grad is not None
+                     else torch.zeros_like(p), params)
+    rec["fingerprints"] = grad_fingerprints(grads, rank=tr.ranks.ring.index)
+    for p in tree_leaves(params):
+        p.grad = None
+    return rec
+
+
+def _rank_report(args, tr: Trainer, res: TrainResult, probe: dict,
+                 draw) -> str:
+    """After training: one forward+backward of the paper's skip-carry
+    baseline on this rank from the initial (seed-0) params and step 0's
+    batch (UViT and Hunyuan-DiT), then ``--rank-report``'s file for this
+    rank.  Returns its path."""
+    import torch
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.runtime.adapters import (DiffusionPipelineAdapter,
+                                              make_diffusion_microbatches,
+                                              model_fns)
+    from repro_torch.tree import tree_leaves
+    ranks, device, kind = tr.ranks, tr.device, _kind(args)
+    base = None
+    if kind != "skipvit":
+        cfg, pcfg = _model_config(args), tr.compiled.pcfg
+        ad = DiffusionPipelineAdapter(cfg, pcfg, kind)
+        gen = torch.Generator(device=device).manual_seed(0)
+        with torch.no_grad():
+            (enc, dec), edge = ad.split_params_skip_carry(
+                model_fns(cfg, kind).init_fn(gen, device), ranks.ring.index)
+        for x in tree_leaves(((enc, dec), edge)):
+            x.requires_grad_(True)
+        fn = ad.build_skip_carry_baseline(ranks.ring)
+        batch, t, noise = _step_inputs(tr, 0, draw)
+        mb, aux = make_diffusion_microbatches(
+            batch, pcfg.num_microbatches, cfg, kind, t=t, noise=noise,
+            params=edge)
+        base = _timed_walk(tr, lambda: fn(enc, dec, edge, mb, aux))
+        del enc, dec, edge, mb, aux
+    doc = dict(rank=ranks.grid.rank, world=ranks.grid.world, ring=ranks.kind,
+               staged=ranks.ring.staged, device=str(device), probe=probe,
+               train=dict(losses={str(k): v for k, v in res.losses.items()},
+                          step_seconds={str(k): v for k, v in
+                                        res.step_seconds.items()},
+                          peak_bytes=res.peak_bytes,
+                          skipped_steps=res.skipped_steps),
+               baseline=base, launches=launch_counts())
+    os.makedirs(args.rank_report, exist_ok=True)
+    path = os.path.join(args.rank_report, f"rank{ranks.grid.rank}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(doc, f)
+    os.replace(path + ".tmp", path)
+    return path
+
+
 def run(args, on_restore=None, init_params=None, draw=None,
-        compiled=None) -> TrainResult:
+        compiled=None, on_grads=None) -> TrainResult:
     """Train ``args.steps`` steps (from the restored step with
     ``--resume``).  ``on_restore(state, info)``, when given, is called once
     a resume has restored ``{"params", "opt"}`` in place, before the first
@@ -528,9 +837,16 @@ def run(args, on_restore=None, init_params=None, draw=None,
     of the per-step generator's.  With both, another trainer's params and
     draws (the JAX trainer's ``fold_in(PRNGKey(0), step)``) go through this
     one.  ``compiled`` trains the pipeline path on a given plan
-    (:func:`build_trainer`).
+    (:func:`build_trainer`).  ``on_grads(step, grads)``, when given, sees
+    each step's gradient tree before the update.
+
+    Under torchrun's environment (:func:`rank_env`) the pipeline path runs
+    as one rank of the world (see the module docstring).
     """
     _refuse_unported(args)
+    env = rank_env() if args.pipeline else None
+    if env is not None:
+        _refuse_rank_options(args, env)
     if compiled is not None and not args.pipeline:
         raise ValueError("a compiled pipeline plan needs --pipeline")
     from repro_torch.runtime.resilience import (EXIT_ESCALATE, FaultPlan,
@@ -546,7 +862,7 @@ def run(args, on_restore=None, init_params=None, draw=None,
     faults = faults.for_host(args.host_id, args.num_hosts)
 
     def beat(step, phase, loss=None, gnorm=None, step_s=None):
-        if args.heartbeat_dir:
+        if args.heartbeat_dir and (env is None or env["rank"] == 0):
             write_heartbeat(args.heartbeat_dir, Heartbeat(
                 args.host_id, step, phase, loss=loss, grad_norm=gnorm,
                 step_s=step_s, gen=args.gen))
@@ -561,7 +877,10 @@ def run(args, on_restore=None, init_params=None, draw=None,
                                    cosine_schedule, global_norm)
     from repro_torch.tree import tree_leaves, tree_map
 
-    tr = (build_trainer(args, compiled) if args.pipeline
+    ranks = _init_ranks(args, env) if env is not None else None
+    # rank 0 speaks for a run over ranks
+    say = print if ranks is None or ranks.leader else (lambda *a, **k: None)
+    tr = (build_trainer(args, compiled, ranks) if args.pipeline
           else build_smoke_trainer(args))
     params, opt_state, compiled, device = (tr.params, tr.opt_state,
                                            tr.compiled, tr.device)
@@ -575,8 +894,9 @@ def run(args, on_restore=None, init_params=None, draw=None,
     cuda = device.type == "cuda"
     where = (f"cuda:{torch.cuda.current_device()} "
              f"({torch.cuda.get_device_name(device)})" if cuda else "cpu")
-    print(f"[train] device: {where}", flush=True)
-    print("[train] " + plan.replace("\n", "\n[train] "), flush=True)
+    print(f"[train] device: {where}"
+          + (f" (rank {ranks.grid.rank})" if ranks else ""), flush=True)
+    say("[train] " + plan.replace("\n", "\n[train] "), flush=True)
     opt_cfg = AdamWConfig(lr=args.lr)
     mgr = CheckpointManager(
         args.ckpt_dir, keep=args.keep, host_id=args.host_id,
@@ -609,6 +929,9 @@ def run(args, on_restore=None, init_params=None, draw=None,
                   + f" in {restore['total_s']:.2f} s", flush=True)
             if on_restore is not None:
                 on_restore(state, resumed)
+    probe = None
+    if ranks is not None and args.rank_report:
+        probe = _rank_probe(tr, params, draw)
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -617,21 +940,30 @@ def run(args, on_restore=None, init_params=None, draw=None,
     step_s: dict[int, float] = {}
     beat_t: dict[int, float] = {}
     prof = None
+    out_json = args.out_json
+    if ranks is not None and out_json:
+        if "{rank}" not in out_json:
+            raise ValueError("--out-json over ranks needs a {rank} field: "
+                             "each rank writes its own")
+        out_json = out_json.format(rank=ranks.grid.rank)
 
     def finish(loss) -> TrainResult:
         beat(args.steps, "done")
         peak = torch.cuda.max_memory_allocated(device) if cuda else None
         final = None if loss is None else float(loss.detach())
-        with torch.no_grad():
-            logical = tree_map(lambda x: x.detach().cpu(), tr.logical(params))
+        logical = None
+        if ranks is None:          # a rank holds only its own stage rows
+            with torch.no_grad():
+                logical = tree_map(lambda x: x.detach().cpu(),
+                                   tr.logical(params))
         res = TrainResult(
             final_loss=final, losses=losses, step_seconds=step_s, plan=plan,
             start=start, resumed=resumed, skipped_steps=guard.skipped_total,
             peak_bytes=peak, compiled=compiled, params=params,
             opt_state=opt_state, logical_params=logical,
             saves=mgr.history if mgr else [], restore=restore)
-        if args.out_json:
-            with open(args.out_json, "w") as f:
+        if out_json:
+            with open(out_json, "w") as f:
                 json.dump({"final_loss": final,
                            "losses": {str(k): v for k, v in losses.items()},
                            "step_seconds": {str(k): v
@@ -647,7 +979,7 @@ def run(args, on_restore=None, init_params=None, draw=None,
         return res
 
     if start >= args.steps:
-        print(f"[train] nothing to do: resumed step {start} >= "
+        say(f"[train] nothing to do: resumed step {start} >= "
               f"--steps {args.steps}")
         return finish(None)
 
@@ -678,7 +1010,7 @@ def run(args, on_restore=None, init_params=None, draw=None,
     t0 = time.perf_counter()
     for step in range(start, args.steps):
         if faults.hang_before(step):
-            print(f"[train] fault plan: woke from hang at step {step}")
+            say(f"[train] fault plan: woke from hang at step {step}")
         if args.profile and step == start + 1:
             from torch.profiler import ProfilerActivity, profile
             # device kernels only on a card (host op events would slow
@@ -696,18 +1028,28 @@ def run(args, on_restore=None, init_params=None, draw=None,
         else:
             t, noise = (torch.as_tensor(x, device=device) for x in draw(step))
         loss = tr.loss(params, batch, t, noise)
-        loss.backward()
+        if ranks is None:
+            loss.backward()     # a rank's loss has filled its grads itself
         # a leaf the step never reads (the xattn wk/wv cross-attention
         # ignores, and on the pipeline path Hunyuan's time_mlp, whose temb
         # enters as data) has no grad: a zero gradient, as jax.grad gives it
         grads = tree_map(lambda p: p.grad if p.grad is not None
                          else torch.zeros_like(p), params)
-        finite = bool(all_finite(loss, grads))
-        gnorm = float(global_norm(grads)) if args.heartbeat_dir else None
+        if on_grads is not None:
+            on_grads(step, grads)
+        norm = None
+        if ranks is None:
+            finite = bool(all_finite(loss, grads))
+            gnorm = float(global_norm(grads)) if args.heartbeat_dir else None
+        else:
+            # the ranks must agree on skipping and clipping, or their
+            # params part
+            finite, norm = ranks.reduce(loss, grads)
+            gnorm = float(norm)
         lr = cosine_schedule(step, base_lr=args.lr, warmup=20,
                              total=args.steps)
         if finite:
-            adamw_update(params, grads, opt_state, opt_cfg, lr=lr)
+            adamw_update(params, grads, opt_state, opt_cfg, lr=lr, norm=norm)
         for p in tree_leaves(params):
             p.grad = None
         del grads
@@ -718,7 +1060,7 @@ def run(args, on_restore=None, init_params=None, draw=None,
             guard.observe(finite, step)     # skipped above when not finite
         except GradGuardEscalation as e:
             if args.escalation == "rollback":
-                print(f"[train] {e}; requesting supervisor rollback",
+                say(f"[train] {e}; requesting supervisor rollback",
                       flush=True)
                 if mgr:
                     mgr.wait()
@@ -733,13 +1075,13 @@ def run(args, on_restore=None, init_params=None, draw=None,
         beat_t[step] = time.time()
         beat(step, "train", loss=losses[step], gnorm=gnorm,
              step_s=step_s[step])
-        if args.out_json:
+        if out_json:
             # an atomic per-step dump: a killed run still leaves its losses
-            _dump_losses(args.out_json, losses, start, step_s, beat_t)
+            _dump_losses(out_json, losses, start, step_s, beat_t)
         if step % args.log_every == 0 or step == args.steps - 1:
             sps = ((step - start + 1) * args.global_batch
                    / (time.perf_counter() - t0))
-            print(f"[train] step {step:5d} loss {losses[step]:.4f} "
+            say(f"[train] step {step:5d} loss {losses[step]:.4f} "
                   f"lr {lr:.2e} step {step_s[step]:.3f}s "
                   f"({sps:.2f} samples/s)", flush=True)
         if mgr and (step + 1) % args.ckpt_every == 0:
@@ -747,7 +1089,7 @@ def run(args, on_restore=None, init_params=None, draw=None,
             last_save = step + 1
         if faults.post_step(step + 1, ckpt_dir=args.ckpt_dir,
                             flush=mgr.wait if mgr else None) == "stop":
-            print(f"[train] fault plan: abrupt stop after step {step} "
+            say(f"[train] fault plan: abrupt stop after step {step} "
                   "(no final save)", flush=True)
             stopped = True
             break
@@ -762,8 +1104,17 @@ def run(args, on_restore=None, init_params=None, draw=None,
             save_at(args.steps)
         mgr.wait()
     res = finish(loss)
+    if ranks is not None and args.rank_report:
+        # the baseline draws the whole model again: the optimizer state
+        # goes first
+        res.opt_state = tr.opt_state = None
+        del opt_state
+        _rank_report(args, tr, res, probe, draw)
+    if ranks is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     if not stopped:
-        print(f"[train] done: final loss {res.final_loss:.4f}"
+        say(f"[train] done: final loss {res.final_loss:.4f}"
               + (f", peak device memory {res.peak_bytes / 1e9:.2f} GB"
                  if cuda else ""), flush=True)
     return res

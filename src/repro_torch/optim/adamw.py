@@ -71,10 +71,14 @@ def adamw_init(params: Pytree) -> Pytree:
 
 @torch.no_grad()
 def adamw_update(params: Pytree, grads: Pytree, state: Pytree,
-                 cfg: AdamWConfig, lr: float | None = None
+                 cfg: AdamWConfig, lr: float | None = None,
+                 norm: torch.Tensor | None = None
                  ) -> tuple[Pytree, Pytree]:
     """One AdamW step, in place (see the module docstring): returns
-    ``(params, state)``, the same tensors updated."""
+    ``(params, state)``, the same tensors updated.  ``norm`` is the
+    gradient's global norm when ``grads`` holds only part of it (a rank's
+    leaves; the norm then comes summed over the group), else it is
+    computed here."""
     state["step"] += 1
     step = int(state["step"])
     lr = cfg.lr if lr is None else lr
@@ -82,8 +86,8 @@ def adamw_update(params: Pytree, grads: Pytree, state: Pytree,
     b2c = 1 - cfg.b2 ** step
     scale = None
     if cfg.clip_norm:
-        scale = torch.clamp(cfg.clip_norm / (global_norm(grads) + 1e-9),
-                            max=1.0)
+        gn = global_norm(grads) if norm is None else norm
+        scale = torch.clamp(cfg.clip_norm / (gn + 1e-9), max=1.0)
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state["m"]), tree_leaves(state["v"])):
         if scale is not None:

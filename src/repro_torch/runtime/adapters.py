@@ -145,9 +145,10 @@ class DiffusionPipelineAdapter:
             enc_stage_fn=self.enc_stage_fn, dec_stage_fn=self.dec_stage_fn,
             loss_fn=self.loss_fn)
 
-    def build_skip_carry_baseline(self) -> Callable:
+    def build_skip_carry_baseline(self, ring=None) -> Callable:
         """Paper-baseline executor: sequential partition + skip payload,
-        on :meth:`split_params_skip_carry`' stacks."""
+        on :meth:`split_params_skip_carry`' stacks; with ``ring``, rank
+        ``ring.index``'s executor on its rows (``rank=`` there)."""
         D = self.pcfg.num_devices
         half = self.cfg.half
         assert half % (D // 2) == 0
@@ -156,20 +157,29 @@ class DiffusionPipelineAdapter:
             self.pcfg, n_skip_slots=half,
             embed_fn=self.embed_fn,
             enc_stage_fn=self.enc_stage_fn, dec_stage_fn=self.dec_stage_fn,
-            loss_fn=self.loss_fn, skips_per_stage=k)
+            loss_fn=self.loss_fn, skips_per_stage=k, ring=ring)
 
-    def split_params_skip_carry(self, params: Pytree) -> tuple:
+    def split_params_skip_carry(self, params: Pytree,
+                                rank: int | None = None) -> tuple:
         """Sequential layout for the baseline: devices 0..D/2-1 hold enc
-        stages, D/2..D-1 hold dec stages; stacks are padded to D rows."""
+        stages, D/2..D-1 hold dec stages; stacks are padded to D rows.
+        ``rank``: that device's rows alone (``[rows, ...]``, copies)."""
         D = self.pcfg.num_devices
         enc = _regroup(params["enc_blocks"], D // 2)
         dec = _regroup(params["dec_blocks"], D // 2)
+        edge = {k: v for k, v in params.items()
+                if k not in ("enc_blocks", "dec_blocks")}
+        if rank is not None:
+            def own(x, lo):
+                i = rank - lo
+                return (x[i].clone() if 0 <= i < D // 2
+                        else torch.zeros_like(x[0]))
+            return (tree_map(lambda x: own(x, 0), enc),
+                    tree_map(lambda x: own(x, D // 2), dec)), edge
         enc_padded = tree_map(
             lambda x: torch.cat([x, torch.zeros_like(x)], 0), enc)
         dec_padded = tree_map(
             lambda x: torch.cat([torch.zeros_like(x), x], 0), dec)
-        edge = {k: v for k, v in params.items()
-                if k not in ("enc_blocks", "dec_blocks")}
         return (enc_padded, dec_padded), edge
 
 

@@ -281,18 +281,26 @@ class StageLayout:
 
         return tree_map(f, stacked)
 
-    def split(self, stacks: tuple) -> tuple:
+    def split(self, stacks: tuple, device: int | None = None) -> tuple:
         """Model block stacks -> per-(device, slot) padded stage stacks.
 
         ``stacks`` is ``(blocks,)`` for a homogeneous stack (SkipViT: cut
         at the partition's turnaround, wherever it lands) or
         ``(enc_blocks, dec_blocks)`` (UViT, Hunyuan-DiT); a linear
-        partition takes one stack."""
+        partition takes one stack.  ``device`` builds that device's
+        ``[V, pad, ...]`` rows alone (a copy of its blocks only)."""
         part = self.partition
+
+        def stack(blocks, ranges, pad):
+            if device is None:
+                return self._stack(blocks, ranges, pad)
+            return tree_map(lambda x: x[0],
+                            self._stack(blocks, [ranges[device]], pad))
+
         if not part.folded:
             if len(stacks) != 1:
                 raise ValueError("linear pipeline needs one block stack")
-            return (self._stack(stacks[0], self.enc_ranges(), self.enc_pad),)
+            return (stack(stacks[0], self.enc_ranges(), self.enc_pad),)
         mid = part.cuts[part.num_stages // 2]
         if len(stacks) == 1:
             enc_b = tree_map(lambda x: x[:mid], stacks[0])
@@ -305,8 +313,8 @@ class StageLayout:
                     f"partition turnaround cut at block {mid} but the "
                     f"model's encoder stack has {enc_rows} rows; two-stack "
                     "models need the mid cut on the stack boundary")
-        return (self._stack(enc_b, self.enc_ranges(), self.enc_pad),
-                self._stack(dec_b, self.dec_ranges(), self.dec_pad))
+        return (stack(enc_b, self.enc_ranges(), self.enc_pad),
+                stack(dec_b, self.dec_ranges(), self.dec_pad))
 
     def merge(self, stage_stacks: tuple, n_model_stacks: int) -> tuple:
         """Inverse of :meth:`split` (also correct for gradients)."""
@@ -336,23 +344,43 @@ class CompiledPipeline:
     model_fns: PipelineModelFns
     choice: TunerChoice | None = None      # set when the tuner drove the plan
     executor: str = "table"                # "table" | "closed_form"
+    rank: int | None = None                # one pipeline device's view
 
     @property
     def folded(self) -> bool:
         return self.partition.folded
 
+    def for_rank(self, rank: int) -> "CompiledPipeline":
+        """The plan as pipeline device ``rank`` of a multi-process run
+        sees it: :meth:`split_params` and :meth:`init_pipeline_params`
+        give that device's stage rows (``[V, pad, ...]``) and the edge
+        params, :meth:`build` needs the rank's ``ring``, and
+        :meth:`merge_params`, which needs every rank's rows, raises."""
+        if not 0 <= rank < self.partition.num_devices:
+            raise ValueError(f"rank {rank} outside the "
+                             f"{self.partition.num_devices}-device plan")
+        return dataclasses.replace(self, rank=rank)
+
     # ---- parameter plumbing ----------------------------------------------
     def split_params(self, params: Pytree) -> tuple:
         stacks, edge = self.model_fns.split_blocks(params)
-        return self.layout.split(tuple(stacks)), edge
+        return self.layout.split(tuple(stacks), self.rank), edge
 
     def merge_params(self, stage_stacks: tuple, edge: Pytree) -> Pytree:
+        if self.rank is not None:
+            raise NotImplementedError(
+                "merge_params needs every rank's stage rows; a rank holds "
+                "only its own")
         return self.model_fns.merge_blocks(
             self.layout.merge(tuple(stage_stacks),
                               self.model_fns.num_param_stacks), edge)
 
     def init_pipeline_params(self, gen: torch.Generator,
                              device="cuda") -> tuple:
+        """The params of the seed ``gen`` draws, split as this plan (or
+        rank) lays them out.  A rank draws the whole model -- the same
+        values the one-process path draws -- and keeps its own rows: the
+        whole model is on ``device`` until this returns."""
         return self.split_params(self.model_fns.init_fn(gen, device))
 
     # ---- lowering artefacts ----------------------------------------------
@@ -398,7 +426,7 @@ class CompiledPipeline:
         return certify_plan(self, name=name)
 
     # ---- executor ----------------------------------------------------------
-    def build(self) -> Callable:
+    def build(self, ring=None) -> Callable:
         """Lower to an executor.
 
         ``executor="table"`` (default) walks the *validated schedule
@@ -411,11 +439,30 @@ class CompiledPipeline:
 
         Folded: ``fn(enc_stack, dec_stack, edge, mbs, aux) -> loss``.
         Linear: ``fn(stack, edge, mbs) -> loss``.
+
+        A rank's plan (:meth:`for_rank`) lowers the table executors to
+        that rank's executor over ``ring``
+        (:class:`~repro_torch.runtime.ring.Ring`): its stacks are its own
+        rows, it returns the loss summed over the group with every leaf's
+        ``.grad`` filled (no ``loss.backward()``).  The closed forms stay
+        one-process.
         """
         if self.executor not in ("table", "closed_form"):
             raise ValueError(
                 f"unknown executor {self.executor!r}; expected 'table' or "
                 "'closed_form'")
+        if (ring is None) != (self.rank is None):
+            raise ValueError(
+                "a rank's plan (for_rank) builds with its ring, and only "
+                f"it: rank={self.rank}, ring={ring}")
+        if ring is not None:
+            if self.executor != "table":
+                raise NotImplementedError(
+                    "the closed-form executors over ranks are not ported "
+                    "(ROADMAP A1); lower through executor='table'")
+            if ring.index != self.rank:
+                raise ValueError(f"ring index {ring.index} for rank "
+                                 f"{self.rank}'s plan")
         fns, pcfg, layout = self.model_fns, self.pcfg, self.layout
         if self.executor == "closed_form" and layout.V > 1:
             raise ValueError(
@@ -454,7 +501,7 @@ class CompiledPipeline:
                     pcfg, self.schedule, embed_fn=fns.embed_fn,
                     enc_stage_fn=enc_stage_fn, dec_stage_fn=dec_stage_fn,
                     loss_fn=fns.loss_fn, devices=self.partition.devices,
-                    skip_consumers=layout.skip_consumers())
+                    skip_consumers=layout.skip_consumers(), ring=ring)
 
             def enc_stage_cf(rows, x, aux, d):
                 return scan_blocks_emit(enc_block, rows, x,
@@ -482,7 +529,7 @@ class CompiledPipeline:
 
             return make_linear_pipeline_from_schedule(
                 pcfg, self.schedule, embed_fn=embed, stage_fn=stage_fn,
-                loss_fn=loss, devices=self.partition.devices)
+                loss_fn=loss, devices=self.partition.devices, ring=ring)
 
         def stage_cf(rows, x, d):
             return scan_blocks(fns.block_fn, rows, x, layout.enc_counts[d][0],
@@ -510,8 +557,10 @@ class CompiledPipeline:
              f"  layout: stage counts={self.layout.enc_counts}"),
             f"  schedule: makespan={sched.makespan} slots, "
             f"bubble={sched.bubble_ratio():.2f}",
-            f"  executor: {self.executor} (one process, devices share one "
-            "card)",
+            (f"  executor: {self.executor} (one process, devices share one "
+             "card)" if self.rank is None else
+             f"  executor: {self.executor}, rank {self.rank} of "
+             f"{part.num_devices} (one process per pipeline device)"),
         ]
         if self.executor == "table":
             tabs = self.step_tables()

@@ -8,13 +8,15 @@ row and mask rows ``>= count`` out with ``where``; here the device, slot
 and count are host integers, so the loops simply stop at ``count``:
 padded rows never run and get zero gradients.
 
-All D pipeline devices live in one process here, so a device's payloads
-are entries of per-device lists and a ring hop (:func:`hop`) moves them
-between the lists.  :func:`hop` adds the bytes of every payload it moves
-to :data:`HOP_BYTES` -- the one-process counterpart of the JAX package's
-collective-permute bytes read from the compiled HLO
+In the one-process executors all D pipeline devices live in one process,
+so a device's payloads are entries of per-device lists and a ring hop
+(:func:`hop`) moves them between the lists.  :func:`hop` adds the bytes of
+every payload it moves to :data:`HOP_BYTES` -- the one-process counterpart
+of the JAX package's collective-permute bytes read from the compiled HLO
 (``runtime/hlo_analysis.collective_bytes``).  It counts the forward walk
-only; on a real ring the backward moves the same bytes in reverse.
+only; on a real ring the backward moves the same bytes in reverse.  The
+rank executors (``ring=`` on the makers; ``runtime/ring.py``) run one
+device per process and send only the live payloads over a process group.
 
 The closed-form executors realize the wave / 1F1B template orders through
 index arithmetic (``my_mb = t - d``, ``skip_row = t2 - (D-1) + 2d``), the
@@ -46,6 +48,8 @@ from typing import Any, Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.runtime.ring import (DOWN, StepPlan, rank_walk,
+                                      reduce_edge_grads, reduce_loss)
 from repro_torch.tree import tree_index, tree_leaves, tree_map
 
 Pytree = Any
@@ -153,6 +157,38 @@ def unbind_rows(stack: Pytree, levels: int = 3) -> list:
     return build(())
 
 
+def rank_rows(stack: Pytree, levels: int) -> tuple[list, Callable]:
+    """A rank's stage stack (``levels`` leading axes) -> ``(rows,
+    finish)``: nested lists of row param trees whose leaves are fresh
+    autograd leaves sharing the stack's storage, and ``finish()``, which
+    adds the rows' gradients, stacked (zeros for rows no step ran), to the
+    stack leaves' ``.grad``.  A rank walk back-propagates one step at a
+    time; rows of their own keep each step's backward from building a
+    gradient the size of the whole stack."""
+    rows = unbind_rows(tree_map(lambda x: x.detach(), stack), levels)
+
+    def fresh(nested, depth):
+        if depth == levels:
+            return tree_map(lambda x: x.detach().requires_grad_(), nested)
+        return [fresh(n, depth + 1) for n in nested]
+
+    rows = fresh(rows, 0)
+
+    def grads(nested, depth, i):
+        if depth == levels:
+            leaf = tree_leaves(nested)[i]
+            return leaf.grad if leaf.grad is not None else torch.zeros_like(
+                leaf)
+        return torch.stack([grads(n, depth + 1, i) for n in nested])
+
+    def finish() -> None:
+        for i, x in enumerate(tree_leaves(stack)):
+            g = grads(rows, 0, i)
+            x.grad = g if x.grad is None else x.grad + g
+
+    return rows, finish
+
+
 def _wrap_remat(fn: Callable, cfg: "PipelineConfig") -> Callable:
     """Recompute ``fn`` in the backward pass instead of keeping its
     activations (``jax.checkpoint`` in the JAX package)."""
@@ -214,6 +250,11 @@ class PipelineConfig:
     remat: bool = True          # recompute each stage call in backward
     wire_dtype: str = "bfloat16"      # table executors' boundary-hop dtype
     #   (WIRE_DTYPES); the closed forms ignore it
+    overlap: bool = True        # rank executors: post step t-1's hops at
+    #   the top of step t and wait on an arrival only where a step reads it
+    #   (the tables' exposed hops); False = the synchronous reference, hops
+    #   posted and waited at the bottom of the producing step.  Values are
+    #   bitwise equal either way; the one-process walks ignore it
 
 
 def _zero_activation(embed_fn: Callable, *args) -> torch.Tensor:
@@ -367,6 +408,7 @@ def make_skip_carry_pipeline(
     dec_stage_fn: Callable,   # (rows, x, skips, aux, device) -> x
     loss_fn: Callable,
     skips_per_stage: int,
+    ring=None,                # runtime.ring.Ring: this rank's executor
 ) -> Callable:
     """Sequential block-wise partition of a skip model over D devices:
     the first D/2 devices run encoder stages, the last D/2 decoder stages,
@@ -378,12 +420,41 @@ def make_skip_carry_pipeline(
 
     ``fn(enc_stack, dec_stack, edge_p, mbs, aux) -> loss``; both stacks
     are padded to D rows (enc rows valid on devices < D/2, dec rows on
-    the rest).
+    the rest).  With ``ring`` it is rank ``ring.index``'s executor: the
+    stacks are that device's rows (``[rows, ...]``), the whole payload
+    crosses the ring where ``m = t - d`` is a microbatch, the backward is
+    the rank walk of ``runtime.ring`` (the loss comes back summed over the
+    group and the leaves' ``.grad`` filled).
     """
     D, M = cfg.num_devices, cfg.num_microbatches
     assert D % 2 == 0, "skip-carry baseline assumes half enc / half dec"
     T = M + D - 1
     k = skips_per_stage
+
+    def body(enc_stage, dec_stage, d, m, enc_rows_d, dec_rows_d, edge_p,
+             mbs, aux, x_in, stack, dtype):
+        """Device d's tick on microbatch m: ``(x_out, stack_out, loss)``
+        (``x_in`` None on device 0, which embeds)."""
+        a = tree_index(aux, m)
+        if d == 0:
+            x_in = embed_fn(edge_p, tree_index(mbs, m), a)
+        if d < D // 2:
+            # encoder: push k skips at rows d*k ..
+            x_out, skips = enc_stage(enc_rows_d, x_in, a, d)
+            stack = list(stack)
+            stack[d * k:(d + 1) * k] = [s.to(dtype) for s in skips]
+        else:
+            # decoder: read this stage's k skips (dec_stage_fn reverses
+            # them); the stack rides on unchanged
+            row = (D - 1 - d) * k
+            x_out = dec_stage(dec_rows_d, x_in, stack[row:row + k], a, d)
+        loss = (loss_fn(edge_p, x_out, tree_index(mbs, m), a)
+                if d == D - 1 else None)
+        return x_out, stack, loss
+
+    if ring is not None:
+        return _skip_carry_rank(cfg, ring, body, enc_stage_fn, dec_stage_fn,
+                                embed_fn, n_skip_slots)
     enc_stage = _wrap_remat(enc_stage_fn, cfg)
     dec_stage = _wrap_remat(dec_stage_fn, cfg)
 
@@ -401,31 +472,83 @@ def make_skip_carry_pipeline(
                 m = t - d
                 if not 0 <= m < M:
                     continue
-                a = tree_index(aux, m)
-                if d == 0:
-                    x_in = embed_fn(edge_p, tree_index(mbs, m), a)
-                    stack = zero_stack
-                else:
-                    x_in, stack = recv[d]
-                if d < D // 2:
-                    # encoder: push k skips at rows d*k ..
-                    x_out, skips = enc_stage(enc_rows[d], x_in, a, d)
-                    stack = list(stack)
-                    stack[d * k:(d + 1) * k] = [s.to(zero_x.dtype)
-                                                for s in skips]
-                else:
-                    # decoder: read this stage's k skips (dec_stage_fn
-                    # reverses them); the stack rides on unchanged
-                    row = (D - 1 - d) * k
-                    x_out = dec_stage(dec_rows[d], x_in,
-                                      stack[row:row + k], a, d)
+                x_in, stack = recv[d] if d else (None, zero_stack)
+                x_out, stack, loss = body(enc_stage, dec_stage, d, m,
+                                          enc_rows[d], dec_rows[d], edge_p,
+                                          mbs, aux, x_in, stack, zero_x.dtype)
                 out[d], live[d] = (x_out, stack), True
-                if d == D - 1:
-                    losses.append(loss_fn(edge_p, x_out, tree_index(mbs, m),
-                                          a))
+                if loss is not None:
+                    losses.append(loss)
             # the whole (activation, skip-stack) payload crosses the boundary
             recv, _ = hop(out, None, up_used=False, wrap=False,
                           down_live=live)
         return _mean_loss(losses, M)
+
+    return fn
+
+
+def _skip_carry_rank(cfg: PipelineConfig, ring, body: Callable,
+                     enc_stage: Callable, dec_stage: Callable,
+                     embed_fn: Callable, n_skip_slots: int) -> Callable:
+    """Rank ``ring.index`` of the skip-carry baseline (see
+    :func:`make_skip_carry_pipeline`); the stage functions run without
+    ``_wrap_remat``: the rank walk recomputes whole steps itself."""
+    D, M = cfg.num_devices, cfg.num_microbatches
+    d = ring.index
+    if ring.size != D:
+        raise ValueError(f"a {ring.size}-rank ring for a D={D} pipeline")
+    T = M + D - 1
+    n = 1 + n_skip_slots
+
+    def live(t: int) -> bool:
+        return 0 <= t - d < M
+
+    def fn(enc_stack, dec_stack, edge_p, mbs, aux):
+        enc_rows, enc_done = rank_rows(enc_stack, 1)
+        dec_rows, dec_done = rank_rows(dec_stack, 1)
+        zero_x = _zero_activation(embed_fn, edge_p, tree_index(mbs, 0),
+                                  tree_index(aux, 0))
+        zero_stack = [zero_x] * n_skip_slots
+        spec = (tuple(zero_x.shape), zero_x.dtype)
+        rx: dict = {}
+
+        def arrivals(t):
+            return [(DOWN, 0)] if d > 0 and t < T and live(t) else []
+
+        def sends(t):
+            return [DOWN] if d < D - 1 and live(t) else []
+
+        def plan(t):
+            if not live(t):
+                return None
+            m = t - d
+            ins = {}
+            if d > 0:
+                pend, t_arr = rx[(DOWN, 0)]
+                for j, x in enumerate(pend.wait()):
+                    ins[f"in/{j}"] = (x, ("rx", DOWN, t_arr, j))
+
+            def step(x):
+                x_in, stack = ((x["in/0"], [x[f"in/{j}"] for j in range(1, n)])
+                               if d else (None, zero_stack))
+                x_out, stack, loss = body(enc_stage, dec_stage, d, m,
+                                          enc_rows, dec_rows, edge_p, mbs,
+                                          aux, x_in, stack, zero_x.dtype)
+                out = ({f"send/{j}": y for j, y in enumerate([x_out, *stack])}
+                       if d < D - 1 else {})
+                if loss is not None:
+                    out["loss"] = loss
+                return out
+
+            return StepPlan(ins, step)
+
+        local = rank_walk(ring, T=T, M=M, remat=cfg.remat,
+                          overlap=cfg.overlap, specs={DOWN: [spec] * n},
+                          arrivals=arrivals, sends=sends, plan=plan, rx=rx)
+        enc_done()
+        dec_done()
+        reduce_edge_grads(ring, [x for x in tree_leaves(edge_p)
+                                 if x.requires_grad])
+        return reduce_loss(ring, local)
 
     return fn

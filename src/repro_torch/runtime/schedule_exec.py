@@ -13,19 +13,28 @@ at its top.
 
 :func:`make_wave_pipeline_from_schedule` (folded plans) and
 :func:`make_linear_pipeline_from_schedule` (skip-free linear plans) walk
-those tables step by step.  All D pipeline devices live in one process on
-one card here -- the counterpart of the JAX package running D
-host-simulated devices on one CPU -- so each device's rotating receive,
-turnaround and skip-stash buffers are Python lists of tensors sized by the
-proven windows, and a ring hop is a move between the devices' lists, kept
-behind the single :func:`~repro_torch.runtime.pipeline.hop` function (the
-multi-process executor swaps NCCL point-to-point sends in there and
-nothing else; it also counts the bytes each hop moves).  Boundary
-activations are cast to ``PipelineConfig.wire_dtype`` on send (the cast's
-backward rounds the cotangents the same way) and quiescent hops carry zero
-payloads.  The backward pass is PyTorch autograd over the whole walk, with
-each stage call recomputed under ``torch.utils.checkpoint`` when ``remat``
-is on.
+those tables step by step, one (device, step) at a time through a body
+both lowerings share:
+
+- one process (the default): all D pipeline devices live in one process
+  on one card -- the counterpart of the JAX package running D
+  host-simulated devices on one CPU -- so each device's rotating receive,
+  turnaround and skip-stash buffers are Python lists of tensors sized by
+  the proven windows, and a ring hop is a move between the devices' lists
+  (:func:`~repro_torch.runtime.pipeline.hop`, which also counts the bytes
+  each hop moves).  Quiescent hops carry zero payloads.  The backward
+  pass is PyTorch autograd over the whole walk, with each stage call
+  recomputed under ``torch.utils.checkpoint`` when ``remat`` is on.
+- one rank (``ring=``, a :class:`~repro_torch.runtime.ring.Ring`): the
+  process runs device ``ring.index`` alone, over its own rows.  Its
+  arrivals come over the ring -- only where the tables flag a send, which
+  :func:`check_ring_agreement` proves both ends read alike -- into the
+  same rotating slots, and the backward is the rank walk of
+  ``runtime.ring``: the same tables walked back, each arrival's cotangent
+  sent back to its sender.
+
+Boundary activations are cast to ``PipelineConfig.wire_dtype`` on send
+(the cast's backward rounds the cotangents the same way).
 """
 from __future__ import annotations
 
@@ -39,8 +48,11 @@ import torch
 from repro_torch.core.schedule import (Schedule, placement_bounds_error,
                                        slot_maps)
 from repro_torch.runtime.pipeline import (WIRE_DTYPES, PipelineConfig,
-                                          _wrap_remat, hop, unbind_rows)
-from repro_torch.tree import tree_index
+                                          _wrap_remat, hop, rank_rows,
+                                          unbind_rows)
+from repro_torch.runtime.ring import (DOWN, UP, StepPlan, rank_walk,
+                                      reduce_edge_grads, reduce_loss)
+from repro_torch.tree import tree_index, tree_leaves
 
 Pytree = Any
 
@@ -542,6 +554,35 @@ def _tables_cached(sched: Schedule, folded: bool,
                              skip_consumers)
 
 
+def check_ring_agreement(tables: StepTables) -> None:
+    """Prove that both ends of every ring hop read the tables alike: an
+    arrival stored at step t (``down_valid`` / ``up_valid``) has its
+    sender's flag (``down_send`` of device d-1, ``up_send`` of device d+1,
+    both rings closed) at step t-1, every flagged send is stored, and the
+    last step sends nothing.  A rank executor posts a receive only where
+    the tables store an arrival and a send only where they flag one, so a
+    mismatch here would hang the ring; raises :class:`PlanError`."""
+    D, T = tables.D, tables.num_steps
+    for name, valid, send, shift in (
+            ("down", tables.down_valid, tables.down_send, 1),
+            ("up", tables.up_valid, tables.up_send, -1)):
+        sent = np.zeros_like(valid)
+        sent[:, 1:] = np.roll(send, shift, axis=0)[:, :-1]
+        bad = np.argwhere(sent != valid)
+        if bad.size:
+            d, t = (int(x) for x in bad[0])
+            raise PlanError(
+                f"{name} ring: device {d} {'stores' if valid[d, t] else 'drops'}"
+                f" an arrival at step {t} but device {(d - shift) % D} "
+                f"{'does not send' if valid[d, t] else 'sends'} at step "
+                f"{t - 1}", check="send-recv-pairing", device=d, step=t)
+        if T and send[:, T - 1].any():
+            d = int(np.argmax(send[:, T - 1]))
+            raise PlanError(f"{name} ring: device {d} sends on the last "
+                            "step, which nobody receives",
+                            check="no-lost-message", device=d, step=T - 1)
+
+
 
 # ===========================================================================
 # Folded wave executor from tables
@@ -557,6 +598,53 @@ def _wire_dtype(cfg: PipelineConfig) -> torch.dtype:
     return getattr(torch, cfg.wire_dtype)
 
 
+def _wave_body(tab: dict, x_dtype, embed_fn, enc_stage: Callable,
+               dec_stage: Callable, loss_fn: Callable) -> Callable:
+    """Device d's step t of the folded walk, given what the tables say it
+    reads: ``body(d, t, enc_rows, dec_rows, edge_p, mbs, aux, x_rx,
+    x_turn, stash) -> (x_out, skips, loss)``.  ``enc_rows`` / ``dec_rows``
+    are the device's ``[V][pad]`` row trees, ``x_rx`` the arrival the step
+    reads (wire dtype) or None, ``x_turn`` the turn entry or None,
+    ``stash`` the device's stash entries per encoder slot (``[V]`` lists
+    of ``enc_pad`` skips, or None).  ``skips`` is None for a decoder slot
+    and ``loss`` None where the step emits none."""
+
+    def body(d, t, enc_rows, dec_rows, edge_p, mbs, aux, x_rx, x_turn,
+             stash):
+        vslot, m = tab["slot"][d][t], tab["mb"][d][t]
+        mb_m, aux_m = tree_index(mbs, m), tree_index(aux, m)
+        if tab["sel"][d][t] == RUN_ENC:
+            x_in = (embed_fn(edge_p, mb_m, aux_m) if tab["embed"][d][t]
+                    else x_rx.to(x_dtype))
+            x_out, skips = enc_stage(enc_rows[vslot], x_in, aux_m, d, vslot)
+        else:
+            x_in = x_turn if tab["turn_rd"][d][t] else x_rx.to(x_dtype)
+            # the stash slots holding this microbatch's V encoder-slot
+            # entries, as the flat [V * enc_pad] view consumers address
+            # via StageLayout.skip_rows
+            enc_pad = len(enc_rows[0])
+            skips_m = []
+            for entry in stash:
+                skips_m += entry if entry is not None else [None] * enc_pad
+            x_out = dec_stage(dec_rows[vslot], x_in, skips_m, aux_m, d,
+                              vslot)
+            skips = None
+        loss = (loss_fn(edge_p, x_out, mb_m, aux_m) if tab["loss"][d][t]
+                else None)
+        return x_out, skips, loss
+
+    return body
+
+
+def _stash_slots(tab: dict, V: int, skip_consumers, d: int, t: int
+                 ) -> list[tuple[int, int]]:
+    """(encoder slot, stash slot) of each entry decoder step (d, t) reads:
+    every encoder slot's, or only those its decoder slot consumes."""
+    evs = (range(V) if skip_consumers is None
+           else skip_consumers[d][tab["slot"][d][t]])
+    return [(ev, tab["skip_rd_slot"][d][t][ev]) for ev in evs]
+
+
 def make_wave_pipeline_from_schedule(
     cfg: PipelineConfig,
     sched: Schedule,
@@ -568,6 +656,7 @@ def make_wave_pipeline_from_schedule(
     device_of_stage=None,     # partition's explicit stage->device mapping
     devices=None,             # ...same, as a tuple (memoized lowering)
     skip_consumers=None,      # layout-derived (device, dec slot) -> enc slots
+    ring=None,                # runtime.ring.Ring: this rank's executor
 ) -> Callable:
     """Lower a folded S=2VD schedule to ``fn(enc_stack, dec_stack, edge_p,
     mbs, aux) -> loss`` with ``[D, V, pad, ...]`` stage stacks and
@@ -584,6 +673,11 @@ def make_wave_pipeline_from_schedule(
     Correct for any valid schedule, including ``M < D`` and interleaved
     V > 1 plans (the rings wrap).  The loss is the mean over microbatches
     of ``loss_fn`` where ``tables.loss`` says.
+
+    With ``ring`` the executor is rank ``ring.index``'s: the stacks are
+    that device's ``[V, pad, ...]`` rows, the loss comes back summed over
+    the group, and the call fills every leaf's ``.grad`` itself (the rank
+    walk of ``runtime.ring``; no ``loss.backward()``).
     """
     D, M = cfg.num_devices, cfg.num_microbatches
     if sched.M != M or sched.D != D:
@@ -597,25 +691,29 @@ def make_wave_pipeline_from_schedule(
                                       skip_consumers=skip_consumers)
     T, V = tables.num_steps, tables.V
     wire = _wire_dtype(cfg)
-    down_used = bool(tables.down_send.any())
-    up_used = bool(tables.up_send.any())
     W_down = max(tables.W_down, 1)
     W_up = max(tables.W_up, 1)
     W_turn = max(tables.W_turn, 1)
     W_skip = max(tables.W_skip, 1)
-    enc_stage = _wrap_remat(enc_stage_fn, cfg)
-    dec_stage = _wrap_remat(dec_stage_fn, cfg)
     tab = {f.name: getattr(tables, f.name) for f in dataclasses.fields(tables)
            if isinstance(getattr(tables, f.name), np.ndarray)}
     tab = {k: v.tolist() for k, v in tab.items()}   # host ints, fast lookups
+    if ring is not None:
+        check_ring_agreement(tables)
+        return _wave_rank(cfg, tables, tab, ring, wire, skip_consumers,
+                          embed_fn, enc_stage_fn, dec_stage_fn, loss_fn)
+    down_used = bool(tables.down_send.any())
+    up_used = bool(tables.up_send.any())
+    enc_stage = _wrap_remat(enc_stage_fn, cfg)
+    dec_stage = _wrap_remat(dec_stage_fn, cfg)
 
     def fn(enc_stack, dec_stack, edge_p, mbs, aux):
         enc_rows = unbind_rows(enc_stack)      # [D][V][enc_pad] row trees
         dec_rows = unbind_rows(dec_stack)      # [D][V][dec_pad]
-        enc_pad = len(enc_rows[0][0])
         with torch.no_grad():
             proto = embed_fn(edge_p, tree_index(mbs, 0), tree_index(aux, 0))
-        x_dtype = proto.dtype
+        body = _wave_body(tab, proto.dtype, embed_fn, enc_stage, dec_stage,
+                          loss_fn)
         zero_w = torch.zeros(proto.shape, dtype=wire, device=proto.device)
         del proto
 
@@ -625,7 +723,7 @@ def make_wave_pipeline_from_schedule(
         cache = [[None] * W_skip for _ in range(D)]    # skip stash entries
         losses = []
 
-        def body(d, t, down_in, up_in):
+        def step(d, t, down_in, up_in):
             if tab["down_valid"][d][t]:
                 enc_rx[d][tab["down_slot"][d][t]] = down_in
             if tab["up_valid"][d][t]:
@@ -633,36 +731,23 @@ def make_wave_pipeline_from_schedule(
             sel = tab["sel"][d][t]
             if sel == IDLE:
                 return zero_w, zero_w
-            vslot, m = tab["slot"][d][t], tab["mb"][d][t]
-            mb_m, aux_m = tree_index(mbs, m), tree_index(aux, m)
-            if sel == RUN_ENC:
-                if tab["embed"][d][t]:
-                    x_in = embed_fn(edge_p, mb_m, aux_m)
-                else:
-                    x_in = enc_rx[d][tab["rx_slot"][d][t]].to(x_dtype)
-                x_out, skips = enc_stage(enc_rows[d][vslot], x_in, aux_m,
-                                         d, vslot)
-                if tab["skip_wr"][d][t]:
-                    cache[d][tab["skip_wr_slot"][d][t]] = skips
-            else:
-                if tab["turn_rd"][d][t]:
-                    x_in = turn[d][tab["turn_rd_slot"][d][t]]
-                else:
-                    x_in = dec_rx[d][tab["rx_slot"][d][t]].to(x_dtype)
-                # the stash slots holding this microbatch's V encoder-slot
-                # entries, as the flat [V * enc_pad] view consumers address
-                # via StageLayout.skip_rows
-                skips_m = []
-                for ev in range(V):
-                    entry = cache[d][tab["skip_rd_slot"][d][t][ev]]
-                    skips_m += entry if entry is not None else [None] * enc_pad
-                x_out = dec_stage(dec_rows[d][vslot], x_in, skips_m, aux_m,
-                                  d, vslot)
+            rx = enc_rx if sel == RUN_ENC else dec_rx
+            stash = None
+            if sel == RUN_DEC:
+                stash = [None] * V
+                for ev, sl in _stash_slots(tab, V, skip_consumers, d, t):
+                    stash[ev] = cache[d][sl]
+            x_out, skips, loss = body(
+                d, t, enc_rows[d], dec_rows[d], edge_p, mbs, aux,
+                rx[d][tab["rx_slot"][d][t]],
+                turn[d][tab["turn_rd_slot"][d][t]], stash)
+            if tab["skip_wr"][d][t]:
+                cache[d][tab["skip_wr_slot"][d][t]] = skips
             # gated stores: only the turnaround slot's output is read back
             if tab["turn_wr"][d][t]:
                 turn[d][tab["turn_wr_slot"][d][t]] = x_out
-            if tab["loss"][d][t]:
-                losses.append(loss_fn(edge_p, x_out, mb_m, aux_m))
+            if loss is not None:
+                losses.append(loss)
             # cast-on-send; quiescent hops carry zeros
             payload = x_out.to(wire)
             return (payload if tab["down_send"][d][t] else zero_w,
@@ -675,7 +760,7 @@ def make_wave_pipeline_from_schedule(
             down_in, up_in = hop(pend_down, pend_up, down_used=down_used,
                                  up_used=up_used, down_live=live_down,
                                  up_live=live_up)
-            outs = [body(d, t, down_in[d], up_in[d]) for d in range(D)]
+            outs = [step(d, t, down_in[d], up_in[d]) for d in range(D)]
             pend_down = [o[0] for o in outs]
             pend_up = [o[1] for o in outs]
             live_down = [tab["down_send"][d][t] for d in range(D)]
@@ -688,9 +773,142 @@ def make_wave_pipeline_from_schedule(
     return fn
 
 
+def _sends(tab: dict, d: int, t: int) -> list[int]:
+    return ([DOWN] if tab["down_send"][d][t] else []) + (
+        [UP] if "up_send" in tab and tab["up_send"][d][t] else [])
+
+
+def _arrivals(tab: dict, d: int, t: int, T: int) -> list[tuple[int, int]]:
+    if t >= T:
+        return []
+    out = []
+    if tab["down_valid"][d][t]:
+        out.append((DOWN, tab["down_slot"][d][t]))
+    if "up_valid" in tab and tab["up_valid"][d][t]:
+        out.append((UP, tab["up_slot"][d][t]))
+    return out
+
+
+def _rx_input(rx: dict, chan: int, slot: int) -> tuple:
+    """The arrival in ``slot`` of ``chan``, waited for, as a step input."""
+    pend, t_arr = rx[(chan, slot)]
+    return pend.wait()[0], ("rx", chan, t_arr, 0)
+
+
+def _finish_rank(ring, local, dones, edge_p) -> torch.Tensor:
+    for done in dones:
+        done()
+    reduce_edge_grads(ring, [x for x in tree_leaves(edge_p)
+                             if x.requires_grad])
+    return reduce_loss(ring, local)
+
+
+def _wave_rank(cfg, tables, tab, ring, wire, skip_consumers, embed_fn,
+               enc_stage_fn, dec_stage_fn, loss_fn) -> Callable:
+    """Rank ``ring.index`` of the folded walk (see
+    :func:`make_wave_pipeline_from_schedule`).  The stage functions run
+    without ``_wrap_remat``: the rank walk recomputes whole steps."""
+    D, M, T, V = tables.D, tables.M, tables.num_steps, tables.V
+    d = ring.index
+    if ring.size != D:
+        raise PlanError(f"a {ring.size}-rank ring for D={D} devices",
+                        check="program-shape")
+    W_turn = max(tables.W_turn, 1)
+    W_skip = max(tables.W_skip, 1)
+
+    def fn(enc_stack, dec_stack, edge_p, mbs, aux):
+        enc_rows, enc_done = rank_rows(enc_stack, 2)   # [V][enc_pad]
+        dec_rows, dec_done = rank_rows(dec_stack, 2)
+        enc_pad = len(enc_rows[0])
+        with torch.no_grad():
+            proto = embed_fn(edge_p, tree_index(mbs, 0), tree_index(aux, 0))
+        body = _wave_body(tab, proto.dtype, embed_fn, enc_stage_fn,
+                          dec_stage_fn, loss_fn)
+        spec = [(tuple(proto.shape), wire)]
+        del proto
+        turn: list = [None] * W_turn     # (x_out, producing step)
+        cache: list = [None] * W_skip    # (skips, producing step)
+        rx: dict = {}
+
+        def plan(t):
+            sel = tab["sel"][d][t]
+            if sel == IDLE:
+                return None
+            ins = {}
+            if sel == RUN_ENC and not tab["embed"][d][t]:
+                ins["rx"] = _rx_input(rx, DOWN, tab["rx_slot"][d][t])
+            if sel == RUN_DEC:
+                if tab["turn_rd"][d][t]:
+                    x, t_prod = turn[tab["turn_rd_slot"][d][t]]
+                    ins["turn"] = (x, ("out", t_prod, "turn"))
+                else:
+                    ins["rx"] = _rx_input(rx, UP, tab["rx_slot"][d][t])
+                for ev, sl in _stash_slots(tab, V, skip_consumers, d, t):
+                    if cache[sl] is None:
+                        continue
+                    skips, t_prod = cache[sl]
+                    for i, x in enumerate(skips):
+                        if x is not None:
+                            ins[f"skip/{ev}/{i}"] = (x, ("out", t_prod,
+                                                         f"skip/{i}"))
+
+            def step(x):
+                stash = ([[x.get(f"skip/{ev}/{i}") for i in range(enc_pad)]
+                          for ev in range(V)] if sel == RUN_DEC else None)
+                x_out, skips, loss = body(d, t, enc_rows, dec_rows, edge_p,
+                                          mbs, aux, x.get("rx"),
+                                          x.get("turn"), stash)
+                out = {}
+                if _sends(tab, d, t):
+                    out["send/0"] = x_out.to(wire)     # cast-on-send
+                if tab["turn_wr"][d][t]:
+                    out["turn"] = x_out
+                if tab["skip_wr"][d][t]:
+                    out.update((f"skip/{i}", y) for i, y in enumerate(skips)
+                               if y is not None)
+                if loss is not None:
+                    out["loss"] = loss
+                return out
+
+            def after(out):
+                if tab["turn_wr"][d][t]:
+                    turn[tab["turn_wr_slot"][d][t]] = (out["turn"], t)
+                if tab["skip_wr"][d][t]:
+                    cache[tab["skip_wr_slot"][d][t]] = (
+                        [out.get(f"skip/{i}") for i in range(enc_pad)], t)
+
+            return StepPlan(ins, step, after)
+
+        local = rank_walk(
+            ring, T=T, M=M, remat=cfg.remat, overlap=cfg.overlap,
+            specs={DOWN: spec, UP: spec},
+            arrivals=lambda t: _arrivals(tab, d, t, T),
+            sends=lambda t: _sends(tab, d, t), plan=plan, rx=rx)
+        return _finish_rank(ring, local, (enc_done, dec_done), edge_p)
+
+    return fn
+
+
 # ===========================================================================
 # Linear executor from tables
 # ===========================================================================
+
+def _linear_body(tab: dict, x_dtype, embed_fn: Callable, stage: Callable,
+                 loss_fn: Callable) -> Callable:
+    """Device d's step t of the linear walk: ``body(d, t, rows, edge_p,
+    mbs, x_rx) -> (x_out, loss)`` (``x_rx`` the arrival, wire dtype, or
+    None where the step embeds; ``loss`` None where it emits none)."""
+
+    def body(d, t, rows, edge_p, mbs, x_rx):
+        vslot, mb_m = tab["slot"][d][t], tree_index(mbs, tab["mb"][d][t])
+        x_in = (embed_fn(edge_p, mb_m) if tab["embed"][d][t]
+                else x_rx.to(x_dtype))
+        x_out = stage(rows[vslot], x_in, d, vslot)
+        loss = loss_fn(edge_p, x_out, mb_m) if tab["loss"][d][t] else None
+        return x_out, loss
+
+    return body
+
 
 def make_linear_pipeline_from_schedule(
     cfg: PipelineConfig,
@@ -701,6 +919,7 @@ def make_linear_pipeline_from_schedule(
     loss_fn: Callable,        # (edge_p, x_final, mb) -> scalar
     device_of_stage=None,     # partition's explicit stage->device mapping
     devices=None,             # ...same, as a tuple (memoized lowering)
+    ring=None,                # runtime.ring.Ring: this rank's executor
 ) -> Callable:
     """Lower a linear S=VD schedule to ``fn(stack, edge_p, mbs) -> loss``
     (the call of :func:`~repro_torch.runtime.pipeline.make_linear_pipeline`;
@@ -708,7 +927,9 @@ def make_linear_pipeline_from_schedule(
     receives the device and slot).  The down ring wraps so interleaved
     (V > 1) plans cross the D-1 -> 0 slot boundary; arrivals land in a
     rotating ``W_down`` receive buffer in ``cfg.wire_dtype``, stored only
-    where the tables mark them, and quiescent hops carry zeros."""
+    where the tables mark them, and quiescent hops carry zeros.  With
+    ``ring``: rank ``ring.index``'s executor over its ``[V, pad, ...]``
+    rows, as in :func:`make_wave_pipeline_from_schedule`."""
     D, M = cfg.num_devices, cfg.num_microbatches
     if sched.M != M or sched.D != D:
         raise PlanError(
@@ -722,34 +943,34 @@ def make_linear_pipeline_from_schedule(
     wire = _wire_dtype(cfg)
     down_used = bool(tables.down_send.any())
     W_down = max(tables.W_down, 1)
-    stage = _wrap_remat(stage_fn, cfg)
     tab = {k: getattr(tables, k).tolist() for k in (
         "sel", "slot", "mb", "down_valid", "down_slot", "rx_slot",
         "down_send", "loss", "embed")}
+    if ring is not None:
+        check_ring_agreement(tables)
+        return _linear_rank(cfg, tables, tab, ring, wire, embed_fn, stage_fn,
+                            loss_fn)
+    stage = _wrap_remat(stage_fn, cfg)
 
     def fn(stack, edge_p, mbs):
         rows = unbind_rows(stack)              # [D][V][pad] row trees
         with torch.no_grad():
             proto = embed_fn(edge_p, tree_index(mbs, 0))
-        x_dtype = proto.dtype
+        body = _linear_body(tab, proto.dtype, embed_fn, stage, loss_fn)
         zero_w = torch.zeros(proto.shape, dtype=wire, device=proto.device)
         del proto
         rx = [[None] * W_down for _ in range(D)]   # arrivals (wire)
         losses = []
 
-        def body(d, t, h_in):
+        def step(d, t, h_in):
             if tab["down_valid"][d][t]:
                 rx[d][tab["down_slot"][d][t]] = h_in
             if tab["sel"][d][t] == IDLE:
                 return zero_w
-            vslot, mb_m = tab["slot"][d][t], tree_index(mbs, tab["mb"][d][t])
-            if tab["embed"][d][t]:
-                x_in = embed_fn(edge_p, mb_m)
-            else:
-                x_in = rx[d][tab["rx_slot"][d][t]].to(x_dtype)
-            x_out = stage(rows[d][vslot], x_in, d, vslot)
-            if tab["loss"][d][t]:
-                losses.append(loss_fn(edge_p, x_out, mb_m))
+            x_out, loss = body(d, t, rows[d], edge_p, mbs,
+                               rx[d][tab["rx_slot"][d][t]])
+            if loss is not None:
+                losses.append(loss)
             # cast-on-send; quiescent hops carry zeros
             return x_out.to(wire) if tab["down_send"][d][t] else zero_w
 
@@ -758,11 +979,56 @@ def make_linear_pipeline_from_schedule(
             # double-buffered: step t-1's payloads hop at the top of t
             h_in, _ = hop(pend, None, down_used=down_used, up_used=False,
                           down_live=live)
-            pend = [body(d, t, h_in[d]) for d in range(D)]
+            pend = [step(d, t, h_in[d]) for d in range(D)]
             live = [tab["down_send"][d][t] for d in range(D)]
         if len(losses) != M:
             raise PlanError(f"the walk emitted {len(losses)} losses for "
                             f"M={M} microbatches", check="program-shape")
         return torch.stack(losses).sum() / M
+
+    return fn
+
+
+def _linear_rank(cfg, tables, tab, ring, wire, embed_fn, stage_fn,
+                 loss_fn) -> Callable:
+    """Rank ``ring.index`` of the linear walk (see
+    :func:`make_linear_pipeline_from_schedule`)."""
+    D, M, T = tables.D, tables.M, tables.num_steps
+    d = ring.index
+    if ring.size != D:
+        raise PlanError(f"a {ring.size}-rank ring for D={D} devices",
+                        check="program-shape")
+
+    def fn(stack, edge_p, mbs):
+        rows, done = rank_rows(stack, 2)       # [V][pad] row trees
+        with torch.no_grad():
+            proto = embed_fn(edge_p, tree_index(mbs, 0))
+        body = _linear_body(tab, proto.dtype, embed_fn, stage_fn, loss_fn)
+        spec = [(tuple(proto.shape), wire)]
+        del proto
+        rx: dict = {}
+
+        def plan(t):
+            if tab["sel"][d][t] == IDLE:
+                return None
+            ins = ({} if tab["embed"][d][t]
+                   else {"rx": _rx_input(rx, DOWN, tab["rx_slot"][d][t])})
+
+            def step(x):
+                x_out, loss = body(d, t, rows, edge_p, mbs, x.get("rx"))
+                out = {}
+                if tab["down_send"][d][t]:
+                    out["send/0"] = x_out.to(wire)     # cast-on-send
+                if loss is not None:
+                    out["loss"] = loss
+                return out
+
+            return StepPlan(ins, step)
+
+        local = rank_walk(
+            ring, T=T, M=M, remat=cfg.remat, overlap=cfg.overlap,
+            specs={DOWN: spec}, arrivals=lambda t: _arrivals(tab, d, t, T),
+            sends=lambda t: _sends(tab, d, t), plan=plan, rx=rx)
+        return _finish_rank(ring, local, (done,), edge_p)
 
     return fn

@@ -649,3 +649,44 @@ def test_linear_executors_on_cuda_match_cpu(executor):
                                       for k, v in tree_paths(grads)}
 
     _card_vs_cpu(step, ("flash_attention",))
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_one_card_train_as_one_process(tmp_path):
+    """The trainer over two ranks sharing the card (``torchrun``, ``--ring
+    gloo --device cuda``: payloads staged through pinned host memory),
+    ``uvit-pp`` fp32 with an fp32 wire, 3 steps, against the one-process
+    trainer on the card: losses at rtol 1e-4 on both ranks, each rank on a
+    CUDA device with both kernels launched in its own process."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    import repro_torch
+    from repro_torch.launch import train
+
+    argv = ["--arch", "uvit-pp", "--pipeline", "--devices", "2", "--steps",
+            "3", "--microbatches", "4", "--global-batch", "8",
+            "--wire-dtype", "float32", "--device", "cuda"]
+    want = train.run(train._parse_args(argv)).losses
+    src = str(pathlib.Path(repro_torch.__file__).resolve().parents[1])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train", *argv,
+         "--ring", "gloo", "--out-json", str(tmp_path / "r{rank}.json")],
+        env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert proc.stdout.count("[train] device: cuda:") == 2, proc.stdout
+    assert "gloo ring (staged through pinned host memory)" in proc.stdout
+    for r in range(2):
+        doc = json.loads((tmp_path / f"r{r}.json").read_text())
+        for s in range(3):
+            assert math.isclose(doc["losses"][str(s)], want[s],
+                                rel_tol=1e-4), (r, s)
+        for k in ("flash_attention", "skip_concat_matmul"):
+            assert doc["launches"][k] > 0, (r, doc["launches"])
