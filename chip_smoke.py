@@ -19,7 +19,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    224, B=16; bf16 on the tensor-core route, the head padded to 128 and
    256 in shared memory, fp32 on the SIMT route) and of the plan phase
    (batch 8: flash self and cross, the skip matmul at M=2064 and 8192;
-   rows under path ``plan``) and of the small models the ``skipvit`` and
+   rows under path ``plan``) and of the ``hybrid`` phase (a data
+   replica's microbatch of UViT-H, batch 4: flash at B=4, the skip matmul
+   at M=1032, whose last row tile holds 8 rows) and of the small models the ``skipvit`` and
    ``supervisor`` phases train (``uvit-nano``: flash at 6 tokens, 2 heads
    of 16, the skip matmul at M=12 D=N=32; ``skipvit``: flash at 18
    tokens, 4 heads of 16; microbatch 2) (the gated
@@ -59,8 +61,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    counted exactly); the measured graphs (``fwd_times``) beside the
    roofline ones: block ms, the cuts at D=4 V=1 and ``tune``'s top five
    choices and drops at N=2 and 4 on both; ``auto_pipeline(graph, fns, 4)``
-   on the measured graphs must refuse the tuner's choice by name where it
-   has G > 1 (and otherwise plan and certify); then UViT-H on the tuner's
+   on the measured graphs must plan the tuner's own choice (P=2 with two
+   data replicas, G=2) and certify it; then UViT-H on the tuner's
    own N=2 plan (``auto_pipeline(graph, fns, 2)``, certified), 4 steps
    through ``repro_torch.launch.train.run(args, compiled=plan)`` at global
    batch 16, the plan's M, bf16 wire, both pipeline
@@ -87,10 +89,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the PULSE and the sequential partitions; closed form vs table at loss
    rtol 1e-3 and ||err||/||g|| <= 1e-2 per gradient, skip-carry vs table
    at 2e-2 and 5e-2;
-7. checkpoint UViT-H (``checkpoint_phase``), full width and depth, the
-   same argv plus a ``--ckpt-dir`` under ``build/``: A trains steps 0-1
-   and saves step 2 (27.8 GB), B resumes at the same plan (restored state
-   bitwise A's, steps 2-3 within 2e-2 of phase 6's losses), C resumes
+7. checkpoint UViT-H (``checkpoint_phase``), full width at 16 of its 32
+   blocks (``CKPT_LAYERS``), the same argv plus a ``--ckpt-dir`` under
+   ``build/``: R trains steps 0-3 without a save, A trains steps 0-1 and
+   saves step 2, B resumes at the same plan (restored state bitwise A's,
+   steps 2-3 within 2e-2 of R's losses), C resumes
    elastically at D=2 (logical params bitwise A's, one finite step); the
    launch counts are reset before B and before C and read after each;
    prints bytes, the save's blocking and total seconds, write and verify
@@ -135,9 +138,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     one per pipeline device, on the one card, the ring's payloads staged
     through pinned host memory, each running its own stage rows with the
     skip and flash kernels in its own process (they load what phase 2
-    built).  Each rank runs one forward+backward of step 0 without an
-    update, 3 AdamW steps, then one forward+backward of the skip-carry
-    baseline from the seed-0 params.  Held: the first loss to phase 6's
+    built).  Each rank runs 3 AdamW steps (the first one's
+    forward+backward, read before its update, is the probe), then one
+    forward+backward of the skip-carry baseline from the seed-0 params.  Held: the first loss to phase 6's
     at rtol 1e-5 and AdamW steps 1-2 at 2e-2; every gradient leaf's
     fingerprint (norm and 8 seeded random dots) to phase 6's step 0 at
     ||err||/||g|| <= 1e-2; the ring bytes, forward and backward, sent and
@@ -147,10 +150,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     step; the skip-carry loss to the table walk's at rtol 1e-5.  Prints
     each rank's peak memory beside Eq. 14's per-device prediction, the
     step seconds, and that NCCL was not run (one card);
-13. the ``kernels`` JSON line (each kernel's launches by path: ``plan``,
+13. hybrid (``hybrid_phase``), after checking that less than 1 GB is
+    still allocated: the tuner's own N=4 plan for UViT-H at full width and
+    depth (P=2, G=2, V=2, M=2; global batch 16, bf16) as ``torchrun
+    --nproc-per-node 4 ... --dp 2 --pp 2 --interleave 2 --zero-stage Z
+    --ring gloo --device cuda --rank-report``, at ZeRO-1 and then ZeRO-2:
+    two data replicas of a two-device pipeline, four processes on the one
+    card, the ring and the data group staged through pinned host memory;
+    before them the same plan in one process (one data replica, the whole
+    batch: ``HOP_BYTES``, launches, losses and step 0's fingerprints).
+    ZeRO-0 is not run: Eq. 14 puts its four ranks past the card (printed
+    beside ZeRO-1's and ZeRO-2's).  Held: P, G, V and M are the tuner's
+    N=4 choice, and the ranks' cuts (the trainer's, on roofline costs;
+    the tuner's, on the plan phase's measured costs, are printed beside)
+    the one-process run's; every rank's step-0 loss to that run's at
+    rtol 1e-2 (bf16); every gradient leaf's fingerprint, gathered
+    whole, to its step 0 at ||err||/||g|| <= 2e-2; ZeRO-1's and ZeRO-2's
+    losses of steps 0-2 within 1e-3; the data group's bytes and calls by
+    collective, of the probe and of every step, to their arithmetic from
+    the step tables and the leaves' shapes, exactly; the ring's bytes to
+    the one-process ``HOP_BYTES`` live count a step, exactly; the probe's
+    flash and skip launches over the ranks to twice the one-process
+    step's; each rank's ZeRO-2 peak below its ZeRO-1 peak.  Prints each
+    rank's peaks beside Eq. 14's per-device prediction at its stage, the
+    step seconds and the collectives' host seconds; torchrun's output in
+    ``chiprun_out/hybrid_zero{1,2}.log``;
+14. the ``kernels`` JSON line (each kernel's launches by path: ``plan``,
     ``baseline``, ``skipvit train``, ``skipvit wave-asym``,
-    ``supervisor workers`` and ``ranks``,
-    the last two read from the workers' and ranks' result files, among
+    ``supervisor workers``, ``ranks`` and ``hybrid``,
+    the last three read from the workers' and ranks' result files, among
     them), then the device line as the last line.
 
 The full record goes to ``chiprun_out/chip_smoke.json``.  Without a CUDA
@@ -325,6 +353,7 @@ def check_skip_matmul(torch, rec) -> dict:
                # b=2 at Hunyuan-DiT's 1024 tokens; the plan phase's b=8
         ("uvit-h", 516, 2560), (None, 4128, 2560), ("hunyuan-dit", 2048, 2048),
         ("plan uvit-h", 2064, 2560), ("plan hunyuan-dit", 8192, 2048),
+        ("hybrid uvit-h", 1032, 2560),   # a replica's microbatch, b=4
         ("uvit-nano", 12, 32)]   # the supervisor drills' b=2 x 6 tokens
     for dtype in ("bfloat16", "float32"):
         for path, M, D in cases:
@@ -387,6 +416,8 @@ def check_flash(torch, rec) -> dict:
         ("plan uvit-h", 8, 258, 258, 20, 20, 128, False, None),
         ("plan hunyuan-dit", 8, 1024, 1024, 16, 16, 128, False, None),
         ("plan hunyuan-dit cross", 8, 1024, 77, 16, 16, 128, False, None),
+        # the hybrid phase: a data replica's microbatch of UViT-H, b=4
+        ("hybrid uvit-h", 4, 258, 258, 20, 20, 128, False, None),
         (None, 1, 300, 300, 8, 2, 64, True, 96),          # causal+win+GQA
         # the SDv2 UNet's train step (sdv2-unet-full, B=16, 8 heads): self
         # and cross-attention over 77 text tokens at 16x16 (head dim 112),
@@ -1107,38 +1138,27 @@ def plans_of(graph, what: str) -> dict:
 
 
 def check_n4(graph, fns, arch: str) -> dict:
-    """``auto_pipeline(graph, fns, 4)`` against the tuner's own choice: a
-    choice with G > 1 or a ZeRO stage must be refused by name
-    (``NotImplementedError``), a G = 1 choice must plan and certify."""
+    """``auto_pipeline(graph, fns, 4)`` plans the tuner's own choice (P=2
+    with two data replicas, G=2, on both models), with ``dp_size`` its G,
+    and certifies it."""
     from repro_torch.core.hw import H100_SXM
     from repro_torch.core.tuner import tune
     from repro_torch.runtime.compile import auto_pipeline
     keep = [c for c in tune(graph, 4, hw=H100_SXM) if c.partition is not None
             and c.P > 1]
     want = keep[0]
-    refused = want.G > 1 or want.zero_stage > 0
-    try:
-        cp = auto_pipeline(graph, fns, 4, hw=H100_SXM)
-    except NotImplementedError as e:
-        if not refused or _choice_text(want) not in str(e):
-            fail(f"plan {arch} N=4: refused ({e}) but the tuner's choice is "
-                 f"{_choice_text(want)}")
-        log(f"[plan] {arch} measured N=4: the tuner's choice "
-            f"{_choice_text(want)} has data parallelism, refused as "
-            f"expected: {e}")
-        return dict(choice=_choice_row(want), outcome="refused",
-                    error=str(e))
-    if refused:
-        fail(f"plan {arch} N=4: planned {cp.describe()} but the tuner's "
-             f"choice {_choice_text(want)} needs data parallelism")
+    cp = auto_pipeline(graph, fns, 4, hw=H100_SXM)
     cert = cp.certify(name=f"{arch}-N4")
-    if _choice_text(cp.choice) != _choice_text(want) or not cert.ok:
-        fail(f"plan {arch} N=4: choice {_choice_text(cp.choice)} vs tuner "
-             f"{_choice_text(want)}; certificate {cert.summary()}")
-    log(f"[plan] {arch} measured N=4: planned {_choice_text(cp.choice)}; "
+    if _choice_text(cp.choice) != _choice_text(want) or not cert.ok \
+            or cp.pcfg.dp_size != want.G:
+        fail(f"plan {arch} N=4: choice {_choice_text(cp.choice)} dp "
+             f"{cp.pcfg.dp_size} vs tuner {_choice_text(want)}; certificate "
+             f"{cert.summary()}")
+    log(f"[plan] {arch} measured N=4: planned the tuner's choice "
+        f"{_choice_text(cp.choice)} (dp_size {cp.pcfg.dp_size}); "
         f"{cert.summary()}")
     return dict(choice=_choice_row(want), outcome="planned",
-                certificate=cert.summary())
+                certificate=cert.summary(), describe=cp.describe())
 
 
 def train_on_plan(torch, arch: str, graph, fns) -> dict:
@@ -1517,6 +1537,10 @@ def baseline_phase(torch, rec) -> dict:
 # ---------------------------------------------------------------------------
 
 CKPT_STOP, CKPT_END = 2, 4          # A saves step 2; B trains steps 2-3
+# the checkpoint phase's UViT-H: full width, half its 32 blocks.  Its state
+# is hashed five times on one host core (write, GC, a verify pass, B's and
+# C's restores): at full depth that was a third of the script's time.
+CKPT_LAYERS = 16
 
 
 def _host(tree):
@@ -1545,16 +1569,19 @@ def _bitwise_equal(torch, got: list, want: list, what: str) -> int:
 
 
 def checkpoint_phase(torch, rec, smi_line: str) -> dict:
-    """UViT-H at full width and depth through ``repro_torch.launch.train``
-    with ``TRAIN_ARGV`` plus a fresh ``--ckpt-dir`` under ``build/``:
+    """UViT-H at full width and ``CKPT_LAYERS`` blocks through
+    ``repro_torch.launch.train`` with ``TRAIN_ARGV`` plus a fresh
+    ``--ckpt-dir`` under ``build/``:
 
+    R. ``--ckpt-every 100 --faults stop@4``: the uninterrupted steps 0-3,
+       no save, the reference of B's losses;
     A. ``--ckpt-every 2 --faults stop@2``: steps 0-1, an async save of step
        2 (host snapshot, then a background write of the verified
        checkpoint), stop;
     B. ``--resume --ckpt-every 100 --faults stop@4``: restores step 2 at the
        same plan, trains steps 2-3.  The restored state must equal A's
        state at the save bitwise, leaf by leaf on the host; the losses are
-       held to the uninterrupted UViT-H phase's steps 2-3 at rtol 2e-2;
+       held to R's steps 2-3 at rtol 2e-2;
        both model kernels must launch;
     C. ``--devices 2 --resume --faults stop@3``: restores step 2 elastically
        (D=4 -> D=2); the restored params, merged to model space, must
@@ -1566,16 +1593,17 @@ def checkpoint_phase(torch, rec, smi_line: str) -> dict:
     device memory of each restore, beside ``nvidia-smi``'s line.  The
     directory is removed at the end.  Returns the launch counts of B and
     C."""
+    import dataclasses
     import shutil
     import tempfile
     import warnings
 
     from repro_torch.checkpoint import verify_step
+    from repro_torch.configs import uvit_h
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train as train_mod
     from repro_torch.tree import tree_flatten
 
-    base = rec["train"]["uvit-h"]["losses"]
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
                              dir=os.path.join(ROOT, "build"))
@@ -1615,7 +1643,19 @@ def checkpoint_phase(torch, rec, smi_line: str) -> dict:
             f"live tensors {r['copy_s']:.2f} s), peak device memory "
             f"{r['peak_bytes'] / 1e9:.2f} GB")
 
+    full = uvit_h.CFG       # the trainer reads it at each build
+    uvit_h.CFG = dataclasses.replace(full, n_layers=CKPT_LAYERS)
     try:
+        # R: the uninterrupted reference, no save
+        res = run("R", ["--ckpt-every", "100", "--faults",
+                        f"stop@{CKPT_END}"])
+        base = [res.losses[s] for s in range(CKPT_END)]
+        if os.listdir(ckdir):
+            fail(f"checkpoint R: wrote {os.listdir(ckdir)}")
+        nparams = sum(x.numel() for x in _leaves(res.logical_params))
+        out["R"]["params"] = nparams
+        del res
+
         # A: two steps, the save of step 2, stop
         res = run("A", ["--ckpt-every", "2", "--faults",
                         f"stop@{CKPT_STOP}"])
@@ -1632,7 +1672,8 @@ def checkpoint_phase(torch, rec, smi_line: str) -> dict:
         t0 = time.perf_counter()
         leaves = verify_step(ckdir, CKPT_STOP)["num_leaves"]
         verify_s = time.perf_counter() - t0
-        log(f"[ckpt] {smi_line}: uvit-h full width and depth, {leaves} "
+        log(f"[ckpt] {smi_line}: uvit-h full width, {CKPT_LAYERS} of "
+            f"{full.n_layers} blocks ({nparams} params), {leaves} "
             f"leaves, {save['bytes']} bytes; save: snapshot "
             f"{save['snapshot_s']:.2f} s (blocking), total "
             f"{save['total_s']:.2f} s (shard write + its hash "
@@ -1694,6 +1735,7 @@ def checkpoint_phase(torch, rec, smi_line: str) -> dict:
             f"{out['C']['losses'][CKPT_STOP]:.4f}; launches {counts['C']}")
         release(torch)
     finally:
+        uvit_h.CFG = full
         shutil.rmtree(ckdir, ignore_errors=True)
     for what in ("B", "C"):
         for k in ("skip_concat_matmul", "flash_attention"):
@@ -2115,10 +2157,11 @@ def ranks_phase(torch, rec, smi_line: str) -> dict:
     """Four ranks of ``repro_torch.launch.train`` on the one card
     (``torch.distributed.run --standalone --nproc-per-node 4``, ``--ring
     gloo --device cuda``: payloads staged through pinned host memory), the
-    UViT-H plan of phase 6.  Each rank (``--rank-report``) runs one
-    forward+backward of step 0 without an update, then ``RANKS_STEPS``
-    AdamW steps from the same seed-0 params and batches as phase 6, then
-    one forward+backward of the skip-carry baseline from those params.
+    UViT-H plan of phase 6.  Each rank (``--rank-report``) runs
+    ``RANKS_STEPS`` AdamW steps from the same seed-0 params and batches as
+    phase 6 (the probe: the first step's forward+backward, read before its
+    update), then one forward+backward of the skip-carry baseline from
+    those params.
     Held: the first loss to phase 6's at rtol 1e-5, AdamW steps 1-2 at
     2e-2; each gradient leaf's fingerprint to phase 6's step 0 at
     ``FINGERPRINT_BAR``; the table walk's ring bytes, each direction, to
@@ -2317,6 +2360,388 @@ def ranks_phase(torch, rec, smi_line: str) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 13: hybrid -- the tuner's N=4 plan for UViT-H (P=2, G=2, V=2, M=2):
+# two data replicas of a 2-device pipeline, four ranks on the one card, at
+# ZeRO-1 and ZeRO-2
+# ---------------------------------------------------------------------------
+
+HYBRID_DP, HYBRID_PP, HYBRID_V, HYBRID_M = 2, 2, 2, 2
+HYBRID_STEPS = 3
+HYBRID_ZERO = (1, 2)
+# the plan in one process (one data replica), then as the ranks run it
+HYBRID_ONE_ARGV = ["--arch", "uvit-h", "--pipeline", "--pp", str(HYBRID_PP),
+                   "--interleave", str(HYBRID_V), "--microbatches",
+                   str(HYBRID_M), "--global-batch", str(PLAN_BATCH),
+                   "--steps", str(HYBRID_STEPS), "--log-every", "1",
+                   "--device", "cuda"]
+HYBRID_ARGV = HYBRID_ONE_ARGV + ["--dp", str(HYBRID_DP), "--ring", "gloo"]
+HYBRID_LOSS_BAR = 1e-2          # step 0 against the one-process run, bf16
+HYBRID_FINGERPRINT_BAR = 2e-2   # ||err|| / ||g|| per gradient leaf, bf16
+HYBRID_ZERO_BAR = 1e-3          # ZeRO-1 against ZeRO-2, steps 0-2
+
+
+def _hybrid_plan(zero: int):
+    """The trainer's plan of ``HYBRID_ARGV`` at ``zero`` (its graph at the
+    batch of a microbatch, as ``train.build_trainer`` builds it), and the
+    model's config."""
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.diffusion import uvit_pipeline_graph
+    from repro_torch.runtime.adapters import model_fns
+    from repro_torch.runtime.compile import auto_pipeline
+    cfg = train_mod._model_config(train_mod._parse_args(HYBRID_ARGV))
+    graph = uvit_pipeline_graph(cfg, batch=PLAN_BATCH // HYBRID_M,
+                                hw=H100_SXM)
+    return auto_pipeline(
+        graph, model_fns(cfg, "uvit"), HYBRID_DP * HYBRID_PP, hw=H100_SXM,
+        pipeline_devices=HYBRID_PP, microbatches=HYBRID_M,
+        interleave=HYBRID_V, dp_size=HYBRID_DP, zero_stage=zero,
+        wire_dtype="bfloat16"), cfg
+
+
+def hybrid_bytes(cp, pipe: int, step: bool) -> tuple[dict, dict]:
+    """The data group's bytes and calls of pipeline index ``pipe`` in one
+    forward+backward (``step`` False: the probe) or one training step,
+    from the plan's step tables and the leaves' shapes (drawn on the
+    ``meta`` device): one fp32 all-reduce each of the loss, the edge
+    gradients and, per stack, the stage gradients ZeRO keeps whole; ZeRO-1
+    reduce-scatters each stack's sharded gradients in one call and, in a
+    step, all-gathers their updated shards in one call; ZeRO-2
+    all-gathers the sharded leaves of the slot each step of the walk
+    runs, in one call, in the forward and again in the recompute, and
+    reduce-scatters their gradients once; gathers and gloo's
+    reduce-scatters move the params' dtype (bf16); a step adds the grid's
+    norm and finite flag (8 bytes, one call)."""
+    import torch as t
+
+    from repro_torch.runtime.sharding import leaf_dims
+    from repro_torch.tree import tree_leaves
+    z = cp.pcfg.zero_stage
+    stacks, edge = cp.model_fns.split_blocks(cp.model_fns.init_fn(
+        t.Generator().manual_seed(0), "meta"))
+    rows = cp.layout.split(tuple(stacks), pipe)
+    edge_n = [x.numel() for x in tree_leaves(edge)]
+    nb = {"all_reduce": 4 * (1 + sum(edge_n)) + (8 if step else 0),
+          "all_gather": 0, "reduce_scatter": 0}
+    calls = {"all_reduce": 2 + (1 if step else 0), "all_gather": 0,
+             "reduce_scatter": 0}
+    sel = cp.step_tables().sel[pipe]
+    for i, (st, ds) in enumerate(zip(rows, cp.zero_dims())):
+        whole = sharded = slot = 0    # slot: sharded bytes of a [pad, ...]
+        for x, d in leaf_dims(st, ds):
+            if d < 0:
+                whole += 4 * x.numel()
+            elif z == 1:
+                sharded += x.element_size() * x.numel()
+            else:
+                slot += x.element_size() * x[0].numel()
+        if whole:
+            nb["all_reduce"] += whole
+            calls["all_reduce"] += 1
+        if sharded:
+            nb["reduce_scatter"] += sharded
+            calls["reduce_scatter"] += 1
+            if step:
+                nb["all_gather"] += sharded
+                calls["all_gather"] += 1
+        if slot:
+            runs = int((sel == i + 1).sum())
+            nb["all_gather"] += 2 * runs * slot
+            nb["reduce_scatter"] += runs * slot
+            calls["all_gather"] += 2 * runs
+            calls["reduce_scatter"] += runs
+    return nb, calls
+
+
+def _hybrid_reference() -> dict:
+    """``HYBRID_ONE_ARGV`` through the trainer in this process: the ranks'
+    plan (P, V, M and the trainer's cuts) with one data replica on the
+    whole global batch.  Its cuts, losses, step 0's gradient fingerprints
+    before its update, the ring's bytes a step and the kernel launches a
+    step: what every data replica of the ranks is held to."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import train as train_mod
+    from repro_torch.runtime import pipeline as rp
+    fingerprints = {}
+
+    def on_grads(step, grads):
+        if step == 0:
+            fingerprints.update(train_mod.grad_fingerprints(grads))
+
+    before = launch_counts()
+    rp.reset_hop_bytes()
+    res = train_mod.run(train_mod._parse_args(HYBRID_ONE_ARGV),
+                        on_grads=on_grads)
+    hops = rp.hop_bytes()
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    out = dict(cuts=list(res.compiled.partition.cuts),
+               losses=[res.losses[s] for s in sorted(res.losses)],
+               fingerprints=fingerprints,
+               hop_bytes_per_step={k: v / HYBRID_STEPS
+                                   for k, v in hops.items()},
+               launches=launched,
+               launches_per_step={k: v / HYBRID_STEPS
+                                  for k, v in launched.items()},
+               peak_bytes=res.peak_bytes)
+    del res
+    return out
+
+
+def _hybrid_run(zero: int, out_dir: str, env: dict) -> tuple[list, float]:
+    """One torchrun of ``HYBRID_ARGV`` at ``zero``: the four ranks' report
+    documents and the wall seconds."""
+    import shutil
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(HYBRID_DP * HYBRID_PP), "-m",
+           "repro_torch.launch.train", *HYBRID_ARGV, "--zero-stage",
+           str(zero), "--rank-report", out_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                          text=True, timeout=RANKS_TIMEOUT)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, f"hybrid_zero{zero}.log"), "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"hybrid ZeRO-{zero}: torchrun exited {proc.returncode}:\n"
+             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    docs = []
+    for r in range(HYBRID_DP * HYBRID_PP):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            docs.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return docs, wall
+
+
+def hybrid_phase(torch, rec, smi_line: str) -> dict:
+    """Four ranks of ``repro_torch.launch.train`` on the one card over the
+    staged gloo ring and data group: the tuner's own N=4 plan for UViT-H
+    at full width and depth (P=2 pipeline devices, G=2 data replicas,
+    V=2, M=2), global batch ``PLAN_BATCH``, bf16, at ZeRO-1 and then
+    ZeRO-2, each ``HYBRID_STEPS`` AdamW steps (``--rank-report``; the
+    probe is the first step's forward+backward, read before its update).
+    ZeRO-0 is left out: Eq. 14 puts four of its ranks past the card's
+    memory (printed).  First the same plan in one process
+    (:func:`_hybrid_reference`).
+    Held: P, G, V and M are the tuner's N=4 choice; the ranks' cuts (the
+    trainer's own partition on roofline costs, which the tuner's on the
+    plan phase's measured costs may differ from by a block) are the
+    one-process run's; every rank's step-0 loss to that run's at
+    ``HYBRID_LOSS_BAR``; every gradient leaf's fingerprint, gathered
+    whole, to its step 0 at ``HYBRID_FINGERPRINT_BAR``; the ZeRO-1 and
+    ZeRO-2 losses of steps 0-2 within ``HYBRID_ZERO_BAR``; the data
+    group's bytes and calls, by collective, of the probe and of every
+    step, to their arithmetic (:func:`hybrid_bytes`), exactly; the ring's
+    bytes, each direction summed over the ranks, to the one-process run's
+    ``HOP_BYTES`` live count a step, exactly; the flash and skip launches
+    of the probe, summed over the ranks, to twice the one-process run's a
+    step (each replica runs every block call); each rank's ZeRO-2 peak
+    below its ZeRO-1 peak.  Printed: peaks beside Eq. 14's per-device
+    prediction at each stage, step seconds, the collectives' host seconds.
+    Returns the launches by path: the ranks' own (``hybrid``) and the
+    one-process reference's (``hybrid reference``)."""
+    from repro_torch.core.comm_model import WIRE_BYTES
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.core.tuner import peak_memory, profile_partition
+    from repro_torch.models.diffusion import uvit_pipeline_graph
+
+    t_phase = time.perf_counter()
+    choice = rec["plan"]["uvit-h"]["N4"]["choice"]
+    want = dict(P=HYBRID_PP, G=HYBRID_DP, V=HYBRID_V, M=HYBRID_M)
+    if {k: choice[k] for k in want} != want:
+        fail(f"hybrid: the tuner's N=4 choice is {choice}, not the "
+             f"{want} this phase runs")
+
+    # Eq. 14 per device at each stage, for a replica's microbatch
+    built = {z: _hybrid_plan(z) for z in (0, *HYBRID_ZERO)}
+    plans = {z: cp for z, (cp, _) in built.items()}
+    cfg = built[0][1]
+    graph = uvit_pipeline_graph(cfg, batch=PLAN_BATCH // HYBRID_M
+                                // HYBRID_DP, hw=H100_SXM)
+    tabs = plans[0].step_tables()
+    eq14 = {z: peak_memory(
+        profile_partition(graph, plans[z].partition), HYBRID_PP, 1,
+        wave=True, V=HYBRID_V,
+        windows=(tabs.W_down + tabs.W_up, tabs.W_turn, tabs.W_skip),
+        wire_bytes=WIRE_BYTES["bfloat16"], dp=HYBRID_DP, zero_stage=z)
+        for z in plans}
+    card = torch.cuda.get_device_properties(0).total_memory
+    n_ranks = HYBRID_DP * HYBRID_PP
+    log(f"[hybrid] Eq. 14 per device, UViT-H P={HYBRID_PP} dp={HYBRID_DP} "
+        f"V={HYBRID_V} M={HYBRID_M}, {PLAN_BATCH // HYBRID_M // HYBRID_DP} "
+        "samples a replica's microbatch: "
+        + ", ".join(f"ZeRO-{z} {eq14[z] / 1e9:.3f} GB (x{n_ranks} = "
+                    f"{n_ranks * eq14[z] / 1e9:.3f} GB)" for z in eq14)
+        + f"; the card holds {card / 1e9:.3f} GB, so ZeRO-0 is not run")
+    one = _hybrid_reference()
+    left = release(torch)
+    if left >= 1e9:
+        fail(f"hybrid: {left / 1e9:.2f} GB still allocated after the "
+             "one-process reference")
+    for z in plans:
+        if list(plans[z].partition.cuts) != one["cuts"]:
+            fail(f"hybrid: the ranks' cuts {plans[z].partition.cuts} at "
+                 f"ZeRO-{z} are not the one-process reference's "
+                 f"{one['cuts']}")
+    log(f"[hybrid] one-process reference on the same plan (cuts "
+        f"{one['cuts']}; the tuner's measured-cost cuts at N=4: "
+        f"{choice['cuts']}): losses {one['losses']}; launches "
+        f"{one['launches']}; peak {one['peak_bytes'] / 1e9:.3f} GB")
+
+    env = dict(os.environ, REPRO_TORCH_NO_BUILD="1",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(ROOT, "src")]
+                   + [p for p in os.environ.get("PYTHONPATH", "").split(
+                       os.pathsep) if p]))
+    runs, walls = {}, {}
+    for z in HYBRID_ZERO:
+        runs[z], walls[z] = _hybrid_run(
+            z, os.path.join(ROOT, "build", f"chip_smoke_hybrid{z}"), env)
+    out = dict(card=smi_line, argv=HYBRID_ARGV, wall_s=walls,
+               eq14_per_device_bytes=eq14, card_bytes=card, zero={})
+    launched = {}
+    first = one["losses"][0]
+    live = one["hop_bytes_per_step"]["live"]
+    for z, docs in runs.items():
+        what = f"hybrid ZeRO-{z}"
+        for d in docs:
+            if not d["device"].startswith("cuda") or d["ring"] != "gloo" \
+                    or not d["staged"] or d["dp"] != HYBRID_DP:
+                fail(f"{what}: rank {d['rank']} ran on {d['device']} over "
+                     f"{d['ring']} (staged {d['staged']}, dp {d['dp']})")
+            spec = d["spec"]
+            if (spec["P"], spec["V"], spec["M"], spec["dp"],
+                    spec["zero_stage"], spec["cuts"]) != (
+                    HYBRID_PP, HYBRID_V, HYBRID_M, HYBRID_DP, z,
+                    one["cuts"]):
+                fail(f"{what}: rank {d['rank']} planned {spec}")
+        # losses: the ranks agree; step 0 against the one-process run
+        probe = [d["probe"]["loss"] for d in docs]
+        losses = [[d["train"]["losses"][str(s)] for s in range(HYBRID_STEPS)]
+                  for d in docs]
+        if len(set(probe)) != 1 or any(x != losses[0] for x in losses):
+            fail(f"{what}: the ranks disagree: probe {probe}, {losses}")
+        for x in (probe[0], losses[0][0]):
+            if not abs(x - first) <= HYBRID_LOSS_BAR * abs(first):
+                fail(f"{what}: step 0 loss {x} vs the one-process run's "
+                     f"{first} (bar {HYBRID_LOSS_BAR})")
+        if any(d["train"]["skipped_steps"] for d in docs):
+            fail(f"{what}: a rank skipped a step")
+        # fingerprints of the whole gradient, each data replica's ranks
+        worst, worst_at = 0.0, ""
+        for di in range(HYBRID_DP):
+            got = {}
+            for d in docs:
+                if d["data"] == di:
+                    got.update(d["probe"]["fingerprints"])
+            if sorted(got) != sorted(one["fingerprints"]):
+                fail(f"{what}: fingerprint keys differ: "
+                     f"{sorted(set(got) ^ set(one['fingerprints']))[:10]}")
+            w, at = _fingerprint_errs(got, one["fingerprints"])
+            if w > worst or not worst_at:
+                worst, worst_at = w, f"{at} (data {di})"
+        if worst > HYBRID_FINGERPRINT_BAR:
+            fail(f"{what}: gradient {worst_at} ||err||/||g|| {worst:.3e} "
+                 f"against the one-process step 0 (bar "
+                 f"{HYBRID_FINGERPRINT_BAR})")
+        # the data group's bytes and calls, probe and every step
+        for d in docs:
+            for key, step in [("probe", False)] + [
+                    (str(s), True) for s in range(HYBRID_STEPS)]:
+                nb, calls = hybrid_bytes(plans[z], d["pipe"], step)
+                got = (d["probe"]["data_bytes"], d["probe"]["data_calls"]) \
+                    if key == "probe" else (
+                        d["step_data_bytes"][key]["bytes"],
+                        d["step_data_bytes"][key]["calls"])
+                if got != (nb, calls):
+                    fail(f"{what}: rank {d['rank']} {key} data group "
+                         f"{got}, arithmetic {(nb, calls)}")
+        # ring bytes, each direction over the ranks: the one-process walk's
+        ring = {f"{p} {k}": sum(d["probe"]["ring_bytes"][p][k] for d in docs)
+                for p in ("fwd", "bwd") for k in ("sent", "received")}
+        if set(ring.values()) != {live}:
+            fail(f"{what}: ring bytes {ring}, want the one-process "
+                 f"HOP_BYTES live {live} a step each")
+        # launches: every replica runs every block call of a step
+        probe_l = {k: sum(d["probe"]["launches"][k] for d in docs)
+                   for k in docs[0]["probe"]["launches"]}
+        for k in ("flash_attention", "skip_concat_matmul"):
+            if probe_l[k] != HYBRID_DP * one["launches_per_step"][k]:
+                fail(f"{what}: {k} launched {probe_l[k]} times in the "
+                     f"ranks' forward+backward; want {HYBRID_DP} x the "
+                     f"one-process step's {one['launches_per_step'][k]}")
+        ranks_l = {k: sum(d["launches"][k] for d in docs)
+                   for k in docs[0]["launches"]}
+        for k, v in ranks_l.items():
+            launched[k] = launched.get(k, 0) + v
+        steps = {s: [d["train"]["step_seconds"][str(s)] for d in docs]
+                 for s in range(HYBRID_STEPS)}
+        coll = {k: [d["step_data_bytes"][str(s)]["seconds"][k]
+                    for d in docs for s in range(1, HYBRID_STEPS)]
+                for k in ("all_reduce", "all_gather", "reduce_scatter")}
+        out["zero"][z] = dict(
+            probe_loss=probe[0], losses=losses[0],
+            one_process_losses=one["losses"][:HYBRID_STEPS],
+            worst_rel_grad_err=worst, worst_grad=worst_at,
+            ring_bytes=ring, hop_bytes_live=live,
+            probe_data_bytes={d["rank"]: d["probe"]["data_bytes"]
+                              for d in docs},
+            step_data_bytes={d["rank"]: d["step_data_bytes"]["1"]
+                             for d in docs},
+            probe_launches=probe_l, launches=ranks_l,
+            step_seconds=steps,
+            step_seconds_max=[max(v) for v in steps.values()],
+            collective_seconds_after_first=coll,
+            probe_seconds=[d["probe"]["seconds"] for d in docs],
+            peaks={d["rank"]: dict(init=d["probe"]["init_peak_bytes"],
+                                   probe=d["probe"]["peak_bytes"],
+                                   train=d["train"]["peak_bytes"])
+                   for d in docs},
+            data_group=docs[0]["data_group"])
+    z1, z2 = (out["zero"][z] for z in HYBRID_ZERO)
+    for s in range(HYBRID_STEPS):
+        a, b = z1["losses"][s], z2["losses"][s]
+        if not abs(a - b) <= HYBRID_ZERO_BAR * abs(a):
+            fail(f"hybrid: step {s} loss ZeRO-1 {a} vs ZeRO-2 {b} (bar "
+                 f"{HYBRID_ZERO_BAR})")
+    for r in z1["peaks"]:
+        if not z2["peaks"][r]["train"] < z1["peaks"][r]["train"]:
+            fail(f"hybrid: rank {r} peaked at {z2['peaks'][r]['train']} B "
+                 f"at ZeRO-2, not below ZeRO-1's {z1['peaks'][r]['train']}")
+    rec["hybrid"] = out
+    log(f"[hybrid] UViT-H on the tuner's N=4 plan P={HYBRID_PP} "
+        f"G={HYBRID_DP} V={HYBRID_V} M={HYBRID_M}, global batch "
+        f"{PLAN_BATCH}, four ranks on one card (gloo ring and data group "
+        f"staged through pinned host memory; {z1['data_group']}); {smi_line}")
+    for z in HYBRID_ZERO:
+        o = out["zero"][z]
+        log(f"[hybrid] ZeRO-{z}: torchrun {walls[z]:.1f} s; step-0 loss "
+            f"{o['probe_loss']!r} (one process {first!r}); AdamW losses "
+            f"{o['losses']} (one process {o['one_process_losses']}); "
+            f"gradient fingerprints worst ||err||/||g|| "
+            f"{o['worst_rel_grad_err']:.3e} ({o['worst_grad']})")
+        log(f"[hybrid] ZeRO-{z}: ring bytes {o['ring_bytes']} = HOP_BYTES "
+            f"live {live}; data group a step (rank: bytes, calls, host s) "
+            + "; ".join(f"{r}: {v['bytes']} {v['calls']} "
+                        f"{ {k: round(x, 4) for k, x in v['seconds'].items()} }"
+                        for r, v in o["step_data_bytes"].items())
+            + " = the arithmetic")
+        log(f"[hybrid] ZeRO-{z}: launches of the forward+backward over the "
+            f"ranks {o['probe_launches']} = {HYBRID_DP} x the one-process "
+            f"step's; step s (slowest rank) "
+            f"{[round(x, 4) for x in o['step_seconds_max']]}")
+        for r, pk in o["peaks"].items():
+            log(f"[hybrid] ZeRO-{z} rank {r}: peak GB set-up "
+                f"{pk['init'] / 1e9:.3f}, probe {pk['probe'] / 1e9:.3f}, "
+                f"train {pk['train'] / 1e9:.3f}; Eq. 14 per device "
+                f"{eq14[z] / 1e9:.3f}")
+    log(f"[hybrid] not measurable on one card: the all-gather and "
+        f"reduce-scatter over NVLink (NCCL, a card a rank); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"hybrid": launched, "hybrid reference": one["launches"]}
+
+
 def release(torch) -> int:
     """Drop what the last phase left and return the bytes still allocated
     on the card (the trainer resets the peak statistics itself, so each
@@ -2486,7 +2911,16 @@ def main() -> None:
     counts["ranks"] = ranks_phase(torch, rec, smi_line)
     rec["phase_s"]["ranks"] = time.perf_counter() - t0
 
-    # 13. results: each kernel's numbers at the Hunyuan-DiT train step's
+    # 13. hybrid: the tuner's N=4 plan, two data replicas, ZeRO-1 and 2
+    left = release(torch)
+    if left >= 1e9:
+        fail(f"hybrid: {left / 1e9:.2f} GB still allocated; the previous "
+             "phase was not released")
+    t0 = time.perf_counter()
+    counts.update(hybrid_phase(torch, rec, smi_line))
+    rec["phase_s"]["hybrid"] = time.perf_counter() - t0
+
+    # 14. results: each kernel's numbers at the Hunyuan-DiT train step's
     # shape (the scan: its own phase's), every train path's beside them
     kernels = []
     for kname, (source, replaces) in SOURCES.items():

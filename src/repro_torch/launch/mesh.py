@@ -24,9 +24,10 @@ The rank grid is the counterpart of ``make_production_mesh``,
 ``Mesh``: :func:`make_rank_grid` lays the world's processes out as a
 ``(data, model)`` grid of process groups (rank = data index x pp + pipeline
 index, the JAX mesh's row-major device order), one process per pipeline
-device.  Only ``data = 1`` is ported (dp > 1 raises).  ``torch.distributed``
-is imported inside the function, so the rest of the module stays
-importable without it.
+device: a rank's pipeline ring runs over its ``model_group`` and the
+collectives of data parallelism and ZeRO over its ``data_group``.
+``torch.distributed`` is imported inside the function, so the rest of the
+module stays importable without it.
 """
 from __future__ import annotations
 
@@ -65,13 +66,9 @@ class RankGrid:
 def make_rank_grid(pp: int, *, dp: int = 1) -> RankGrid:
     """The grid of the initialized default process group's world, which
     must hold ``dp x pp`` processes.  Every rank calls it (it creates the
-    groups).  ``dp > 1`` is not ported yet (ROADMAP A3)."""
+    groups, all of them in the same order on every rank)."""
     import torch.distributed as dist
     world, rank = dist.get_world_size(), dist.get_rank()
-    if dp != 1:
-        raise NotImplementedError(
-            f"data parallelism over ranks (dp={dp}) is not yet ported to "
-            "repro_torch (ROADMAP A3)")
     if world != dp * pp:
         raise ValueError(f"a (data={dp}, model={pp}) grid needs "
                          f"{dp * pp} processes; the world has {world}")

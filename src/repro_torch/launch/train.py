@@ -75,25 +75,34 @@ process per host; the JAX trainer's contract):
   host draws the full global batch, as the JAX workers do.
 
 One process per pipeline device (ranks): under ``torchrun`` (``RANK``,
-``WORLD_SIZE``, ``LOCAL_RANK`` and ``MASTER_ADDR`` set) ``--pipeline
---devices D`` runs as rank ``RANK`` of a world of D processes (the rank
-grid of ``launch/mesh.py``, data = 1).  Each rank holds its own stage rows
-and the edge params, runs its rows of the step tables, and moves the ring
-hops over ``--ring``: ``nccl`` (the default on ``cuda``; one card a rank)
-or ``gloo`` (the default on ``cpu``; on ``cuda`` the one-card ring, its
-payloads staged through pinned host memory).  The backward is the rank
-walk of ``runtime/ring.py``, not ``loss.backward()``; the GradGuard's
-finite flag and the grad norm (AdamW's clip) are reduced over the group, so
-the ranks skip and clip alike; every rank draws the full global batch, and
-rank 0 prints.  ``--rank-report DIR`` adds, per rank, one forward+backward
-of step 0 without an update before training (loss, gradient fingerprints,
-ring bytes, launches, peak memory) and one of the paper's skip-carry
-baseline from the initial params after it.  Without torchrun's environment
-the one-process executor runs, as before.  Checkpoints (``--ckpt-dir``,
-``--resume``) and ``--num-hosts > 1`` with ranks are not ported yet.
+``WORLD_SIZE``, ``LOCAL_RANK`` and ``MASTER_ADDR`` set) ``--pipeline --dp
+G --pp P`` runs as rank ``RANK`` of a world of G x P processes (the rank
+grid of ``launch/mesh.py``: pipeline index ``RANK % P``, data index
+``RANK // P``; ``--pp`` defaults to ``--devices // --dp``).  Each rank
+holds its own stage rows and the edge params, runs its rows of the step
+tables, and moves the ring hops over ``--ring``: ``nccl`` (the default on
+``cuda``; one card a rank) or ``gloo`` (the default on ``cpu``; on
+``cuda`` the one-card ring, its payloads staged through pinned host
+memory).  The backward is the rank walk of ``runtime/ring.py``, not
+``loss.backward()``.  With ``--dp G > 1`` every rank draws the global
+batch and runs its data replica's shard of each microbatch, and the loss
+and gradients are averaged over the replicas through the data group's
+collectives; ``--zero-stage 1`` keeps a rank's AdamW moments for its
+shard of its rows only (the updated shards all-gathered back), ``2`` its
+rows too (gathered on use).  The GradGuard's finite flag and the grad
+norm (AdamW's clip, each element counted once over the grid) are reduced
+over every rank, so the ranks skip and clip alike; rank 0 prints.
+``--rank-report DIR`` writes, per rank, the first step's forward+backward
+as read before its update (loss, gradient fingerprints, ring and
+data-group bytes, launches, peak memory), the data group's bytes of each
+training step, and, with one replica, one forward+backward of the paper's
+skip-carry baseline from the initial params after training.  Without
+torchrun's environment the one-process executor runs one replica (``--dp
+> 1`` raises ``ValueError``).  Checkpoints (``--ckpt-dir``, ``--resume``)
+and ``--num-hosts > 1`` with ranks are not ported yet.
 
-Not ported yet, and refused with ``NotImplementedError``: data parallelism
-and ZeRO (``--dp``/``--zero-stage``), and the LM smoke archs.
+Not ported yet, and refused with ``NotImplementedError``: the LM smoke
+archs.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch uvit-h \
@@ -113,6 +122,9 @@ Usage:
         --nproc-per-node 4 -m repro_torch.launch.train --arch uvit-h \
         --pipeline --devices 4 --microbatches 8 --global-batch 16 \
         --steps 4 --ring gloo --device cuda      # four ranks on one card
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train --arch uvit-pp \
+        --pipeline --dp 2 --pp 2 --zero-stage 2 --steps 5 --device cpu
 """
 from __future__ import annotations
 
@@ -135,9 +147,6 @@ LM_SMOKE_ARCHS = ("smollm-360m", "h2o-danube-1.8b", "internlm2-20b",
 ARCHS = tuple(dict.fromkeys(PIPELINE_ARCHS + SMOKE_ARCHS + LM_SMOKE_ARCHS))
 
 
-# flags of the JAX trainer whose features are not ported yet: any value but
-# the default is refused (the LM smoke archs are refused separately)
-UNPORTED = {"dp": "data parallelism", "zero_stage": "ZeRO"}
 # torchrun's environment: with all of it set, --pipeline runs as one rank
 RANK_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR")
 # seconds a rank waits on a peer before its collective fails: a receive
@@ -163,10 +172,13 @@ def _parser() -> argparse.ArgumentParser:
                          "(else the whole model in one step)")
     ap.add_argument("--devices", type=int, default=8)
     ap.add_argument("--dp", type=int, default=1,
-                    help="data-parallel degree (only 1 is ported)")
+                    help="data replicas of the pipeline (> 1: ranks under "
+                         "torchrun, one process per (data, pipeline) index)")
     ap.add_argument("--pp", type=int, default=None,
-                    help="pipeline degree (default: --devices)")
-    ap.add_argument("--zero-stage", type=int, default=0, choices=(0, 1, 2))
+                    help="pipeline degree (default: --devices // --dp)")
+    ap.add_argument("--zero-stage", type=int, default=0, choices=(0, 1, 2),
+                    help="ZeRO over the data replicas: 1 shards the AdamW "
+                         "moments, 2 the stage rows too (0 with --dp 1)")
     ap.add_argument("--interleave", type=int, default=None,
                     help="virtual stage slots per device (V)")
     ap.add_argument("--wire-dtype", default="bfloat16",
@@ -213,9 +225,10 @@ def _parser() -> argparse.ArgumentParser:
                          "or gloo (default on cpu; on cuda the one-card "
                          "ring, staged through pinned host memory)")
     ap.add_argument("--rank-report", default=None,
-                    help="ranks: write DIR/rank<r>.json with a probe "
-                         "forward+backward of step 0 (no update) before "
-                         "training and the skip-carry baseline's after it")
+                    help="ranks: write DIR/rank<r>.json with the first "
+                         "step's forward+backward (read before its update), "
+                         "every step's data-group bytes and, with one "
+                         "replica, the skip-carry baseline's after training")
     return ap
 
 
@@ -298,12 +311,24 @@ def _refuse_unported(args) -> None:
                          "pipeline archs are " + ", ".join(PIPELINE_ARCHS))
     if not args.pipeline and args.arch not in SMOKE_ARCHS:
         raise ValueError(f"--arch {args.arch} trains only with --pipeline")
-    ap = _parser()
-    for dest, what in UNPORTED.items():
-        if getattr(args, dest) != ap.get_default(dest):
-            flag = "--" + dest.replace("_", "-")
-            raise NotImplementedError(f"{what} ({flag}) is not yet ported "
-                                      "to repro_torch")
+
+
+def _pipeline_degree(args) -> int:
+    """P: ``--pp``, else ``--devices // --dp`` (the JAX trainer's rule)."""
+    return args.pp or max(args.devices // args.dp, 1)
+
+
+def _refuse_one_process_dp(args) -> None:
+    """Data replicas run as ranks: one process runs one replica."""
+    if args.dp > 1:
+        P = _pipeline_degree(args)
+        raise ValueError(
+            f"--dp {args.dp}: the port runs data replicas as ranks, one "
+            "process per (data, pipeline) index; launch the "
+            f"{args.dp} x {P} grid with\n  python -m torch.distributed.run "
+            f"--standalone --nproc-per-node {args.dp * P} -m "
+            f"repro_torch.launch.train --pipeline --dp {args.dp} --pp {P} "
+            "...")
 
 
 def rank_env(environ=None) -> dict | None:
@@ -327,25 +352,26 @@ def _refuse_rank_options(args, env: dict) -> None:
                 "ported to repro_torch: a rank holds only its own stage "
                 "rows (ROADMAP A1, multi-rank checkpoints and the "
                 "supervisor over ranks)")
-    P = args.pp or args.devices
-    if env["world"] != P:
-        if env["world"] % P == 0:
-            raise NotImplementedError(
-                f"{env['world']} processes for a {P}-device pipeline is "
-                "data parallelism over ranks, not yet ported to "
-                "repro_torch (ROADMAP A3)")
+    P = _pipeline_degree(args)
+    if env["world"] != args.dp * P:
         raise ValueError(f"{env['world']} processes cannot run a "
-                         f"{P}-device pipeline")
+                         f"{P}-device pipeline with {args.dp} data "
+                         f"replicas: the world is --dp x --pp = "
+                         f"{args.dp * P}")
 
 
 @dataclasses.dataclass
 class Ranks:
     """This process's rank of a pipeline run over ranks: its grid
-    (``launch.mesh.RankGrid``), its ring and device, and the ring's kind."""
+    (``launch.mesh.RankGrid``), its ring and device, the ring's kind, and
+    with data replicas its data group (``runtime.ring.DataGroup``)."""
     grid: Any
     ring: Any
     device: Any
     kind: str                      # "nccl" | "gloo"
+    data: Any = None
+    # the data group's bytes and calls of each training step, by collective
+    step_bytes: dict = dataclasses.field(default_factory=dict)
 
     @property
     def leader(self) -> bool:
@@ -356,25 +382,41 @@ class Ranks:
                "staged through pinned host memory" if self.ring.staged
                else "CPU tensors")
         return (f"ranks: rank {self.grid.rank} of {self.grid.world} "
-                f"(pipeline index {self.grid.pipe_index}), {self.kind} ring "
-                f"({how}) on {self.device}")
+                f"(pipeline index {self.grid.pipe_index}, data index "
+                f"{self.grid.data_index}), {self.kind} ring ({how}) on "
+                f"{self.device}"
+                + (f"; {self.data.describe()}" if self.data else ""))
 
-    def reduce(self, loss, grads) -> tuple[bool, Any]:
-        """(finite, global norm) of the step's gradient over the group:
-        each rank's stage leaves, the edge leaves (equal on every rank
-        after their all-reduce) counted once."""
+    def reduce(self, loss, grads, compiled) -> tuple[bool, Any]:
+        """(finite, global norm) of the step's gradient over the grid,
+        each element counted once: a stage leaf ZeRO shards by its data
+        replicas (``compiled.zero_dims()``; its ``.grad`` is the rank's
+        shard, zeros elsewhere at ZeRO-1) on every rank, a stage leaf
+        every replica holds whole on data index 0 only, the edge leaves
+        (equal on every rank after their all-reduce) on rank 0 only."""
         import torch
 
         from repro_torch.runtime.resilience import all_finite
+        from repro_torch.runtime.sharding import leaf_dims
         from repro_torch.tree import tree_leaves
         stacks, edge = grads
-        leaves = tree_leaves(stacks) + (tree_leaves(edge)
-                                        if self.grid.pipe_index == 0 else [])
-        sq = torch.stack([torch.linalg.vector_norm(
-            g, dtype=torch.float32).square() for g in leaves]).sum()
+        first = self.grid.data_index == 0
+        dims = compiled.zero_dims()
+        leaves = []
+        for i, st in enumerate(stacks):
+            leaves += [g for g, d in leaf_dims(st, dims and dims[i])
+                       if d >= 0 or first]
+        if self.leader:
+            leaves += tree_leaves(edge)
+        sq = torch.zeros((), dtype=torch.float32, device=self.device)
+        for g in leaves:
+            sq = sq + torch.linalg.vector_norm(g, dtype=torch.float32
+                                               ).square()
         bad = (~all_finite(loss, grads)).to(sq.device, torch.float32)
         buf = torch.stack([sq, bad])
         self.ring.all_reduce_([buf])
+        if self.data is not None:
+            self.data.all_reduce_([buf])
         return bool(buf[1] == 0), torch.sqrt(buf[0])
 
 
@@ -387,7 +429,7 @@ def _init_ranks(args, env: dict) -> Ranks:
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_rank_grid
-    from repro_torch.runtime.ring import Ring
+    from repro_torch.runtime.ring import DataGroup, Ring
     kind = args.ring or ("nccl" if args.device == "cuda" else "gloo")
     if args.device == "cuda":
         if not torch.cuda.is_available():
@@ -407,10 +449,13 @@ def _init_ranks(args, env: dict) -> Ranks:
     dist.init_process_group(
         kind, rank=env["rank"], world_size=env["world"],
         timeout=datetime.timedelta(seconds=RING_TIMEOUT_S))
-    grid = make_rank_grid(args.pp or args.devices)
+    grid = make_rank_grid(_pipeline_degree(args), dp=args.dp)
+    staged = kind == "gloo" and device.type == "cuda"
     ring = Ring(grid.model_group, grid.pipe_index, grid.pp, device,
-                staged=kind == "gloo" and device.type == "cuda")
-    return Ranks(grid, ring, device, kind)
+                staged=staged)
+    data = (DataGroup(grid.data_group, grid.data_index, grid.dp, device,
+                      staged=staged) if grid.dp > 1 else None)
+    return Ranks(grid, ring, device, kind, data)
 
 
 def _kind(args) -> str:
@@ -489,12 +534,14 @@ def _device(args):
     return torch.device(args.device)
 
 
-def _with_grads(params):
+def _with_grads(params, opt_view=lambda p: p):
+    """``params`` as autograd leaves, and the AdamW state of
+    ``opt_view(params)`` (a ZeRO-1 rank's shard views)."""
     from repro_torch.optim import adamw_init
     from repro_torch.tree import tree_leaves
     for leaf in tree_leaves(params):
         leaf.requires_grad_(True)
-    return params, adamw_init(params)
+    return params, adamw_init(opt_view(params))
 
 
 def build_trainer(args, compiled=None, ranks: Ranks | None = None
@@ -505,8 +552,8 @@ def build_trainer(args, compiled=None, ranks: Ranks | None = None
     the place of the plan pinned by ``--devices``/``--pp``,
     ``--microbatches``, ``--interleave`` and ``--wire-dtype``: its M
     splits the global batch.  With ``ranks`` the trainer is that rank's:
-    its params are the rank's rows and the edge params, and its loss fills
-    the gradients itself."""
+    its params are the rank's rows (at ZeRO-2 its shard of them) and the
+    edge params, and its loss fills the gradients itself."""
     import torch
 
     from repro_torch.core.hw import H100_SXM
@@ -527,7 +574,7 @@ def build_trainer(args, compiled=None, ranks: Ranks | None = None
                          f"into {M} microbatches")
     kind = _kind(args)
     if compiled is None:
-        P = args.pp or args.devices
+        P = _pipeline_degree(args)
         graph_fn = {"skipvit": skipvit_pipeline_graph,
                     "hunyuan": hunyuan_pipeline_graph}.get(kind,
                                                            uvit_pipeline_graph)
@@ -535,14 +582,17 @@ def build_trainer(args, compiled=None, ranks: Ranks | None = None
         compiled = auto_pipeline(graph, model_fns(cfg, kind), P,
                                  hw=H100_SXM, pipeline_devices=P,
                                  microbatches=M, interleave=args.interleave,
-                                 wire_dtype=args.wire_dtype)
+                                 wire_dtype=args.wire_dtype,
+                                 dp_size=args.dp, zero_stage=args.zero_stage)
     if ranks is not None:
-        compiled = compiled.for_rank(ranks.ring.index)
+        compiled = compiled.for_rank(ranks.grid.pipe_index,
+                                     ranks.grid.data_index)
     gen = torch.Generator(device=device).manual_seed(0)
     with torch.no_grad():
         params = compiled.init_pipeline_params(gen, device)
-    params, opt_state = _with_grads(params)
-    fn = compiled.build(ranks.ring if ranks is not None else None)
+    params, opt_state = _with_grads(params, compiled.optimizer_view)
+    fn = (compiled.build(ranks.ring, ranks.data) if ranks is not None
+          else compiled.build())
 
     def loss(params, batch, t, noise):
         # Hunyuan's temb comes from the current edge params (time_mlp)
@@ -671,7 +721,8 @@ FINGERPRINT_PROBES = 8
 
 
 def grad_fingerprints(grads, *, rank: int | None = None,
-                      probes: int = FINGERPRINT_PROBES) -> dict:
+                      probes: int = FINGERPRINT_PROBES,
+                      whole: Callable | None = None) -> dict:
     """``key -> [norm, dot_1, ..., dot_probes]`` for each leaf of a
     pipeline gradient tree ``(stage stacks, edge)``: every stage leaf per
     pipeline device (``stack[d]`` of a one-process tree, or a rank's own
@@ -680,7 +731,9 @@ def grad_fingerprints(grads, *, rank: int | None = None,
     tensors drawn on the gradient's device from a seed of the key, row by
     row, so a rank's leaves and the one-process tree's slices of them
     fingerprint alike; ``sqrt(mean((dot_a - dot_b)^2))`` estimates
-    ``||g_a - g_b||``."""
+    ``||g_a - g_b||``.  ``whole(i, path, x)``, when given, turns stage
+    stack ``i``'s leaf into the leaf to fingerprint, one leaf at a time
+    (a ZeRO rank's shard into the whole, :func:`_whole_leaf`)."""
     import zlib
 
     import torch
@@ -703,6 +756,8 @@ def grad_fingerprints(grads, *, rank: int | None = None,
     out = {}
     for i, st in enumerate(stacks):
         for path, x in tree_paths(st):
+            if whole is not None:
+                x = whole(i, path, x)
             per = ([(rank, x)] if rank is not None
                    else list(enumerate(x.unbind(0))))
             for d, xd in per:
@@ -728,17 +783,21 @@ def _step_inputs(tr: Trainer, step: int, draw) -> tuple:
     return batch, t, noise
 
 
-def _timed_walk(tr: Trainer, walk: Callable) -> dict:
-    """One rank walk (``walk()`` returns its reduced loss): its loss,
-    seconds (device synchronized), ring bytes, kernel launches and peak
-    device memory."""
+def _timed_walk(tr: Trainer, walk: Callable) -> tuple:
+    """One rank walk (``walk()`` returns its reduced loss): the loss, and
+    a record of it, seconds (device synchronized), ring bytes, the data
+    group's bytes, calls and seconds, kernel launches and peak device
+    memory."""
     import copy
 
     import torch
 
     from repro_torch.kernels import launch_counts
-    ring, cuda = tr.ranks.ring, tr.device.type == "cuda"
+    ring, data = tr.ranks.ring, tr.ranks.data
+    cuda = tr.device.type == "cuda"
     ring.reset_bytes()
+    if data is not None:
+        data.reset_bytes()
     before = launch_counts()
     if cuda:
         torch.cuda.synchronize(tr.device)
@@ -749,40 +808,47 @@ def _timed_walk(tr: Trainer, walk: Callable) -> dict:
         torch.cuda.synchronize(tr.device)
     secs = time.perf_counter() - t0
     after = launch_counts()
-    return dict(loss=float(loss), seconds=secs,
+    return loss, dict(loss=float(loss), seconds=secs,
                 ring_bytes=copy.deepcopy(ring.bytes),
+                data_bytes=dict(data.bytes) if data else None,
+                data_calls=dict(data.calls) if data else None,
+                data_seconds=dict(data.seconds) if data else None,
                 launches={k: v - before.get(k, 0) for k, v in after.items()},
                 peak_bytes=(torch.cuda.max_memory_allocated(tr.device)
                             if cuda else None))
 
 
-def _rank_probe(tr: Trainer, params, draw) -> dict:
-    """Step 0's forward+backward on this rank without an update, and the
-    fingerprints of its gradient (:func:`grad_fingerprints`)."""
-    import torch
+def _whole_leaf(tr: Trainer) -> Callable | None:
+    """For :func:`grad_fingerprints`' ``whole``: under ZeRO with data
+    replicas, a rank's gradient of a whole stage leaf, gathered over the
+    data group (at ZeRO-1 the sum of the replicas' ``.grad``, each its
+    shard and zeros elsewhere; at ZeRO-2 the all-gather of the shards);
+    None without ZeRO."""
+    from repro_torch.tree import tree_paths
+    dims, data = tr.compiled.zero_dims(), tr.ranks.data
+    if dims is None:
+        return None
+    dim = [dict(tree_paths(ds)) for ds in dims]
 
-    from repro_torch.tree import tree_leaves, tree_map
-    # nothing reset the peak since the process began: it is the set-up's,
-    # the whole model drawn on the card before the rank kept its rows
-    init_peak = (torch.cuda.max_memory_allocated(tr.device)
-                 if tr.device.type == "cuda" else None)
-    batch, t, noise = _step_inputs(tr, 0, draw)
-    rec = _timed_walk(tr, lambda: tr.loss(params, batch, t, noise))
-    rec["init_peak_bytes"] = init_peak
-    grads = tree_map(lambda p: p.grad if p.grad is not None
-                     else torch.zeros_like(p), params)
-    rec["fingerprints"] = grad_fingerprints(grads, rank=tr.ranks.ring.index)
-    for p in tree_leaves(params):
-        p.grad = None
-    return rec
+    def whole(i, path, g):
+        d = dim[i][path]
+        if d < 0:
+            return g
+        if tr.compiled.pcfg.zero_stage == 1:
+            g = g.clone()
+            data.all_reduce_([g])
+            return g
+        return data.all_gather([g], [d + 1])[0]
+
+    return whole
 
 
 def _rank_report(args, tr: Trainer, res: TrainResult, probe: dict,
                  draw) -> str:
     """After training: one forward+backward of the paper's skip-carry
     baseline on this rank from the initial (seed-0) params and step 0's
-    batch (UViT and Hunyuan-DiT), then ``--rank-report``'s file for this
-    rank.  Returns its path."""
+    batch (UViT and Hunyuan-DiT, one data replica), then
+    ``--rank-report``'s file for this rank.  Returns its path."""
     import torch
 
     from repro_torch.kernels import launch_counts
@@ -792,7 +858,7 @@ def _rank_report(args, tr: Trainer, res: TrainResult, probe: dict,
     from repro_torch.tree import tree_leaves
     ranks, device, kind = tr.ranks, tr.device, _kind(args)
     base = None
-    if kind != "skipvit":
+    if kind != "skipvit" and ranks.data is None:
         cfg, pcfg = _model_config(args), tr.compiled.pcfg
         ad = DiffusionPipelineAdapter(cfg, pcfg, kind)
         gen = torch.Generator(device=device).manual_seed(0)
@@ -806,9 +872,14 @@ def _rank_report(args, tr: Trainer, res: TrainResult, probe: dict,
         mb, aux = make_diffusion_microbatches(
             batch, pcfg.num_microbatches, cfg, kind, t=t, noise=noise,
             params=edge)
-        base = _timed_walk(tr, lambda: fn(enc, dec, edge, mb, aux))
+        _, base = _timed_walk(tr, lambda: fn(enc, dec, edge, mb, aux))
         del enc, dec, edge, mb, aux
     doc = dict(rank=ranks.grid.rank, world=ranks.grid.world, ring=ranks.kind,
+               pipe=ranks.grid.pipe_index, data=ranks.grid.data_index,
+               dp=ranks.grid.dp, spec=tr.compiled.state_spec(),
+               data_group=ranks.data.describe() if ranks.data else None,
+               step_data_bytes={str(k): v for k, v in
+                                ranks.step_bytes.items()},
                staged=ranks.ring.staged, device=str(device), probe=probe,
                train=dict(losses={str(k): v for k, v in res.losses.items()},
                           step_seconds={str(k): v for k, v in
@@ -847,6 +918,8 @@ def run(args, on_restore=None, init_params=None, draw=None,
     env = rank_env() if args.pipeline else None
     if env is not None:
         _refuse_rank_options(args, env)
+    else:
+        _refuse_one_process_dp(args)
     if compiled is not None and not args.pipeline:
         raise ValueError("a compiled pipeline plan needs --pipeline")
     from repro_torch.runtime.resilience import (EXIT_ESCALATE, FaultPlan,
@@ -929,9 +1002,12 @@ def run(args, on_restore=None, init_params=None, draw=None,
                   + f" in {restore['total_s']:.2f} s", flush=True)
             if on_restore is not None:
                 on_restore(state, resumed)
+    # --rank-report's probe is the first step's forward+backward, read
+    # before its update; nothing reset the peak since the process began,
+    # so here it is the set-up's (the whole model drawn on the card before
+    # the rank kept its rows)
     probe = None
-    if ranks is not None and args.rank_report:
-        probe = _rank_probe(tr, params, draw)
+    init_peak = torch.cuda.max_memory_allocated(device) if cuda else None
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -1019,6 +1095,8 @@ def run(args, on_restore=None, init_params=None, draw=None,
                                        else ProfilerActivity.CPU])
             prof.__enter__()
         t_step = time.perf_counter()
+        if ranks is not None and ranks.data is not None:
+            ranks.data.reset_bytes()
         raw = tr.loader.get(step)
         batch = faults.poison_batch(
             {k: torch.as_tensor(v, device=device) for k, v in raw.items()},
@@ -1027,7 +1105,12 @@ def run(args, on_restore=None, init_params=None, draw=None,
             t, noise = ddpm_draw(batch["latents"], step)
         else:
             t, noise = (torch.as_tensor(x, device=device) for x in draw(step))
-        loss = tr.loss(params, batch, t, noise)
+        if ranks is not None and args.rank_report and step == start:
+            loss, probe = _timed_walk(
+                tr, lambda: tr.loss(params, batch, t, noise))
+            probe["init_peak_bytes"] = init_peak
+        else:
+            loss = tr.loss(params, batch, t, noise)
         if ranks is None:
             loss.backward()     # a rank's loss has filled its grads itself
         # a leaf the step never reads (the xattn wk/wv cross-attention
@@ -1044,18 +1127,34 @@ def run(args, on_restore=None, init_params=None, draw=None,
         else:
             # the ranks must agree on skipping and clipping, or their
             # params part
-            finite, norm = ranks.reduce(loss, grads)
+            finite, norm = ranks.reduce(loss, grads, compiled)
             gnorm = float(norm)
         lr = cosine_schedule(step, base_lr=args.lr, warmup=20,
                              total=args.steps)
         if finite:
-            adamw_update(params, grads, opt_state, opt_cfg, lr=lr, norm=norm)
+            if ranks is None:
+                adamw_update(params, grads, opt_state, opt_cfg, lr=lr)
+            else:
+                # ZeRO-1: the rank's shard is updated, then gathered back
+                adamw_update(compiled.optimizer_view(params),
+                             compiled.optimizer_view(grads), opt_state,
+                             opt_cfg, lr=lr, norm=norm)
+                compiled.gather_params_(params, ranks.data)
         for p in tree_leaves(params):
             p.grad = None
-        del grads
         if cuda:
             torch.cuda.synchronize(device)
         step_s[step] = time.perf_counter() - t_step
+        if ranks is not None and ranks.data is not None:
+            ranks.step_bytes[step] = dict(
+                bytes=dict(ranks.data.bytes), calls=dict(ranks.data.calls),
+                seconds=dict(ranks.data.seconds))
+        if ranks is not None and args.rank_report and step == start:
+            # after the step's record: gathering the whole rows is no part
+            # of the step
+            probe["fingerprints"] = grad_fingerprints(
+                grads, rank=ranks.ring.index, whole=_whole_leaf(tr))
+        del grads
         try:
             guard.observe(finite, step)     # skipped above when not finite
         except GradGuardEscalation as e:

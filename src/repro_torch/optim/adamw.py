@@ -3,7 +3,9 @@ schedule (the port of ``repro.optim.adamw``, fp32-state AdamW only).
 
 The state mirrors the param tree leaf by leaf (``m`` and ``v`` in fp32,
 ``step`` an int32 scalar), as in the JAX package, so a JAX optimizer state
-converts with ``params_from_jax``.
+converts with ``params_from_jax``.  Under ZeRO-1 a rank hands it views of
+its shard of its stage rows (``CompiledPipeline.optimizer_view``), so the
+moments cover the shard alone, and the update writes the views in place.
 
 Unlike the JAX functions, :func:`adamw_update` works IN PLACE: it
 overwrites the param tensors and the ``m`` / ``v`` tensors it is given and

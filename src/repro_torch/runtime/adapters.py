@@ -145,10 +145,12 @@ class DiffusionPipelineAdapter:
             enc_stage_fn=self.enc_stage_fn, dec_stage_fn=self.dec_stage_fn,
             loss_fn=self.loss_fn)
 
-    def build_skip_carry_baseline(self, ring=None) -> Callable:
+    def build_skip_carry_baseline(self, ring=None, data=None) -> Callable:
         """Paper-baseline executor: sequential partition + skip payload,
         on :meth:`split_params_skip_carry`' stacks; with ``ring``, rank
-        ``ring.index``'s executor on its rows (``rank=`` there)."""
+        ``ring.index``'s executor on its rows (``rank=`` there), and with
+        ``pcfg.dp_size > 1`` that rank's data group ``data``
+        (``runtime.ring.DataGroup``)."""
         D = self.pcfg.num_devices
         half = self.cfg.half
         assert half % (D // 2) == 0
@@ -157,7 +159,7 @@ class DiffusionPipelineAdapter:
             self.pcfg, n_skip_slots=half,
             embed_fn=self.embed_fn,
             enc_stage_fn=self.enc_stage_fn, dec_stage_fn=self.dec_stage_fn,
-            loss_fn=self.loss_fn, skips_per_stage=k, ring=ring)
+            loss_fn=self.loss_fn, skips_per_stage=k, ring=ring, data=data)
 
     def split_params_skip_carry(self, params: Pytree,
                                 rank: int | None = None) -> tuple:

@@ -29,14 +29,19 @@ restore onto another plan de-stacks through it (``runtime.resilience``).
 :meth:`CompiledPipeline.certify` proves the lowered step tables race- and
 deadlock-free without running them (``repro_torch.analysis``).
 
-Not ported yet (they raise ``NotImplementedError``): data parallelism and
-ZeRO (``dp_size > 1``, ``zero_stage > 0``, and a tuner choice with G > 1 or
-a ZeRO stage, which is refused rather than replaced by a lower-ranked one;
-a state spec records ``dp = 1`` and ``zero_stage = 0``).
+Data parallelism and ZeRO (``dp_size``, ``zero_stage``; the tuner's G and
+ZeRO stage by default) run as ranks: one process per (data, pipeline)
+index of the grid (``launch/mesh.py::make_rank_grid``), each with its
+pipeline ring and its data group (``runtime/ring.py``).  A rank's plan is
+:meth:`CompiledPipeline.for_rank`; at ZeRO-2 its rows rest sharded over
+its data replicas by the JAX package's rules (:meth:`zero_dims`,
+``runtime/sharding.py``).  The one-process executors run one replica and
+refuse ``dp_size > 1``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Sequence
 
 import torch
@@ -46,20 +51,19 @@ from repro_torch.core.hw import Hardware, H100_SXM
 from repro_torch.core.partition import Partition, partition as partition_graph
 from repro_torch.core.schedule import Schedule, schedule_for_partition
 from repro_torch.core.tuner import TunerChoice, tune
-from repro_torch.runtime.pipeline import (PipelineConfig, make_linear_pipeline,
+from repro_torch.runtime.pipeline import (PipelineConfig, check_one_replica,
+                                          make_linear_pipeline,
                                           make_wave_pipeline, scan_blocks,
                                           scan_blocks_consume,
                                           scan_blocks_emit)
 from repro_torch.runtime.schedule_exec import (
     StepTables, make_linear_pipeline_from_schedule,
     make_wave_pipeline_from_schedule)
+from repro_torch.runtime.sharding import (leaf_dims, shard, shard_view,
+                                          zero_stack_dims)
 from repro_torch.tree import tree_leaves, tree_map
 
 Pytree = Any
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to repro_torch")
 
 
 # ===========================================================================
@@ -345,26 +349,92 @@ class CompiledPipeline:
     choice: TunerChoice | None = None      # set when the tuner drove the plan
     executor: str = "table"                # "table" | "closed_form"
     rank: int | None = None                # one pipeline device's view
+    data_index: int = 0                    # ...in data replica data_index
 
     @property
     def folded(self) -> bool:
         return self.partition.folded
 
-    def for_rank(self, rank: int) -> "CompiledPipeline":
-        """The plan as pipeline device ``rank`` of a multi-process run
-        sees it: :meth:`split_params` and :meth:`init_pipeline_params`
-        give that device's stage rows (``[V, pad, ...]``) and the edge
-        params, :meth:`build` needs the rank's ``ring``, and
+    def for_rank(self, rank: int, data: int = 0) -> "CompiledPipeline":
+        """The plan as pipeline device ``rank`` of data replica ``data``
+        sees it (the rank grid's pipe and data index):
+        :meth:`split_params` and :meth:`init_pipeline_params` give that
+        device's stage rows (``[V, pad, ...]``; at ZeRO-2 with ``dp > 1``
+        the replica's shard of them) and the edge params, :meth:`build`
+        needs the rank's ``ring`` (and ``data`` group, ``dp > 1``), and
         :meth:`merge_params`, which needs every rank's rows, raises."""
         if not 0 <= rank < self.partition.num_devices:
             raise ValueError(f"rank {rank} outside the "
                              f"{self.partition.num_devices}-device plan")
-        return dataclasses.replace(self, rank=rank)
+        if not 0 <= data < self.pcfg.dp_size:
+            raise ValueError(f"data index {data} outside the plan's "
+                             f"{self.pcfg.dp_size} data replicas")
+        return dataclasses.replace(self, rank=rank, data_index=data)
+
+    # ---- ZeRO ------------------------------------------------------------
+    def zero_dims(self) -> tuple | None:
+        """Per param stack, the dim of each leaf's slot view ``[pad, ...]``
+        that shards over the data replicas (``-1`` replicated): the gather
+        dims of the JAX package's ``_zero_layout`` (``zero_stack_specs``,
+        here ``runtime.sharding.zero_stack_dims``), or None below ZeRO-1
+        or with one replica.  ZeRO-1 shards the AdamW moments by them,
+        ZeRO-2 the rows as well.  Shapes come from the model's init on the
+        ``meta`` device: no parameter is drawn (once per plan)."""
+        return self._zero_dims
+
+    @functools.cached_property
+    def _zero_dims(self) -> tuple | None:
+        if self.pcfg.zero_stage < 1 or self.pcfg.dp_size <= 1:
+            return None
+        stacks, _ = self.model_fns.split_blocks(self.model_fns.init_fn(
+            torch.Generator().manual_seed(0), "meta"))
+        return tuple(zero_stack_dims(st, dp=self.pcfg.dp_size)
+                     for st in self.layout.split(tuple(stacks)))
+
+    def optimizer_view(self, params: tuple) -> tuple:
+        """What a rank's AdamW updates of ``(stage stacks, edge)`` (or of
+        their gradients): at ZeRO-1 views of its data replica's shard of
+        each sharded leaf (its moments cover only those), else the tree
+        itself (at ZeRO-2 the rows are already the shard).  After an
+        update of the views, :meth:`gather_params_` brings the rows
+        whole again."""
+        if self.rank is None or self.pcfg.zero_stage != 1 \
+                or self.pcfg.dp_size <= 1:
+            return params
+        stacks, edge = params
+        return tuple(shard_view(st, dims, self.pcfg.dp_size, self.data_index)
+                     for st, dims in zip(stacks, self.zero_dims())), edge
+
+    def gather_params_(self, params: tuple, data) -> None:
+        """ZeRO-1: all-gather every sharded leaf's updated shards over the
+        data group ``data`` back into the rank's whole rows, in place (one
+        collective a stack)."""
+        if self.rank is None or self.pcfg.zero_stage != 1 \
+                or self.pcfg.dp_size <= 1:
+            return
+        stacks, _ = params
+        with torch.no_grad():
+            for st, dims in zip(stacks, self.zero_dims()):
+                sharded = [(x, d + 1) for x, d in leaf_dims(st, dims)
+                           if d >= 0]
+                if not sharded:
+                    continue
+                xs, ds = zip(*sharded)
+                data.all_gather(
+                    [x.narrow(d, data.index * (x.shape[d] // data.size),
+                              x.shape[d] // data.size)
+                     for x, d in sharded], list(ds), out=list(xs))
 
     # ---- parameter plumbing ----------------------------------------------
     def split_params(self, params: Pytree) -> tuple:
         stacks, edge = self.model_fns.split_blocks(params)
-        return self.layout.split(tuple(stacks), self.rank), edge
+        stacks = self.layout.split(tuple(stacks), self.rank)
+        if self.rank is not None and self.pcfg.zero_stage >= 2 \
+                and self.pcfg.dp_size > 1:     # ZeRO-2: the rows rest sharded
+            stacks = tuple(shard(st, dims, self.pcfg.dp_size,
+                                 self.data_index)
+                           for st, dims in zip(stacks, self.zero_dims()))
+        return stacks, edge
 
     def merge_params(self, stage_stacks: tuple, edge: Pytree) -> Pytree:
         if self.rank is not None:
@@ -379,8 +449,9 @@ class CompiledPipeline:
                              device="cuda") -> tuple:
         """The params of the seed ``gen`` draws, split as this plan (or
         rank) lays them out.  A rank draws the whole model -- the same
-        values the one-process path draws -- and keeps its own rows: the
-        whole model is on ``device`` until this returns."""
+        values the one-process path draws -- and keeps its own rows (at
+        ZeRO-2 its shard of them): the whole model is on ``device`` until
+        this returns."""
         return self.split_params(self.model_fns.init_fn(gen, device))
 
     # ---- lowering artefacts ----------------------------------------------
@@ -426,7 +497,7 @@ class CompiledPipeline:
         return certify_plan(self, name=name)
 
     # ---- executor ----------------------------------------------------------
-    def build(self, ring=None) -> Callable:
+    def build(self, ring=None, data=None) -> Callable:
         """Lower to an executor.
 
         ``executor="table"`` (default) walks the *validated schedule
@@ -444,13 +515,25 @@ class CompiledPipeline:
         that rank's executor over ``ring``
         (:class:`~repro_torch.runtime.ring.Ring`): its stacks are its own
         rows, it returns the loss summed over the group with every leaf's
-        ``.grad`` filled (no ``loss.backward()``).  The closed forms stay
-        one-process.
+        ``.grad`` filled (no ``loss.backward()``).  With ``dp_size > 1``
+        it also needs the rank's ``data`` group
+        (:class:`~repro_torch.runtime.ring.DataGroup`): it runs its data
+        shard of each microbatch, and the loss and gradients come back
+        averaged over the replicas (``schedule_exec``).  The closed forms
+        stay one-process.
         """
         if self.executor not in ("table", "closed_form"):
             raise ValueError(
                 f"unknown executor {self.executor!r}; expected 'table' or "
                 "'closed_form'")
+        if self.executor == "closed_form" and self.pcfg.zero_stage >= 2 \
+                and self.pcfg.dp_size > 1:
+            raise ValueError(
+                "closed-form executors keep stage stacks replicated over "
+                f"the data replicas; zero_stage={self.pcfg.zero_stage} "
+                "shards them at rest -- lower through executor='table'")
+        if ring is None:
+            check_one_replica(self.pcfg)
         if (ring is None) != (self.rank is None):
             raise ValueError(
                 "a rank's plan (for_rank) builds with its ring, and only "
@@ -463,7 +546,11 @@ class CompiledPipeline:
             if ring.index != self.rank:
                 raise ValueError(f"ring index {ring.index} for rank "
                                  f"{self.rank}'s plan")
+            if data is not None and data.index != self.data_index:
+                raise ValueError(f"data index {data.index} for data "
+                                 f"replica {self.data_index}'s plan")
         fns, pcfg, layout = self.model_fns, self.pcfg, self.layout
+        zero_dims = self.zero_dims() if ring is not None else None
         if self.executor == "closed_form" and layout.V > 1:
             raise ValueError(
                 f"closed-form executors realize one (enc, dec) stage slot "
@@ -501,7 +588,8 @@ class CompiledPipeline:
                     pcfg, self.schedule, embed_fn=fns.embed_fn,
                     enc_stage_fn=enc_stage_fn, dec_stage_fn=dec_stage_fn,
                     loss_fn=fns.loss_fn, devices=self.partition.devices,
-                    skip_consumers=layout.skip_consumers(), ring=ring)
+                    skip_consumers=layout.skip_consumers(), ring=ring,
+                    data=data, zero_dims=zero_dims)
 
             def enc_stage_cf(rows, x, aux, d):
                 return scan_blocks_emit(enc_block, rows, x,
@@ -529,7 +617,8 @@ class CompiledPipeline:
 
             return make_linear_pipeline_from_schedule(
                 pcfg, self.schedule, embed_fn=embed, stage_fn=stage_fn,
-                loss_fn=loss, devices=self.partition.devices, ring=ring)
+                loss_fn=loss, devices=self.partition.devices, ring=ring,
+                data=data, zero_dims=zero_dims)
 
         def stage_cf(rows, x, d):
             return scan_blocks(fns.block_fn, rows, x, layout.enc_counts[d][0],
@@ -560,7 +649,10 @@ class CompiledPipeline:
             (f"  executor: {self.executor} (one process, devices share one "
              "card)" if self.rank is None else
              f"  executor: {self.executor}, rank {self.rank} of "
-             f"{part.num_devices} (one process per pipeline device)"),
+             f"{part.num_devices}"
+             + (f", data replica {self.data_index} of {self.pcfg.dp_size}"
+                if self.pcfg.dp_size > 1 else "")
+             + " (one process per pipeline device)"),
         ]
         if self.executor == "table":
             tabs = self.step_tables()
@@ -572,6 +664,10 @@ class CompiledPipeline:
                 f"W_turn={tabs.W_turn} W_skip={tabs.W_skip} (M={sched.M})",
                 f"  comm: exposed hops {tabs.exposed_hops} / "
                 f"hidden {tabs.hidden_hops} (of {live_d + live_u} live)"]
+        if self.pcfg.dp_size > 1 or self.pcfg.zero_stage > 0:
+            lines.append(
+                f"  hybrid: dp={self.pcfg.dp_size} over ('data',), "
+                f"zero_stage={self.pcfg.zero_stage}")
         if self.choice is not None:
             c = self.choice
             lines.append(f"  tuner: P={c.P} G={c.G} b={c.b} M={c.M} "
@@ -607,17 +703,16 @@ def auto_pipeline(
     By default the hybrid tuner (§VI) picks (P, G, b) -- and the
     interleave degree V -- and supplies its partition; ``microbatches``
     then defaults to the M the tuner's iteration-time score assumed
-    (``TunerChoice.M``), so the executed iteration is the scored one.  The
-    port runs one pipeline replica (G = 1) without ZeRO: where the tuner's
-    best choice has G > 1 or a ZeRO stage, this raises
-    ``NotImplementedError`` naming it, and never falls back to a
-    lower-ranked choice (that would be another plan than the JAX
-    package's).  Pinning ``interleave`` or ``zero_stage`` restricts the
-    tuner's search to that value.
+    (``TunerChoice.M``), ``dp_size`` to its G and ``zero_stage`` to its
+    ZeRO stage, so the executed iteration is the scored one.  Pinning
+    ``interleave`` or ``zero_stage`` restricts the tuner's search to that
+    value.  A ZeRO stage over one replica drops to 0, as in the JAX
+    package (nothing to shard over).
 
     Pass ``pipeline_devices`` to pin the pipeline degree and call the
     partitioner directly (deterministic; used by the tests and the
-    trainer; ``microbatches`` defaults to 2D folded, max(D, 2) linear).
+    trainer; ``microbatches`` defaults to 2D folded, max(D, 2) linear,
+    ``dp_size`` to 1 and ``zero_stage`` to 0).
     ``interleave`` pins V stage slots per device and kind (S = 2VD
     folded, VD linear).
 
@@ -632,12 +727,8 @@ def auto_pipeline(
     """
     if zero_stage is not None and zero_stage not in (0, 1, 2):
         raise ValueError(f"zero_stage must be in (0, 1, 2), got {zero_stage}")
-    if dp_size not in (None, 1):
-        raise _not_ported("data parallelism (dp_size > 1)")
     choice: TunerChoice | None = None
     if pipeline_devices is not None:
-        if zero_stage not in (None, 0):
-            raise _not_ported("ZeRO (zero_stage > 0)")
         part = partition_graph(graph, pipeline_devices, hw=hw, lam=lam,
                                force_wave=force_wave,
                                interleave=interleave or 1)
@@ -676,11 +767,6 @@ def auto_pipeline(
                 f"tuner found no feasible pipeline plan for N={N}; "
                 f"candidates considered:\n  {detail}")
         choice = keep[0]
-        if choice.G > 1 or choice.zero_stage > 0:
-            raise _not_ported(
-                f"the tuner's choice P={choice.P} G={choice.G} b={choice.b} "
-                f"V={choice.V} M={choice.M} zero_stage={choice.zero_stage} "
-                "(data parallelism and ZeRO)")
         part = choice.partition
     D = part.num_devices
     if microbatches is not None:
@@ -691,12 +777,21 @@ def auto_pipeline(
         M = choice.M
     else:
         M = 2 * D if part.folded else max(D, 2)
+    if dp_size is None:
+        dp_size = choice.G if choice is not None else 1
+    if choice is not None and zero_stage is None:
+        zero_stage = choice.zero_stage
+    zero_stage = zero_stage or 0
+    if zero_stage > 0 and dp_size <= 1:
+        # nothing to shard over: a stage-1/2 request on one replica is the
+        # replicated plan, recorded as such (the JAX package's rule)
+        zero_stage = 0
     # schedule synthesis + full constraint validation happens here; an
     # invalid plan raises before any executor is built
     sched = schedule_for_partition(part, M, use_ilp=use_ilp)
     pcfg = PipelineConfig(num_devices=D, num_microbatches=M,
-                          remat=remat,
-                          wire_dtype=wire_dtype)
+                          remat=remat, wire_dtype=wire_dtype,
+                          dp_size=dp_size, zero_stage=zero_stage)
     layout = StageLayout.from_partition(part, graph)
     return CompiledPipeline(graph=graph, partition=part, schedule=sched,
                             layout=layout, pcfg=pcfg, model_fns=model_fns,

@@ -50,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.runtime.ring import (DOWN, StepPlan, rank_walk,
                                       reduce_edge_grads, reduce_loss)
+from repro_torch.runtime.sharding import batch_shard, leaf_dims
 from repro_torch.tree import tree_index, tree_leaves, tree_map
 
 Pytree = Any
@@ -137,24 +138,28 @@ def unbind_rows(stack: Pytree, levels: int = 3) -> list:
     row use (what indexing the stack row by row would cost).
     """
     leaves = tree_leaves(stack)
-    shape = leaves[0].shape[:levels]
+    parts = {id(x): _split_levels(x, levels) for x in leaves}
+    return _build_rows(stack, parts, leaves[0].shape[:levels], ())
 
-    def split(x, n):
-        return x if n == 0 else [split(y, n - 1) for y in x.unbind(0)]
 
-    parts = {id(x): split(x, levels) for x in leaves}
+# module-level recursion: a nested function that calls itself is a
+# reference cycle, which would keep the unbound rows (a ZeRO-2 step's
+# gathered slot) alive until the next cyclic collection
+def _split_levels(x: torch.Tensor, n: int):
+    return x if n == 0 else [_split_levels(y, n - 1) for y in x.unbind(0)]
 
-    def pick(nested, idx):
+
+def _build_rows(stack: Pytree, parts: dict, shape, idx: tuple):
+    if len(idx) < len(shape):
+        return [_build_rows(stack, parts, shape, idx + (i,))
+                for i in range(shape[len(idx)])]
+
+    def pick(x):
+        nested = parts[id(x)]
         for i in idx:
             nested = nested[i]
         return nested
-
-    def build(idx: tuple):
-        if len(idx) == levels:
-            return tree_map(lambda x: pick(parts[id(x)], idx), stack)
-        return [build(idx + (i,)) for i in range(shape[len(idx)])]
-
-    return build(())
+    return tree_map(pick, stack)
 
 
 def rank_rows(stack: Pytree, levels: int) -> tuple[list, Callable]:
@@ -187,6 +192,111 @@ def rank_rows(stack: Pytree, levels: int) -> tuple[list, Callable]:
             x.grad = g if x.grad is None else x.grad + g
 
     return rows, finish
+
+
+class _ZeroGather(torch.autograd.Function):
+    """All-gather a slot's sharded leaves over the data group on use, one
+    collective for all of them; the backward reduce-scatters their
+    gradients the same way (the transpose JAX derives for each leaf's
+    ``all_gather``: ``psum_scatter``).  A leaf the step does not read
+    gets a zero gradient (autograd materializes it), as in JAX."""
+
+    @staticmethod
+    def forward(ctx, data, dims, *xs):
+        ctx.data, ctx.dims = data, dims
+        return tuple(data.all_gather(list(xs), dims))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *ctx.data.reduce_scatter(list(grads), ctx.dims))
+
+
+def zero_all_gather(tree: Pytree, gather_dims: Pytree, data) -> Pytree:
+    """All-gather ZeRO-2 rest-sharded stage params on use (the JAX
+    package's ``zero_all_gather``): ``gather_dims`` mirrors ``tree`` (a
+    slot view ``[pad, ...]``) with the dim to gather over ``data`` (a
+    :class:`~repro_torch.runtime.ring.DataGroup`), ``-1`` passing a
+    replicated leaf through.  The rank walk calls it inside the steps it
+    runs, so its recompute gathers again instead of keeping the whole
+    rows, and the gradient comes back reduce-scattered to the shard.  The
+    sharded leaves go in one collective, in ``tree``'s leaf order (the
+    same on every data peer)."""
+    sharded = [(x, d) for x, d in leaf_dims(tree, gather_dims) if d >= 0]
+    if not sharded:
+        return tree
+    xs, dims = zip(*sharded)
+    whole = iter(_ZeroGather.apply(data, list(dims), *xs))
+    return tree_map(lambda x, d: x if d < 0 else next(whole), tree,
+                    gather_dims)
+
+
+class GatheredSlots:
+    """A rank's ZeRO-2 slot stack ``[V, pad, ...]`` (shards) as the rows
+    of one slot at a time: ``slots[v]`` all-gathers slot ``v``'s shards
+    (:func:`zero_all_gather`) and unbinds them into ``pad`` row trees.
+    The gather runs each time a slot is indexed, so index it inside the
+    step that uses the rows."""
+
+    def __init__(self, slots: list, dims: Pytree, data):
+        self._slots, self._dims, self._data = slots, dims, data
+
+    def __getitem__(self, v: int) -> list:
+        return unbind_rows(zero_all_gather(self._slots[v], self._dims,
+                                           self._data), 1)
+
+
+def rank_slots(stack: Pytree, dims: Pytree, data) -> tuple:
+    """A ZeRO-2 rank's ``[V, pad, ...]`` stack of shards -> ``(slots,
+    finish)``: :class:`GatheredSlots` over fresh autograd leaves, one per
+    slot and leaf, sharing the stack's storage, and ``finish()``, which
+    adds the slots' (reduce-scattered) gradients, stacked, to the stack
+    leaves' ``.grad`` (the :func:`rank_rows` of a sharded stack)."""
+    slots = [tree_map(lambda x: x.detach().requires_grad_(), s)
+             for s in unbind_rows(tree_map(lambda x: x.detach(), stack), 1)]
+
+    def finish() -> None:
+        for i, x in enumerate(tree_leaves(stack)):
+            gs = [tree_leaves(s)[i] for s in slots]
+            g = torch.stack([y.grad if y.grad is not None
+                             else torch.zeros_like(y) for y in gs])
+            x.grad = g if x.grad is None else x.grad + g
+
+    return GatheredSlots(slots, dims, data), finish
+
+
+def reduce_stage_grads(data, stacks: tuple, dims: tuple | None,
+                       zero_stage: int) -> None:
+    """Average a rank's stage-row gradients over its data replicas (the
+    walk's loss roots carry the ``1/dp``, so this sums), one stack at a
+    time: the leaves ZeRO keeps replicated (``dims`` -1, or every leaf
+    when ``dims`` is None: below ZeRO-1) in one all-reduce; at ZeRO-1 the
+    sharded leaves in one reduce-scatter, each ``.grad`` becoming the sum
+    on the rank's own shard and zeros elsewhere (what its AdamW moments
+    cover); at ZeRO-2 a sharded leaf's gradient came reduce-scattered from
+    the gather's backward."""
+    if data is None:
+        return
+    for i, stack in enumerate(stacks):
+        whole, sharded = [], []
+        for x, d in leaf_dims(stack, None if dims is None else dims[i]):
+            if x.grad is None:
+                x.grad = torch.zeros_like(x)
+            if d < 0:
+                whole.append(x.grad)
+            elif zero_stage == 1:
+                sharded.append((x.grad, d + 1))
+        data.all_reduce_(whole)
+        if sharded:
+            gs, ds = zip(*sharded)
+            parts = [[g.narrow(d, k * (g.shape[d] // data.size),
+                               g.shape[d] // data.size)
+                      for k in range(data.size)] for g, d in sharded]
+            data.reduce_scatter(list(gs), list(ds),
+                                out=[p[data.index] for p in parts])
+            for p in parts:
+                for k, part in enumerate(p):
+                    if k != data.index:
+                        part.zero_()
 
 
 def _wrap_remat(fn: Callable, cfg: "PipelineConfig") -> Callable:
@@ -255,6 +365,15 @@ class PipelineConfig:
     #   (the tables' exposed hops); False = the synchronous reference, hops
     #   posted and waited at the bottom of the producing step.  Values are
     #   bitwise equal either way; the one-process walks ignore it
+    dp_size: int = 1            # data replicas, each a pipeline of ranks
+    zero_stage: int = 0         # ZeRO over the data replicas: 0 = params,
+    #   grads and AdamW moments whole on every replica (grads all-reduced);
+    #   1 = a rank keeps the moments of its shard of its rows only (grads
+    #   reduce-scattered, updated shards all-gathered back); 2 = the rows
+    #   themselves rest sharded, all-gathered on use inside each step the
+    #   rank walk runs (and again in its recompute), the gather's backward
+    #   reduce-scattering the gradient.  The closed forms and the
+    #   skip-carry baseline refuse stage 2 with dp_size > 1
 
 
 def _zero_activation(embed_fn: Callable, *args) -> torch.Tensor:
@@ -409,6 +528,7 @@ def make_skip_carry_pipeline(
     loss_fn: Callable,
     skips_per_stage: int,
     ring=None,                # runtime.ring.Ring: this rank's executor
+    data=None,                # runtime.ring.DataGroup: its data replicas
 ) -> Callable:
     """Sequential block-wise partition of a skip model over D devices:
     the first D/2 devices run encoder stages, the last D/2 decoder stages,
@@ -424,7 +544,11 @@ def make_skip_carry_pipeline(
     stacks are that device's rows (``[rows, ...]``), the whole payload
     crosses the ring where ``m = t - d`` is a microbatch, the backward is
     the rank walk of ``runtime.ring`` (the loss comes back summed over the
-    group and the leaves' ``.grad`` filled).
+    group and the leaves' ``.grad`` filled).  With ``cfg.dp_size > 1``
+    the rank also needs ``data``: it runs its data shard of each
+    microbatch and averages the loss and every gradient over the replicas
+    (all-reduced at ZeRO 0 and 1 alike, as the JAX executor's; stage 2
+    is refused: the rows rest whole).
     """
     D, M = cfg.num_devices, cfg.num_microbatches
     assert D % 2 == 0, "skip-carry baseline assumes half enc / half dec"
@@ -452,9 +576,15 @@ def make_skip_carry_pipeline(
                 if d == D - 1 else None)
         return x_out, stack, loss
 
+    if cfg.dp_size > 1 and cfg.zero_stage >= 2:
+        raise ValueError(
+            "the skip-carry baseline keeps its stage rows whole on every "
+            f"data replica; zero_stage={cfg.zero_stage} shards them at rest "
+            "-- lower the plan through the table executor")
     if ring is not None:
-        return _skip_carry_rank(cfg, ring, body, enc_stage_fn, dec_stage_fn,
-                                embed_fn, n_skip_slots)
+        return _skip_carry_rank(cfg, ring, data, body, enc_stage_fn,
+                                dec_stage_fn, embed_fn, n_skip_slots)
+    check_one_replica(cfg)
     enc_stage = _wrap_remat(enc_stage_fn, cfg)
     dec_stage = _wrap_remat(dec_stage_fn, cfg)
 
@@ -487,7 +617,27 @@ def make_skip_carry_pipeline(
     return fn
 
 
-def _skip_carry_rank(cfg: PipelineConfig, ring, body: Callable,
+def check_one_replica(cfg: PipelineConfig) -> None:
+    """The one-process executors run one pipeline replica; data replicas
+    run as ranks, one process per (data, pipeline) grid point."""
+    if cfg.dp_size > 1:
+        raise ValueError(
+            f"dp_size={cfg.dp_size}: the port runs data replicas as ranks, "
+            "one process per (data, pipeline) index -- build a rank's plan "
+            "(for_rank(pipe, data)) with its ring and data group, e.g. "
+            "under torchrun")
+
+
+def check_data_group(cfg: PipelineConfig, data) -> None:
+    """A rank of a plan with ``cfg.dp_size`` data replicas needs a data
+    group of that size (and a one-replica plan none)."""
+    size = 1 if data is None else data.size
+    if size != cfg.dp_size:
+        raise ValueError(f"a plan of {cfg.dp_size} data replicas needs a "
+                         f"data group of that size; got {size}")
+
+
+def _skip_carry_rank(cfg: PipelineConfig, ring, data, body: Callable,
                      enc_stage: Callable, dec_stage: Callable,
                      embed_fn: Callable, n_skip_slots: int) -> Callable:
     """Rank ``ring.index`` of the skip-carry baseline (see
@@ -497,6 +647,8 @@ def _skip_carry_rank(cfg: PipelineConfig, ring, body: Callable,
     d = ring.index
     if ring.size != D:
         raise ValueError(f"a {ring.size}-rank ring for a D={D} pipeline")
+    check_data_group(cfg, data)
+    dp, di = cfg.dp_size, (0 if data is None else data.index)
     T = M + D - 1
     n = 1 + n_skip_slots
 
@@ -504,6 +656,7 @@ def _skip_carry_rank(cfg: PipelineConfig, ring, body: Callable,
         return 0 <= t - d < M
 
     def fn(enc_stack, dec_stack, edge_p, mbs, aux):
+        mbs, aux = batch_shard(mbs, dp, di), batch_shard(aux, dp, di)
         enc_rows, enc_done = rank_rows(enc_stack, 1)
         dec_rows, dec_done = rank_rows(dec_stack, 1)
         zero_x = _zero_activation(embed_fn, edge_p, tree_index(mbs, 0),
@@ -544,11 +697,13 @@ def _skip_carry_rank(cfg: PipelineConfig, ring, body: Callable,
 
         local = rank_walk(ring, T=T, M=M, remat=cfg.remat,
                           overlap=cfg.overlap, specs={DOWN: [spec] * n},
-                          arrivals=arrivals, sends=sends, plan=plan, rx=rx)
+                          arrivals=arrivals, sends=sends, plan=plan, rx=rx,
+                          dp=dp)
         enc_done()
         dec_done()
+        reduce_stage_grads(data, (enc_stack, dec_stack), None, 0)
         reduce_edge_grads(ring, [x for x in tree_leaves(edge_p)
-                                 if x.requires_grad])
-        return reduce_loss(ring, local)
+                                 if x.requires_grad], data)
+        return reduce_loss(ring, local, data)
 
     return fn

@@ -10,7 +10,7 @@
    equal the JAX package's for the same graph and plan, so a checkpoint
    of either package takes the fast path in the other when the plans
    agree.  ``M``/``wire_dtype``/``dp``/``zero_stage`` are recorded but not
-   hashed (the port runs ``dp = 1``, ``zero_stage = 0``).
+   hashed.
 
 2. **Elastic restore.**  When the restore-time plan differs,
    :func:`state_to_logical` de-stacks the saved ``[D, V, pad, ...]`` stage
@@ -88,8 +88,8 @@ def compiled_state_spec(plan) -> dict:
         "folded": bool(part.folded),
         "cuts": [int(c) for c in part.cuts],
         "devices": [int(d) for d in part.devices],
-        "dp": 1,
-        "zero_stage": 0,
+        "dp": int(pcfg.dp_size),
+        "zero_stage": int(pcfg.zero_stage),
         "M": int(pcfg.num_microbatches),
         "wire_dtype": str(pcfg.wire_dtype),
         "num_param_stacks": int(plan.model_fns.num_param_stacks),

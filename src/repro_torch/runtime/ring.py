@@ -40,7 +40,9 @@ inputs are all it keeps); without, each step's graph is kept.
 from __future__ import annotations
 
 import dataclasses
+import math
 import socket
+import time
 from typing import Callable
 
 import torch
@@ -111,12 +113,16 @@ class Pending:
         return self._out
 
 
-class Ring:
-    """Rank ``index`` of a ``size``-device pipeline ring over ``group``
-    (whose ranks, in group order, are the pipeline indices).  ``device``
-    is where the payloads live; ``staged`` routes CUDA payloads over gloo
-    through pinned host buffers.  ``bytes`` counts what this rank sent and
-    received, by pass (``"fwd"``, ``"bwd"``) and direction."""
+class GroupView:
+    """Rank ``index`` of a ``size``-rank process ``group``, whose payloads
+    live on ``device``: what the pipeline ring and the data group share.
+    Backends (anything else raises): NCCL with CUDA tensors; gloo with CPU
+    tensors; gloo with CUDA tensors ``staged`` through pinned host buffers
+    (the one-card case), chosen by the caller, never a silent stand-in for
+    NCCL.  :meth:`all_reduce_` sums in fp32, in one flat buffer;
+    ``_count`` is the hook a subclass counts its collectives with."""
+
+    what = "group"
 
     def __init__(self, group, index: int, size: int, device, *,
                  staged: bool = False):
@@ -125,33 +131,85 @@ class Ring:
         self.device = torch.device(device)
         self.staged = staged
         self.backend = str(dist.get_backend(group)).lower()
-        ranks = dist.get_process_group_ranks(group)
-        if len(ranks) != size or dist.get_rank(group) != index:
+        self._global = dist.get_process_group_ranks(group)
+        if len(self._global) != size or dist.get_rank(group) != index:
             raise ValueError(
-                f"ring index {index} of {size} does not match the group: "
-                f"rank {dist.get_rank(group)} of {len(ranks)}")
-        self._global = ranks
+                f"{self.what} index {index} of {size} does not match the "
+                f"group: rank {dist.get_rank(group)} of {len(self._global)}")
         cuda = self.device.type == "cuda"
         if self.backend == "nccl":
             if not cuda or staged:
                 raise ValueError(
-                    "an NCCL ring moves CUDA payloads unstaged; got device "
-                    f"{self.device}, staged={staged}")
-            refuse_shared_cards(group, card_key(self.device))
+                    f"an NCCL {self.what} moves CUDA tensors unstaged; got "
+                    f"device {self.device}, staged={staged}")
         elif self.backend == "gloo":
             if cuda and not staged:
                 raise ValueError(
-                    "a gloo ring moves CPU tensors; CUDA payloads over gloo "
-                    "need staged=True (pinned host buffers, the one-card "
-                    "case), and several cards need NCCL")
+                    f"a gloo {self.what} moves CPU tensors; CUDA tensors "
+                    "over gloo need staged=True (pinned host buffers, the "
+                    "one-card case), and several cards need NCCL")
             if staged and not cuda:
-                raise ValueError("staged=True stages CUDA payloads; this "
-                                 f"ring's device is {self.device}")
+                raise ValueError(f"staged=True stages CUDA payloads; this "
+                                 f"{self.what}'s device is {self.device}")
         else:
-            raise ValueError(f"no ring over the {self.backend!r} backend "
-                             "(NCCL, or gloo)")
+            raise ValueError(f"no {self.what} over the {self.backend!r} "
+                             "backend (NCCL, or gloo)")
+        self._bufs: dict = {}
+
+    def _count(self, kind: str, nbytes: int, t0: float) -> None:
+        """Record one collective (``time.perf_counter()`` at its start)."""
+
+    def _empty(self, shape, dtype, key) -> torch.Tensor:
+        """A tensor of ``shape`` the backend reads and writes: on the
+        group's device, or a view of ``key``'s pinned host buffer (one a
+        key, grown to the largest call's bytes and reused; a buffer still
+        in flight needs a key of its own)."""
+        if not self.staged:
+            return torch.empty(shape, dtype=dtype, device=self.device)
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        buf = self._bufs.get(key)
+        if buf is None or buf.numel() < n:
+            buf = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+            self._bufs[key] = buf
+        return buf[:n].view(dtype).view(shape)
+
+    def all_reduce_(self, tensors: list[torch.Tensor]) -> None:
+        """Sum ``tensors`` over the group, in place, in fp32: one
+        collective over one flat buffer (pinned on a staged group), each
+        tensor cast back to its dtype on its device."""
+        if not tensors:
+            return
+        t0 = time.perf_counter()
+        flat = self._empty((sum(x.numel() for x in tensors),),
+                           torch.float32, "all_reduce")
+        off = 0
+        for x in tensors:
+            flat[off:off + x.numel()].view(x.shape).copy_(x.detach())
+            off += x.numel()
+        _dist().all_reduce(flat, group=self.group)
+        off = 0
+        for x in tensors:
+            x.copy_(flat[off:off + x.numel()].view(x.shape))
+            off += x.numel()
+        self._count("all_reduce", 4 * flat.numel(), t0)
+
+
+class Ring(GroupView):
+    """Rank ``index`` of a ``size``-device pipeline ring over ``group``
+    (whose ranks, in group order, are the pipeline indices).  ``device``
+    is where the payloads live; ``staged`` routes CUDA payloads over gloo
+    through pinned host buffers.  ``bytes`` counts what this rank sent and
+    received, by pass (``"fwd"``, ``"bwd"``) and direction.  NCCL ranks
+    that share a card are refused here, before any NCCL call."""
+
+    what = "ring"
+
+    def __init__(self, group, index: int, size: int, device, *,
+                 staged: bool = False):
+        super().__init__(group, index, size, device, staged=staged)
+        if self.backend == "nccl":
+            refuse_shared_cards(group, card_key(self.device))
         self.bytes = {p: {"sent": 0, "received": 0} for p in ("fwd", "bwd")}
-        self._bufs: dict[tuple, torch.Tensor] = {}
         self._send_works: dict[int, list] = {}
 
     # ---- neighbours ------------------------------------------------------
@@ -165,14 +223,6 @@ class Ring:
         for p in self.bytes.values():
             for k in p:
                 p[k] = 0
-
-    def _buf(self, key: tuple, like_shape, dtype) -> torch.Tensor:
-        buf = self._bufs.get(key)
-        if buf is None or buf.shape != torch.Size(like_shape) \
-                or buf.dtype != dtype:
-            buf = torch.empty(like_shape, dtype=dtype, pin_memory=True)
-            self._bufs[key] = buf
-        return buf
 
     def exchange(self, sends: list, recvs: list) -> list[Pending]:
         """Post one batch: ``sends`` is ``[(chan, tensors)]``, ``recvs``
@@ -193,7 +243,7 @@ class Ring:
                     raise ValueError("CUDA payload on an unstaged gloo ring")
                 x = x.contiguous()
                 if self.staged:
-                    buf = self._buf(("send", chan, j), x.shape, x.dtype)
+                    buf = self._empty(x.shape, x.dtype, ("send", chan, j))
                     buf.copy_(x)
                     x = buf
                 self.bytes[phase]["sent"] += x.numel() * x.element_size()
@@ -204,10 +254,7 @@ class Ring:
             phase = "fwd" if chan in GRAD_OF else "bwd"
             tensors, first = [], len(ops)
             for j, (shape, dtype) in enumerate(specs):
-                if self.staged:
-                    x = self._buf(("recv", chan, slot, j), shape, dtype)
-                else:
-                    x = torch.empty(shape, dtype=dtype, device=self.device)
+                x = self._empty(shape, dtype, ("recv", chan, slot, j))
                 self.bytes[phase]["received"] += x.numel() * x.element_size()
                 tensors.append(x)
                 ops.append(dist.P2POp(dist.irecv, x, self.peer(chan, False),
@@ -231,23 +278,190 @@ class Ring:
                 w.wait()
         self._send_works.clear()
 
-    def all_reduce_(self, tensors: list[torch.Tensor]) -> None:
-        """Sum ``tensors`` over the group, in place, in fp32 (one flat
-        buffer; through the host on a staged ring)."""
-        if not tensors:
-            return
-        dist = _dist()
-        flat = torch.cat([x.reshape(-1).float() for x in tensors])
-        wire = flat.cpu() if self.staged else flat
-        dist.all_reduce(wire, group=self.group)
-        if wire is not flat:
-            flat.copy_(wire)
-        off = 0
-        for x in tensors:
-            n = x.numel()
-            x.copy_(flat[off:off + n].view_as(x))
-            off += n
 
+# ===========================================================================
+# The data group: collectives between the data replicas of a pipeline index
+# ===========================================================================
+
+COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter")
+
+
+class DataGroup(GroupView):
+    """Rank ``index`` of the ``size`` data replicas of one pipeline index
+    (the rank grid's ``data_group``): the all-reduce, all-gather and
+    reduce-scatter that data parallelism and ZeRO need, beside the ring's
+    point-to-point hops.  Backends as :class:`GroupView`'s: NCCL uses
+    ``all_reduce``, ``all_gather_into_tensor`` and
+    ``reduce_scatter_tensor``; gloo uses ``all_reduce`` and, for the
+    gathers and scatters, point-to-point sends: an all-gather sends the
+    rank's shard to every peer; a reduce-scatter sends each part to the
+    rank that owns it, in the tensors' own dtype, and the owner sums the
+    group's parts in fp32.  Gloo's own ``all_gather`` and
+    ``reduce_scatter`` (or an all-reduce keeping the shard) take a byte
+    several times as long (``tools/time_gloo.py`` times each).
+
+    Reductions sum in fp32 whatever the tensor's dtype and give the
+    tensor's dtype back; gathers move the tensor's bytes as they are.
+    ``bytes[kind]`` counts, per call, the whole tensor the collective
+    handles in the dtype it travels in: the all-reduced tensor (fp32),
+    the all-gather's output, the reduce-scatter's input (fp32 over NCCL,
+    the tensors' dtype over gloo); ``calls[kind]`` the calls;
+    ``seconds[kind]`` the host clock's seconds inside them (staging copies
+    included; the whole collective on gloo, which returns when it is done,
+    and only its enqueueing on NCCL).  A collective that fails raises;
+    nothing falls back.
+
+    Every data peer of a pipeline index runs the same step tables, so the
+    peers issue their collectives in the same order without a message;
+    the callers rely on it."""
+
+    what = "data group"
+
+    def __init__(self, group, index: int, size: int, device, *,
+                 staged: bool = False):
+        super().__init__(group, index, size, device, staged=staged)
+        self.bytes = dict.fromkeys(COLLECTIVES, 0)
+        self.calls = dict.fromkeys(COLLECTIVES, 0)
+        self.seconds = dict.fromkeys(COLLECTIVES, 0.0)
+
+    def describe(self) -> str:
+        return (f"data index {self.index} of {self.size} ({self.backend}"
+                + (", staged" if self.staged else "") + ")")
+
+    def reset_bytes(self) -> None:
+        for d in (self.bytes, self.calls, self.seconds):
+            for k in d:
+                d[k] = 0
+
+    def _count(self, kind: str, nbytes: int, t0: float) -> None:
+        self.bytes[kind] += nbytes
+        self.calls[kind] += 1
+        self.seconds[kind] += time.perf_counter() - t0
+
+    def _peers(self) -> list[int]:
+        return [i for i in range(self.size) if i != self.index]
+
+    def _p2p(self, sends: dict, recvs: dict) -> None:
+        """Send ``sends[i]`` to data index ``i`` and receive ``recvs[i]``
+        from it, posted in one batch, and wait for all of them (gloo: a
+        pair's messages match in the order they are posted)."""
+        dist = _dist()
+        ops = [dist.P2POp(dist.isend, x, self._global[i], self.group)
+               for i, x in sends.items()]
+        ops += [dist.P2POp(dist.irecv, x, self._global[i], self.group)
+                for i, x in recvs.items()]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+
+    @staticmethod
+    def _one_dtype(xs: list, what: str) -> torch.dtype:
+        if any(x.dtype != xs[0].dtype for x in xs):
+            raise ValueError(f"one {what} moves tensors of one dtype")
+        return xs[0].dtype
+
+    def all_gather(self, xs: list, dims: list, out: list | None = None
+                   ) -> list:
+        """Each tensor's shards over the group concatenated along its dim,
+        in index order: new tensors on the group's device, or ``out``'s,
+        written in place (which may hold ``xs`` as views: every shard is
+        sent before any is written).  The tensors (one dtype) travel as
+        one buffer of their bytes: one collective for the list, exact
+        whatever the dtype; each shard is copied straight into its place,
+        so no whole-size temporary is made."""
+        dist = _dist()
+        t0 = time.perf_counter()
+        dtype = self._one_dtype(xs, "all-gather")
+        esize = xs[0].element_size()
+        n = sum(x.numel() for x in xs)
+        send = self._empty((n * esize,), torch.uint8, "ag_send")
+        typed, off = send.view(dtype), 0
+        for x in xs:
+            typed[off:off + x.numel()].view(x.shape).copy_(x.detach())
+            off += x.numel()
+        if self.backend == "nccl":
+            got = torch.empty((self.size, n * esize), dtype=torch.uint8,
+                              device=self.device)
+            dist.all_gather_into_tensor(got.view(-1), send, group=self.group)
+        else:
+            got = [send if i == self.index else self._empty(
+                (n * esize,), torch.uint8, ("ag_recv", i))
+                for i in range(self.size)]
+            self._p2p({i: send for i in self._peers()},
+                      {i: got[i] for i in self._peers()})
+        full, off = [], 0
+        for j, (x, d) in enumerate(zip(xs, dims)):
+            shape = list(x.shape)
+            shape[d] *= self.size
+            y = (torch.empty(shape, dtype=dtype, device=self.device)
+                 if out is None else out[j])
+            k = x.shape[d]
+            for i in range(self.size):
+                y.narrow(d, i * k, k).copy_(
+                    got[i].view(dtype)[off:off + x.numel()].view(x.shape))
+            full.append(y)
+            off += x.numel()
+        self._count("all_gather", self.size * n * esize, t0)
+        return full
+
+    def reduce_scatter(self, xs: list, dims: list, out: list | None = None
+                       ) -> list:
+        """This index's shard along its dim of each tensor summed over the
+        group (the dim splits into ``size`` contiguous shards), in the
+        tensor's dtype: new tensors, or ``out``'s, written in place
+        (``out[j]`` may be tensor j's own shard: it is read first); one
+        collective for the list (one dtype), summed in fp32, each shard
+        cast on the group's device."""
+        dist = _dist()
+        t0 = time.perf_counter()
+        dtype = self._one_dtype(xs, "reduce-scatter")
+        shards = []
+        for x, d in zip(xs, dims):
+            if x.shape[d] % self.size:
+                raise ValueError(f"dim {d} of {tuple(x.shape)} does not "
+                                 f"split into {self.size} shards")
+            k = x.shape[d] // self.size
+            shards.append([x.detach().narrow(d, i * k, k)
+                           for i in range(self.size)])
+        n = sum(s[0].numel() for s in shards)
+
+        def pack(i: int, buf: torch.Tensor) -> torch.Tensor:
+            off = 0                     # every tensor's shard i, in order
+            for s in shards:
+                buf[off:off + s[i].numel()].view(s[i].shape).copy_(s[i])
+                off += s[i].numel()
+            return buf
+
+        if self.backend == "nccl":
+            rows = torch.empty((self.size, n), dtype=torch.float32,
+                               device=self.device)
+            for i in range(self.size):
+                pack(i, rows[i])
+            summed = torch.empty(n, dtype=torch.float32, device=self.device)
+            dist.reduce_scatter_tensor(summed, rows.view(-1),
+                                       group=self.group)
+            parts, nbytes = [summed], 4 * rows.numel()
+        else:
+            parts = [None if i == self.index else self._empty(
+                (n,), dtype, ("rs_recv", i)) for i in range(self.size)]
+            self._p2p({i: pack(i, self._empty((n,), dtype, ("rs_send", i)))
+                       for i in self._peers()},
+                      {i: parts[i] for i in self._peers()})
+            nbytes = self.size * n * xs[0].element_size()
+        result, off = [], 0
+        for j, (x, s) in enumerate(zip(xs, shards)):
+            m = s[0].numel()
+            acc = None        # the parts summed in index order (own: None)
+            for i, p in enumerate(parts):
+                y = (s[i] if p is None else p[off:off + m].view(
+                    s[i].shape).to(self.device))
+                # one fp32 tensor a shard: later parts add in their dtype
+                acc = y.to(torch.float32, copy=True) if acc is None \
+                    else acc.add_(y)
+            result.append(acc.to(x.dtype) if out is None
+                          else out[j].copy_(acc))
+            off += m
+        self._count("reduce_scatter", nbytes, t0)
+        return result
 
 # ===========================================================================
 # The rank walk: forward steps, then the explicit reverse walk
@@ -315,7 +529,7 @@ class StepPlan:
 
 def rank_walk(ring: Ring, *, T: int, M: int, remat: bool, overlap: bool,
               specs: dict, arrivals: Callable, sends: Callable,
-              plan: Callable, rx: dict) -> torch.Tensor:
+              plan: Callable, rx: dict, dp: int = 1) -> torch.Tensor:
     """Run a rank's T forward steps and walk them back.
 
     ``arrivals(t)`` lists the ``(chan, slot)`` messages stored at the
@@ -330,7 +544,11 @@ def rank_walk(ring: Ring, *, T: int, M: int, remat: bool, overlap: bool,
     once); without, they are posted and waited at the bottom of step t-1.
     The backward places its hops the same way.  Returns the sum of the
     rank's losses over ``M`` (not yet reduced over the group); every
-    parameter leaf the steps read has its gradient accumulated."""
+    parameter leaf the steps read has its gradient accumulated.  With
+    ``dp`` data replicas a loss root is ``1/(M dp)``: the gradients are
+    those of the loss the replicas' sum divides by ``dp`` (the JAX
+    executors' ``psum(total, (model, data)) / dp``), so summing them over
+    the data group averages them."""
     tape = Tape(remat)
     srcs: dict[int, dict] = {}
     losses: list = []
@@ -374,8 +592,8 @@ def rank_walk(ring: Ring, *, T: int, M: int, remat: bool, overlap: bool,
     # ---- the reverse walk --------------------------------------------------
     roots: dict[int, dict] = {t: {} for t in srcs}
     for t in loss_steps:
-        roots[t]["loss"] = torch.full((), 1.0 / M, dtype=torch.float32,
-                                      device=ring.device)
+        roots[t]["loss"] = torch.full((), 1.0 / (M * dp),
+                                      dtype=torch.float32, device=ring.device)
     rx_grads: dict[tuple, dict] = {}
 
     def add(d: dict, k, g):
@@ -434,22 +652,30 @@ def rank_walk(ring: Ring, *, T: int, M: int, remat: bool, overlap: bool,
     return torch.stack([x.float() for x in losses]).sum() / M
 
 
-def reduce_loss(ring: Ring, local: torch.Tensor) -> torch.Tensor:
-    """The walk's loss summed over the group: every rank returns the same
-    value (the ``psum`` of the JAX executors)."""
+def reduce_loss(ring: Ring, local: torch.Tensor,
+                data: "DataGroup | None" = None) -> torch.Tensor:
+    """The walk's loss summed over the group, and over ``data`` divided by
+    its size: every rank returns the same value (the JAX executors'
+    ``psum(total, (model, data)) / dp``)."""
     total = local.detach().float().clone()
     ring.all_reduce_([total])
+    if data is not None:
+        data.all_reduce_([total])
+        total /= data.size
     return total
 
 
-def reduce_edge_grads(ring: Ring, leaves: list) -> None:
+def reduce_edge_grads(ring: Ring, leaves: list,
+                      data: "DataGroup | None" = None) -> None:
     """Sum the gradients of the parameters every rank holds a copy of (the
-    edge params) over the group -- the transpose of the JAX executors'
-    replicated inputs -- and give every leaf a gradient (zeros where none
-    of the ranks read it)."""
+    edge params) over the group, then over ``data`` -- the transpose of
+    the JAX executors' replicated inputs -- and give every leaf a gradient
+    (zeros where none of the ranks read it)."""
     grads = []
     for x in leaves:
         if x.grad is None:
             x.grad = torch.zeros_like(x)
         grads.append(x.grad)
     ring.all_reduce_(grads)
+    if data is not None:
+        data.all_reduce_(grads)

@@ -48,10 +48,13 @@ import torch
 from repro_torch.core.schedule import (Schedule, placement_bounds_error,
                                        slot_maps)
 from repro_torch.runtime.pipeline import (WIRE_DTYPES, PipelineConfig,
-                                          _wrap_remat, hop, rank_rows,
+                                          _wrap_remat, check_data_group,
+                                          check_one_replica, hop, rank_rows,
+                                          rank_slots, reduce_stage_grads,
                                           unbind_rows)
 from repro_torch.runtime.ring import (DOWN, UP, StepPlan, rank_walk,
                                       reduce_edge_grads, reduce_loss)
+from repro_torch.runtime.sharding import batch_shard
 from repro_torch.tree import tree_index, tree_leaves
 
 Pytree = Any
@@ -598,15 +601,17 @@ def _wire_dtype(cfg: PipelineConfig) -> torch.dtype:
     return getattr(torch, cfg.wire_dtype)
 
 
-def _wave_body(tab: dict, x_dtype, embed_fn, enc_stage: Callable,
-               dec_stage: Callable, loss_fn: Callable) -> Callable:
+def _wave_body(tab: dict, x_dtype, enc_pad: int, embed_fn,
+               enc_stage: Callable, dec_stage: Callable,
+               loss_fn: Callable) -> Callable:
     """Device d's step t of the folded walk, given what the tables say it
     reads: ``body(d, t, enc_rows, dec_rows, edge_p, mbs, aux, x_rx,
     x_turn, stash) -> (x_out, skips, loss)``.  ``enc_rows`` / ``dec_rows``
-    are the device's ``[V][pad]`` row trees, ``x_rx`` the arrival the step
-    reads (wire dtype) or None, ``x_turn`` the turn entry or None,
-    ``stash`` the device's stash entries per encoder slot (``[V]`` lists
-    of ``enc_pad`` skips, or None).  ``skips`` is None for a decoder slot
+    are the device's ``[V][pad]`` row trees (indexed once, by the slot the
+    step runs), ``enc_pad`` the encoder slots' row count, ``x_rx`` the
+    arrival the step reads (wire dtype) or None, ``x_turn`` the turn entry
+    or None, ``stash`` the device's stash entries per encoder slot
+    (``[V]`` lists of ``enc_pad`` skips, or None).  ``skips`` is None for a decoder slot
     and ``loss`` None where the step emits none."""
 
     def body(d, t, enc_rows, dec_rows, edge_p, mbs, aux, x_rx, x_turn,
@@ -622,7 +627,6 @@ def _wave_body(tab: dict, x_dtype, embed_fn, enc_stage: Callable,
             # the stash slots holding this microbatch's V encoder-slot
             # entries, as the flat [V * enc_pad] view consumers address
             # via StageLayout.skip_rows
-            enc_pad = len(enc_rows[0])
             skips_m = []
             for entry in stash:
                 skips_m += entry if entry is not None else [None] * enc_pad
@@ -657,6 +661,9 @@ def make_wave_pipeline_from_schedule(
     devices=None,             # ...same, as a tuple (memoized lowering)
     skip_consumers=None,      # layout-derived (device, dec slot) -> enc slots
     ring=None,                # runtime.ring.Ring: this rank's executor
+    data=None,                # runtime.ring.DataGroup: its data replicas
+    zero_dims=None,           # (enc_dims, dec_dims): ZeRO slot-view dims
+    #   per stack leaf (runtime.sharding.zero_stack_dims), zero_stage >= 1
 ) -> Callable:
     """Lower a folded S=2VD schedule to ``fn(enc_stack, dec_stack, edge_p,
     mbs, aux) -> loss`` with ``[D, V, pad, ...]`` stage stacks and
@@ -677,7 +684,16 @@ def make_wave_pipeline_from_schedule(
     With ``ring`` the executor is rank ``ring.index``'s: the stacks are
     that device's ``[V, pad, ...]`` rows, the loss comes back summed over
     the group, and the call fills every leaf's ``.grad`` itself (the rank
-    walk of ``runtime.ring``; no ``loss.backward()``).
+    walk of ``runtime.ring``; no ``loss.backward()``).  With
+    ``cfg.dp_size > 1`` the rank is data index ``data.index`` of its
+    pipeline index: it runs its shard of every microbatch's batch
+    (``runtime.sharding.batch_shard``), the loss is summed over the ring
+    and the data group and divided by ``dp``, the edge gradients are
+    summed over the ring and averaged over data, and the stage rows'
+    are averaged over data as ``cfg.zero_stage`` says
+    (``pipeline.reduce_stage_grads``); at ZeRO-2 the stacks are the
+    rank's shards and each step all-gathers the slot it runs
+    (``pipeline.rank_slots``).
     """
     D, M = cfg.num_devices, cfg.num_microbatches
     if sched.M != M or sched.D != D:
@@ -700,8 +716,10 @@ def make_wave_pipeline_from_schedule(
     tab = {k: v.tolist() for k, v in tab.items()}   # host ints, fast lookups
     if ring is not None:
         check_ring_agreement(tables)
-        return _wave_rank(cfg, tables, tab, ring, wire, skip_consumers,
-                          embed_fn, enc_stage_fn, dec_stage_fn, loss_fn)
+        return _wave_rank(cfg, tables, tab, ring, data, zero_dims, wire,
+                          skip_consumers, embed_fn, enc_stage_fn,
+                          dec_stage_fn, loss_fn)
+    check_one_replica(cfg)
     down_used = bool(tables.down_send.any())
     up_used = bool(tables.up_send.any())
     enc_stage = _wrap_remat(enc_stage_fn, cfg)
@@ -712,8 +730,9 @@ def make_wave_pipeline_from_schedule(
         dec_rows = unbind_rows(dec_stack)      # [D][V][dec_pad]
         with torch.no_grad():
             proto = embed_fn(edge_p, tree_index(mbs, 0), tree_index(aux, 0))
-        body = _wave_body(tab, proto.dtype, embed_fn, enc_stage, dec_stage,
-                          loss_fn)
+        enc_pad = tree_leaves(enc_stack)[0].shape[2]
+        body = _wave_body(tab, proto.dtype, enc_pad, embed_fn, enc_stage,
+                          dec_stage, loss_fn)
         zero_w = torch.zeros(proto.shape, dtype=wire, device=proto.device)
         del proto
 
@@ -795,16 +814,31 @@ def _rx_input(rx: dict, chan: int, slot: int) -> tuple:
     return pend.wait()[0], ("rx", chan, t_arr, 0)
 
 
-def _finish_rank(ring, local, dones, edge_p) -> torch.Tensor:
+def _data_rank(cfg, data, zero_dims) -> tuple:
+    """``(dp, data index, stage rows)`` of a rank: ``rows(stack, i)`` gives
+    stack ``i``'s ``[V][pad]`` rows and their ``finish`` (gathered slot by
+    slot from the rank's shards at ZeRO-2)."""
+    check_data_group(cfg, data)
+    if data is None:
+        return 1, 0, lambda stack, i: rank_rows(stack, 2)
+    if cfg.zero_stage >= 2:
+        return data.size, data.index, lambda stack, i: rank_slots(
+            stack, zero_dims[i], data)
+    return data.size, data.index, lambda stack, i: rank_rows(stack, 2)
+
+
+def _finish_rank(cfg, ring, data, zero_dims, local, dones, stacks,
+                 edge_p) -> torch.Tensor:
     for done in dones:
         done()
+    reduce_stage_grads(data, stacks, zero_dims, cfg.zero_stage)
     reduce_edge_grads(ring, [x for x in tree_leaves(edge_p)
-                             if x.requires_grad])
-    return reduce_loss(ring, local)
+                             if x.requires_grad], data)
+    return reduce_loss(ring, local, data)
 
 
-def _wave_rank(cfg, tables, tab, ring, wire, skip_consumers, embed_fn,
-               enc_stage_fn, dec_stage_fn, loss_fn) -> Callable:
+def _wave_rank(cfg, tables, tab, ring, data, zero_dims, wire, skip_consumers,
+               embed_fn, enc_stage_fn, dec_stage_fn, loss_fn) -> Callable:
     """Rank ``ring.index`` of the folded walk (see
     :func:`make_wave_pipeline_from_schedule`).  The stage functions run
     without ``_wrap_remat``: the rank walk recomputes whole steps."""
@@ -815,14 +849,16 @@ def _wave_rank(cfg, tables, tab, ring, wire, skip_consumers, embed_fn,
                         check="program-shape")
     W_turn = max(tables.W_turn, 1)
     W_skip = max(tables.W_skip, 1)
+    dp, di, rows_of = _data_rank(cfg, data, zero_dims)
 
     def fn(enc_stack, dec_stack, edge_p, mbs, aux):
-        enc_rows, enc_done = rank_rows(enc_stack, 2)   # [V][enc_pad]
-        dec_rows, dec_done = rank_rows(dec_stack, 2)
-        enc_pad = len(enc_rows[0])
+        mbs, aux = batch_shard(mbs, dp, di), batch_shard(aux, dp, di)
+        enc_rows, enc_done = rows_of(enc_stack, 0)     # [V][enc_pad]
+        dec_rows, dec_done = rows_of(dec_stack, 1)
+        enc_pad = tree_leaves(enc_stack)[0].shape[1]
         with torch.no_grad():
             proto = embed_fn(edge_p, tree_index(mbs, 0), tree_index(aux, 0))
-        body = _wave_body(tab, proto.dtype, embed_fn, enc_stage_fn,
+        body = _wave_body(tab, proto.dtype, enc_pad, embed_fn, enc_stage_fn,
                           dec_stage_fn, loss_fn)
         spec = [(tuple(proto.shape), wire)]
         del proto
@@ -883,8 +919,10 @@ def _wave_rank(cfg, tables, tab, ring, wire, skip_consumers, embed_fn,
             ring, T=T, M=M, remat=cfg.remat, overlap=cfg.overlap,
             specs={DOWN: spec, UP: spec},
             arrivals=lambda t: _arrivals(tab, d, t, T),
-            sends=lambda t: _sends(tab, d, t), plan=plan, rx=rx)
-        return _finish_rank(ring, local, (enc_done, dec_done), edge_p)
+            sends=lambda t: _sends(tab, d, t), plan=plan, rx=rx, dp=dp)
+        return _finish_rank(cfg, ring, data, zero_dims, local,
+                            (enc_done, dec_done), (enc_stack, dec_stack),
+                            edge_p)
 
     return fn
 
@@ -920,6 +958,8 @@ def make_linear_pipeline_from_schedule(
     device_of_stage=None,     # partition's explicit stage->device mapping
     devices=None,             # ...same, as a tuple (memoized lowering)
     ring=None,                # runtime.ring.Ring: this rank's executor
+    data=None,                # runtime.ring.DataGroup: its data replicas
+    zero_dims=None,           # ZeRO slot-view dims per stack leaf
 ) -> Callable:
     """Lower a linear S=VD schedule to ``fn(stack, edge_p, mbs) -> loss``
     (the call of :func:`~repro_torch.runtime.pipeline.make_linear_pipeline`;
@@ -929,7 +969,8 @@ def make_linear_pipeline_from_schedule(
     rotating ``W_down`` receive buffer in ``cfg.wire_dtype``, stored only
     where the tables mark them, and quiescent hops carry zeros.  With
     ``ring``: rank ``ring.index``'s executor over its ``[V, pad, ...]``
-    rows, as in :func:`make_wave_pipeline_from_schedule`."""
+    rows, with ``data`` and ``zero_dims`` (a 1-tuple) as in
+    :func:`make_wave_pipeline_from_schedule`."""
     D, M = cfg.num_devices, cfg.num_microbatches
     if sched.M != M or sched.D != D:
         raise PlanError(
@@ -948,8 +989,9 @@ def make_linear_pipeline_from_schedule(
         "down_send", "loss", "embed")}
     if ring is not None:
         check_ring_agreement(tables)
-        return _linear_rank(cfg, tables, tab, ring, wire, embed_fn, stage_fn,
-                            loss_fn)
+        return _linear_rank(cfg, tables, tab, ring, data, zero_dims, wire,
+                            embed_fn, stage_fn, loss_fn)
+    check_one_replica(cfg)
     stage = _wrap_remat(stage_fn, cfg)
 
     def fn(stack, edge_p, mbs):
@@ -989,8 +1031,8 @@ def make_linear_pipeline_from_schedule(
     return fn
 
 
-def _linear_rank(cfg, tables, tab, ring, wire, embed_fn, stage_fn,
-                 loss_fn) -> Callable:
+def _linear_rank(cfg, tables, tab, ring, data, zero_dims, wire, embed_fn,
+                 stage_fn, loss_fn) -> Callable:
     """Rank ``ring.index`` of the linear walk (see
     :func:`make_linear_pipeline_from_schedule`)."""
     D, M, T = tables.D, tables.M, tables.num_steps
@@ -998,9 +1040,11 @@ def _linear_rank(cfg, tables, tab, ring, wire, embed_fn, stage_fn,
     if ring.size != D:
         raise PlanError(f"a {ring.size}-rank ring for D={D} devices",
                         check="program-shape")
+    dp, di, rows_of = _data_rank(cfg, data, zero_dims)
 
     def fn(stack, edge_p, mbs):
-        rows, done = rank_rows(stack, 2)       # [V][pad] row trees
+        mbs = batch_shard(mbs, dp, di)
+        rows, done = rows_of(stack, 0)         # [V][pad] row trees
         with torch.no_grad():
             proto = embed_fn(edge_p, tree_index(mbs, 0))
         body = _linear_body(tab, proto.dtype, embed_fn, stage_fn, loss_fn)
@@ -1028,7 +1072,8 @@ def _linear_rank(cfg, tables, tab, ring, wire, embed_fn, stage_fn,
         local = rank_walk(
             ring, T=T, M=M, remat=cfg.remat, overlap=cfg.overlap,
             specs={DOWN: spec}, arrivals=lambda t: _arrivals(tab, d, t, T),
-            sends=lambda t: _sends(tab, d, t), plan=plan, rx=rx)
-        return _finish_rank(ring, local, (done,), edge_p)
+            sends=lambda t: _sends(tab, d, t), plan=plan, rx=rx, dp=dp)
+        return _finish_rank(cfg, ring, data, zero_dims, local, (done,),
+                            (stack,), edge_p)
 
     return fn

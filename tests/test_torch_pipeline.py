@@ -372,8 +372,23 @@ def test_train_refuses_unported_paths(extra):
             "--device", "cpu"] + extra
     if extra:
         argv.append("--pipeline")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train.run(train._parse_args(argv))
+    args = train._parse_args(argv)
+    if extra == ["--dp", "2"]:
+        # one process runs one replica: data replicas are ranks, and the
+        # message says how to launch them
+        with pytest.raises(ValueError, match="data replicas as ranks") as e:
+            train.run(args)
+        assert "torch.distributed.run --standalone --nproc-per-node 2" \
+            in str(e.value) and "--dp 2 --pp 1" in str(e.value)
+    elif extra:
+        # ZeRO over one replica is the replicated plan (the JAX rule)
+        res = train.run(args)
+        assert res.compiled.pcfg.zero_stage == 0
+        assert res.compiled.state_spec()["zero_stage"] == 0
+        assert np.isfinite(res.losses[0])
+    else:
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            train.run(args)
 
 
 @pytest.mark.parametrize("arch,d", [("uvit-h", 2560), ("uvit-pp", 64),

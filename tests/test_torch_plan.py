@@ -181,14 +181,28 @@ def test_h100_preset_and_block_costs():
 
 
 def test_unported_options_raise():
-    _, tcfg = _cfgs(8)
-    g, fns = torch_graph(tcfg), diffusion_model_fns(tcfg)
-    # (N, keywords): on four devices the tuner's best plan is P=2 with two
-    # data-parallel replicas (G=2), which the port does not run yet
-    for N, kw in ((4, dict()), (2, dict(pipeline_devices=2, dp_size=2)),
-                  (2, dict(pipeline_devices=2, zero_stage=1))):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            auto_pipeline(g, fns, N, **kw)
+    jcfg, tcfg = _cfgs(8)
+    g, fns = torch_graph(tcfg, hw=TPU), diffusion_model_fns(tcfg)
+    jg, jfns = jax_graph(jcfg), jax_model_fns(jcfg)
+    # on four devices the tuner's best plan is P=2 with two data-parallel
+    # replicas (G=2): it plans, the JAX tuner's choice (on the same
+    # hardware record), dp_size its G
+    cp = auto_pipeline(g, fns, 4, TPU)
+    jcp = jax_auto_pipeline(jg, jfns, 4, jax_hw.TPU_V5E)
+    c, jc = cp.choice, jcp.choice
+    assert (c.P, c.G, c.b, c.V, c.M, c.zero_stage) == (
+        jc.P, jc.G, jc.b, jc.V, jc.M, jc.zero_stage)
+    assert (c.P, c.G) == (2, 2) and cp.pcfg.dp_size == 2
+    assert cp.state_spec() == jcp.state_spec() and cp.certify().ok
+    # a pinned pipeline with two data replicas plans
+    cp = auto_pipeline(g, fns, 4, TPU, pipeline_devices=2, dp_size=2)
+    assert (cp.pcfg.dp_size, cp.pcfg.zero_stage) == (2, 0)
+    # ZeRO over one replica drops to stage 0, as in the JAX package
+    kw = dict(pipeline_devices=2, zero_stage=1)
+    cp = auto_pipeline(g, fns, 2, TPU, **kw)
+    jcp = jax_auto_pipeline(jg, jfns, 2, jax_hw.TPU_V5E, **kw)
+    assert cp.pcfg.zero_stage == jcp.pcfg.zero_stage == 0
+    assert cp.state_spec() == jcp.state_spec()
     # the closed-form executor is ported: the route plans and builds
     cp = auto_pipeline(g, fns, 2, pipeline_devices=2, executor="closed_form")
     assert cp.executor == "closed_form" and callable(cp.build())

@@ -390,10 +390,12 @@ def _rank_main(jax_path, out_dir):
     refusal("staged cpu", lambda: Ring(groups[4], rank, 4, "cpu",
                                        staged=True))
     refusal("wrong index", lambda: Ring(groups[4], (rank + 1) % 4, 4, "cpu"))
-    try:
-        make_rank_grid(2, dp=2)
-    except NotImplementedError as e:
-        doc["refusals"]["dp 2"] = f"NotImplementedError: {e}"
+    g2 = make_rank_grid(2, dp=2)
+    doc["refusals"]["dp 2"] = dict(
+        axes=mesh_axis_sizes(g2), dp=dp_size(g2), pipe=g2.pipe_index,
+        data=g2.data_index,
+        model_group=dist.get_process_group_ranks(g2.model_group),
+        data_group=dist.get_process_group_ranks(g2.data_group))
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(doc, f)
@@ -619,7 +621,11 @@ def test_rank_grid_and_ring_refusals(runs):
         assert "need staged=True" in ref["unstaged cuda"]
         assert "stages CUDA payloads" in ref["staged cpu"]
         assert "does not match the group" in ref["wrong index"]
-        assert "ROADMAP A3" in ref["dp 2"]
+        # dp=2 over the same world: rank = data index x pp + pipe index
+        assert ref["dp 2"] == dict(
+            axes={"data": 2, "model": 2}, dp=2, pipe=r % 2, data=r // 2,
+            model_group=[r // 2 * 2, r // 2 * 2 + 1],
+            data_group=[r % 2, r % 2 + 2])
 
 
 # ---------------------------------------------------------------------------
@@ -740,12 +746,24 @@ def test_trainer_over_ranks_skips_a_nan_step_on_every_rank(
 ])
 def test_trainer_refuses_what_ranks_do_not_do_yet(monkeypatch, extra, env,
                                                   match):
-    """Refused before any process group is joined."""
+    """Refused before any process group is joined.  Data parallelism
+    (ROADMAP A3) runs: what stays refused there is one process with
+    ``--dp > 1`` and a world that is not ``--dp x --pp``."""
+    if match == "ROADMAP A3":
+        with pytest.raises(ValueError, match="data replicas as ranks") as e:
+            train.run(train._parse_args(TRAIN_ARGV + ["--dp", "2"]))
+        # --devices 2 over --dp 2 is a (2, 1) grid: the JAX trainer's rule
+        assert "--nproc-per-node 2" in str(e.value)
+        assert "--dp 2 --pp 1" in str(e.value)
     for k, v in {**dict(RANK="0", WORLD_SIZE="2", LOCAL_RANK="0",
                         MASTER_ADDR="localhost"), **env}.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=match):
-        train.run(train._parse_args(TRAIN_ARGV + extra))
+    if match == "ROADMAP A3":
+        with pytest.raises(ValueError, match="the world is --dp x --pp = 2"):
+            train.run(train._parse_args(TRAIN_ARGV + extra))
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            train.run(train._parse_args(TRAIN_ARGV + extra))
     assert train.rank_env() == {"rank": 0, "world": int(
         env.get("WORLD_SIZE", 2)), "local_rank": 0}
     monkeypatch.setenv("WORLD_SIZE", "3")

@@ -473,27 +473,37 @@ def test_trainer_trains_the_tuner_plan():
 
 @pytest.mark.parametrize("kind", ["uvit", "hunyuan"])
 def test_tuner_choice_with_dp_is_refused_by_name(kind):
-    """At N=4 the JAX package plans P=2 G=2 (dp = 2); the port refuses that
-    very choice and does not fall back to a lower-ranked G=1 one."""
+    """At N=4 the JAX package plans P=2 G=2 (dp = 2); the port plans that
+    very choice (no fallback to a lower-ranked G=1 one): dp_size its G,
+    the same state spec, certified.  The refusal this test held is gone
+    with the data replicas over ranks."""
     jg, tg = _graphs(f"{kind}-small")
     jcfg = (jdm.UViTConfig("t", **UVIT_KW) if kind == "uvit"
             else jdm.HunyuanDiTConfig("t", **HUNYUAN_KW))
     tcfg = (tdm.UViTConfig("t", **UVIT_KW) if kind == "uvit"
             else tdm.HunyuanDiTConfig("t", **HUNYUAN_KW))
-    c = jax_auto_pipeline(jg, jax_model_fns(jcfg, kind), 4, JH100).choice
-    assert c.G > 1
-    want = (f"P={c.P} G={c.G} b={c.b} V={c.V} M={c.M} "
-            f"zero_stage={c.zero_stage}")
-    with pytest.raises(NotImplementedError, match=want):
-        auto_pipeline(tg, diffusion_model_fns(tcfg, kind), 4, H100)
+
+    def choice(c):
+        return (c.P, c.G, c.b, c.V, c.M, c.zero_stage)
+
+    jcp = jax_auto_pipeline(jg, jax_model_fns(jcfg, kind), 4, JH100)
+    assert jcp.choice.G > 1
+    cp = auto_pipeline(tg, diffusion_model_fns(tcfg, kind), 4, H100)
+    assert choice(cp.choice) == choice(jcp.choice)
+    assert (cp.pcfg.dp_size, cp.pcfg.zero_stage) == (
+        jcp.pcfg.dp_size, jcp.pcfg.zero_stage) == (jcp.choice.G,
+                                                    jcp.choice.zero_stage)
+    assert cp.state_spec() == jcp.state_spec() and cp.certify().ok
     # a pinned ZeRO stage restricts the search to it: the G=2 choice now
-    # carries ZeRO-1, and is refused by name as well
-    c1 = jax_auto_pipeline(jg, jax_model_fns(jcfg, kind), 4, JH100,
-                           zero_stage=1).choice
-    assert (c1.G, c1.zero_stage) == (2, 1)
-    with pytest.raises(NotImplementedError, match="G=2 .*zero_stage=1"):
-        auto_pipeline(tg, diffusion_model_fns(tcfg, kind), 4, H100,
-                      zero_stage=1)
+    # carries ZeRO-1, and plans with it
+    jc1 = jax_auto_pipeline(jg, jax_model_fns(jcfg, kind), 4, JH100,
+                            zero_stage=1)
+    assert (jc1.choice.G, jc1.choice.zero_stage) == (2, 1)
+    c1 = auto_pipeline(tg, diffusion_model_fns(tcfg, kind), 4, H100,
+                       zero_stage=1)
+    assert choice(c1.choice) == choice(jc1.choice)
+    assert (c1.pcfg.dp_size, c1.pcfg.zero_stage) == (2, 1)
+    assert c1.state_spec() == jc1.state_spec()
 
 
 def test_tuner_errors_match_jax():
