@@ -89,11 +89,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the PULSE and the sequential partitions; closed form vs table at loss
    rtol 1e-3 and ||err||/||g|| <= 1e-2 per gradient, skip-carry vs table
    at 2e-2 and 5e-2;
-7. checkpoint UViT-H (``checkpoint_phase``), full width at 16 of its 32
+7. checkpoint UViT-H (``checkpoint_phase``), full width at 8 of its 32
    blocks (``CKPT_LAYERS``), the same argv plus a ``--ckpt-dir`` under
    ``build/``: R trains steps 0-3 without a save, A trains steps 0-1 and
    saves step 2, B resumes at the same plan (restored state bitwise A's,
-   steps 2-3 within 2e-2 of R's losses), C resumes
+   steps 2-3 within 2e-2 of R's losses) and saves step 4 beside step 2
+   (GC hashes neither; step 4 is then removed), C resumes
    elastically at D=2 (logical params bitwise A's, one finite step); the
    launch counts are reset before B and before C and read after each;
    prints bytes, the save's blocking and total seconds, write and verify
@@ -174,11 +175,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     step's; each rank's ZeRO-2 peak below its ZeRO-1 peak.  Prints each
     rank's peaks beside Eq. 14's per-device prediction at its stage, the
     step seconds and the collectives' host seconds; torchrun's output in
-    ``chiprun_out/hybrid_zero{1,2}.log``;
-14. the ``kernels`` JSON line (each kernel's launches by path: ``plan``,
+    ``chiprun_out/hybrid_zero{1,2}.log``.  The ZeRO-2 run also takes
+    ``--ckpt-dir --ckpt-every 3 --steps 4 --faults stop@4``: it saves step
+    3 (every rank writes its shard of the full-depth checkpoint), trains
+    step 3 and stops without a final save;
+14. rank checkpoint (``rank_checkpoint_phase``): four ranks of phase 12's
+    plan (P=4, one replica, ZeRO-0) resume that checkpoint under
+    ``torchrun --resume --rank-report``, elastically (the fingerprints
+    differ), and train step 3.  Held: every rank's save landed at the
+    first attempt; every rank restored step 3 elastically; bitwise, by
+    SHA-256 in the rank against SHA-256 of the same range of the saved
+    member (hashed here): each saving ZeRO-2 rank's pieces at the save
+    (its shard of each block), each resumed rank's rows after the
+    restore, and every edge leaf; each rank read no more than its blocks
+    and the edge leaves, and the ranks hashed every shard once; the
+    resumed step-3 loss within 1e-2 of the saving world's; flash and
+    skip launched.  Prints the checkpoint's bytes, each writer's gather
+    bytes and seconds, write, hash and GC seconds, each rank's blocking
+    seconds at the save, each rank's restore seconds and bytes read;
+    torchrun's output in ``chiprun_out/rank_checkpoint.log``; the
+    directory is removed;
+15. the ``kernels`` JSON line (each kernel's launches by path: ``plan``,
     ``baseline``, ``skipvit train``, ``skipvit wave-asym``,
-    ``supervisor workers``, ``ranks`` and ``hybrid``,
-    the last three read from the workers' and ranks' result files, among
+    ``supervisor workers``, ``ranks``, ``hybrid`` and ``rank checkpoint``,
+    the last four read from the workers' and ranks' result files, among
     them), then the device line as the last line.
 
 The full record goes to ``chiprun_out/chip_smoke.json``.  Without a CUDA
@@ -1537,10 +1557,11 @@ def baseline_phase(torch, rec) -> dict:
 # ---------------------------------------------------------------------------
 
 CKPT_STOP, CKPT_END = 2, 4          # A saves step 2; B trains steps 2-3
-# the checkpoint phase's UViT-H: full width, half its 32 blocks.  Its state
-# is hashed five times on one host core (write, GC, a verify pass, B's and
-# C's restores): at full depth that was a third of the script's time.
-CKPT_LAYERS = 16
+# the checkpoint phase's UViT-H: full width, a quarter of its 32 blocks.
+# Its state is hashed four times on one host core (write, a verify pass,
+# B's and C's restores); the ``rank checkpoint`` phase saves and restores
+# the full depth over four ranks.
+CKPT_LAYERS = 8
 
 
 def _host(tree):
@@ -1578,11 +1599,14 @@ def checkpoint_phase(torch, rec, smi_line: str) -> dict:
     A. ``--ckpt-every 2 --faults stop@2``: steps 0-1, an async save of step
        2 (host snapshot, then a background write of the verified
        checkpoint), stop;
-    B. ``--resume --ckpt-every 100 --faults stop@4``: restores step 2 at the
-       same plan, trains steps 2-3.  The restored state must equal A's
-       state at the save bitwise, leaf by leaf on the host; the losses are
-       held to R's steps 2-3 at rtol 2e-2;
-       both model kernels must launch;
+    B. ``--resume --ckpt-every 2 --faults stop@4``: restores step 2 at the
+       same plan, trains steps 2-3, saves step 4 beside step 2.  The
+       restored state must equal A's state at the save bitwise, leaf by
+       leaf on the host; the losses are held to R's steps 2-3 at rtol
+       2e-2; GC at the save of step 4 meets two step directories and
+       hashes neither (step 2 verified at the restore, step 4 written by
+       this process); both model kernels must launch.  Step 4 is then
+       removed;
     C. ``--devices 2 --resume --faults stop@3``: restores step 2 elastically
        (D=4 -> D=2); the restored params, merged to model space, must
        equal A's bitwise; one step with a finite loss.
@@ -1676,9 +1700,10 @@ def checkpoint_phase(torch, rec, smi_line: str) -> dict:
             f"{full.n_layers} blocks ({nparams} params), {leaves} "
             f"leaves, {save['bytes']} bytes; save: snapshot "
             f"{save['snapshot_s']:.2f} s (blocking), total "
-            f"{save['total_s']:.2f} s (shard write + its hash "
-            f"{save['write_s']:.2f} s = {gb / save['write_s']:.2f} GB/s, GC "
-            f"re-verify {save['gc_s']:.2f} s); one verify pass "
+            f"{save['total_s']:.2f} s (shard write {save['write_s']:.2f} s "
+            f"= {gb / save['write_s']:.2f} GB/s, its hash "
+            f"{save['hash_s']:.2f} s, GC {save['gc_s']:.2f} s); one verify "
+            f"pass "
             f"{verify_s:.2f} s ({gb / verify_s:.2f} GB/s)")
 
         # B: exact resume at the same plan
@@ -1691,8 +1716,8 @@ def checkpoint_phase(torch, rec, smi_line: str) -> dict:
                 torch, tree_flatten(state)[0], tree_flatten(saved)[0],
                 "checkpoint B: restored vs saved state")
 
-        res = run("B", ["--resume", "--ckpt-every", "100", "--faults",
-                        f"stop@{CKPT_END}"], on_restore=check_b)
+        res = run("B", ["--resume", "--ckpt-every", str(CKPT_STOP),
+                        "--faults", f"stop@{CKPT_END}"], on_restore=check_b)
         if not checked or res.start != CKPT_STOP or \
                 sorted(res.losses) != list(range(CKPT_STOP, CKPT_END)):
             fail(f"checkpoint B: start {res.start}, steps "
@@ -1704,12 +1729,26 @@ def checkpoint_phase(torch, rec, smi_line: str) -> dict:
                  f"run's {base[CKPT_STOP:CKPT_END]} (largest relative "
                  f"difference {rel:.3e} > 2e-2)")
         out["B"].update(max_rel_loss_diff=rel, checked_bytes=checked["bytes"])
+        # its save of step 4, beside step 2: GC hashes neither
+        got = [(x["step"], bool(x["path"]), x["gc_hashed"])
+               for x in res.saves]
+        steps = sorted(os.listdir(ckdir))
+        if got != [(CKPT_END, True, [])] or steps != [
+                f"step_{CKPT_STOP:09d}", f"step_{CKPT_END:09d}"]:
+            fail(f"checkpoint B: saves {res.saves}, step directories "
+                 f"{steps}")
+        gc2 = res.saves[0]
+        shutil.rmtree(os.path.join(ckdir, f"step_{CKPT_END:09d}"))
         del res, saved
         log_restore("B same plan", out["B"]["restore"])
         log(f"[ckpt] B: restored state bitwise ({checked['bytes']} bytes), "
             f"losses {list(out['B']['losses'].values())} vs "
             f"{base[CKPT_STOP:CKPT_END]}, largest relative difference "
-            f"{rel:.3e}; launches {counts['B']}")
+            f"{rel:.3e}; launches {counts['B']}; its save of step "
+            f"{CKPT_END} beside step {CKPT_STOP}: snapshot "
+            f"{gc2['snapshot_s']:.2f} s, npz {gc2['write_s']:.2f} s, "
+            f"SHA-256 {gc2['hash_s']:.2f} s, GC {gc2['gc_s']:.4f} s over "
+            f"two step directories, hashing none")
 
         # C: elastic resume onto D=2
         got = {}
@@ -1745,7 +1784,8 @@ def checkpoint_phase(torch, rec, smi_line: str) -> dict:
     rec["checkpoint"] = dict(runs=out, summary=dict(
         bytes=save["bytes"], leaves=leaves, snapshot_s=save["snapshot_s"],
         save_total_s=save["total_s"], write_s=save["write_s"],
-        gc_s=save["gc_s"], write_GBps=gb / save["write_s"],
+        hash_s=save["hash_s"], gc_s=save["gc_s"], save_beside=gc2,
+        write_GBps=gb / save["write_s"],
         verify_s=verify_s, verify_GBps=gb / verify_s,
         restore_B=out["B"]["restore"], restore_C=out["C"]["restore"],
         card=smi_line))
@@ -2488,15 +2528,16 @@ def _hybrid_reference() -> dict:
     return out
 
 
-def _hybrid_run(zero: int, out_dir: str, env: dict) -> tuple[list, float]:
-    """One torchrun of ``HYBRID_ARGV`` at ``zero``: the four ranks' report
-    documents and the wall seconds."""
+def _hybrid_run(zero: int, out_dir: str, env: dict,
+                extra: list = ()) -> tuple[list, float]:
+    """One torchrun of ``HYBRID_ARGV`` at ``zero`` (and ``extra``): the
+    four ranks' report documents and the wall seconds."""
     import shutil
     shutil.rmtree(out_dir, ignore_errors=True)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(HYBRID_DP * HYBRID_PP), "-m",
            "repro_torch.launch.train", *HYBRID_ARGV, "--zero-stage",
-           str(zero), "--rank-report", out_dir]
+           str(zero), "--rank-report", out_dir, *extra]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
                           text=True, timeout=RANKS_TIMEOUT)
@@ -2514,7 +2555,7 @@ def _hybrid_run(zero: int, out_dir: str, env: dict) -> tuple[list, float]:
     return docs, wall
 
 
-def hybrid_phase(torch, rec, smi_line: str) -> dict:
+def hybrid_phase(torch, rec, smi_line: str, ckdir: str) -> tuple:
     """Four ranks of ``repro_torch.launch.train`` on the one card over the
     staged gloo ring and data group: the tuner's own N=4 plan for UViT-H
     at full width and depth (P=2 pipeline devices, G=2 data replicas,
@@ -2539,8 +2580,11 @@ def hybrid_phase(torch, rec, smi_line: str) -> dict:
     step (each replica runs every block call); each rank's ZeRO-2 peak
     below its ZeRO-1 peak.  Printed: peaks beside Eq. 14's per-device
     prediction at each stage, step seconds, the collectives' host seconds.
-    Returns the launches by path: the ranks' own (``hybrid``) and the
-    one-process reference's (``hybrid reference``)."""
+    The ZeRO-2 run also saves a checkpoint into ``ckdir`` for the ``rank
+    checkpoint`` phase (:data:`RANK_CKPT_SAVE`: a save of step 3, then
+    step 3, then a stop without a final save).  Returns the launches by
+    path, the ranks' own (``hybrid``) and the one-process reference's
+    (``hybrid reference``), and the ZeRO-2 ranks' report documents."""
     from repro_torch.core.comm_model import WIRE_BYTES
     from repro_torch.core.hw import H100_SXM
     from repro_torch.core.tuner import peak_memory, profile_partition
@@ -2597,7 +2641,8 @@ def hybrid_phase(torch, rec, smi_line: str) -> dict:
     runs, walls = {}, {}
     for z in HYBRID_ZERO:
         runs[z], walls[z] = _hybrid_run(
-            z, os.path.join(ROOT, "build", f"chip_smoke_hybrid{z}"), env)
+            z, os.path.join(ROOT, "build", f"chip_smoke_hybrid{z}"), env,
+            RANK_CKPT_SAVE + ["--ckpt-dir", ckdir] if z == 2 else [])
     out = dict(card=smi_line, argv=HYBRID_ARGV, wall_s=walls,
                eq14_per_device_bytes=eq14, card_bytes=card, zero={})
     launched = {}
@@ -2739,7 +2784,372 @@ def hybrid_phase(torch, rec, smi_line: str) -> dict:
     log(f"[hybrid] not measurable on one card: the all-gather and "
         f"reduce-scatter over NVLink (NCCL, a card a rank); phase "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return {"hybrid": launched, "hybrid reference": one["launches"]}
+    return {"hybrid": launched, "hybrid reference": one["launches"]}, runs[2]
+
+
+# ---------------------------------------------------------------------------
+# phase 14: checkpoints over ranks -- the hybrid ZeRO-2 world's save, and an
+# elastic resume of it as the ranks phase's four pipeline ranks
+# ---------------------------------------------------------------------------
+
+# the hybrid phase's ZeRO-2 run: a save of step 3, step 3, a stop (no final
+# save)
+RANK_CKPT_SAVE = ["--steps", str(HYBRID_STEPS + 1), "--ckpt-every",
+                  str(HYBRID_STEPS), "--faults", f"stop@{HYBRID_STEPS + 1}"]
+RANK_CKPT_STEP = HYBRID_STEPS
+
+
+def _set_arg(argv: list, flag: str, value: str) -> list:
+    """``argv`` with ``flag``'s value replaced by ``value``."""
+    out = list(argv)
+    out[out.index(flag) + 1] = value
+    return out
+
+
+# the resume: the ranks phase's plan (P=4, one replica, ZeRO-0) trains step
+# 3 and stops (a second full-size checkpoint would pass the disk writes a
+# chip run may make: the phase writes 27.8 GB)
+RANK_CKPT_RESUME = _set_arg(RANKS_ARGV, "--steps", str(RANK_CKPT_STEP + 1)) \
+    + ["--resume", "--faults", f"stop@{RANK_CKPT_STEP + 1}"]
+HASH_WORKERS = 6          # host processes hashing the saved blocks
+
+
+def _npz_members(path: str) -> dict:
+    """``name -> (shape, dtype, offset)`` of every ``.npy`` member of an
+    uncompressed npz: the file offset of each array's first byte, read
+    from the zip's local headers and the ``.npy`` headers."""
+    import zipfile
+
+    import numpy as np
+    out = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for info in zf.infolist():
+            if info.compress_type != zipfile.ZIP_STORED:
+                fail(f"{path}: {info.filename} is compressed")
+            f.seek(info.header_offset)
+            local = f.read(30)
+            f.seek(info.header_offset + 30 + int.from_bytes(local[26:28],
+                                                            "little")
+                   + int.from_bytes(local[28:30], "little"))
+            version = np.lib.format.read_magic(f)
+            read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                    else np.lib.format.read_array_header_2_0)
+            shape, _, dtype = read(f)
+            out[info.filename[:-len(".npy")]] = (shape, dtype, f.tell())
+    return out
+
+
+def _sha256_ranges(path: str, ranges: list) -> list:
+    """SHA-256 of each ``(offset, nbytes, cut)`` range of a file (a worker
+    of the hash pool): of the range's bytes, or with ``cut = (shape,
+    itemsize, dim, parts, part)`` of the C-ordered bytes of part ``part``
+    of the range seen as an array of ``shape`` cut along ``dim`` into
+    ``parts`` equal parts (a rank's ZeRO shard of a block)."""
+    import hashlib
+
+    import numpy as np
+    out = []
+    with open(path, "rb") as f:
+        for off, n, cut in ranges:
+            f.seek(off)
+            h = hashlib.sha256()
+            if cut is not None:
+                shape, itemsize, dim, parts, part = cut
+                b = f.read(n)
+                if len(b) != n:
+                    raise EOFError(f"{path}: short at {off}")
+                a = np.frombuffer(b, dtype=f"u{itemsize}").reshape(shape)
+                h.update(np.ascontiguousarray(
+                    np.split(a, parts, axis=dim)[part]))
+                out.append(h.hexdigest())
+                continue
+            left = n
+            while left:
+                b = f.read(min(left, 1 << 24))
+                if not b:
+                    raise EOFError(f"{path}: short at {off}")
+                h.update(b)
+                left -= len(b)
+            out.append(h.hexdigest())
+    return out
+
+
+def _slot_ranges(spec: dict) -> list:
+    """Per stage stack, ``ranges[d][v]``: the blocks (of that stack's own
+    numbering: the decoder's from the turnaround cut) slot ``v`` of device
+    ``d`` holds, from a manifest's or a rank report's state spec."""
+    cuts = spec["cuts"]
+    mid = cuts[(len(cuts) - 1) // 2]
+    return [[[(cuts[s], cuts[s + 1]) for s in ss] for ss in spec["enc_slots"]],
+            [[(cuts[s] - mid, cuts[s + 1] - mid) for s in ss]
+             for ss in spec["dec_slots"]]]
+
+
+def _digest_tasks(doc: dict, digests: dict, man: dict, members: dict,
+                  tasks: dict, want: dict, what: str) -> int:
+    """Add to ``tasks`` (path -> ``[(offset, nbytes, cut)]``) and ``want``
+    (path -> ``[(what, rank, leaf, slot, row, digest)]``) every range of
+    the saved members that rank report ``doc``'s ``digests``
+    (``held_digests``) name: each edge leaf whole, and each real block of
+    the rank's rows of a stage leaf, found in the saved layout
+    (``man["plan"]``) through the rank's own (``doc["spec"]``), cut to the
+    rank's ZeRO shard where it holds one.  Returns the bytes of the
+    ranges the rank holds whole (its blocks and edge leaves)."""
+    saved = _slot_ranges(man["plan"])
+    spec, dev = doc["spec"], doc["pipe"]
+    if spec["num_param_stacks"] != 2 or man["plan"]["num_param_stacks"] != 2:
+        fail(f"rank checkpoint: {what}: the block check reads two stacks")
+    new = _slot_ranges(spec)
+    counts = (spec["enc_counts"][dev], spec["dec_counts"][dev])
+    nb = 0
+    for i in range(man["num_leaves"]):
+        path, shape, dtype, off = members[i]
+        size = int(math.prod(shape)) * dtype.itemsize
+        got = digests.get(str(i))
+        if got is None:
+            fail(f"rank checkpoint: {what}: rank {doc['rank']} has no "
+                 f"digest of leaf {i}")
+        if isinstance(got, str):                        # an edge leaf
+            want.setdefault(path, []).append(
+                (what, doc["rank"], i, None, None, got))
+            tasks.setdefault(path, []).append((off, size, None))
+            nb += size
+            continue
+        block = size // int(math.prod(shape[:3]))
+        cut = ((tuple(shape[3:]), dtype.itemsize, got["dim"], got["parts"],
+                got["part"]) if "dim" in got else None)
+        stack = got["stack"]
+        if [len(x) for x in got["rows"]] != list(counts[stack]):
+            fail(f"rank checkpoint: {what}: rank {doc['rank']} leaf {i}: "
+                 f"{[len(x) for x in got['rows']]} rows a slot, its plan's "
+                 f"counts {counts[stack]}")
+        for v, rows in enumerate(got["rows"]):
+            lo = new[stack][dev][v][0]
+            for r, digest in enumerate(rows):
+                b = lo + r
+                (ds, vs), rs = next(
+                    ((dd, vv), b - a) for dd, sl in enumerate(saved[stack])
+                    for vv, (a, z) in enumerate(sl) if a <= b < z)
+                row = (ds * shape[1] + vs) * shape[2] + rs
+                tasks.setdefault(path, []).append(
+                    (off + row * block, block, cut))
+                want.setdefault(path, []).append(
+                    (what, doc["rank"], i, v, r, digest))
+                nb += block
+    return nb
+
+
+def _members(step_dir: str, man: dict) -> dict:
+    """Leaf index -> ``(path, shape, dtype, offset)`` of its member."""
+    out = {}
+    for sh in man["shards"]:
+        path = os.path.join(step_dir, sh)
+        for name, meta in _npz_members(path).items():
+            out[int(name[1:])] = (path,) + meta
+    return out
+
+
+def _saves(doc: dict) -> list:
+    """A rank report's save records, without their digests."""
+    return [{k: v for k, v in x.items() if k != "digests"}
+            for x in doc["saves"]]
+
+
+def rank_checkpoint_phase(torch, rec, smi_line: str, ckdir: str,
+                          save_docs: list) -> dict:
+    """The ``hybrid`` phase's ZeRO-2 world (UViT-H at full width and depth,
+    the tuner's N=4 plan P=2 G=2 V=2 M=2, bf16, four ranks on the card
+    over the staged gloo groups) saved step ``RANK_CKPT_STEP`` into
+    ``ckdir`` (``RANK_CKPT_SAVE``: every rank gathers its share of the
+    leaves whole into host memory and writes ``shard_<rank>.npz``), then
+    trained that step (loss L3) and stopped.  Here one torchrun of four
+    ranks on the ``ranks`` phase's plan (P=4, one replica, ZeRO-0,
+    ``RANK_CKPT_RESUME``) resumes it: the fingerprints differ, so each
+    rank reads the saved blocks its new rows hold (the elastic path),
+    and trains step 3.
+    Held, bitwise, by SHA-256 (``--rank-report``'s ``held_digests``
+    against the same ranges of the saved members, hashed here by
+    ``HASH_WORKERS`` processes): each saving ZeRO-2 rank's pieces at the
+    save (its shard of each block, cut from the saved block) and each
+    resumed rank's rows after the restore are the saved members' bytes.
+    Held besides: every save landed at the first attempt; every rank
+    resumed step 3 elastically; each rank read no more than the blocks
+    its rows hold plus the edge leaves, and the ranks hashed every shard
+    once; the resumed step-3 loss within ``HYBRID_LOSS_BAR`` of L3;
+    flash and skip launched in the resumed ranks.  Printed: the
+    checkpoint's bytes, each writer's gather bytes and seconds, write,
+    hash and GC seconds, each rank's blocking seconds at the save, each
+    rank's restore seconds and bytes read.  The directory is removed at
+    the end.  Returns the resumed ranks' launches (``rank checkpoint``)."""
+    import concurrent.futures
+    import multiprocessing
+    import shutil
+
+    def step_dir(step):
+        return os.path.join(ckdir, f"step_{step:09d}")
+
+    t_phase = time.perf_counter()
+    step3 = RANK_CKPT_STEP
+    try:
+        # ---- the save, as the ZeRO-2 ranks report it
+        if sorted(os.listdir(ckdir)) != [os.path.basename(step_dir(step3))]:
+            fail(f"rank checkpoint: {sorted(os.listdir(ckdir))} under the "
+                 f"checkpoint directory, want step {step3} alone")
+        for d in save_docs:
+            got = [(x["step"], x["attempts"], bool(x["path"]),
+                    x.get("landed"), "digests" in x) for x in d["saves"]]
+            if got != [(step3, 1, True, True, True)]:
+                fail(f"rank checkpoint: rank {d['rank']} saves "
+                     f"{_saves(d)}")
+        l3 = save_docs[0]["train"]["losses"].get(str(step3))
+        if l3 is None or any(d["train"]["losses"].get(str(step3))
+                             != l3 for d in save_docs):
+            fail("rank checkpoint: the saving ranks' step "
+                 f"{step3} losses differ or are missing")
+        with open(os.path.join(step_dir(step3), "manifest.json")) as f:
+            man = json.load(f)
+        nranks = HYBRID_DP * HYBRID_PP
+        if man["num_hosts"] != nranks or len(man["shards"]) != nranks:
+            fail(f"rank checkpoint: manifest of {man['num_hosts']} hosts, "
+                 f"shards {man['shards']}")
+        shard_bytes = {sh: os.path.getsize(os.path.join(step_dir(step3), sh))
+                       for sh in man["shards"]}
+        total = sum(shard_bytes.values())
+        log(f"[rank-ckpt] {smi_line}: UViT-H at full width and depth, the "
+            f"ZeRO-2 world P={HYBRID_PP} G={HYBRID_DP} V={HYBRID_V} saved "
+            f"step {step3}: {man['num_leaves']} leaves, {total} "
+            f"bytes in {nranks} shards {list(shard_bytes.values())}")
+        for d in save_docs:
+            x = d["saves"][0]
+            log(f"[rank-ckpt] save rank {d['rank']}: blocking "
+                f"{x['blocking_s']:.2f} s (gather {x['gather_s']:.2f} s: "
+                f"{x['gather_bytes_in']} bytes in, {x['gather_bytes_out']} "
+                f"out); writes {x['leaves_written']} leaves, {x['bytes']} "
+                f"bytes: npz {x['write_s']:.2f} s, SHA-256 "
+                f"{x['hash_s']:.2f} s, GC {x['gc_s']:.3f} s")
+
+        # ---- the elastic resume, four pipeline ranks
+        out_dir = os.path.join(ROOT, "build", "chip_smoke_rank_ckpt")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        env = dict(os.environ, REPRO_TORCH_NO_BUILD="1",
+                   PYTHONPATH=os.pathsep.join(
+                       [os.path.join(ROOT, "src")]
+                       + [p for p in os.environ.get("PYTHONPATH", "").split(
+                           os.pathsep) if p]))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(RANKS_D), "-m",
+               "repro_torch.launch.train", *RANK_CKPT_RESUME, "--ckpt-dir",
+               ckdir, "--rank-report", out_dir]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                              text=True, timeout=RANKS_TIMEOUT)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(OUT_DIR, "rank_checkpoint.log"), "w") as f:
+            f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+        if proc.returncode != 0:
+            fail(f"rank checkpoint: the resume exited {proc.returncode}:\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        docs = []
+        for r in range(RANKS_D):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                docs.append(json.load(f))
+        shutil.rmtree(out_dir, ignore_errors=True)
+        for d in docs:
+            got = d["resumed"]
+            if not got or got["step"] != step3 or not got["elastic"] \
+                    or got["saved_fingerprint"] == got["fingerprint"]:
+                fail(f"rank checkpoint: rank {d['rank']} resumed {got}")
+            loss = d["train"]["losses"].get(str(step3))
+            if sorted(d["train"]["losses"]) != [str(step3)] or \
+                    not abs(loss - l3) <= HYBRID_LOSS_BAR * abs(l3):
+                fail(f"rank checkpoint: rank {d['rank']} losses "
+                     f"{d['train']['losses']}, the saving world's step "
+                     f"{step3} {l3} (bar {HYBRID_LOSS_BAR})")
+
+        # ---- bitwise: what each rank held against the saved members
+        members = _members(step_dir(step3), man)
+        tasks, want, bound = {}, {}, {}
+        for d in save_docs:
+            _digest_tasks(d, d["saves"][0]["digests"], man, members, tasks,
+                          want, f"saved step {step3}")
+        for d in docs:
+            bound[d["rank"]] = _digest_tasks(
+                d, d["restore"]["digests"], man, members, tasks, want,
+                f"restored step {step3}")
+        t0 = time.perf_counter()
+        # spawned, not forked: this process holds threads and a CUDA context
+        with concurrent.futures.ProcessPoolExecutor(
+                HASH_WORKERS, mp_context=multiprocessing.get_context(
+                    "spawn")) as pool:
+            futs = {p: pool.submit(_sha256_ranges, p, rs)
+                    for p, rs in tasks.items()}
+            hashed = {p: f.result() for p, f in futs.items()}
+        hash_s = time.perf_counter() - t0
+        checked = {}
+        for p in tasks:
+            for w, h in zip(want[p], hashed[p]):
+                n, bad = checked.setdefault(w[0], [0, []])
+                checked[w[0]][0] = n + 1
+                if w[5] != h:
+                    bad.append(w[1:5])
+        for what, (n, bad) in checked.items():
+            if bad:
+                fail(f"rank checkpoint: {what}: {len(bad)} of {n} blocks "
+                     f"and edge leaves differ from the saved bytes: "
+                     f"{bad[:8]}")
+        checked_bytes = sum(x[1] for rs in tasks.values() for x in rs)
+
+        # ---- bytes read, hashing once, launches
+        for d in docs:
+            if d["restore"]["bytes_read"] > bound[d["rank"]]:
+                fail(f"rank checkpoint: rank {d['rank']} read "
+                     f"{d['restore']['bytes_read']} bytes, more than its "
+                     f"blocks and edge leaves, {bound[d['rank']]}")
+        hashed_by_ranks = sum(d["restore"]["hashed_bytes"] for d in docs)
+        if hashed_by_ranks != total:
+            fail(f"rank checkpoint: the ranks hashed {hashed_by_ranks} "
+                 f"bytes, the shards hold {total}")
+        launched = {k: sum(d["launches"][k] for d in docs)
+                    for k in docs[0]["launches"]}
+        for k in ("flash_attention", "skip_concat_matmul"):
+            if not launched[k]:
+                fail(f"rank checkpoint: {k} never launched in the resumed "
+                     f"ranks ({launched})")
+        peaks = {d["rank"]: d["train"]["peak_bytes"] for d in docs}
+        out = dict(card=smi_line, bytes=total, shard_bytes=shard_bytes,
+                   leaves=man["num_leaves"],
+                   saves={d["rank"]: _saves(d)[0] for d in save_docs},
+                   l3=l3, resume_wall_s=wall, resume_argv=RANK_CKPT_RESUME,
+                   restores={d["rank"]: {k: v for k, v in
+                                          d["restore"].items()
+                                          if k != "digests"} for d in docs},
+                   bytes_bound=bound, losses={d["rank"]: d["train"][
+                       "losses"][str(step3)] for d in docs},
+                   checked={k: n for k, (n, _) in checked.items()},
+                   checked_bytes=checked_bytes, parent_hash_s=hash_s,
+                   launches=launched, peaks=peaks)
+        rec["rank checkpoint"] = out
+        log(f"[rank-ckpt] resume as {RANKS_D} ranks P={RANKS_D} dp=1 "
+            f"ZeRO-0: elastic (fingerprint "
+            f"{docs[0]['resumed']['saved_fingerprint']} -> "
+            f"{docs[0]['resumed']['fingerprint']}); torchrun "
+            f"{wall:.1f} s; step {step3} loss "
+            f"{docs[0]['train']['losses'][str(step3)]!r} "
+            f"(the saving world's {l3!r})")
+        for d in docs:
+            x = d["restore"]
+            log(f"[rank-ckpt] restore rank {d['rank']}: {x['total_s']:.2f} s "
+                f"(verify {x['verify_s']:.2f} s hashing {x['hashed_bytes']} "
+                f"bytes, read {x['read_s']:.2f} s); read {x['bytes_read']} "
+                f"bytes (its blocks and edge leaves: {bound[d['rank']]}); "
+                f"peak {d['train']['peak_bytes'] / 1e9:.3f} GB")
+        log(f"[rank-ckpt] bitwise the saved members, blocks and edge "
+            f"leaves: {out['checked']}, {checked_bytes} bytes (hashed "
+            f"here in {hash_s:.1f} s by {HASH_WORKERS} processes); launches "
+            f"{launched}; phase {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return launched
 
 
 def release(torch) -> int:
@@ -2916,11 +3326,25 @@ def main() -> None:
     if left >= 1e9:
         fail(f"hybrid: {left / 1e9:.2f} GB still allocated; the previous "
              "phase was not released")
+    import shutil
+    ckdir = os.path.join(ROOT, "build", "chip_smoke_rank_ckpt_dir")
+    shutil.rmtree(ckdir, ignore_errors=True)
     t0 = time.perf_counter()
-    counts.update(hybrid_phase(torch, rec, smi_line))
-    rec["phase_s"]["hybrid"] = time.perf_counter() - t0
+    try:
+        hybrid_counts, save_docs = hybrid_phase(torch, rec, smi_line, ckdir)
+        counts.update(hybrid_counts)
+        rec["phase_s"]["hybrid"] = time.perf_counter() - t0
 
-    # 14. results: each kernel's numbers at the Hunyuan-DiT train step's
+        # 14. checkpoints over ranks: the ZeRO-2 world's save, resumed
+        # elastically as four pipeline ranks
+        t0 = time.perf_counter()
+        counts["rank checkpoint"] = rank_checkpoint_phase(
+            torch, rec, smi_line, ckdir, save_docs)
+        rec["phase_s"]["rank checkpoint"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    # 15. results: each kernel's numbers at the Hunyuan-DiT train step's
     # shape (the scan: its own phase's), every train path's beside them
     kernels = []
     for kname, (source, replaces) in SOURCES.items():

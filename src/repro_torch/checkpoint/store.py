@@ -20,7 +20,12 @@ no bfloat16), with ``"dtype": "bfloat16"`` in the manifest; the reader
 takes the manifest's dtype and views the words as ``torch.bfloat16``.
 
 Every host writes only its leaves (leaf-wise round-robin) plus a sidecar
-recording the shard's SHA-256.  Host 0 writes ``manifest.json`` naming every
+recording the shard's SHA-256.  Over ranks (a ``torchrun`` world, one
+process per pipeline device and data replica) every rank is a host: it
+writes ``shard_<rank>.npz``, the leaves :func:`assign_writers` gives it
+(bytes balanced), each whole, as one process of the same plan holds it
+(``runtime.resilience.gather_rank_state`` gathers the pieces;
+:func:`save_shard` writes them).  Host 0 writes ``manifest.json`` naming every
 *expected* shard, so the manifest alone is **not** the completeness marker:
 a step is complete only when the manifest exists AND every listed shard is
 present, its sidecar hash verifies, and the shards jointly cover every leaf
@@ -38,13 +43,17 @@ Fault-tolerance contract used by ``launch/train.py``:
   step, its leaves on the devices of the ``like`` tree's leaves;
   ``strict=False`` falls back past corrupt/partial steps,
 - the data pipeline is stateless given (step, host_id), so resume is
-  exact; when the plan changed, ``runtime.resilience`` de-stacks the
-  saved state through the manifest's recorded plan spec.
+  exact; a pipeline's state restores through ``runtime.resilience``,
+  which reads each device's rows (or, when the plan changed, the saved
+  blocks they hold, through the manifest's recorded plan spec) as byte
+  ranges of the members (:meth:`_NpzReader.read_rows`): a rank reads only
+  what it holds.
 """
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import re
 import shutil
@@ -122,12 +131,12 @@ def _atomic_write_json(path: str, doc: dict) -> None:
 # Leaves <-> .npy members
 # ---------------------------------------------------------------------------
 
-def _dtype_name(x: torch.Tensor) -> str:
-    """The manifest's dtype of a leaf: numpy's name, as the JAX writer
+def dtype_name(dtype: torch.dtype) -> str:
+    """The manifest's name of a leaf's dtype: numpy's, as the JAX writer
     records ``str(np.asarray(x).dtype)`` (``"bfloat16"`` included)."""
-    if x.dtype == torch.bfloat16:
+    if dtype == torch.bfloat16:
         return "bfloat16"
-    return str(torch.empty((), dtype=x.dtype).numpy().dtype)
+    return str(torch.empty((), dtype=dtype).numpy().dtype)
 
 
 def _host_array(x: torch.Tensor) -> tuple[np.ndarray, str]:
@@ -172,7 +181,10 @@ class _NpzReader:
     pieces with a CRC per piece, several times slower at tens of GB; the
     shard's SHA-256 has just been checked, so the CRC adds nothing.  Both
     writers store members uncompressed, C-ordered, with 1.0 or 2.0
-    headers; anything else is refused."""
+    headers; anything else is refused.  :meth:`read_rows` reads one
+    contiguous run of a member's rows and nothing else; ``bytes_read``
+    counts the array bytes read (the headers' few hundred bytes a member
+    aside)."""
 
     def __init__(self, path: str):
         self.path = path
@@ -181,6 +193,8 @@ class _NpzReader:
                           for i in zf.infolist()
                           if i.filename.endswith(".npy")}
         self.f = open(path, "rb")
+        self.bytes_read = 0
+        self._members: dict[str, tuple] = {}
 
     def keys(self):
         return self.infos.keys()
@@ -189,7 +203,12 @@ class _NpzReader:
         return CheckpointError(f"{self.path}: member {key}: {why}",
                                reason="format")
 
-    def __getitem__(self, key: str) -> np.ndarray:
+    def member(self, key: str) -> tuple[tuple, np.dtype, int]:
+        """``(shape, dtype, offset)`` of a member: its array's shape and
+        dtype from the ``.npy`` header, and the file offset of its first
+        byte."""
+        if key in self._members:
+            return self._members[key]
         info = self.infos[key]
         if info.compress_type != zipfile.ZIP_STORED:
             raise self._refuse(key, "compressed")
@@ -208,11 +227,30 @@ class _NpzReader:
         shape, fortran, dtype = read_header(self.f)
         if fortran:
             raise self._refuse(key, "Fortran order")
-        out = np.empty(shape, dtype=dtype)
-        view = memoryview(out.reshape(-1).view(np.uint8))
-        if self.f.readinto(view) != out.nbytes:
+        self._members[key] = (tuple(shape), dtype, self.f.tell())
+        return self._members[key]
+
+    def read_rows(self, key: str, lead: int, lo: int, hi: int
+                  ) -> np.ndarray:
+        """Rows ``lo:hi`` of the member seen as ``[rows, *shape[lead:]]``
+        (its first ``lead`` dims flattened, C order): one contiguous byte
+        range of the file, read into one buffer."""
+        shape, dtype, offset = self.member(key)
+        tail = shape[lead:]
+        row = math.prod(tail) * dtype.itemsize
+        if not 0 <= lo <= hi <= math.prod(shape[:lead]):
+            raise self._refuse(key, f"rows {lo}:{hi} of {shape[:lead]}")
+        out = np.empty((hi - lo,) + tail, dtype=dtype)
+        self.f.seek(offset + lo * row)
+        if self.f.readinto(memoryview(out.reshape(-1).view(np.uint8))) \
+                != out.nbytes:
             raise self._refuse(key, "short")
+        self.bytes_read += out.nbytes
         return out
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        shape = self.member(key)[0]
+        return self.read_rows(key, 0, 0, 1).reshape(shape)
 
     def close(self) -> None:
         self.f.close()
@@ -221,7 +259,7 @@ class _NpzReader:
 def save_checkpoint(directory: str, step: int, tree: Pytree, *,
                     host_id: int = 0, num_hosts: int = 1,
                     extra: dict | None = None, plan: dict | None = None,
-                    io_fault=None) -> str:
+                    io_fault=None, times: dict | None = None) -> str:
     """Blocking save of this host's shard.  Returns the checkpoint path.
 
     ``plan``: the saving plan's state-spec
@@ -230,13 +268,48 @@ def save_checkpoint(directory: str, step: int, tree: Pytree, *,
     called before any byte is written; raising ``OSError`` simulates a
     transient storage failure (the whole save is retryable).
     """
+    flat, _ = tree_flatten(tree)
+    mine = {i: flat[i] for i in range(len(flat)) if i % num_hosts == host_id}
+    return save_shard(directory, step, mine, leaf_meta(flat),
+                      host_id=host_id, num_hosts=num_hosts, extra=extra,
+                      plan=plan, io_fault=io_fault, times=times)
+
+
+def leaf_meta(flat: list) -> list[dict]:
+    """The manifest's record of each leaf: shape and dtype."""
+    return [{"shape": [int(n) for n in np.shape(x)],
+             "dtype": dtype_name(x.dtype)} for x in flat]
+
+
+def assign_writers(nbytes: list[int], num_hosts: int) -> list[int]:
+    """The host that writes each leaf: largest leaf first, each to the
+    host with the fewest bytes so far (the lowest index on a tie), so the
+    shards hold about equal bytes.  Any assignment restores: the reader
+    takes each leaf from the shard whose sidecar lists it."""
+    load = [0] * num_hosts
+    out = [0] * len(nbytes)
+    for i in sorted(range(len(nbytes)), key=lambda i: (-nbytes[i], i)):
+        h = min(range(num_hosts), key=lambda h: (load[h], h))
+        out[i] = h
+        load[h] += nbytes[i]
+    return out
+
+
+def save_shard(directory: str, step: int, leaves: dict, meta: list[dict], *,
+               host_id: int = 0, num_hosts: int = 1,
+               extra: dict | None = None, plan: dict | None = None,
+               io_fault=None, times: dict | None = None) -> str:
+    """Write host ``host_id``'s shard of step ``step``: ``leaves`` maps
+    the flat index of each leaf it writes to the whole leaf (a tensor),
+    ``meta`` is every leaf's :func:`leaf_meta` record, for the manifest
+    host 0 writes.  ``times``, when given, receives the seconds of the
+    npz (``write_s``) and of its SHA-256 (``hash_s``)."""
     path = _step_dir(directory, step)
     if io_fault is not None:
         io_fault(step)
     os.makedirs(path, exist_ok=True)
-    flat, _ = tree_flatten(tree)
-    mine = [i for i in range(len(flat)) if i % num_hosts == host_id]
-    arrays = {f"a{i}": _host_array(flat[i]) for i in mine}
+    mine = sorted(leaves)
+    arrays = {f"a{i}": _host_array(leaves[i]) for i in mine}
     shard = _shard_name(host_id)
     npz = os.path.join(path, shard + ".npz")
 
@@ -244,18 +317,22 @@ def save_checkpoint(directory: str, step: int, tree: Pytree, *,
         with open(tmp, "wb") as f:
             _write_npz(f, arrays)
 
+    t0 = time.perf_counter()
     _atomic_write(npz, write_npz)
+    t1 = time.perf_counter()
+    digest = _sha256(npz)
+    if times is not None:
+        times.update(write_s=t1 - t0, hash_s=time.perf_counter() - t1)
     _atomic_write_json(os.path.join(path, shard + ".json"),
-                       {"file": shard + ".npz", "sha256": _sha256(npz),
+                       {"file": shard + ".npz", "sha256": digest,
                         "leaves": mine})
     if host_id == 0:
         manifest = {
             "schema": MANIFEST_SCHEMA,
             "step": step,
             "num_hosts": num_hosts,
-            "num_leaves": len(flat),
-            "leaves": [{"shape": [int(n) for n in np.shape(x)],
-                        "dtype": _dtype_name(x)} for x in flat],
+            "num_leaves": len(meta),
+            "leaves": meta,
             "shards": [_shard_name(h) + ".npz" for h in range(num_hosts)],
             "plan": plan,
             "extra": extra or {},
@@ -281,11 +358,15 @@ def read_manifest(directory: str, step: int) -> dict:
                               step=step, reason="manifest-corrupt") from None
 
 
-def verify_step(directory: str, step: int) -> dict:
+def verify_step(directory: str, step: int, *, mine=None) -> dict:
     """Full completeness + integrity check of one step; returns its
     manifest.  A step passes only when the manifest exists, every listed
     shard is present with a sidecar whose SHA-256 matches the bytes on
-    disk, and the shards jointly cover every leaf."""
+    disk, and the shards jointly cover every leaf.  ``mine(k)``, when
+    given, says whether this caller hashes the manifest's shard ``k``
+    (the others are checked for presence and coverage only): ranks that
+    split the shards between them and agree on their verdicts have
+    verified the step once, not once a rank."""
     man = read_manifest(directory, step)
     if man.get("schema") != MANIFEST_SCHEMA:
         raise CheckpointError(
@@ -293,7 +374,7 @@ def verify_step(directory: str, step: int) -> dict:
             f"(expected {MANIFEST_SCHEMA})", step=step, reason="schema")
     path = _step_dir(directory, step)
     covered: set[int] = set()
-    for shard in man["shards"]:
+    for k, shard in enumerate(man["shards"]):
         npz = os.path.join(path, shard)
         if not os.path.exists(npz):
             raise CheckpointError("listed shard missing (incomplete "
@@ -307,7 +388,7 @@ def verify_step(directory: str, step: int) -> dict:
             raise CheckpointError("shard sidecar missing/unreadable",
                                   step=step, shard=shard,
                                   reason="no-sidecar") from None
-        digest = _sha256(npz)
+        digest = _sha256(npz) if mine is None or mine(k) else side["sha256"]
         if digest != side["sha256"]:
             raise CheckpointError(
                 f"shard bytes do not match recorded SHA-256 "
@@ -475,18 +556,39 @@ class CheckpointManager:
     and returns ``None`` -- checkpointing degrades, training never
     crashes on storage trouble.
 
+    Over ranks (``ranks`` given, a
+    ``runtime.resilience.RankSaves``; ``host_id`` the rank, ``num_hosts``
+    the world): :meth:`save_async` calls ``ranks.collect(tree)`` on the
+    caller's thread, which every rank reaches in the same order; it
+    returns ``(leaves, meta, stats)``, the whole leaves this rank writes
+    as host tensors (the gather is the snapshot), every leaf's
+    :func:`leaf_meta` record and the gather's numbers, and the rank's
+    shard is written on the background thread (:func:`save_shard`).
+    :meth:`wait` then asks ``ranks.all(landed)``, a collective, whether
+    every rank's shard landed: a step whose save degraded on any rank
+    never verifies, and every rank warns and trains on.
+
+    GC (host 0; over ranks at :meth:`wait`, once the ranks agree a step
+    landed) counts only verified-complete steps toward ``keep``.  A step
+    is hashed once: a step this manager saw land whole (one host's save,
+    or every rank's shard landed), one :meth:`trust` names (a restore
+    verified it), or one GC verified, stays complete while its files keep
+    their sizes and modification times.
+
     ``history`` records each save: step, path (``None`` when it
     degraded), bytes of this host's shard, attempts, and seconds:
-    ``snapshot_s`` (the host copy :meth:`save_async` blocks on),
-    ``write_s`` (shard, sidecar hash and manifest), ``gc_s`` (retention,
-    which re-verifies every kept step) and ``total_s`` (from the call to
-    the end of GC).
+    ``snapshot_s`` (the host copy or the gather :meth:`save_async` blocks
+    on), ``blocking_s`` (all of :meth:`save_async`, the wait for the
+    previous save included), ``write_s`` (the shard), ``hash_s`` (its
+    SHA-256), ``gc_s`` (retention; ``gc_hashed`` the steps it hashed) and
+    ``total_s`` (from the call to the end of GC); over ranks also the
+    gather's ``stats`` and ``landed`` (every rank's shard landed).
     """
 
     def __init__(self, directory: str, *, keep: int = 3, host_id: int = 0,
                  num_hosts: int = 1, retries: int = 3,
                  backoff: float = 0.05, plan: dict | None = None,
-                 io_fault=None):
+                 io_fault=None, ranks=None):
         self.directory = directory
         self.keep = keep
         self.host_id = host_id
@@ -495,33 +597,50 @@ class CheckpointManager:
         self.backoff = backoff
         self.plan = plan
         self.io_fault = io_fault
+        self.ranks = ranks
         self.history: list[dict] = []
         self._thread: threading.Thread | None = None
+        self._unagreed: dict | None = None
+        self._complete: dict[int, tuple] = {}   # step -> its files' stat
 
     def save(self, step: int, tree: Pytree,
              extra: dict | None = None) -> str | None:
         """Blocking save with retry/backoff; returns the path or None."""
-        t0 = time.perf_counter()
+        return self._save(step, self._record(step), lambda times:
+                          save_checkpoint(
+                              self.directory, step, tree,
+                              host_id=self.host_id, num_hosts=self.num_hosts,
+                              extra=extra, plan=self.plan,
+                              io_fault=self.io_fault, times=times))
+
+    def _record(self, step: int) -> dict:
         rec = {"step": step, "path": None, "bytes": 0, "attempts": 0,
-               "snapshot_s": 0.0, "write_s": None, "gc_s": None,
+               "snapshot_s": 0.0, "blocking_s": None, "write_s": None,
+               "hash_s": None, "gc_s": None, "gc_hashed": [],
                "total_s": None}
         self.history.append(rec)
+        return rec
+
+    def _save(self, step: int, rec: dict, write) -> str | None:
+        t0 = time.perf_counter()
         last: OSError | None = None
         for attempt in range(self.retries + 1):
             rec["attempts"] = attempt + 1
             try:
-                t_w = time.perf_counter()
-                path = save_checkpoint(
-                    self.directory, step, tree, host_id=self.host_id,
-                    num_hosts=self.num_hosts, extra=extra, plan=self.plan,
-                    io_fault=self.io_fault)
+                times: dict = {}
+                path = write(times)
                 t_gc = time.perf_counter()
-                self._gc()
-                rec.update(path=path, write_s=t_gc - t_w,
-                           gc_s=time.perf_counter() - t_gc,
+                hashed = []
+                if self.ranks is None:      # over ranks: at wait()
+                    if self.num_hosts == 1:
+                        self.trust(step)
+                    hashed = self._gc()
+                rec.update(path=path, gc_s=time.perf_counter() - t_gc,
+                           gc_hashed=hashed,
                            total_s=time.perf_counter() - t0,
                            bytes=os.path.getsize(os.path.join(
-                               path, _shard_name(self.host_id) + ".npz")))
+                               path, _shard_name(self.host_id) + ".npz")),
+                           **times)
                 return path
             except OSError as e:
                 last = e
@@ -540,41 +659,111 @@ class CheckpointManager:
 
     def save_async(self, step: int, tree: Pytree,
                    extra: dict | None = None) -> None:
-        """Snapshot ``tree`` to host memory (:func:`snapshot`), then write
-        it on a background thread: the caller may update the tensors in
-        place as soon as this returns."""
-        self.wait()                           # one in flight at a time
+        """Snapshot ``tree`` to host memory (:func:`snapshot`, or over
+        ranks the gather of ``ranks.collect``), then write it on a background
+        thread: the caller may update the tensors in place as soon as
+        this returns."""
         t0 = time.perf_counter()
-        tree = snapshot(tree)
-        snap_s = time.perf_counter() - t0
+        self.wait()                           # one in flight at a time
+        t1 = time.perf_counter()
+        if self.ranks is None:
+            tree = snapshot(tree)
 
-        def write():
-            self.save(step, tree, extra)
-            rec = self.history[-1]
-            rec["snapshot_s"] = snap_s
-            rec["total_s"] += snap_s
+            def write(times):
+                return save_checkpoint(
+                    self.directory, step, tree, host_id=self.host_id,
+                    num_hosts=self.num_hosts, extra=extra, plan=self.plan,
+                    io_fault=self.io_fault, times=times)
+            stats = {}
+        else:
+            leaves, meta, stats = self.ranks.collect(tree)
 
-        self._thread = threading.Thread(target=write, daemon=True)
+            def write(times):
+                return save_shard(
+                    self.directory, step, leaves, meta,
+                    host_id=self.host_id, num_hosts=self.num_hosts,
+                    extra=extra, plan=self.plan, io_fault=self.io_fault,
+                    times=times)
+        t2 = time.perf_counter()
+        rec = self._record(step)
+        rec.update(snapshot_s=t2 - t1, blocking_s=t2 - t0, **stats)
+
+        def run():
+            self._save(step, rec, write)
+            rec["total_s"] += t2 - t1
+
+        if self.ranks is not None:
+            self._unagreed = rec
+        self._thread = threading.Thread(target=run, daemon=True)
         self._thread.start()
 
     def wait(self) -> None:
+        """Wait for the save in flight; over ranks, then agree with every
+        rank on whether all their shards landed (a collective: every rank
+        calls this at the same point), and run GC once they have."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._unagreed is not None:
+            rec, self._unagreed = self._unagreed, None
+            rec["landed"] = bool(self.ranks.all(rec["path"] is not None))
+            if not rec["landed"]:
+                warnings.warn(
+                    f"checkpoint step {rec['step']} is incomplete: a "
+                    "rank's save failed, so the step never verifies; "
+                    "training continues WITHOUT it", RuntimeWarning,
+                    stacklevel=2)
+            elif self.host_id == 0:
+                t0 = time.perf_counter()
+                self.trust(rec["step"])
+                rec["gc_hashed"] = self._gc()
+                rec["gc_s"] = time.perf_counter() - t0
 
-    def _gc(self) -> None:
+    def _files(self, step: int) -> tuple:
+        """``(name, size, mtime_ns)`` of every file of a step directory."""
+        path = _step_dir(self.directory, step)
+        out = []
+        for name in sorted(os.listdir(path)):
+            st = os.stat(os.path.join(path, name))
+            out.append((name, st.st_size, st.st_mtime_ns))
+        return tuple(out)
+
+    def trust(self, step: int) -> None:
+        """Count ``step`` complete, without hashing it, while its files
+        keep their sizes and modification times: every shard of it was
+        verified or written whole by now."""
+        self._complete[step] = self._files(step)
+
+    def _is_complete(self, step: int, hashed: list) -> bool:
+        try:
+            if self._complete.get(step) == self._files(step):
+                return True
+            hashed.append(step)
+            verify_step(self.directory, step)
+        except (CheckpointError, OSError):
+            self._complete.pop(step, None)
+            return False
+        self.trust(step)
+        return True
+
+    def _gc(self) -> list[int]:
         """Retention keyed on VERIFIED-complete steps only.
 
         Incomplete step dirs never count toward ``keep``; incomplete dirs
         *older* than the newest complete step are swept (newer ones may
         still be mid-write on another host), as are stale tmp files/dirs
-        from crashed saves.  Host 0 owns GC.
+        from crashed saves.  Host 0 owns GC.  A step already known
+        complete, with its files unchanged, is not hashed again.  Returns
+        the steps it verified (hashed).
         """
+        hashed: list[int] = []
         if self.host_id != 0:
-            return
-        complete = complete_steps(self.directory)
+            return hashed
+        complete = [s for s in _all_step_dirs(self.directory)
+                    if self._is_complete(s, hashed)]
         for s in (complete[:-self.keep] if self.keep else []):
             shutil.rmtree(_step_dir(self.directory, s), ignore_errors=True)
+            self._complete.pop(s, None)
         newest = complete[-1] if complete else None
         for name in os.listdir(self.directory):
             full = os.path.join(self.directory, name)
@@ -586,6 +775,7 @@ class CheckpointManager:
             if m and newest is not None and int(m.group(1)) < newest \
                     and int(m.group(1)) not in complete:
                 shutil.rmtree(full, ignore_errors=True)
+        return hashed
 
 
 def _unlink_quiet(path: str) -> None:

@@ -62,6 +62,11 @@ class RankGrid:
     def data_index(self) -> int:
         return self.rank // self.pp
 
+    def rank_of(self, pipe: int, data: int) -> int:
+        """The rank of grid point (pipeline index ``pipe``, data index
+        ``data``)."""
+        return data * self.pp + pipe
+
 
 def make_rank_grid(pp: int, *, dp: int = 1) -> RankGrid:
     """The grid of the initialized default process group's world, which

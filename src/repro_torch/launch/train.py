@@ -95,11 +95,29 @@ over every rank, so the ranks skip and clip alike; rank 0 prints.
 ``--rank-report DIR`` writes, per rank, the first step's forward+backward
 as read before its update (loss, gradient fingerprints, ring and
 data-group bytes, launches, peak memory), the data group's bytes of each
-training step, and, with one replica, one forward+backward of the paper's
-skip-carry baseline from the initial params after training.  Without
-torchrun's environment the one-process executor runs one replica (``--dp
-> 1`` raises ``ValueError``).  Checkpoints (``--ckpt-dir``, ``--resume``)
-and ``--num-hosts > 1`` with ranks are not ported yet.
+training step, its saves and its restore (with a SHA-256 of each block it
+held at each save and after the restore, ``held_digests``), and, with one
+replica and no resume, one
+forward+backward of the paper's skip-carry baseline from the initial
+params after training.  Without torchrun's environment the one-process
+executor runs one replica (``--dp > 1`` raises ``ValueError``).
+
+Checkpoints over ranks: ``--ckpt-dir`` makes every rank write
+``shard_<rank>.npz`` of one checkpoint in the JAX package's format, every
+leaf whole as one process of the plan holds it.  At a save every rank
+gathers, on its main thread and in one order, the pieces of the leaves it
+writes from the ranks holding them (over the whole world: NCCL, or gloo
+staged through pinned host memory on one card) into host memory -- the
+snapshot -- and writes and hashes them on a background thread; before the
+next save or a fault's flush the ranks agree whether every shard landed (a
+step whose save degraded on any rank never verifies; every rank warns and
+trains on).  ``--resume`` restores the same step on every rank, each
+reading only what it holds (``runtime.resilience.restore_rank_state``),
+elastically when the plan changed.  ``kill@K``/``stop@K`` fire on every
+rank after the flush; ``corrupt@K``/``truncate@K`` on rank 0 alone, after
+every shard landed; GC is rank 0's, once the ranks agree a step landed.
+``--num-hosts > 1`` with ranks is not
+ported yet (the supervisor over ranks).
 
 Not ported yet, and refused with ``NotImplementedError``: the LM smoke
 archs.
@@ -125,6 +143,14 @@ Usage:
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 4 -m repro_torch.launch.train --arch uvit-pp \
         --pipeline --dp 2 --pp 2 --zero-stage 2 --steps 5 --device cpu
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train --arch uvit \
+        --pipeline --dp 2 --pp 2 --zero-stage 2 --steps 6 --device cpu \
+        --ckpt-dir /tmp/ck --ckpt-every 2 --faults stop@4
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.train --arch uvit \
+        --pipeline --dp 2 --pp 1 --steps 6 --device cpu --ckpt-dir /tmp/ck \
+        --resume                                  # elastic: P=2 -> P=1
 """
 from __future__ import annotations
 
@@ -344,14 +370,11 @@ def rank_env(environ=None) -> dict | None:
 def _refuse_rank_options(args, env: dict) -> None:
     """What a run over ranks does not do yet, refused before any process
     group exists."""
-    for flag, on in (("--ckpt-dir", args.ckpt_dir), ("--resume", args.resume),
-                     ("--num-hosts > 1", args.num_hosts > 1)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} with one process per pipeline device is not yet "
-                "ported to repro_torch: a rank holds only its own stage "
-                "rows (ROADMAP A1, multi-rank checkpoints and the "
-                "supervisor over ranks)")
+    if args.num_hosts > 1:
+        raise NotImplementedError(
+            "--num-hosts > 1 with one process per pipeline device is not "
+            "yet ported to repro_torch: the supervisor over ranks (ROADMAP "
+            "A1) launches torchrun worlds as its hosts")
     P = _pipeline_degree(args)
     if env["world"] != args.dp * P:
         raise ValueError(f"{env['world']} processes cannot run a "
@@ -363,13 +386,15 @@ def _refuse_rank_options(args, env: dict) -> None:
 @dataclasses.dataclass
 class Ranks:
     """This process's rank of a pipeline run over ranks: its grid
-    (``launch.mesh.RankGrid``), its ring and device, the ring's kind, and
-    with data replicas its data group (``runtime.ring.DataGroup``)."""
+    (``launch.mesh.RankGrid``), its ring and device, the ring's kind, with
+    data replicas its data group (``runtime.ring.DataGroup``), and the
+    whole world as a ``runtime.ring.GroupView`` (a checkpoint's gather)."""
     grid: Any
     ring: Any
     device: Any
     kind: str                      # "nccl" | "gloo"
     data: Any = None
+    world: Any = None
     # the data group's bytes and calls of each training step, by collective
     step_bytes: dict = dataclasses.field(default_factory=dict)
 
@@ -386,6 +411,14 @@ class Ranks:
                 f"{self.grid.data_index}), {self.kind} ring ({how}) on "
                 f"{self.device}"
                 + (f"; {self.data.describe()}" if self.data else ""))
+
+    def agree(self, obj) -> list:
+        """Every rank's ``obj`` (small, picklable), in rank order: a
+        collective of the whole world."""
+        import torch.distributed as dist
+        out = [None] * self.grid.world
+        dist.all_gather_object(out, obj)
+        return out
 
     def reduce(self, loss, grads, compiled) -> tuple[bool, Any]:
         """(finite, global norm) of the step's gradient over the grid,
@@ -429,7 +462,7 @@ def _init_ranks(args, env: dict) -> Ranks:
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_rank_grid
-    from repro_torch.runtime.ring import DataGroup, Ring
+    from repro_torch.runtime.ring import DataGroup, GroupView, Ring
     kind = args.ring or ("nccl" if args.device == "cuda" else "gloo")
     if args.device == "cuda":
         if not torch.cuda.is_available():
@@ -455,7 +488,9 @@ def _init_ranks(args, env: dict) -> Ranks:
                 staged=staged)
     data = (DataGroup(grid.data_group, grid.data_index, grid.dp, device,
                       staged=staged) if grid.dp > 1 else None)
-    return Ranks(grid, ring, device, kind, data)
+    world = GroupView(dist.group.WORLD, grid.rank, grid.world, device,
+                      staged=staged)
+    return Ranks(grid, ring, device, kind, data, world=world)
 
 
 def _kind(args) -> str:
@@ -653,28 +688,35 @@ def build_smoke_trainer(args) -> Trainer:
                    plan)
 
 
-def _resume(args, compiled, state: dict, device) -> tuple[Any, dict]:
+def _resume(args, compiled, state: dict, device,
+            ranks: Ranks | None = None) -> tuple[Any, dict]:
     """Restore the newest verified step of ``--ckpt-dir`` into the live
     tensors of ``state``, in place (they stay the leaves AdamW updates);
     ``(None, None)`` when no step verifies.  Returns the RestoreInfo and
-    the resume's seconds (verifying, reading and placing, with the
-    elastic re-stack; copying into place) and its peak device memory.
-    On the non-pipeline path (``compiled`` None) the checkpoint holds the
+    the resume's seconds (verifying, reading and placing, the elastic
+    re-layout included; copying into place) and its peak device memory.
+    A pipeline's state restores through ``restore_rank_state``, each
+    device's rows read straight into its tensors: over ranks a rank reads
+    only its own share (the ranks split the hashing and agree on every
+    verdict), one process every device's rows; the record adds its
+    seconds verifying and reading, and the bytes it hashed and read.  On
+    the non-pipeline path (``compiled`` None) the checkpoint holds the
     model's own tree and restores as it is (``restore_checkpoint``,
     ``strict=False``).
 
     The JAX trainer asks ``latest_step`` first, which hashes every kept
     step, and then restores, which hashes the chosen one again.  Here the
-    restore walks back from the newest step itself, and ``latest_step``
-    runs only when it fails, to tell "nothing verifies" (start afresh, as
-    the JAX trainer does) from a verified step that does not load (raise):
-    the same outcomes, one hash pass fewer."""
+    restore walks back from the newest step itself, and on the
+    non-pipeline path ``latest_step`` runs only when it fails, to tell
+    "nothing verifies" (start afresh, as the JAX trainer does) from a
+    verified step that does not load (raise): the same outcomes, one hash
+    pass fewer."""
     import torch
 
     from repro_torch.checkpoint import (CheckpointError, latest_step,
                                         restore_checkpoint)
     from repro_torch.runtime.resilience import (RestoreInfo,
-                                                restore_training_state)
+                                                restore_rank_state)
     from repro_torch.tree import tree_flatten
 
     cuda = device.type == "cuda"
@@ -682,18 +724,30 @@ def _resume(args, compiled, state: dict, device) -> tuple[Any, dict]:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
+    if compiled is not None:
+        world = (dict(index=ranks.grid.rank, size=ranks.grid.world,
+                      agree=ranks.agree) if ranks is not None else {})
+        try:
+            info, stats = restore_rank_state(args.ckpt_dir, compiled, state,
+                                             **world)
+        except CheckpointError as e:
+            if e.reason in ("empty", "unverified"):
+                return None, None
+            raise
+        if cuda:
+            torch.cuda.synchronize(device)
+        total = time.perf_counter() - t0
+        return info, dict(stats, restore_s=total, copy_s=0.0, total_s=total,
+                          peak_bytes=(torch.cuda.max_memory_allocated(device)
+                                      if cuda else None))
     try:
-        if compiled is not None:
-            restored, info = restore_training_state(args.ckpt_dir, compiled,
-                                                    state, strict=False)
-        else:
-            restored, step = restore_checkpoint(args.ckpt_dir, state,
-                                                strict=False)
-            info = RestoreInfo(step, False, None, None)
+        restored, step = restore_checkpoint(args.ckpt_dir, state,
+                                            strict=False)
     except CheckpointError:
         if latest_step(args.ckpt_dir) is None:
             return None, None
         raise
+    info = RestoreInfo(step, False, None, None)
     new = tree_flatten(restored)[0]
     del restored
     if cuda:
@@ -715,6 +769,45 @@ def _resume(args, compiled, state: dict, device) -> tuple[Any, dict]:
                   "total_s": t2 - t0,
                   "peak_bytes": (torch.cuda.max_memory_allocated(device)
                                  if cuda else None)}
+
+
+def held_digests(compiled, state: dict) -> dict:
+    """SHA-256 of what a rank holds, by checkpoint leaf index: an edge
+    leaf (and AdamW's step) whole; a stage leaf its stage stack and each
+    real block of its rows, ``{"stack": k, "rows": [slot][row]}`` (the
+    padding rows past a slot's count left out), and where the rank holds
+    its data replica's ZeRO shard of the rows, the block dim cut
+    (``dim``) into ``parts`` equal parts and its ``part``.  What a checker
+    holds against the same blocks' bytes in a checkpoint's members, cut
+    the same way: after a restore, what the rank read; at a save, what
+    the gather wrote."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.runtime.resilience import rank_leaves
+    from repro_torch.tree import tree_flatten
+
+    def sha(x):
+        b = x.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+        return hashlib.sha256(b.numpy()).hexdigest()
+
+    lay, d = compiled.layout, compiled.rank
+    counts = (lay.enc_counts[d], lay.dec_counts[d])
+    out = {}
+    for i, (x, p) in enumerate(zip(tree_flatten(state)[0],
+                                   rank_leaves(compiled, state))):
+        if p.stack is None:
+            out[str(i)] = sha(x)
+            continue
+        rec = out[str(i)] = {"stack": p.stack, "rows": [
+            [sha(x[v, r]) for r in range(c)]
+            for v, c in enumerate(counts[p.stack])]}
+        dim = compiled.piece_dim(p.stack, p.path, moments=p.moments)
+        if dim >= 0:                      # of the rows [V, pad, ...]
+            rec.update(dim=dim - 2, parts=compiled.pcfg.dp_size,
+                       part=compiled.data_index)
+    return out
 
 
 FINGERPRINT_PROBES = 8
@@ -858,7 +951,7 @@ def _rank_report(args, tr: Trainer, res: TrainResult, probe: dict,
     from repro_torch.tree import tree_leaves
     ranks, device, kind = tr.ranks, tr.device, _kind(args)
     base = None
-    if kind != "skipvit" and ranks.data is None:
+    if kind != "skipvit" and ranks.data is None and res.resumed is None:
         cfg, pcfg = _model_config(args), tr.compiled.pcfg
         ad = DiffusionPipelineAdapter(cfg, pcfg, kind)
         gen = torch.Generator(device=device).manual_seed(0)
@@ -886,7 +979,10 @@ def _rank_report(args, tr: Trainer, res: TrainResult, probe: dict,
                                         res.step_seconds.items()},
                           peak_bytes=res.peak_bytes,
                           skipped_steps=res.skipped_steps),
-               baseline=base, launches=launch_counts())
+               baseline=base, launches=launch_counts(),
+               restore=res.restore, saves=res.saves,
+               resumed=dataclasses.asdict(res.resumed) if res.resumed
+               else None)
     os.makedirs(args.rank_report, exist_ok=True)
     path = os.path.join(args.rank_report, f"rank{ranks.grid.rank}.json")
     with open(path + ".tmp", "w") as f:
@@ -971,11 +1067,22 @@ def run(args, on_restore=None, init_params=None, draw=None,
           + (f" (rank {ranks.grid.rank})" if ranks else ""), flush=True)
     say("[train] " + plan.replace("\n", "\n[train] "), flush=True)
     opt_cfg = AdamWConfig(lr=args.lr)
-    mgr = CheckpointManager(
-        args.ckpt_dir, keep=args.keep, host_id=args.host_id,
-        num_hosts=args.num_hosts,
-        plan=compiled.state_spec() if compiled is not None else None,
-        io_fault=faults.io_fault) if args.ckpt_dir else None
+    mgr = None
+    if args.ckpt_dir and ranks is not None:
+        # every rank writes shard_<rank>: its share of the gathered leaves
+        from repro_torch.runtime.resilience import RankSaves
+        mgr = CheckpointManager(
+            args.ckpt_dir, keep=args.keep, host_id=ranks.grid.rank,
+            num_hosts=ranks.grid.world, plan=compiled.state_spec(),
+            io_fault=faults.io_fault,
+            ranks=RankSaves(compiled, ranks.world, ranks.grid.rank_of,
+                            ranks.agree))
+    elif args.ckpt_dir:
+        mgr = CheckpointManager(
+            args.ckpt_dir, keep=args.keep, host_id=args.host_id,
+            num_hosts=args.num_hosts,
+            plan=compiled.state_spec() if compiled is not None else None,
+            io_fault=faults.io_fault)
 
     multi_host = args.num_hosts > 1
     if multi_host:
@@ -993,13 +1100,17 @@ def run(args, on_restore=None, init_params=None, draw=None,
     start, resumed, restore = 0, None, None
     if args.resume and args.ckpt_dir:
         state = {"params": params, "opt": opt_state}
-        resumed, restore = _resume(args, compiled, state, device)
+        resumed, restore = _resume(args, compiled, state, device, ranks)
         if resumed is not None:
             start = resumed.step
-            print(f"[train] resumed from step {start}"
-                  + (" (elastic restore: plan changed)" if resumed.elastic
-                     else "")
-                  + f" in {restore['total_s']:.2f} s", flush=True)
+            if mgr:
+                mgr.trust(start)        # verified: GC need not hash it
+            say(f"[train] resumed from step {start}"
+                + (" (elastic restore: plan changed)" if resumed.elastic
+                   else "")
+                + f" in {restore['total_s']:.2f} s", flush=True)
+            if ranks is not None and args.rank_report:
+                restore["digests"] = held_digests(compiled, state)
             if on_restore is not None:
                 on_restore(state, resumed)
     # --rank-report's probe is the first step's forward+backward, read
@@ -1051,7 +1162,8 @@ def run(args, on_restore=None, init_params=None, draw=None,
                            "skipped_steps": res.skipped_steps,
                            "peak_bytes": peak,
                            "beat_t": {str(k): v for k, v in beat_t.items()},
-                           "launches": launch_counts()}, f)
+                           "launches": launch_counts(),
+                           "restore": restore, "saves": res.saves}, f)
         return res
 
     if start >= args.steps:
@@ -1060,15 +1172,23 @@ def run(args, on_restore=None, init_params=None, draw=None,
         return finish(None)
 
     def save_at(step_next: int) -> None:
-        """Single host: async save.  Multi-host: blocking shard write, then
-        the rendezvous on step completeness (the commit barrier)."""
+        """Single host and ranks: async save (over ranks the gather, on
+        every rank at this point, is the snapshot).  Multi-host: blocking
+        shard write, then the rendezvous on step completeness (the commit
+        barrier)."""
         from repro_torch.checkpoint import CheckpointError, wait_step_complete
         state = {"params": params, "opt": opt_state}
         # a save is progress: the watchdog must not read a slow commit as a
         # stalled step loop
         beat(step_next, "ckpt")
         if not multi_host:
+            # --rank-report: what the rank holds at the save, before the
+            # gather and the step's update
+            held = (held_digests(compiled, state) if ranks is not None
+                    and args.rank_report else None)
             mgr.save_async(step_next, state)
+            if held is not None:
+                mgr.history[-1]["digests"] = held
             return
         if mgr.save(step_next, state) is None:
             return                  # degraded save: no barrier to meet
@@ -1186,7 +1306,10 @@ def run(args, on_restore=None, init_params=None, draw=None,
         if mgr and (step + 1) % args.ckpt_every == 0:
             save_at(step + 1)
             last_save = step + 1
-        if faults.post_step(step + 1, ckpt_dir=args.ckpt_dir,
+        # every rank flushes (a collective); rank 0 alone damages a shard,
+        # after every rank's shard has landed
+        if faults.post_step(step + 1, ckpt_dir=args.ckpt_dir if ranks is None
+                            or ranks.leader else None,
                             flush=mgr.wait if mgr else None) == "stop":
             say(f"[train] fault plan: abrupt stop after step {step} "
                   "(no final save)", flush=True)

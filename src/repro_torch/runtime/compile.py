@@ -369,7 +369,11 @@ class CompiledPipeline:
         if not 0 <= data < self.pcfg.dp_size:
             raise ValueError(f"data index {data} outside the plan's "
                              f"{self.pcfg.dp_size} data replicas")
-        return dataclasses.replace(self, rank=rank, data_index=data)
+        out = dataclasses.replace(self, rank=rank, data_index=data)
+        for k in ("_zero_dims", "_zero_paths"):    # the same at every point
+            if k in self.__dict__:
+                out.__dict__[k] = self.__dict__[k]
+        return out
 
     # ---- ZeRO ------------------------------------------------------------
     def zero_dims(self) -> tuple | None:
@@ -390,6 +394,37 @@ class CompiledPipeline:
             torch.Generator().manual_seed(0), "meta"))
         return tuple(zero_stack_dims(st, dp=self.pcfg.dp_size)
                      for st in self.layout.split(tuple(stacks)))
+
+    def piece_dim(self, stack: int, path: str, *,
+                  moments: bool = False) -> int:
+        """The dim of a rank's rows ``[V, pad, ...]`` of stage stack
+        ``stack``'s leaf ``path`` along which its data replica holds only
+        its shard at rest (the leaf's :meth:`zero_dims` entry, plus one),
+        or -1 when it holds the rows whole: the params are sharded at
+        ZeRO-2, the AdamW moments (``moments``) at ZeRO-1 and 2, as
+        :meth:`split_params` and :meth:`optimizer_view` place them."""
+        dims = self.zero_dims()
+        if dims is None or (not moments and self.pcfg.zero_stage < 2):
+            return -1
+        d = self._zero_paths[stack][path]
+        return d + 1 if d >= 0 else -1
+
+    @functools.cached_property
+    def _zero_paths(self) -> tuple:
+        from repro_torch.tree import tree_paths
+        return tuple(dict(tree_paths(ds)) for ds in self.zero_dims())
+
+    def rank_piece(self, rows, stack: int, path: str, *,
+                   moments: bool = False):
+        """This rank's piece of one stage-stack leaf, given its rows
+        ``x[rank]`` of the whole ``[D, V, pad, ...]`` leaf: a view of its
+        data replica's shard along :meth:`piece_dim`, or the rows
+        themselves.  A checkpoint's writer places each rank's piece with
+        it, and a restore cuts the rank's rows with it."""
+        dim = self.piece_dim(stack, path, moments=moments)
+        if dim < 0:
+            return rows
+        return shard_view(rows, dim - 1, self.pcfg.dp_size, self.data_index)
 
     def optimizer_view(self, params: tuple) -> tuple:
         """What a rank's AdamW updates of ``(stage stacks, edge)`` (or of

@@ -12,15 +12,25 @@
    agree.  ``M``/``wire_dtype``/``dp``/``zero_stage`` are recorded but not
    hashed.
 
-2. **Elastic restore.**  When the restore-time plan differs,
-   :func:`state_to_logical` de-stacks the saved ``[D, V, pad, ...]`` stage
-   stacks through the *saved* layout spec back to the model's block
-   stacks, and :func:`logical_to_state` re-stacks them onto the new plan
-   via its own ``StageLayout.split``.  AdamW state mirrors params
-   leaf-wise, so the same mapping applies to ``m``/``v``.
-   :func:`restore_training_state` orchestrates: fast path when
-   fingerprints match, de-stack/re-stack when they don't, one
-   ``(stacks, edge)`` tree at a time.
+2. **Elastic restore.**  :func:`state_to_logical` de-stacks saved
+   ``[D, V, pad, ...]`` stage stacks through the *saved* layout spec back
+   to the model's block stacks (AdamW's ``m``/``v`` mirror params
+   leaf-wise); the tests and drills read logical params through it.  A
+   restore never materializes that view: :func:`restore_rank_state`
+   reads each device's rows of the new plan straight from the saved
+   members -- the rows themselves when the fingerprints match, else the
+   saved blocks they hold (:func:`rank_rows_sources`), each run of them
+   one byte range.  :func:`restore_training_state` is the one-process
+   restore: the same reader over every device's rows.
+
+   Over ranks (one process per (data, pipeline) grid point) the state at
+   rest is the same: every leaf whole, as one process of the plan holds
+   it; dp and the ZeRO stage are placement only.  :func:`gather_rank_state`
+   is a save's gather (each rank's piece goes to the leaf's writer, who
+   places it by ``CompiledPipeline.rank_piece``; :class:`RankSaves` hands
+   it to a ``CheckpointManager``), and :func:`restore_rank_state` a
+   rank's restore: the ranks split the hashing and agree on every
+   verdict, and each reads only its rows, never the whole state.
 
 3. **Fault injection + a NaN guard.**  :class:`FaultPlan` parses the
    flag/env fault script (``kill@K``, ``stop@K``, ``nan@K``,
@@ -43,6 +53,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import re
 import sys
@@ -52,7 +63,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
+                               tree_map_paths)
 
 Pytree = Any
 
@@ -153,10 +165,6 @@ def _logical_pt(pt, spec: dict) -> dict:
             "edge": edge}
 
 
-def _state_pt(d: dict, plan) -> tuple:
-    return (plan.layout.split(tuple(d["stacks"])), d["edge"])
-
-
 def state_to_logical(state: dict, spec: dict) -> dict:
     """Training state saved under ``spec`` -> plan-independent logical view.
 
@@ -172,34 +180,6 @@ def state_to_logical(state: dict, spec: dict) -> dict:
     return out
 
 
-def logical_to_state(logical: dict, plan) -> dict:
-    """Inverse of :func:`state_to_logical`, onto the *new* plan."""
-    state = {"params": _state_pt(logical["params"], plan)}
-    if logical.get("opt") is not None:
-        o = logical["opt"]
-        state["opt"] = {"m": _state_pt(o["m"], plan),
-                        "v": _state_pt(o["v"], plan), "step": o["step"]}
-    return state
-
-
-def _relayout(state: dict, spec: dict, plan) -> dict:
-    """``logical_to_state(state_to_logical(state, spec), plan)``, one
-    ``(stacks, edge)`` tree at a time, each saved tree dropped from
-    ``state`` as soon as its logical view exists: at full size the saved
-    state, its logical view and the new layout of all of it would not fit
-    on one card beside the trainer's own state."""
-    def move(holder: dict, key: str):
-        logical = _logical_pt(holder.pop(key), spec)
-        return _state_pt(logical, plan)
-
-    out = {"params": move(state, "params")}
-    if state.get("opt") is not None:
-        o = state.pop("opt")
-        out["opt"] = {"m": move(o, "m"), "v": move(o, "v"),
-                      "step": o["step"]}
-    return out
-
-
 @dataclasses.dataclass(frozen=True)
 class RestoreInfo:
     """What :func:`restore_training_state` did."""
@@ -210,42 +190,395 @@ class RestoreInfo:
 
 
 def restore_training_state(directory: str, plan, like_state: dict, *,
-                           step: int | None = None,
-                           strict: bool = True) -> tuple[dict, RestoreInfo]:
-    """Restore training state for ``plan``, elastically if needed.
+                           step: int | None = None
+                           ) -> tuple[dict, RestoreInfo]:
+    """Restore the newest verified step (or step ``step``) for one-process
+    ``plan`` into ``like_state``'s tensors, in place, elastically when the
+    manifest's saved state spec has another fingerprint; returns
+    ``(like_state, info)``.  A step that fails to verify is walked past
+    (:func:`restore_rank_state` with a world of one: its reader over every
+    device's rows)."""
+    info, _ = restore_rank_state(directory, plan, like_state, step=step)
+    return like_state, info
 
-    Loads the newest fully-verified checkpoint (``strict=False`` falls
-    back past corrupt/partial steps) onto the devices of ``like_state``'s
-    leaves, then compares the manifest's saved state spec against
-    ``plan``'s: identical fingerprints load directly (the tree topology is
-    plan-invariant, only leaf shapes differ); different fingerprints route
-    through the logical view (:func:`state_to_logical` with the *saved*
-    spec, then :func:`logical_to_state` onto ``plan``).
-    """
-    from repro_torch.checkpoint.store import (CheckpointError, read_manifest,
-                                              restore_checkpoint)
 
-    state, got = restore_checkpoint(directory, like_state, step=step,
-                                    strict=strict, expect_shapes=False)
-    man = read_manifest(directory, got)
+# ===========================================================================
+# Checkpoints over ranks: the gather of a save, each rank's share of a restore
+# ===========================================================================
+
+@dataclasses.dataclass(frozen=True)
+class RankLeaf:
+    """One leaf of a rank's training state ``{"params", "opt"}``, in the
+    checkpoint's leaf order: its ``shape`` and ``dtype`` at rest (a stage
+    leaf whole, ``[D, V, pad, ...]``), the part of the state it belongs to
+    (``group``: ``params``, ``m``, ``v`` or ``step``), and for a stage leaf
+    its stage stack and path in it (``stack`` None: an edge leaf or AdamW's
+    step, whole on every rank)."""
+    shape: tuple
+    dtype: torch.dtype
+    group: str
+    stack: int | None = None
+    path: str = ""
+
+    @property
+    def nbytes(self) -> int:
+        return math.prod(self.shape) * torch.empty(
+            (), dtype=self.dtype).element_size()
+
+    @property
+    def moments(self) -> bool:
+        return self.group in ("m", "v")
+
+
+def _tag(pt, group: str, plan):
+    stacks, edge = pt
+    P, dp = plan.partition.num_devices, plan.pcfg.dp_size
+
+    def stage(k):
+        def leaf(path, x):
+            if plan.rank is None:       # one process holds the leaf whole
+                return RankLeaf(tuple(x.shape), x.dtype, group, k, path)
+            rows = list(x.shape)
+            dim = plan.piece_dim(k, path, moments=group != "params")
+            if dim >= 0:
+                rows[dim] *= dp
+            return RankLeaf((P, *rows), x.dtype, group, k, path)
+        return leaf
+
+    return (tuple(tree_map_paths(stage(k), st)
+                  for k, st in enumerate(stacks)),
+            tree_map_paths(lambda _, x: RankLeaf(tuple(x.shape), x.dtype,
+                                                 group), edge))
+
+
+def rank_leaves(plan, state: dict) -> list[RankLeaf]:
+    """A :class:`RankLeaf` for each leaf of ``plan``'s training state
+    ``{"params": (stage stacks, edge), "opt": {"m", "v", "step"}}``
+    (:func:`~repro_torch.tree.tree_flatten` order, the checkpoint's
+    numbering): for a rank's plan its whole shape read from the rank's
+    piece through the plan's
+    :meth:`~repro_torch.runtime.compile.CompiledPipeline.piece_dim`; one
+    process holds every leaf whole."""
+    o = state["opt"]
+    roles = {"params": _tag(state["params"], "params", plan),
+             "opt": {"m": _tag(o["m"], "m", plan),
+                     "v": _tag(o["v"], "v", plan),
+                     "step": RankLeaf(tuple(o["step"].shape),
+                                      o["step"].dtype, "step")}}
+    return tree_flatten(roles)[0]
+
+
+def gather_rank_state(state: dict, plan, world, rank_of) -> tuple:
+    """A save's gather over ranks: ``(leaves, meta, stats)`` for a
+    ``CheckpointManager`` (:meth:`RankSaves.collect`).  Every rank calls
+    it at the same point with its own state and plan
+    (``CompiledPipeline.for_rank``);
+    ``world`` is the ranks' :class:`~repro_torch.runtime.ring.GroupView`
+    and ``rank_of(pipe, data)`` a grid point's index in it.
+
+    The leaves go to writers by :func:`~repro_torch.checkpoint.store.
+    assign_writers` (bytes balanced).  A leaf at a time, in order: the
+    writer of a stage leaf allocates it whole on the host, and each rank
+    holding a piece of it sends that piece (chunked, :meth:`GroupView.
+    send_chunked`) for the writer to place where ``for_rank(pipe,
+    data).rank_piece`` says -- every replica's shard where the plan rests
+    the leaf sharded, else the rows of the writer's own data replica.  An
+    edge leaf, and AdamW's step, are whole on every rank: the writer
+    copies its own.  ``leaves`` holds this rank's whole leaves on the host
+    (the snapshot), ``meta`` every leaf's manifest record, ``stats`` the
+    gather's seconds and bytes received and sent."""
+    from repro_torch.checkpoint.store import assign_writers, dtype_name
+    t0 = time.perf_counter()
+    flat = tree_flatten(state)[0]
+    places = rank_leaves(plan, state)
+    writers = assign_writers([p.nbytes for p in places], world.size)
+    P, dp = plan.partition.num_devices, plan.pcfg.dp_size
+    me, here = world.index, (plan.rank, plan.data_index)
+    # each grid point's plan, once (a plan's ZeRO dims are drawn once)
+    plans = {(d, j): plan.for_rank(d, j) for d in range(P) for j in range(dp)}
+    point = {rank_of(d, j): (d, j) for d, j in plans}
+    leaves, got, sent = {}, 0, 0
+    with torch.no_grad():
+        for i, (x, p) in enumerate(zip(flat, places)):
+            w = writers[i]
+            if p.stack is None:
+                if me == w:
+                    leaves[i] = x.detach().to("cpu", copy=True)
+                continue
+            sharded = plan.piece_dim(p.stack, p.path, moments=p.moments) >= 0
+            holders = [(d, j) for j in (range(dp) if sharded
+                                        else (point[w][1],))
+                       for d in range(P)]
+            if me != w:
+                if here in holders:
+                    sent += world.send_chunked(x, w)
+                continue
+            whole = torch.empty(p.shape, dtype=p.dtype)
+            for d, j in holders:
+                view = plans[d, j].rank_piece(
+                    whole[d], p.stack, p.path, moments=p.moments)
+                if (d, j) == here:
+                    view.copy_(x)
+                elif view.is_contiguous():
+                    got += world.recv_chunked(view, rank_of(d, j))
+                else:
+                    buf = torch.empty(view.shape, dtype=p.dtype)
+                    got += world.recv_chunked(buf, rank_of(d, j))
+                    view.copy_(buf)
+            leaves[i] = whole
+    meta = [{"shape": list(p.shape), "dtype": dtype_name(p.dtype)}
+            for p in places]
+    return leaves, meta, {"gather_s": time.perf_counter() - t0,
+                          "gather_bytes_in": got, "gather_bytes_out": sent,
+                          "leaves_written": len(leaves),
+                          "bytes_written": sum(p.nbytes for i, p in
+                                               enumerate(places)
+                                               if i in leaves)}
+
+
+@dataclasses.dataclass(frozen=True)
+class RankSaves:
+    """What a ``CheckpointManager`` over ranks asks of the world: this
+    rank's ``plan`` (``CompiledPipeline.for_rank``), the whole world as a
+    :class:`~repro_torch.runtime.ring.GroupView` (``world``), a grid
+    point's index in it (``rank_of(pipe, data)``), and ``agree(obj)``, an
+    all-gather of a small object over it."""
+    plan: Any
+    world: Any
+    rank_of: Any
+    agree: Any
+
+    def collect(self, tree: dict) -> tuple:
+        """The save's gather (:func:`gather_rank_state`): every rank calls
+        it at the same point."""
+        return gather_rank_state(tree, self.plan, self.world, self.rank_of)
+
+    def all(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on every rank (a collective)."""
+        return all(self.agree(flag))
+
+
+def _stage_ranges(spec: dict) -> list:
+    """Per stage stack of a plan's state, ``ranges[d][v]``: the rows of its
+    own block numbering that slot ``v`` of device ``d`` holds."""
+    if not spec["folded"]:
+        return [_spec_enc_ranges(spec)]
+    return [_spec_enc_ranges(spec), _spec_dec_ranges(spec)]
+
+
+def _logical_block(spec: dict, stage: int, row: int) -> tuple[int, int]:
+    """``(param stack, block)`` of the model that row ``row`` of stage stack
+    ``stage``'s numbering is (:func:`destack_stage_stacks`: one param stack
+    is the encoder rows, then the decoder rows from the turnaround cut)."""
+    if spec["folded"] and stage == 1 and spec["num_param_stacks"] == 1:
+        return 0, spec["cuts"][(len(spec["cuts"]) - 1) // 2] + row
+    return stage, row
+
+
+def block_homes(spec: dict) -> dict:
+    """``(param stack, block) -> (stage stack, device, slot, row)``: where
+    each of the model's blocks rests in a state laid out by ``spec``."""
+    out = {}
+    for s, ranges in enumerate(_stage_ranges(spec)):
+        for d, slots in enumerate(ranges):
+            for v, (lo, hi) in enumerate(slots):
+                for r in range(hi - lo):
+                    out[_logical_block(spec, s, lo + r)] = (s, d, v, r)
+    return out
+
+
+def rank_rows_sources(saved: dict, new: dict, stage: int, device: int
+                      ) -> list[list]:
+    """For device ``device``'s rows of stage stack ``stage`` under the new
+    spec, ``src[v][r] = (stage stack, device, slot, row)`` of the saved
+    state each real row comes from (the padding rows past a slot's count
+    are not listed)."""
+    homes = block_homes(saved)
+    return [[homes[_logical_block(new, stage, lo + r)]
+             for r in range(hi - lo)]
+            for lo, hi in _stage_ranges(new)[stage][device]]
+
+
+def restore_rank_state(directory: str, plan, state: dict, *, index: int = 0,
+                       size: int = 1, agree=None, step: int | None = None
+                       ) -> tuple[RestoreInfo, dict]:
+    """Restore ``plan``'s share of the newest verified checkpoint (or of
+    step ``step``) into its live ``state`` tensors, in place (the port of
+    :func:`restore_training_state` over ranks).  ``index`` and ``size``
+    are the rank's place in the world, ``agree(obj)`` an all-gather of a
+    small object over it (every rank gets every rank's ``obj``, in
+    order); by default a world of one (a one-process plan).
+
+    The ranks take rank 0's list of step directories.  For each candidate,
+    newest first, each rank hashes the shards ``k`` with ``k % size ==
+    index`` (every shard is hashed once, not once a rank; presence and
+    coverage are checked by all) and the ranks agree on the verdicts: a
+    step that fails anywhere fails everywhere, and every rank walks back
+    past it.  A rank then reads only what it holds: at the saved plan's
+    fingerprint its rows ``x[d]`` of each stage leaf (one contiguous byte
+    range of the member), cut to its data replica's shard
+    (``rank_piece``); at another (elastic) the blocks its new rows hold,
+    each run of them one byte range, through the saved spec's ranges, the
+    padding rows zero; and every edge leaf whole.  One process reads every
+    device's rows.  Returns the :class:`RestoreInfo` and ``stats``: the
+    seconds verifying and reading, the bytes this rank hashed and the
+    array bytes it read.  Raises
+    :class:`~repro_torch.checkpoint.store.CheckpointError` with ``reason``
+    ``"empty"`` (no step) or ``"unverified"`` (none verifies) or the error
+    of a verified step that does not load."""
+    from repro_torch.checkpoint.store import (CheckpointError,
+                                              _all_step_dirs, _step_dir,
+                                              verify_step)
+    if agree is None:
+        def agree(obj):
+            return [obj]
+    candidates = agree([step] if step is not None else
+                       sorted(_all_step_dirs(directory), reverse=True))[0]
+    if not candidates:
+        raise CheckpointError(f"no checkpoints under {directory}",
+                              reason="empty")
+    flat = tree_flatten(state)[0]
+    places = rank_leaves(plan, state)
+    cur = compiled_state_spec(plan)
+    stats = dict(verify_s=0.0, read_s=0.0, hashed_bytes=0, bytes_read=0)
+    skipped: list[int] = []
+    last: CheckpointError | None = None
+    load_err: CheckpointError | None = None
+
+    def agreed(err: CheckpointError | None, step: int):
+        bad = [m for m in agree(None if err is None else str(err)) if m]
+        return err or (CheckpointError(f"another rank: {bad[0]}", step=step,
+                                       reason="peer") if bad else None)
+
+    for s in candidates:
+        t0 = time.perf_counter()
+        err, man = None, None
+        try:
+            man = verify_step(directory, s,
+                              mine=lambda k: k % size == index)
+            stats["hashed_bytes"] += sum(
+                os.path.getsize(os.path.join(_step_dir(directory, s), sh))
+                for k, sh in enumerate(man["shards"]) if k % size == index)
+        except CheckpointError as e:
+            err = e
+        err = agreed(err, s)
+        stats["verify_s"] += time.perf_counter() - t0
+        if err is None:
+            t0 = time.perf_counter()
+            try:
+                info = _load_rank_share(directory, s, man, plan, cur, flat,
+                                        places, stats)
+            except CheckpointError as e:
+                err = e
+            err = agreed(err, s)
+            stats["read_s"] += time.perf_counter() - t0
+            if err is None:
+                if skipped and index == 0:
+                    print(f"[checkpoint] step(s) {skipped} failed "
+                          f"verification (last: {last}); fell back to "
+                          f"step {s}")
+                return info, stats
+            load_err = err
+        skipped.append(s)
+        last = err
+    if load_err is not None:
+        raise load_err
+    raise CheckpointError(f"no step under {directory} verifies (last: "
+                          f"{last})", reason="unverified")
+
+
+def _load_rank_share(directory: str, step: int, man: dict, plan, cur: dict,
+                     flat: list, places: list, stats: dict) -> RestoreInfo:
+    """:func:`restore_rank_state`'s read of one verified step."""
+    from repro_torch.checkpoint.store import (CheckpointError, _leaf_tensor,
+                                              _NpzReader, _step_dir)
     saved = man.get("plan")
     if saved is None:
         raise CheckpointError(
             "checkpoint carries no plan state-spec; cannot verify it "
             "matches the compiled pipeline (save through "
             "CheckpointManager(..., plan=compiled.state_spec()))",
-            step=got, reason="no-plan-spec")
-    cur = compiled_state_spec(plan)
-    if saved["fingerprint"] == cur["fingerprint"]:
-        return state, RestoreInfo(got, False, saved["fingerprint"],
-                                  cur["fingerprint"])
-    print(f"[resilience] plan changed since step {got} "
-          f"({saved['fingerprint']} -> {cur['fingerprint']}): de-stacking "
-          f"P={saved['P']} V={saved['V']} dp={saved['dp']} "
-          f"zero={saved['zero_stage']} state onto P={cur['P']} V={cur['V']} "
-          f"dp={cur['dp']} zero={cur['zero_stage']}")
-    return _relayout(state, saved, plan), RestoreInfo(
-        got, True, saved["fingerprint"], cur["fingerprint"])
+            step=step, reason="no-plan-spec")
+    if man["num_leaves"] != len(flat):
+        raise CheckpointError(
+            f"checkpoint has {man['num_leaves']} leaves, the state "
+            f"{len(flat)} -- architecture mismatch", step=step,
+            reason="structure")
+    elastic = saved["fingerprint"] != cur["fingerprint"]
+    devices = (range(plan.partition.num_devices) if plan.rank is None
+               else (plan.rank,))
+    index = {(p.group, p.stack, p.path): i for i, p in enumerate(places)}
+    files = [_NpzReader(os.path.join(_step_dir(directory, step), sh))
+             for sh in man["shards"]]
+    try:
+        where = {int(k[1:]): z for z in files for k in z.keys()}
+        for i, (dst, p) in enumerate(zip(flat, places)):
+            shape = tuple(man["leaves"][i]["shape"])
+            # elastic: the stage leaves' blocks must match, not their stacks
+            cut = 3 if elastic and p.stack is not None else 0
+            if shape[cut:] != p.shape[cut:]:
+                raise CheckpointError(
+                    f"leaf {i} is {list(shape)} at rest, the plan's "
+                    f"{list(p.shape)}", step=step, reason="shape")
+            if i not in where:
+                raise CheckpointError(f"leaf {i} missing from shards",
+                                      step=step, reason="missing-leaf")
+            key = f"a{i}"
+            if p.stack is None:
+                a = where[i][key]
+            elif not elastic:
+                a = where[i].read_rows(key, 1, devices[0], devices[-1] + 1)
+            else:
+                a = np.stack([_read_new_rows(where, index, man, saved, cur,
+                                             p, d) for d in devices])
+            t = _leaf_tensor(a, man["leaves"][i]["dtype"], "cpu")
+            if plan.rank is not None and p.stack is not None:
+                t = plan.rank_piece(t[0], p.stack, p.path, moments=p.moments)
+            if t.shape != dst.shape or t.dtype != dst.dtype:
+                raise CheckpointError(
+                    f"leaf {i} restores as {t.dtype}{list(t.shape)}, the "
+                    f"state holds {dst.dtype}{list(dst.shape)}", step=step,
+                    reason="shape")
+            with torch.no_grad():
+                dst.copy_(t)
+            del a, t
+        stats["bytes_read"] += sum(z.bytes_read for z in files)
+    finally:
+        for z in files:
+            z.close()
+    if elastic and plan.rank in (None, 0) and plan.data_index == 0:
+        print(f"[resilience] plan changed since step {step} "
+              f"({saved['fingerprint']} -> {cur['fingerprint']}): "
+              + ("each rank reads its rows' blocks" if plan.rank is not None
+                 else "reading each device's rows' blocks")
+              + f" of the P={saved['P']} V={saved['V']} dp={saved['dp']} "
+              f"zero={saved['zero_stage']} state for P={cur['P']} "
+              f"V={cur['V']} dp={cur['dp']} zero={cur['zero_stage']}")
+    return RestoreInfo(step, elastic, saved["fingerprint"],
+                       cur["fingerprint"])
+
+
+def _read_new_rows(where: dict, index: dict, man: dict, saved: dict,
+                   new: dict, p: RankLeaf, d: int) -> np.ndarray:
+    """Device ``d``'s rows ``[V, pad, ...]`` of stage leaf ``p`` under the
+    new spec, from the saved members: each run of rows that is one run of
+    one saved member's ``[D * V * pad]`` rows is one read; padding rows
+    are zero."""
+    own = index[(p.group, p.stack, p.path)]
+    out = np.zeros(p.shape[1:], dtype=where[own].member(f"a{own}")[1])
+    for v, srcs in enumerate(rank_rows_sources(saved, new, p.stack, d)):
+        r = 0
+        while r < len(srcs):
+            s, ds, vs, rs = srcs[r]
+            n = 1
+            while r + n < len(srcs) and srcs[r + n] == (s, ds, vs, rs + n):
+                n += 1
+            i = index[(p.group, s, p.path)]
+            shape = man["leaves"][i]["shape"]
+            lo = (ds * shape[1] + vs) * shape[2] + rs
+            out[v, r:r + n] = where[i].read_rows(f"a{i}", 3, lo, lo + n)
+            r += n
+    return out
 
 
 # ===========================================================================

@@ -56,6 +56,11 @@ GRAD_OF = {DOWN: DOWN_GRAD, UP: UP_GRAD}
 _TO_NEXT = (DOWN, UP_GRAD)          # the others go to index - 1
 
 
+# the largest message of a chunked transfer (``GroupView.send_chunked``): a
+# staging buffer's size, however large the tensor moved
+CHUNK_BYTES = 64 << 20
+
+
 def _dist():
     import torch.distributed as dist
     return dist
@@ -120,7 +125,10 @@ class GroupView:
     tensors; gloo with CUDA tensors ``staged`` through pinned host buffers
     (the one-card case), chosen by the caller, never a silent stand-in for
     NCCL.  :meth:`all_reduce_` sums in fp32, in one flat buffer;
-    ``_count`` is the hook a subclass counts its collectives with."""
+    ``_count`` is the hook a subclass counts its collectives with.
+    :meth:`send_chunked` and :meth:`recv_chunked` move one tensor between
+    two members in messages of at most :data:`CHUNK_BYTES` (a
+    checkpoint's gather, over the whole world)."""
 
     what = "group"
 
@@ -192,6 +200,46 @@ class GroupView:
             x.copy_(flat[off:off + x.numel()].view(x.shape))
             off += x.numel()
         self._count("all_reduce", 4 * flat.numel(), t0)
+
+    def send_chunked(self, x: torch.Tensor, dst: int) -> int:
+        """Send ``x``'s bytes to group index ``dst`` in messages of at most
+        :data:`CHUNK_BYTES`, each waited on (staged: through one pinned
+        buffer of that size, however large ``x``).  Returns the bytes."""
+        dist = _dist()
+        flat = x.detach().contiguous().reshape(-1).view(torch.uint8)
+        for lo in range(0, flat.numel(), CHUNK_BYTES):
+            c = flat[lo:lo + CHUNK_BYTES]
+            if self.staged:
+                buf = self._empty(c.shape, torch.uint8, "chunk_send")
+                buf.copy_(c)
+                c = buf
+            elif self.backend == "gloo" and c.device.type != "cpu":
+                raise ValueError(f"CUDA payload on an unstaged gloo "
+                                 f"{self.what}")
+            dist.send(c, self._global[dst], group=self.group)
+        return flat.numel()
+
+    def recv_chunked(self, out: torch.Tensor, src: int) -> int:
+        """Receive what :meth:`send_chunked` sends from group index
+        ``src`` into ``out``, a contiguous tensor on the host (over NCCL
+        each message lands in one buffer on the group's device first).
+        Returns the bytes."""
+        dist = _dist()
+        if out.device.type != "cpu" or not out.is_contiguous():
+            raise ValueError("recv_chunked fills a contiguous host tensor")
+        flat = out.reshape(-1).view(torch.uint8)
+        buf = (torch.empty(min(CHUNK_BYTES, flat.numel()), dtype=torch.uint8,
+                           device=self.device)
+               if self.backend == "nccl" else None)
+        for lo in range(0, flat.numel(), CHUNK_BYTES):
+            c = flat[lo:lo + CHUNK_BYTES]
+            if buf is None:
+                dist.recv(c, self._global[src], group=self.group)
+            else:
+                dist.recv(buf[:c.numel()], self._global[src],
+                          group=self.group)
+                c.copy_(buf[:c.numel()])
+        return flat.numel()
 
 
 class Ring(GroupView):

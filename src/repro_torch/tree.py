@@ -34,18 +34,27 @@ def tree_leaves(tree: Pytree) -> list:
     return [tree]
 
 
-def tree_paths(tree: Pytree, prefix: str = "") -> list[tuple[str, Any]]:
+def tree_map_paths(fn: Callable, tree: Pytree, prefix: str = "") -> Pytree:
+    """``tree`` with each leaf replaced by ``fn(path, leaf)``, the path
+    its ``/``-joined keys (``None`` leaves map to ``None``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_paths(fn, v, f"{prefix}/{k}" if prefix
+                                  else str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_paths(fn, t, f"{prefix}/{i}" if prefix
+                                         else str(i))
+                          for i, t in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(prefix, tree)
+
+
+def tree_paths(tree: Pytree) -> list[tuple[str, Any]]:
     """``[(path, leaf)]`` with ``/``-joined keys, in :func:`tree_leaves`
     order."""
-    if isinstance(tree, dict):
-        return [x for k in tree
-                for x in tree_paths(tree[k], f"{prefix}/{k}" if prefix else str(k))]
-    if isinstance(tree, (list, tuple)):
-        return [x for i, t in enumerate(tree)
-                for x in tree_paths(t, f"{prefix}/{i}" if prefix else str(i))]
-    if tree is None:
-        return []
-    return [(prefix, tree)]
+    out: list = []
+    tree_map_paths(lambda path, x: out.append((path, x)), tree)
+    return out
 
 
 def tree_index(tree: Pytree, i) -> Pytree:

@@ -51,7 +51,6 @@ from repro_torch.optim import adamw_init
 from repro_torch.runtime.adapters import diffusion_model_fns
 from repro_torch.runtime.compile import auto_pipeline
 from repro_torch.runtime.resilience import (corrupt_checkpoint,
-                                            logical_to_state,
                                             plan_fingerprint,
                                             restore_training_state,
                                             state_to_logical)
@@ -364,10 +363,15 @@ def test_fingerprint_tracks_layout_only():
 
 @pytest.mark.parametrize("src,dst", [((4, 1), (2, 1)), ((4, 2), (4, 1)),
                                      ((2, 2), (2, 1))])
-def test_destack_restack_matches_merge(src, dst):
+def test_destack_restack_matches_merge(src, dst, tmp_path):
+    """A checkpoint of plan A restored onto plan B (the elastic reader)
+    holds the model plan A held; the logical view is the JAX package's."""
     (jcp_a, tcp_a), (_, tcp_b) = _plans("uvit", *src), _plans("uvit", *dst)
     a = _port_state(tcp_a, seed=3)
-    b = logical_to_state(state_to_logical(a, tcp_a.state_spec()), tcp_b)
+    save_checkpoint(str(tmp_path), 1, a, plan=tcp_a.state_spec())
+    b, info = restore_training_state(str(tmp_path), tcp_b,
+                                     _port_state(tcp_b, seed=4))
+    assert info.elastic
     for key in ("params", "m", "v"):
         pa = a["params"] if key == "params" else a["opt"][key]
         pb = b["params"] if key == "params" else b["opt"][key]

@@ -739,8 +739,6 @@ def test_trainer_over_ranks_skips_a_nan_step_on_every_rank(
 
 
 @pytest.mark.parametrize("extra, env, match", [
-    (["--ckpt-dir", "x"], {}, "ROADMAP A1"),
-    (["--resume", "--ckpt-dir", "x"], {}, "ROADMAP A1"),
     (["--num-hosts", "2"], {}, "ROADMAP A1"),
     ([], {"WORLD_SIZE": "4"}, "ROADMAP A3"),
 ])
