@@ -19,12 +19,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    224, B=16; bf16 on the tensor-core route, the head padded to 128 and
    256 in shared memory, fp32 on the SIMT route) and of the plan phase
    (batch 8: flash self and cross, the skip matmul at M=2064 and 8192;
-   rows under path ``plan``) and of the ``hybrid`` phase (a data
-   replica's microbatch of UViT-H, batch 4: flash at B=4, the skip matmul
-   at M=1032, whose last row tile holds 8 rows) and of the small models the ``skipvit`` and
-   ``supervisor`` phases train (``uvit-nano``: flash at 6 tokens, 2 heads
-   of 16, the skip matmul at M=12 D=N=32; ``skipvit``: flash at 18
-   tokens, 4 heads of 16; microbatch 2) (the gated
+   rows under path ``plan``; UViT-H's are also the supervisor's
+   generation 1, one replica, rows ``supervisor uvit-h gen 1``) and of the
+   ``hybrid`` phase (a data replica's microbatch of UViT-H, batch 4: flash
+   at B=4, the skip matmul at M=1032, whose last row tile holds 8 rows;
+   also the supervisor's generation 0, rows ``supervisor uvit-h gen 0``)
+   and of the small models the ``skipvit`` and ``supervisor`` phases
+   train (``uvit-nano``: flash at 6 tokens, 2 heads of 16, the skip
+   matmul at M=12 D=N=32, microbatch 2, and a data replica's half of it,
+   ``uvit-nano dp=2``; ``skipvit``: flash at 18 tokens, 4 heads of 16;
+   microbatch 2) (the gated
    linear scan, which no train path calls, at zamba2-2.7b's Mamba2 width
    over 4k steps and at R=32 over 2k steps, forward and backward kernels,
    with mixed dtypes of a and x, and with decays near 1, whose carry spans
@@ -41,7 +45,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    device's time alone); each flash row names its route (``flash_route``);
 4. pipeline parity: the port's wave executor at ``uvit-pp`` size (D=4, M=8),
    at ``hunyuan-pp`` size (D=2 and D=4, M=4) and at the supervisor drills'
-   ``uvit-nano`` plan (D=4, M=4, global batch 8), each config the trainer's
+   ``uvit-nano`` pipeline (D=2, M=4, global batch 8), each config the trainer's
    own, fp32, fp32 wire, kernels on, on the card against the same step on
    the CPU (plain versions): loss and grads at rtol 1e-3; then in bf16 through the kernels' bf16 routes (a
    Hunyuan-DiT config with 2 heads of 128, 4 blocks, 77 text tokens, D=2,
@@ -116,22 +120,39 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     block costs (the fold's turnaround cut off-centre), card against CPU,
     fp32, loss and grads at rtol 1e-3; flash attention must launch in both,
     the skip matmul never (SkipViT's skip is additive);
-11. supervisor (``supervisor_phase``), after releasing this process's
-    memory: (a) ``repro_torch.launch.supervisor.Supervisor`` over two
-    ``uvit-nano`` workers on the card (2 hosts x 2 devices, dp=1 pp=4,
-    M=4, global batch 8, 12 steps, fp32 wire, a checkpoint every 4
-    steps): ``hostdown@8:1`` must detect, roll back to 8, shrink to
-    (1, 2, 0) on one host and finish; ``hang@6`` the same with the hang on
-    host 0 within ``stall_timeout x miss_budget`` + 5 polls and a rollback
-    to 4; each merged trajectory at rtol 1e-4 to the port's uninterrupted
-    run on the card; (b) one full-width UViT-H worker (the phase-6 plan)
-    with ``hang@3`` and no checkpoint: launch, gen-live, heartbeat-miss
-    only after the step-2 beat, hang (host 0, step 2), rollback (None),
-    abort (no surviving hosts), and the worker's memory back within 1 GB;
-    the workers load the kernels phase 2 built (``REPRO_TORCH_BUILD_DIR``
-    inherited, ``REPRO_TORCH_NO_BUILD=1``; the build directory must hold
-    the same files after the phase) and every worker log must name its
-    CUDA device;
+11. supervisor over ranks (``supervisor_phase``), run last, after phase
+    14 (its UViT-H part is held to phase 13's losses), after releasing
+    this process's memory; every generation is a world of rank processes
+    of ``repro_torch.launch.train`` grouped by host, all on the one card
+    over the staged gloo ring: (a) ``repro_torch.launch.supervisor.
+    Supervisor`` at the JAX drill's plan and knobs (uvit-nano, 2 hosts x
+    2 ranks, dp=2 pp=2, M=4, global batch 8, 12 steps, fp32 wire, a
+    checkpoint every 4 steps, ``stall_timeout`` 8, ``miss_budget`` 2):
+    ``hostdown@8:1`` must detect host 1, roll back to 8, shrink to
+    (1, 2, 0) on one host of two ranks and finish; ``hang@6`` the same
+    with the hang on the root host 0 within ``stall_timeout x
+    miss_budget`` + 5 polls and a rollback to 4; every rank's losses of
+    both generations at rtol 1e-4 to the one-process run of the plan's
+    pipeline on the card (P=2, one replica); then the trainer's
+    one-process worker mode, started by hand as the JAX trainer's hosts
+    are (``worker_mode_drill``, no supervisor): two hosts, each a replica
+    of the P=4 pipeline, through the ``start.g0`` FileBarrier and the
+    commit barriers of steps 4 and 8, host 1 exits 42 after committing
+    step 8, host 0 stops after step 10; one host of P=2 resumes step 8
+    elastically; every host's losses at rtol 1e-4 to the same run;
+    launches under path ``host workers``; (b) UViT-H at full width and
+    depth on the hybrid phase's ZeRO-2 plan at V=1 (P=2 G=2, M=2, global
+    batch 16, bf16) as 2 hosts x 2 ranks with ``hostdown@1:1`` and no
+    checkpoint (3 steps, a save past the run, the relaunch ``stop@3``):
+    hostdown on host 1, rollback (None), shrink to (1, 2, 0), one host of
+    two ranks trains steps 0-2, every rank's losses within 1e-2 of phase
+    13's ZeRO-2 steps, no step left in the checkpoint directory; both
+    parts hold the card's free memory back within 1 GB after every
+    teardown and print launch -> gen-live per generation, detection ->
+    next gen-live, each rank's peak and step seconds; the ranks load the
+    kernels phase 2 built (``REPRO_TORCH_BUILD_DIR`` inherited,
+    ``REPRO_TORCH_NO_BUILD=1``; the build directory must hold the same
+    files after the phase) and every rank log must name its CUDA device;
 12. ranks (``ranks_phase``), after checking that less than 1 GB is still
     allocated: ``python -m torch.distributed.run --standalone
     --nproc-per-node 4 -m repro_torch.launch.train`` with phase 6's UViT-H
@@ -197,9 +218,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     directory is removed;
 15. the ``kernels`` JSON line (each kernel's launches by path: ``plan``,
     ``baseline``, ``skipvit train``, ``skipvit wave-asym``,
-    ``supervisor workers``, ``ranks``, ``hybrid`` and ``rank checkpoint``,
-    the last four read from the workers' and ranks' result files, among
-    them), then the device line as the last line.
+    ``ranks``, ``hybrid``, ``rank checkpoint``, ``supervisor ranks`` and
+    ``host workers``, the last five read from the ranks' and the workers'
+    result files, among them), then
+    the device line as the last line.
 
 The full record goes to ``chiprun_out/chip_smoke.json``.  Without a CUDA
 device the script exits 1 at once and prints no result.
@@ -209,6 +231,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -374,7 +397,8 @@ def check_skip_matmul(torch, rec) -> dict:
         ("uvit-h", 516, 2560), (None, 4128, 2560), ("hunyuan-dit", 2048, 2048),
         ("plan uvit-h", 2064, 2560), ("plan hunyuan-dit", 8192, 2048),
         ("hybrid uvit-h", 1032, 2560),   # a replica's microbatch, b=4
-        ("uvit-nano", 12, 32)]   # the supervisor drills' b=2 x 6 tokens
+        ("uvit-nano", 12, 32),   # the supervisor drills' b=2 x 6 tokens
+        ("uvit-nano dp=2", 6, 32)]   # a replica's b=1 of the drills' gen 0
     for dtype in ("bfloat16", "float32"):
         for path, M, D in cases:
             N = D
@@ -414,6 +438,10 @@ def check_skip_matmul(torch, rec) -> dict:
             if dtype == "bfloat16" and path:
                 main[path] = row             # the train step's shape
             del h, s, w, got
+    # the supervisor's UViT-H ranks: gen 0 (dp=2) runs a replica's b=4 of
+    # the hybrid plan's microbatch, gen 1 (dp=1) the whole b=8 of the plan
+    main.update({"supervisor uvit-h gen 0": main["hybrid uvit-h"],
+                 "supervisor uvit-h gen 1": main["plan uvit-h"]})
     rec["skip_concat_matmul"] = rows
     return main
 
@@ -450,6 +478,7 @@ def check_flash(torch, rec) -> dict:
         ("sdv2-unet L3+mid cross", 16, 16, 77, 8, 8, 224, False, None),
         # the small models of the skipvit and supervisor phases, b=2
         ("uvit-nano", 2, 6, 6, 2, 2, 16, False, None),
+        ("uvit-nano dp=2", 1, 6, 6, 2, 2, 16, False, None),
         ("skipvit", 2, 18, 18, 4, 4, 16, False, None),
     ]
     for path, B, S, T, Hq, Hkv, D, causal, window in cases:
@@ -509,6 +538,8 @@ def check_flash(torch, rec) -> dict:
             if dtype == "bfloat16" and path:
                 main[path] = row
             del q, k, v, got
+    main.update({"supervisor uvit-h gen 0": main["hybrid uvit-h"],
+                 "supervisor uvit-h gen 1": main["plan uvit-h"]})
     rec["flash_attention"] = rows
     return main
 
@@ -757,10 +788,10 @@ def _check_launched(launched: dict, name: str) -> None:
 
 
 # (kind, D, M, config fields): uvit-pp, hunyuan-pp, and the supervisor
-# drills' uvit-nano at their plan (D=4, M=4, global batch 8)
+# drills' uvit-nano pipeline (D=2, M=4, global batch 8)
 PARITY_CASES = (("uvit", 4, 8, {}), ("hunyuan", 2, 4, {}),
                 ("hunyuan", 4, 4, {}),
-                ("uvit", 4, 4, dict(name="uvit-nano", patch=4, d_model=32,
+                ("uvit", 2, 4, dict(name="uvit-nano", patch=4, d_model=32,
                                     n_heads=2, d_ff=64)))
 
 
@@ -1908,259 +1939,6 @@ def skipvit_wave_asym(torch, rec) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the supervisor -- recovery drills at uvit-nano, then a
-# supervised UViT-H worker at full width
-# ---------------------------------------------------------------------------
-
-DRILL_STEPS = 12
-DRILL_PLAN = ["--arch", "uvit-nano", "--pipeline", "--devices", "4", "--pp",
-              "4", "--microbatches", "4", "--global-batch", "8", "--steps",
-              str(DRILL_STEPS), "--lr", "1e-3", "--wire-dtype", "float32",
-              "--log-every", "4", "--device", "cuda"]
-# (faults, rollback step, detecting event)
-DRILLS = (("hostdown@8:1", 8, "hostdown"), ("hang@6", 4, "hang"))
-
-
-def _free_bytes(torch) -> int:
-    return torch.cuda.mem_get_info()[0]
-
-
-def _wait_memory_back(torch, free0: int, what: str) -> int:
-    """Wait (at most 60 s) until the card's free memory is back within 1 GB
-    of ``free0``: a torn-down worker's memory returns when its process
-    ends."""
-    deadline = time.time() + 60.0
-    while True:
-        free = _free_bytes(torch)
-        if free >= free0 - 1e9:
-            return free
-        if time.time() > deadline:
-            fail(f"{what}: {(free0 - free) / 1e9:.2f} GB of the card's "
-                 "memory not returned after teardown")
-        time.sleep(0.5)
-
-
-def _worker_results(logs_dir: str) -> dict:
-    out = {}
-    for n in sorted(os.listdir(logs_dir)):
-        if n.startswith("result_") and n.endswith(".json"):
-            try:
-                with open(os.path.join(logs_dir, n)) as f:
-                    out[n[len("result_"):-len(".json")]] = json.load(f)
-            except (OSError, ValueError):
-                pass
-    return out
-
-
-def _check_worker_logs(logs_dir: str, what: str) -> list:
-    """Every worker's log names the CUDA device it ran on."""
-    names = []
-    for n in sorted(os.listdir(logs_dir)):
-        if not n.endswith(".log"):
-            continue
-        with open(os.path.join(logs_dir, n)) as f:
-            text = f.read()
-        line = next((x for x in text.splitlines()
-                     if x.startswith("[train] device: cuda:")), None)
-        if line is None:
-            fail(f"{what}: worker log {n} names no CUDA device:\n"
-                 f"{text[-3000:]}")
-        names.append(f"{n}: {line[len('[train] device: '):]}")
-    return names
-
-
-def _gen_timing(events: list) -> dict:
-    """Seconds from each generation's launch to its gen-live, and from the
-    detection (hostdown/hang/escalate) to the next generation's gen-live."""
-    launch = {e["gen"]: e["t"] for e in events if e["kind"] == "launch"}
-    live = {e["gen"]: e["t"] for e in events if e["kind"] == "gen-live"}
-    detect = [e for e in events
-              if e["kind"] in ("hostdown", "hang", "escalate")]
-    out = {"launch_to_live_s": {g: live[g] - launch[g] for g in live}}
-    if detect and 1 in live:
-        out["detect_to_next_live_s"] = live[1] - detect[0]["t"]
-    return out
-
-
-def supervisor_phase(torch, rec, smi_line: str) -> dict:
-    """(a) the two drills of the JAX supervisor at the port's plan on the
-    card, each merged trajectory at rtol 1e-4 to the port's uninterrupted
-    run; (b) a supervisor over one full-width UViT-H worker with hang@3.
-    The workers load the kernels phase 2 built (``REPRO_TORCH_BUILD_DIR``
-    inherited, ``REPRO_TORCH_NO_BUILD=1``: a worker may not run nvcc, and
-    the build directory must hold the same files after the phase).
-    Returns the workers' launches, read from their result files."""
-    import shutil
-
-    from repro_torch.kernels import build
-    from repro_torch.launch import supervisor as sup
-    from repro_torch.launch import train as train_mod
-
-    out = {"card": smi_line}
-    libs = sorted(os.listdir(build.build_dir()))
-    base = os.path.join(ROOT, "build", "chip_smoke_supervisor")
-    shutil.rmtree(base, ignore_errors=True)
-    worker_env = {"REPRO_TORCH_NO_BUILD": "1"}
-    launched = dict.fromkeys(_launches(), 0)
-
-    # (a) reference, then the drills
-    t0 = time.perf_counter()
-    ref = train_mod.run(train_mod._parse_args(DRILL_PLAN))
-    ref_losses = dict(ref.losses)
-    del ref
-    release(torch)
-    out["reference_s"] = time.perf_counter() - t0
-    free0 = _free_bytes(torch)
-    drills = {}
-    for faults, rollback, detect in DRILLS:
-        t0 = time.perf_counter()
-        run_dir = os.path.join(base, detect)
-        cfg = sup.SupervisorConfig(
-            run_dir=run_dir, num_hosts=2, devices_per_host=2,
-            steps=DRILL_STEPS, global_batch=8, arch="uvit-nano", dp=1, pp=4,
-            microbatches=4, wire_dtype="float32", lr=1e-3, ckpt_every=4,
-            faults=faults, stall_timeout=8.0, miss_budget=2, poll=0.2,
-            backoff_base=0.2, log_every=4, device="cuda",
-            worker_env=worker_env)
-        res = sup.Supervisor(cfg).run()
-        wall = time.perf_counter() - t0
-        events = sup.read_events(res.events_path)
-        kinds = [e["kind"] for e in events]
-        what = f"supervisor drill {faults}"
-        if not (res.ok and res.outcome == "done"
-                and (res.generations, res.restarts) == (2, 1)
-                and (res.final_hosts, tuple(res.final_plan)) == (1,
-                                                                 (1, 2, 0))):
-            fail(f"{what}: {res} events {kinds}")
-        for k in (detect, "rollback", "shrink", "restart", "gen-live",
-                  "done"):
-            if k not in kinds:
-                fail(f"{what}: no {k!r} event in {kinds}")
-        rb = next(e for e in events if e["kind"] == "rollback")
-        if rb["step"] != rollback:
-            fail(f"{what}: rolled back to {rb['step']}, want {rollback}")
-        hit = next(e for e in events if e["kind"] == detect)
-        budget = cfg.stall_timeout * cfg.miss_budget + 5 * cfg.poll
-        if hit["host"] != (1 if detect == "hostdown" else 0) or (
-                detect == "hang" and hit["age"] > budget):
-            fail(f"{what}: {hit} (hang budget {budget} s)")
-        if sorted(res.losses) != list(range(DRILL_STEPS)):
-            fail(f"{what}: merged trajectory {sorted(res.losses)}")
-        for s in range(DRILL_STEPS):
-            a, b = ref_losses[s], res.losses[s]
-            if not (math.isfinite(b) and abs(a - b) <= 1e-4 * abs(a)):
-                fail(f"{what}: step {s} loss {b} vs uninterrupted {a} "
-                     "(rtol 1e-4)")
-        logs_dir = os.path.join(run_dir, "logs")
-        devices = _check_worker_logs(logs_dir, what)
-        results = _worker_results(logs_dir)
-        for doc in results.values():
-            for k, v in doc.get("launches", {}).items():
-                launched[k] += v
-        free = _wait_memory_back(torch, free0, what)
-        timing = _gen_timing(events)
-        drills[faults] = dict(
-            wall_s=wall, kinds=kinds, rollback=rb["step"],
-            detect={k: hit[k] for k in ("host", "age", "step") if k in hit},
-            final_plan=list(res.final_plan), devices=devices,
-            worker_launches={k: d.get("launches") for k, d in
-                             results.items()},
-            max_rel_err=max(abs(res.losses[s] - ref_losses[s])
-                            / abs(ref_losses[s]) for s in range(DRILL_STEPS)),
-            free_gb_after=free / 1e9, **timing)
-        log(f"[supervisor] drill {faults}: {' -> '.join(kinds)}; "
-            f"rollback({rb['step']}) shrink(1, 2, 0); detection "
-            f"{drills[faults]['detect']}; launch->gen-live s "
-            f"{ {g: round(v, 3) for g, v in timing['launch_to_live_s'].items()} }"
-            f"; detect->next gen-live {timing.get('detect_to_next_live_s', 0):.3f}"
-            f" s; max rel err {drills[faults]['max_rel_err']:.2e}; "
-            f"{wall:.1f} s")
-        for d in devices:
-            log(f"[supervisor]   {d}")
-    out["drills"] = drills
-
-    # (b) full width: one supervised UViT-H worker, hang@3, no checkpoint
-    steady = rec["train"]["uvit-h"]["step_seconds"][1:]
-    step_max = max(steady)
-    # the watchdog judges steps after the first train beat on
-    # stall_timeout: 4x the slowest steady UViT-H step of phase 6, at least
-    # 5 s, leaves room for a slower step than any measured without letting
-    # a hang go unseen for long; startup_timeout stays 300 s, which the
-    # cold start (import, CUDA context, 2.78e9 params, plan) and steps 0-1
-    # are judged on
-    stall = max(5.0, 4.0 * step_max)
-    release(torch)
-    free0 = _free_bytes(torch)
-    t0 = time.perf_counter()
-    run_dir = os.path.join(base, "uvit-h")
-    cfg = sup.SupervisorConfig(
-        run_dir=run_dir, num_hosts=1, devices_per_host=4, steps=8,
-        global_batch=16, arch="uvit-h", dp=1, pp=4, microbatches=8,
-        wire_dtype="bfloat16", ckpt_every=1000, faults="hang@3",
-        stall_timeout=stall, startup_timeout=300.0, miss_budget=2, poll=0.2,
-        log_every=1, device="cuda", worker_env=worker_env)
-    res = sup.Supervisor(cfg).run()
-    wall = time.perf_counter() - t0
-    events = sup.read_events(res.events_path)
-    kinds = [e["kind"] for e in events]
-    what = "supervisor uvit-h"
-    logs_dir = os.path.join(run_dir, "logs")
-    devices = _check_worker_logs(logs_dir, what)
-    doc = _worker_results(logs_dir).get("h0.g0", {})
-    beat_t = {int(k): v for k, v in doc.get("beat_t", {}).items()}
-    steps = {int(k): v for k, v in doc.get("step_seconds", {}).items()}
-    for k, v in doc.get("launches", {}).items():
-        launched[k] += v
-    want = ["launch", "gen-live", "heartbeat-miss", "hang", "rollback",
-            "abort"]
-    if kinds != want:
-        fail(f"{what}: events {kinds}, want {want}")
-    hang = next(e for e in events if e["kind"] == "hang")
-    miss = next(e for e in events if e["kind"] == "heartbeat-miss")
-    budget = stall * cfg.miss_budget + 5 * cfg.poll
-    if (hang["host"], hang["step"]) != (0, 2) or hang["age"] > budget:
-        fail(f"{what}: {hang}, want host 0 step 2 within {budget} s")
-    if sorted(beat_t) != [0, 1, 2] or miss["t"] <= beat_t[2]:
-        fail(f"{what}: heartbeat-miss at {miss['t']} before the step-2 beat "
-             f"(beats {beat_t})")
-    rb = next(e for e in events if e["kind"] == "rollback")
-    abort = events[-1]
-    if rb["step"] is not None or abort["reason"] != "no surviving hosts":
-        fail(f"{what}: rollback {rb}, abort {abort}")
-    if res.ok or res.final_hosts != 0:
-        fail(f"{what}: {res}")
-    free = _wait_memory_back(torch, free0, what)
-    launch_t = events[0]["t"]
-    out["uvit_h"] = dict(
-        wall_s=wall, kinds=kinds, stall_timeout=stall,
-        steady_step_s_phase6=steady, startup_s=beat_t[0] - launch_t,
-        step_seconds=steps, detection_age=hang["age"],
-        miss_age=miss["age"], devices=devices,
-        launches=doc.get("launches"), free_gb_before=free0 / 1e9,
-        free_gb_after=free / 1e9)
-    log(f"[supervisor] uvit-h: {' -> '.join(kinds)}; stall_timeout "
-        f"{stall:.2f} s (4 x the slowest steady step of the UViT-H phase, "
-        f"{step_max:.3f} s; at least 5 s); first train beat "
-        f"{beat_t[0] - launch_t:.2f} s after launch; step s "
-        f"{[round(steps[s], 4) for s in sorted(steps)]}; heartbeat-miss "
-        f"age {miss['age']} s; hang detected at age {hang['age']} s "
-        f"(budget {budget:.2f} s); free memory {free0 / 1e9:.2f} GB before, "
-        f"{free / 1e9:.2f} GB after teardown; {wall:.1f} s")
-    for d in devices:
-        log(f"[supervisor]   {d}")
-    log(f"[supervisor] worker launches, read from the workers' result files "
-        f"(other processes; a killed worker's count stops at its last "
-        f"step's dump): {launched}")
-    out["worker_launches"] = launched
-    if sorted(os.listdir(build.build_dir())) != libs:
-        fail(f"supervisor: the build directory changed under the workers: "
-             f"{libs} -> {sorted(os.listdir(build.build_dir()))}")
-    rec["supervisor"] = out
-    shutil.rmtree(base, ignore_errors=True)
-    return launched
-
-
-# ---------------------------------------------------------------------------
 # phase 12: ranks -- UViT-H with one process per pipeline device, four
 # ranks on the one card over the gloo ring staged through host memory
 # ---------------------------------------------------------------------------
@@ -3152,6 +2930,511 @@ def rank_checkpoint_phase(torch, rec, smi_line: str, ckdir: str,
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the supervisor over ranks -- the JAX supervisor's drills at
+# uvit-nano, then UViT-H at full width on the tuner's N=4 plan, every
+# generation a world of rank processes grouped by host
+# ---------------------------------------------------------------------------
+
+DRILL_STEPS = 12
+# the one-process reference of the drills' plan: one data replica of the
+# P=2 pipeline (the ranks' gen 0 runs two, gen 1 one)
+DRILL_PLAN = ["--arch", "uvit-nano", "--pipeline", "--devices", "2", "--pp",
+              "2", "--microbatches", "4", "--global-batch", "8", "--steps",
+              str(DRILL_STEPS), "--lr", "1e-3", "--wire-dtype", "float32",
+              "--log-every", "4", "--device", "cuda"]
+# the JAX drill's supervisor (tests/helpers/supervisor_drill.py): 2 hosts x
+# 2 ranks, dp=2 pp=2; every rank on the one card over the staged gloo ring
+DRILL_CFG = dict(num_hosts=2, devices_per_host=2, steps=DRILL_STEPS,
+                 global_batch=8, arch="uvit-nano", dp=2, pp=2,
+                 microbatches=4, wire_dtype="float32", lr=1e-3, ckpt_every=4,
+                 stall_timeout=8.0, miss_budget=2, poll=0.2,
+                 backoff_base=0.2, log_every=4, device="cuda")
+# (faults, rollback step, detecting event)
+DRILLS = (("hostdown@8:1", 8, "hostdown"), ("hang@6", 4, "hang"))
+SHRUNK = (1, 2, 0)
+# UViT-H at full width and depth on the hybrid phase's ZeRO-2 plan at V=1
+# (P=2 G=2, M=2, global batch 16, bf16) as 2 hosts x 2 ranks: host 1 dies
+# after step 0; no checkpoint is written (steps 3, a save past the run,
+# and the relaunch stops after step 2 without its final save)
+UVIT_H_CFG = dict(num_hosts=2, devices_per_host=2, steps=HYBRID_STEPS,
+                  global_batch=PLAN_BATCH, arch="uvit-h", dp=HYBRID_DP,
+                  pp=HYBRID_PP, zero_stage=2, microbatches=HYBRID_M,
+                  wire_dtype="bfloat16", ckpt_every=1000,
+                  faults="hostdown@1:1",
+                  relaunch_faults=f"stop@{HYBRID_STEPS}", stall_timeout=60.0,
+                  startup_timeout=300.0, miss_budget=2, poll=0.2,
+                  backoff_base=0.2, log_every=1, device="cuda")
+
+
+# the trainer's one-process worker mode, the JAX trainer's hosts: host
+# processes started by hand, each a whole replica of the plan on the card,
+# meeting at the start.g<gen> FileBarrier and at each checkpoint step's
+# commit barrier.  Gen 0: 2 hosts of the P=4 pipeline, host 1 exits after
+# committing step 8, host 0 stops after step 10, before step 12's save
+# (whose commit would wait for host 1 until the barrier's timeout); gen 1:
+# one host of P=2 resumes step 8 (an elastic restore), steps 8-11
+WORKERS_ARGV = ["--arch", "uvit-nano", "--pipeline", "--microbatches", "4",
+                "--global-batch", "8", "--steps", str(DRILL_STEPS), "--lr",
+                "1e-3", "--wire-dtype", "float32", "--log-every", "4",
+                "--device", "cuda", "--ckpt-every", "4", "--resume"]
+# (hosts, pipeline devices, faults) of each generation
+WORKERS_GENS = ((2, 4, f"hostdown@8:1,stop@{DRILL_STEPS - 1}"),
+                (1, 2, None))
+WORKERS_ROLLBACK = 8
+WORKERS_TIMEOUT = 300        # seconds for a generation's processes
+
+
+def _free_bytes(torch) -> int:
+    return torch.cuda.mem_get_info()[0]
+
+
+def _wait_memory_back(torch, free0: int, what: str) -> int:
+    """Wait (at most 60 s) until the card's free memory is back within 1 GB
+    of ``free0``: a torn-down rank's memory returns when its process
+    ends."""
+    deadline = time.time() + 60.0
+    while True:
+        free = _free_bytes(torch)
+        if free >= free0 - 1e9:
+            return free
+        if time.time() > deadline:
+            fail(f"{what}: {(free0 - free) / 1e9:.2f} GB of the card's "
+                 "memory not returned after teardown")
+        time.sleep(0.5)
+
+
+def _rank_results(logs_dir: str) -> dict:
+    """``(gen, rank) -> the rank's result file`` (the per-step dump of a
+    rank that was killed or exited, the full record of one that
+    finished)."""
+    out = {}
+    for n in sorted(os.listdir(logs_dir)):
+        m = re.fullmatch(r"result_h\d+\.r(\d+)\.g(\d+)\.json", n)
+        if m:
+            try:
+                with open(os.path.join(logs_dir, n)) as f:
+                    out[int(m.group(2)), int(m.group(1))] = json.load(f)
+            except (OSError, ValueError):
+                pass
+    return out
+
+
+def _check_rank_logs(logs_dir: str, what: str) -> list:
+    """Every rank's log names the CUDA device it ran on."""
+    names = []
+    for n in sorted(os.listdir(logs_dir)):
+        if not n.endswith(".log"):
+            continue
+        with open(os.path.join(logs_dir, n)) as f:
+            text = f.read()
+        line = next((x for x in text.splitlines()
+                     if x.startswith("[train] device: cuda:")), None)
+        if line is None:
+            fail(f"{what}: rank log {n} names no CUDA device:\n"
+                 f"{text[-3000:]}")
+        names.append(f"{n}: {line[len('[train] device: '):]}")
+    return names
+
+
+def _gen_timing(events: list, results: dict) -> dict:
+    """Seconds from each generation's launch to its gen-live event, and to
+    the last of its ranks' first train beats (read from their result
+    files: a generation that dies after one step may end before a poll
+    saw it live); from the detection (hostdown/hang) to the next
+    generation's gen-live."""
+    launch = {e["gen"]: e["t"] for e in events if e["kind"] == "launch"}
+    live = {e["gen"]: e["t"] for e in events if e["kind"] == "gen-live"}
+    first = {}
+    for (g, _), doc in results.items():
+        beats = doc.get("beat_t") or {}
+        if beats:
+            t = beats[str(min(map(int, beats)))]
+            first[g] = max(first.get(g, t), t)
+    detect = [e for e in events if e["kind"] in ("hostdown", "hang")]
+    out = {"launch_to_live_s": {g: live[g] - launch[g] for g in live},
+           "launch_to_first_beats_s": {g: t - launch[g]
+                                       for g, t in first.items()}}
+    if detect and 1 in live:
+        out["detect_to_next_live_s"] = live[1] - detect[0]["t"]
+    return out
+
+
+def _supervised(torch, sup, cfg, free0: int, what: str):
+    """``Supervisor(cfg).run()``, with the card's free memory held back
+    within 1 GB of ``free0`` after each generation's teardown.  Returns the
+    result, the events and each teardown's record."""
+
+    class Watched(sup.Supervisor):
+        def _teardown(self, ranks):
+            super()._teardown(ranks)
+            t0 = time.perf_counter()
+            free = _wait_memory_back(torch, free0, what)
+            self.teardowns.append(dict(
+                ranks=len(ranks), free_gb=free / 1e9,
+                wait_s=time.perf_counter() - t0))
+
+    s = Watched(cfg)
+    s.teardowns = []
+    res = s.run()
+    return res, sup.read_events(res.events_path), s.teardowns
+
+
+def _sum_launches(launched: dict, results: dict) -> dict:
+    per = dict.fromkeys(launched, 0)
+    for doc in results.values():
+        for k, v in doc.get("launches", {}).items():
+            per[k] += v
+            launched[k] += v
+    return per
+
+
+def _host_workers(base: str, gen: int, hosts: int, devices: int,
+                  faults, env: dict) -> list:
+    """Generation ``gen`` of the one-process worker mode: host ``h`` of
+    ``hosts`` as ``python -m repro_torch.launch.train --host-id h
+    --num-hosts hosts``, each in a session of its own, all waited for (at
+    most ``WORKERS_TIMEOUT`` s, then killed with whatever they started).
+    Returns ``[(exit code, log text, result or None)]`` by host."""
+    import signal
+    procs = []
+    for h in range(hosts):
+        log_path = os.path.join(base, f"worker_h{h}.g{gen}.log")
+        out = os.path.join(base, f"result_h{h}.g{gen}.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.train",
+               *WORKERS_ARGV, "--devices", str(devices), "--pp", str(devices),
+               "--host-id", str(h), "--num-hosts", str(hosts),
+               "--ckpt-dir", os.path.join(base, "ckpt"),
+               "--heartbeat-dir", os.path.join(base, "hb"), "--gen",
+               str(gen), "--out-json", out] + (
+                   ["--faults", faults] if faults else [])
+        with open(log_path, "w") as lf:
+            procs.append((subprocess.Popen(
+                cmd, env=env, cwd=ROOT, stdout=lf, stderr=subprocess.STDOUT,
+                start_new_session=True), log_path, out))
+    deadline = time.time() + WORKERS_TIMEOUT
+    try:
+        for p, _, _ in procs:
+            p.wait(timeout=max(deadline - time.time(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, _, _ in procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+    done = []
+    for p, log_path, out in procs:
+        with open(log_path) as f:
+            text = f.read()
+        try:
+            with open(out) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            doc = None
+        done.append((p.returncode, text, doc))
+    return done
+
+
+def worker_mode_drill(torch, base: str, ref_losses: dict,
+                      env: dict) -> tuple:
+    """The one-process worker mode on the card (``WORKERS_GENS``): gen 0's
+    host 1 exits 42 after committing step 8 and host 0 exits 0 after step
+    10, both through the start barrier and the commit barriers of steps 4
+    and 8 with no warning; step 8 is the newest complete step, its
+    manifest names both hosts' shards; gen 1 resumes it elastically on P=2
+    and trains steps 8-11; every host's losses at rtol 1e-4 to the
+    one-process P=2 run.  Returns the record and the workers' launches."""
+    from repro_torch.checkpoint import complete_steps, verify_step
+    from repro_torch.runtime.resilience import EXIT_KILLED
+    what = "worker mode"
+    ckpt = os.path.join(base, "ckpt")
+    launched = dict.fromkeys(_launches(), 0)
+    out, errs = {"gens": []}, []
+    free0 = _free_bytes(torch)
+    t_all = time.perf_counter()
+    for gen, (hosts, devices, faults) in enumerate(WORKERS_GENS):
+        t0 = time.perf_counter()
+        got = _host_workers(base, gen, hosts, devices, faults, env)
+        wall = time.perf_counter() - t0
+        want = [0, EXIT_KILLED] if gen == 0 else [0]
+        if [c for c, _, _ in got] != want:
+            fail(f"{what} gen {gen}: exit codes {[c for c, _, _ in got]}, "
+                 f"want {want}:\n" + "\n".join(t[-3000:] for _, t, _ in got))
+        span = (range(DRILL_STEPS - 1), range(WORKERS_ROLLBACK)) \
+            if gen == 0 \
+            else (range(WORKERS_ROLLBACK, DRILL_STEPS),)
+        for h, ((_, text, doc), steps) in enumerate(zip(got, span)):
+            if "[train] device: cuda:" not in text or "did not close" in text \
+                    or doc is None:
+                fail(f"{what} gen {gen} host {h}: no CUDA device line, a "
+                     f"barrier that did not close, or no result:\n"
+                     f"{text[-3000:]}")
+            losses = {int(k): v for k, v in doc["losses"].items()}
+            if sorted(losses) != list(steps):
+                fail(f"{what} gen {gen} host {h}: steps {sorted(losses)}, "
+                     f"want {list(steps)}")
+            for k, b in losses.items():
+                a = ref_losses[k]
+                if not (math.isfinite(b) and abs(a - b) <= 1e-4 * abs(a)):
+                    fail(f"{what} gen {gen} host {h} step {k} loss {b} vs "
+                         f"the one-process run's {a} (rtol 1e-4)")
+                errs.append(abs(a - b) / abs(a))
+            for k, v in doc.get("launches", {}).items():
+                launched[k] += v
+        if gen == 0:
+            man = verify_step(ckpt, WORKERS_ROLLBACK)
+            if complete_steps(ckpt)[-1] != WORKERS_ROLLBACK or \
+                    man["num_hosts"] != 2 or man["shards"] != [
+                        "shard_00000.npz", "shard_00001.npz"]:
+                fail(f"{what}: complete steps {complete_steps(ckpt)}, "
+                     f"step {WORKERS_ROLLBACK}'s manifest {man}")
+        elif f"resumed from step {WORKERS_ROLLBACK} (elastic restore" \
+                not in got[0][1]:
+            fail(f"{what} gen 1 did not resume step {WORKERS_ROLLBACK} "
+                 f"elastically:\n{got[0][1][-3000:]}")
+        free = _wait_memory_back(torch, free0, f"{what} gen {gen}")
+        out["gens"].append(dict(hosts=hosts, devices=devices, faults=faults,
+                                codes=[c for c, _, _ in got], wall_s=wall,
+                                free_gb_after=free / 1e9))
+    for k in ("skip_concat_matmul", "flash_attention"):
+        if not launched[k]:
+            fail(f"{what}: {k} never launched in the workers: {launched}")
+    out.update(wall_s=time.perf_counter() - t_all, max_rel_err=max(errs),
+               free_gb_before=free0 / 1e9, launches=launched)
+    log(f"[supervisor] worker mode (one process a host, uvit-nano): gen 0 "
+        f"2 hosts x P=4, host 1 down after committing step "
+        f"{WORKERS_ROLLBACK} (exit codes {out['gens'][0]['codes']}), gen 1 "
+        f"one host of P=2 resumed step {WORKERS_ROLLBACK} elastically; "
+        f"max rel err {max(errs):.2e} over {len(errs)} host losses; "
+        f"gens {[round(g['wall_s'], 1) for g in out['gens']]} s; free GB "
+        f"{free0 / 1e9:.2f} before, after each gen "
+        f"{[round(g['free_gb_after'], 2) for g in out['gens']]}; launches "
+        f"{launched}")
+    return out, launched
+
+
+def supervisor_phase(torch, rec, smi_line: str) -> tuple:
+    """(a) the JAX supervisor's two drills at its own plan, every
+    generation a world of uvit-nano ranks on the card, each merged
+    trajectory at rtol 1e-4 to the one-process run of the plan, then the
+    trainer's one-process worker mode (``worker_mode_drill``); (b) UViT-H
+    at full width on the tuner's N=4 plan as 2 hosts x 2 ranks, host 1
+    down after step 0, the survivor's two ranks trained from step 0 and
+    held to the hybrid phase's ZeRO-2 losses.  The ranks load the kernels
+    phase 2 built (``REPRO_TORCH_BUILD_DIR`` inherited,
+    ``REPRO_TORCH_NO_BUILD=1``: a rank may not run nvcc, and the build
+    directory must hold the same files after the phase).  Returns the
+    ranks' launches and the one-process workers', read from their result
+    files."""
+    import shutil
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import supervisor as sup
+    from repro_torch.launch import train as train_mod
+
+    out = {"card": smi_line}
+    log(f"[supervisor] {smi_line}: every generation a world of rank "
+        "processes grouped by host, all on the card over the staged gloo "
+        "ring")
+    libs = sorted(os.listdir(build.build_dir()))
+    base = os.path.join(ROOT, "build", "chip_smoke_supervisor")
+    shutil.rmtree(base, ignore_errors=True)
+    worker_env = {"REPRO_TORCH_NO_BUILD": "1"}
+    launched = dict.fromkeys(_launches(), 0)
+
+    # (a) reference, then the drills
+    t0 = time.perf_counter()
+    ref = train_mod.run(train_mod._parse_args(DRILL_PLAN))
+    ref_losses = dict(ref.losses)
+    del ref
+    release(torch)
+    out["reference_s"] = time.perf_counter() - t0
+    drills = {}
+    for faults, rollback, detect in DRILLS:
+        free0 = _free_bytes(torch)
+        t0 = time.perf_counter()
+        run_dir = os.path.join(base, detect)
+        cfg = sup.SupervisorConfig(run_dir=run_dir, faults=faults,
+                                   worker_env=worker_env, **DRILL_CFG)
+        what = f"supervisor drill {faults}"
+        res, events, downs = _supervised(torch, sup, cfg, free0, what)
+        wall = time.perf_counter() - t0
+        kinds = [e["kind"] for e in events]
+        if not (res.ok and res.outcome == "done"
+                and (res.generations, res.restarts) == (2, 1)
+                and (res.final_hosts, tuple(res.final_plan)) == (1, SHRUNK)):
+            fail(f"{what}: {res} events {kinds}")
+        for k in (detect, "rollback", "shrink", "restart", "gen-live",
+                  "done"):
+            if k not in kinds:
+                fail(f"{what}: no {k!r} event in {kinds}")
+        worlds = [(e["hosts"], e["ranks"]) for e in events
+                  if e["kind"] == "launch"]
+        if worlds != [(2, 4), (1, 2)]:
+            fail(f"{what}: generations of (hosts, ranks) {worlds}")
+        rb = next(e for e in events if e["kind"] == "rollback")
+        if rb["step"] != rollback:
+            fail(f"{what}: rolled back to {rb['step']}, want {rollback}")
+        hits = [e for e in events if e["kind"] == detect]
+        budget = cfg.stall_timeout * cfg.miss_budget + 5 * cfg.poll
+        if [e["host"] for e in hits] != [1 if detect == "hostdown" else 0] \
+                or (detect == "hang" and hits[0]["age"] > budget):
+            fail(f"{what}: {hits} (hang budget {budget} s)")
+        if sorted(res.losses) != list(range(DRILL_STEPS)):
+            fail(f"{what}: merged trajectory {sorted(res.losses)}")
+        logs_dir = os.path.join(run_dir, "logs")
+        results = _rank_results(logs_dir)
+        # both generations, each rank's own record, against the reference
+        errs = []
+        for (g, r), doc in results.items():
+            for k, b in doc.get("losses", {}).items():
+                a = ref_losses[int(k)]
+                if not (math.isfinite(b) and abs(a - b) <= 1e-4 * abs(a)):
+                    fail(f"{what}: gen {g} rank {r} step {k} loss {b} vs "
+                         f"the one-process run's {a} (rtol 1e-4)")
+                errs.append(abs(a - b) / abs(a))
+        if {g for g, _ in results} != {0, 1}:
+            fail(f"{what}: rank results of generations "
+                 f"{sorted({g for g, _ in results})}")
+        devices = _check_rank_logs(logs_dir, what)
+        per = _sum_launches(launched, results)
+        timing = _gen_timing(events, results)
+        drills[faults] = dict(
+            wall_s=wall, kinds=kinds, rollback=rb["step"], worlds=worlds,
+            detect={k: hits[0][k] for k in ("host", "age", "step")
+                    if k in hits[0]},
+            final_plan=list(res.final_plan), devices=devices,
+            launches=per, max_rel_err=max(errs),
+            free_gb_before=free0 / 1e9, teardowns=downs, **timing)
+        log(f"[supervisor] drill {faults}: {' -> '.join(kinds)}; "
+            f"worlds (hosts, ranks) {worlds}; rollback({rb['step']}) "
+            f"shrink{SHRUNK}; detection {drills[faults]['detect']}; "
+            f"launch->gen-live s {_rounded(timing['launch_to_live_s'])}; "
+            f"detect->next gen-live "
+            f"{timing.get('detect_to_next_live_s', float('nan')):.3f} s; "
+            f"max rel err {max(errs):.2e} over {len(errs)} rank losses; "
+            f"free GB {free0 / 1e9:.2f} before, after each teardown "
+            f"{[round(d['free_gb'], 2) for d in downs]}; {wall:.1f} s")
+        for d in devices:
+            log(f"[supervisor]   {d}")
+    out["drills"] = drills
+    release(torch)
+    workers_dir = os.path.join(base, "workers")
+    os.makedirs(workers_dir)
+    out["workers"], workers_launched = worker_mode_drill(
+        torch, workers_dir, ref_losses, dict(
+            os.environ, REPRO_TORCH_NO_BUILD="1", PYTHONPATH=os.pathsep.join(
+                [os.path.join(ROOT, "src")]
+                + [p for p in os.environ.get("PYTHONPATH", "").split(
+                    os.pathsep) if p])))
+
+    # (b) full width: UViT-H on the tuner's N=4 plan, host 1 down after
+    # step 0, no checkpoint
+    release(torch)
+    free0 = _free_bytes(torch)
+    t0 = time.perf_counter()
+    run_dir = os.path.join(base, "uvit-h")
+    cfg = sup.SupervisorConfig(run_dir=run_dir, worker_env=worker_env,
+                               **UVIT_H_CFG)
+    what = "supervisor uvit-h"
+    res, events, downs = _supervised(torch, sup, cfg, free0, what)
+    wall = time.perf_counter() - t0
+    kinds = [e["kind"] for e in events]
+    if not (res.ok and (res.generations, res.restarts) == (2, 1)
+            and (res.final_hosts, tuple(res.final_plan)) == (1, SHRUNK)):
+        fail(f"{what}: {res} events {kinds}")
+    worlds = [(e["hosts"], e["ranks"], e["plan"]) for e in events
+              if e["kind"] == "launch"]
+    want_worlds = [(2, 4, {"dp": 2, "pp": 2, "zero_stage": 2}),
+                   (1, 2, {"dp": 1, "pp": 2, "zero_stage": 0})]
+    if worlds != want_worlds:
+        fail(f"{what}: generations {worlds}, want {want_worlds}")
+    down = [e for e in events if e["kind"] == "hostdown"]
+    rb = next((e for e in events if e["kind"] == "rollback"), None)
+    if [e["host"] for e in down] != [1] or rb is None \
+            or rb["step"] is not None or any(
+                k in kinds for k in ("hang", "escalate", "peer-lost",
+                                     "heartbeat-miss", "abort")):
+        fail(f"{what}: events {events}")
+    if 1 not in {e["gen"] for e in events if e["kind"] == "gen-live"}:
+        fail(f"{what}: generation 1 never went live: {kinds}")
+    ckpt = os.path.join(run_dir, "ckpt")
+    steps_left = [n for n in (os.listdir(ckpt) if os.path.isdir(ckpt)
+                              else ()) if n.startswith("step_")]
+    if steps_left:
+        fail(f"{what}: a checkpoint was written: {steps_left}")
+    logs_dir = os.path.join(run_dir, "logs")
+    results = _rank_results(logs_dir)
+    hybrid = rec["hybrid"]["zero"][2]["losses"]
+    gen1 = {r: doc for (g, r), doc in results.items() if g == 1}
+    if sorted(gen1) != [0, 1]:
+        fail(f"{what}: generation 1's rank results {sorted(gen1)}")
+    held = {}
+    for (g, r), doc in sorted(results.items()):
+        got = {int(k): v for k, v in doc.get("losses", {}).items()}
+        if g == 1 and (sorted(got) != list(range(HYBRID_STEPS))
+                       or doc.get("start") != 0):
+            fail(f"{what}: gen 1 rank {r} trained steps {sorted(got)} "
+                 f"from {doc.get('start')}")
+        for s, b in got.items():
+            a = hybrid[s]
+            if not (math.isfinite(b)
+                    and abs(a - b) <= HYBRID_LOSS_BAR * abs(a)):
+                fail(f"{what}: gen {g} rank {r} step {s} loss {b} vs the "
+                     f"hybrid phase's ZeRO-2 {a} (rtol {HYBRID_LOSS_BAR})")
+        held[f"g{g} r{r}"] = [got[s] for s in sorted(got)]
+    devices = _check_rank_logs(logs_dir, what)
+    per = _sum_launches(launched, results)
+    for k in ("skip_concat_matmul", "flash_attention"):
+        if not per[k]:
+            fail(f"{what}: {k} never launched in the ranks: {per}")
+    timing = _gen_timing(events, results)
+    peaks = {f"g{g} r{r}": doc.get("peak_bytes")
+             for (g, r), doc in sorted(results.items())}
+    steps = {f"g{g} r{r}": doc.get("step_seconds")
+             for (g, r), doc in sorted(results.items())}
+    out["uvit_h"] = dict(
+        wall_s=wall, kinds=kinds, worlds=worlds, losses=held,
+        hybrid_zero2_losses=hybrid, step_seconds=steps, peak_bytes=peaks,
+        devices=devices, launches=per, free_gb_before=free0 / 1e9,
+        teardowns=downs, **timing)
+    log(f"[supervisor] uvit-h (P=2 G=2 ZeRO-2 V=1, 2 hosts x 2 ranks, "
+        f"hostdown@1:1): {' -> '.join(kinds)}; launch->gen-live s "
+        f"{_rounded(timing['launch_to_live_s'])}, launch->last first train "
+        f"beat s {_rounded(timing['launch_to_first_beats_s'])}; "
+        f"detect->next gen-live "
+        f"{timing.get('detect_to_next_live_s', float('nan')):.3f} s; "
+        f"{wall:.1f} s")
+    log(f"[supervisor]   losses {held} vs the hybrid phase's ZeRO-2 "
+        f"{hybrid[:HYBRID_STEPS]} (rtol {HYBRID_LOSS_BAR})")
+    log(f"[supervisor]   step s "
+        f"{ {k: _rounded(v) for k, v in steps.items()} }")
+    log(f"[supervisor]   peaks GB "
+        f"{ {k: round(v / 1e9, 3) if v else v for k, v in peaks.items()} }"
+        f"; free GB {free0 / 1e9:.2f} before, after each teardown "
+        f"{[round(d['free_gb'], 2) for d in downs]}; launches {per}")
+    for d in devices:
+        log(f"[supervisor]   {d}")
+    log(f"[supervisor] rank launches, read from the ranks' result files "
+        f"(other processes; a killed rank's count stops at its last "
+        f"step's dump): {launched}")
+    out["rank_launches"] = launched
+    if sorted(os.listdir(build.build_dir())) != libs:
+        fail(f"supervisor: the build directory changed under the ranks: "
+             f"{libs} -> {sorted(os.listdir(build.build_dir()))}")
+    rec["supervisor"] = out
+    shutil.rmtree(base, ignore_errors=True)
+    return launched, workers_launched
+
+
+def _rounded(d: dict) -> dict:
+    return {k: round(v, 3) for k, v in sorted(d.items(), key=lambda x:
+                                              int(x[0]))}
+
+
 def release(torch) -> int:
     """Drop what the last phase left and return the bytes still allocated
     on the card (the trainer resets the peak statistics itself, so each
@@ -3302,16 +3585,6 @@ def main() -> None:
     rec.setdefault("phase_s", {})["skipvit"] = time.perf_counter() - t0
     log(f"[skipvit] phase {rec['phase_s']['skipvit']:.1f} s")
 
-    # 11. the supervisor: drills at uvit-nano, a supervised UViT-H worker
-    left = release(torch)
-    if left >= 1e9:
-        fail(f"supervisor: {left / 1e9:.2f} GB still allocated; the "
-             "previous phase was not released")
-    t0 = time.perf_counter()
-    counts["supervisor workers"] = supervisor_phase(torch, rec, smi_line)
-    rec["phase_s"]["supervisor"] = time.perf_counter() - t0
-    log(f"[supervisor] phase {rec['phase_s']['supervisor']:.1f} s")
-
     # 12. ranks: one process per pipeline device, four on the one card
     left = release(torch)
     if left >= 1e9:
@@ -3343,6 +3616,18 @@ def main() -> None:
         rec["phase_s"]["rank checkpoint"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
+
+    # 11, run last: the supervisor over ranks (its UViT-H part holds its
+    # losses to the hybrid phase's)
+    left = release(torch)
+    if left >= 1e9:
+        fail(f"supervisor: {left / 1e9:.2f} GB still allocated; the "
+             "previous phase was not released")
+    t0 = time.perf_counter()
+    counts["supervisor ranks"], counts["host workers"] = supervisor_phase(
+        torch, rec, smi_line)
+    rec["phase_s"]["supervisor"] = time.perf_counter() - t0
+    log(f"[supervisor] phase {rec['phase_s']['supervisor']:.1f} s")
 
     # 15. results: each kernel's numbers at the Hunyuan-DiT train step's
     # shape (the scan: its own phase's), every train path's beside them

@@ -1,45 +1,75 @@
 """Multi-host training supervisor: the detect -> decide -> recover loop (the
 port of ``repro.launch.supervisor``).
 
-Spawns one worker subprocess per host over ``repro_torch.launch.train``,
-then closes the loop the single-process trainer cannot: it *watches* the
-workers (file-based heartbeats + process exit codes), *decides* what a
-signal means (missed heartbeat -> suspect; persistent stall -> hung;
-nonzero exit -> host down; exit code ``EXIT_ESCALATE`` -> the GradGuard
-asked for a rollback), and *recovers* (coordinated teardown, roll back to
-the last verified-complete checkpoint, re-plan on the surviving device
-count via ``core.tuner.shrink_plan``, relaunch on the shrunk plan) --
-under an exponential-backoff restart budget so a persistent failure
-aborts instead of crash-looping.
+Runs every generation as one world of rank processes of
+``repro_torch.launch.train``, grouped by host: host ``h`` of ``H`` owns ranks
+``[h x devices_per_host, (h+1) x devices_per_host)`` (``launch.mesh.
+HostTopology``), and ``dp x pp = H x devices_per_host``.  Then it closes the
+loop the trainer cannot: it *watches* the hosts (file-based heartbeats + the
+ranks' exit codes), *decides* what a signal means (missed heartbeat ->
+suspect; persistent stall -> hung; a rank's nonzero exit -> host down; exit
+code ``EXIT_ESCALATE`` -> the GradGuard asked for a rollback), and
+*recovers* (teardown of the whole world, roll back to the last
+verified-complete checkpoint, re-plan on the surviving device count via
+``core.tuner.shrink_plan``, relaunch a smaller world on the survivors,
+whose ranks restore the checkpoint on their plan) -- under an
+exponential-backoff restart budget so a persistent failure aborts instead
+of crash-looping.
 
 Escalation matrix (what each signal triggers):
 
-    NaN batch             -> GradGuard skips the update (worker-local)
-    skip budget blown     -> worker exits 43 -> rollback, same plan
+    NaN batch             -> GradGuard skips the update (every rank)
+    skip budget blown     -> ranks exit 43 -> rollback, same plan
     missed heartbeat      -> 'heartbeat-miss' event, host marked suspect
     persistent stall      -> host hung: killed -> rollback + shrink
-    worker exit != 0      -> host down:        rollback + shrink
+    a rank exits != 0, 44 -> host down:        rollback + shrink
+    ranks exit 44 only    -> peer lost, nobody to blame: rollback, same plan
     straggler (slow host) -> 'straggler' event (report, no action)
     restart budget blown  -> abort
 
 Every decision lands in ``<run-dir>/events.jsonl`` (one JSON object per
-line: launch, gen-live, heartbeat-miss, hang, hostdown, escalate, anomaly,
-straggler, rollback, shrink, restart, done, abort); ``--status`` renders
-the log + live heartbeats without touching the training processes.
+line: launch, gen-live, heartbeat-miss, hang, hostdown, escalate,
+peer-lost, anomaly, straggler, rollback, shrink, restart, done, abort);
+``--status`` renders the log + live heartbeats without touching the
+training processes.
 
 Where it differs from the JAX supervisor (its decisions do not):
 
-- workers run ``repro_torch.launch.train``; the port's ``src`` goes on
-  their ``PYTHONPATH`` and no ``XLA_FLAGS`` are set (a port worker runs
-  all of its plan's pipeline devices in its one process);
-- ``device`` (``--device``, default ``cuda``) is passed to every worker:
-  workers run on the card unless the caller asks for the CPU;
-- the port's workers run ``dp = 1`` without ZeRO, so a plan with
-  ``dp > 1`` or ``zero_stage > 0`` raises ``NotImplementedError`` naming
-  it, before any worker is launched and again on a shrink; the defaults
-  are ``dp = 1, pp = 4`` (the JAX package's are ``dp = 2, pp = 2``: with
-  either, ``dp x pp`` = hosts x devices per host), so losing one of two
-  hosts folds the pipeline, ``shrink_plan(2, dp=1, pp=4) = (1, 2, 0)``.
+- a JAX worker is a host process running its host's devices; here a host
+  is a group of rank processes, one per device, each spawned by the
+  supervisor with the environment ``torchrun`` would give it (``RANK``,
+  ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``GROUP_RANK``,
+  ``MASTER_ADDR``, ``MASTER_PORT``) in a session of its own; as torchrun's
+  agent does, the supervisor hosts each generation's rendezvous store, on
+  a port the OS picks when it binds it (``TORCHELASTIC_USE_AGENT_STORE``:
+  every rank is a client), so no rank can lose its port to another
+  process; teardown signals each rank's process group (terminate, kill
+  after 5 s).  No ``torchrun`` agent runs a host: it exits 1 for any failed
+  child, which would lose 42 (host down) against 43 (escalate).  The
+  port's ``src`` goes on their ``PYTHONPATH``; no ``XLA_FLAGS`` are set;
+- a host's verdict comes from its ranks' exit codes: any 43 ->
+  ``escalate``; any other nonzero code but ``EXIT_PEER_LOST`` (44, a rank
+  whose collective failed because a peer is gone) -> ``hostdown``; a host
+  whose ranks exited 44 is not counted as down.  Ranks fail together, so
+  once one has exited 43 or a code that blames its host, the verdict
+  waits up to ``SETTLE_S`` for the rest of the world to exit too.  A
+  generation that ends with peer-lost exits and no host to blame
+  (``peer-lost``) rolls back on the same plan, as an escalation does;
+- ranks run in lockstep, so a host that hangs before step K stalls its
+  peers inside step K, on the same last ``train`` beat: the hang's root is
+  chosen among every stalled host (hung or suspect) by the later of its
+  last heartbeat's step and the step its ranks last entered (the
+  ``enter`` beats, ``runtime.resilience.ENTRY_BEATS``);
+- ``device`` (``--device``, default ``cuda``) is passed to every rank:
+  ranks run on the card unless the caller asks for the CPU.  With at least
+  one card a rank visible, each host sees only its own cards
+  (``CUDA_VISIBLE_DEVICES``, the cards as ``nvidia-smi`` lists them) and
+  the ranks keep the trainer's NCCL ring; with fewer, the ranks share the
+  cards over ``--ring gloo`` (NCCL refuses two ranks on one card).
+- the trainer's one-process ``--host-id/--num-hosts`` worker mode (a
+  FileBarrier start, one shard a host, the commit barrier) is not launched
+  here: it runs as the JAX trainer's hosts do, a process a host started by
+  hand, and this supervisor has one launch path, ranks.
 
 This module is the control plane: it never calls into CUDA (its imports
 load torch for the checkpoint reader but create no CUDA context), so it
@@ -47,10 +77,11 @@ still runs when the accelerator runtime is wedged.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.supervisor \
-        --run-dir /tmp/sup --hosts 2 --steps 40 --faults hostdown@20:1
+        --run-dir /tmp/sup --hosts 2 --dp 2 --pp 2 --steps 40 \
+        --faults hostdown@20:1                    # four ranks on one card
     PYTHONPATH=src python -m repro_torch.launch.supervisor \
-        --run-dir /tmp/sup --hosts 2 --steps 12 --device cpu \
-        --faults hang@6 --stall-timeout 4 --miss-budget 2
+        --run-dir /tmp/sup --hosts 2 --dp 2 --pp 2 --steps 12 \
+        --device cpu --faults hang@6 --stall-timeout 8 --miss-budget 2
     PYTHONPATH=src python -m repro_torch.launch.supervisor \
         --run-dir /tmp/sup --status
 """
@@ -60,16 +91,24 @@ import argparse
 import dataclasses
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
 
 from repro_torch.checkpoint.store import latest_step
 from repro_torch.core.tuner import shrink_plan
-from repro_torch.runtime.resilience import (EXIT_ESCALATE, StragglerDetector,
-                                            Watchdog, read_heartbeats)
+from repro_torch.launch.mesh import HostTopology
+from repro_torch.runtime.resilience import (ENTRY_BEATS, EXIT_ESCALATE,
+                                            EXIT_PEER_LOST,
+                                            StragglerDetector, Watchdog,
+                                            read_heartbeats)
 
 EVENTS_FILE = "events.jsonl"
+# seconds the verdict waits, once a rank has escalated or gone down, for
+# the rest of the world to exit too (ranks in lockstep fail within a moment
+# of each other: every host that escalated or went down with it counts)
+SETTLE_S = 2.0
 
 
 # ---------------------------------------------------------------------------
@@ -119,8 +158,8 @@ class SupervisorConfig:
     steps: int = 40
     global_batch: int = 8
     arch: str = "uvit-nano"
-    dp: int = 1
-    pp: int = 4
+    dp: int = 2
+    pp: int = 2
     zero_stage: int = 0
     microbatches: int = 4
     wire_dtype: str = "float32"
@@ -142,10 +181,9 @@ class SupervisorConfig:
     # recovery policy
     max_restarts: int = 3
     backoff_base: float = 1.0       # restart n sleeps base * 2**(n-1)
-    commit_timeout: float = 60.0    # worker-side checkpoint barrier
     worker_env: dict = dataclasses.field(default_factory=dict)
     log_every: int = 10
-    device: str = "cuda"            # every worker's --device
+    device: str = "cuda"            # every rank's --device
 
 
 @dataclasses.dataclass
@@ -164,22 +202,35 @@ class SupervisorResult:
 # Supervisor
 # ---------------------------------------------------------------------------
 
-class _Worker:
-    def __init__(self, host_id: int, proc: subprocess.Popen, log: str,
-                 out_json: str):
+class _Rank:
+    """One rank process of a generation: its host, its rank, its log and
+    its result file."""
+
+    def __init__(self, host_id: int, rank: int, proc: subprocess.Popen,
+                 log: str, out_json: str):
         self.host_id = host_id
+        self.rank = rank
         self.proc = proc
         self.log = log
         self.out_json = out_json
 
 
-def _check_plan(plan) -> None:
-    dp, pp, zero = plan
-    if dp > 1 or zero > 0:
-        raise NotImplementedError(
-            f"the plan dp={dp} pp={pp} zero_stage={zero}: data parallelism "
-            "and ZeRO are not yet ported to repro_torch (its workers run "
-            "dp=1, zero_stage=0)")
+def _rendezvous_store():
+    """A generation's rendezvous store, served by the supervisor as
+    torchrun's agent serves it, on a port the OS picks as it binds it: a
+    fresh one for each generation (a torn-down generation's port may linger
+    in TIME_WAIT), and no rank's bind can race another process for it."""
+    from torch.distributed import TCPStore
+    return TCPStore("127.0.0.1", 0, is_master=True)
+
+
+def _signal_group(proc: subprocess.Popen, sig: int) -> None:
+    """``sig`` to the process group a rank leads (its session's), which
+    reaches whatever the rank started too."""
+    try:
+        os.killpg(proc.pid, sig)
+    except ProcessLookupError:
+        pass
 
 
 class Supervisor:
@@ -191,11 +242,17 @@ class Supervisor:
         self.log_dir = os.path.join(cfg.run_dir, "logs")
         os.makedirs(self.log_dir, exist_ok=True)
         self.events = EventLog(os.path.join(cfg.run_dir, EVENTS_FILE))
+        self.cards = self._cards()
+        self.store = None               # the live generation's rendezvous
 
     # ---- launch ------------------------------------------------------
 
     def _worker_cmd(self, host_id: int, num_hosts: int, plan, gen: int,
                     faults: str | None, out_json: str) -> list[str]:
+        """Every rank of host ``host_id``'s command (``out_json`` holds the
+        ``{rank}`` field the trainer fills in); the rank is in its
+        environment (:meth:`_rank_env`).  Ranks that share cards (fewer
+        than a rank each) move their hops over the staged gloo ring."""
         dp, pp, zero = plan
         cmd = [sys.executable, "-m", "repro_torch.launch.train",
                "--arch", self.cfg.arch, "--pipeline",
@@ -211,12 +268,13 @@ class Supervisor:
                "--keep", str(self.cfg.keep), "--resume",
                "--host-id", str(host_id), "--num-hosts", str(num_hosts),
                "--heartbeat-dir", self.hb_dir, "--gen", str(gen),
-               "--commit-timeout", str(self.cfg.commit_timeout),
                "--nan-skip-budget", str(self.cfg.nan_skip_budget),
                "--escalation", self.cfg.escalation,
                "--log-every", str(self.cfg.log_every),
                "--device", self.cfg.device,
                "--out-json", out_json]
+        if self.cfg.device == "cuda" and len(self.cards) < dp * pp:
+            cmd += ["--ring", "gloo"]
         if faults:
             cmd += ["--faults", faults]
         return cmd
@@ -231,48 +289,101 @@ class Supervisor:
         env.update(self.cfg.worker_env)
         return env
 
+    def _cards(self) -> list[str]:
+        """The cards the ranks may use: ``CUDA_VISIBLE_DEVICES`` of the
+        ranks' environment when it is set, else every card ``nvidia-smi``
+        lists, by UUID; none on the CPU or without ``nvidia-smi``."""
+        if self.cfg.device != "cuda":
+            return []
+        vis = self._worker_env().get("CUDA_VISIBLE_DEVICES")
+        if vis is not None:
+            return [c.strip() for c in vis.split(",") if c.strip()]
+        try:
+            smi = subprocess.run(["nvidia-smi", "--query-gpu=uuid",
+                                  "--format=csv,noheader"],
+                                 capture_output=True, text=True, timeout=60)
+        except (OSError, subprocess.TimeoutExpired):
+            return []
+        return smi.stdout.split() if smi.returncode == 0 else []
+
+    def _rank_env(self, topo: HostTopology, rank: int, port: int) -> dict:
+        """Rank ``rank``'s environment: torchrun's, with host ``h``'s
+        ``devices_per_host`` ranks as its local world, and with at least
+        one card a rank, host ``h``'s cards alone visible.  ``port`` is the
+        generation's store's, which the ranks join as clients."""
+        env = self._worker_env()
+        h = topo.host_of_device(rank)
+        mine = topo.host_devices(h)
+        env.update(RANK=str(rank), WORLD_SIZE=str(topo.num_devices),
+                   LOCAL_RANK=str(rank - mine.start),
+                   LOCAL_WORLD_SIZE=str(topo.devices_per_host),
+                   GROUP_RANK=str(h), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), TORCHELASTIC_USE_AGENT_STORE="True")
+        if len(self.cards) >= topo.num_devices:
+            env["CUDA_VISIBLE_DEVICES"] = ",".join(self.cards[i]
+                                                   for i in mine)
+        return env
+
     def _launch(self, num_hosts: int, plan, gen: int,
-                faults: str | None) -> list[_Worker]:
-        workers = []
-        for h in range(num_hosts):
-            log = os.path.join(self.log_dir, f"worker_h{h}.g{gen}.log")
-            out = os.path.join(self.log_dir, f"result_h{h}.g{gen}.json")
+                faults: str | None) -> list[_Rank]:
+        topo = HostTopology(num_hosts, self.cfg.devices_per_host)
+        dp, pp, zero = plan
+        if dp * pp != topo.num_devices:
+            raise ValueError(f"the plan dp={dp} x pp={pp} needs {dp * pp} "
+                             f"ranks; {num_hosts} hosts x "
+                             f"{self.cfg.devices_per_host} devices hold "
+                             f"{topo.num_devices}")
+        self.store = _rendezvous_store()
+        ranks = []
+        for r in range(topo.num_devices):
+            h = topo.host_of_device(r)
+            log = os.path.join(self.log_dir, f"worker_h{h}.r{r}.g{gen}.log")
+            out = os.path.join(self.log_dir,
+                               f"result_h{h}.r{{rank}}.g{gen}.json")
             cmd = self._worker_cmd(h, num_hosts, plan, gen, faults, out)
             with open(log, "w") as lf:
-                proc = subprocess.Popen(cmd, env=self._worker_env(),
-                                        stdout=lf, stderr=subprocess.STDOUT)
-            workers.append(_Worker(h, proc, log, out))
+                proc = subprocess.Popen(
+                    cmd, env=self._rank_env(topo, r, self.store.port),
+                    stdout=lf,
+                    stderr=subprocess.STDOUT, start_new_session=True)
+            ranks.append(_Rank(h, r, proc, log, out.format(rank=r)))
         self.events.emit("launch", gen=gen, hosts=num_hosts,
-                         plan={"dp": plan[0], "pp": plan[1],
-                               "zero_stage": plan[2]},
-                         faults=faults or "")
-        return workers
+                         plan={"dp": dp, "pp": pp, "zero_stage": zero},
+                         faults=faults or "", ranks=topo.num_devices)
+        return ranks
 
-    def _teardown(self, workers: list[_Worker]) -> None:
-        for w in workers:
-            if w.proc.poll() is None:
-                w.proc.terminate()
+    def _teardown(self, ranks: list[_Rank]) -> None:
+        """End every rank of a generation and whatever it started: SIGTERM
+        to each rank's process group, SIGKILL to every group still there
+        5 s later; then close the generation's store."""
+        for r in ranks:
+            _signal_group(r.proc, signal.SIGTERM)
         deadline = time.time() + 5.0
-        for w in workers:
-            if w.proc.poll() is None:
-                try:
-                    w.proc.wait(timeout=max(deadline - time.time(), 0.1))
-                except subprocess.TimeoutExpired:
-                    w.proc.kill()
-                    w.proc.wait()
+        for r in ranks:
+            try:
+                r.proc.wait(timeout=max(deadline - time.time(), 0.1))
+            except subprocess.TimeoutExpired:
+                pass
+        for r in ranks:
+            _signal_group(r.proc, signal.SIGKILL)
+            r.proc.wait()
+        self.store = None
 
     # ---- monitor -----------------------------------------------------
 
-    def _monitor(self, workers: list[_Worker], gen: int
+    def _monitor(self, ranks: list[_Rank], gen: int
                  ) -> tuple[str, list[int]]:
         """Watch one generation until it finishes or fails.
 
         Returns ``(outcome, hosts)``: ``("done", [])``, ``("escalate",
-        [h])`` (rollback, same plan), or ``("hostdown", dead_hosts)``
-        (rollback + shrink; includes hung hosts the supervisor killed).
+        [h])`` (rollback, same plan), ``("peer-lost", [])`` (rollback, same
+        plan: ranks lost a peer and no host is to blame), or
+        ``("hostdown", dead_hosts)`` (rollback + shrink; includes hung
+        hosts the supervisor killed).
         """
         cfg = self.cfg
-        hosts = [w.host_id for w in workers]
+        hosts = sorted({r.host_id for r in ranks})
+        of_host = {h: [r for r in ranks if r.host_id == h] for h in hosts}
         dog = Watchdog(hosts, stall_timeout=cfg.stall_timeout,
                        startup_timeout=cfg.startup_timeout,
                        miss_budget=cfg.miss_budget)
@@ -306,27 +417,26 @@ class Supervisor:
                                      step=hb.step, loss=hb.loss,
                                      grad_norm=hb.grad_norm)
 
-            # process exits take precedence over heartbeat inference
-            dead, escalated, running = [], [], []
-            for w in workers:
-                rc = w.proc.poll()
-                if rc is None:
-                    running.append(w)
-                elif rc == EXIT_ESCALATE:
-                    escalated.append(w.host_id)
-                elif rc != 0:
-                    dead.append(w.host_id)
+            # process exits take precedence over heartbeat inference; a
+            # host's verdict is its ranks' exit codes, read once the world
+            # has settled
+            dead, escalated, running, lost = _exits(of_host)
+            if (dead or escalated) and running:
+                settle = time.time() + SETTLE_S
+                while running and time.time() < settle:
+                    time.sleep(0.05)
+                    dead, escalated, running, lost = _exits(of_host)
             if escalated:
                 self.events.emit("escalate", gen=gen, hosts=escalated)
                 return "escalate", escalated
             if dead:
-                for h in dead:
-                    self.events.emit("hostdown", gen=gen, host=h,
-                                     rc=next(w.proc.returncode
-                                             for w in workers
-                                             if w.host_id == h))
-                return "hostdown", dead
+                for h, rc in dead.items():
+                    self.events.emit("hostdown", gen=gen, host=h, rc=rc)
+                return "hostdown", list(dead)
             if not running:
+                if lost:
+                    self.events.emit("peer-lost", gen=gen, hosts=lost)
+                    return "peer-lost", []
                 return "done", []
 
             checks = dog.check()
@@ -338,18 +448,28 @@ class Supervisor:
                         self.events.emit("heartbeat-miss", gen=gen, host=h,
                                          age=round(dog.age(h), 2))
                     verdicts[h] = v
-                if v == "hung" and any(w.host_id == h
-                                       and w.proc.poll() is None
-                                       for w in workers):
+                if v == "hung" and h in running:
                     hung.append(h)
             if hung:
                 # one hung host wedges its peers (stuck collectives, the
                 # checkpoint commit barrier), so several hosts stall at
-                # once: attribute the hang to the ROOT cause -- the hung
-                # host(s) with the least step progress -- and count the
-                # rest as survivors for the shrink
-                low = min(dog.progress(h)[1] for h in hung)
-                roots = [h for h in hung if dog.progress(h)[1] == low]
+                # once: attribute the hang to the ROOT cause -- the host(s)
+                # with the least step progress -- and count the rest as
+                # survivors for the shrink.  Ranks stall in lockstep, on
+                # the same last train beat and within a poll of each
+                # other: every stalled host is a candidate, and the step
+                # its ranks entered counts as progress
+                entered = read_heartbeats(os.path.join(self.hb_dir,
+                                                       ENTRY_BEATS), gen=gen)
+
+                def reach(h):
+                    return max(dog.progress(h)[1],
+                               entered[h].step if h in entered else -2)
+
+                stalled = [h for h in hosts if h in running
+                           and verdicts[h] in ("hung", "suspect")]
+                low = min(reach(h) for h in stalled)
+                roots = [h for h in stalled if reach(h) == low]
                 for h in roots:
                     self.events.emit("hang", gen=gen, host=h,
                                      age=round(dog.age(h), 2),
@@ -368,15 +488,14 @@ class Supervisor:
         cfg = self.cfg
         num_hosts = cfg.num_hosts
         plan = (cfg.dp, cfg.pp, cfg.zero_stage)
-        _check_plan(plan)
         losses: dict[int, float] = {}
         gen, restarts = 0, 0
         faults = cfg.faults
         while True:
-            workers = self._launch(num_hosts, plan, gen, faults)
-            outcome, bad = self._monitor(workers, gen)
-            self._teardown(workers)
-            self._collect_losses(workers, losses)
+            ranks = self._launch(num_hosts, plan, gen, faults)
+            outcome, bad = self._monitor(ranks, gen)
+            self._teardown(ranks)
+            self._collect_losses(ranks, losses)
             if outcome == "done":
                 self.events.emit("done", gen=gen,
                                  steps=cfg.steps, hosts=num_hosts)
@@ -406,7 +525,6 @@ class Supervisor:
                 new_plan = shrink_plan(
                     survivors * cfg.devices_per_host, dp=plan[0],
                     pp=plan[1], zero_stage=plan[2])
-                _check_plan(new_plan)
                 self.events.emit(
                     "shrink", gen=gen, hosts=survivors, lost=bad,
                     plan={"dp": new_plan[0], "pp": new_plan[1],
@@ -421,19 +539,40 @@ class Supervisor:
             gen += 1
             faults = cfg.relaunch_faults
 
-    def _collect_losses(self, workers: list[_Worker],
+    def _collect_losses(self, ranks: list[_Rank],
                         losses: dict[int, float]) -> None:
-        """Merge a generation's step->loss map (workers are replicas of the
-        same computation, so any one host's trajectory is THE trajectory;
-        post-rollback steps overwrite their first attempt)."""
-        for w in workers:
+        """Merge a generation's step->loss map (every rank records the
+        step's reduced loss, so any one rank's trajectory is THE
+        trajectory; post-rollback steps overwrite their first attempt)."""
+        for r in ranks:
             try:
-                with open(w.out_json) as f:
+                with open(r.out_json) as f:
                     doc = json.load(f)
             except (OSError, json.JSONDecodeError):
                 continue
             for k, v in doc.get("losses", {}).items():
                 losses[int(k)] = v
+
+
+def _exits(of_host: dict) -> tuple:
+    """``(dead, escalated, running, lost)`` from each host's ranks' exit
+    codes: host -> the first code that blames it (nonzero, not
+    ``EXIT_PEER_LOST``), the hosts with a rank that exited
+    ``EXIT_ESCALATE`` (not counted dead), those with a rank still running,
+    and those with a rank that exited ``EXIT_PEER_LOST``."""
+    dead, escalated, running, lost = {}, [], set(), []
+    for h, ranks in of_host.items():
+        codes = [r.proc.poll() for r in ranks]
+        blame = [c for c in codes if c not in (None, 0, EXIT_PEER_LOST)]
+        if EXIT_ESCALATE in codes:
+            escalated.append(h)
+        elif blame:
+            dead[h] = blame[0]
+        if None in codes:
+            running.add(h)
+        if EXIT_PEER_LOST in codes:
+            lost.append(h)
+    return dead, escalated, running, lost
 
 
 def _finite(x: float) -> bool:
@@ -490,9 +629,8 @@ def _parse_args(argv=None):
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--arch", default="uvit-nano")
-    ap.add_argument("--dp", type=int, default=1,
-                    help="data-parallel degree (only 1 is ported)")
-    ap.add_argument("--pp", type=int, default=4)
+    ap.add_argument("--dp", type=int, default=2)
+    ap.add_argument("--pp", type=int, default=2)
     ap.add_argument("--zero-stage", type=int, default=0, choices=(0, 1, 2))
     ap.add_argument("--microbatches", type=int, default=4)
     ap.add_argument("--wire-dtype", default="float32")
@@ -515,9 +653,9 @@ def _parse_args(argv=None):
     ap.add_argument("--backoff-base", type=float, default=1.0)
     ap.add_argument("--straggler-factor", type=float, default=2.0)
     ap.add_argument("--straggler-patience", type=int, default=3)
-    ap.add_argument("--commit-timeout", type=float, default=60.0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="where every worker runs its model")
+                    help="where every rank runs its model (ranks that "
+                         "share cards use the gloo ring)")
     return ap.parse_args(argv)
 
 
@@ -541,7 +679,7 @@ def main(argv=None) -> int:
         backoff_base=args.backoff_base,
         straggler_factor=args.straggler_factor,
         straggler_patience=args.straggler_patience,
-        commit_timeout=args.commit_timeout, device=args.device)
+        device=args.device)
     res = Supervisor(cfg).run()
     print(f"[supervisor] {res.outcome}: {res.generations} generation(s), "
           f"{res.restarts} restart(s), final plan dp={res.final_plan[0]} "

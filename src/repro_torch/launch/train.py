@@ -56,8 +56,8 @@ Fault-tolerance contract, the JAX trainer's single-host one:
   exit 43 for a supervisor to roll back;
 - ``--heartbeat-dir D`` writes a heartbeat per step (``--gen`` tags it).
 
-Multi-host worker mode (how ``launch/supervisor.py`` runs this trainer, one
-process per host; the JAX trainer's contract):
+Multi-host worker mode, one process per host (the JAX trainer's contract;
+``launch/supervisor.py`` runs hosts of ranks instead, below):
 
 - ``--host-id h --num-hosts H`` makes this process host ``h`` of ``H``: it
   writes ONLY its own checkpoint shard (``shard_{h:05d}.npz``; host 0
@@ -102,6 +102,22 @@ forward+backward of the paper's skip-carry baseline from the initial
 params after training.  Without torchrun's environment the one-process
 executor runs one replica (``--dp > 1`` raises ``ValueError``).
 
+Hosts of ranks (``--num-hosts H --host-id h`` under torchrun, as ``torchrun
+--nnodes H --node-rank h`` or ``launch/supervisor.py`` launches them): the
+world is H hosts of ``LOCAL_WORLD_SIZE`` ranks each, host ``h`` owning
+ranks ``[h x LOCAL_WORLD_SIZE, (h+1) x LOCAL_WORLD_SIZE)``
+(``launch.mesh.HostTopology``); a world that disagrees is refused before
+any process group exists.  Each host's local rank 0 writes the host's
+heartbeats, and every rank runs ``FaultPlan.for_host(h, H)``, so
+``hostdown@K:h`` and ``hang@K[:h]`` take all of host h's ranks.  A save is
+the commit of the JAX trainer's multi-host save: it returns once every
+shard of the step has landed and the ranks agree on it.  A rank whose
+collective fails, once its process group exists, because a peer is gone
+(gloo's transport errors, a wait past ``RING_TIMEOUT_S``,
+``torch.distributed``'s own errors) exits ``EXIT_PEER_LOST`` (44), so
+that a supervisor blames the host that died, not the hosts it took down
+with it.
+
 Checkpoints over ranks: ``--ckpt-dir`` makes every rank write
 ``shard_<rank>.npz`` of one checkpoint in the JAX package's format, every
 leaf whole as one process of the plan holds it.  At a save every rank
@@ -116,8 +132,6 @@ reading only what it holds (``runtime.resilience.restore_rank_state``),
 elastically when the plan changed.  ``kill@K``/``stop@K`` fire on every
 rank after the flush; ``corrupt@K``/``truncate@K`` on rank 0 alone, after
 every shard landed; GC is rank 0's, once the ranks agree a step landed.
-``--num-hosts > 1`` with ranks is not
-ported yet (the supervisor over ranks).
 
 Not ported yet, and refused with ``NotImplementedError``: the LM smoke
 archs.
@@ -158,6 +172,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import time
 from typing import Any, Callable
 
@@ -231,8 +246,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen", type=int, default=0,
                     help="supervisor generation stamped into heartbeats")
     ap.add_argument("--commit-timeout", type=float, default=60.0,
-                    help="multi-host barrier timeout (s): the start "
-                         "barrier and each checkpoint step's commit")
+                    help="multi-host barrier timeout (s) of the "
+                         "one-process worker mode: the start barrier and "
+                         "each checkpoint step's commit (ranks commit over "
+                         "their process group)")
     ap.add_argument("--simulate-failure", type=int, default=0,
                     help="legacy alias for --faults kill@K")
     ap.add_argument("--out-json", default=None,
@@ -309,23 +326,57 @@ class TrainResult:
 
 
 def _dump_losses(path: str, losses: dict, start: int, step_s: dict,
-                 beat_t: dict) -> None:
+                 beat_t: dict, peak_bytes: int | None) -> None:
     """The atomic per-step dump: losses, step seconds, each train beat's
-    wall-clock time and this process's kernel launches so far (a worker
-    that is killed leaves them for its supervisor)."""
+    wall-clock time, this process's kernel launches so far and its peak
+    device memory since the first step (a worker that is killed leaves
+    them for its supervisor)."""
     from repro_torch.kernels import launch_counts
     doc = {"losses": {str(k): v for k, v in losses.items()},
            "step_seconds": {str(k): v for k, v in step_s.items()},
            "beat_t": {str(k): v for k, v in beat_t.items()},
-           "launches": launch_counts(), "start": start, "partial": True}
+           "launches": launch_counts(), "start": start,
+           "peak_bytes": peak_bytes, "partial": True}
     tmp = path + f".tmp{os.getpid()}"
     with open(tmp, "w") as f:
         json.dump(doc, f)
     os.replace(tmp, path)
 
 
-def main(argv=None):
-    return run(_parse_args(argv)).final_loss
+def main(argv=None, **run_kw):
+    """The command line's :func:`run` (``run_kw`` passed on): over ranks,
+    a collective that failed because a peer is gone exits
+    ``EXIT_PEER_LOST``.  Only once the process group exists: an error of
+    the rank's own rendezvous blames its host."""
+    import torch.distributed as dist
+    args = _parse_args(argv)
+    try:
+        return run(args, **run_kw).final_loss
+    except Exception as e:
+        if not (args.pipeline and rank_env() is not None
+                and dist.is_initialized() and _peer_lost(e)):
+            raise
+        from repro_torch.runtime.resilience import EXIT_PEER_LOST
+        print(f"[train] a peer rank is gone ({type(e).__name__}: "
+              f"{str(e)[:300]}); exiting {EXIT_PEER_LOST}", flush=True)
+        # the process group is broken: no clean shutdown to wait for
+        os._exit(EXIT_PEER_LOST)
+
+
+# gloo's errors when a peer rank is gone: its TCP transport's (a connection
+# reset or closed, a read or write error) and a wait past the timeout
+_GLOO_PEER_LOST = re.compile(r"gloo/transport/|Connection (reset|closed) by "
+                             r"peer|Timed out waiting")
+
+
+def _peer_lost(e: BaseException) -> bool:
+    """Whether ``e`` is a collective that failed because a peer rank is
+    gone: ``torch.distributed``'s own errors (its store, network and
+    backend errors, NCCL's among them) or gloo's transport errors, which
+    it raises as a plain ``RuntimeError``."""
+    import torch.distributed as dist
+    return isinstance(e, dist.DistError) or (
+        isinstance(e, RuntimeError) and bool(_GLOO_PEER_LOST.search(str(e))))
 
 
 def _refuse_unported(args) -> None:
@@ -358,29 +409,40 @@ def _refuse_one_process_dp(args) -> None:
 
 
 def rank_env(environ=None) -> dict | None:
-    """``{"rank", "world", "local_rank"}`` from torchrun's environment, or
-    None when any of :data:`RANK_ENV` is missing (one process)."""
+    """``{"rank", "world", "local_rank", "local_world"}`` from torchrun's
+    environment, or None when any of :data:`RANK_ENV` is missing (one
+    process).  ``local_world`` is ``LOCAL_WORLD_SIZE``, the ranks of this
+    rank's host (the whole world when it is not set: one host)."""
     env = os.environ if environ is None else environ
     if not all(k in env for k in RANK_ENV):
         return None
     return {"rank": int(env["RANK"]), "world": int(env["WORLD_SIZE"]),
-            "local_rank": int(env["LOCAL_RANK"])}
+            "local_rank": int(env["LOCAL_RANK"]),
+            "local_world": int(env.get("LOCAL_WORLD_SIZE",
+                                       env["WORLD_SIZE"]))}
 
 
 def _refuse_rank_options(args, env: dict) -> None:
-    """What a run over ranks does not do yet, refused before any process
-    group exists."""
-    if args.num_hosts > 1:
-        raise NotImplementedError(
-            "--num-hosts > 1 with one process per pipeline device is not "
-            "yet ported to repro_torch: the supervisor over ranks (ROADMAP "
-            "A1) launches torchrun worlds as its hosts")
+    """A world that disagrees with the plan or with ``--num-hosts`` /
+    ``--host-id``, refused before any process group exists."""
+    from repro_torch.launch.mesh import HostTopology
     P = _pipeline_degree(args)
     if env["world"] != args.dp * P:
         raise ValueError(f"{env['world']} processes cannot run a "
                          f"{P}-device pipeline with {args.dp} data "
                          f"replicas: the world is --dp x --pp = "
                          f"{args.dp * P}")
+    if env["world"] != args.num_hosts * env["local_world"]:
+        raise ValueError(f"a world of {env['world']} ranks is not "
+                         f"--num-hosts {args.num_hosts} hosts of "
+                         f"LOCAL_WORLD_SIZE {env['local_world']} ranks")
+    host = HostTopology(args.num_hosts,
+                        env["local_world"]).host_of_device(env["rank"])
+    if args.host_id != host:
+        raise ValueError(f"rank {env['rank']} belongs to host {host} of "
+                         f"{args.num_hosts} (LOCAL_WORLD_SIZE "
+                         f"{env['local_world']}), not --host-id "
+                         f"{args.host_id}")
 
 
 @dataclasses.dataclass
@@ -1018,8 +1080,8 @@ def run(args, on_restore=None, init_params=None, draw=None,
         _refuse_one_process_dp(args)
     if compiled is not None and not args.pipeline:
         raise ValueError("a compiled pipeline plan needs --pipeline")
-    from repro_torch.runtime.resilience import (EXIT_ESCALATE, FaultPlan,
-                                                GradGuard,
+    from repro_torch.runtime.resilience import (ENTRY_BEATS, EXIT_ESCALATE,
+                                                FaultPlan, GradGuard,
                                                 GradGuardEscalation,
                                                 Heartbeat, all_finite,
                                                 write_heartbeat)
@@ -1027,14 +1089,27 @@ def run(args, on_restore=None, init_params=None, draw=None,
     faults = FaultPlan.parse(args.faults)
     if args.simulate_failure:
         faults = faults.with_kill(args.simulate_failure)
-    # malformed specs die here, not mid-training
+    # malformed specs die here, not mid-training; every rank of a host
+    # runs the host's plan
     faults = faults.for_host(args.host_id, args.num_hosts)
+    # each host's local rank 0 speaks for the host
+    beats = bool(args.heartbeat_dir) and (env is None
+                                          or env["local_rank"] == 0)
 
     def beat(step, phase, loss=None, gnorm=None, step_s=None):
-        if args.heartbeat_dir and (env is None or env["rank"] == 0):
+        if beats:
             write_heartbeat(args.heartbeat_dir, Heartbeat(
                 args.host_id, step, phase, loss=loss, grad_norm=gnorm,
                 step_s=step_s, gen=args.gen))
+
+    def beat_entry(step):
+        # lockstep ranks: a host that hangs before step K stalls its peers
+        # inside step K, on the same last train beat; the step they
+        # entered tells the root from them
+        if beats:
+            write_heartbeat(os.path.join(args.heartbeat_dir, ENTRY_BEATS),
+                            Heartbeat(args.host_id, step, "enter",
+                                      gen=args.gen))
 
     beat(-1, "init")
     import torch
@@ -1085,7 +1160,14 @@ def run(args, on_restore=None, init_params=None, draw=None,
             io_fault=faults.io_fault)
 
     multi_host = args.num_hosts > 1
-    if multi_host:
+    if multi_host and ranks is not None:
+        # the process group is the hosts' rendezvous
+        from repro_torch.launch.mesh import HostTopology
+        topo = HostTopology(args.num_hosts, env["local_world"])
+        if env["local_rank"] == 0:
+            print("[train] " + topo.describe().replace("\n", "\n[train] "),
+                  flush=True)
+    elif multi_host:
         from repro_torch.launch.mesh import FileBarrier, HostTopology
         topo = HostTopology(args.num_hosts,
                             max(args.devices // args.num_hosts, 1))
@@ -1173,15 +1255,17 @@ def run(args, on_restore=None, init_params=None, draw=None,
 
     def save_at(step_next: int) -> None:
         """Single host and ranks: async save (over ranks the gather, on
-        every rank at this point, is the snapshot).  Multi-host: blocking
-        shard write, then the rendezvous on step completeness (the commit
+        every rank at this point, is the snapshot); over ranks of several
+        hosts it then waits for the commit: every shard landed and the
+        ranks agree on it.  Multi-host, one process a host: blocking shard
+        write, then the rendezvous on step completeness (the commit
         barrier)."""
         from repro_torch.checkpoint import CheckpointError, wait_step_complete
         state = {"params": params, "opt": opt_state}
         # a save is progress: the watchdog must not read a slow commit as a
         # stalled step loop
         beat(step_next, "ckpt")
-        if not multi_host:
+        if ranks is not None or not multi_host:
             # --rank-report: what the rank holds at the save, before the
             # gather and the step's update
             held = (held_digests(compiled, state) if ranks is not None
@@ -1189,6 +1273,10 @@ def run(args, on_restore=None, init_params=None, draw=None,
             mgr.save_async(step_next, state)
             if held is not None:
                 mgr.history[-1]["digests"] = held
+            if multi_host:
+                # a host that dies right after may not take the step with
+                # it: the JAX trainer's multi-host save is blocking too
+                mgr.wait()
             return
         if mgr.save(step_next, state) is None:
             return                  # degraded save: no barrier to meet
@@ -1207,6 +1295,7 @@ def run(args, on_restore=None, init_params=None, draw=None,
     for step in range(start, args.steps):
         if faults.hang_before(step):
             say(f"[train] fault plan: woke from hang at step {step}")
+        beat_entry(step)
         if args.profile and step == start + 1:
             from torch.profiler import ProfilerActivity, profile
             # device kernels only on a card (host op events would slow
@@ -1296,7 +1385,9 @@ def run(args, on_restore=None, init_params=None, draw=None,
              step_s=step_s[step])
         if out_json:
             # an atomic per-step dump: a killed run still leaves its losses
-            _dump_losses(out_json, losses, start, step_s, beat_t)
+            _dump_losses(out_json, losses, start, step_s, beat_t,
+                         torch.cuda.max_memory_allocated(device) if cuda
+                         else None)
         if step % args.log_every == 0 or step == args.steps - 1:
             sps = ((step - start + 1) * args.global_batch
                    / (time.perf_counter() - t0))

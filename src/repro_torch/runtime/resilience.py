@@ -41,7 +41,9 @@
    consecutive-skip budget and an escalation.
 
 4. **Supervisor detection primitives**: :func:`write_heartbeat` /
-   :func:`read_heartbeats` over atomic per-host files (the worker half),
+   :func:`read_heartbeats` over atomic per-host files (the worker half;
+   over ranks each host's local rank 0 writes them, and also the step
+   entry beats under :data:`ENTRY_BEATS`),
    and the supervisor's :class:`Watchdog` (progress-based ``suspect`` /
    ``hung`` verdicts, lenient until a host moves past its first ``train``
    beat) and :class:`StragglerDetector` (per-step ``step_s`` samples
@@ -592,6 +594,7 @@ HANG_SECONDS = 3600.0
 #: process exit codes a supervisor branches on.
 EXIT_KILLED = 42      # kill@K / hostdown@K:h -- a node died
 EXIT_ESCALATE = 43    # GradGuard skip budget exhausted, rollback requested
+EXIT_PEER_LOST = 44   # a rank's collective failed: a peer rank is gone
 
 _FAULT_KINDS = ("kill", "stop", "nan", "corrupt", "truncate", "iofail",
                 "hostdown", "hang", "slow")
@@ -961,7 +964,8 @@ class Heartbeat:
     """One worker's liveness/progress record, written atomically per step.
 
     ``step`` is the last COMPLETED step (-1 before the first), ``phase``
-    one of ``init``, ``train``, ``ckpt``, ``done``.  ``gen`` is the
+    one of ``init``, ``train``, ``ckpt``, ``done`` (and ``enter``, with
+    the step entered, under :data:`ENTRY_BEATS`).  ``gen`` is the
     supervisor generation that launched the worker, so a monitor never
     confuses a stale file from a torn-down generation with a live worker.
     """
@@ -974,6 +978,13 @@ class Heartbeat:
     step_s: float | None = None     # worker-measured duration of `step`
     pid: int | None = None
     gen: int = 0
+
+
+#: the subdirectory of a heartbeat directory where a host also beats as its
+#: ranks *enter* step K (phase ``enter``, ``step = K``), in files of the
+#: same format that :func:`read_heartbeats` of the directory itself never
+#: reads: the ``train`` beats stay what the :class:`Watchdog` observes.
+ENTRY_BEATS = "enter"
 
 
 def _heartbeat_path(directory: str, host_id: int) -> str:

@@ -833,8 +833,10 @@ def test_rank_piece_is_the_plans_own_placement():
 
 
 def test_trainer_takes_checkpoints_over_ranks(monkeypatch):
-    """``--ckpt-dir`` and ``--resume`` pass the refusals over ranks;
-    ``--num-hosts > 1`` does not."""
+    """``--ckpt-dir`` and ``--resume`` pass the refusals over ranks, and
+    with ``--num-hosts > 1`` too when the world is that many hosts of
+    ``LOCAL_WORLD_SIZE`` ranks."""
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
     for k, v in dict(RANK="0", WORLD_SIZE="4", LOCAL_RANK="0",
                      MASTER_ADDR="localhost").items():
         monkeypatch.setenv(k, v)
@@ -843,8 +845,10 @@ def test_trainer_takes_checkpoints_over_ranks(monkeypatch):
                                                     "--resume"])
     train._refuse_rank_options(args, env)
     args.num_hosts = 2
-    with pytest.raises(NotImplementedError, match="supervisor over ranks"):
+    with pytest.raises(ValueError, match="LOCAL_WORLD_SIZE 4"):
         train._refuse_rank_options(args, env)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    train._refuse_rank_options(args, train.rank_env())
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["jax"]:

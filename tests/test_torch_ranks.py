@@ -739,7 +739,10 @@ def test_trainer_over_ranks_skips_a_nan_step_on_every_rank(
 
 
 @pytest.mark.parametrize("extra, env, match", [
-    (["--num-hosts", "2"], {}, "ROADMAP A1"),
+    # hosts of ranks (ROADMAP A1) run: what stays refused is a world that
+    # is not --num-hosts hosts of LOCAL_WORLD_SIZE ranks
+    pytest.param(["--num-hosts", "2"], {}, "not --num-hosts 2 hosts",
+                 id="extra0-env0-ROADMAP A1"),
     ([], {"WORLD_SIZE": "4"}, "ROADMAP A3"),
 ])
 def test_trainer_refuses_what_ranks_do_not_do_yet(monkeypatch, extra, env,
@@ -760,10 +763,11 @@ def test_trainer_refuses_what_ranks_do_not_do_yet(monkeypatch, extra, env,
         with pytest.raises(ValueError, match="the world is --dp x --pp = 2"):
             train.run(train._parse_args(TRAIN_ARGV + extra))
     else:
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match=match):
             train.run(train._parse_args(TRAIN_ARGV + extra))
-    assert train.rank_env() == {"rank": 0, "world": int(
-        env.get("WORLD_SIZE", 2)), "local_rank": 0}
+    world = int(env.get("WORLD_SIZE", 2))
+    assert train.rank_env() == {"rank": 0, "world": world, "local_rank": 0,
+                                "local_world": world}
     monkeypatch.setenv("WORLD_SIZE", "3")
     with pytest.raises(ValueError, match="cannot run a 2-device"):
         train.run(train._parse_args(TRAIN_ARGV))

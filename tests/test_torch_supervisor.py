@@ -12,15 +12,17 @@ model.
   "s ago" ages masked: exactly equal;
 - both ``Supervisor`` classes over scripted workers (a stdlib script that
   writes heartbeats in the shared file format and exits with a scripted
-  code; ``_worker_cmd`` patched on both) and one checkpoint directory
+  code; ``_worker_cmd`` patched on both: the JAX supervisor runs it once a
+  host, the port's once a rank, two ranks a host, each rank writing its
+  host's heartbeats and its own result file) and one checkpoint directory
   written by the port's ``save_checkpoint``, in seven scenarios (all ok,
   hostdown, a hang with two hosts stalled and the root attributed, an
   escalation, the restart budget spent, no surviving host, a straggler):
   event sequences equal in ``kind``, ``gen``, ``host``, ``step``,
   ``plan``, ``reason``, ``hosts`` and ``lost``, results equal but for
   ``events_path``;
-- the port's supervisor refuses ``dp > 1`` and ``zero_stage > 0`` before
-  launching a worker.
+- the CLI's defaults are the JAX supervisor's, and a rank's command and
+  environment are what the trainer over ranks reads.
 
 Timing of the scripted scenarios: the monitor polls every second and every
 worker writes what it will write within a fraction of a second of its
@@ -333,12 +335,14 @@ def beat(step, phase, step_s=None, loss=None):
     os.replace(tmp, os.path.join(hb_dir, "hb_h%05d.json" % host))
 
 losses = {}
+# a port rank fills in its result file's {rank} field, as the trainer does
+out = spec["out"].replace("{rank}", os.environ.get("RANK", ""))
 
 def dump():
-    tmp = spec["out"] + ".tmp"
+    tmp = out + ".tmp"
     with open(tmp, "w") as f:
         json.dump({"losses": losses}, f)
-    os.replace(tmp, spec["out"])
+    os.replace(tmp, out)
 
 beat(-1, "init")
 for at, act in spec["script"]:
@@ -513,53 +517,76 @@ def test_checkpoint_dirs_read_alike(ckpt_dirs):
     assert latest_step(ckpt_dirs["4"]) == 4
 
 
-@pytest.mark.parametrize("over", [dict(dp=2, pp=2), dict(zero_stage=1),
-                                  dict(dp=2, pp=2, zero_stage=2)])
-def test_supervisor_refuses_dp_and_zero_before_launch(tmp_path, over):
-    cfg = port_sup.SupervisorConfig(run_dir=str(tmp_path), **{
-        "dp": 1, "pp": 4, **over})
-    sup = port_sup.Supervisor(cfg)
-    launched = []
-    sup._launch = lambda *a: launched.append(a)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        sup.run()
-    assert launched == []
-    assert port_sup.read_events(os.path.join(str(tmp_path),
-                                             "events.jsonl")) == []
-
-
 def test_supervisor_cli_defaults_fold_the_pipeline():
+    """The JAX supervisor's defaults: dp=2 pp=2 on 2 hosts x 2 devices;
+    losing a host keeps the pipeline and drops a replica."""
     from repro.core.tuner import shrink_plan as jax_shrink
     from repro_torch.core.tuner import shrink_plan
     args = port_sup._parse_args(["--run-dir", "x"])
-    assert (args.dp, args.pp, args.hosts, args.devices_per_host,
-            args.device) == (1, 4, 2, 2, "cuda")
+    jargs = jax_sup._parse_args(["--run-dir", "x"])
+    assert (args.dp, args.pp, args.hosts, args.devices_per_host) == \
+        (jargs.dp, jargs.pp, jargs.hosts, jargs.devices_per_host) == \
+        (2, 2, 2, 2)
+    assert args.device == "cuda" and not hasattr(args, "ring")
     assert args.dp * args.pp == args.hosts * args.devices_per_host
-    assert shrink_plan(2, dp=1, pp=4) == jax_shrink(2, dp=1, pp=4) == \
+    assert shrink_plan(2, dp=2, pp=2) == jax_shrink(2, dp=2, pp=2) == \
         (1, 2, 0)
     cfg = port_sup.SupervisorConfig(run_dir="x")
-    assert (cfg.dp, cfg.pp, cfg.device) == (1, 4, "cuda")
+    jcfg = jax_sup.SupervisorConfig(run_dir="x")
+    assert (cfg.dp, cfg.pp, cfg.zero_stage) == \
+        (jcfg.dp, jcfg.pp, jcfg.zero_stage) == (2, 2, 0)
+    assert cfg.device == "cuda" and not hasattr(cfg, "ring")
 
 
 def test_worker_command_and_env(tmp_path):
+    """A rank's command and environment: the trainer parses every flag,
+    ``rank_env`` reads torchrun's variables, and the world agrees with
+    ``--num-hosts``/``--host-id``; with a card a rank visible, each host
+    sees its own and the ranks keep the trainer's ring; ranks that share
+    cards get the gloo ring."""
+    from repro_torch.launch import train
     cfg = port_sup.SupervisorConfig(run_dir=str(tmp_path), device="cpu",
+                                    zero_stage=2,
                                     worker_env={"OMP_NUM_THREADS": "1"})
     sup = port_sup.Supervisor(cfg)
-    cmd = sup._worker_cmd(1, 2, (1, 4, 0), 3, "hang@6", "o.json")
+    cmd = sup._worker_cmd(1, 2, (2, 2, 2), 3, "hang@6", "o.r{rank}.json")
     assert cmd[1:3] == ["-m", "repro_torch.launch.train"]
     i = cmd.index("--device")
     assert cmd[i + 1] == "cpu" and cmd[-2:] == ["--faults", "hang@6"]
     assert cmd[cmd.index("--host-id") + 1] == "1"
-    # the trainer parses every flag the supervisor passes
-    from repro_torch.launch import train
     args = train._parse_args(cmd[3:])
-    assert (args.host_id, args.num_hosts, args.gen, args.devices,
-            args.pp) == (1, 2, 3, 4, 4)
-    env = sup._worker_env()
+    assert (args.host_id, args.num_hosts, args.gen, args.devices, args.dp,
+            args.pp, args.zero_stage, args.ring, args.out_json) == (
+        1, 2, 3, 4, 2, 2, 2, None, "o.r{rank}.json")
+    topo = port_mesh.HostTopology(2, 2)
+    env = sup._rank_env(topo, 3, 29512)
+    assert {k: env[k] for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                                "LOCAL_WORLD_SIZE", "GROUP_RANK",
+                                "MASTER_ADDR", "MASTER_PORT")} == dict(
+        RANK="3", WORLD_SIZE="4", LOCAL_RANK="1", LOCAL_WORLD_SIZE="2",
+        GROUP_RANK="1", MASTER_ADDR="127.0.0.1", MASTER_PORT="29512")
+    assert env["TORCHELASTIC_USE_AGENT_STORE"] == "True"   # a client each
+    renv = train.rank_env(env)
+    assert renv == {"rank": 3, "world": 4, "local_rank": 1,
+                    "local_world": 2}
+    train._refuse_rank_options(args, renv)
     assert env.get("XLA_FLAGS") == os.environ.get("XLA_FLAGS")  # not set
+    assert env.get("CUDA_VISIBLE_DEVICES") == \
+        os.environ.get("CUDA_VISIBLE_DEVICES")        # the CPU: untouched
     src = env["PYTHONPATH"].split(os.pathsep)[0]
     assert os.path.isdir(os.path.join(src, "repro_torch"))
     assert env["OMP_NUM_THREADS"] == "1"
+    # on cards: one a rank visible -> each host its own, the trainer's
+    # ring; fewer -> shared, over gloo
+    for cards, want, ring in (("a,b,c,d", "c,d", None),
+                              ("a,b", "a,b", "gloo")):
+        card_sup = port_sup.Supervisor(port_sup.SupervisorConfig(
+            run_dir=str(tmp_path / cards), worker_env={
+                "CUDA_VISIBLE_DEVICES": cards}))
+        assert card_sup._rank_env(topo, 2, 1)["CUDA_VISIBLE_DEVICES"] == \
+            want
+        card_cmd = card_sup._worker_cmd(1, 2, (2, 2, 0), 0, None, "o.json")
+        assert train._parse_args(card_cmd[3:]).ring == ring
 
 
 def test_supervisor_module_makes_no_cuda_call():

@@ -10,15 +10,17 @@ on the CPU.
   0's GC runs retention the whole time (the scenario of
   ``tests/helpers/concurrent_ckpt.py`` through the port's store): the
   half-written step is never reported complete and never collected;
-- the port's supervisor with port workers (``--device cpu``, one torch
-  thread each) at the plan `chip_smoke.py` runs: 2 hosts x 2 devices,
-  ``dp=1 pp=4``, M=4, global batch 8, 12 steps, fp32 wire, a checkpoint
-  every 4 steps.  ``hostdown@8:1`` and ``hang@6`` each end ``done`` on
-  ``(1, 2, 0)`` on one host after a rollback to step 8 and step 4, the
-  hang attributed to host 0 within ``stall_timeout x miss_budget`` plus
-  five polls, and the merged 12-step trajectory equals the port's
-  uninterrupted run at rtol 1e-4 (what ``tests/helpers/supervisor_drill.py``
-  checks of the JAX drill).
+- the port's supervisor over ranks (``--device cpu``, one torch thread a
+  rank) at a plan that folds the pipeline when a host goes: 2 hosts x 2
+  ranks, ``dp=1 pp=4``, M=4, global batch 8, 12 steps, fp32 wire, a
+  checkpoint every 4 steps.  ``hostdown@8:1`` and ``hang@6`` each end
+  ``done`` on ``(1, 2, 0)`` on one host of two ranks after a rollback to
+  step 8 and step 4 (an elastic restore, P=4 -> P=2), the hang attributed
+  to host 0 within ``stall_timeout x miss_budget`` plus five polls, and the
+  merged 12-step trajectory equals the port's uninterrupted one-process
+  run at rtol 1e-4 (what ``tests/helpers/supervisor_drill.py`` checks of
+  the JAX drill; ``tests/test_torch_rank_supervisor.py`` runs the JAX
+  drill's own plan, dp=2 pp=2, against the JAX trainer).
 """
 import functools
 import json
@@ -307,11 +309,15 @@ def test_supervised_drill_on_cpu(tmp_path, faults, rollback, detect):
         np.testing.assert_allclose(res.losses[s], ref[s], rtol=1e-4,
                                    err_msg=f"step {s}")
     logs = os.listdir(os.path.join(str(tmp_path), "logs"))
-    assert sorted(n for n in logs if n.endswith(".log")) == [
-        "worker_h0.g0.log", "worker_h0.g1.log", "worker_h1.g0.log"]
+    assert sorted(n for n in logs if n.endswith(".log")) == sorted(
+        [f"worker_h{r // 2}.r{r}.g0.log" for r in range(4)]
+        + ["worker_h0.r0.g1.log", "worker_h0.r1.g1.log"])
     for n in logs:
         if n.endswith(".log"):
             text = open(os.path.join(str(tmp_path), "logs", n)).read()
-            assert "[train] device: cpu" in text, text
+            assert "[train] device: cpu (rank" in text, text
+    gen1 = open(os.path.join(str(tmp_path), "logs",
+                             "worker_h0.r0.g1.log")).read()
+    assert f"resumed from step {rollback} (elastic restore" in gen1, gen1
     status = sup_mod.format_status(str(tmp_path))
     assert detect in status and "rollback" in status
