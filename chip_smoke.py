@@ -28,7 +28,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    train (``uvit-nano``: flash at 6 tokens, 2 heads of 16, the skip
    matmul at M=12 D=N=32, microbatch 2, and a data replica's half of it,
    ``uvit-nano dp=2``; ``skipvit``: flash at 18 tokens, 4 heads of 16;
-   microbatch 2) (the gated
+   microbatch 2) and of the ``lm`` phase (flash causal GQA at sequence
+   4096: smollm-360m's microbatch, B=2 Hq=15 Hkv=5 D=64, and
+   qwen3-moe-30b-a3b's batch, B=2 Hq=32 Hkv=4 D=128; and its smoke
+   keys' batch 4 of 32 tokens, heads of 16, causal: GQA 4:2, with a window
+   of 8, MQA 4:1, and S=40 with a vision prefix; rows ``lm ...``, SDPA
+   with ``enable_gqa`` the library call) (the gated
    linear scan, which no train path calls, at zamba2-2.7b's Mamba2 width
    over 4k steps and at R=32 over 2k steps, forward and backward kernels,
    with mixed dtypes of a and x, and with decays near 1, whose carry spans
@@ -36,7 +41,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    gradients (fp32 with TF32 off at rtol =
    atol = 1e-4; bf16 at rtol = atol = 2e-2, bf16 rounding in another
    summation order; only the skip matmul's weight gradient, a sum over all
-   M rows, takes atol = rtol x max|value|), then timed beside its bound,
+   M rows, takes atol = rtol x max|value|; a bf16 flash output, small
+   where a row averages many keys, is also held to the fp32 plain version
+   of the same inputs at a relative Frobenius error of 1e-2), then timed beside its bound,
    the plain version and a yardstick PyTorch call the port never makes:
    ``ms``, ``plain_ms`` and ``library_ms`` with CUDA events around 20
    calls as issued from Python (host cost included, as a train step pays
@@ -120,6 +127,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     block costs (the fold's turnaround cut off-centre), card against CPU,
     fp32, loss and grads at rtol 1e-3; flash attention must launch in both,
     the skip matmul never (SkipViT's skip is additive);
+16. lm (``lm_smollm``, ``lm_qwen3``, ``lm_smoke``), after phase 10 and
+    after checking that less than 1 GB is still allocated: (a)
+    smollm-360m at full width and depth (32 layers, d=960, 15 heads over
+    5 KV heads of 64, vocab 49152 tied; 361,821,120 params; bf16, random
+    weights from seed 0) at sequence 4096, global batch 16, through
+    ``auto_pipeline(lm_pipeline_graph(CFG), lm_model_fns(CFG), 4)`` at
+    D=4, M=8 on two plans, the folded wave (``force_wave=True``: the tied
+    embedding and readout on device 0) and the linear table plan, three
+    AdamW steps each from the same weights: step seconds, peak memory,
+    every loss finite, every step's loss within 1e-4 relative of the
+    reference's (the non-pipeline ``lm_loss`` on the same weights and
+    batch, a microbatch at a time, and the same AdamW steps) and of the
+    other plan's, the first gradient norm within 1e-2 of the reference's,
+    the flash launches of every step equal to the step tables' count
+    (each stage task's blocks, twice: forward and the remat recompute);
+    (b)
+    qwen3-moe-30b-a3b at full width with its depth cut to 2 of 48 layers
+    to fit one card (1,868,573,184 params; qk-norm, GQA 32:4 at head dim
+    128, 128-expert top-8 scatter dispatch): one non-pipeline
+    value-and-grad of ``lm_loss`` at sequence 4096, batch 2, and one AdamW
+    step: finite losses and gradients, flash twice a layer (the config's
+    remat); (c) each of the seven LM smoke keys through
+    ``repro_torch.launch.train`` for one step (global batch 4) on the
+    card and on the CPU from the same params and batch: losses at rtol
+    1e-5 (fp32), flash once a layer on the card (the SIMT route; danube
+    with its window), none for deepseek's MLA; the kernel phase holds
+    flash at these shapes (``lm smoke`` rows: GQA 4:2, its window of 8,
+    MQA 4:1, S=40 with internvl2's prefix);
 11. supervisor over ranks (``supervisor_phase``), run last, after phase
     14 (its UViT-H part is held to phase 13's losses), after releasing
     this process's memory; every generation is a world of rank processes
@@ -141,7 +176,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     step 8, host 0 stops after step 10; one host of P=2 resumes step 8
     elastically; every host's losses at rtol 1e-4 to the same run;
     launches under path ``host workers``; (b) UViT-H at full width and
-    depth on the hybrid phase's ZeRO-2 plan at V=1 (P=2 G=2, M=2, global
+    the hybrid phase's depth (16 of 32 blocks) on its ZeRO-2 plan at V=1 (P=2 G=2, M=2, global
     batch 16, bf16) as 2 hosts x 2 ranks with ``hostdown@1:1`` and no
     checkpoint (3 steps, a save past the run, the relaunch ``stop@3``):
     hostdown on host 1, rollback (None), shrink to (1, 2, 0), one host of
@@ -173,16 +208,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     each rank's peak memory beside Eq. 14's per-device prediction, the
     step seconds, and that NCCL was not run (one card);
 13. hybrid (``hybrid_phase``), after checking that less than 1 GB is
-    still allocated: the tuner's own N=4 plan for UViT-H at full width and
-    depth (P=2, G=2, V=2, M=2; global batch 16, bf16) as ``torchrun
+    still allocated: the tuner's own N=4 plan for UViT-H at full width,
+    its depth cut to 16 of its 32 blocks (``--layers``, to keep the
+    script's time: this phase's gloo collectives scale with the params)
+    (P=2, G=2, V=2, M=2; global batch 16, bf16) as ``torchrun
     --nproc-per-node 4 ... --dp 2 --pp 2 --interleave 2 --zero-stage Z
     --ring gloo --device cuda --rank-report``, at ZeRO-1 and then ZeRO-2:
     two data replicas of a two-device pipeline, four processes on the one
     card, the ring and the data group staged through pinned host memory;
     before them the same plan in one process (one data replica, the whole
     batch: ``HOP_BYTES``, launches, losses and step 0's fingerprints).
-    ZeRO-0 is not run: Eq. 14 puts its four ranks past the card (printed
-    beside ZeRO-1's and ZeRO-2's).  Held: P, G, V and M are the tuner's
+    ZeRO-0 is not run: the phase holds the two sharded stages (Eq. 14 of
+    each stage printed).  Held: P, G, V and M are the tuner's
     N=4 choice, and the ranks' cuts (the trainer's, on roofline costs;
     the tuner's, on the plan phase's measured costs, are printed beside)
     the one-process run's; every rank's step-0 loss to that run's at
@@ -198,10 +235,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     step seconds and the collectives' host seconds; torchrun's output in
     ``chiprun_out/hybrid_zero{1,2}.log``.  The ZeRO-2 run also takes
     ``--ckpt-dir --ckpt-every 3 --steps 4 --faults stop@4``: it saves step
-    3 (every rank writes its shard of the full-depth checkpoint), trains
+    3 (every rank writes its shard of the checkpoint), trains
     step 3 and stops without a final save;
 14. rank checkpoint (``rank_checkpoint_phase``): four ranks of phase 12's
-    plan (P=4, one replica, ZeRO-0) resume that checkpoint under
+    plan (P=4, one replica, ZeRO-0) at the hybrid phase's depth resume
+    that checkpoint under
     ``torchrun --resume --rank-report``, elastically (the fingerprints
     differ), and train step 3.  Held: every rank's save landed at the
     first attempt; every rank restored step 3 elastically; bitwise, by
@@ -217,7 +255,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     torchrun's output in ``chiprun_out/rank_checkpoint.log``; the
     directory is removed;
 15. the ``kernels`` JSON line (each kernel's launches by path: ``plan``,
-    ``baseline``, ``skipvit train``, ``skipvit wave-asym``,
+    ``baseline``, ``skipvit train``, ``skipvit wave-asym``, ``lm
+    smollm-360m wave``, ``lm smollm-360m linear``, ``lm
+    qwen3-moe-30b-a3b``, ``lm smoke``,
     ``ranks``, ``hybrid``, ``rank checkpoint``, ``supervisor ranks`` and
     ``host workers``, the last five read from the ranks' and the workers'
     result files, among them), then
@@ -446,6 +486,9 @@ def check_skip_matmul(torch, rec) -> dict:
     return main
 
 
+FLASH_BF16_REL = 1e-2    # bf16 flash vs fp32 plain, relative Frobenius
+
+
 def check_flash(torch, rec) -> dict:
     """Returns the bf16 row of each train path's shape, by path."""
     import torch.nn.functional as F
@@ -480,6 +523,18 @@ def check_flash(torch, rec) -> dict:
         ("uvit-nano", 2, 6, 6, 2, 2, 16, False, None),
         ("uvit-nano dp=2", 1, 6, 6, 2, 2, 16, False, None),
         ("skipvit", 2, 18, 18, 4, 4, 16, False, None),
+        # the lm phase: a smollm-360m microbatch of its pipelines (b=2 of
+        # 16) and qwen3-moe-30b-a3b's batch 2, causal GQA at sequence 4096
+        ("lm smollm-360m", 2, 4096, 4096, 15, 5, 64, True, None),
+        ("lm qwen3-moe-30b-a3b", 2, 4096, 4096, 32, 4, 128, True, None),
+        # the lm phase's smoke keys through the trainer, batch 4 of 32
+        # tokens, heads of 16: GQA 4:2 (smollm, internlm2, qwen3), its
+        # window of 8 (danube), MQA 4:1 (granite), and 8 vision-prefix rows
+        # before the 32 tokens (internvl2)
+        ("lm smoke GQA", 4, 32, 32, 4, 2, 16, True, None),
+        ("lm smoke window", 4, 32, 32, 4, 2, 16, True, 8),
+        ("lm smoke MQA", 4, 32, 32, 4, 1, 16, True, None),
+        ("lm smoke prefix", 4, 40, 40, 4, 2, 16, True, None),
     ]
     for path, B, S, T, Hq, Hkv, D, causal, window in cases:
         for dtype in ("bfloat16", "float32"):
@@ -494,6 +549,19 @@ def check_flash(torch, rec) -> dict:
             err = check_close(torch, got,
                               attention_plain(q, k, v, causal, window),
                               dtype, what)
+            rel = None
+            if dtype == "bfloat16":
+                # bf16 outputs are small where a row averages many keys
+                # (causal, long S): also held to fp32 attention of the
+                # same inputs, relative to the data's own scale
+                want = attention_plain(q.float(), k.float(), v.float(),
+                                       causal, window)
+                rel = float(torch.linalg.vector_norm(got.float() - want)
+                            / torch.linalg.vector_norm(want))
+                if not rel <= FLASH_BF16_REL:
+                    fail(f"{what}: ||flash - fp32 plain|| / ||fp32 plain|| "
+                         f"{rel:.3e} > {FLASH_BF16_REL}")
+                del want
             g = torch.randn(B, S, Hq, D, device="cuda", generator=gen).to(dt)
             ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
             flash_attention(*ins, causal, window).backward(g)
@@ -504,12 +572,12 @@ def check_flash(torch, rec) -> dict:
                         for a, b, nm in zip(ins, ref, ("dq", "dk", "dv"))}
             del ins, ref, g
             library = None
-            if Hq == Hkv and window is None:
+            if window is None:
                 qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
 
                 def library():
-                    return F.scaled_dot_product_attention(qh, kh, vh,
-                                                          is_causal=causal)
+                    return F.scaled_dot_product_attention(
+                        qh, kh, vh, is_causal=causal, enable_gqa=Hq != Hkv)
             times = _times(
                 torch, lambda: flash_attention_cuda(q, k, v, causal, window),
                 lambda: attention_plain(q, k, v, causal, window), library)
@@ -529,12 +597,15 @@ def check_flash(torch, rec) -> dict:
             row = dict(path=path, dtype=dtype, B=B, S=S, T=T, Hq=Hq, Hkv=Hkv,
                        D=D, causal=causal, window=window,
                        route=flash_route(dt, D), max_abs_err=err,
-                       grad_max_abs_err=grad_err, **times,
+                       rel_err_vs_fp32=rel, grad_max_abs_err=grad_err,
+                       **times,
                        device_tflops=(4.0 * B * Hq * pairs * D
                                       / times["device_ms"] / 1e9),
                        bound_ms=b_ms, bound_by=b_by)
             rows.append(row)
-            log(_row_line(f"{what} route={row['route']}", row, "sdpa"))
+            log(_row_line(f"{what} route={row['route']}"
+                          + (f" (vs fp32 plain: rel {rel:.3e})" if rel
+                             is not None else ""), row, "sdpa"))
             if dtype == "bfloat16" and path:
                 main[path] = row
             del q, k, v, got
@@ -1939,6 +2010,312 @@ def skipvit_wave_asym(torch, rec) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: lm -- the decoder LMs: smollm-360m at full width and depth on
+# the folded and linear pipelines, qwen3-moe-30b-a3b at full width (2 of
+# its 48 layers), and the seven smoke keys through the trainer
+# ---------------------------------------------------------------------------
+
+LM_SEQ = 4096            # the JAX train_4k shape's sequence
+LM_BATCH = 16            # global batch of smollm's pipeline steps
+LM_D, LM_M, LM_STEPS = 4, 8, 3
+LM_BAR = 1e-2            # bf16: a plan's first gradient norm vs lm_loss's
+LM_TRAJ_BAR = 1e-4       # bf16: a plan's losses vs lm_loss + AdamW's, and
+#                          the two plans' vs each other, every step
+QWEN_LAYERS, QWEN_BATCH = 2, 2   # qwen3 cut to 2 of 48 layers to fit a card
+LM_SMOKE_BATCH = 4
+LM_SMOKE_BAR = 1e-5      # fp32: a smoke key's loss, card vs CPU
+
+
+def _lm_predicted_flash(cp) -> int:
+    """Flash launches of one forward+backward of a plan, from its step
+    tables: every stage task runs its blocks' attention once forward, and
+    once more in the backward's recompute when the plan remats."""
+    from repro_torch.runtime.schedule_exec import RUN_DEC, RUN_ENC
+    tabs, lay = cp.step_tables(), cp.layout
+    n = 0
+    for d in range(tabs.sel.shape[0]):
+        for t in range(tabs.sel.shape[1]):
+            s, v = int(tabs.sel[d, t]), int(tabs.slot[d, t])
+            if s == RUN_ENC:
+                n += lay.enc_counts[d][v]
+            elif s == RUN_DEC:
+                n += lay.dec_counts[d][v]
+    return n * (2 if cp.pcfg.remat else 1)
+
+
+def lm_smollm(torch, rec) -> dict:
+    """smollm-360m at full width and depth (bf16, seed-0 weights) at
+    sequence ``LM_SEQ``, global batch ``LM_BATCH``, through ``auto_pipeline``
+    at D=4, M=8 on the folded wave (``force_wave``; the tied embedding and
+    readout on device 0) and the linear table plan, each from the same
+    weights: ``LM_STEPS`` AdamW steps.  The reference: the whole model
+    through the non-pipeline ``lm_loss`` (flash on) on the same weights
+    and batch, a microbatch at a time into the same gradients, and the
+    same AdamW steps.  Held: each plan's loss of every step against the
+    reference's at ``LM_TRAJ_BAR`` relative, and against the other plan's
+    at the same bar (so the steps after the first hold the gradients
+    each plan applied); each plan's first gradient norm against the
+    reference's at ``LM_BAR``; every loss finite; the flash launches of
+    each step equal to the tables' count.  Returns the launches by
+    plan."""
+    from repro_torch.configs.smollm_360m import CFG
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   global_norm)
+    from repro_torch.runtime.adapters import lm_model_fns, make_lm_microbatches
+    from repro_torch.runtime.compile import auto_pipeline
+    from repro_torch.tree import tree_leaves, tree_map
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        params = lm.init_lm(gen, CFG, "cuda")
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    tokens = torch.randint(0, CFG.vocab, (LM_BATCH, LM_SEQ), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    # the reference: the whole model's loss on the same weights and batch,
+    # a microbatch at a time (equal sizes: the mean of the means is the
+    # mean), its gradients summed in place, the same AdamW steps
+    b = LM_BATCH // LM_M
+    with torch.no_grad():
+        ref_params = tree_map(torch.clone, params)
+    for x in tree_leaves(ref_params):
+        x.requires_grad_(True)
+    ref_opt = adamw_init(ref_params)
+    ref_losses, ref_norms, ref_secs = [], [], []
+    for step in range(LM_STEPS):
+        t0 = time.perf_counter()
+        total = 0.0
+        for i in range(0, LM_BATCH, b):
+            loss = lm.lm_loss(ref_params, {"tokens": tokens[i:i + b]},
+                              CFG) / LM_M
+            loss.backward()
+            total += float(loss.detach())
+        grads = tree_map(lambda x: x.grad, ref_params)
+        ref_norms.append(float(global_norm(grads)))
+        adamw_update(ref_params, grads, ref_opt, AdamWConfig(lr=3e-4))
+        for x in tree_leaves(ref_params):
+            x.grad = None
+        torch.cuda.synchronize()
+        ref_secs.append(time.perf_counter() - t0)
+        ref_losses.append(total)
+        del grads, loss
+    del ref_params, ref_opt
+    release(torch)
+    if not all(math.isfinite(x) for x in ref_losses + ref_norms):
+        fail(f"lm smollm-360m: lm_loss + AdamW losses {ref_losses}, "
+             f"gradient norms {ref_norms}")
+    log(f"[lm] smollm-360m reference (lm_loss, no pipeline, {LM_M} "
+        f"microbatches summed, AdamW): losses {ref_losses}; first gradient "
+        f"norm {ref_norms[0]!r}; step s {[round(x, 3) for x in ref_secs]}")
+    graph = lm.lm_pipeline_graph(CFG, batch=b, seq=LM_SEQ)
+    mbs = make_lm_microbatches({"tokens": tokens}, LM_M)
+    out, counts = {}, {}
+    for plan, wave in (("wave", True), ("linear", None)):
+        cp = auto_pipeline(graph, lm_model_fns(CFG), LM_D,
+                           pipeline_devices=LM_D, microbatches=LM_M,
+                           force_wave=wave)
+        if cp.folded != bool(wave):
+            fail(f"lm smollm {plan}: planned folded={cp.folded}")
+        want = _lm_predicted_flash(cp)
+        with torch.no_grad():
+            stacks, edge = cp.split_params(tree_map(torch.clone, params))
+        for x in tree_leaves((stacks, edge)):
+            x.requires_grad_(True)
+        opt = adamw_init((stacks, edge))
+        fn = cp.build()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs, launched, norms = [], [], [], []
+        reset_launch_counts()
+        for step in range(LM_STEPS):
+            before = launch_counts()["flash_attention"]
+            t0 = time.perf_counter()
+            loss = (fn(*stacks, edge, mbs, {}) if cp.folded
+                    else fn(*stacks, edge, mbs))
+            loss.backward()
+            grads = tree_map(lambda x: x.grad, (stacks, edge))
+            norms.append(float(global_norm(grads)))
+            adamw_update((stacks, edge), grads, opt, AdamWConfig(lr=3e-4))
+            for x in tree_leaves((stacks, edge)):
+                x.grad = None
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(loss.detach()))
+            launched.append(launch_counts()["flash_attention"] - before)
+            del grads, loss
+        counts[plan] = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        what = f"lm smollm-360m {plan}"
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"{what}: losses {losses}")
+        if any(n != want for n in launched):
+            fail(f"{what}: flash launches a step {launched}, the tables "
+                 f"predict {want}")
+        rel = [abs(x - r) / abs(r) for x, r in zip(losses, ref_losses)]
+        if not max(rel) <= LM_TRAJ_BAR:
+            fail(f"{what}: losses {losses} vs the non-pipeline lm_loss + "
+                 f"AdamW's {ref_losses} (relative {rel}, bar {LM_TRAJ_BAR})")
+        norm_rel = abs(norms[0] - ref_norms[0]) / abs(ref_norms[0])
+        if not norm_rel <= LM_BAR:
+            fail(f"{what}: first gradient norm {norms[0]} vs the "
+                 f"non-pipeline {ref_norms[0]} (relative {norm_rel:.3e} > "
+                 f"{LM_BAR})")
+        out[plan] = dict(cuts=list(cp.partition.cuts),
+                         stages=cp.partition.num_stages,
+                         makespan=cp.schedule.makespan, losses=losses,
+                         step_seconds=secs, peak_bytes=peak,
+                         flash_per_step=launched, flash_predicted=want,
+                         loss_rel_err=rel, grad_norms=norms,
+                         first_grad_norm_rel_err=norm_rel)
+        log(f"[lm] {what}: D={LM_D} M={LM_M} S={cp.partition.num_stages} "
+            f"cuts {list(cp.partition.cuts)}; losses {losses} (rel to the "
+            f"reference {[f'{x:.2e}' for x in rel]}); first gradient norm "
+            f"{norms[0]!r} (rel {norm_rel:.2e}); step s "
+            f"{[round(s, 3) for s in secs]}; peak {peak / 1e9:.2f} GB; "
+            f"flash {launched} a step, tables {want}")
+        del stacks, edge, opt, fn, cp
+        release(torch)
+    between = [abs(a - b) / abs(b) for a, b in
+               zip(out["wave"]["losses"], out["linear"]["losses"])]
+    if not max(between) <= LM_TRAJ_BAR:
+        fail(f"lm smollm-360m: the wave plan's losses "
+             f"{out['wave']['losses']} vs the linear plan's "
+             f"{out['linear']['losses']} (relative {between}, bar "
+             f"{LM_TRAJ_BAR})")
+    rec.setdefault("lm", {})["smollm-360m"] = dict(
+        params=n_params, seq=LM_SEQ, global_batch=LM_BATCH, D=LM_D, M=LM_M,
+        reference_losses=ref_losses, reference_grad_norms=ref_norms,
+        reference_step_seconds=ref_secs, plans_rel_err=between, **out)
+    log(f"[lm] smollm-360m: {n_params} params; both plans' losses within "
+        f"{LM_TRAJ_BAR} of lm_loss + AdamW's and of each other (wave vs "
+        f"linear {[f'{x:.2e}' for x in between]}) over {LM_STEPS} steps")
+    return counts
+
+
+def lm_qwen3(torch, rec) -> dict:
+    """qwen3-moe-30b-a3b at full width, depth cut to ``QWEN_LAYERS`` of its
+    48 layers so that params, grads and AdamW state fit one card (bf16,
+    seed-0 weights): one non-pipeline value-and-grad of ``lm_loss`` at
+    sequence ``LM_SEQ``, batch ``QWEN_BATCH`` (qk-norm, GQA 32:4 at head dim
+    128 on flash's tensor-core route, 128-expert top-8 scatter dispatch),
+    then one AdamW step and the loss again.  Held: finite losses and
+    gradients; flash launched twice a layer in the value-and-grad (forward
+    and the recompute of the config's ``remat``) and once a layer in the
+    loss after.  Returns the launches."""
+    import dataclasses
+
+    from repro_torch.configs.qwen3_moe_30b_a3b import CFG
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(CFG, n_layers=QWEN_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        params = lm.init_lm(gen, cfg, "cuda")
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    for x in tree_leaves(params):
+        x.requires_grad_(True)
+    opt = adamw_init(params)
+    tokens = torch.randint(0, cfg.vocab, (QWEN_BATCH, LM_SEQ), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = lm.lm_loss(params, {"tokens": tokens}, cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    t_grad = time.perf_counter() - t0
+    launched = launch_counts()
+    grads = tree_map(lambda x: x.grad, params)
+    finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+    t0 = time.perf_counter()
+    adamw_update(params, grads, opt, AdamWConfig(lr=3e-4))
+    torch.cuda.synchronize()
+    t_adam = time.perf_counter() - t0
+    del grads
+    for x in tree_leaves(params):
+        x.grad = None
+    with torch.no_grad():
+        after = float(lm.lm_loss(params, {"tokens": tokens}, cfg))
+    peak = torch.cuda.max_memory_allocated()
+    what = f"lm qwen3-moe-30b-a3b ({QWEN_LAYERS} of 48 layers)"
+    loss = float(loss.detach())
+    if not (finite and math.isfinite(loss) and math.isfinite(after)):
+        fail(f"{what}: loss {loss}, after AdamW {after}, grads finite "
+             f"{finite}")
+    want = (2 if cfg.remat else 1) * QWEN_LAYERS
+    if launched["flash_attention"] != want \
+            or launch_counts()["flash_attention"] != want + QWEN_LAYERS:
+        fail(f"{what}: flash launches {launched['flash_attention']} in the "
+             f"value-and-grad (want {want}), "
+             f"{launch_counts()['flash_attention']} with the loss after "
+             f"(want {want + QWEN_LAYERS})")
+    rec.setdefault("lm", {})["qwen3-moe-30b-a3b"] = dict(
+        layers=QWEN_LAYERS, params=n_params, seq=LM_SEQ, batch=QWEN_BATCH,
+        loss=loss, loss_after_adamw=after, value_and_grad_s=t_grad,
+        adamw_s=t_adam, peak_bytes=peak, launches=launched)
+    log(f"[lm] {what}: depth cut from 48 to {QWEN_LAYERS} layers to fit one "
+        f"card; {n_params} params; S={LM_SEQ} B={QWEN_BATCH}; loss "
+        f"{loss!r}, after one AdamW step {after!r}; value-and-grad "
+        f"{t_grad:.3f} s, AdamW {t_adam:.3f} s; peak {peak / 1e9:.2f} GB; "
+        f"flash {launched['flash_attention']} in the value-and-grad "
+        f"(2 a layer: forward, remat)")
+    del params, opt
+    return launch_counts()
+
+
+def lm_smoke(torch, rec) -> dict:
+    """Each of the seven LM smoke keys through the trainer for one step
+    (``--global-batch 4``) on the card and on the CPU from the same params
+    (seed 0, made on the CPU) and batch (the trainer's own, drawn with
+    numpy): the losses at rtol ``LM_SMOKE_BAR`` (fp32); flash launched
+    once a layer on the card (SIMT route; danube with its window), never
+    for deepseek's MLA.  The kernel phase holds flash at each of these
+    attention shapes (the ``lm smoke`` rows).  Returns the card's
+    launches."""
+    from repro_torch.configs.smoke import LM_FACTORIES
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as train_mod
+    from repro_torch.tree import tree_map
+
+    total = dict.fromkeys(launch_counts(), 0)
+    rows = {}
+    for key, factory in LM_FACTORIES.items():
+        _, init_fn, _, cfg = factory(kernels=True)
+        init = tree_map(lambda x: x.numpy(), init_fn(
+            torch.Generator().manual_seed(0), "cpu"))
+        loss = {}
+        for dev in ("cpu", "cuda"):
+            args = train_mod._parse_args(
+                ["--arch", key, "--steps", "1", "--global-batch",
+                 str(LM_SMOKE_BATCH), "--log-every", "100", "--device", dev])
+            reset_launch_counts()
+            res = train_mod.run(args, init_params=init)
+            launched = launch_counts()
+            loss[dev] = res.losses[0]
+            del res
+        want = cfg.n_layers if cfg.attn is not None else 0
+        if launched["flash_attention"] != want:
+            fail(f"lm smoke {key}: launches {launched}; want {want} flash")
+        if not (math.isfinite(loss["cuda"]) and math.isclose(
+                loss["cuda"], loss["cpu"], rel_tol=LM_SMOKE_BAR)):
+            fail(f"lm smoke {key}: loss on the card {loss['cuda']} vs CPU "
+                 f"{loss['cpu']} (rtol {LM_SMOKE_BAR})")
+        for k, v in launched.items():
+            total[k] += v
+        rows[key] = dict(loss_cuda=loss["cuda"], loss_cpu=loss["cpu"],
+                         launches=launched)
+        log(f"[lm] smoke {key} ({cfg.name}): one trainer step, loss card "
+            f"{loss['cuda']!r} cpu {loss['cpu']!r}; launches {launched}")
+    rec.setdefault("lm", {})["smoke"] = rows
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 12: ranks -- UViT-H with one process per pipeline device, four
 # ranks on the one card over the gloo ring staged through host memory
 # ---------------------------------------------------------------------------
@@ -2186,13 +2563,17 @@ def ranks_phase(torch, rec, smi_line: str) -> dict:
 
 HYBRID_DP, HYBRID_PP, HYBRID_V, HYBRID_M = 2, 2, 2, 2
 HYBRID_STEPS = 3
+# UViT-H cut to 16 of its 32 blocks in the hybrid, rank checkpoint and
+# supervisor phases: their gloo collectives and checkpoint bytes scale with
+# the params, and these three phases took most of the script's time
+HYBRID_LAYERS = 16
 HYBRID_ZERO = (1, 2)
 # the plan in one process (one data replica), then as the ranks run it
 HYBRID_ONE_ARGV = ["--arch", "uvit-h", "--pipeline", "--pp", str(HYBRID_PP),
                    "--interleave", str(HYBRID_V), "--microbatches",
                    str(HYBRID_M), "--global-batch", str(PLAN_BATCH),
                    "--steps", str(HYBRID_STEPS), "--log-every", "1",
-                   "--device", "cuda"]
+                   "--layers", str(HYBRID_LAYERS), "--device", "cuda"]
 HYBRID_ARGV = HYBRID_ONE_ARGV + ["--dp", str(HYBRID_DP), "--ring", "gloo"]
 HYBRID_LOSS_BAR = 1e-2          # step 0 against the one-process run, bf16
 HYBRID_FINGERPRINT_BAR = 2e-2   # ||err|| / ||g|| per gradient leaf, bf16
@@ -2336,12 +2717,13 @@ def _hybrid_run(zero: int, out_dir: str, env: dict,
 def hybrid_phase(torch, rec, smi_line: str, ckdir: str) -> tuple:
     """Four ranks of ``repro_torch.launch.train`` on the one card over the
     staged gloo ring and data group: the tuner's own N=4 plan for UViT-H
-    at full width and depth (P=2 pipeline devices, G=2 data replicas,
-    V=2, M=2), global batch ``PLAN_BATCH``, bf16, at ZeRO-1 and then
-    ZeRO-2, each ``HYBRID_STEPS`` AdamW steps (``--rank-report``; the
-    probe is the first step's forward+backward, read before its update).
-    ZeRO-0 is left out: Eq. 14 puts four of its ranks past the card's
-    memory (printed).  First the same plan in one process
+    at full width, ``HYBRID_LAYERS`` of its 32 blocks (P=2 pipeline
+    devices, G=2 data replicas, V=2, M=2), global batch ``PLAN_BATCH``,
+    bf16, at ZeRO-1 and then ZeRO-2, each ``HYBRID_STEPS`` AdamW steps
+    (``--rank-report``; the probe is the first step's forward+backward,
+    read before its update).  ZeRO-0 is left out: the phase holds the two
+    sharded stages (Eq. 14 of each printed).  First the same plan in one
+    process
     (:func:`_hybrid_reference`).
     Held: P, G, V and M are the tuner's N=4 choice; the ranks' cuts (the
     trainer's own partition on roofline costs, which the tuner's on the
@@ -2390,12 +2772,13 @@ def hybrid_phase(torch, rec, smi_line: str, ckdir: str) -> tuple:
         for z in plans}
     card = torch.cuda.get_device_properties(0).total_memory
     n_ranks = HYBRID_DP * HYBRID_PP
-    log(f"[hybrid] Eq. 14 per device, UViT-H P={HYBRID_PP} dp={HYBRID_DP} "
-        f"V={HYBRID_V} M={HYBRID_M}, {PLAN_BATCH // HYBRID_M // HYBRID_DP} "
-        "samples a replica's microbatch: "
+    log(f"[hybrid] Eq. 14 per device, UViT-H {cfg.n_layers} of 32 blocks "
+        f"P={HYBRID_PP} dp={HYBRID_DP} V={HYBRID_V} M={HYBRID_M}, "
+        f"{PLAN_BATCH // HYBRID_M // HYBRID_DP} samples a replica's "
+        "microbatch: "
         + ", ".join(f"ZeRO-{z} {eq14[z] / 1e9:.3f} GB (x{n_ranks} = "
                     f"{n_ranks * eq14[z] / 1e9:.3f} GB)" for z in eq14)
-        + f"; the card holds {card / 1e9:.3f} GB, so ZeRO-0 is not run")
+        + f"; the card holds {card / 1e9:.3f} GB; ZeRO-0 is not run")
     one = _hybrid_reference()
     left = release(torch)
     if left >= 1e9:
@@ -2533,7 +2916,8 @@ def hybrid_phase(torch, rec, smi_line: str, ckdir: str) -> tuple:
             fail(f"hybrid: rank {r} peaked at {z2['peaks'][r]['train']} B "
                  f"at ZeRO-2, not below ZeRO-1's {z1['peaks'][r]['train']}")
     rec["hybrid"] = out
-    log(f"[hybrid] UViT-H on the tuner's N=4 plan P={HYBRID_PP} "
+    log(f"[hybrid] UViT-H ({HYBRID_LAYERS} of 32 blocks) on the tuner's "
+        f"N=4 plan P={HYBRID_PP} "
         f"G={HYBRID_DP} V={HYBRID_V} M={HYBRID_M}, global batch "
         f"{PLAN_BATCH}, four ranks on one card (gloo ring and data group "
         f"staged through pinned host memory; {z1['data_group']}); {smi_line}")
@@ -2584,11 +2968,12 @@ def _set_arg(argv: list, flag: str, value: str) -> list:
     return out
 
 
-# the resume: the ranks phase's plan (P=4, one replica, ZeRO-0) trains step
-# 3 and stops (a second full-size checkpoint would pass the disk writes a
-# chip run may make: the phase writes 27.8 GB)
+# the resume: the ranks phase's plan (P=4, one replica, ZeRO-0) at the
+# hybrid phase's depth trains step 3 and stops (no second checkpoint: the
+# disk writes a chip run may make are bounded)
 RANK_CKPT_RESUME = _set_arg(RANKS_ARGV, "--steps", str(RANK_CKPT_STEP + 1)) \
-    + ["--resume", "--faults", f"stop@{RANK_CKPT_STEP + 1}"]
+    + ["--resume", "--faults", f"stop@{RANK_CKPT_STEP + 1}", "--layers",
+       str(HYBRID_LAYERS)]
 HASH_WORKERS = 6          # host processes hashing the saved blocks
 
 
@@ -2735,8 +3120,8 @@ def _saves(doc: dict) -> list:
 
 def rank_checkpoint_phase(torch, rec, smi_line: str, ckdir: str,
                           save_docs: list) -> dict:
-    """The ``hybrid`` phase's ZeRO-2 world (UViT-H at full width and depth,
-    the tuner's N=4 plan P=2 G=2 V=2 M=2, bf16, four ranks on the card
+    """The ``hybrid`` phase's ZeRO-2 world (UViT-H at full width,
+    ``HYBRID_LAYERS`` of its 32 blocks, the tuner's N=4 plan P=2 G=2 V=2 M=2, bf16, four ranks on the card
     over the staged gloo groups) saved step ``RANK_CKPT_STEP`` into
     ``ckdir`` (``RANK_CKPT_SAVE``: every rank gathers its share of the
     leaves whole into host memory and writes ``shard_<rank>.npz``), then
@@ -2793,7 +3178,8 @@ def rank_checkpoint_phase(torch, rec, smi_line: str, ckdir: str,
         shard_bytes = {sh: os.path.getsize(os.path.join(step_dir(step3), sh))
                        for sh in man["shards"]}
         total = sum(shard_bytes.values())
-        log(f"[rank-ckpt] {smi_line}: UViT-H at full width and depth, the "
+        log(f"[rank-ckpt] {smi_line}: UViT-H at full width, "
+            f"{HYBRID_LAYERS} of 32 blocks, the "
             f"ZeRO-2 world P={HYBRID_PP} G={HYBRID_DP} V={HYBRID_V} saved "
             f"step {step3}: {man['num_leaves']} leaves, {total} "
             f"bytes in {nranks} shards {list(shard_bytes.values())}")
@@ -2953,12 +3339,13 @@ DRILL_CFG = dict(num_hosts=2, devices_per_host=2, steps=DRILL_STEPS,
 # (faults, rollback step, detecting event)
 DRILLS = (("hostdown@8:1", 8, "hostdown"), ("hang@6", 4, "hang"))
 SHRUNK = (1, 2, 0)
-# UViT-H at full width and depth on the hybrid phase's ZeRO-2 plan at V=1
+# UViT-H at full width and the hybrid phase's depth on its ZeRO-2 plan at V=1
 # (P=2 G=2, M=2, global batch 16, bf16) as 2 hosts x 2 ranks: host 1 dies
 # after step 0; no checkpoint is written (steps 3, a save past the run,
 # and the relaunch stops after step 2 without its final save)
 UVIT_H_CFG = dict(num_hosts=2, devices_per_host=2, steps=HYBRID_STEPS,
-                  global_batch=PLAN_BATCH, arch="uvit-h", dp=HYBRID_DP,
+                  global_batch=PLAN_BATCH, arch="uvit-h",
+                  layers=HYBRID_LAYERS, dp=HYBRID_DP,
                   pp=HYBRID_PP, zero_stage=2, microbatches=HYBRID_M,
                   wire_dtype="bfloat16", ckpt_every=1000,
                   faults="hostdown@1:1",
@@ -3221,7 +3608,8 @@ def supervisor_phase(torch, rec, smi_line: str) -> tuple:
     generation a world of uvit-nano ranks on the card, each merged
     trajectory at rtol 1e-4 to the one-process run of the plan, then the
     trainer's one-process worker mode (``worker_mode_drill``); (b) UViT-H
-    at full width on the tuner's N=4 plan as 2 hosts x 2 ranks, host 1
+    at full width and the hybrid phase's depth (``HYBRID_LAYERS``) on the
+    tuner's N=4 plan as 2 hosts x 2 ranks, host 1
     down after step 0, the survivor's two ranks trained from step 0 and
     held to the hybrid phase's ZeRO-2 losses.  The ranks load the kernels
     phase 2 built (``REPRO_TORCH_BUILD_DIR`` inherited,
@@ -3331,8 +3719,8 @@ def supervisor_phase(torch, rec, smi_line: str) -> tuple:
                 + [p for p in os.environ.get("PYTHONPATH", "").split(
                     os.pathsep) if p])))
 
-    # (b) full width: UViT-H on the tuner's N=4 plan, host 1 down after
-    # step 0, no checkpoint
+    # (b) full width: UViT-H (the hybrid phase's depth) on the tuner's N=4
+    # plan, host 1 down after step 0, no checkpoint
     release(torch)
     free0 = _free_bytes(torch)
     t0 = time.perf_counter()
@@ -3401,7 +3789,8 @@ def supervisor_phase(torch, rec, smi_line: str) -> tuple:
         hybrid_zero2_losses=hybrid, step_seconds=steps, peak_bytes=peaks,
         devices=devices, launches=per, free_gb_before=free0 / 1e9,
         teardowns=downs, **timing)
-    log(f"[supervisor] uvit-h (P=2 G=2 ZeRO-2 V=1, 2 hosts x 2 ranks, "
+    log(f"[supervisor] uvit-h ({HYBRID_LAYERS} of 32 blocks, P=2 G=2 "
+        f"ZeRO-2 V=1, 2 hosts x 2 ranks, "
         f"hostdown@1:1): {' -> '.join(kinds)}; launch->gen-live s "
         f"{_rounded(timing['launch_to_live_s'])}, launch->last first train "
         f"beat s {_rounded(timing['launch_to_first_beats_s'])}; "
@@ -3520,7 +3909,8 @@ def main() -> None:
         f"flash D={d} B*H={bh} S={S}":
             bh * -(-S // tiling[f"flash_attention bf16 D={d}"]["query_rows"])
         for d, bh, S in ((128, 40, 258), (128, 32, 1024), (112, 128, 256),
-                         (224, 128, 64), (224, 128, 16))})
+                         (224, 128, 64), (224, 128, 16),
+                         (64, 30, 4096), (128, 64, 4096))})
     grids.update({f"{k} R={R} T={T} C={C}":
                   R * -(-C // v["channels"]) * -(-T // v["chunk"])
                   for k, v in tiling.items() if k.startswith("gated")
@@ -3584,6 +3974,22 @@ def main() -> None:
     counts["skipvit wave-asym"] = skipvit_wave_asym(torch, rec)
     rec.setdefault("phase_s", {})["skipvit"] = time.perf_counter() - t0
     log(f"[skipvit] phase {rec['phase_s']['skipvit']:.1f} s")
+
+    # 16. lm: smollm-360m on both D=4 plans, qwen3-moe at full width, the
+    # seven LM smoke keys through the trainer
+    left = release(torch)
+    if left >= 1e9:
+        fail(f"lm: {left / 1e9:.2f} GB still allocated; the previous phase "
+             "was not released")
+    t0 = time.perf_counter()
+    for plan, c in lm_smollm(torch, rec).items():
+        counts[f"lm smollm-360m {plan}"] = c
+    release(torch)
+    counts["lm qwen3-moe-30b-a3b"] = lm_qwen3(torch, rec)
+    release(torch)
+    counts["lm smoke"] = lm_smoke(torch, rec)
+    rec["phase_s"]["lm"] = time.perf_counter() - t0
+    log(f"[lm] phase {rec['phase_s']['lm']:.1f} s")
 
     # 12. ranks: one process per pipeline device, four on the one card
     left = release(torch)
@@ -3651,8 +4057,8 @@ def main() -> None:
             "library_device_ms": row["library_device_ms"],
             "launches_by_path": by_path,
             "by_shape": {k: {f: r.get(f) for f in (
-                "dtype", "route", "max_abs_err", "ms", "device_ms",
-                "device_tflops", "plain_ms", "plain_device_ms", "bound_ms",
+                "dtype", "route", "max_abs_err", "rel_err_vs_fp32", "ms",
+                "device_ms", "device_tflops", "plain_ms", "plain_device_ms", "bound_ms",
                 "bound_by", "library_ms", "library_device_ms")}
                 for k, r in by_shape.items()}})
     rec["kernels"] = kernels

@@ -1,13 +1,17 @@
-"""Reduced smoke variants of the diffusion architectures (the port of
-``repro.configs.smoke``, its three diffusion keys; the LM, whisper, xLSTM
-and Mamba keys are not ported yet).
+"""Reduced smoke variants (the port of ``repro.configs.smoke``: its three
+diffusion keys and its seven decoder-LM keys; the whisper, xLSTM and
+Mamba keys are not ported yet).
 
-The same configs as the JAX package's.  Each factory returns ``(loss_fn,
-init_fn, make_batch, cfg)``: ``loss_fn(params, batch, t, noise)`` is a
-scalar (the port's losses take the DDPM draws as tensors),
-``init_fn(gen, device)`` draws the params and ``make_batch(gen, device)``
-a batch of the config's shapes.  ``kernels=True`` (the trainer's choice)
-switches on the model's kernels: flash attention, and for UViT and
+The same configs as the JAX package's, the diffusion keys in
+``SMOKE_FACTORIES`` and the LM keys in ``LM_FACTORIES`` (the JAX package
+keeps all in one dict).  Each factory returns ``(loss_fn,
+init_fn, make_batch, cfg)``: ``init_fn(gen, device)`` draws the params and
+``make_batch(gen, device)`` a batch of the config's shapes.  A diffusion
+``loss_fn(params, batch, t, noise)`` is a scalar (the port's losses take
+the DDPM draws as tensors); an LM's is ``loss_fn(params, batch)``, its
+batch ``{"tokens"}`` (internvl2: and ``prefix_embeds``).
+``kernels=True`` (the trainer's choice) switches on the model's kernels:
+flash attention (every LM but deepseek's MLA), and for UViT and
 Hunyuan-DiT the fused skip-concat matmul.
 """
 from __future__ import annotations
@@ -15,8 +19,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import diffusion as dm
+from repro_torch.models import lm as lm_mod
 from repro_torch.models.diffusion import (HunyuanDiTConfig, UNetConfig,
                                           UViTConfig)
+from repro_torch.models.layers import AttnConfig, MLAConfig, MoEConfig
+from repro_torch.models.lm import LMConfig
 
 
 def bundle(cfg, loss, init, shapes: dict):
@@ -60,7 +67,89 @@ def smoke_sdv2(kernels: bool = False):
                   {"latents": (2, 16, 16, 4), "text_embeds": (2, 7, 16)})
 
 
-SMOKE_FACTORIES = {
+def _lm(cfg: LMConfig, seq: int = 32, batch: int = 2, prefix: int = 0):
+    def make_batch(gen: torch.Generator, device="cuda") -> dict:
+        b = {"tokens": torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                                     device=device, dtype=torch.int32)}
+        if prefix:
+            b["prefix_embeds"] = torch.randn(
+                (batch, prefix, cfg.d_model), generator=gen,
+                device=device).to(cfg.dtype)
+        return b
+    return (lambda p, b: lm_mod.lm_loss(p, b, cfg),
+            lambda gen, device="cuda": lm_mod.init_lm(gen, cfg, device),
+            make_batch, cfg)
+
+
+def smoke_smollm(kernels: bool = False):
+    cfg = LMConfig("smollm-smoke", vocab=256, d_model=64, n_layers=4,
+                   attn=AttnConfig(64, 4, 2, 16, use_flash=kernels),
+                   d_ff=128, tied_embeddings=True)
+    return _lm(cfg)
+
+
+def smoke_danube(kernels: bool = False):
+    cfg = LMConfig("danube-smoke", vocab=256, d_model=64, n_layers=4,
+                   attn=AttnConfig(64, 4, 2, 16, window=8, use_flash=kernels),
+                   d_ff=128)
+    return _lm(cfg)
+
+
+def smoke_internlm2(kernels: bool = False):
+    cfg = LMConfig("internlm2-smoke", vocab=256, d_model=64, n_layers=4,
+                   attn=AttnConfig(64, 4, 2, 16, use_flash=kernels),
+                   d_ff=128)
+    return _lm(cfg)
+
+
+def smoke_granite(kernels: bool = False):
+    cfg = LMConfig("granite-smoke", vocab=256, d_model=64, n_layers=6,
+                   attn=AttnConfig(64, 4, 1, 16, use_flash=kernels),   # MQA
+                   d_ff=192)
+    return _lm(cfg)
+
+
+def smoke_internvl2(kernels: bool = False):
+    cfg = LMConfig("internvl2-smoke", vocab=256, d_model=64, n_layers=3,
+                   attn=AttnConfig(64, 4, 2, 16, use_flash=kernels),
+                   d_ff=128, vision_prefix=8)
+    return _lm(cfg, prefix=8)
+
+
+def smoke_qwen3_moe(kernels: bool = False):
+    cfg = LMConfig("qwen3-smoke", vocab=256, d_model=64, n_layers=3,
+                   attn=AttnConfig(64, 4, 2, 16, qk_norm=True,
+                                   use_flash=kernels),
+                   moe=MoEConfig(64, 32, n_experts=8, top_k=2,
+                                 capacity_factor=2.0),
+                   moe_dispatch="scatter")
+    return _lm(cfg)
+
+
+def smoke_deepseek(kernels: bool = False):
+    # MLA: q/k heads of 24, v heads of 16 -- the dense attention, as in JAX
+    cfg = LMConfig("deepseek-smoke", vocab=256, d_model=64, n_layers=4,
+                   mla=MLAConfig(64, 4, q_lora_rank=32, kv_lora_rank=16,
+                                 qk_nope_dim=16, qk_rope_dim=8,
+                                 v_head_dim=16),
+                   d_ff=128,
+                   moe=MoEConfig(64, 32, n_experts=4, top_k=2, n_shared=1,
+                                 capacity_factor=2.0),
+                   moe_dispatch="scatter", n_dense_layers=1, mtp=True)
+    return _lm(cfg)
+
+
+LM_FACTORIES = {          # the decoder-LM keys
+    "smollm-360m": smoke_smollm,
+    "h2o-danube-1.8b": smoke_danube,
+    "internlm2-20b": smoke_internlm2,
+    "granite-34b": smoke_granite,
+    "internvl2-2b": smoke_internvl2,
+    "qwen3-moe-30b-a3b": smoke_qwen3_moe,
+    "deepseek-v3-671b": smoke_deepseek,
+}
+
+SMOKE_FACTORIES = {       # the diffusion keys
     "uvit-h": smoke_uvit,
     "sdv2-unet": smoke_sdv2,
     "hunyuan-dit": smoke_hunyuan,

@@ -1,3 +1,4 @@
-from repro_torch.data.pipeline import ShardedLoader, SyntheticLatentDataset
+from repro_torch.data.pipeline import (ShardedLoader, SyntheticLatentDataset,
+                                       SyntheticTokenDataset)
 
-__all__ = ["ShardedLoader", "SyntheticLatentDataset"]
+__all__ = ["ShardedLoader", "SyntheticLatentDataset", "SyntheticTokenDataset"]

@@ -158,6 +158,7 @@ class SupervisorConfig:
     steps: int = 40
     global_batch: int = 8
     arch: str = "uvit-nano"
+    layers: int | None = None       # every rank's --layers (None: full)
     dp: int = 2
     pp: int = 2
     zero_stage: int = 0
@@ -273,6 +274,8 @@ class Supervisor:
                "--log-every", str(self.cfg.log_every),
                "--device", self.cfg.device,
                "--out-json", out_json]
+        if self.cfg.layers is not None:
+            cmd += ["--layers", str(self.cfg.layers)]
         if self.cfg.device == "cuda" and len(self.cards) < dp * pp:
             cmd += ["--ring", "gloo"]
         if faults:

@@ -22,14 +22,22 @@ Without ``--pipeline`` (the JAX trainer's ``_build_smoke_trainer``): one
 value-and-grad of the whole model's loss per step, the GradGuard's finite
 check, the grad norm, AdamW.  Archs: the JAX smoke configs of the three
 diffusion models (``uvit-h`` (alias ``uvit``), ``hunyuan-dit``,
-``sdv2-unet``: ``configs/smoke.py``), so the two trainers can be held to
-each other, and ``sdv2-unet-full``, the SDv2 UNet at full width
-(``configs/sdv2_unet.py``, 1.84e9 params) in bf16.  The LM smoke keys of
-the JAX trainer are refused: not ported yet.
+``sdv2-unet``: ``configs/smoke.py``) and of the seven decoder LMs
+(``smollm-360m``, ``h2o-danube-1.8b``, ``internlm2-20b``, ``granite-34b``,
+``internvl2-2b``, ``qwen3-moe-30b-a3b``, ``deepseek-v3-671b``), so the two
+trainers can be held to each other, and ``sdv2-unet-full``, the SDv2 UNet
+at full width (``configs/sdv2_unet.py``, 1.84e9 params) in bf16.  An LM's
+batch is the JAX trainer's: ``{"tokens"}`` from the same synthetic Markov
+language (``SyntheticTokenDataset``, step-indexed), and for internvl2 its
+vision prefix, normal ``prefix_embeds`` the same dataset draws after the
+tokens (the JAX trainer's batch keeps the tokens alone).  The JAX trainer's whisper, xLSTM and Zamba2 keys are refused: not
+ported yet.
 
 The kernels are always on: the decoder skip-in of UViT and Hunyuan-DiT
 goes through the fused skip-concat matmul and every attention through
-flash attention (on the CPU, through the kernels' plain versions).
+flash attention (on the CPU, through the kernels' plain versions); of the
+LMs, deepseek's MLA and danube's full config run the dense attention, by
+their configs' choice.
 
 Fault-tolerance contract, the JAX trainer's single-host one:
 
@@ -133,8 +141,8 @@ elastically when the plan changed.  ``kill@K``/``stop@K`` fire on every
 rank after the flush; ``corrupt@K``/``truncate@K`` on rank 0 alone, after
 every shard landed; GC is rank 0's, once the ranks agree a step landed.
 
-Not ported yet, and refused with ``NotImplementedError``: the LM smoke
-archs.
+Not ported yet, and refused with ``NotImplementedError``: the smoke archs
+``whisper-base``, ``xlstm-125m`` and ``zamba2-2.7b``.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch uvit-h \
@@ -147,6 +155,8 @@ Usage:
         --pipeline --devices 2 --steps 20 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch sdv2-unet \
         --global-batch 4 --steps 5 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+        --steps 5 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch uvit-pp \
         --pipeline --devices 4 --steps 6 --device cpu --ckpt-dir /tmp/ck \
         --ckpt-every 3 --faults stop@3          # then add --resume
@@ -178,14 +188,16 @@ from typing import Any, Callable
 
 PIPELINE_ARCHS = ("uvit", "uvit-pp", "uvit-nano", "uvit-h", "hunyuan-pp",
                   "hunyuan-dit", "skipvit")
+# the JAX trainer's decoder-LM smoke keys (configs/smoke.py)
+LM_ARCHS = ("smollm-360m", "h2o-danube-1.8b", "internlm2-20b", "granite-34b",
+            "internvl2-2b", "qwen3-moe-30b-a3b", "deepseek-v3-671b")
 # without --pipeline: the JAX trainer's diffusion smoke keys ("uvit" is its
-# alias of "uvit-h") and the UNet at full width
-SMOKE_ARCHS = ("uvit", "uvit-h", "hunyuan-dit", "sdv2-unet", "sdv2-unet-full")
+# alias of "uvit-h"), the UNet at full width and the LM smoke keys
+SMOKE_ARCHS = ("uvit", "uvit-h", "hunyuan-dit", "sdv2-unet",
+               "sdv2-unet-full", *LM_ARCHS)
 # the JAX trainer's other smoke keys, refused until their models are ported
-LM_SMOKE_ARCHS = ("smollm-360m", "h2o-danube-1.8b", "internlm2-20b",
-                  "granite-34b", "whisper-base", "xlstm-125m", "internvl2-2b",
-                  "qwen3-moe-30b-a3b", "deepseek-v3-671b", "zamba2-2.7b")
-ARCHS = tuple(dict.fromkeys(PIPELINE_ARCHS + SMOKE_ARCHS + LM_SMOKE_ARCHS))
+UNPORTED_ARCHS = ("whisper-base", "xlstm-125m", "zamba2-2.7b")
+ARCHS = tuple(dict.fromkeys(PIPELINE_ARCHS + SMOKE_ARCHS + UNPORTED_ARCHS))
 
 
 # torchrun's environment: with all of it set, --pipeline runs as one rank
@@ -212,6 +224,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="wave pipeline over --devices pipeline devices "
                          "(else the whole model in one step)")
     ap.add_argument("--devices", type=int, default=8)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="--pipeline: the model cut to this many blocks, "
+                         "its widths kept (default: its config's depth)")
     ap.add_argument("--dp", type=int, default=1,
                     help="data replicas of the pipeline (> 1: ranks under "
                          "torchrun, one process per (data, pipeline) index)")
@@ -380,14 +395,18 @@ def _peer_lost(e: BaseException) -> bool:
 
 
 def _refuse_unported(args) -> None:
-    if args.arch in LM_SMOKE_ARCHS:
-        raise NotImplementedError(f"the LM smoke arch {args.arch!r} is not "
+    if args.arch in UNPORTED_ARCHS:
+        raise NotImplementedError(f"the smoke arch {args.arch!r} is not "
                                   "yet ported to repro_torch")
     if args.pipeline and args.arch not in PIPELINE_ARCHS:
         raise ValueError(f"--arch {args.arch} has no pipeline path; the "
                          "pipeline archs are " + ", ".join(PIPELINE_ARCHS))
     if not args.pipeline and args.arch not in SMOKE_ARCHS:
         raise ValueError(f"--arch {args.arch} trains only with --pipeline")
+    if args.layers is not None and (not args.pipeline
+                                    or args.arch == "skipvit"):
+        raise ValueError(f"--layers cuts the depth of a --pipeline model "
+                         f"with n_layers blocks, not of {args.arch}")
 
 
 def _pipeline_degree(args) -> int:
@@ -588,6 +607,8 @@ def _model_config(args):
         cfg = UViTConfig("uvit-pp", img_size=8, in_ch=4, patch=2,
                          d_model=64, n_layers=8, n_heads=4, d_ff=128,
                          n_classes=10)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     return dataclasses.replace(cfg, use_skip_kernel=True, use_flash=True)
 
 
@@ -598,19 +619,31 @@ def _smoke_bundle(args):
     if args.arch == "sdv2-unet-full":
         from repro_torch.configs.sdv2_unet import factory
     else:
-        from repro_torch.configs.smoke import SMOKE_FACTORIES
-        factory = SMOKE_FACTORIES[{"uvit": "uvit-h"}.get(args.arch,
-                                                         args.arch)]
+        from repro_torch.configs.smoke import LM_FACTORIES, SMOKE_FACTORIES
+        factory = {**SMOKE_FACTORIES, **LM_FACTORIES}[
+            {"uvit": "uvit-h"}.get(args.arch, args.arch)]
     return factory(kernels=True)
+
+
+def _ddpm_draws(batch, step: int) -> tuple:
+    """A diffusion model's DDPM ``(t, noise)`` of step ``step``, from a
+    generator seeded with the step."""
+    from repro_torch.models.diffusion import ddpm_draw
+    return tuple(ddpm_draw(batch["latents"], step))
+
+
+def _no_draws(batch, step: int) -> tuple:
+    return ()
 
 
 @dataclasses.dataclass
 class Trainer:
     """What a step needs, on either path: ``params`` is the tree AdamW
     updates and checkpoints save (``(stage stacks, edge)`` on the pipeline
-    path, the model's own tree without it), ``loss(params, batch, t,
-    noise)`` the step's DDPM loss from given draws, ``logical(params)`` the
-    model-space tree, ``plan`` the plan's text."""
+    path, the model's own tree without it), ``loss(params, batch,
+    *draws)`` the step's loss from the draws ``draws(batch, step)`` gives
+    (a diffusion model's DDPM ``(t, noise)``; an LM's none),
+    ``logical(params)`` the model-space tree, ``plan`` the plan's text."""
     params: Any
     opt_state: Any
     loss: Callable
@@ -621,6 +654,7 @@ class Trainer:
     plan: str
     compiled: Any = None            # CompiledPipeline (pipeline path)
     ranks: Ranks | None = None      # one process per pipeline device
+    draws: Callable = _ddpm_draws   # (batch, step) -> the loss's own draws
 
 
 def _device(args):
@@ -717,7 +751,8 @@ def build_smoke_trainer(args) -> Trainer:
     synthetic dataset at the config's batch shapes."""
     import torch
 
-    from repro_torch.data import ShardedLoader, SyntheticLatentDataset
+    from repro_torch.data import (ShardedLoader, SyntheticLatentDataset,
+                                  SyntheticTokenDataset)
     from repro_torch.tree import tree_leaves
 
     device = _device(args)
@@ -731,23 +766,36 @@ def build_smoke_trainer(args) -> Trainer:
         params = init_fn(gen, device)
     params, opt_state = _with_grads(params)
     text = proto.get("text_embeds")
-    ds = SyntheticLatentDataset(img_size=proto["latents"][1],
-                                channels=proto["latents"][-1], n_classes=10,
-                                text_dim=text[-1] if text else 0,
-                                text_len=text[1] if text else 77)
+    if "tokens" in proto:          # an LM: its loss takes no draws
+        pre = proto.get("prefix_embeds")
+        ds = SyntheticTokenDataset(vocab=cfg.vocab,
+                                   seq_len=proto["tokens"][1],
+                                   prefix_len=pre[1] if pre else 0,
+                                   prefix_dim=pre[2] if pre else 0)
+        flash = cfg.attn is not None and cfg.attn.use_flash
+        draws = _no_draws
+    else:
+        ds = SyntheticLatentDataset(img_size=proto["latents"][1],
+                                    channels=proto["latents"][-1],
+                                    n_classes=10,
+                                    text_dim=text[-1] if text else 0,
+                                    text_len=text[1] if text else 77)
+        flash = True
+        draws = _ddpm_draws
     n = sum(x.numel() for x in tree_leaves(params))
     plan = (f"non-pipeline: {cfg.name}, {n} params "
-            f"({str(cfg.param_dtype).replace('torch.', '')}), flash "
-            f"attention" + (", skip-in kernel" if getattr(
-                cfg, "use_skip_kernel", False) else ""))
+            f"({str(cfg.param_dtype).replace('torch.', '')}), "
+            + ("flash attention" if flash else "dense attention")
+            + (", skip-in kernel" if getattr(cfg, "use_skip_kernel", False)
+               else ""))
 
-    def loss(params, batch, t, noise):
+    def loss(params, batch, *draws):
         return loss_fn(params, {k: v for k, v in batch.items()
-                                if k in proto}, t, noise)
+                                if k in proto}, *draws)
 
     return Trainer(params, opt_state, loss, lambda p: p, lambda p: p,
                    ShardedLoader(ds, global_batch=args.global_batch), device,
-                   plan)
+                   plan, draws=draws)
 
 
 def _resume(args, compiled, state: dict, device,
@@ -924,18 +972,20 @@ def grad_fingerprints(grads, *, rank: int | None = None,
     return out
 
 
-def _step_inputs(tr: Trainer, step: int, draw) -> tuple:
-    """Step ``step``'s batch on the trainer's device and its DDPM draws."""
+def _step_inputs(tr: Trainer, step: int, draw, poison=None) -> tuple:
+    """Step ``step``'s batch on the trainer's device (``poison(batch,
+    step)`` applied, when given) and the draws its loss takes after the
+    batch: ``draw(step)``'s when given, else the trainer's own
+    (``tr.draws``)."""
     import torch
-
-    from repro_torch.models.diffusion import ddpm_draw
     batch = {k: torch.as_tensor(v, device=tr.device)
              for k, v in tr.loader.get(step).items()}
+    if poison is not None:
+        batch = poison(batch, step)
     if draw is None:
-        t, noise = ddpm_draw(batch["latents"], step)
-    else:
-        t, noise = (torch.as_tensor(x, device=tr.device) for x in draw(step))
-    return batch, t, noise
+        return batch, tr.draws(batch, step)
+    return batch, tuple(torch.as_tensor(x, device=tr.device)
+                        for x in draw(step))
 
 
 def _timed_walk(tr: Trainer, walk: Callable) -> tuple:
@@ -1023,7 +1073,7 @@ def _rank_report(args, tr: Trainer, res: TrainResult, probe: dict,
         for x in tree_leaves(((enc, dec), edge)):
             x.requires_grad_(True)
         fn = ad.build_skip_carry_baseline(ranks.ring)
-        batch, t, noise = _step_inputs(tr, 0, draw)
+        batch, (t, noise) = _step_inputs(tr, 0, draw)
         mb, aux = make_diffusion_microbatches(
             batch, pcfg.num_microbatches, cfg, kind, t=t, noise=noise,
             params=edge)
@@ -1063,9 +1113,9 @@ def run(args, on_restore=None, init_params=None, draw=None,
     ``init_params`` (a model-space tree of numpy arrays, as
     ``jax.device_get`` gives it, in any dict order) replaces the seed-0
     params; ``draw(step)`` returns the step's DDPM ``(t, noise)`` in place
-    of the per-step generator's.  With both, another trainer's params and
-    draws (the JAX trainer's ``fold_in(PRNGKey(0), step)``) go through this
-    one.  ``compiled`` trains the pipeline path on a given plan
+    of the per-step generator's (an LM's loss takes no draws: ``()``).
+    With both, another trainer's params and draws (the JAX trainer's
+    ``fold_in(PRNGKey(0), step)``) go through this one.  ``compiled`` trains the pipeline path on a given plan
     (:func:`build_trainer`).  ``on_grads(step, grads)``, when given, sees
     each step's gradient tree before the update.
 
@@ -1116,7 +1166,6 @@ def run(args, on_restore=None, init_params=None, draw=None,
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.kernels import launch_counts
-    from repro_torch.models.diffusion import ddpm_draw
     from repro_torch.optim import (AdamWConfig, adamw_update,
                                    cosine_schedule, global_norm)
     from repro_torch.tree import tree_leaves, tree_map
@@ -1306,20 +1355,13 @@ def run(args, on_restore=None, init_params=None, draw=None,
         t_step = time.perf_counter()
         if ranks is not None and ranks.data is not None:
             ranks.data.reset_bytes()
-        raw = tr.loader.get(step)
-        batch = faults.poison_batch(
-            {k: torch.as_tensor(v, device=device) for k, v in raw.items()},
-            step)
-        if draw is None:
-            t, noise = ddpm_draw(batch["latents"], step)
-        else:
-            t, noise = (torch.as_tensor(x, device=device) for x in draw(step))
+        batch, draws = _step_inputs(tr, step, draw, faults.poison_batch)
         if ranks is not None and args.rank_report and step == start:
             loss, probe = _timed_walk(
-                tr, lambda: tr.loss(params, batch, t, noise))
+                tr, lambda: tr.loss(params, batch, *draws))
             probe["init_peak_bytes"] = init_peak
         else:
-            loss = tr.loss(params, batch, t, noise)
+            loss = tr.loss(params, batch, *draws)
         if ranks is None:
             loss.backward()     # a rank's loss has filled its grads itself
         # a leaf the step never reads (the xattn wk/wv cross-attention

@@ -3,12 +3,20 @@
 Pure functions on tensors and dict-tree params with the JAX package's leaf
 names and ``(in, out)`` weight layouts, so a JAX params tree converts with
 no transposes (``repro_torch.convert``).  Ported so far: ``dense_init``,
-``rms_norm``, ``_attn_mask``, the dense ``attention``, ``AttnConfig``,
-``init_attention`` / ``apply_attention`` (self and cross) and the GELU MLP.
-``apply_attention`` runs the flash-attention kernel when the config's
-``use_flash`` is set (the "drop-in replacement selected by config
-``use_flash``" the JAX module names).  Rotary embeddings, KV caches, MLA
-and MoE are not ported yet.
+``rms_norm``, rotary embeddings (``rope_freqs``, ``apply_rope``: the
+half-split form, fp32 angles), ``_attn_mask``, the dense ``attention``,
+``AttnConfig`` (with Qwen3's ``qk_norm``), ``init_attention`` /
+``apply_attention`` (self and cross, ``positions=``), the SwiGLU and GELU
+MLPs, DeepSeek-V3's MLA (``MLAConfig``, ``init_mla``, ``apply_mla``) and
+the top-k MoE (``MoEConfig``, ``init_moe``, ``apply_moe`` with its
+``onehot``, ``scatter`` and ``dense`` dispatches).  ``apply_attention``
+runs the flash-attention kernel when the config's ``use_flash`` is set
+(the "drop-in replacement selected by config ``use_flash``" the JAX
+module names).  MLA runs the dense ``attention``, as in JAX: its q/k head
+dim (``qk_nope + qk_rope``) differs from its v head dim, and the flash
+kernel takes one head dim.  KV caches (``cache=``, ``q_offset``,
+``kv_valid_len``, ``init_kv_cache``, ``init_mla_cache``) and
+``layer_norm`` are not ported yet.
 
 Random init draws from an explicit ``torch.Generator`` on ``device``; the
 numbers differ from ``jax.random`` for the same seed, so parity tests
@@ -19,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +59,28 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = x.square().mean(dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
     return (out * scale.float()).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Rotary position embeddings
+# --------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: broadcastable to (..., S)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)           # (Dh/2,)
+    angles = positions[..., None].float() * freqs              # (..., S, Dh/2)
+    cos = torch.cos(angles)[..., None, :]                      # (..., S, 1, Dh/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -95,6 +126,7 @@ class AttnConfig:
     rope_theta: float = 10000.0
     window: int | None = None       # sliding-window size (None = full)
     causal: bool = True
+    qk_norm: bool = False           # Qwen3-style per-head q/k RMSNorm
     use_flash: bool = False         # flash-attention kernel, not `attention`
 
 
@@ -107,18 +139,21 @@ def init_attention(gen: torch.Generator, cfg: AttnConfig, dtype=torch.float32,
         "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * cfg.head_dim, **kw),
         "wo": dense_init(gen, cfg.n_heads * cfg.head_dim, cfg.d_model, **kw),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((*stack, cfg.head_dim), dtype=dtype,
+                                 device=device)
+        p["k_norm"] = torch.ones((*stack, cfg.head_dim), dtype=dtype,
+                                 device=device)
     return p
 
 
 def apply_attention(p: Params, x: torch.Tensor, cfg: AttnConfig, *,
+                    positions: torch.Tensor | None = None,
                     cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
                     ) -> tuple[torch.Tensor, None]:
     """Self- or cross-attention (``cross_kv`` supplies precomputed K/V).
     Returns ``(out, None)``: the second slot is the JAX function's KV-cache
     result, which the port does not have yet."""
-    if cfg.rope_theta > 0 and cross_kv is None:
-        raise NotImplementedError(
-            "rotary embeddings are not yet ported (rope_theta > 0)")
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, H, Dh)
@@ -127,6 +162,15 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: AttnConfig, *,
         v = (x @ p["wv"]).reshape(B, S, Hkv, Dh)
     else:
         k, v = cross_kv
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        if cross_kv is None:
+            k = rms_norm(k, p["k_norm"])
+    if cfg.rope_theta > 0 and cross_kv is None:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     causal = cfg.causal and cross_kv is None
     if cfg.use_flash:
         out = flash_attention(q, k, v, causal, cfg.window)
@@ -137,8 +181,88 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: AttnConfig, *,
 
 
 # --------------------------------------------------------------------------
-# GELU MLP
+# MLA -- DeepSeek-V3 multi-head latent attention (no KV cache yet)
 # --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+
+
+def init_mla(gen: torch.Generator, cfg: MLAConfig, dtype=torch.float32,
+             device="cuda", stack=()) -> Params:
+    H = cfg.n_heads
+    kw = dict(dtype=dtype, device=device, stack=stack)
+    ones = lambda n: torch.ones((*stack, n), dtype=dtype, device=device)
+    return {
+        "wq_a": dense_init(gen, cfg.d_model, cfg.q_lora_rank, **kw),
+        "q_norm": ones(cfg.q_lora_rank),
+        "wq_b": dense_init(gen, cfg.q_lora_rank,
+                           H * (cfg.qk_nope_dim + cfg.qk_rope_dim), **kw),
+        "wkv_a": dense_init(gen, cfg.d_model,
+                            cfg.kv_lora_rank + cfg.qk_rope_dim, **kw),
+        "kv_norm": ones(cfg.kv_lora_rank),
+        "wkv_b": dense_init(gen, cfg.kv_lora_rank,
+                            H * (cfg.qk_nope_dim + cfg.v_head_dim), **kw),
+        "wo": dense_init(gen, H * cfg.v_head_dim, cfg.d_model, **kw),
+    }
+
+
+def apply_mla(p: Params, x: torch.Tensor, cfg: MLAConfig, *,
+              positions: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, None]:
+    """Causal MLA over the whole sequence.  The latent is decompressed to
+    per-head K and V; q/k heads are ``qk_nope + qk_rope`` wide and v heads
+    ``v_head_dim``, so this runs the dense :func:`attention` (the flash
+    kernel takes one head dim).  Returns ``(out, None)``, as
+    :func:`apply_attention`."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+
+    q = rms_norm(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
+    q = q.reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv_a = x @ p["wkv_a"]                       # (B,S, r + dr)
+    kv_latent = rms_norm(kv_a[..., :cfg.kv_lora_rank], p["kv_norm"])
+    k_rope = apply_rope(kv_a[..., None, cfg.kv_lora_rank:], positions,
+                        cfg.rope_theta)          # (B,S,1,dr) shared by heads
+
+    kv = (kv_latent @ p["wkv_b"]).reshape(B, S, H, dn + dv)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], -1)
+    qq = torch.cat([q_nope, q_rope], -1)
+    out = attention(qq, k, v, causal=True)
+    return out.reshape(B, S, H * dv) @ p["wo"], None
+
+
+# --------------------------------------------------------------------------
+# FFN: SwiGLU, GELU MLP and MoE
+# --------------------------------------------------------------------------
+
+def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int,
+                dtype=torch.float32, device="cuda", stack=()) -> Params:
+    return {
+        "w_gate": dense_init(gen, d_model, d_ff, dtype, device, stack),
+        "w_up": dense_init(gen, d_model, d_ff, dtype, device, stack),
+        "w_down": dense_init(gen, d_ff, d_model, dtype, device, stack),
+    }
+
+
+def apply_swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
 
 def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
                   dtype=torch.float32, device="cuda", stack=()) -> Params:
@@ -154,3 +278,135 @@ def apply_gelu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
     return h @ p["w_down"] + p["b_down"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    d_model: int
+    d_ff: int                  # expert intermediate size
+    n_experts: int
+    top_k: int
+    n_shared: int = 0          # shared (always-on) experts
+    shared_d_ff: int = 0       # their intermediate size (0 => d_ff)
+    capacity_factor: float = 1.25
+    router_dtype: Any = torch.float32
+
+
+def init_moe(gen: torch.Generator, cfg: MoEConfig, dtype=torch.float32,
+             device="cuda", stack=()) -> Params:
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    p = {
+        "router": dense_init(gen, d, E, torch.float32, device, stack),
+        "w_gate": normal(gen, (*stack, E, d, f), 1.0 / math.sqrt(d), dtype,
+                         device),
+        "w_up": normal(gen, (*stack, E, d, f), 1.0 / math.sqrt(d), dtype,
+                       device),
+        "w_down": normal(gen, (*stack, E, f, d), 1.0 / math.sqrt(f), dtype,
+                         device),
+    }
+    if cfg.n_shared:
+        sf = cfg.shared_d_ff or cfg.d_ff
+        p["shared"] = init_swiglu(gen, d, cfg.n_shared * sf, dtype, device,
+                                  stack)
+    return p
+
+
+def _expert_ffn(p: Params, xe: torch.Tensor, spec: str) -> torch.Tensor:
+    """The experts' SwiGLU over per-expert rows; ``spec`` names xe's dims
+    ending in (expert, row, d), as ``"becd"``."""
+    lead, out = spec[:-1], spec[:-1] + "f"
+    h = F.silu(torch.einsum(f"{spec},edf->{out}", xe, p["w_gate"]))
+    h = h * torch.einsum(f"{spec},edf->{out}", xe, p["w_up"])
+    return torch.einsum(f"{out},efd->{lead}d", h, p["w_down"])
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg: MoEConfig, *,
+              dispatch: str = "onehot") -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE with capacity-based dispatch.  Returns ``(output,
+    aux_loss)``, the Switch load-balancing loss.  ``dispatch``:
+
+    - ``"onehot"``: GShard-style one-hot dispatch/combine einsums, capacity
+      per batch (the JAX default and historical baseline);
+    - ``"scatter"``: sort-based -- each batch row's (token, slot)
+      assignments stably sorted by expert, the kept ones scattered into the
+      ``(E, cap, d)`` buffer (capacity per row; index ``E*cap`` is the
+      dropped slot), the grouped FFN, gathered back and summed into their
+      tokens with ``index_add_``;
+    - ``"dense"``: every token through its selected experts' gathered
+      weights (exact FLOPs, memory-heavy).  Its gates are cast to the
+      activations' dtype, where JAX promotes a bf16 product to fp32; in
+      fp32 the two are the same function.
+
+    Ties between router probabilities go to ``torch.topk``'s order;
+    ``jax.lax.top_k`` breaks them toward the lower index.
+    """
+    B, S, d = x.shape
+    T, E, k = B * S, cfg.n_experts, cfg.top_k
+    xt = x.reshape(T, d)
+    logits = (xt.to(cfg.router_dtype) @ p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)                        # (T,E)
+    top_p, top_i = torch.topk(probs, k, dim=-1)                  # (T,k)
+    top_p = top_p / top_p.sum(-1, keepdim=True)                  # renormalise
+
+    # load-balancing aux loss (Switch-style)
+    me = probs.mean(0)
+    ce = F.one_hot(top_i, E).sum(1).float().mean(0)
+    aux = E * (me * ce).sum() / k
+
+    if dispatch == "dense":
+        wg, wu, wd = (p[n][top_i] for n in ("w_gate", "w_up", "w_down"))
+        h = F.silu(torch.einsum("td,tkdf->tkf", xt, wg))
+        h = h * torch.einsum("td,tkdf->tkf", xt, wu)
+        y = torch.einsum("tkf,tkfd,tk->td", h, wd, top_p.to(xt.dtype))
+    elif dispatch == "scatter":
+        cap = max(1, int(math.ceil(S * k / E * cfg.capacity_factor)))
+        n = S * k
+        eid = top_i.reshape(B, n)
+        gates = top_p.reshape(B, n)
+        tok = torch.arange(S, device=x.device).repeat_interleave(k)
+        order = torch.argsort(eid, dim=-1, stable=True)
+        eid_s = eid.gather(1, order)
+        tok_s, gate_s = tok[order], gates.gather(1, order)       # (B, n)
+        counts = F.one_hot(eid, E).sum(1)                        # (B, E)
+        starts = counts.cumsum(1) - counts
+        pos = torch.arange(n, device=x.device) - starts.gather(1, eid_s)
+        keep = pos < cap
+        slot = eid_s * cap + torch.where(keep, pos, 0)
+        # each batch row owns E*cap + 1 buffer rows: the last one takes the
+        # dropped assignments and is cut away (JAX: mode="drop")
+        width = E * cap + 1
+        row0 = torch.arange(B, device=x.device)[:, None]
+        dst = torch.where(keep, slot, E * cap) + row0 * width
+        src = xt[(tok_s + row0 * S).reshape(-1)]
+        buf = x.new_zeros(B * width, d).index_put((dst.reshape(-1),), src)
+        xe = buf.reshape(B, width, d)[:, :E * cap].reshape(B, E, cap, d)
+        ye = _expert_ffn(p, xe, "becd").reshape(B * E * cap, d)
+        rows = torch.where(keep.reshape(-1, 1),
+                           ye[(slot + row0 * E * cap).reshape(-1)], 0.0) \
+            * gate_s.reshape(-1, 1).to(ye.dtype)
+        y = ye.new_zeros(T, d).index_add_(0, (tok_s + row0 * S).reshape(-1),
+                                          rows)
+    elif dispatch == "onehot":
+        cap = max(1, int(math.ceil(T * k / E * cfg.capacity_factor)))
+        # position of each (token, slot) within its expert
+        onehot = F.one_hot(top_i, E)                             # (T,k,E)
+        flat = onehot.reshape(T * k, E)
+        pos_in_e = flat.cumsum(0) * flat - 1                     # (T*k,E)
+        pos = pos_in_e.max(-1).values.reshape(T, k)              # (T,k)
+        keep = (pos < cap) & (pos >= 0)
+        gate = torch.where(keep, top_p, 0.0)
+        place = (onehot.to(x.dtype)[..., None]
+                 * F.one_hot(pos.clamp(0, cap - 1), cap).to(x.dtype)[
+                     ..., None, :])                              # (T,k,E,cap)
+        d_onehot = (place * keep[..., None, None].to(x.dtype)).sum(1)
+        xe = torch.einsum("tec,td->ecd", d_onehot, xt)           # (E,cap,d)
+        ye = _expert_ffn(p, xe, "ecd")                           # (E,cap,d)
+        combine = (place * gate[..., None, None].to(x.dtype)).sum(1)
+        y = torch.einsum("tec,ecd->td", combine, ye)
+    else:
+        raise ValueError(f"unknown MoE dispatch {dispatch!r}; expected "
+                         "'onehot', 'scatter' or 'dense'")
+
+    if "shared" in p:
+        y = y + apply_swiglu(p["shared"], xt)
+    return y.reshape(B, S, d), aux

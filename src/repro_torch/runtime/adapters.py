@@ -1,11 +1,15 @@
 """Model -> pipeline adapters (the port of ``repro.runtime.adapters`` for
-UViT, Hunyuan-DiT and SkipViT): :class:`DiffusionPipelineAdapter`, which
-regroups a model's block stacks into even per-device stage stacks for the
-closed-form wave executor and for the paper's skip-carry baseline;
-block-level callables for :func:`runtime.compile.auto_pipeline`; and the
-DDPM microbatch split.  SkipViT's microbatches are UViT's (class labels
-and a time token), as in the JAX trainer; :func:`model_fns` picks the
-callables of a model kind.
+UViT, Hunyuan-DiT, SkipViT and the decoder LMs):
+:class:`DiffusionPipelineAdapter`, which regroups a model's block stacks
+into even per-device stage stacks for the closed-form wave executor and
+for the paper's skip-carry baseline; block-level callables for
+:func:`runtime.compile.auto_pipeline` (:func:`lm_model_fns` for the LMs,
+whose skip-free graph plans linear, or folded under ``force_wave``); and
+the DDPM and token microbatch splits.  SkipViT's microbatches are UViT's
+(class labels and a time token), as in the JAX trainer; :func:`model_fns`
+picks the callables of a model kind.  The JAX ``LMPipelineAdapter`` (its
+even-split stacks for the closed forms) is not ported: ``auto_pipeline``
+lowers the LMs through the same executors.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.models import diffusion as diff_mod
+from repro_torch.models import lm as lm_mod
 from repro_torch.runtime.compile import PipelineModelFns
 from repro_torch.runtime.pipeline import (PipelineConfig, make_wave_pipeline,
                                           make_skip_carry_pipeline)
@@ -22,13 +27,14 @@ from repro_torch.tree import tree_map
 
 Pytree = Any
 KINDS = ("uvit", "hunyuan")
-MODEL_KINDS = (*KINDS, "skipvit")
+DIFFUSION_KINDS = (*KINDS, "skipvit")
+MODEL_KINDS = (*DIFFUSION_KINDS, "lm")
 
 
 def _check_kind(kind: str, kinds: tuple = KINDS) -> None:
     if kind not in kinds:
-        raise NotImplementedError(f"{kind!r} diffusion models are not yet "
-                                  f"ported (ported: {kinds})")
+        raise NotImplementedError(f"{kind!r} models are not yet ported "
+                                  f"here (ported: {kinds})")
 
 
 def _regroup(stack: Pytree, D: int, reverse: bool = False) -> Pytree:
@@ -205,7 +211,7 @@ def make_diffusion_microbatches(batch: dict, M: int, cfg=None,
     data, as it does in the JAX package, whose compile-path loss gives
     ``time_mlp`` a zero gradient for the same reason.
     """
-    _check_kind(kind, MODEL_KINDS)
+    _check_kind(kind, DIFFUSION_KINDS)
     lat = batch["latents"]
     B = lat.shape[0]
     if B % M:
@@ -307,9 +313,60 @@ def skipvit_model_fns(cfg: Any) -> PipelineModelFns:
         num_param_stacks=1)
 
 
+def lm_model_fns(cfg: lm_mod.LMConfig) -> PipelineModelFns:
+    """The decoder-LM family as block-level compile-path callables.
+
+    Pairs with :func:`repro_torch.models.lm.lm_pipeline_graph` (skip-free:
+    ``auto_pipeline`` lowers a linear S=D pipeline, or a folded S=2D wave
+    under ``force_wave``, whose first and last stages share device 0 with
+    the embedding and the (tied) readout).  Only ``params["layers"]`` is
+    pipelined; the rest (deepseek's ``dense_layers`` and ``mtp`` among
+    them) are edge params.  As in JAX, the pipeline's loss is the next-token
+    cross-entropy alone: no MoE aux and no MTP term, and the dense prelude
+    does not run.  Microbatches: :func:`make_lm_microbatches`.
+    """
+    def embed_fn(edge_p, mb, aux):
+        return lm_mod.embed_tokens(edge_p, mb["tokens"], cfg)
+
+    def block_fn(lp, x, aux):
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        x, _, _ = lm_mod.apply_layer(lp, x, cfg, dense_ffn=False,
+                                     positions=positions)
+        return x
+
+    def loss_fn(edge_p, x, mb, aux):
+        logits = lm_mod.unembed(edge_p, x[:, :-1], cfg)
+        return lm_mod.softmax_xent(logits, mb["tokens"][:, 1:])
+
+    def split_blocks(params):
+        edge = {k: v for k, v in params.items() if k != "layers"}
+        return (params["layers"],), edge
+
+    def merge_blocks(stacks, edge):
+        return {**edge, "layers": stacks[0]}
+
+    return PipelineModelFns(
+        init_fn=lambda gen, device: lm_mod.init_lm(gen, cfg, device),
+        embed_fn=embed_fn, loss_fn=loss_fn, block_fn=block_fn,
+        split_blocks=split_blocks, merge_blocks=merge_blocks,
+        num_param_stacks=1)
+
+
+def make_lm_microbatches(batch: dict, M: int) -> dict:
+    """``{"tokens": (B, S)}`` -> ``{"tokens": (M, B/M, S)}``, the linear
+    executor's ``mbs`` (the folded one takes ``aux={}`` beside it)."""
+    tok = batch["tokens"]
+    B = tok.shape[0]
+    if B % M:
+        raise ValueError(f"batch {B} does not split into {M} microbatches")
+    return {"tokens": tok.reshape(M, B // M, *tok.shape[1:])}
+
+
 def model_fns(cfg: Any, kind: str) -> PipelineModelFns:
     """The compile-path callables of a model ``kind`` (``"uvit"``,
-    ``"hunyuan"`` or ``"skipvit"``)."""
+    ``"hunyuan"``, ``"skipvit"`` or ``"lm"``)."""
     _check_kind(kind, MODEL_KINDS)
+    if kind == "lm":
+        return lm_model_fns(cfg)
     return (skipvit_model_fns(cfg) if kind == "skipvit"
             else diffusion_model_fns(cfg, kind))

@@ -127,6 +127,36 @@ def test_flash_attention_kernel_matches_plain(B, S, T, Hq, Hkv, D, causal,
 
 
 @pytest.mark.gpu
+def test_flash_at_the_smollm_attention_shape():
+    """smollm-360m's attention at its full shape in the ``lm`` phase's
+    pipeline: a microbatch of 2 at sequence 4096, causal GQA 15:5 at head
+    dim 64 (bf16: the tensor-core route), through the differentiable op
+    against the plain version, forward and the gradients (the op's backward
+    recomputes through the plain version; the cotangent is the same)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn(2, 4096, 15, 64, device="cuda", generator=gen)
+    k, v = (torch.randn(2, 4096, 5, 64, device="cuda", generator=gen)
+            for _ in range(2))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    g = torch.randn(2, 4096, 15, 64, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    assert flash_route(torch.bfloat16, 64) == "wgmma"
+    before = LAUNCHES["flash_attention"]
+    ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = flash_attention(*ins, True, None)
+    out.backward(g)
+    assert LAUNCHES["flash_attention"] == before + 1
+    ref = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = attention_plain(*ref, True, None)
+    want.backward(g)
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    for a, b in zip(ins, ref):
+        torch.testing.assert_close(a.grad.float(), b.grad.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("S,T,D", [(256, 256, 112), (256, 77, 112),
                                    (64, 64, 224), (16, 77, 224)])
 def test_flash_tensor_core_route_stores_no_pad_column(S, T, D):

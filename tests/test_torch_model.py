@@ -247,9 +247,25 @@ def test_synthetic_latents_match_jax_package():
 
 
 def test_unported_layer_options_raise():
-    from repro_torch.models.layers import AttnConfig, apply_attention
+    """Rotary embeddings are ported: a ``rope_theta > 0`` self-attention is
+    the dense attention of RoPE-rotated q and k (``rope_theta=0`` of the
+    same params is not); the JAX LM config's ``remat_policy``, which the
+    port lacks, is refused."""
+    from repro_torch.models.layers import (AttnConfig, apply_attention,
+                                           apply_rope, attention)
+    from repro_torch.models.lm import LMConfig
     cfg = AttnConfig(16, 2, 2, 8)                  # rope_theta > 0
-    p = {k: torch.zeros(16, 16) for k in ("wq", "wk", "wv", "wo")}
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        apply_attention(p, torch.zeros(1, 3, 16), cfg)
+    gen = torch.Generator().manual_seed(0)
+    p = {k: torch.randn(16, 16, generator=gen) / 4
+         for k in ("wq", "wk", "wv", "wo")}
+    x = torch.randn(1, 3, 16, generator=gen)
+    q, k, v = ((x @ p[w]).reshape(1, 3, 2, 8) for w in ("wq", "wk", "wv"))
+    pos = torch.arange(3)[None]
+    want = attention(apply_rope(q, pos), apply_rope(k, pos), v)
+    got, _ = apply_attention(p, x, cfg)
+    torch.testing.assert_close(got, want.reshape(1, 3, 16) @ p["wo"])
+    plain, _ = apply_attention(p, x, dataclasses.replace(cfg, rope_theta=0.0))
+    assert not torch.allclose(got, plain)
     assert dataclasses.replace(cfg, rope_theta=0.0).use_flash is False
+    with pytest.raises(TypeError, match="remat_policy"):
+        LMConfig("t", 8, 16, 1, attn=cfg, remat_policy="dots")

@@ -366,8 +366,8 @@ def test_train_runs_three_steps_on_cpu(tmp_path):
                                    []])
 def test_train_refuses_unported_paths(extra):
     from repro_torch.launch import train
-    # [] is the JAX trainer's non-pipeline path of an LM smoke arch
-    arch = "uvit-nano" if extra else "smollm-360m"
+    # [] is the JAX trainer's non-pipeline path of a smoke arch not ported
+    arch = "uvit-nano" if extra else "zamba2-2.7b"
     argv = ["--arch", arch, "--devices", "2", "--steps", "1",
             "--device", "cpu"] + extra
     if extra:
@@ -411,6 +411,30 @@ def test_train_arch_configs(arch, d):
     if arch == "hunyuan-pp":
         assert (cfg.n_layers, cfg.n_heads, cfg.d_ff, cfg.ctx_dim,
                 cfg.ctx_len) == (8, 4, 64, 16, 4)
+
+
+def test_train_layers_cuts_the_depth():
+    """``--layers`` cuts a pipeline model to that many blocks, its widths
+    kept, and trains it; the non-pipeline path and SkipViT refuse it."""
+    import dataclasses
+
+    from repro_torch.launch import train
+    full = train._model_config(train._parse_args(["--arch", "uvit-h",
+                                                  "--pipeline"]))
+    cut = train._model_config(train._parse_args(
+        ["--arch", "uvit-h", "--pipeline", "--layers", "16"]))
+    assert cut == dataclasses.replace(full, n_layers=16)
+    res = train.run(train._parse_args(
+        ["--arch", "uvit-pp", "--pipeline", "--devices", "2", "--layers",
+         "4", "--steps", "1", "--global-batch", "4", "--microbatches", "2",
+         "--device", "cpu"]))
+    assert res.compiled.partition.cuts[-1] == 4
+    assert np.isfinite(res.losses[0])
+    for argv in (["--arch", "sdv2-unet"], ["--arch", "skipvit",
+                                           "--pipeline"]):
+        with pytest.raises(ValueError, match="--layers"):
+            train.run(train._parse_args(argv + ["--layers", "2", "--steps",
+                                                "1", "--device", "cpu"]))
 
 
 def test_train_on_cuda_without_a_card_raises():
@@ -457,7 +481,9 @@ def test_port_imports_neither_jax_nor_repro():
                 "repro_torch.configs.sdv2_unet",
                 "repro_torch.configs.smoke",
                 "repro_torch.launch.mesh",
-                "repro_torch.launch.supervisor"):
+                "repro_torch.launch.supervisor",
+                "repro_torch.models.lm",
+                "repro_torch.configs.qwen3_moe_30b_a3b"):
         assert mod in walked, mod
     # chip_smoke.py imports none of them either
     src = (REPO / "chip_smoke.py").read_text()

@@ -248,8 +248,8 @@ def test_model_fns_and_microbatches_by_kind():
                                                   "--pipeline"]))
     assert model_fns(cfg, "skipvit").num_param_stacks == 1
     assert model_fns(ucfg, "uvit").num_param_stacks == 2
-    with pytest.raises(NotImplementedError, match="'lm'"):
-        model_fns(cfg, "lm")
+    with pytest.raises(NotImplementedError, match="'unet'"):
+        model_fns(cfg, "unet")
     gen = torch.Generator().manual_seed(0)
     batch = {"latents": torch.randn(8, 8, 8, 4, generator=gen),
              "labels": torch.randint(0, 10, (8,), generator=gen)}

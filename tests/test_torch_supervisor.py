@@ -589,6 +589,18 @@ def test_worker_command_and_env(tmp_path):
         assert train._parse_args(card_cmd[3:]).ring == ring
 
 
+def test_worker_command_passes_layers(tmp_path):
+    """``layers`` reaches every rank as the trainer's ``--layers``; left
+    unset, the ranks train the config's full depth."""
+    from repro_torch.launch import train
+    for layers in (None, 16):
+        sup = port_sup.Supervisor(port_sup.SupervisorConfig(
+            run_dir=str(tmp_path / str(layers)), arch="uvit-h",
+            layers=layers, device="cpu"))
+        cmd = sup._worker_cmd(0, 2, (2, 2, 0), 0, None, "o.json")
+        assert train._parse_args(cmd[3:]).layers == layers
+
+
 def test_supervisor_module_makes_no_cuda_call():
     import inspect
     src = inspect.getsource(port_sup)
