@@ -33,11 +33,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    qwen3-moe-30b-a3b's batch, B=2 Hq=32 Hkv=4 D=128; and its smoke
    keys' batch 4 of 32 tokens, heads of 16, causal: GQA 4:2, with a window
    of 8, MQA 4:1, and S=40 with a vision prefix; rows ``lm ...``, SDPA
-   with ``enable_gqa`` the library call) (the gated
-   linear scan, which no train path calls, at zamba2-2.7b's Mamba2 width
-   over 4k steps and at R=32 over 2k steps, forward and backward kernels,
-   with mixed dtypes of a and x, and with decays near 1, whose carry spans
-   many chunks; see ``check_scan``), forward and
+   with ``enable_gqa`` the library call) and of the ``recurrent`` phase
+   (whisper-base, batch 8, 8 heads of 64: the encoder's self-attention
+   over 4096 frames, the decoder's causal self-attention over 447 tokens
+   and its cross-attention over the 4096 frames; its smoke key's three
+   at batch 4, heads of 8; rows ``whisper-base ...`` and ``recurrent
+   smoke ...``) (the gated linear scan at zamba2-2.7b's carry across
+   chunks on the ``recurrent`` path, R=2 T=32 C=327,680, at its Mamba2
+   width over 4k steps and at R=32 over 2k steps, forward and backward
+   kernels, with mixed dtypes of a and x, and with decays near 1, whose
+   carry spans many chunks; see ``check_scan``), forward and
    gradients (fp32 with TF32 off at rtol =
    atol = 1e-4; bf16 at rtol = atol = 2e-2, bf16 rounding in another
    summation order; only the skip matmul's weight gradient, a sum over all
@@ -154,7 +159,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     1e-5 (fp32), flash once a layer on the card (the SIMT route; danube
     with its window), none for deepseek's MLA; the kernel phase holds
     flash at these shapes (``lm smoke`` rows: GQA 4:2, its window of 8,
-    MQA 4:1, S=40 with internvl2's prefix);
+    MQA 4:1, S=40 with internvl2's prefix, which the trainer's batch
+    leaves out, as the JAX trainer's does);
+17. recurrent (``recurrent_whisper``, ``recurrent_xlstm``,
+    ``mamba2_block_parity``, ``recurrent_zamba2``, ``lm_smoke`` on the
+    three keys), after phase 16, each run after checking that less than
+    1 GB is still allocated; bf16, random weights from seed 0, 3 AdamW
+    steps each, step seconds and peak memory printed beside the card's
+    name and power limit: (a) whisper-base at full width and depth (6+6
+    layers, d=512, 8 heads of 64; 70,658,560 params), frames 4096 and
+    tokens 448, batch 8, flash on every attention: finite losses, flash
+    exactly 18 launches a step (encoder self, decoder causal self, cross;
+    forward only), the first loss within 1e-2 relative of the same loss
+    with the dense attention; (b) xlstm-125m at full width and depth (12
+    blocks, 2 sLSTM; 187,494,144 params), S=4096, batch 2: finite losses,
+    no kernel; (c) one value-and-grad of a full-width Mamba2 block of
+    zamba2-2.7b (fp32, S=4096, batch 2) through the scan route
+    (``_ssd_chunked``) and the plain chunk loop, the output and every
+    gradient leaf at rtol 1e-4; (d) zamba2-2.7b at full width, its depth
+    cut to 12 of 54 Mamba2 blocks (both shared blocks run, after blocks 5
+    and 11; 770,243,904 params), S=4096, batch 2: finite losses, the scan
+    exactly 24 launches a step (forward and backward of each block), the
+    shared attention dense (head dim 80); (e) the three smoke keys one
+    trainer step each, card vs CPU at rtol 1e-5 (whisper's frames handed
+    to both), flash 6 a step for whisper, the scan 12 for zamba2;
 11. supervisor over ranks (``supervisor_phase``), run last, after phase
     14 (its UViT-H part is held to phase 13's losses), after releasing
     this process's memory; every generation is a world of rank processes
@@ -257,7 +285,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 15. the ``kernels`` JSON line (each kernel's launches by path: ``plan``,
     ``baseline``, ``skipvit train``, ``skipvit wave-asym``, ``lm
     smollm-360m wave``, ``lm smollm-360m linear``, ``lm
-    qwen3-moe-30b-a3b``, ``lm smoke``,
+    qwen3-moe-30b-a3b``, ``lm smoke``, ``recurrent whisper-base``,
+    ``recurrent xlstm-125m``, ``recurrent zamba2-2.7b``, ``recurrent
+    smoke``,
     ``ranks``, ``hybrid``, ``rank checkpoint``, ``supervisor ranks`` and
     ``host workers``, the last five read from the ranks' and the workers'
     result files, among them), then
@@ -535,6 +565,18 @@ def check_flash(torch, rec) -> dict:
         ("lm smoke window", 4, 32, 32, 4, 2, 16, True, 8),
         ("lm smoke MQA", 4, 32, 32, 4, 1, 16, True, None),
         ("lm smoke prefix", 4, 40, 40, 4, 2, 16, True, None),
+        # the recurrent phase's whisper-base, batch 8, 8 heads of 64: the
+        # encoder's self-attention over 4096 frames, the decoder's causal
+        # self-attention over 447 tokens (a partial last tile) and its
+        # cross-attention over the encoded frames
+        ("whisper-base encoder", 8, 4096, 4096, 8, 8, 64, False, None),
+        ("whisper-base decoder", 8, 447, 447, 8, 8, 64, True, None),
+        ("whisper-base cross", 8, 447, 4096, 8, 8, 64, False, None),
+        # its smoke key through the trainer, batch 4: 4 heads of 8 over 12
+        # frames and 9 tokens
+        ("recurrent smoke whisper encoder", 4, 12, 12, 4, 4, 8, False, None),
+        ("recurrent smoke whisper decoder", 4, 9, 9, 4, 4, 8, True, None),
+        ("recurrent smoke whisper cross", 4, 9, 12, 4, 4, 8, False, None),
     ]
     for path, B, S, T, Hq, Hkv, D, causal, window in cases:
         for dtype in ("bfloat16", "float32"):
@@ -615,8 +657,11 @@ def check_flash(torch, rec) -> dict:
     return main
 
 
+# zamba2's carry across chunks: batch 2, 4096 / 128 chunks, H*N*P
+ZAMBA2_CARRY = "zamba2-2.7b chunk carry, T=32"
 SCAN_SHAPES = {"zamba2-2.7b mamba2, T=4096": (4, 4096, 5120),
-               "wide, R=32 T=2048": (32, 2048, 5120)}
+               "wide, R=32 T=2048": (32, 2048, 5120),
+               ZAMBA2_CARRY: (2, 32, 80 * 64 * 64)}
 # the decay a of each check: sigmoid(normal), whose product over a warp's 16
 # steps is ~3e-6, so h hardly depends on what came before; and
 # exp(-0.01 softplus(normal)), near 1 as Mamba2's exp(dt A) are, whose
@@ -644,22 +689,24 @@ def scan_inputs(torch, gen, R, T, C, dtype_a, dtype_x, decay):
     return a.to(dtype_a), x.to(dtype_x), g.to(dtype_x)
 
 
-def check_scan(torch, rec) -> tuple[dict, int]:
-    """The gated linear scan.  No train path calls it, so this phase is its
-    path.  Each check runs at both decays of ``SCAN_DECAYS``.  (1) The
+def check_scan(torch, rec) -> dict:
+    """The gated linear scan.  Each check runs at both decays of
+    ``SCAN_DECAYS``.  (1) The
     op's forward and backward (one kernel launch each) against the plain
     versions at T=512 and at a ragged shape, for each pair of dtypes of a
     and x (bf16 and fp32, and both mixed pairs: the mixed ones against the
     plain transcription of the JAX VJP, which rounds g to a's dtype where
     autograd through the plain forward does not).  (2) At zamba2-2.7b's
-    Mamba2 width (R=4 rows of C=5120 channels, T=4096) and at a wide shape
-    (R=32, T=2048), each of bf16 and fp32: the op's forward and backward,
-    and the forward and backward kernels called directly, each against its
-    plain version on the same inputs; on the decay near 1, each kernel
-    then timed beside its bound (forward 3 N elements moved, backward
-    5 N).  Returns the bf16 forward row at zamba2's shape and the launches
-    of the op's calls (not the direct kernel calls of checks and timing
-    loops)."""
+    Mamba2 width (R=4 rows of C=5120 channels, T=4096), at a wide shape
+    (R=32, T=2048) and at the shape of zamba2's carry across chunks on the
+    recurrent phase's path (R=2, T=32 chunks, C = 80 heads x 64 x 64;
+    shorter than one of the kernel's chunks), each of bf16 and fp32: the
+    op's forward and backward, and the forward and backward kernels called
+    directly, each against its plain version on the same inputs; on the
+    decay near 1, each kernel then timed beside its bound (forward 3 N
+    elements moved, backward 5 N).  Returns the fp32 forward row at the
+    carry's shape, the path's; the op's launches here are comparisons
+    (``rec["gated_linear_scan_op_launches"]``), not a path's."""
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.linear_scan import (gated_linear_scan,
                                                  gated_linear_scan_bwd_cuda,
@@ -766,12 +813,14 @@ def check_scan(torch, rec) -> tuple[dict, int]:
                     log(_row_line(f"gated_linear_scan {direction} {dtype} "
                                   f"R={R} T={T} C={C} a {decay}", row,
                                   "library"))
-                    if (dtype, direction, R) == ("bfloat16", "forward", 4):
+                    if (dtype, direction, shape_name) == (
+                            "float32", "forward", ZAMBA2_CARRY):
                         main = row
                 del a, x, g, h
             torch.cuda.empty_cache()
     rec["gated_linear_scan"] = rows
-    return main, launches
+    rec["gated_linear_scan_op_launches"] = launches
+    return main
 
 
 # ---------------------------------------------------------------------------
@@ -2268,15 +2317,18 @@ def lm_qwen3(torch, rec) -> dict:
     return launch_counts()
 
 
-def lm_smoke(torch, rec) -> dict:
-    """Each of the seven LM smoke keys through the trainer for one step
-    (``--global-batch 4``) on the card and on the CPU from the same params
-    (seed 0, made on the CPU) and batch (the trainer's own, drawn with
-    numpy): the losses at rtol ``LM_SMOKE_BAR`` (fp32); flash launched
-    once a layer on the card (SIMT route; danube with its window), never
-    for deepseek's MLA.  The kernel phase holds flash at each of these
-    attention shapes (the ``lm smoke`` rows).  Returns the card's
-    launches."""
+def lm_smoke(torch, rec, factories=None, tag: str = "lm") -> dict:
+    """Each smoke key of ``factories`` (default: the seven LM keys) through
+    the trainer for one step (``--global-batch 4``) on the card and on the
+    CPU from the same params (seed 0, made on the CPU) and batch (the
+    trainer's own, drawn with numpy; whisper's frames, the loss's draw,
+    made on the CPU and handed to both runs): the losses at rtol
+    ``LM_SMOKE_BAR`` (fp32); on the card each kernel launched as often as
+    ``smoke_launches`` says (flash once an attention call: the SIMT
+    route, danube with its window, none for deepseek's MLA and xLSTM; the
+    scan twice a Mamba2 block).  The kernel phase holds flash at each of
+    these attention shapes (the ``lm smoke`` and ``recurrent smoke``
+    rows).  Returns the card's launches."""
     from repro_torch.configs.smoke import LM_FACTORIES
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train as train_mod
@@ -2284,35 +2336,306 @@ def lm_smoke(torch, rec) -> dict:
 
     total = dict.fromkeys(launch_counts(), 0)
     rows = {}
-    for key, factory in LM_FACTORIES.items():
-        _, init_fn, _, cfg = factory(kernels=True)
-        init = tree_map(lambda x: x.numpy(), init_fn(
-            torch.Generator().manual_seed(0), "cpu"))
+    for key, factory in (factories or LM_FACTORIES).items():
+        _, init_fn, make_batch, cfg = factory(kernels=True)
+        cpu_gen = torch.Generator().manual_seed(0)
+        init = tree_map(lambda x: x.numpy(), init_fn(cpu_gen, "cpu"))
+        proto = make_batch(cpu_gen, "cpu")
+        draw = None
+        if "frames" in proto:
+            frames = torch.randn((LM_SMOKE_BATCH, *proto["frames"].shape[1:]),
+                                 generator=cpu_gen).numpy()
+
+            def draw(step):
+                return (frames,)
         loss = {}
         for dev in ("cpu", "cuda"):
             args = train_mod._parse_args(
                 ["--arch", key, "--steps", "1", "--global-batch",
                  str(LM_SMOKE_BATCH), "--log-every", "100", "--device", dev])
             reset_launch_counts()
-            res = train_mod.run(args, init_params=init)
+            res = train_mod.run(args, init_params=init, draw=draw)
             launched = launch_counts()
             loss[dev] = res.losses[0]
             del res
-        want = cfg.n_layers if cfg.attn is not None else 0
-        if launched["flash_attention"] != want:
-            fail(f"lm smoke {key}: launches {launched}; want {want} flash")
+        want = smoke_launches(cfg)
+        if launched != want:
+            fail(f"{tag} smoke {key}: launches {launched}; want {want}")
         if not (math.isfinite(loss["cuda"]) and math.isclose(
                 loss["cuda"], loss["cpu"], rel_tol=LM_SMOKE_BAR)):
-            fail(f"lm smoke {key}: loss on the card {loss['cuda']} vs CPU "
-                 f"{loss['cpu']} (rtol {LM_SMOKE_BAR})")
+            fail(f"{tag} smoke {key}: loss on the card {loss['cuda']} vs "
+                 f"CPU {loss['cpu']} (rtol {LM_SMOKE_BAR})")
         for k, v in launched.items():
             total[k] += v
         rows[key] = dict(loss_cuda=loss["cuda"], loss_cpu=loss["cpu"],
                          launches=launched)
-        log(f"[lm] smoke {key} ({cfg.name}): one trainer step, loss card "
+        log(f"[{tag}] smoke {key} ({cfg.name}): one trainer step, loss card "
             f"{loss['cuda']!r} cpu {loss['cpu']!r}; launches {launched}")
-    rec.setdefault("lm", {})["smoke"] = rows
+    rec.setdefault(tag, {})["smoke"] = rows
     return total
+
+
+def smoke_launches(cfg) -> dict:
+    """The kernel launches of one trainer step of a smoke config on the
+    card: flash once an attention call (forward only: its backward
+    recomputes through the plain version), the scan once forward and once
+    backward a Mamba2 block."""
+    from repro_torch.kernels import launch_counts
+    want = dict.fromkeys(launch_counts(), 0)
+    if hasattr(cfg, "n_enc_layers"):          # whisper: self, self, cross
+        want["flash_attention"] = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    elif hasattr(cfg, "mamba"):               # Zamba2 (dense attention)
+        want["gated_linear_scan"] = 2 * cfg.n_layers
+    elif getattr(cfg, "attn", None) is not None:
+        want["flash_attention"] = cfg.n_layers
+    return want
+
+
+# ---------------------------------------------------------------------------
+# phase 17: recurrent -- whisper-base, xlstm-125m and zamba2-2.7b at full
+# width, the three smoke keys through the trainer
+# ---------------------------------------------------------------------------
+
+RECURRENT_SEQ = 4096          # the JAX train_4k shape: frames, or tokens
+RECURRENT_STEPS = 3
+WHISPER_BATCH = 8
+WHISPER_FLASH_PER_STEP = 18   # 6 encoder self, 6 decoder self, 6 cross
+WHISPER_DENSE_BAR = 1e-2      # bf16: the first loss vs use_flash=False's
+XLSTM_BATCH = 2
+ZAMBA2_LAYERS, ZAMBA2_BATCH = 12, 2   # 12 of 54 Mamba2 blocks: 2 sites
+MAMBA2_BAR = 1e-4             # fp32: the scan route vs the chunk loop
+
+
+def _adamw_steps(torch, params, loss_fn, what: str) -> dict:
+    """``RECURRENT_STEPS`` value-and-grads of ``loss_fn(params)`` and AdamW
+    steps on the card: each step's loss, gradient norm, seconds (host
+    clock around a synchronized step) and kernel launches, and the peak
+    memory.  Fails on a loss or gradient norm that is not finite."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   global_norm)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    for x in tree_leaves(params):
+        x.requires_grad_(True)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = dict(losses=[], grad_norms=[], step_seconds=[], launches=[])
+    for _ in range(RECURRENT_STEPS):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        loss = loss_fn(params)
+        loss.backward()
+        grads = tree_map(lambda x: x.grad, params)
+        out["grad_norms"].append(float(global_norm(grads)))
+        adamw_update(params, grads, opt, AdamWConfig(lr=3e-4))
+        for x in tree_leaves(params):
+            x.grad = None
+        torch.cuda.synchronize()
+        out["step_seconds"].append(time.perf_counter() - t0)
+        out["losses"].append(float(loss.detach()))
+        out["launches"].append({k: v - before[k]
+                                for k, v in launch_counts().items()})
+        del grads, loss
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]):
+        fail(f"{what}: losses {out['losses']}, gradient norms "
+             f"{out['grad_norms']}")
+    del opt
+    return out
+
+
+def _steps_line(out: dict, smi_line: str) -> str:
+    return (f"losses {out['losses']}; step s "
+            f"{[round(x, 3) for x in out['step_seconds']]}; peak "
+            f"{out['peak_bytes'] / 1e9:.2f} GB ({smi_line})")
+
+
+def recurrent_whisper(torch, rec, smi_line: str) -> dict:
+    """whisper-base at full width and depth (6+6 layers, d=512, 8 heads of
+    64, bf16, seed-0 weights), frames 4096 and tokens 448 (the JAX
+    ``batch_struct`` at ``train_4k``), batch ``WHISPER_BATCH``:
+    ``RECURRENT_STEPS`` AdamW steps with flash on every attention.  Held:
+    finite losses; flash ``WHISPER_FLASH_PER_STEP`` times a step (forward
+    only) and no other kernel; the first loss within ``WHISPER_DENSE_BAR``
+    of the same loss with the dense attention (``use_flash=False``) on the
+    same weights and batch.  Returns the launches of the steps."""
+    import dataclasses
+
+    from repro_torch.configs.whisper_base import CFG, MAX_TGT
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import whisper as wh
+    from repro_torch.tree import tree_leaves
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        params = wh.init_whisper(gen, CFG, "cuda")
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    batch = {"frames": torch.randn((WHISPER_BATCH, RECURRENT_SEQ,
+                                    CFG.d_model), generator=gen,
+                                   device="cuda"),
+             "tokens": torch.randint(0, CFG.vocab, (WHISPER_BATCH, MAX_TGT),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+    before = launch_counts()
+    with torch.no_grad():
+        dense = float(wh.whisper_loss(
+            params, batch, dataclasses.replace(CFG, use_flash=False)))
+    if launch_counts() != before:
+        fail("recurrent whisper-base: the dense attention launched a kernel")
+    release(torch)
+    what = "recurrent whisper-base"
+    reset_launch_counts()
+    out = _adamw_steps(torch, params,
+                       lambda p: wh.whisper_loss(p, batch, CFG), what)
+    launched = launch_counts()
+    want = dict.fromkeys(launched, 0)
+    want["flash_attention"] = WHISPER_FLASH_PER_STEP
+    if any(x != want for x in out["launches"]):
+        fail(f"{what}: launches a step {out['launches']}, want {want}")
+    rel = abs(out["losses"][0] - dense) / abs(dense)
+    if not rel <= WHISPER_DENSE_BAR:
+        fail(f"{what}: first loss {out['losses'][0]} vs the dense "
+             f"attention's {dense} (relative {rel:.3e} > "
+             f"{WHISPER_DENSE_BAR})")
+    rec.setdefault("recurrent", {})["whisper-base"] = dict(
+        params=n_params, frames=RECURRENT_SEQ, tokens=MAX_TGT,
+        batch=WHISPER_BATCH, dense_loss=dense, first_loss_rel_err=rel, **out)
+    log(f"[recurrent] whisper-base: {n_params} params; frames "
+        f"{RECURRENT_SEQ} tokens {MAX_TGT} B={WHISPER_BATCH}; "
+        + _steps_line(out, smi_line) + f"; first loss vs the dense "
+        f"attention's {dense!r}: rel {rel:.2e}; flash "
+        f"{out['launches'][0]['flash_attention']} a step")
+    del params, batch
+    return launched
+
+
+def recurrent_xlstm(torch, rec, smi_line: str) -> dict:
+    """xlstm-125m at full width and depth (12 blocks, 2 of them sLSTM,
+    d=768, 4 heads; bf16, seed-0 weights) at sequence ``RECURRENT_SEQ``,
+    batch ``XLSTM_BATCH`` (each mLSTM block's fp32 (B, S, S, H) tensors
+    0.54 GB): ``RECURRENT_STEPS`` AdamW steps; finite losses; no kernel on
+    this path.  Returns the launches."""
+    from repro_torch.configs.xlstm_125m import CFG
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import xlstm as xm
+    from repro_torch.tree import tree_leaves
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        params = xm.init_xlstm(gen, CFG, "cuda")
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    tokens = torch.randint(0, CFG.vocab, (XLSTM_BATCH, RECURRENT_SEQ),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    what = "recurrent xlstm-125m"
+    reset_launch_counts()
+    out = _adamw_steps(torch, params, lambda p: xm.xlstm_loss(
+        p, {"tokens": tokens}, CFG), what)
+    launched = launch_counts()
+    if any(launched.values()):
+        fail(f"{what}: launches {launched}; this path has no kernel")
+    rec.setdefault("recurrent", {})["xlstm-125m"] = dict(
+        params=n_params, seq=RECURRENT_SEQ, batch=XLSTM_BATCH, **out)
+    log(f"[recurrent] xlstm-125m: {n_params} params; S={RECURRENT_SEQ} "
+        f"B={XLSTM_BATCH}; " + _steps_line(out, smi_line))
+    del params
+    return launched
+
+
+def mamba2_block_parity(torch, rec) -> None:
+    """One full-width Mamba2 block of zamba2-2.7b (d=2560: 80 heads, N = P
+    = 64, chunk 128) at sequence ``RECURRENT_SEQ``, batch
+    ``ZAMBA2_BATCH``, fp32 (TF32 off), seed-0 weights: one value-and-grad
+    through ``_ssd_chunked`` (the carry through the scan kernel) and
+    through ``_ssd_chunked_plain`` (the JAX loop over chunks) on the same
+    weights, input and cotangent.  Held: the output and every gradient
+    leaf (the input's too) at rtol ``MAMBA2_BAR``, an entry near zero to
+    1e-5 of its leaf's largest magnitude.  These launches compare the
+    kernel with its plain version and count on no path."""
+    from repro_torch.configs.zamba2_2_7b import CFG
+    from repro_torch.models import mamba
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        p = mamba.init_mamba2_block(gen, CFG.mamba, torch.float32, "cuda")
+    x = torch.randn((ZAMBA2_BATCH, RECURRENT_SEQ, CFG.d_model),
+                    generator=gen, device="cuda")
+    g = torch.randn(x.shape, generator=gen, device="cuda")
+    outs, secs = {}, {}
+    for route, ssd in (("scan", mamba._ssd_chunked),
+                       ("plain", mamba._ssd_chunked_plain)):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xi = x.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, _ = mamba.apply_mamba2_block(leaves, xi, CFG.mamba, ssd=ssd)
+        y.backward(g)
+        torch.cuda.synchronize()
+        secs[route] = time.perf_counter() - t0
+        outs[route] = {"y": y.detach(), "x": xi.grad,
+                       **{k: v.grad for k, v in leaves.items()}}
+        del leaves, xi, y
+    errs = {}
+    for k, want in outs["plain"].items():
+        got = outs["scan"][k]
+        atol = 1e-5 * float(want.abs().max())
+        errs[k] = float((got - want).abs().max())
+        try:
+            torch.testing.assert_close(got, want, rtol=MAMBA2_BAR, atol=atol)
+        except AssertionError as e:
+            fail(f"mamba2 block {k}: the scan route disagrees with the plain "
+                 f"chunk loop (rtol {MAMBA2_BAR}, atol {atol:.3e}):\n{e}")
+    rec.setdefault("recurrent", {})["mamba2 block parity"] = dict(
+        max_abs_err=errs, seconds=secs)
+    log(f"[recurrent] mamba2 block (zamba2-2.7b width, S={RECURRENT_SEQ} "
+        f"B={ZAMBA2_BATCH}, fp32): scan route vs chunk loop, max|err| "
+        + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; value-and-grad s scan {secs['scan']:.3f}, loop "
+        f"{secs['plain']:.3f}")
+    del outs, p, x, g
+
+
+def recurrent_zamba2(torch, rec, smi_line: str) -> dict:
+    """zamba2-2.7b at full width (d=2560, Mamba2 80 heads x N 64 x P 64,
+    shared attention 32 heads of 80, dense; d_ff 10240), depth cut to
+    ``ZAMBA2_LAYERS`` of its 54 Mamba2 blocks so that both shared blocks
+    run (after blocks 5 and 11), bf16, seed-0 weights, sequence
+    ``RECURRENT_SEQ``, batch ``ZAMBA2_BATCH``: ``RECURRENT_STEPS`` AdamW
+    steps.  Held: finite losses; the scan launched twice a Mamba2 block a
+    step (forward, backward), nothing else.  Returns the launches."""
+    import dataclasses
+
+    from repro_torch.configs.zamba2_2_7b import CFG
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import mamba
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(CFG, n_layers=ZAMBA2_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        params = mamba.init_zamba2(gen, cfg, "cuda")
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    tokens = torch.randint(0, cfg.vocab, (ZAMBA2_BATCH, RECURRENT_SEQ),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    what = f"recurrent zamba2-2.7b ({ZAMBA2_LAYERS} of 54 blocks)"
+    reset_launch_counts()
+    out = _adamw_steps(torch, params, lambda p: mamba.zamba2_loss(
+        p, {"tokens": tokens}, cfg), what)
+    launched = launch_counts()
+    want = dict.fromkeys(launched, 0)
+    want["gated_linear_scan"] = 2 * ZAMBA2_LAYERS
+    if any(x != want for x in out["launches"]):
+        fail(f"{what}: launches a step {out['launches']}, want {want}")
+    rec.setdefault("recurrent", {})["zamba2-2.7b"] = dict(
+        layers=ZAMBA2_LAYERS, sites=cfg.shared_sites(), params=n_params,
+        seq=RECURRENT_SEQ, batch=ZAMBA2_BATCH, **out)
+    log(f"[recurrent] {what}: shared sites {cfg.shared_sites()}; "
+        f"{n_params} params; S={RECURRENT_SEQ} B={ZAMBA2_BATCH}; "
+        + _steps_line(out, smi_line) + f"; scan "
+        f"{out['launches'][0]['gated_linear_scan']} a step")
+    del params
+    return launched
 
 
 # ---------------------------------------------------------------------------
@@ -3924,7 +4247,7 @@ def main() -> None:
     # 3. kernels
     main_rows = {"skip_concat_matmul": check_skip_matmul(torch, rec),
                  "flash_attention": check_flash(torch, rec)}
-    scan_row, scan_launches = check_scan(torch, rec)
+    main_rows["gated_linear_scan"] = check_scan(torch, rec)
     torch.cuda.empty_cache()
 
     # 4. pipeline parity, then the UNet's card-vs-CPU parity
@@ -3991,6 +4314,30 @@ def main() -> None:
     rec["phase_s"]["lm"] = time.perf_counter() - t0
     log(f"[lm] phase {rec['phase_s']['lm']:.1f} s")
 
+    # 17. recurrent: whisper-base, xlstm-125m and zamba2-2.7b at full width
+    # (a Mamba2 block's scan route held to the chunk loop first), the three
+    # smoke keys through the trainer
+    from repro_torch.configs.smoke import RECURRENT_FACTORIES
+    t0 = time.perf_counter()
+    for arch, phase in (("whisper-base", recurrent_whisper),
+                        ("xlstm-125m", recurrent_xlstm)):
+        left = release(torch)
+        if left >= 1e9:
+            fail(f"recurrent {arch}: {left / 1e9:.2f} GB still allocated; "
+                 "the previous phase was not released")
+        counts[f"recurrent {arch}"] = phase(torch, rec, smi_line)
+    release(torch)
+    mamba2_block_parity(torch, rec)
+    left = release(torch)
+    if left >= 1e9:
+        fail(f"recurrent zamba2-2.7b: {left / 1e9:.2f} GB still allocated")
+    counts["recurrent zamba2-2.7b"] = recurrent_zamba2(torch, rec, smi_line)
+    release(torch)
+    counts["recurrent smoke"] = lm_smoke(torch, rec, RECURRENT_FACTORIES,
+                                         "recurrent")
+    rec["phase_s"]["recurrent"] = time.perf_counter() - t0
+    log(f"[recurrent] phase {rec['phase_s']['recurrent']:.1f} s")
+
     # 12. ranks: one process per pipeline device, four on the one card
     left = release(torch)
     if left >= 1e9:
@@ -4036,16 +4383,17 @@ def main() -> None:
     log(f"[supervisor] phase {rec['phase_s']['supervisor']:.1f} s")
 
     # 15. results: each kernel's numbers at the Hunyuan-DiT train step's
-    # shape (the scan: its own phase's), every train path's beside them
+    # shape (the scan: zamba2's carry across chunks), every train path's
+    # beside them, and its launches on every path
     kernels = []
     for kname, (source, replaces) in SOURCES.items():
+        by_path = {path: c[kname] for path, c in counts.items()}
         if kname == "gated_linear_scan":
-            row, by_path = scan_row, {"kernel phase": scan_launches}
+            row = main_rows[kname]
             by_shape = {f"{r['shape']} {r['direction']} {r['dtype']}": r
                         for r in rec["gated_linear_scan"]}
         else:
             row = main_rows[kname]["hunyuan-dit"]
-            by_path = {path: c[kname] for path, c in counts.items()}
             by_shape = main_rows[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,

@@ -1,18 +1,19 @@
-"""Reduced smoke variants (the port of ``repro.configs.smoke``: its three
-diffusion keys and its seven decoder-LM keys; the whisper, xLSTM and
-Mamba keys are not ported yet).
+"""Reduced smoke variants (the port of ``repro.configs.smoke``: every key).
 
 The same configs as the JAX package's, the diffusion keys in
-``SMOKE_FACTORIES`` and the LM keys in ``LM_FACTORIES`` (the JAX package
-keeps all in one dict).  Each factory returns ``(loss_fn,
+``SMOKE_FACTORIES``, the decoder-LM keys in ``LM_FACTORIES`` and whisper,
+xLSTM and Zamba2 in ``RECURRENT_FACTORIES`` (the JAX package keeps all in
+one dict).  Each factory returns ``(loss_fn,
 init_fn, make_batch, cfg)``: ``init_fn(gen, device)`` draws the params and
 ``make_batch(gen, device)`` a batch of the config's shapes.  A diffusion
 ``loss_fn(params, batch, t, noise)`` is a scalar (the port's losses take
 the DDPM draws as tensors); an LM's is ``loss_fn(params, batch)``, its
-batch ``{"tokens"}`` (internvl2: and ``prefix_embeds``).
-``kernels=True`` (the trainer's choice) switches on the model's kernels:
-flash attention (every LM but deepseek's MLA), and for UViT and
-Hunyuan-DiT the fused skip-concat matmul.
+batch ``{"tokens"}`` (internvl2: and ``prefix_embeds``; whisper:
+``{"frames", "tokens"}``).  ``kernels=True`` (the trainer's choice)
+switches on the model's kernels: flash attention (every LM but deepseek's
+MLA, and whisper), and for UViT and Hunyuan-DiT the fused skip-concat
+matmul.  Zamba2's Mamba2 blocks always run their carry across chunks
+through the gated linear scan (there is no other route).
 """
 from __future__ import annotations
 
@@ -20,10 +21,16 @@ import torch
 
 from repro_torch.models import diffusion as dm
 from repro_torch.models import lm as lm_mod
+from repro_torch.models import mamba as zm
+from repro_torch.models import whisper as wh
+from repro_torch.models import xlstm as xm
 from repro_torch.models.diffusion import (HunyuanDiTConfig, UNetConfig,
                                           UViTConfig)
 from repro_torch.models.layers import AttnConfig, MLAConfig, MoEConfig
 from repro_torch.models.lm import LMConfig
+from repro_torch.models.mamba import Mamba2Config, Zamba2Config
+from repro_torch.models.whisper import WhisperConfig
+from repro_torch.models.xlstm import XLSTMConfig
 
 
 def bundle(cfg, loss, init, shapes: dict):
@@ -139,6 +146,54 @@ def smoke_deepseek(kernels: bool = False):
     return _lm(cfg)
 
 
+def _tokens(gen, device, vocab: int, shape) -> torch.Tensor:
+    return torch.randint(0, vocab, shape, generator=gen, device=device,
+                         dtype=torch.int32)
+
+
+def smoke_whisper(kernels: bool = False):
+    # head dim 8: flash on the SIMT route
+    cfg = WhisperConfig("whisper-smoke", vocab=256, d_model=32,
+                        n_enc_layers=2, n_dec_layers=2, n_heads=4, d_ff=64,
+                        use_flash=kernels)
+
+    def make_batch(gen: torch.Generator, device="cuda") -> dict:
+        return {"frames": torch.randn((2, 12, 32), generator=gen,
+                                      device=device),
+                "tokens": _tokens(gen, device, 256, (2, 10))}
+    return (lambda p, b: wh.whisper_loss(p, b, cfg),
+            lambda gen, device="cuda": wh.init_whisper(gen, cfg, device),
+            make_batch, cfg)
+
+
+def smoke_xlstm(kernels: bool = False):
+    # no attention: no kernel to switch on
+    cfg = XLSTMConfig("xlstm-smoke", vocab=256, d_model=32, n_layers=4,
+                      n_heads=2, slstm_every=3)
+
+    def make_batch(gen: torch.Generator, device="cuda") -> dict:
+        return {"tokens": _tokens(gen, device, 256, (2, 16))}
+    return (lambda p, b: xm.xlstm_loss(p, b, cfg),
+            lambda gen, device="cuda": xm.init_xlstm(gen, cfg, device),
+            make_batch, cfg)
+
+
+def smoke_zamba2(kernels: bool = False):
+    # the shared attention (head dim 8) stays dense, as in the JAX config
+    # and the full one; every Mamba2 block runs the scan (no switch)
+    cfg = Zamba2Config("zamba2-smoke", vocab=256, d_model=32, n_layers=6,
+                       mamba=Mamba2Config(d_model=32, d_state=8, head_dim=8,
+                                          chunk=4),
+                       shared_attn=AttnConfig(32, 4, 4, 8), shared_d_ff=64,
+                       shared_every=3, n_shared_blocks=2)
+
+    def make_batch(gen: torch.Generator, device="cuda") -> dict:
+        return {"tokens": _tokens(gen, device, 256, (2, 16))}
+    return (lambda p, b: zm.zamba2_loss(p, b, cfg),
+            lambda gen, device="cuda": zm.init_zamba2(gen, cfg, device),
+            make_batch, cfg)
+
+
 LM_FACTORIES = {          # the decoder-LM keys
     "smollm-360m": smoke_smollm,
     "h2o-danube-1.8b": smoke_danube,
@@ -147,6 +202,12 @@ LM_FACTORIES = {          # the decoder-LM keys
     "internvl2-2b": smoke_internvl2,
     "qwen3-moe-30b-a3b": smoke_qwen3_moe,
     "deepseek-v3-671b": smoke_deepseek,
+}
+
+RECURRENT_FACTORIES = {  # the encoder-decoder, xLSTM and hybrid SSM keys
+    "whisper-base": smoke_whisper,
+    "xlstm-125m": smoke_xlstm,
+    "zamba2-2.7b": smoke_zamba2,
 }
 
 SMOKE_FACTORIES = {       # the diffusion keys

@@ -1,9 +1,7 @@
 """Data pipeline: deterministic synthetic datasets + sharded host loader.
 
 A copy of ``repro.data.pipeline``: the port imports nothing of the JAX package, so it
-keeps its own copy of this framework-neutral module.  One addition:
-``SyntheticTokenDataset`` can add a vision prefix (internvl2's
-``prefix_embeds``), drawn after the tokens, which stay the JAX dataset's.
+keeps its own copy of this framework-neutral module.
 
 Synthetic-but-learnable data (per paper §VII, preprocessing — VAE latents /
 text embeddings — is outside the measured loop, so training inputs are
@@ -34,8 +32,6 @@ class SyntheticTokenDataset:
     seq_len: int
     seed: int = 0
     order: int = 2          # Markov order of the synthetic language
-    prefix_len: int = 0     # prefix_embeds rows a sample (0: none)
-    prefix_dim: int = 0     # their width, the model's d_model
 
     def __post_init__(self):
         rng = np.random.default_rng(self.seed)
@@ -52,11 +48,7 @@ class SyntheticTokenDataset:
         choices = rng.integers(0, self.k, size=(batch, self.seq_len))
         for t in range(1, self.seq_len):
             toks[:, t] = self.table[toks[:, t - 1], choices[:, t]]
-        if not self.prefix_len:
-            return {"tokens": toks}
-        prefix = rng.standard_normal(
-            (batch, self.prefix_len, self.prefix_dim), dtype=np.float32)
-        return {"tokens": toks, "prefix_embeds": prefix}
+        return {"tokens": toks}
 
 
 @dataclasses.dataclass

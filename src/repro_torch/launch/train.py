@@ -24,20 +24,26 @@ check, the grad norm, AdamW.  Archs: the JAX smoke configs of the three
 diffusion models (``uvit-h`` (alias ``uvit``), ``hunyuan-dit``,
 ``sdv2-unet``: ``configs/smoke.py``) and of the seven decoder LMs
 (``smollm-360m``, ``h2o-danube-1.8b``, ``internlm2-20b``, ``granite-34b``,
-``internvl2-2b``, ``qwen3-moe-30b-a3b``, ``deepseek-v3-671b``), so the two
-trainers can be held to each other, and ``sdv2-unet-full``, the SDv2 UNet
-at full width (``configs/sdv2_unet.py``, 1.84e9 params) in bf16.  An LM's
-batch is the JAX trainer's: ``{"tokens"}`` from the same synthetic Markov
-language (``SyntheticTokenDataset``, step-indexed), and for internvl2 its
-vision prefix, normal ``prefix_embeds`` the same dataset draws after the
-tokens (the JAX trainer's batch keeps the tokens alone).  The JAX trainer's whisper, xLSTM and Zamba2 keys are refused: not
-ported yet.
+``internvl2-2b``, ``qwen3-moe-30b-a3b``, ``deepseek-v3-671b``) and of
+whisper, xLSTM and Zamba2 (``whisper-base``, ``xlstm-125m``,
+``zamba2-2.7b``), so the two trainers can be held to each other, and
+``sdv2-unet-full``, the SDv2 UNet at full width (``configs/sdv2_unet.py``,
+1.84e9 params) in bf16.  A token model's batch is the JAX trainer's:
+``{"tokens"}`` from the same synthetic Markov language
+(``SyntheticTokenDataset``, step-indexed) -- internvl2's too, whose
+vision prefix the JAX trainer's batch leaves out -- and for whisper
+``frames`` beside them, normal, drawn once a run from the trainer's
+seed-0 generator after the params (the JAX trainer draws them once from
+its init key), the same every step: the loss's draw, which
+``run(draw=)`` can replace.
 
 The kernels are always on: the decoder skip-in of UViT and Hunyuan-DiT
-goes through the fused skip-concat matmul and every attention through
-flash attention (on the CPU, through the kernels' plain versions); of the
-LMs, deepseek's MLA and danube's full config run the dense attention, by
-their configs' choice.
+goes through the fused skip-concat matmul, every attention through flash
+attention and Zamba2's carry across chunks through the gated linear scan
+(on the CPU, through the kernels' plain versions); of the LMs, deepseek's
+MLA and danube's full config run the dense attention, by their configs'
+choice, and so does Zamba2's shared attention (head dim 80 in its full
+config).
 
 Fault-tolerance contract, the JAX trainer's single-host one:
 
@@ -141,9 +147,6 @@ elastically when the plan changed.  ``kill@K``/``stop@K`` fire on every
 rank after the flush; ``corrupt@K``/``truncate@K`` on rank 0 alone, after
 every shard landed; GC is rank 0's, once the ranks agree a step landed.
 
-Not ported yet, and refused with ``NotImplementedError``: the smoke archs
-``whisper-base``, ``xlstm-125m`` and ``zamba2-2.7b``.
-
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch uvit-h \
         --pipeline --devices 4 --microbatches 8 --global-batch 16 --steps 4
@@ -191,13 +194,13 @@ PIPELINE_ARCHS = ("uvit", "uvit-pp", "uvit-nano", "uvit-h", "hunyuan-pp",
 # the JAX trainer's decoder-LM smoke keys (configs/smoke.py)
 LM_ARCHS = ("smollm-360m", "h2o-danube-1.8b", "internlm2-20b", "granite-34b",
             "internvl2-2b", "qwen3-moe-30b-a3b", "deepseek-v3-671b")
+# the JAX trainer's whisper, xLSTM and Zamba2 smoke keys
+RECURRENT_ARCHS = ("whisper-base", "xlstm-125m", "zamba2-2.7b")
 # without --pipeline: the JAX trainer's diffusion smoke keys ("uvit" is its
-# alias of "uvit-h"), the UNet at full width and the LM smoke keys
+# alias of "uvit-h"), the UNet at full width and the other smoke keys
 SMOKE_ARCHS = ("uvit", "uvit-h", "hunyuan-dit", "sdv2-unet",
-               "sdv2-unet-full", *LM_ARCHS)
-# the JAX trainer's other smoke keys, refused until their models are ported
-UNPORTED_ARCHS = ("whisper-base", "xlstm-125m", "zamba2-2.7b")
-ARCHS = tuple(dict.fromkeys(PIPELINE_ARCHS + SMOKE_ARCHS + UNPORTED_ARCHS))
+               "sdv2-unet-full", *LM_ARCHS, *RECURRENT_ARCHS)
+ARCHS = tuple(dict.fromkeys(PIPELINE_ARCHS + SMOKE_ARCHS))
 
 
 # torchrun's environment: with all of it set, --pipeline runs as one rank
@@ -395,9 +398,6 @@ def _peer_lost(e: BaseException) -> bool:
 
 
 def _refuse_unported(args) -> None:
-    if args.arch in UNPORTED_ARCHS:
-        raise NotImplementedError(f"the smoke arch {args.arch!r} is not "
-                                  "yet ported to repro_torch")
     if args.pipeline and args.arch not in PIPELINE_ARCHS:
         raise ValueError(f"--arch {args.arch} has no pipeline path; the "
                          "pipeline archs are " + ", ".join(PIPELINE_ARCHS))
@@ -619,8 +619,11 @@ def _smoke_bundle(args):
     if args.arch == "sdv2-unet-full":
         from repro_torch.configs.sdv2_unet import factory
     else:
-        from repro_torch.configs.smoke import LM_FACTORIES, SMOKE_FACTORIES
-        factory = {**SMOKE_FACTORIES, **LM_FACTORIES}[
+        from repro_torch.configs.smoke import (LM_FACTORIES,
+                                               RECURRENT_FACTORIES,
+                                               SMOKE_FACTORIES)
+        factory = {**SMOKE_FACTORIES, **LM_FACTORIES,
+                   **RECURRENT_FACTORIES}[
             {"uvit": "uvit-h"}.get(args.arch, args.arch)]
     return factory(kernels=True)
 
@@ -766,14 +769,18 @@ def build_smoke_trainer(args) -> Trainer:
         params = init_fn(gen, device)
     params, opt_state = _with_grads(params)
     text = proto.get("text_embeds")
-    if "tokens" in proto:          # an LM: its loss takes no draws
-        pre = proto.get("prefix_embeds")
+    if "tokens" in proto:          # the JAX trainer's batch: tokens alone
         ds = SyntheticTokenDataset(vocab=cfg.vocab,
-                                   seq_len=proto["tokens"][1],
-                                   prefix_len=pre[1] if pre else 0,
-                                   prefix_dim=pre[2] if pre else 0)
-        flash = cfg.attn is not None and cfg.attn.use_flash
+                                   seq_len=proto["tokens"][1])
+        attn = getattr(cfg, "attn", None)
+        flash = getattr(cfg, "use_flash", attn is not None and attn.use_flash)
         draws = _no_draws
+        if "frames" in proto:      # whisper: its frames, once a run
+            frames = torch.randn((args.global_batch, *proto["frames"][1:]),
+                                 generator=gen, device=device)
+
+            def draws(batch, step):
+                return (frames,)
     else:
         ds = SyntheticLatentDataset(img_size=proto["latents"][1],
                                     channels=proto["latents"][-1],
@@ -783,15 +790,19 @@ def build_smoke_trainer(args) -> Trainer:
         flash = True
         draws = _ddpm_draws
     n = sum(x.numel() for x in tree_leaves(params))
+    kernels = [k for k, on in (
+        ("flash attention", flash),
+        ("skip-in kernel", getattr(cfg, "use_skip_kernel", False)),
+        ("gated linear scan", hasattr(cfg, "mamba"))) if on]
     plan = (f"non-pipeline: {cfg.name}, {n} params "
-            f"({str(cfg.param_dtype).replace('torch.', '')}), "
-            + ("flash attention" if flash else "dense attention")
-            + (", skip-in kernel" if getattr(cfg, "use_skip_kernel", False)
-               else ""))
+            f"({str(cfg.param_dtype).replace('torch.', '')}); kernels: "
+            + (", ".join(kernels) or "none"))
 
     def loss(params, batch, *draws):
-        return loss_fn(params, {k: v for k, v in batch.items()
-                                if k in proto}, *draws)
+        batch = {k: v for k, v in batch.items() if k in proto}
+        if "frames" in proto:
+            return loss_fn(params, {**batch, "frames": draws[0]})
+        return loss_fn(params, batch, *draws)
 
     return Trainer(params, opt_state, loss, lambda p: p, lambda p: p,
                    ShardedLoader(ds, global_batch=args.global_batch), device,

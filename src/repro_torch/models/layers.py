@@ -9,14 +9,16 @@ half-split form, fp32 angles), ``_attn_mask``, the dense ``attention``,
 ``apply_attention`` (self and cross, ``positions=``), the SwiGLU and GELU
 MLPs, DeepSeek-V3's MLA (``MLAConfig``, ``init_mla``, ``apply_mla``) and
 the top-k MoE (``MoEConfig``, ``init_moe``, ``apply_moe`` with its
-``onehot``, ``scatter`` and ``dense`` dispatches).  ``apply_attention``
+``onehot``, ``scatter`` and ``dense`` dispatches), ``layer_norm`` and
+``promoted_matmul`` (JAX's type promotion for a matmul of mixed float
+dtypes, which PyTorch refuses).  ``apply_attention``
 runs the flash-attention kernel when the config's ``use_flash`` is set
 (the "drop-in replacement selected by config ``use_flash``" the JAX
 module names).  MLA runs the dense ``attention``, as in JAX: its q/k head
 dim (``qk_nope + qk_rope``) differs from its v head dim, and the flash
 kernel takes one head dim.  KV caches (``cache=``, ``q_offset``,
-``kv_valid_len``, ``init_kv_cache``, ``init_mla_cache``) and
-``layer_norm`` are not ported yet.
+``kv_valid_len``, ``init_kv_cache``, ``init_mla_cache``) are not ported
+yet.
 
 Random init draws from an explicit ``torch.Generator`` on ``device``; the
 numbers differ from ``jax.random`` for the same seed, so parity tests
@@ -59,6 +61,26 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = x.square().mean(dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
     return (out * scale.float()).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """fp32 statistics (biased variance), ``scale`` and ``bias`` applied
+    in fp32, the result in ``x.dtype``."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(dtype)
+
+
+def promoted_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two, as ``jnp.matmul``
+    computes ``fp32 @ bf16`` in fp32 (``torch.matmul`` refuses mixed
+    dtypes)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
 
 
 # --------------------------------------------------------------------------

@@ -157,6 +157,35 @@ def test_flash_at_the_smollm_attention_shape():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S,T,causal", [(447, 4096, False), (447, 447, True)])
+def test_flash_at_the_whisper_attention_shapes(S, T, causal):
+    """whisper-base's decoder attention at its full shape (batch 8, 8
+    heads of 64, bf16: the tensor-core route): cross-attention of the 447
+    decoder positions over 4096 encoded frames, and the causal self-
+    attention over 447, a partial last tile; through the differentiable op
+    against the plain version, forward and gradients."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(8, S, 8, 64, device="cuda", generator=gen)
+    k, v = (torch.randn(8, T, 8, 64, device="cuda", generator=gen)
+            for _ in range(2))
+    g = torch.randn(8, S, 8, 64, device="cuda", generator=gen)
+    q, k, v, g = (x.to(torch.bfloat16) for x in (q, k, v, g))
+    before = LAUNCHES["flash_attention"]
+    ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = flash_attention(*ins, causal, None)
+    out.backward(g)
+    assert LAUNCHES["flash_attention"] == before + 1
+    ref = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = attention_plain(*ref, causal, None)
+    want.backward(g)
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    for a, b in zip(ins, ref):
+        torch.testing.assert_close(a.grad.float(), b.grad.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("S,T,D", [(256, 256, 112), (256, 77, 112),
                                    (64, 64, 224), (16, 77, 224)])
 def test_flash_tensor_core_route_stores_no_pad_column(S, T, D):
@@ -247,6 +276,7 @@ def _scan_inputs(R, T, C, dtype_a, dtype_x, seed=2, misaligned=False,
     (2, 129, 7, False),        # the masked path over several chunks
     (2, 70, 64, True),         # misaligned bases: the masked path
     (70_000, 3, 8, False),     # R beyond the grid's y limit
+    (2, 32, 327_680, False),   # zamba2-2.7b's carry across 4096/128 chunks
 ])
 @pytest.mark.parametrize("decay", ["sigmoid", "near 1"])
 def test_gated_linear_scan_kernel_matches_plain(R, T, C, misaligned,
@@ -290,6 +320,39 @@ def test_gated_linear_scan_kernel_matches_plain(R, T, C, misaligned,
     for got_g, want_g in zip((i.grad for i in ins), want):
         torch.testing.assert_close(got_g.float(), want_g.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.gpu
+def test_mamba2_scan_route_matches_the_chunk_loop():
+    """A Mamba2 block (d_model 256: 8 heads, N = P = 64, chunk 128) at
+    S=512, batch 2, fp32: ``_ssd_chunked`` (the carry through the scan
+    kernel, one launch forward and one backward) against
+    ``_ssd_chunked_plain`` (the loop over chunks) on the card, the output
+    and every gradient leaf at rtol 1e-4 (atol 1e-5 of the leaf's
+    largest magnitude)."""
+    from repro_torch.models import mamba
+    cfg = mamba.Mamba2Config(d_model=256)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    p = mamba.init_mamba2_block(gen, cfg, torch.float32, "cuda")
+    x = torch.randn(2, 512, 256, device="cuda", generator=gen)
+    outs = {}
+    for route, ssd in (("scan", mamba._ssd_chunked),
+                       ("plain", mamba._ssd_chunked_plain)):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xi = x.clone().requires_grad_(True)
+        before = LAUNCHES["gated_linear_scan"]
+        y, _ = mamba.apply_mamba2_block(leaves, xi, cfg, ssd=ssd)
+        y.square().sum().backward()
+        torch.cuda.synchronize()
+        launched = LAUNCHES["gated_linear_scan"] - before
+        assert launched == (2 if route == "scan" else 0)
+        outs[route] = {"y": y.detach(), "x": xi.grad,
+                       **{k: v.grad for k, v in leaves.items()}}
+    for k, want in outs["plain"].items():
+        got = outs["scan"][k]
+        atol = 1e-5 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=atol,
+                                   msg=lambda m: f"{k}: {m}")
 
 
 @pytest.mark.gpu

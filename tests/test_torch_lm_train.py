@@ -1,8 +1,9 @@
 """The port's decoder-LM trainer and LM pipelines held to the JAX package's.
 
 - Five steps of the non-pipeline trainer (``--arch smollm-360m``,
-  ``qwen3-moe-30b-a3b``, ``deepseek-v3-671b``: tied, MoE scatter +
-  qk-norm, MLA + MoE + MTP) from the JAX trainer's params (``PRNGKey(0)``),
+  ``qwen3-moe-30b-a3b``, ``deepseek-v3-671b``, ``internvl2-2b``: tied, MoE
+  scatter + qk-norm, MLA + MoE + MTP, and a vision-prefix config the JAX
+  trainer trains on tokens alone) from the JAX trainer's params (``PRNGKey(0)``),
   injected with ``run(args, init_params=)``, on the trainer's own batches,
   which are the JAX trainer's tokens (the same ``SyntheticTokenDataset``,
   checked), against the JAX trainer's losses, the JAX trainer run in this
@@ -15,8 +16,8 @@
   reference).
 - The planner's partitions and step tables for the LM graph against the
   JAX package's, array for array, linear and folded.
-- The trainer's arch keys: the LM keys train without ``--pipeline`` and
-  refuse it; whisper, xLSTM and Zamba2 stay refused.
+- The trainer's arch keys: the LM keys, whisper, xLSTM and Zamba2 train
+  without ``--pipeline`` and refuse it.
 """
 import dataclasses
 import functools
@@ -53,7 +54,8 @@ RTOL, ATOL = 1e-4, 1e-6
 FAST = {"xla_backend_optimization_level": 0}
 STEPS, B = 5, 4
 KEY = jax.random.PRNGKey(0)
-TRAIN_ARCHS = ("smollm-360m", "qwen3-moe-30b-a3b", "deepseek-v3-671b")
+TRAIN_ARCHS = ("smollm-360m", "qwen3-moe-30b-a3b", "deepseek-v3-671b",
+               "internvl2-2b")
 TPU = torch_hw.Hardware(**dataclasses.asdict(jax_hw.TPU_V5E))
 PIPE_B, PIPE_M, PIPE_D = 8, 4, 2
 # (force_wave, executor)
@@ -141,8 +143,9 @@ def test_lm_trainer_matches_jax(arch):
 def test_lm_trainer_draws_the_jax_tokens():
     """The trainer's own batches are the JAX trainer's tokens (the same
     synthetic language, step-indexed), so the runs agree without
-    injection, and its loss takes no draws; internvl2's dataset adds its
-    vision prefix, drawn after the same tokens, the same for a step."""
+    injection, and its loss takes no draws; internvl2's too, tokens alone,
+    as the JAX trainer's ``pack`` keeps only what its dataset yields (its
+    smoke config's ``make_batch`` still has the vision prefix)."""
     _, params, batches = _jax_trainer("smollm-360m")
     args = train._parse_args(_argv("smollm-360m") + ["--device", "cpu"])
     tr = train.build_smoke_trainer(args)
@@ -154,24 +157,16 @@ def test_lm_trainer_draws_the_jax_tokens():
     tr = train.build_smoke_trainer(train._parse_args(
         _argv("internvl2-2b") + ["--device", "cpu"]))
     b0, draws = train._step_inputs(tr, 2, None)
-    b1, _ = train._step_inputs(tr, 2, None)
-    assert draws == () and sorted(b0) == ["prefix_embeds", "tokens"]
+    assert draws == () and sorted(b0) == ["tokens"]
     np.testing.assert_array_equal(b0["tokens"].numpy(), batches[2]["tokens"])
-    assert b0["prefix_embeds"].shape == (B, 8, 64)
-    assert b0["prefix_embeds"].dtype == torch.float32
-    assert torch.equal(b0["prefix_embeds"], b1["prefix_embeds"])
-    assert not torch.equal(b0["prefix_embeds"],
-                           train._step_inputs(tr, 3, None)[0]["prefix_embeds"])
+    _, _, make_batch, cfg = LM_FACTORIES["internvl2-2b"]()
+    assert cfg.vision_prefix == 8 and sorted(make_batch(
+        torch.Generator().manual_seed(0), "cpu")) == ["prefix_embeds",
+                                                      "tokens"]
 
 
-@pytest.mark.parametrize("arch", train.LM_ARCHS + train.UNPORTED_ARCHS)
+@pytest.mark.parametrize("arch", train.LM_ARCHS + train.RECURRENT_ARCHS)
 def test_lm_arch_keys(arch):
-    args = train._parse_args(["--arch", arch, "--steps", "1", "--device",
-                              "cpu"])
-    if arch in train.UNPORTED_ARCHS:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            train.run(args)
-        return
     assert arch in train.SMOKE_ARCHS and arch not in train.PIPELINE_ARCHS
     with pytest.raises(ValueError, match="has no pipeline path"):
         train.run(train._parse_args(["--arch", arch, "--pipeline",

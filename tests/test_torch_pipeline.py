@@ -366,12 +366,10 @@ def test_train_runs_three_steps_on_cpu(tmp_path):
                                    []])
 def test_train_refuses_unported_paths(extra):
     from repro_torch.launch import train
-    # [] is the JAX trainer's non-pipeline path of a smoke arch not ported
+    # []: --pipeline on a smoke arch the JAX trainer trains only without it
     arch = "uvit-nano" if extra else "zamba2-2.7b"
     argv = ["--arch", arch, "--devices", "2", "--steps", "1",
-            "--device", "cpu"] + extra
-    if extra:
-        argv.append("--pipeline")
+            "--device", "cpu", "--pipeline"] + extra
     args = train._parse_args(argv)
     if extra == ["--dp", "2"]:
         # one process runs one replica: data replicas are ranks, and the
@@ -387,7 +385,7 @@ def test_train_refuses_unported_paths(extra):
         assert res.compiled.state_spec()["zero_stage"] == 0
         assert np.isfinite(res.losses[0])
     else:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(ValueError, match="has no pipeline path"):
             train.run(args)
 
 
@@ -483,7 +481,13 @@ def test_port_imports_neither_jax_nor_repro():
                 "repro_torch.launch.mesh",
                 "repro_torch.launch.supervisor",
                 "repro_torch.models.lm",
-                "repro_torch.configs.qwen3_moe_30b_a3b"):
+                "repro_torch.configs.qwen3_moe_30b_a3b",
+                "repro_torch.models.whisper",
+                "repro_torch.models.xlstm",
+                "repro_torch.models.mamba",
+                "repro_torch.configs.whisper_base",
+                "repro_torch.configs.xlstm_125m",
+                "repro_torch.configs.zamba2_2_7b"):
         assert mod in walked, mod
     # chip_smoke.py imports none of them either
     src = (REPO / "chip_smoke.py").read_text()
