@@ -38,7 +38,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    over 4096 frames, the decoder's causal self-attention over 447 tokens
    and its cross-attention over the 4096 frames; its smoke key's three
    at batch 4, heads of 8; rows ``whisper-base ...`` and ``recurrent
-   smoke ...``) (the gated linear scan at zamba2-2.7b's carry across
+   smoke ...``) and of the ``serve`` phase (over KV caches, the kernel
+   reading the whole cache in place with ``q_offset`` and
+   ``kv_valid_len``: smollm-360m's prefill, batch 16, 2048 prompt rows
+   in a cache of 2112, and a decode step at 2100; whisper-base's decoder
+   self-attention at a decode step in a cache of 128 and its
+   cross-attention of one token over 4096 frames; zamba2-2.7b's shared
+   attention at a decode step, 32 heads of 80, in a cache of 288; rows
+   ``serve ...``; SDPA with the boolean mask the library call) and at
+   head dim 80 (zamba2-2.7b's shared attention at its training shape,
+   h2o-danube-1.8b's full shape with its window; SDPA with the boolean
+   mask wherever a window is set) (the gated linear scan at zamba2-2.7b's carry across
    chunks on the ``recurrent`` path, R=2 T=32 C=327,680, at its Mamba2
    width over 4k steps and at R=32 over 2k steps, forward and backward
    kernels, with mixed dtypes of a and x, and with decays near 1, whose
@@ -179,10 +189,43 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     gradient leaf at rtol 1e-4; (d) zamba2-2.7b at full width, its depth
     cut to 12 of 54 Mamba2 blocks (both shared blocks run, after blocks 5
     and 11; 770,243,904 params), S=4096, batch 2: finite losses, the scan
-    exactly 24 launches a step (forward and backward of each block), the
-    shared attention dense (head dim 80); (e) the three smoke keys one
-    trainer step each, card vs CPU at rtol 1e-5 (whisper's frames handed
-    to both), flash 6 a step for whisper, the scan 12 for zamba2;
+    exactly 24 launches a step (forward and backward of each block),
+    flash 2 (the shared attention, 32 heads of 80, once a site); (e) the
+    three smoke keys one trainer step each, card vs CPU at rtol 1e-5
+    (whisper's frames handed to both), flash 6 a step for whisper, the
+    scan 12 and flash 2 for zamba2;
+18. serve (``serve_smollm``, ``serve_whisper``, ``serve_recurrent``,
+    ``serve_smoke``), after phase 17, each model after checking that
+    less than 1 GB is still allocated; bf16, random weights from seed 0,
+    full width and depth, launch counts reset just before the serving
+    loop and read just after: (a) smollm-360m, batch 16, prompt 2048,
+    64 tokens through ``repro_torch.launch.serve.generate`` (KV caches
+    of 2112 rows; flash 32 x 64 = 2,048); (b) whisper-base, batch 8,
+    4096 frames, prompt 64, 64 tokens through ``whisper.prefill`` and
+    ``decode_step`` (flash 6 + 12 + 63 x 12 = 774); (c) xlstm-125m,
+    batch 4, prompt 256, 32 tokens (no kernel); (d) zamba2-2.7b, all 54
+    blocks, batch 2, prompt 256, 32 tokens (287 steps, flash 9 sites x
+    287 = 2,583; the SSM steps ``ssd_recurrent``).  Held: the KV caches'
+    bytes = 2 x layers x B x max_len x Hkv x D x 2 exactly; smollm's and
+    whisper's prefill logits against the same model without a cache at
+    ``FLASH_BF16_REL`` (the same kernel tiles: equal); every step's
+    logits against a teacher-forced run of the dense attention on the
+    same tokens, the last step's against the model without a cache over
+    prompt and generated tokens; xLSTM's and Zamba2's logits after the
+    prompt's steps against ``forward`` over the prompt -- in bf16 at
+    ``SERVE_BF16_BAR`` (``FLASH_BF16_REL``, or for smollm and Zamba2,
+    whose 32 random layers and 54 blocks put bf16 rounding alone past
+    1e-2, a bar set from the card's readings); then each model served
+    again from the same weights in fp32, every step held to its fp32
+    reference at ``SERVE_FP32_BAR`` (xLSTM's and Zamba2's first
+    prompt_len steps against ``forward`` over the tokens fed).  Prints
+    prefill seconds, decode ms per token, tokens/s, peak memory, cache
+    bytes and the launches of the bf16 run, and bf16's distance from
+    fp32 at the prefill; (e) every smoke key ``generate`` serves (seven
+    LMs, xLSTM, Zamba2; fp32, batch 4, prompt 8, 16 tokens) on the card
+    and on the CPU from the same params and prompts: tokens equal,
+    logits within ``SERVE_SMOKE_BAR`` relative, flash once an attention
+    call a step;
 11. supervisor over ranks (``supervisor_phase``), run last, after phase
     14 (its UViT-H part is held to phase 13's losses), after releasing
     this process's memory; every generation is a world of rank processes
@@ -287,7 +330,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     smollm-360m wave``, ``lm smollm-360m linear``, ``lm
     qwen3-moe-30b-a3b``, ``lm smoke``, ``recurrent whisper-base``,
     ``recurrent xlstm-125m``, ``recurrent zamba2-2.7b``, ``recurrent
-    smoke``,
+    smoke``, ``serve smollm-360m``, ``serve whisper-base``, ``serve
+    xlstm-125m``, ``serve zamba2-2.7b``, ``serve smoke``,
     ``ranks``, ``hybrid``, ``rank checkpoint``, ``supervisor ranks`` and
     ``host workers``, the last five read from the ranks' and the workers'
     result files, among them), then
@@ -519,17 +563,7 @@ def check_skip_matmul(torch, rec) -> dict:
 FLASH_BF16_REL = 1e-2    # bf16 flash vs fp32 plain, relative Frobenius
 
 
-def check_flash(torch, rec) -> dict:
-    """Returns the bf16 row of each train path's shape, by path."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.flash_attention import (attention_plain,
-                                                     flash_attention,
-                                                     flash_attention_cuda,
-                                                     flash_route)
-    rows, main = [], {}
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = [  # path, B, S, T, Hq, Hkv, D, causal, window
+FLASH_CASES = [  # path, B, S, T, Hq, Hkv, D, causal, window
         ("uvit-h", 2, 258, 258, 20, 20, 128, False, None),      # b=2
         ("hunyuan-dit", 2, 1024, 1024, 16, 16, 128, False, None),
         ("hunyuan-dit cross", 2, 1024, 77, 16, 16, 128, False, None),
@@ -577,19 +611,59 @@ def check_flash(torch, rec) -> dict:
         ("recurrent smoke whisper encoder", 4, 12, 12, 4, 4, 8, False, None),
         ("recurrent smoke whisper decoder", 4, 9, 9, 4, 4, 8, True, None),
         ("recurrent smoke whisper cross", 4, 9, 12, 4, 4, 8, False, None),
-    ]
-    for path, B, S, T, Hq, Hkv, D, causal, window in cases:
+        # head dim 80, the tensor-core route padded to 128 columns:
+        # zamba2-2.7b's shared attention at the recurrent phase's training
+        # shape (causal, as its config), and h2o-danube-1.8b's full shape
+        # (GQA 32:8, window 4096)
+        ("zamba2-2.7b shared attention", 2, 4096, 4096, 32, 32, 80, True,
+         None),
+        ("h2o-danube-1.8b", 2, 4096, 4096, 32, 8, 80, True, 4096),
+        # the serve phase, over KV caches (+ q_offset, kv_valid_len): the
+        # kernel reads the whole cache of T rows in place, its key loop
+        # stopping at the valid length.  smollm-360m's prefill (batch 16,
+        # prompt 2048 in a cache of 2112) and a decode step near its end;
+        # whisper-base's decoder self-attention at a decode step (cache of
+        # 128) and its cross-attention of one token over the 4096 frames;
+        # zamba2-2.7b's shared attention at a decode step (cache of 288)
+        ("serve smollm-360m prefill", 16, 2048, 2112, 15, 5, 64, True, None,
+         0, 2048),
+        ("serve smollm-360m decode", 16, 1, 2112, 15, 5, 64, True, None,
+         2100, 2101),
+        ("serve whisper-base decode", 8, 1, 128, 8, 8, 64, True, None, 100,
+         101),
+        ("serve whisper-base cross decode", 8, 1, 4096, 8, 8, 64, False,
+         None),
+        ("serve zamba2-2.7b decode", 2, 1, 288, 32, 32, 80, True, None, 270,
+         271),
+]
+
+
+def check_flash(torch, rec) -> dict:
+    """Returns the bf16 row of each path's shape, by path."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_plain,
+                                                     flash_attention,
+                                                     flash_attention_cuda,
+                                                     flash_route)
+    from repro_torch.kernels.flash_attention.ops import _mask
+    rows, main = [], {}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for path, B, S, T, Hq, Hkv, D, causal, window, *cache in FLASH_CASES:
+        q_off, valid = cache or (0, None)
+        args = (causal, window, q_off, valid)
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
             q = torch.randn(B, S, Hq, D, device="cuda", generator=gen).to(dt)
             k = torch.randn(B, T, Hkv, D, device="cuda", generator=gen).to(dt)
             v = torch.randn(B, T, Hkv, D, device="cuda", generator=gen).to(dt)
             what = (f"flash_attention {dtype} B={B} S={S} T={T} Hq={Hq} "
-                    f"Hkv={Hkv} D={D} causal={causal} window={window}")
-            got = flash_attention_cuda(q, k, v, causal, window)
+                    f"Hkv={Hkv} D={D} causal={causal} window={window}"
+                    + (f" q_offset={q_off} kv_valid_len={valid}" if cache
+                       else ""))
+            got = flash_attention_cuda(q, k, v, *args)
             torch.cuda.synchronize()
-            err = check_close(torch, got,
-                              attention_plain(q, k, v, causal, window),
+            err = check_close(torch, got, attention_plain(q, k, v, *args),
                               dtype, what)
             rel = None
             if dtype == "bfloat16":
@@ -597,7 +671,7 @@ def check_flash(torch, rec) -> dict:
                 # (causal, long S): also held to fp32 attention of the
                 # same inputs, relative to the data's own scale
                 want = attention_plain(q.float(), k.float(), v.float(),
-                                       causal, window)
+                                       *args)
                 rel = float(torch.linalg.vector_norm(got.float() - want)
                             / torch.linalg.vector_norm(want))
                 if not rel <= FLASH_BF16_REL:
@@ -606,38 +680,40 @@ def check_flash(torch, rec) -> dict:
                 del want
             g = torch.randn(B, S, Hq, D, device="cuda", generator=gen).to(dt)
             ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
-            flash_attention(*ins, causal, window).backward(g)
+            flash_attention(*ins, causal, window, q_off, valid).backward(g)
             ref = [x.clone().requires_grad_(True) for x in (q, k, v)]
-            attention_plain(*ref, causal, window).backward(g)
+            attention_plain(*ref, *args).backward(g)
             grad_err = {nm: check_close(torch, a.grad, b.grad, dtype,
                                         f"{what} {nm}")
                         for a, b, nm in zip(ins, ref, ("dq", "dk", "dv"))}
             del ins, ref, g
-            library = None
-            if window is None:
-                qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+            # SDPA computes the same function: is_causal where the mask is
+            # the plain causal one, else with the boolean mask (a window,
+            # a cache's offset and valid length)
+            qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+            vis = _mask(S, T, causal, window, "cuda", q_off, valid)
+            sdpa_mask = None if window is None and not cache else vis
 
-                def library():
-                    return F.scaled_dot_product_attention(
-                        qh, kh, vh, is_causal=causal, enable_gqa=Hq != Hkv)
+            def library():
+                return F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=sdpa_mask,
+                    is_causal=causal and sdpa_mask is None,
+                    enable_gqa=Hq != Hkv)
             times = _times(
-                torch, lambda: flash_attention_cuda(q, k, v, causal, window),
-                lambda: attention_plain(q, k, v, causal, window), library)
-            # score pairs this data needs: every (query, visible key)
-            qp = torch.arange(S)[:, None]
-            kp = torch.arange(T)[None, :]
-            vis = torch.ones(S, T, dtype=torch.bool)
-            if causal:
-                vis &= kp <= qp
-            if window is not None:
-                vis &= kp > qp - window
+                torch, lambda: flash_attention_cuda(q, k, v, *args),
+                lambda: attention_plain(q, k, v, *args), library)
+            # score pairs this data needs: every (query, visible key); the
+            # bytes: q and out, and K and V once -- over a cache, its valid
+            # rows only
             pairs = int(vis.sum())
             esz = q.element_size()
+            kv_rows = T if valid is None else valid
             b_ms, b_by = bound(
                 4.0 * B * Hq * pairs * D,
-                esz * (2 * B * S * Hq * D + 2 * B * T * Hkv * D), dtype)
+                esz * (2 * B * S * Hq * D + 2 * B * kv_rows * Hkv * D), dtype)
             row = dict(path=path, dtype=dtype, B=B, S=S, T=T, Hq=Hq, Hkv=Hkv,
-                       D=D, causal=causal, window=window,
+                       D=D, causal=causal, window=window, q_offset=q_off,
+                       kv_valid_len=valid,
                        route=flash_route(dt, D), max_abs_err=err,
                        rel_err_vs_fp32=rel, grad_max_abs_err=grad_err,
                        **times,
@@ -650,7 +726,7 @@ def check_flash(torch, rec) -> dict:
                              is not None else ""), row, "sdpa"))
             if dtype == "bfloat16" and path:
                 main[path] = row
-            del q, k, v, got
+            del q, k, v, got, qh, kh, vh, vis, sdpa_mask
     main.update({"supervisor uvit-h gen 0": main["hybrid uvit-h"],
                  "supervisor uvit-h gen 1": main["plan uvit-h"]})
     rec["flash_attention"] = rows
@@ -2384,8 +2460,9 @@ def smoke_launches(cfg) -> dict:
     want = dict.fromkeys(launch_counts(), 0)
     if hasattr(cfg, "n_enc_layers"):          # whisper: self, self, cross
         want["flash_attention"] = cfg.n_enc_layers + 2 * cfg.n_dec_layers
-    elif hasattr(cfg, "mamba"):               # Zamba2 (dense attention)
+    elif hasattr(cfg, "mamba"):               # Zamba2: + each shared site
         want["gated_linear_scan"] = 2 * cfg.n_layers
+        want["flash_attention"] = len(cfg.shared_sites())
     elif getattr(cfg, "attn", None) is not None:
         want["flash_attention"] = cfg.n_layers
     return want
@@ -2598,12 +2675,13 @@ def mamba2_block_parity(torch, rec) -> None:
 
 def recurrent_zamba2(torch, rec, smi_line: str) -> dict:
     """zamba2-2.7b at full width (d=2560, Mamba2 80 heads x N 64 x P 64,
-    shared attention 32 heads of 80, dense; d_ff 10240), depth cut to
+    shared attention 32 heads of 80 on flash; d_ff 10240), depth cut to
     ``ZAMBA2_LAYERS`` of its 54 Mamba2 blocks so that both shared blocks
     run (after blocks 5 and 11), bf16, seed-0 weights, sequence
     ``RECURRENT_SEQ``, batch ``ZAMBA2_BATCH``: ``RECURRENT_STEPS`` AdamW
     steps.  Held: finite losses; the scan launched twice a Mamba2 block a
-    step (forward, backward), nothing else.  Returns the launches."""
+    step (forward, backward), flash once a shared site (forward only),
+    nothing else.  Returns the launches."""
     import dataclasses
 
     from repro_torch.configs.zamba2_2_7b import CFG
@@ -2625,6 +2703,7 @@ def recurrent_zamba2(torch, rec, smi_line: str) -> dict:
     launched = launch_counts()
     want = dict.fromkeys(launched, 0)
     want["gated_linear_scan"] = 2 * ZAMBA2_LAYERS
+    want["flash_attention"] = len(cfg.shared_sites())
     if any(x != want for x in out["launches"]):
         fail(f"{what}: launches a step {out['launches']}, want {want}")
     rec.setdefault("recurrent", {})["zamba2-2.7b"] = dict(
@@ -2633,9 +2712,426 @@ def recurrent_zamba2(torch, rec, smi_line: str) -> dict:
     log(f"[recurrent] {what}: shared sites {cfg.shared_sites()}; "
         f"{n_params} params; S={RECURRENT_SEQ} B={ZAMBA2_BATCH}; "
         + _steps_line(out, smi_line) + f"; scan "
-        f"{out['launches'][0]['gated_linear_scan']} a step")
+        f"{out['launches'][0]['gated_linear_scan']}, flash "
+        f"{out['launches'][0]['flash_attention']} a step")
     del params
     return launched
+
+
+# ---------------------------------------------------------------------------
+# phase 18: serve -- prefill and greedy decode through the KV caches and
+# recurrent states: smollm-360m, whisper-base, xlstm-125m and zamba2-2.7b at
+# full width and depth, then the smoke keys card vs CPU
+# ---------------------------------------------------------------------------
+
+SERVE_LM = dict(batch=16, prompt=2048, gen=64)       # smollm-360m
+SERVE_WHISPER = dict(batch=8, frames=4096, prompt=64, gen=64)
+SERVE_RECURRENT = dict(batch={"xlstm-125m": 4, "zamba2-2.7b": 2},
+                       prompt=256, gen=32)
+SERVE_SMOKE = dict(batch=4, prompt=8, gen=16)        # the JAX example's
+SERVE_SMOKE_BAR = 1e-5    # fp32: a smoke key's logits, card vs CPU
+# Each served model runs twice from the same seed-0 weights and prompts:
+# in bf16 (the run timed and counted) and in fp32 (TF32 off).  The fp32
+# run is the tight check of the caches and states: every step's logits
+# against its fp32 reference within SERVE_FP32_BAR.  The bf16 run is held
+# to its bf16 reference within SERVE_BF16_BAR, by model: FLASH_BF16_REL
+# where bf16 rounding allows it; for smollm-360m's 32 random layers and
+# zamba2's 54 blocks, rounding alone puts a bf16 run past 1e-2 from
+# another bf16 run of the same function (on an H100: 1.991e-02 from the
+# dense run, 5.871e-02 from the chunked forward, the references
+# themselves 1.791e-02 and 6.940e-02 from fp32), so their bars sit about
+# 1.5x over those readings.
+SERVE_FP32_BAR = 1e-3
+SERVE_BF16_BAR = {"smollm-360m": 3e-2, "whisper-base": FLASH_BF16_REL,
+                  "xlstm-125m": FLASH_BF16_REL, "zamba2-2.7b": 8e-2}
+
+
+def _rel(torch, got, want) -> float:
+    """||got - want|| / ||want||, in fp32."""
+    got, want = got.float(), want.float()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def _held(torch, what: str, got, want, bar: float = None) -> float:
+    bar = FLASH_BF16_REL if bar is None else bar
+    rel = _rel(torch, got, want)
+    if not (torch.isfinite(got).all() and rel <= bar):
+        fail(f"serve {what}: relative error {rel:.3e} > {bar}")
+    return rel
+
+
+def _fp32(torch, params, cfg, **over):
+    """The same weights and config in fp32 (TF32 off), ``over`` replaced."""
+    import dataclasses
+
+    from repro_torch.tree import tree_map
+    return (tree_map(lambda x: x.float(), params),
+            dataclasses.replace(cfg, dtype=torch.float32,
+                                param_dtype=torch.float32, **over))
+
+
+def _cache_bytes(caches) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(caches)
+               if hasattr(t, "numel"))
+
+
+def _serve_row(arch: str, B: int, gen: int, prefill_s: float,
+               decode_s: float, steps: int, peak: int, launched: dict,
+               want: dict, cache: int, cache_formula: int, smi_line: str,
+               **held) -> dict:
+    if launched != want:
+        fail(f"serve {arch}: launches {launched}; want {want}")
+    if cache != cache_formula:
+        fail(f"serve {arch}: KV caches of {cache} bytes; want "
+             f"{cache_formula}")
+    row = dict(batch=B, gen=gen, prefill_s=prefill_s, decode_s=decode_s,
+               decode_ms_per_token=1e3 * decode_s / max(steps, 1),
+               tokens_per_s=B * gen / (prefill_s + decode_s),
+               peak_bytes=peak, cache_bytes=cache,
+               cache_bytes_formula=cache_formula, launches=launched, **held)
+    log(f"[serve] {arch}: B={B} gen={gen}: prefill {prefill_s:.3f} s, decode "
+        f"{row['decode_ms_per_token']:.2f} ms/token ({steps} steps), "
+        f"{row['tokens_per_s']:.1f} tokens/s, peak {peak / 1e9:.2f} GB, "
+        f"cache {cache} B (formula {cache_formula}), flash "
+        f"{launched['flash_attention']} (want {want['flash_attention']}); "
+        + "; ".join(f"{k} {v:.3e}" for k, v in held.items())
+        + f" ({smi_line})")
+    return row
+
+
+def _lm_held(torch, tag: str, params, cfg, dense, prompts, out,
+             bar: float) -> dict:
+    """A served LM run ``out`` (``generate``'s, logits kept) held at
+    ``bar``: every step's logits against a teacher-forced run of ``dense``
+    (``use_flash=False``) on the same tokens, and the last step's against
+    ``forward`` without a cache over the prompt and the generated tokens.
+    Returns the worst step's and the last step's relative errors."""
+    from repro_torch.models import lm
+
+    P, G = prompts.shape[1], out.tokens.shape[1]
+    logits, caches = lm.prefill(params, prompts, dense, P + G)
+    worst = _held(torch, f"{tag} step 0 vs dense", out.logits[0], logits,
+                  bar)
+    for i in range(G - 1):
+        logits, caches = lm.decode_step(params, out.tokens[:, i:i + 1],
+                                        caches, dense)
+        worst = max(worst, _held(torch, f"{tag} step {i + 1} vs dense",
+                                 out.logits[i + 1], logits, bar))
+    del caches, logits
+    seq = torch.cat([prompts, out.tokens[:, :-1]], 1)
+    h = lm.forward(params, seq, cfg)[0][:, -1:]
+    last = _held(torch, f"{tag} last step vs forward", out.logits[-1],
+                 lm.unembed(params, h, cfg), bar)
+    return {f"{tag} steps_vs_dense_max": worst,
+            f"{tag} last_vs_forward": last}
+
+
+def serve_smollm(torch, rec, smi_line: str) -> dict:
+    """smollm-360m at full width and depth (seed-0 weights): a batch of
+    ``SERVE_LM`` prompts prefilled into KV caches of prompt + gen rows,
+    then greedy decode through ``launch.serve.generate`` in bf16, launch
+    counts reset just before and read just after: flash once a layer at
+    the prefill and at each of the gen - 1 steps.  Held: the prefill's last
+    logits against ``forward`` and ``unembed`` without a cache, at
+    ``FLASH_BF16_REL``; by ``_lm_held`` at ``SERVE_BF16_BAR``; and the same
+    weights served in fp32, by ``_lm_held`` at ``SERVE_FP32_BAR``."""
+    import dataclasses
+
+    from repro_torch.configs.smollm_360m import CFG
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+
+    B, P, G = SERVE_LM["batch"], SERVE_LM["prompt"], SERVE_LM["gen"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        params = lm.init_lm(gen, CFG, "cuda")
+    prompts = torch.randint(0, CFG.vocab, (B, P), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = generate(params, CFG, prompts, G, keep_logits=True)
+    launched = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(launched, 0)
+    want["flash_attention"] = CFG.n_layers * G
+    a = CFG.attn
+    caches = lm.init_caches(CFG, B, P + G)
+    cache = _cache_bytes(caches)
+    del caches
+    dense = dataclasses.replace(a, use_flash=False)
+    p32, c32 = _fp32(torch, params, CFG)
+    with torch.inference_mode():
+        h, _, _ = lm.forward(params, prompts, CFG)
+        held = {"prefill_vs_forward": _held(
+            torch, "smollm-360m prefill", out.logits[0],
+            lm.unembed(params, h[:, -1:], CFG))}
+        del h
+        held.update(_lm_held(torch, "bf16", params, CFG,
+                             dataclasses.replace(CFG, attn=dense), prompts,
+                             out, SERVE_BF16_BAR["smollm-360m"]))
+        release(torch)
+        o32 = generate(p32, c32, prompts, G, keep_logits=True)
+        held.update(_lm_held(torch, "fp32", p32, c32,
+                             dataclasses.replace(c32, attn=dense), prompts,
+                             o32, SERVE_FP32_BAR))
+        # observed, not held: bf16 rounding's distance from fp32 at the
+        # prefill, the one step both runs take on the same tokens
+        held["bf16_prefill_vs_fp32"] = _rel(torch, out.logits[0],
+                                            o32.logits[0])
+        held["fp32_tokens_equal_bf16"] = float(
+            (o32.tokens == out.tokens).float().mean())
+        del p32, o32
+    row = _serve_row("smollm-360m", B, G, out.prefill_s, out.decode_s,
+                     out.steps, peak, launched, want, cache,
+                     2 * CFG.n_layers * B * (P + G) * a.n_kv_heads
+                     * a.head_dim * CFG.dtype.itemsize, smi_line, **held)
+    rec.setdefault("serve", {})["smollm-360m"] = dict(prompt=P, **row)
+    del params, out
+    return launched
+
+
+def serve_whisper(torch, rec, smi_line: str) -> dict:
+    """whisper-base at full width and depth (seed-0 weights):
+    ``SERVE_WHISPER``'s frames encoded and its prompt tokens prefilled into
+    the decoder's KV caches (``whisper.prefill``), then greedy
+    ``decode_step``s in bf16; flash on the encoder (once a layer), on the
+    prefill (self and cross, each layer) and at every step (self over the
+    cache, cross over the frames).  Held as smollm's, in bf16 and in fp32,
+    the dense run (``use_flash=False``) the reference."""
+    import dataclasses
+
+    from repro_torch.configs.whisper_base import CFG, MAX_TGT
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import whisper as wh
+
+    B, P, G = SERVE_WHISPER["batch"], SERVE_WHISPER["prompt"], \
+        SERVE_WHISPER["gen"]
+    max_len = P + G
+    if max_len > MAX_TGT:
+        fail(f"serve whisper-base: {max_len} decoder rows > {MAX_TGT}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        params = wh.init_whisper(gen, CFG, "cuda")
+    frames = torch.randn((B, SERVE_WHISPER["frames"], CFG.d_model),
+                         generator=gen, device="cuda")
+    prompts = torch.randint(0, CFG.vocab, (B, P), generator=gen,
+                            device="cuda", dtype=torch.int32)
+
+    def run(params, cfg, forced=None):
+        """Prefill and G - 1 steps: the greedy tokens, or ``forced``'s."""
+        kept = []
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, enc, caches = wh.prefill(params, frames, prompts, cfg,
+                                             max_len)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            kept.append(logits)
+            toks = [tok]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for i in range(G - 1):
+                if forced is not None:
+                    tok = forced[:, i:i + 1]
+                logits, caches = wh.decode_step(params, tok, enc, caches, cfg)
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                kept.append(logits)
+                toks.append(tok)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        return torch.cat(toks, 1), kept, enc, t1 - t0, t2 - t1
+
+    def readout(p, cfg, tokens, enc):
+        h, _ = wh.decode(p, tokens, enc, cfg)
+        return h[:, -1:] @ p["tok_embed"].T.to(h.dtype)
+
+    def held_at(tag, p, cfg, tokens, logits, enc, bar):
+        """As ``_lm_held``: the steps against the teacher-forced dense run,
+        the last against ``decode`` over prompt and generated tokens."""
+        _, ref, _, _, _ = run(p, dataclasses.replace(cfg, use_flash=False),
+                              forced=tokens)
+        worst = max(_held(torch, f"whisper-base {tag} step {i} vs dense", g,
+                          r, bar) for i, (g, r) in enumerate(zip(logits, ref)))
+        seq = torch.cat([prompts, tokens[:, :-1]], 1)
+        last = _held(torch, f"whisper-base {tag} last step", logits[-1],
+                     readout(p, cfg, seq, enc), bar)
+        return {f"{tag} steps_vs_dense_max": worst,
+                f"{tag} last_vs_decode": last}
+
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    tokens, logits, enc, prefill_s, decode_s = run(params, CFG)
+    launched = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = CFG.n_dec_layers
+    want = dict.fromkeys(launched, 0)
+    want["flash_attention"] = CFG.n_enc_layers + 2 * L + (G - 1) * 2 * L
+    cache = _cache_bytes(wh.init_dec_caches(CFG, B, max_len))
+    p32, c32 = _fp32(torch, params, CFG)
+    with torch.inference_mode():
+        held = {"prefill_vs_decode": _held(
+            torch, "whisper-base prefill", logits[0],
+            readout(params, CFG, prompts, enc))}
+        held.update(held_at("bf16", params, CFG, tokens, logits, enc,
+                            SERVE_BF16_BAR["whisper-base"]))
+        t32, l32, enc32, _, _ = run(p32, c32)
+        held.update(held_at("fp32", p32, c32, t32, l32, enc32,
+                            SERVE_FP32_BAR))
+        held["bf16_prefill_vs_fp32"] = _rel(torch, logits[0], l32[0])
+        held["fp32_tokens_equal_bf16"] = float(
+            (t32 == tokens).float().mean())
+        del l32, enc32, p32
+    row = _serve_row("whisper-base", B, G, prefill_s, decode_s, G - 1, peak,
+                     launched, want, cache,
+                     2 * L * B * max_len * CFG.n_heads * CFG.head_dim
+                     * CFG.dtype.itemsize, smi_line, **held)
+    rec.setdefault("serve", {})["whisper-base"] = dict(
+        prompt=P, frames=SERVE_WHISPER["frames"], **row)
+    del params, frames, enc, logits
+    return launched
+
+
+def serve_recurrent(torch, rec, arch: str, smi_line: str) -> dict:
+    """xlstm-125m or zamba2-2.7b at full width and depth (seed-0 weights)
+    through ``launch.serve.generate`` in bf16: ``SERVE_RECURRENT``'s prompt
+    stepped a token at a time (its first prompt_len - 1 tokens, as JAX
+    ``serve.main``), then gen steps; launch counts reset just before and
+    read just after: no kernel for xLSTM, flash once a shared site a step
+    for Zamba2 (the SSM steps ``ssd_recurrent``, no scan).  Held: the bf16
+    logits after the prompt's steps against ``forward`` over the prompt at
+    ``SERVE_BF16_BAR`` (Zamba2's chunked SSD on the scan kernel, its 256
+    tokens two chunks); and the same weights served in fp32, its first
+    prompt_len steps (the prompt's and the first generated, fed the
+    prompt's first token again) against ``forward`` over those prompt_len
+    tokens at ``SERVE_FP32_BAR``."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import generate
+
+    if arch == "xlstm-125m":
+        from repro_torch.configs.xlstm_125m import CFG
+        from repro_torch.models import xlstm as mod
+        init = mod.init_xlstm
+    else:
+        from repro_torch.configs.zamba2_2_7b import CFG
+        from repro_torch.models import mamba as mod
+        init = mod.init_zamba2
+    B, P, G = SERVE_RECURRENT["batch"][arch], SERVE_RECURRENT["prompt"], \
+        SERVE_RECURRENT["gen"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        params = init(gen, CFG, "cuda")
+    prompts = torch.randint(0, CFG.vocab, (B, P), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = generate(params, CFG, prompts, G, keep_logits=True)
+    launched = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(launched, 0)
+    sites = 0
+    if arch == "zamba2-2.7b":
+        sites = len(CFG.shared_sites())
+        want["flash_attention"] = sites * (P - 1 + G)
+        states = mod.init_states(CFG, B, P + G)
+        a = CFG.shared_attn
+        formula = (2 * sites * B * (P + G) * a.n_kv_heads * a.head_dim
+                   * CFG.dtype.itemsize)
+        cache = _cache_bytes(states["shared"])
+    else:
+        states = mod.init_states(CFG, B)
+        formula = cache = 0
+    state_bytes = _cache_bytes(states)
+    del states
+
+    def readout(p, cfg, tokens, rows=slice(None)):
+        h, _ = mod.forward(p, tokens, cfg)
+        return h[:, rows] @ p["embed"].T.to(h.dtype)
+    p32, c32 = _fp32(torch, params, CFG)
+    with torch.inference_mode():
+        held = {"bf16 prompt_vs_forward": _held(
+            torch, f"{arch} bf16 after the prompt", out.logits[P - 2],
+            readout(params, CFG, prompts, slice(P - 2, P - 1)),
+            SERVE_BF16_BAR[arch])}
+        o32 = generate(p32, c32, prompts, G, keep_logits=True)
+        fed = torch.cat([prompts[:, :P - 1], prompts[:, :1]], 1)
+        ref = readout(p32, c32, fed)
+        held["fp32 steps_vs_forward_max"] = max(
+            _held(torch, f"{arch} fp32 step {i}", o32.logits[i],
+                  ref[:, i:i + 1], SERVE_FP32_BAR) for i in range(P))
+        held["bf16_after_prompt_vs_fp32"] = _rel(torch, out.logits[P - 2],
+                                                 o32.logits[P - 2])
+        held["fp32_tokens_equal_bf16"] = float(
+            (o32.tokens == out.tokens).float().mean())
+        del p32, o32, ref
+    row = _serve_row(arch, B, G, out.prefill_s, out.decode_s, out.steps,
+                     peak, launched, want, cache, formula, smi_line, **held)
+    rec.setdefault("serve", {})[arch] = dict(
+        prompt=P, prompt_steps=P - 1, state_bytes=state_bytes,
+        shared_sites=sites, **row)
+    log(f"[serve] {arch}: decode state {state_bytes} B in all")
+    del params, out
+    return launched
+
+
+def serve_smoke(torch, rec) -> dict:
+    """Every smoke key ``generate`` serves (the seven LMs, xLSTM, Zamba2;
+    kernels on) from the same fp32 params (seed 0, made on the CPU) and
+    prompts, ``SERVE_SMOKE`` batch, prompt and gen, on the card and on the
+    CPU: the greedy tokens equal, every step's logits within
+    ``SERVE_SMOKE_BAR`` relative; flash on the card once an attention call
+    a step (none for deepseek's MLA and xLSTM).  Returns the card's
+    launches."""
+    from repro_torch.configs.smoke import LM_FACTORIES, RECURRENT_FACTORIES
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import generate
+    from repro_torch.tree import tree_map
+
+    B, P, G = SERVE_SMOKE["batch"], SERVE_SMOKE["prompt"], SERVE_SMOKE["gen"]
+    keys = {**LM_FACTORIES, **{k: v for k, v in RECURRENT_FACTORIES.items()
+                               if k != "whisper-base"}}
+    total = dict.fromkeys(launch_counts(), 0)
+    rows = {}
+    for key, factory in keys.items():
+        _, init_fn, _, cfg = factory(kernels=True)
+        cpu_gen = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            params = init_fn(cpu_gen, "cpu")
+        prompts = torch.randint(0, 256, (B, P), generator=cpu_gen,
+                                dtype=torch.int32)
+        want_out = generate(params, cfg, prompts, G, keep_logits=True)
+        reset_launch_counts()
+        got = generate(tree_map(lambda x: x.cuda(), params), cfg,
+                       prompts.cuda(), G, keep_logits=True)
+        launched = launch_counts()
+        if not torch.equal(got.tokens.cpu(), want_out.tokens):
+            fail(f"serve smoke {key}: tokens on the card "
+                 f"{got.tokens.cpu().tolist()} vs the CPU's "
+                 f"{want_out.tokens.tolist()}")
+        worst = max(_held(torch, f"smoke {key} step {i}", g.cpu(), w,
+                          SERVE_SMOKE_BAR)
+                    for i, (g, w) in enumerate(zip(got.logits,
+                                                   want_out.logits)))
+        want = dict.fromkeys(launched, 0)
+        if getattr(cfg, "attn", None) is not None:
+            want["flash_attention"] = cfg.n_layers * G
+        elif hasattr(cfg, "mamba"):
+            want["flash_attention"] = len(cfg.shared_sites()) * (P - 1 + G)
+        if launched != want:
+            fail(f"serve smoke {key}: launches {launched}; want {want}")
+        for k, v in launched.items():
+            total[k] += v
+        rows[key] = dict(logits_rel_err_max=worst, launches=launched,
+                         sample=got.tokens[0].tolist())
+        log(f"[serve] smoke {key} ({cfg.name}): B={B} prompt {P} gen {G}: "
+            f"tokens equal card vs CPU, logits rel err max {worst:.2e}; "
+            f"launches {launched}")
+    rec.setdefault("serve", {})["smoke"] = rows
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -4218,7 +4714,7 @@ def main() -> None:
     from repro_torch.kernels.linear_scan import scan_config
     tiling = {"skip_concat_matmul bf16": scfg(),
               **{f"flash_attention bf16 D={d}": fcfg(d)
-                 for d in (64, 112, 128, 224)}}
+                 for d in (64, 80, 112, 128, 224)}}
     for d in ("bfloat16", "float32"):
         for bwd in (False, True):
             tiling[f"gated_linear_scan {d} {('forward', 'backward')[bwd]}"] = (
@@ -4233,7 +4729,8 @@ def main() -> None:
             bh * -(-S // tiling[f"flash_attention bf16 D={d}"]["query_rows"])
         for d, bh, S in ((128, 40, 258), (128, 32, 1024), (112, 128, 256),
                          (224, 128, 64), (224, 128, 16),
-                         (64, 30, 4096), (128, 64, 4096))})
+                         (64, 30, 4096), (128, 64, 4096), (80, 64, 4096),
+                         (64, 240, 1), (80, 64, 1))})
     grids.update({f"{k} R={R} T={T} C={C}":
                   R * -(-C // v["channels"]) * -(-T // v["chunk"])
                   for k, v in tiling.items() if k.startswith("gated")
@@ -4337,6 +4834,25 @@ def main() -> None:
                                          "recurrent")
     rec["phase_s"]["recurrent"] = time.perf_counter() - t0
     log(f"[recurrent] phase {rec['phase_s']['recurrent']:.1f} s")
+
+    # 18. serve: prefill and decode through the KV caches and states, the
+    # four full-width models, then the smoke keys card vs CPU
+    t0 = time.perf_counter()
+    for arch, phase in (("smollm-360m", serve_smollm),
+                        ("whisper-base", serve_whisper),
+                        ("xlstm-125m", lambda t, r, sl: serve_recurrent(
+                            t, r, "xlstm-125m", sl)),
+                        ("zamba2-2.7b", lambda t, r, sl: serve_recurrent(
+                            t, r, "zamba2-2.7b", sl))):
+        left = release(torch)
+        if left >= 1e9:
+            fail(f"serve {arch}: {left / 1e9:.2f} GB still allocated; the "
+                 "previous phase was not released")
+        counts[f"serve {arch}"] = phase(torch, rec, smi_line)
+    release(torch)
+    counts["serve smoke"] = serve_smoke(torch, rec)
+    rec["phase_s"]["serve"] = time.perf_counter() - t0
+    log(f"[serve] phase {rec['phase_s']['serve']:.1f} s")
 
     # 12. ranks: one process per pipeline device, four on the one card
     left = release(torch)

@@ -11,8 +11,8 @@ the DDPM draws as tensors); an LM's is ``loss_fn(params, batch)``, its
 batch ``{"tokens"}`` (internvl2: and ``prefix_embeds``; whisper:
 ``{"frames", "tokens"}``).  ``kernels=True`` (the trainer's choice)
 switches on the model's kernels: flash attention (every LM but deepseek's
-MLA, and whisper), and for UViT and Hunyuan-DiT the fused skip-concat
-matmul.  Zamba2's Mamba2 blocks always run their carry across chunks
+MLA, whisper, and Zamba2's shared attention), and for UViT and
+Hunyuan-DiT the fused skip-concat matmul.  Zamba2's Mamba2 blocks always run their carry across chunks
 through the gated linear scan (there is no other route).
 """
 from __future__ import annotations
@@ -179,12 +179,13 @@ def smoke_xlstm(kernels: bool = False):
 
 
 def smoke_zamba2(kernels: bool = False):
-    # the shared attention (head dim 8) stays dense, as in the JAX config
-    # and the full one; every Mamba2 block runs the scan (no switch)
+    # the shared attention (head dim 8) on flash, as the full config's;
+    # every Mamba2 block runs the scan (no switch)
     cfg = Zamba2Config("zamba2-smoke", vocab=256, d_model=32, n_layers=6,
                        mamba=Mamba2Config(d_model=32, d_state=8, head_dim=8,
                                           chunk=4),
-                       shared_attn=AttnConfig(32, 4, 4, 8), shared_d_ff=64,
+                       shared_attn=AttnConfig(32, 4, 4, 8, use_flash=kernels),
+                       shared_d_ff=64,
                        shared_every=3, n_shared_blocks=2)
 
     def make_batch(gen: torch.Generator, device="cuda") -> dict:

@@ -4,10 +4,10 @@ of the JAX package's ``configs/zamba2_2_7b.py``).
 
 The shared block's parameter reuse sites are long-range graph edges (the
 PULSE collocation case).  Every Mamba2 block's carry across chunks runs
-the gated linear scan kernel.  The shared attention's head dim, 80, is
-not one the flash kernel builds (``flash_attention.ops.HEAD_DIMS``), so it
-runs the dense ``attention`` (``use_flash`` off), as the JAX config does
-and as danube's does: a choice of the config, not a fallback.
+the gated linear scan kernel.  The shared attention (32 heads of 80) runs
+the flash kernel (``use_flash``; bf16 at head dim 80 takes the
+tensor-core route, the head padded to 128 columns in shared memory), in
+training and over each site's KV cache when serving.
 """
 import torch
 
@@ -19,6 +19,6 @@ CFG = Zamba2Config(
     mamba=Mamba2Config(d_model=2560, d_state=64, head_dim=64, expand=2,
                        chunk=128),
     shared_attn=AttnConfig(d_model=2560, n_heads=32, n_kv_heads=32,
-                           head_dim=80),
+                           head_dim=80, use_flash=True),
     shared_d_ff=10240, shared_every=6, n_shared_blocks=2,
     dtype=torch.bfloat16, param_dtype=torch.bfloat16)

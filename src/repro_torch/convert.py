@@ -1,4 +1,5 @@
-"""Carry JAX parameter (and AdamW state) trees into the port.
+"""Carry JAX parameter (and AdamW state) trees, and decode caches and
+states, into the port.
 
 The port keeps the JAX package's leaf names and ``(in, out)`` layouts, so a
 tree of numpy arrays (``jax.device_get`` of a params pytree) converts leaf
@@ -28,4 +29,26 @@ def params_from_jax(tree, device="cuda"):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device) for v in tree)
+    return _to_tensor(tree, device)
+
+
+def state_from_jax(tree, device="cuda"):
+    """A JAX KV cache or decode-state tree (numpy leaves) -> the port's:
+    every ``"pos"`` (a scalar, or one per layer of a stacked cache, all
+    equal) becomes a host int, every other leaf a tensor on ``device``.
+    Lets a test continue decoding from a cache the JAX package primed."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            if k == "pos":
+                p = np.unique(np.asarray(v))
+                if p.size != 1:
+                    raise ValueError(f"stacked caches at positions {p}; the "
+                                     "port keeps one pos a stack")
+                out[k] = int(p[0])
+            else:
+                out[k] = state_from_jax(v, device)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(state_from_jax(v, device) for v in tree)
     return _to_tensor(tree, device)

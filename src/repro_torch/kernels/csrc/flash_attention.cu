@@ -4,8 +4,18 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_fwd, body _attn_kernel), wired into the self-attention of
 // every UViT and Hunyuan-DiT block, Hunyuan-DiT's cross-attention over
-// the text tokens, and the SDv2 UNet's self- and cross-attention
-// (models/layers.py::apply_attention with use_flash).
+// the text tokens, the SDv2 UNet's self- and cross-attention, the decoder
+// LMs', whisper's and Zamba2's attention (models/layers.py::apply_attention
+// with use_flash), and their attention over a KV cache at prefill and at
+// every decode step (apply_attention with a cache).
+//
+// A KV cache is read in place: k and v are the whole (B, Tk, Hkv, D)
+// cache, of which the first kv_len rows hold keys, and query row r sits at
+// position q_off + r (the JAX attention's q_offset and kv_valid_len).  The
+// key loop stops at kv_len; keys past it are masked, so the rows of the
+// cache not yet written are never summed.  At a decode step S = 1: one
+// query row of a 64-row tile works and each of a KV head's Hq / Hkv query
+// heads reads the cache again (a decode kernel's design is later work).
 //
 // Layout: q (B, S, Hq, D), k and v (B, T, Hkv, D), out (B, S, Hq, D), all
 // contiguous -- the model's own layout, so no transpose is materialised.
@@ -32,7 +42,7 @@
 //
 // Two routes, a pure function of (dtype, D) (flash_route in ops.py):
 //
-// - bf16 at D in {64, 112, 128, 224}: tensor cores.  One block per (b*h,
+// - bf16 at D in {64, 80, 112, 128, 224}: tensor cores.  One block per (b*h,
 //   64-query tile): one consumer warpgroup and one producer warp.  Q, K
 //   and V come in by TMA through 4-D tensor maps over (B, S|T, H, D),
 //   128-byte swizzled, the head as 64-column boxes; K/V tiles of 64 keys
@@ -46,10 +56,13 @@
 //   shared memory; V (T x D, D contiguous) is N-major and read through the
 //   transpose bit; O accumulates in fp32.  Rounding P to bf16 is the one
 //   numeric change from the Pallas body, which multiplies P V in fp32.
-//   The SDv2 UNet's heads, 112 (896 / 8) and 224 (1792 / 8), are padded
-//   in shared memory to whole boxes, DP = 128 and 256: the box at column
-//   64 (or 192) runs past the tensor's inner dimension D and TMA fills the
-//   columns past D with zeros (and counts them in the barrier's bytes).
+//   The SDv2 UNet's heads, 112 (896 / 8) and 224 (1792 / 8), and the
+//   80-wide heads of zamba2-2.7b's shared attention and h2o-danube-1.8b
+//   are padded in shared memory to whole boxes, DP = 128 and 256: the box
+//   at column 64 (or 192) runs past the tensor's inner dimension D and TMA
+//   fills the columns past D with zeros (and counts them in the barrier's
+//   bytes).  Rows past S (a decode step's S = 1) are zero-filled the same
+//   way and never stored.
 //   Q K^T stops at D; P V computes DP columns, those past D zero, and the
 //   epilogue stores only d < D (at D = 112 columns 112-127 of head h would
 //   be columns 0-15 of head h + 1).  Shared memory: 83 KB at DP = 128
@@ -130,7 +143,7 @@ __global__ void __launch_bounds__(NWARP * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
                  int Hq, int Hkv, int causal, int has_window, int window,
-                 float scale) {
+                 int q_off, int kv_len, float scale) {
   constexpr int DPL = (DH + 31) / 32;   // output dims per lane
   // dynamic shared memory (SimtSmem<DH>): at DH = 224 the tiles take 72 KB,
   // over the 48 KB a static array may hold
@@ -163,19 +176,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < DPL; ++c) acc[r][c] = 0.0f;
   }
 
-  // keys any row of this block can see: causal stops at the last row,
-  // a window starts after the first row's horizon
-  int kv_hi = Tk;
-  if (causal) kv_hi = min(Tk, q0 + BQ);
+  // keys any row of this block can see: none at or past kv_len; causal
+  // stops at the last row, a window starts after the first row's horizon
+  // (row r sits at position q_off + r)
+  int kv_hi = kv_len;
+  if (causal) kv_hi = min(kv_len, q_off + q0 + BQ);
   int kv_lo = 0;
-  if (has_window) kv_lo = max(0, q0 - window + 1);
+  if (has_window) kv_lo = max(0, q_off + q0 - window + 1);
   kv_lo = (kv_lo / BKV) * BKV;
 
   for (int kt = kv_lo; kt < kv_hi; kt += BKV) {
     __syncthreads();   // previous tile fully consumed (and qs written)
     for (int e = tid; e < BKV * DH; e += NWARP * 32) {
       const int j = e / DH, d = e % DH, kj = kt + j;
-      const bool in = kj < Tk;
+      const bool in = kj < kv_len;
       const size_t off = (((size_t)b * Tk + kj) * Hkv + hk) * DH + d;
       ks[j][d] = in ? to_f(k[off]) : 0.0f;
       vs[j][d] = in ? to_f(v[off]) : 0.0f;
@@ -197,8 +211,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float p[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
-      const int qpos = q0 + warp * ROWS + r;
-      const bool valid = kj < Tk && (!causal || kj <= qpos) &&
+      const int qpos = q_off + q0 + warp * ROWS + r;
+      const bool valid = kj < kv_len && (!causal || kj <= qpos) &&
                          (!has_window || kj > qpos - window);
       const float sv = valid ? sc[r] : -INFINITY;
       const float m_new = fmaxf(m[r], warp_max(sv));
@@ -230,14 +244,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
-    const int qpos = q0 + warp * ROWS + r;
-    if (qpos >= S) continue;
+    const int row = q0 + warp * ROWS + r;
+    if (row >= S) continue;
     const float inv = l[r] > 0.0f ? 1.0f / l[r] : 0.0f;
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
       const int d = lane + 32 * c;
       if (d < DH)
-        o[(((size_t)b * S + qpos) * Hq + hq) * DH + d] =
+        o[(((size_t)b * S + row) * Hq + hq) * DH + d] =
             from_f<T>(acc[r][c] * inv);
     }
   }
@@ -272,9 +286,9 @@ __global__ void __launch_bounds__(FTHREADS, FlashSmem<DH>::MIN_BLOCKS)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
-                       __nv_bfloat16* __restrict__ o, int S, int Tk, int Hq,
+                       __nv_bfloat16* __restrict__ o, int S, int Hq,
                        int Hkv, int causal, int has_window, int window,
-                       float scale_log2) {
+                       int q_off, int kv_len, float scale_log2) {
   using L = FlashSmem<DH>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
@@ -290,11 +304,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int hk = hq / (Hq / Hkv);
   const int q0 = blockIdx.y * FBQ;
 
-  // keys any row of this block can see
-  int kv_hi = Tk;
-  if (causal) kv_hi = min(Tk, q0 + FBQ);
+  // keys any row of this block can see (row r sits at q_off + r)
+  int kv_hi = kv_len;
+  if (causal) kv_hi = min(kv_len, q_off + q0 + FBQ);
   int kv_lo = 0;
-  if (has_window) kv_lo = max(0, q0 - window + 1);
+  if (has_window) kv_lo = max(0, q_off + q0 - window + 1);
   kv_lo = (kv_lo / FBKV) * FBKV;
   const int n_t = kv_hi > kv_lo ? (kv_hi - kv_lo + FBKV - 1) / FBKV : 0;
 
@@ -370,8 +384,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int key = kt + 8 * j + 2 * (lane % 4) + (i & 1);
-        const int qpos = q0 + r_lo + 8 * (i >> 1);
-        const bool valid = key < Tk && (!causal || key <= qpos) &&
+        const int qpos = q_off + q0 + r_lo + 8 * (i >> 1);
+        const bool valid = key < kv_len && (!causal || key <= qpos) &&
                            (!has_window || key > qpos - window);
         const float x = valid ? sacc[4 * j + i] * scale_log2 : -INFINITY;
         sacc[4 * j + i] = x;
@@ -434,9 +448,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qpos = q0 + r_lo + 8 * r;
-    if (qpos >= S) continue;
-    __nv_bfloat16* orow = o + (((size_t)b * S + qpos) * Hq + hq) * DH;
+    const int row = q0 + r_lo + 8 * r;
+    if (row >= S) continue;
+    __nv_bfloat16* orow = o + (((size_t)b * S + row) * Hq + hq) * DH;
 #pragma unroll
     for (int h = 0; h < L::BOXES; ++h)
 #pragma unroll
@@ -453,7 +467,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 template <int DH>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int S, int Tk, int Hq, int Hkv, int causal, int has_window,
-                 int window, float scale, cudaStream_t st) {
+                 int window, int q_off, int kv_len, float scale,
+                 cudaStream_t st) {
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16)
     return (int)cudaErrorInvalidValue;   // TMA needs 16-byte-aligned bases
   using L = FlashSmem<DH>;
@@ -477,8 +492,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * Hq, (S + FBQ - 1) / FBQ);
   flash_fwd_wgmma_kernel<DH><<<grid, FTHREADS, L::TOTAL, st>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Tk, Hq, Hkv, causal,
-      has_window, window, scale * 1.4426950408889634f);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Hq, Hkv, causal,
+      has_window, window, q_off, kv_len, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -486,7 +501,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
 template <int DH, typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int Tk, int Hq, int Hkv, int causal, int has_window,
-           int window, float scale, cudaStream_t st) {
+           int window, int q_off, int kv_len, float scale, cudaStream_t st) {
   constexpr int smem = SimtSmem<DH>::BYTES;
   if constexpr (smem > 48 * 1024) {
     // past 48 KB a kernel must opt in
@@ -499,41 +514,39 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   flash_fwd_kernel<DH, T><<<grid, NWARP * 32, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, Tk, Hq, Hkv, causal,
-      has_window, window, scale);
+      has_window, window, q_off, kv_len, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dh(int D, const void* q, const void* k, const void* v, void* o,
               int B, int S, int Tk, int Hq, int Hkv, int causal,
-              int has_window, int window, float scale, cudaStream_t st) {
+              int has_window, int window, int q_off, int kv_len, float scale,
+              cudaStream_t st) {
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+#define PULSE_SIMT(DH)                                                  \
+  return launch<DH, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, \
+                       window, q_off, kv_len, scale, st)
+// bf16 takes the tensor-core route at these head dims, fp32 the SIMT one
+#define PULSE_BOTH(DH)                                                  \
+  if constexpr (bf16)                                                   \
+    return launch_wgmma<DH>(q, k, v, o, B, S, Tk, Hq, Hkv, causal,      \
+                            has_window, window, q_off, kv_len, scale, st); \
+  else                                                                  \
+    PULSE_SIMT(DH)
   switch (D) {
-    case 8: return launch<8, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
-    case 16: return launch<16, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
-    case 32: return launch<32, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
-    case 64:
-      if constexpr (bf16)
-        return launch_wgmma<64>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
-      else
-        return launch<64, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
-    case 112:
-      if constexpr (bf16)
-        return launch_wgmma<112>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
-      else
-        return launch<112, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
-    case 128:
-      if constexpr (bf16)
-        return launch_wgmma<128>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
-      else
-        return launch<128, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
-    case 224:
-      if constexpr (bf16)
-        return launch_wgmma<224>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
-      else
-        return launch<224, T>(q, k, v, o, B, S, Tk, Hq, Hkv, causal, has_window, window, scale, st);
+    case 8: PULSE_SIMT(8);
+    case 16: PULSE_SIMT(16);
+    case 32: PULSE_SIMT(32);
+    case 64: PULSE_BOTH(64);
+    case 80: PULSE_BOTH(80);
+    case 112: PULSE_BOTH(112);
+    case 128: PULSE_BOTH(128);
+    case 224: PULSE_BOTH(224);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef PULSE_BOTH
+#undef PULSE_SIMT
 }
 
 template <int DH>
@@ -559,32 +572,38 @@ const char* pulse_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  D in {8, 16, 32, 64, 112, 128, 224};
-// Hq % Hkv == 0.  bf16 at D = 64, 112, 128 or 224 takes the tensor-core
-// route and needs 16-byte-aligned pointers (else cudaErrorInvalidValue).
+// dtype: 0 = float32, 1 = bfloat16.  D in {8, 16, 32, 64, 80, 112, 128,
+// 224}; Hq % Hkv == 0.  k and v are (B, Tk, Hkv, D), of which the first
+// kv_len rows (0 < kv_len <= Tk) hold keys: a KV cache of Tk rows is read
+// in place.  Query row r sits at position q_off + r (q_off >= 0).  bf16 at
+// D = 64, 80, 112, 128 or 224 takes the tensor-core route and needs
+// 16-byte-aligned pointers (else cudaErrorInvalidValue).
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* o, int B, int S, int Tk, int Hq,
                                int Hkv, int D, int causal, int has_window,
-                               int window, float scale, int dtype,
-                               void* stream) {
-  if (B <= 0 || S <= 0 || Tk <= 0 || Hkv <= 0 || Hq % Hkv != 0)
+                               int window, int q_off, int kv_len, float scale,
+                               int dtype, void* stream) {
+  if (B <= 0 || S <= 0 || Tk <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+      q_off < 0 || kv_len <= 0 || kv_len > Tk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_dh<float>(D, q, k, v, o, B, S, Tk, Hq, Hkv, causal,
-                            has_window, window, scale, st);
+                            has_window, window, q_off, kv_len, scale, st);
   if (dtype == 1)
     return launch_dh<__nv_bfloat16>(D, q, k, v, o, B, S, Tk, Hq, Hkv, causal,
-                                    has_window, window, scale, st);
+                                    has_window, window, q_off, kv_len, scale,
+                                    st);
   return (int)cudaErrorInvalidValue;
 }
 
-// The bf16 tensor-core route's tiling at head dim D (64, 112, 128 or 224):
-// {query rows, keys per tile, ring slots, threads per block, dynamic shared
-// memory bytes, resident blocks per SM}.
+// The bf16 tensor-core route's tiling at head dim D (64, 80, 112, 128 or
+// 224): {query rows, keys per tile, ring slots, threads per block, dynamic
+// shared memory bytes, resident blocks per SM}.
 int flash_attention_bf16_config(int D, int* out) {
   switch (D) {
     case 64: return wgmma_config<64>(out);
+    case 80: return wgmma_config<80>(out);
     case 112: return wgmma_config<112>(out);
     case 128: return wgmma_config<128>(out);
     case 224: return wgmma_config<224>(out);

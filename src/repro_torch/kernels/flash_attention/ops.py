@@ -19,6 +19,11 @@ The port of ``repro.kernels.flash_attention`` (TPU kernel
 
 All three take the model's layout: q ``(B, S, Hq, D)``, k and v
 ``(B, T, Hkv, D)`` with ``Hq % Hkv == 0``; the output is ``(B, S, Hq, D)``.
+Over a KV cache (the JAX ``attention``'s ``q_offset`` and
+``kv_valid_len``): k and v are the whole ``(B, max_len, Hkv, D)`` cache,
+query row ``r`` sits at position ``q_offset + r`` and the keys at
+``kv_valid_len`` and past it are masked.  The kernel reads the cache in
+place, its key loop stopping at ``kv_valid_len``: no slice, no copy.
 """
 from __future__ import annotations
 
@@ -31,31 +36,37 @@ from repro_torch.kernels import LAUNCHES, build, tma_aligned
 
 NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (8, 16, 32, 64, 112, 128, 224)
-# bf16 head dims on the tensor-core route (112 and 224, the SDv2 UNet's,
-# padded to whole 64-column boxes inside the kernel)
-WGMMA_HEAD_DIMS = (64, 112, 128, 224)
-# q, k, v, out, B, S, T, Hq, Hkv, D, causal, has_window, window, scale,
-# dtype, stream
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+HEAD_DIMS = (8, 16, 32, 64, 80, 112, 128, 224)
+# bf16 head dims on the tensor-core route (80, 112 and 224 -- zamba2's and
+# danube's, the SDv2 UNet's -- padded to whole 64-column boxes inside the
+# kernel)
+WGMMA_HEAD_DIMS = (64, 80, 112, 128, 224)
+# q, k, v, out, B, S, T, Hq, Hkv, D, causal, has_window, window, q_offset,
+# kv_valid_len, scale, dtype, stream
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
-def _mask(S: int, T: int, causal: bool, window: int | None,
-          device) -> torch.Tensor:
-    q_pos = torch.arange(S, device=device)[:, None]
+def _mask(S: int, T: int, causal: bool, window: int | None, device,
+          q_offset: int = 0, kv_valid_len: int | None = None
+          ) -> torch.Tensor:
+    """(S, T): key j visible to query row r (at ``q_offset + r``)."""
+    q_pos = torch.arange(S, device=device)[:, None] + q_offset
     k_pos = torch.arange(T, device=device)[None, :]
     mask = torch.ones((S, T), dtype=torch.bool, device=device)
     if causal:
         mask &= k_pos <= q_pos
     if window is not None:
         mask &= k_pos > q_pos - window
+    if kv_valid_len is not None:
+        mask &= k_pos < kv_valid_len
     return mask
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0,
+                    kv_valid_len: int | None = None) -> torch.Tensor:
     """The plain version: (B,S,Hq,D), (B,T,Hkv,D) x2 -> (B,S,Hq,D)."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
@@ -64,7 +75,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k = k.repeat_interleave(groups, dim=2)
         v = v.repeat_interleave(groups, dim=2)
     logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / math.sqrt(D)
-    mask = _mask(S, T, causal, window, q.device)
+    mask = _mask(S, T, causal, window, q.device, q_offset, kv_valid_len)
     row_any = mask.any(-1)[:, None]
     # a row with no visible key takes finite logits (so neither softmax nor
     # its gradient produce NaN) and is zeroed after the softmax
@@ -79,8 +90,8 @@ def flash_route(dtype: torch.dtype, D: int) -> str:
     """Which CUDA kernel runs for inputs of ``dtype`` and head dim ``D``: a
     pure function of the two, never a fallback on failure.  ``"wgmma"``,
     the tensor-core route (TMA loads, wgmma, P kept in registers), for
-    bf16 at D in ``WGMMA_HEAD_DIMS``: 64, 128, and the SDv2 UNet's heads
-    112 and 224; ``"simt"``, the FMA kernel, for fp32 at any head dim and
+    bf16 at D in ``WGMMA_HEAD_DIMS``: 64, 128, zamba2's and danube's 80 and
+    the SDv2 UNet's heads 112 and 224; ``"simt"``, the FMA kernel, for fp32 at any head dim and
     bf16 at D in (8, 16, 32), the small test configs."""
     if dtype not in _DTYPES:
         raise TypeError(f"{NAME}: dtype {dtype}; the kernel takes float32 "
@@ -113,6 +124,8 @@ def _check_cuda_args(q, k, v) -> None:
                          f"Hkv={k.shape[2]}")
     if flash_route(q.dtype, D) == "wgmma" and any(
             t.data_ptr() % 16 for t in (q, k, v)):
+        # a layer's slice of a stacked KV cache starts 16-byte aligned iff
+        # B * max_len * Hkv * D * 2 is a multiple of 16: it is never copied
         raise ValueError(
             f"{NAME}: the bf16 route at head dim {D} loads through TMA, "
             "which needs 16-byte-aligned bases (bases mod 16: "
@@ -125,19 +138,26 @@ def _check_cuda_args(q, k, v) -> None:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True,
-                         window: int | None = None) -> torch.Tensor:
+                         causal: bool = True, window: int | None = None,
+                         q_offset: int = 0,
+                         kv_valid_len: int | None = None) -> torch.Tensor:
     """Launch the CUDA forward kernel on contiguous (B,S,Hq,D) / (B,T,Hkv,D)
-    tensors of one dtype (float32 or bfloat16) on one card."""
+    tensors of one dtype (float32 or bfloat16) on one card; over a KV cache
+    with ``q_offset`` and ``kv_valid_len`` (host ints, launch arguments)."""
     _check_cuda_args(q, k, v)
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    valid = T if kv_valid_len is None else int(kv_valid_len)
+    if not (0 < valid <= T and q_offset >= 0):
+        raise ValueError(f"{NAME}: kv_valid_len {kv_valid_len} and q_offset "
+                         f"{q_offset} for {T} cache rows; want 0 < "
+                         "kv_valid_len <= T and q_offset >= 0")
     out = torch.empty_like(q)
     build.call("flash_attention", "flash_attention_fwd_launch", _ARGTYPES,
                q.device, NAME, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                out.data_ptr(), B, S, T, Hq, Hkv, D, int(causal),
-               int(window is not None), int(window or 0), 1.0 / math.sqrt(D),
-               _DTYPES[q.dtype])
+               int(window is not None), int(window or 0), int(q_offset),
+               valid, 1.0 / math.sqrt(D), _DTYPES[q.dtype])
     LAUNCHES[NAME] += 1
     return out
 
@@ -158,26 +178,32 @@ def bf16_config(D: int) -> dict:
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, q_offset, kv_valid_len):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
+        ctx.args = (causal, window, q_offset, kv_valid_len)
         if q.device.type == k.device.type == v.device.type == "cpu":
-            return attention_plain(q, k, v, causal, window)
-        return flash_attention_cuda(q, k, v, causal, window)
+            return attention_plain(q, k, v, *ctx.args)
+        return flash_attention_cuda(q, k, v, *ctx.args)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         with torch.enable_grad():
             qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
-            out = attention_plain(qd, kd, vd, ctx.causal, ctx.window)
+            out = attention_plain(qd, kd, vd, *ctx.args)
         dq, dk, dv = torch.autograd.grad(out, (qd, kd, vd), g)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
-    """(B,S,Hq,D), (B,T,Hkv,D) x2 -> (B,S,Hq,D), differentiable."""
-    return _FlashAttention.apply(tma_aligned(q), tma_aligned(k), tma_aligned(v),
-                                 causal, window)
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0,
+                    kv_valid_len: int | None = None) -> torch.Tensor:
+    """(B,S,Hq,D), (B,T,Hkv,D) x2 -> (B,S,Hq,D), differentiable.  A view
+    of q, k or v that TMA cannot load is copied, except over a KV cache
+    (``kv_valid_len`` given): the cache is read in place, and the wrapper
+    raises on one that is not contiguous and aligned."""
+    if kv_valid_len is None:
+        k, v = tma_aligned(k), tma_aligned(v)
+    return _FlashAttention.apply(tma_aligned(q), k, v, causal, window,
+                                 q_offset, kv_valid_len)

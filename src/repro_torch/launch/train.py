@@ -40,10 +40,9 @@ its init key), the same every step: the loss's draw, which
 The kernels are always on: the decoder skip-in of UViT and Hunyuan-DiT
 goes through the fused skip-concat matmul, every attention through flash
 attention and Zamba2's carry across chunks through the gated linear scan
-(on the CPU, through the kernels' plain versions); of the LMs, deepseek's
-MLA and danube's full config run the dense attention, by their configs'
-choice, and so does Zamba2's shared attention (head dim 80 in its full
-config).
+(on the CPU, through the kernels' plain versions), Zamba2's shared
+attention included; of the LMs, deepseek's MLA runs the dense attention,
+as in JAX (its q/k and v head dims differ).
 
 Fault-tolerance contract, the JAX trainer's single-host one:
 

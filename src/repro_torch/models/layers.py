@@ -4,21 +4,29 @@ Pure functions on tensors and dict-tree params with the JAX package's leaf
 names and ``(in, out)`` weight layouts, so a JAX params tree converts with
 no transposes (``repro_torch.convert``).  Ported so far: ``dense_init``,
 ``rms_norm``, rotary embeddings (``rope_freqs``, ``apply_rope``: the
-half-split form, fp32 angles), ``_attn_mask``, the dense ``attention``,
+half-split form, fp32 angles), the dense ``attention`` (its mask the
+flash op's plain version's, ``ops._mask``, where JAX has ``_attn_mask``),
 ``AttnConfig`` (with Qwen3's ``qk_norm``), ``init_attention`` /
 ``apply_attention`` (self and cross, ``positions=``), the SwiGLU and GELU
 MLPs, DeepSeek-V3's MLA (``MLAConfig``, ``init_mla``, ``apply_mla``) and
 the top-k MoE (``MoEConfig``, ``init_moe``, ``apply_moe`` with its
 ``onehot``, ``scatter`` and ``dense`` dispatches), ``layer_norm`` and
 ``promoted_matmul`` (JAX's type promotion for a matmul of mixed float
-dtypes, which PyTorch refuses).  ``apply_attention``
+dtypes, which PyTorch refuses), and the KV caches (``init_kv_cache``,
+``init_mla_cache``, ``cache=`` on ``apply_attention`` and ``apply_mla``,
+``q_offset`` and ``kv_valid_len`` on ``attention``).  ``apply_attention``
 runs the flash-attention kernel when the config's ``use_flash`` is set
 (the "drop-in replacement selected by config ``use_flash``" the JAX
-module names).  MLA runs the dense ``attention``, as in JAX: its q/k head
-dim (``qk_nope + qk_rope``) differs from its v head dim, and the flash
-kernel takes one head dim.  KV caches (``cache=``, ``q_offset``,
-``kv_valid_len``, ``init_kv_cache``, ``init_mla_cache``) are not ported
-yet.
+module names), over a KV cache too: the kernel reads the cache in place.
+MLA runs the dense ``attention``, as in JAX: its q/k head dim
+(``qk_nope + qk_rope``) differs from its v head dim, and the flash kernel
+takes one head dim.
+
+A KV cache is a dict ``{"k": (B, max_len, Hkv, Dh), "v": ..., "pos": int}``
+(MLA: ``{"kv", "k_rope", "pos"}``) whose tensors are written in place at
+``pos`` and returned with ``pos`` advanced.  ``pos`` is a host int, where
+JAX keeps a device scalar: the kernel takes it as a launch argument, and a
+device ``pos`` would cost a host sync at every layer of every step.
 
 Random init draws from an explicit ``torch.Generator`` on ``device``; the
 numbers differ from ``jax.random`` for the same seed, so parity tests
@@ -35,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ops import _mask
 
 Params = dict
 
@@ -110,29 +119,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # the flash kernel replaces it when AttnConfig.use_flash is set
 # --------------------------------------------------------------------------
 
-def _attn_mask(q_len: int, kv_len: int, *, causal: bool, window: int | None,
-               device=None) -> torch.Tensor:
-    """(q_len, kv_len) boolean mask."""
-    q_pos = torch.arange(q_len, device=device)[:, None]
-    k_pos = torch.arange(kv_len, device=device)[None, :]
-    mask = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window is not None:
-        mask &= k_pos > q_pos - window
-    return mask
-
-
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int | None = None) -> torch.Tensor:
-    """Grouped-query attention. q: (B,S,Hq,Dh), k/v: (B,T,Hkv,Dh)."""
+              causal: bool = True, window: int | None = None,
+              q_offset: int = 0,
+              kv_valid_len: int | None = None) -> torch.Tensor:
+    """Grouped-query attention. q: (B,S,Hq,Dh), k/v: (B,T,Hkv,Dh).  A
+    fully masked row takes the uniform softmax of the -1e30 fill, as in
+    JAX (no serving path has one)."""
     B, S, Hq, Dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     groups = Hq // Hkv
     qg = q.reshape(B, S, Hkv, groups, Dh)
     logits = torch.einsum("bshgd,bthd->bhgst", qg.float(), k.float())
     logits = logits * (1.0 / math.sqrt(Dh))
-    mask = _attn_mask(S, T, causal=causal, window=window, device=q.device)
+    mask = _mask(S, T, causal, window, q.device, q_offset, kv_valid_len)
     logits = torch.where(mask[None, None, None], logits, -1e30)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
@@ -171,17 +171,26 @@ def init_attention(gen: torch.Generator, cfg: AttnConfig, dtype=torch.float32,
 
 def apply_attention(p: Params, x: torch.Tensor, cfg: AttnConfig, *,
                     positions: torch.Tensor | None = None,
+                    cache: Params | None = None,
                     cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
-                    ) -> tuple[torch.Tensor, None]:
+                    ) -> tuple[torch.Tensor, Params | None]:
     """Self- or cross-attention (``cross_kv`` supplies precomputed K/V).
-    Returns ``(out, None)``: the second slot is the JAX function's KV-cache
-    result, which the port does not have yet."""
+    With ``cache`` (prefill or decode, self-attention), this step's K/V are
+    written into the cache at ``cache["pos"]`` in place and the queries
+    attend over the cache's first ``pos + S`` rows; returns ``(out,
+    new_cache)``, else ``(out, None)``.  Weights of another float dtype
+    than ``x`` are promoted, as JAX promotes them (a Zamba2 decode step's
+    residual stream is fp32 against bf16 weights).  With ``use_flash`` the
+    kernel computes in k's dtype, so over a bf16 cache an fp32 q (that
+    Zamba2 decode step) is rounded to bf16: a departure from JAX, which
+    computes that attention in fp32 (the kernel takes one dtype, and
+    promoting the cache would copy it every step)."""
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, Dh)
+    q = promoted_matmul(x, p["wq"]).reshape(B, S, H, Dh)
     if cross_kv is None:
-        k = (x @ p["wk"]).reshape(B, S, Hkv, Dh)
-        v = (x @ p["wv"]).reshape(B, S, Hkv, Dh)
+        k = promoted_matmul(x, p["wk"]).reshape(B, S, Hkv, Dh)
+        v = promoted_matmul(x, p["wv"]).reshape(B, S, Hkv, Dh)
     else:
         k, v = cross_kv
     if cfg.qk_norm:
@@ -194,16 +203,36 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: AttnConfig, *,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     causal = cfg.causal and cross_kv is None
+    q_offset, valid, new_cache = 0, None, None
+    if cache is not None and cross_kv is None:
+        pos = cache["pos"]
+        cache["k"][:, pos:pos + S] = k
+        cache["v"][:, pos:pos + S] = v
+        k, v = cache["k"], cache["v"]
+        new_cache = {"k": k, "v": v, "pos": pos + S}
+        q_offset, valid = pos, pos + S
     if cfg.use_flash:
-        out = flash_attention(q, k, v, causal, cfg.window)
+        out = flash_attention(q.to(k.dtype), k, v, causal, cfg.window,
+                              q_offset=q_offset,
+                              kv_valid_len=valid).to(q.dtype)
     else:
-        out = attention(q, k, v, causal=causal, window=cfg.window)
-    out = out.reshape(B, S, H * Dh) @ p["wo"]
-    return out, None
+        out = attention(q, k, v, causal=causal, window=cfg.window,
+                        q_offset=q_offset, kv_valid_len=valid)
+    out = promoted_matmul(out.reshape(B, S, H * Dh), p["wo"])
+    return out, new_cache
+
+
+def init_kv_cache(batch: int, max_len: int, cfg: AttnConfig,
+                  dtype=torch.float32, device="cuda", stack=()) -> Params:
+    """A zero cache of ``max_len`` rows at ``pos`` 0; ``stack`` prepends
+    leading dims (a stack of layers' caches, one ``pos`` for all)."""
+    shape = (*stack, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device), "pos": 0}
 
 
 # --------------------------------------------------------------------------
-# MLA -- DeepSeek-V3 multi-head latent attention (no KV cache yet)
+# MLA -- DeepSeek-V3 multi-head latent attention
 # --------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -238,13 +267,14 @@ def init_mla(gen: torch.Generator, cfg: MLAConfig, dtype=torch.float32,
 
 
 def apply_mla(p: Params, x: torch.Tensor, cfg: MLAConfig, *,
-              positions: torch.Tensor | None = None
-              ) -> tuple[torch.Tensor, None]:
-    """Causal MLA over the whole sequence.  The latent is decompressed to
-    per-head K and V; q/k heads are ``qk_nope + qk_rope`` wide and v heads
-    ``v_head_dim``, so this runs the dense :func:`attention` (the flash
-    kernel takes one head dim).  Returns ``(out, None)``, as
-    :func:`apply_attention`."""
+              positions: torch.Tensor | None = None,
+              cache: Params | None = None
+              ) -> tuple[torch.Tensor, Params | None]:
+    """Causal MLA with a *compressed* KV cache (the latent and the shared
+    rope key per token).  The latent is decompressed to per-head K and V;
+    q/k heads are ``qk_nope + qk_rope`` wide and v heads ``v_head_dim``, so
+    this runs the dense :func:`attention` (the flash kernel takes one head
+    dim).  Returns ``(out, new_cache)`` as :func:`apply_attention`."""
     B, S, _ = x.shape
     H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -261,12 +291,35 @@ def apply_mla(p: Params, x: torch.Tensor, cfg: MLAConfig, *,
     k_rope = apply_rope(kv_a[..., None, cfg.kv_lora_rank:], positions,
                         cfg.rope_theta)          # (B,S,1,dr) shared by heads
 
-    kv = (kv_latent @ p["wkv_b"]).reshape(B, S, H, dn + dv)
+    q_offset, kv_valid, new_cache = 0, None, None
+    if cache is not None:
+        pos = cache["pos"]
+        cache["kv"][:, pos:pos + S] = kv_latent
+        cache["k_rope"][:, pos:pos + S] = k_rope
+        kv_latent, k_rope = cache["kv"], cache["k_rope"]
+        new_cache = {"kv": kv_latent, "k_rope": k_rope, "pos": pos + S}
+        q_offset, kv_valid = pos, pos + S
+
+    # decompress the latent -> per-head K_nope and V
+    T = kv_latent.shape[1]
+    kv = promoted_matmul(kv_latent, p["wkv_b"]).reshape(B, T, H, dn + dv)
     k_nope, v = kv[..., :dn], kv[..., dn:]
-    k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], -1)
+    k = torch.cat([k_nope, k_rope.expand(B, T, H, dr)], -1)
     qq = torch.cat([q_nope, q_rope], -1)
-    out = attention(qq, k, v, causal=True)
-    return out.reshape(B, S, H * dv) @ p["wo"], None
+    out = attention(qq, k, v, causal=True, q_offset=q_offset,
+                    kv_valid_len=kv_valid)
+    return out.reshape(B, S, H * dv) @ p["wo"], new_cache
+
+
+def init_mla_cache(batch: int, max_len: int, cfg: MLAConfig,
+                   dtype=torch.float32, device="cuda", stack=()) -> Params:
+    return {
+        "kv": torch.zeros((*stack, batch, max_len, cfg.kv_lora_rank),
+                          dtype=dtype, device=device),
+        "k_rope": torch.zeros((*stack, batch, max_len, 1, cfg.qk_rope_dim),
+                              dtype=dtype, device=device),
+        "pos": 0,
+    }
 
 
 # --------------------------------------------------------------------------
@@ -283,7 +336,9 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int,
 
 
 def apply_swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    """Weights of another float dtype than ``x`` are promoted, as in JAX."""
+    mm = promoted_matmul
+    return mm(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]), p["w_down"])
 
 
 def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,

@@ -1,4 +1,4 @@
-"""The decoder-LM family (the port of ``repro.models.lm``, training path).
+"""The decoder-LM family (the port of ``repro.models.lm``).
 
 One configurable decoder-only implementation covers smollm-360m,
 h2o-danube-1.8b (sliding window), internlm2-20b, granite-34b (MQA, GELU
@@ -13,10 +13,14 @@ layouts are the JAX package's, so a JAX params tree converts with
 
 ``_scan_layers`` is a loop over a stack's rows; ``remat`` recomputes each
 layer in the backward (``torch.utils.checkpoint``), as ``jax.checkpoint``
-does per scanned layer.  Not ported: KV caches, ``prefill`` and
-``decode_step`` (serving), and the JAX config's ``remat_policy`` and
-``seq_shard_activations`` (a GSPMD sharding hint, with no meaning in one
-process), which are no fields here: no config sets them.
+does per scanned layer.  Serving: ``init_caches`` stacks one KV cache per
+layer as JAX does, ``{"layers": {"k": (L, B, max_len, Hkv, Dh), "v": ...,
+"pos": int}}`` (deepseek: MLA's ``kv``/``k_rope`` and a ``"dense"``
+stack), ``prefill`` primes it with a prompt and ``decode_step`` appends a
+token; a layer's cache is its row of the stack, written in place.  Not
+ported: the JAX config's ``remat_policy`` and ``seq_shard_activations``
+(a GSPMD sharding hint, with no meaning in one process), which are no
+fields here: no config sets them.
 """
 from __future__ import annotations
 
@@ -150,15 +154,17 @@ def init_lm(gen: torch.Generator, cfg: LMConfig, device="cuda") -> Params:
 # --------------------------------------------------------------------------
 
 def apply_layer(p: Params, x: torch.Tensor, cfg: LMConfig, *,
-                dense_ffn: bool, positions: torch.Tensor | None = None
-                ) -> tuple[torch.Tensor, None, torch.Tensor]:
-    """One decoder layer.  Returns ``(x, None, moe_aux_loss)``: the middle
-    slot is the JAX function's KV cache, which the port has not yet."""
+                dense_ffn: bool, positions: torch.Tensor | None = None,
+                cache: Params | None = None
+                ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
+    """One decoder layer.  Returns ``(x, new_cache, moe_aux_loss)``."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
-        a, _ = L.apply_mla(p["attn"], h, cfg.mla, positions=positions)
+        a, new_cache = L.apply_mla(p["attn"], h, cfg.mla,
+                                   positions=positions, cache=cache)
     else:
-        a, _ = L.apply_attention(p["attn"], h, cfg.attn, positions=positions)
+        a, new_cache = L.apply_attention(p["attn"], h, cfg.attn,
+                                         positions=positions, cache=cache)
     x = x + a
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if dense_ffn or cfg.moe is None:
@@ -166,7 +172,7 @@ def apply_layer(p: Params, x: torch.Tensor, cfg: LMConfig, *,
         f, aux = mlp(p["ffn"], h), torch.zeros((), device=x.device)
     else:
         f, aux = L.apply_moe(p["ffn"], h, cfg.moe, dispatch=cfg.moe_dispatch)
-    return x + f, None, aux
+    return x + f, new_cache, aux
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: LMConfig,
@@ -186,10 +192,13 @@ def unembed(params: Params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
 
 
 def _scan_layers(stack: Params, x: torch.Tensor, cfg: LMConfig, *,
-                 dense_ffn: bool, positions: torch.Tensor
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The stack's rows in order (``lax.scan`` in JAX); with ``remat``
-    each layer is recomputed in the backward.  Returns ``(x, aux)``."""
+                 dense_ffn: bool, positions: torch.Tensor,
+                 caches: Params | None = None
+                 ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
+    """The stack's rows in order (``lax.scan`` in JAX); with ``remat`` and
+    no caches each layer is recomputed in the backward.  ``caches``: the
+    stack's caches (one ``pos``), row ``i`` layer ``i``'s, written in
+    place.  Returns ``(x, new_caches, aux)``."""
     def body(lp, x):
         x, _, a = apply_layer(lp, x, cfg, dense_ffn=dense_ffn,
                               positions=positions)
@@ -199,35 +208,48 @@ def _scan_layers(stack: Params, x: torch.Tensor, cfg: LMConfig, *,
     aux = torch.zeros((), device=x.device)
     for i in range(n):
         lp = tree_index(stack, i)
-        if cfg.remat and torch.is_grad_enabled():
+        if caches is not None:
+            cache = {k: v if k == "pos" else v[i] for k, v in caches.items()}
+            x, new, a = apply_layer(lp, x, cfg, dense_ffn=dense_ffn,
+                                    positions=positions, cache=cache)
+        elif cfg.remat and torch.is_grad_enabled():
             x, a = checkpoint(body, lp, x, use_reentrant=False)
         else:
             x, a = body(lp, x)
         aux = aux + a
-    return x, aux
+    if caches is None:
+        return x, None, aux
+    return x, {**caches, "pos": new["pos"]}, aux
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LMConfig, *,
             prefix_embeds: torch.Tensor | None = None,
+            caches: Params | None = None,
             positions: torch.Tensor | None = None,
-            ) -> tuple[torch.Tensor, None, torch.Tensor]:
-    """Full forward -> ``(hidden (B,S,d), None, moe_aux)``: the middle slot
-    is the JAX function's new caches."""
+            ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
+    """Full forward -> ``(hidden (B,S,d), new_caches, moe_aux)``.
+
+    ``caches``: ``{"dense": stacked, "layers": stacked}`` or None."""
     x = embed_tokens(params, tokens, cfg, prefix_embeds)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), device=x.device)
+    new_caches: Params = {}
     if "dense_layers" in params:
-        x, a = _scan_layers(params["dense_layers"], x, cfg, dense_ffn=True,
-                            positions=positions)
+        x, nc, a = _scan_layers(params["dense_layers"], x, cfg,
+                                dense_ffn=True, positions=positions,
+                                caches=caches["dense"] if caches else None)
         aux = aux + a
-    x, a = _scan_layers(params["layers"], x, cfg, dense_ffn=False,
-                        positions=positions)
-    return x, None, aux + a
+        new_caches["dense"] = nc
+    x, nc, a = _scan_layers(params["layers"], x, cfg, dense_ffn=False,
+                            positions=positions,
+                            caches=caches["layers"] if caches else None)
+    new_caches["layers"] = nc
+    return x, (new_caches if caches is not None else None), aux + a
 
 
 # --------------------------------------------------------------------------
-# losses
+# losses / serving steps
 # --------------------------------------------------------------------------
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
@@ -270,6 +292,47 @@ def _mtp_loss(params: Params, h: torch.Tensor, tokens: torch.Tensor,
                             positions=pos)
     logits = unembed(params, out, cfg)
     return softmax_xent(logits, tokens[:, 2:])
+
+
+def init_caches(cfg: LMConfig, batch: int, max_len: int, dtype=None,
+                device="cuda") -> Params:
+    """Zero KV caches of ``max_len`` rows, stacked over each layer group
+    (``"layers"``, and deepseek's ``"dense"`` prelude), in ``cfg.dtype``
+    unless ``dtype`` is given."""
+    dtype = dtype or cfg.dtype
+    n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.moe else cfg.n_layers
+    n_dense = cfg.n_layers - n_moe
+
+    def stack(n: int) -> Params:
+        if cfg.mla is not None:
+            return L.init_mla_cache(batch, max_len, cfg.mla, dtype, device,
+                                    (n,))
+        return L.init_kv_cache(batch, max_len, cfg.attn, dtype, device, (n,))
+
+    caches: Params = {"layers": stack(n_moe)}
+    if n_dense:
+        caches["dense"] = stack(n_dense)
+    return caches
+
+
+def prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig,
+            max_len: int, *, prefix_embeds: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, Params]:
+    """Prime a KV cache with a prompt; returns (last-token logits, caches)."""
+    caches = init_caches(cfg, tokens.shape[0], max_len, device=tokens.device)
+    h, caches, _ = forward(params, tokens, cfg, prefix_embeds=prefix_embeds,
+                           caches=caches)
+    return unembed(params, h[:, -1:], cfg), caches
+
+
+def decode_step(params: Params, token: torch.Tensor, caches: Params,
+                cfg: LMConfig) -> tuple[torch.Tensor, Params]:
+    """One greedy decode step. token: (B,1) int."""
+    pos = caches["layers"]["pos"]
+    positions = torch.full((1, 1), pos, device=token.device)
+    h, caches, _ = forward(params, token, cfg, caches=caches,
+                           positions=positions)
+    return unembed(params, h, cfg), caches
 
 
 # --------------------------------------------------------------------------

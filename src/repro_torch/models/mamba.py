@@ -1,5 +1,5 @@
 """Mamba2 (SSD) blocks and the Zamba2 hybrid architecture (the port of
-``repro.models.mamba``, training path).
+``repro.models.mamba``).
 
 Mamba2 state-space recurrence per head (state size N, head dim P):
 
@@ -22,11 +22,20 @@ s > t before the exp, where JAX masks after it: the same values, and no
 ``0 * inf`` in the gradient where the masked exponent overflows (at
 Zamba2's widths, a = -80 and dt near 1 reach fp32's limit in two steps).
 
+Decoding uses the O(1) recurrent step (:func:`ssd_recurrent`), as in
+JAX, one token at a time: a block's state is its SSM state ``(b, H, N,
+P)`` and its causal conv's last ``conv_width - 1`` inputs.
+
 Zamba2 = a stack of Mamba2 blocks with a *shared* full-attention
 transformer block applied every ``shared_every`` layers, alternating
 between ``n_shared_blocks`` parameter sets (their gradients the sum over
 their sites).  ``mamba_blocks`` and ``shared_blocks`` are lists, as in
-JAX.  Not ported: ``ssd_recurrent``, the decode states and ``decode_step``.
+JAX.  Each site keeps its own KV cache (``init_states``), read in place by
+the flash kernel when the shared attention's ``use_flash`` is set.
+
+dtypes follow JAX's promotion: a decode step's SSM output is fp32, so
+after the first block a bf16 config's residual stream is fp32 at decode
+and its matmuls against bf16 weights run in fp32 (``promoted_matmul``).
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.linear_scan import gated_linear_scan
 from repro_torch.models import layers as L
 from repro_torch.models.layers import AttnConfig, Params
+from repro_torch.models.layers import promoted_matmul as mm
 from repro_torch.models.lm import softmax_xent
 from repro_torch.models.xlstm import _init_conv, causal_conv
 
@@ -174,20 +184,35 @@ def _ssd_chunked_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y.to(x.dtype), h
 
 
+def ssd_recurrent(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+                  a: torch.Tensor, B: torch.Tensor, C: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step.  state: (b,H,N,P) fp32; x: (b,H,P); dt: (b,H); B,C:
+    (b,N).  Returns (y (b,H,P), new state), both fp32."""
+    da = torch.exp(dt * a)                                      # (b,H)
+    state = (state * da[..., None, None]
+             + torch.einsum("bh,bn,bhp->bhnp", dt, B.float(), x.float()))
+    y = torch.einsum("bn,bhnp->bhp", C.float(), state)
+    return y, state
+
+
 def apply_mamba2_block(p: Params, x: torch.Tensor, cfg: Mamba2Config, *,
-                       ssd=_ssd_chunked) -> tuple[torch.Tensor, None]:
-    """One Mamba2 block with its residual.  ``ssd`` is the chunked scan
-    (:func:`_ssd_chunked`; :func:`_ssd_chunked_plain` to hold it to the
-    JAX form).  Returns ``(x, None)``: the second slot is the JAX
-    function's decode state."""
+                       state: Params | None = None,
+                       ssd=_ssd_chunked) -> tuple[torch.Tensor, Params | None]:
+    """One Mamba2 block with its residual.  Without ``state``, over the
+    whole sequence through ``ssd``, the chunked scan (:func:`_ssd_chunked`;
+    :func:`_ssd_chunked_plain` to hold it to the JAX form), returning
+    ``(x, None)``; with ``state`` ({"ssm", "conv"}), one decode step
+    (S = 1) through :func:`ssd_recurrent`, returning ``(x, new_state)``."""
     b, S, d = x.shape
     di, N, H, P = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
     h = L.rms_norm(x, p["ln"])
-    zxbcdt = h @ p["w_in"]
+    zxbcdt = mm(h, p["w_in"])
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:di + di + 2 * N]
     dt_pre = zxbcdt[..., -H:]
-    xbc, _ = causal_conv(xbc, p["conv"])
+    xbc, new_conv = causal_conv(xbc, p["conv"],
+                                state["conv"] if state is not None else None)
     xbc = F.silu(xbc)
     xs = xbc[..., :di].reshape(b, S, H, P)
     B = xbc[..., di:di + N]
@@ -195,11 +220,29 @@ def apply_mamba2_block(p: Params, x: torch.Tensor, cfg: Mamba2Config, *,
     # fp32 + bf16 promotes to fp32, as in JAX
     dt = F.softplus(dt_pre.float() + p["dt_bias"])
     a = -torch.exp(p["a_log"].float())
-    y, _ = ssd(xs, dt, a, B, C, min(cfg.chunk, S))
+    new_state = None
+    if state is None:
+        y, _ = ssd(xs, dt, a, B, C, min(cfg.chunk, S))
+    else:
+        y, ssm = ssd_recurrent(state["ssm"], xs[:, 0], dt[:, 0], a, B[:, 0],
+                               C[:, 0])
+        y = y[:, None]
+        new_state = {"ssm": ssm, "conv": new_conv}
     y = y + xs * p["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(b, S, di)
     y = L.rms_norm(y, p["gn"]) * F.silu(z)
-    return x + y @ p["w_out"], None
+    return x + mm(y, p["w_out"]), new_state
+
+
+def init_mamba2_state(batch: int, cfg: Mamba2Config, dtype=torch.float32,
+                      device="cuda") -> Params:
+    return {
+        "ssm": torch.zeros((batch, cfg.n_heads, cfg.d_state, cfg.head_dim),
+                           device=device),
+        "conv": torch.zeros((batch, cfg.conv_width - 1,
+                             cfg.d_inner + 2 * cfg.d_state), dtype=dtype,
+                            device=device),
+    }
 
 
 # --------------------------------------------------------------------------
@@ -258,35 +301,70 @@ def init_zamba2(gen: torch.Generator, cfg: Zamba2Config,
 
 
 def _apply_shared(p: Params, x: torch.Tensor, cfg: Zamba2Config, *,
+                  cache: Params | None = None,
                   positions: torch.Tensor | None = None
-                  ) -> tuple[torch.Tensor, None]:
+                  ) -> tuple[torch.Tensor, Params | None]:
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, _ = L.apply_attention(p["attn"], h, cfg.shared_attn,
-                             positions=positions)
+    a, new_cache = L.apply_attention(p["attn"], h, cfg.shared_attn,
+                                     cache=cache, positions=positions)
     x = x + a
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.apply_swiglu(p["ffn"], h), None
+    return x + L.apply_swiglu(p["ffn"], h), new_cache
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: Zamba2Config
-            ) -> tuple[torch.Tensor, None]:
-    """-> ``(hidden (B,S,d), None)``: the second slot is the JAX function's
-    new states.  Shared block ``site % n_shared_blocks`` runs after each
-    Mamba2 block of ``shared_sites()``, the sites counted over the whole
-    stack."""
+def forward(params: Params, tokens: torch.Tensor, cfg: Zamba2Config, *,
+            states: dict | None = None) -> tuple[torch.Tensor, dict | None]:
+    """-> ``(hidden (B,S,d), new_states)``.  Shared block ``site %
+    n_shared_blocks`` runs after each Mamba2 block of ``shared_sites()``,
+    the sites counted over the whole stack.  With ``states``
+    (``init_states``) one decode step: each Mamba2 block steps its state,
+    each site attends over its own KV cache; else ``None``."""
     x = params["embed"][tokens.long()].to(cfg.dtype)
     sites = cfg.shared_sites()
+    new_states = positions = None
+    if states is not None:
+        new_states = {"mamba": [], "shared": []}
+        pos = states["shared"][0]["pos"] if states["shared"] else 0
+        positions = torch.full((1, 1), pos, device=x.device)
     site_counter = 0
     for i, bp in enumerate(params["mamba_blocks"]):
-        x, _ = apply_mamba2_block(bp, x, cfg.mamba)
+        x, ns = apply_mamba2_block(
+            bp, x, cfg.mamba,
+            state=states["mamba"][i] if states is not None else None)
+        if new_states is not None:
+            new_states["mamba"].append(ns)
         if i in sites:
             sp = params["shared_blocks"][site_counter % cfg.n_shared_blocks]
-            x, _ = _apply_shared(sp, x, cfg)
+            cache = states["shared"][site_counter] if states is not None \
+                else None
+            x, nc = _apply_shared(sp, x, cfg, cache=cache,
+                                  positions=positions)
+            if new_states is not None:
+                new_states["shared"].append(nc)
             site_counter += 1
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), None
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), new_states
 
 
 def zamba2_loss(params: Params, batch: dict, cfg: Zamba2Config) -> torch.Tensor:
     h, _ = forward(params, batch["tokens"], cfg)
     logits = h @ params["embed"].T.to(h.dtype)
     return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:])
+
+
+def init_states(cfg: Zamba2Config, batch: int, max_len: int,
+                device="cuda") -> dict:
+    """Each Mamba2 block's decode state and each shared site's KV cache of
+    ``max_len`` rows, in ``cfg.dtype`` (the SSM states in fp32)."""
+    return {
+        "mamba": [init_mamba2_state(batch, cfg.mamba, cfg.dtype, device)
+                  for _ in range(cfg.n_layers)],
+        "shared": [L.init_kv_cache(batch, max_len, cfg.shared_attn,
+                                   cfg.dtype, device)
+                   for _ in cfg.shared_sites()],
+    }
+
+
+def decode_step(params: Params, token: torch.Tensor, states: dict,
+                cfg: Zamba2Config) -> tuple[torch.Tensor, dict]:
+    h, states = forward(params, token, cfg, states=states)
+    return h @ params["embed"].T.to(h.dtype), states

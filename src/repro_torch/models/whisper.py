@@ -1,5 +1,5 @@
-"""Whisper-style encoder-decoder (the port of ``repro.models.whisper``,
-training path; audio frontend stubbed).
+"""Whisper-style encoder-decoder (the port of ``repro.models.whisper``;
+audio frontend stubbed).
 
 As in the JAX module, the conv frontend is a STUB: the batch carries
 precomputed frame embeddings ``(B, T_frames, d)``.  The transformer backbone
@@ -11,8 +11,12 @@ dim, as JAX's ``vmap`` stacks them, and run in a loop over the rows (the
 JAX ``lax.scan``).  Leaf names and ``(in, out)`` layouts are the JAX
 package's, so ``repro_torch.convert.params_from_jax`` carries a JAX tree.
 With ``use_flash`` every attention (encoder self, decoder causal self and
-cross) runs the flash-attention kernel.  Not ported: the decoder's KV
-caches, ``prefill`` and ``decode_step`` (serving).
+cross) runs the flash-attention kernel, the decoder's self-attention over
+its KV cache too.  Serving: ``init_dec_caches`` stacks one cache per
+decoder layer (``{"k": (L, B, max_len, H, Dh), "v": ..., "pos": int}``),
+``prefill`` encodes the frames and primes the caches with the prompt,
+``decode_step`` appends a token; the cross K/V are recomputed from
+``enc_out`` at every step, as in JAX.
 """
 from __future__ import annotations
 
@@ -136,11 +140,13 @@ def encode(params: Params, frames: torch.Tensor,
 
 
 def decode(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
-           cfg: WhisperConfig, *, positions: torch.Tensor | None = None
-           ) -> tuple[torch.Tensor, None]:
+           cfg: WhisperConfig, *, caches: Params | None = None,
+           positions: torch.Tensor | None = None
+           ) -> tuple[torch.Tensor, Params | None]:
     """The causal decoder over ``tokens`` (B, S), cross-attending to
-    ``enc_out`` (B, T, d).  Returns ``(hidden, None)``: the second slot is
-    the JAX function's new caches, which the port has not yet."""
+    ``enc_out`` (B, T, d).  Returns ``(hidden, new_caches)``: with
+    ``caches`` (stacked over the decoder layers, written in place) the
+    self-attention reads and extends them, else ``None``."""
     x = params["tok_embed"][tokens.long()].to(cfg.dtype)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
@@ -148,11 +154,15 @@ def decode(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
         cfg.dtype)[positions[0]][None]
     B, T = enc_out.shape[0], enc_out.shape[1]
     stack = params["dec_layers"]
+    pos = caches["pos"] if caches is not None else None
     for i in range(stack["ln1"].shape[0]):
         lp = tree_index(stack, i)
         h = L.layer_norm(x, lp["ln1"], lp["b1"], cfg.norm_eps)
-        a, _ = L.apply_attention(lp["attn"], h, cfg.attn_cfg(True),
-                                 positions=positions)
+        cache = None
+        if caches is not None:
+            cache = {"k": caches["k"][i], "v": caches["v"][i], "pos": pos}
+        a, new = L.apply_attention(lp["attn"], h, cfg.attn_cfg(True),
+                                   positions=positions, cache=cache)
         x = x + a
         h = L.layer_norm(x, lp["lnx"], lp["bx"], cfg.norm_eps)
         kx = (enc_out @ lp["xattn"]["wk"]).reshape(B, T, cfg.n_heads,
@@ -166,7 +176,9 @@ def decode(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
         x = x + L.apply_gelu_mlp(lp["mlp"], h)
     x = L.layer_norm(x, params["dec_norm"], params["dec_norm_b"],
                      cfg.norm_eps)
-    return x, None
+    if caches is None:
+        return x, None
+    return x, {**caches, "pos": new["pos"]}
 
 
 def whisper_loss(params: Params, batch: dict,
@@ -177,3 +189,29 @@ def whisper_loss(params: Params, batch: dict,
     h, _ = decode(params, batch["tokens"][:, :-1], enc, cfg)
     logits = h @ params["tok_embed"].T.to(h.dtype)
     return softmax_xent(logits, batch["tokens"][:, 1:])
+
+
+def init_dec_caches(cfg: WhisperConfig, batch: int, max_len: int,
+                    device="cuda") -> Params:
+    return L.init_kv_cache(batch, max_len, cfg.attn_cfg(True), cfg.dtype,
+                           device, (cfg.n_dec_layers,))
+
+
+def prefill(params: Params, frames: torch.Tensor, tokens: torch.Tensor,
+            cfg: WhisperConfig, max_len: int
+            ) -> tuple[torch.Tensor, torch.Tensor, Params]:
+    """Encode audio + prime decoder cache. Returns (logits, enc_out, caches)."""
+    enc = encode(params, frames, cfg)
+    caches = init_dec_caches(cfg, tokens.shape[0], max_len, tokens.device)
+    h, caches = decode(params, tokens, enc, cfg, caches=caches)
+    logits = h[:, -1:] @ params["tok_embed"].T.to(h.dtype)
+    return logits, enc, caches
+
+
+def decode_step(params: Params, token: torch.Tensor, enc_out: torch.Tensor,
+                caches: Params, cfg: WhisperConfig
+                ) -> tuple[torch.Tensor, Params]:
+    positions = torch.full((1, 1), caches["pos"], device=token.device)
+    h, caches = decode(params, token, enc_out, cfg, caches=caches,
+                       positions=positions)
+    return h @ params["tok_embed"].T.to(h.dtype), caches

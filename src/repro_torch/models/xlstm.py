@@ -1,10 +1,15 @@
 """xLSTM: mLSTM (matrix-memory) and sLSTM (scalar-memory) blocks (the port
-of ``repro.models.xlstm``, training path).
+of ``repro.models.xlstm``).
 
-mLSTM trains through its stabilized parallel form (a gated-linear-attention
-quadratic form); sLSTM through a loop over time with its recurrent h
-feedback, autograd through the loop.  The recurrent decode forms
-(``mlstm_recurrent``, ``init_states``, ``decode_step``) are not ported yet.
+mLSTM has two equivalent forms, as in JAX: the stabilized parallel form (a
+gated-linear-attention quadratic form) trains, the O(1)-state recurrent
+form (``mlstm_recurrent``) decodes.  sLSTM runs a loop over time with its
+recurrent h feedback, autograd through the loop.  Decoding
+(``init_states``, ``decode_step``, ``forward(states=)``) steps one token at
+a time through each block's state: the mLSTM cell ``{"C", "n", "m"}`` or
+the sLSTM cell ``{"h", "c", "n", "m"}``, and the causal conv's last
+``conv_width - 1`` inputs.  The recurrent state is the model's "KV cache"
+analogue: it does not grow with the sequence.
 
 Block layout, as in the JAX module: pre-norm, up-projection, causal conv(4)
 + SiLU on the q/k path, the cell, a per-channel norm, the output gate,
@@ -96,6 +101,36 @@ def mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("btsh,bshd->bthd", scores, v) / n[..., None]
 
 
+def mlstm_recurrent(state: Params, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, i_pre: torch.Tensor, f_pre: torch.Tensor
+                    ) -> tuple[torch.Tensor, Params]:
+    """One step. q,k,v: (B,H,Dh); i_pre,f_pre: (B,H).
+    state: {"C": (B,H,Dh,Dh), "n": (B,H,Dh), "m": (B,H)}, fp32.  Returns
+    ``(h (B,H,Dh) fp32, new state)``."""
+    Dh = q.shape[-1]
+    q = q.float() / math.sqrt(Dh)
+    k, v = k.float(), v.float()
+    log_f = F.logsigmoid(f_pre.float())
+    i_ = i_pre.float()
+    m_new = torch.maximum(log_f + state["m"], i_)
+    a = torch.exp(log_f + state["m"] - m_new)[..., None]          # (B,H,1)
+    b = torch.exp(i_ - m_new)[..., None]
+    C = state["C"] * a[..., None] + b[..., None] * (v[..., :, None]
+                                                    * k[..., None, :])
+    n = state["n"] * a + b * k
+    num = torch.einsum("bhvd,bhd->bhv", C, q)                     # (B,H,Dh)
+    den = torch.maximum((n * q).sum(-1).abs(), torch.exp(-m_new))
+    return num / den[..., None], {"C": C, "n": n, "m": m_new}
+
+
+def init_mlstm_state(batch: int, H: int, Dh: int, device="cuda") -> Params:
+    return {
+        "C": torch.zeros((batch, H, Dh, Dh), device=device),
+        "n": torch.zeros((batch, H, Dh), device=device),
+        "m": torch.full((batch, H), -1e30, device=device),
+    }
+
+
 # --------------------------------------------------------------------------
 # sLSTM cell (per-head vector memories, recurrent h feedback)
 # --------------------------------------------------------------------------
@@ -154,14 +189,22 @@ def _init_conv(gen: torch.Generator, width: int, channels: int, dtype,
                     device)
 
 
-def causal_conv(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, None]:
-    """Depthwise causal conv. x: (B,S,C), w: (W,C).  Returns ``(out,
-    None)``: the second slot is the JAX function's streaming state, which
-    the port's training path does not take."""
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                state: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Depthwise causal conv. x: (B,S,C), w: (W,C).  With ``state``
+    (B,W-1,C), the last W-1 inputs before x, the streaming (decode)
+    convolution: returns ``(out, new_state)`` in x's dtype, else ``(out,
+    None)``."""
     W, S = w.shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, W - 1, 0))
+    if state is None:
+        pad = F.pad(x, (0, 0, W - 1, 0))
+        new_state = None
+    else:
+        pad = torch.cat([state.to(x.dtype), x], dim=1)
+        new_state = pad[:, -(W - 1):]
     out = sum(pad[:, i:i + S] * w[i] for i in range(W))
-    return out, None
+    return out, new_state
 
 
 def init_mlstm_block(gen: torch.Generator, cfg: XLSTMConfig,
@@ -181,24 +224,36 @@ def init_mlstm_block(gen: torch.Generator, cfg: XLSTMConfig,
     }
 
 
-def apply_mlstm_block(p: Params, x: torch.Tensor,
-                      cfg: XLSTMConfig) -> tuple[torch.Tensor, None]:
+def apply_mlstm_block(p: Params, x: torch.Tensor, cfg: XLSTMConfig, *,
+                      state: Params | None = None
+                      ) -> tuple[torch.Tensor, Params | None]:
+    """With ``state`` ({"cell", "conv"}), one decode step (S = 1) through
+    the recurrent form; returns ``(x, new_state)``, else ``(x, None)``."""
     B, S, d = x.shape
     H, Dh, di = cfg.n_heads, cfg.head_dim, cfg.d_inner
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     up = mm(h, p["w_up"])
     a, z = up[..., :di], up[..., di:]
-    c, _ = causal_conv(a, p["conv"])
+    c, new_conv = causal_conv(a, p["conv"],
+                              state["conv"] if state is not None else None)
     c = F.silu(c)
     q = mm(c, p["wq"]).reshape(B, S, H, Dh)
     k = mm(c, p["wk"]).reshape(B, S, H, Dh)
     v = mm(a, p["wv"]).reshape(B, S, H, Dh)
     gates = mm(c, p["w_if"])
-    out = mlstm_parallel(q, k, v, gates[..., :H], gates[..., H:])
+    i_pre, f_pre = gates[..., :H], gates[..., H:]
+    new_state = None
+    if state is None:
+        out = mlstm_parallel(q, k, v, i_pre, f_pre)
+    else:
+        out, cell = mlstm_recurrent(state["cell"], q[:, 0], k[:, 0],
+                                    v[:, 0], i_pre[:, 0], f_pre[:, 0])
+        out = out[:, None]
+        new_state = {"cell": cell, "conv": new_conv}
     out = out.reshape(B, S, di)
     out = L.rms_norm(out, p["gn"], cfg.norm_eps)       # per-channel group norm
     out = out * F.silu(z)
-    return x + mm(out, p["w_down"]), None
+    return x + mm(out, p["w_down"]), new_state
 
 
 def init_slstm_block(gen: torch.Generator, cfg: XLSTMConfig,
@@ -216,16 +271,24 @@ def init_slstm_block(gen: torch.Generator, cfg: XLSTMConfig,
     return p
 
 
-def apply_slstm_block(p: Params, x: torch.Tensor,
-                      cfg: XLSTMConfig) -> tuple[torch.Tensor, None]:
+def apply_slstm_block(p: Params, x: torch.Tensor, cfg: XLSTMConfig, *,
+                      state: Params | None = None
+                      ) -> tuple[torch.Tensor, Params | None]:
+    """With ``state`` ({"cell", "conv"}), the scan continues from it and
+    returns ``(x, new_state)``; else from a fresh cell, ``(x, None)``."""
     B = x.shape[0]
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     u = mm(h, p["w_up"])
-    c, _ = causal_conv(u, p["conv"])
+    c, new_conv = causal_conv(u, p["conv"],
+                              state["conv"] if state is not None else None)
     c = F.silu(c)
-    out, _ = slstm_scan(p, c, init_slstm_state(B, cfg.d_inner, x.device))
+    cell = state["cell"] if state is not None \
+        else init_slstm_state(B, cfg.d_inner, x.device)
+    out, new_cell = slstm_scan(p, c, cell)
     out = L.rms_norm(out, p["gn"], cfg.norm_eps)
-    return x + mm(out, p["w_down"]), None
+    new_state = ({"cell": new_cell, "conv": new_conv}
+                 if state is not None else None)
+    return x + mm(out, p["w_down"]), new_state
 
 
 # --------------------------------------------------------------------------
@@ -250,15 +313,19 @@ def init_xlstm(gen: torch.Generator, cfg: XLSTMConfig,
     return p
 
 
-def forward(params: Params, tokens: torch.Tensor,
-            cfg: XLSTMConfig) -> tuple[torch.Tensor, None]:
-    """-> ``(hidden (B,S,d), None)``: the second slot is the JAX function's
-    new states."""
+def forward(params: Params, tokens: torch.Tensor, cfg: XLSTMConfig, *,
+            states: list | None = None) -> tuple[torch.Tensor, list | None]:
+    """-> ``(hidden (B,S,d), new_states)``: with ``states`` (one per block,
+    ``init_states``) one decode step, else ``None``."""
     x = params["embed"][tokens.long()].to(cfg.dtype)
+    new_states = [] if states is not None else None
     for i, bp in enumerate(params["blocks"]):
         apply = apply_slstm_block if cfg.is_slstm(i) else apply_mlstm_block
-        x, _ = apply(bp, x, cfg)
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), None
+        x, ns = apply(bp, x, cfg,
+                      state=states[i] if states is not None else None)
+        if new_states is not None:
+            new_states.append(ns)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), new_states
 
 
 def unembed(params: Params, x: torch.Tensor,
@@ -271,3 +338,22 @@ def xlstm_loss(params: Params, batch: dict, cfg: XLSTMConfig) -> torch.Tensor:
     h, _ = forward(params, batch["tokens"], cfg)
     logits = unembed(params, h[:, :-1], cfg)
     return softmax_xent(logits, batch["tokens"][:, 1:])
+
+
+def init_states(cfg: XLSTMConfig, batch: int, device="cuda") -> list:
+    """Each block's decode state: its cell's and its conv's (``cfg.dtype``)."""
+    states = []
+    for i in range(cfg.n_layers):
+        conv = torch.zeros((batch, cfg.conv_width - 1, cfg.d_inner),
+                           dtype=cfg.dtype, device=device)
+        cell = (init_slstm_state(batch, cfg.d_inner, device)
+                if cfg.is_slstm(i) else
+                init_mlstm_state(batch, cfg.n_heads, cfg.head_dim, device))
+        states.append({"cell": cell, "conv": conv})
+    return states
+
+
+def decode_step(params: Params, token: torch.Tensor, states: list,
+                cfg: XLSTMConfig) -> tuple[torch.Tensor, list]:
+    h, states = forward(params, token, cfg, states=states)
+    return unembed(params, h, cfg), states

@@ -62,6 +62,24 @@ FLASH_CASES = [
     (2, 16, 77, 8, 8, 224, False, None),      # level 3 and mid cross
     (1, 45, 45, 4, 2, 112, True, 9),          # causal + window + GQA 2
     (1, 37, 70, 4, 1, 224, False, 20),        # window, non-causal, GQA 4
+    # head dim 80 (zamba2-2.7b's shared attention, h2o-danube-1.8b): the
+    # tensor-core route in bf16, the head padded to 128 columns
+    (2, 200, 200, 4, 4, 80, False, None),     # zamba2's, non-causal
+    (1, 130, 130, 8, 2, 80, True, 40),        # danube's: causal + window
+    (1, 70, 33, 2, 1, 80, False, None),       # ragged cross, MQA
+]
+
+# attention over a KV cache of T rows: B, S, T, valid, q_offset, Hq, Hkv,
+# D, causal, window -- decode steps (S = 1) and prefill chunks (S > 1)
+CACHE_CASES = [
+    (2, 1, 40, 31, 30, 4, 2, 64, True, None),     # a decode step, GQA
+    (2, 1, 40, 40, 39, 4, 4, 80, True, None),     # the cache full, D = 80
+    (1, 1, 300, 213, 212, 8, 2, 80, True, 64),    # window, D = 80
+    (2, 1, 130, 65, 64, 4, 1, 16, True, None),    # MQA, SIMT in bf16
+    (2, 7, 50, 19, 12, 4, 2, 64, True, None),     # a chunk of 7 at 12
+    (1, 70, 200, 150, 80, 4, 2, 80, True, 33),    # a chunk over 2 q tiles
+    (2, 24, 100, 24, 0, 4, 2, 128, True, None),   # a prefill: valid = S
+    (2, 1, 90, 57, 0, 4, 4, 112, False, None),    # non-causal, D = 112
 ]
 
 
@@ -127,6 +145,97 @@ def test_flash_attention_kernel_matches_plain(B, S, T, Hq, Hkv, D, causal,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,T,valid,q_offset,Hq,Hkv,D,causal,window",
+                         CACHE_CASES)
+def test_flash_over_a_kv_cache_matches_plain(B, S, T, valid, q_offset, Hq,
+                                             Hkv, D, causal, window, dtype):
+    """Query row r at position ``q_offset + r`` over the first ``valid``
+    rows of a cache of T rows, the kernel reading a layer's slice of a
+    stacked cache in place: against the plain version, with the rows past
+    ``valid`` filled with values that would change the result if read."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q = torch.randn(B, S, Hq, D, device="cuda", generator=gen).to(dt)
+    cache = torch.randn(3, 2, B, T, Hkv, D, device="cuda",
+                        generator=gen).to(dt)
+    cache[:, :, :, valid:] = 1e4             # never summed, if masked
+    k, v = cache[1, 0], cache[1, 1]          # layer 1's K and V, in place
+    assert k.data_ptr() % 16 == 0 and k.is_contiguous()
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention_cuda(q, k, v, causal, window, q_offset, valid)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    want = attention_plain(q, k, v, causal, window, q_offset, valid)
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+    # the op takes the same path; its backward recomputes through the plain
+    # version with the same offset and valid length
+    qg = q.clone().requires_grad_(True)
+    out = flash_attention(qg, k, v, causal, window, q_offset=q_offset,
+                          kv_valid_len=valid)
+    assert LAUNCHES["flash_attention"] == before + 2
+    torch.testing.assert_close(out, got, rtol=0, atol=0)
+    out.float().sum().backward()
+    assert torch.isfinite(qg.grad).all()
+    with pytest.raises(ValueError, match="kv_valid_len"):
+        flash_attention_cuda(q, k, v, causal, window, q_offset, T + 1)
+
+
+@pytest.mark.gpu
+def test_flash_decode_rounds_an_fp32_query_to_the_bf16_cache():
+    """Zamba2's shared attention at a decode step (heads of 80): an fp32
+    residual stream against bf16 weights and a bf16 KV cache.  With
+    ``use_flash`` ``apply_attention`` rounds q to the cache's dtype for the
+    kernel, where JAX computes the attention in fp32 with the fp32 q, as
+    the dense ``attention`` does: the two held at the bf16 tolerance."""
+    import dataclasses
+
+    from repro_torch.models import layers as L
+
+    bf = torch.bfloat16
+    cfg = L.AttnConfig(d_model=512, n_heads=32, n_kv_heads=32, head_dim=80,
+                       use_flash=True)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    p = L.init_attention(gen, cfg, bf, "cuda")
+    B, max_len, pos = 2, 48, 30
+    prefix = torch.randn(B, pos, cfg.d_model, device="cuda", generator=gen)
+    x = torch.randn(B, 1, cfg.d_model, device="cuda", generator=gen)
+    outs = []
+    for use_flash in (True, False):
+        c = dataclasses.replace(cfg, use_flash=use_flash)
+        cache = L.init_kv_cache(B, max_len, c, bf, "cuda")
+        _, cache = L.apply_attention(p, prefix, c, cache=cache)
+        before = LAUNCHES["flash_attention"]
+        out, cache = L.apply_attention(
+            p, x, c, cache=cache,
+            positions=torch.full((1, 1), pos, device="cuda"))
+        assert LAUNCHES["flash_attention"] == before + use_flash
+        assert out.dtype == torch.float32 and cache["pos"] == pos + 1
+        outs.append(out)
+    torch.testing.assert_close(outs[0], outs[1], rtol=_tol("bfloat16"),
+                               atol=_tol("bfloat16"))
+
+
+@pytest.mark.gpu
+def test_flash_refuses_a_misaligned_cache_and_never_copies_it():
+    """A cache the TMA route cannot load in place (its base 2 bytes past a
+    16-byte boundary) is refused by the op as by the wrapper: over a cache
+    nothing is copied."""
+    bf = torch.bfloat16
+    q = torch.randn(2, 1, 4, 80, device="cuda").to(bf)
+    k = _misaligned((2, 40, 4, 80), bf)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        flash_attention_cuda(q, k, k, True, None, 20, 21)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        flash_attention(q, k, k, True, None, q_offset=20, kv_valid_len=21)
+    # without a cache the op copies the view, as before
+    torch.testing.assert_close(
+        flash_attention(q, k, k, False, None).float(),
+        attention_plain(q, k, k, False, None).float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
 def test_flash_at_the_smollm_attention_shape():
     """smollm-360m's attention at its full shape in the ``lm`` phase's
     pipeline: a microbatch of 2 at sequence 4096, causal GQA 15:5 at head
@@ -187,10 +296,12 @@ def test_flash_at_the_whisper_attention_shapes(S, T, causal):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("S,T,D", [(256, 256, 112), (256, 77, 112),
-                                   (64, 64, 224), (16, 77, 224)])
+                                   (64, 64, 224), (16, 77, 224),
+                                   (200, 200, 80), (1, 77, 80)])
 def test_flash_tensor_core_route_stores_no_pad_column(S, T, D):
-    """At D = 112 and 224 the kernel computes 128 and 256 columns, those
-    past D zero; it must store only the first D.  With one head, the last
+    """At D = 80, 112 and 224 the kernel computes 128, 128 and 256 columns,
+    those past D zero; it must store only the first D (and at S = 1 only
+    the first of the tile's 64 rows).  With one head, the last
     row's pad columns would land past the output tensor: the launch writes
     into the head of a larger buffer filled with a sentinel, which must
     stay untouched behind the output, and the output must equal the plain
@@ -207,8 +318,8 @@ def test_flash_tensor_core_route_stores_no_pad_column(S, T, D):
     out = buf[:q.numel()].view(q.shape)
     build.call("flash_attention", "flash_attention_fwd_launch", _ARGTYPES,
                q.device, "flash_attention", q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), out.data_ptr(), 2, S, T, 1, 1, D, 0, 0, 0,
-               1.0 / math.sqrt(D), 1)
+               v.data_ptr(), out.data_ptr(), 2, S, T, 1, 1, D, 0, 0, 0, 0,
+               T, 1.0 / math.sqrt(D), 1)
     torch.cuda.synchronize()
     assert torch.all(buf[q.numel():] == sentinel)
     torch.testing.assert_close(out.float(),

@@ -20,6 +20,7 @@ from repro.kernels.linear_scan import (gated_linear_scan as jax_scan,
                                        gated_linear_scan_reference)
 from repro.kernels.flash_attention.ref import attention_reference
 from repro.kernels.skip_matmul.ref import skip_concat_matmul_reference
+from repro.models.layers import attention as jax_attention
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention,
@@ -174,10 +175,11 @@ def test_attention_plain_fully_masked_rows_are_zero_and_finite():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", HEAD_DIMS)
 def test_flash_route_is_a_function_of_dtype_and_head_dim(dtype, D):
-    """bf16 at the head dims of WGMMA_HEAD_DIMS (64, 128 and the SDv2
-    UNet's 112 and 224) takes the tensor-core route; fp32 at any head dim
-    and bf16 at the small test head dims take the SIMT kernel."""
-    assert WGMMA_HEAD_DIMS == (64, 112, 128, 224)
+    """bf16 at the head dims of WGMMA_HEAD_DIMS (64, 128, zamba2's and
+    danube's 80 and the SDv2 UNet's 112 and 224) takes the tensor-core
+    route; fp32 at any head dim and bf16 at the small test head dims take
+    the SIMT kernel."""
+    assert WGMMA_HEAD_DIMS == (64, 80, 112, 128, 224)
     want = ("wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS
             else "simt")
     assert flash_route(dtype, D) == want
@@ -236,17 +238,20 @@ def test_ops_copy_misaligned_views():
                                attention_plain(q, q, q, False, None))
 
 
-def _tensor_core_flash_emulation(q, k, v, causal, window, bq=64, bkv=64):
+def _tensor_core_flash_emulation(q, k, v, causal, window, q_offset=0,
+                                 kv_valid_len=None, bq=64, bkv=64):
     """The tensor-core route's arithmetic on the CPU: bf16 q, k, v, the head
-    zero-padded to whole 64-column boxes (112 -> 128, 224 -> 256) as TMA
-    fills them, the scale 1/sqrt(D) of the true head dim; fp32 scores per
-    (64-query, 64-key) tile, the K/V tiles visited in order from the first
-    one the mask does not hide; an online softmax in base 2 with log2(e)
-    folded into the scale; P rounded to bf16 before P.V, which accumulates
-    in fp32 over the padded width; 1/l at the end; the first D columns
-    stored, rounded to bf16."""
+    zero-padded to whole 64-column boxes (80 and 112 -> 128, 224 -> 256) as
+    TMA fills them, the scale 1/sqrt(D) of the true head dim; fp32 scores
+    per (64-query, 64-key) tile, the K/V tiles visited in order from the
+    first one the mask does not hide to the last below the valid length
+    (query row r at ``q_offset + r``); an online softmax in base 2 with
+    log2(e) folded into the scale; P rounded to bf16 before P.V, which
+    accumulates in fp32 over the padded width; 1/l at the end; the first D
+    columns stored, rounded to bf16."""
     B, S, H, D = q.shape
     T = k.shape[1]
+    valid = T if kv_valid_len is None else kv_valid_len
     DP = -(-D // 64) * 64
     qf, kf, vf = (torch.nn.functional.pad(x.to(torch.bfloat16).float(),
                                           (0, DP - D)) for x in (q, k, v))
@@ -254,8 +259,10 @@ def _tensor_core_flash_emulation(q, k, v, causal, window, bq=64, bkv=64):
     out = torch.zeros(B, S, H, DP)
     for q0 in range(0, S, bq):
         rows = torch.arange(q0, min(q0 + bq, S))
-        kv_hi = min(T, q0 + bq) if causal else T
-        kv_lo = max(0, q0 - window + 1) if window is not None else 0
+        pos = rows + q_offset
+        kv_hi = min(valid, q_offset + q0 + bq) if causal else valid
+        kv_lo = max(0, q_offset + q0 - window + 1) if window is not None \
+            else 0
         kv_lo = kv_lo // bkv * bkv
         m = torch.full((B, H, len(rows)), -math.inf)
         l = torch.zeros(B, H, len(rows))
@@ -263,11 +270,11 @@ def _tensor_core_flash_emulation(q, k, v, causal, window, bq=64, bkv=64):
         for kt in range(kv_lo, kv_hi, bkv):
             keys = torch.arange(kt, min(kt + bkv, T))
             s = torch.einsum("bshd,bthd->bhst", qf[:, rows], kf[:, keys])
-            vis = torch.ones(len(rows), len(keys), dtype=torch.bool)
+            vis = (keys[None, :] < valid).expand(len(rows), len(keys))
             if causal:
-                vis &= keys[None, :] <= rows[:, None]
+                vis = vis & (keys[None, :] <= pos[:, None])
             if window is not None:
-                vis &= keys[None, :] > rows[:, None] - window
+                vis = vis & (keys[None, :] > pos[:, None] - window)
             s = torch.where(vis, s * scale_log2, -math.inf)
             m_new = torch.maximum(m, s.amax(-1))
             seen = m_new > -math.inf
@@ -285,11 +292,13 @@ def _tensor_core_flash_emulation(q, k, v, causal, window, bq=64, bkv=64):
 
 # D = 128: the Hunyuan-DiT self-attention length, the ragged cross-attention
 # shape, a causal sliding window; D = 112 and 224: the SDv2 UNet's level-1
-# self and cross, level-2 self, level-3 cross, and a causal window
+# self and cross, level-2 self, level-3 cross, and a causal window; D = 80:
+# zamba2's causal shared attention and danube's causal window
 FLASH_NUMERICS = [(128, 1024, 1024, False, None), (128, 258, 77, False, None),
                   (128, 300, 300, True, 96), (112, 256, 256, False, None),
                   (112, 256, 77, False, None), (224, 64, 64, False, None),
-                  (224, 16, 77, False, None), (224, 130, 130, True, 40)]
+                  (224, 16, 77, False, None), (224, 130, 130, True, 40),
+                  (80, 200, 200, True, None), (80, 150, 150, True, 48)]
 
 
 @pytest.mark.parametrize(
@@ -311,6 +320,44 @@ def test_tensor_core_flash_numerics_meet_the_chip_tolerance(D, S, T, causal,
                                causal=causal, window=window)
     np.testing.assert_allclose(got.float(), np.asarray(want), rtol=2e-2,
                                atol=2e-2)
+
+
+# over a KV cache: D, S, cache rows T, valid length, q_offset, causal,
+# window -- decode steps (S = 1) and a prefill chunk, at head dims 64
+# (smollm, whisper) and 80 (zamba2), the rows past the valid length junk
+FLASH_CACHE_NUMERICS = [(64, 1, 2112, 2101, 2100, True, None),
+                        (80, 1, 288, 271, 270, True, None),
+                        (64, 1, 128, 101, 100, True, None),
+                        (80, 1, 300, 213, 212, True, 64),
+                        (64, 70, 200, 150, 80, True, 33),
+                        (80, 24, 100, 24, 0, True, None)]
+
+
+@pytest.mark.parametrize("D,S,T,valid,q_offset,causal,window",
+                         FLASH_CACHE_NUMERICS)
+def test_tensor_core_flash_over_a_cache_meets_the_chip_tolerance(
+        D, S, T, valid, q_offset, causal, window):
+    """The tensor-core route over a cache (its tile loop from the window's
+    horizon to the valid length, the mask at the offset positions) within
+    chip_smoke's bf16 tolerance of the JAX ``attention`` with ``q_offset``
+    and ``kv_valid_len`` on the same bf16 inputs (B=1, H=2)."""
+    rng = np.random.default_rng(S + T + D)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, n, 2, D))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for n in (S, T, T))
+    k[:, valid:] = 1e4                        # never read, if masked
+    v[:, valid:] = 1e4
+    got = _tensor_core_flash_emulation(q, k, v, causal, window, q_offset,
+                                       valid)
+    want = jax_attention(*(np.asarray(x.float()) for x in (q, k, v)),
+                         causal=causal, window=window, q_offset=q_offset,
+                         kv_valid_len=valid)
+    np.testing.assert_allclose(got.float(), np.asarray(want), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(
+        attention_plain(q.float(), k.float(), v.float(), causal, window,
+                        q_offset, valid), torch.from_numpy(np.array(want)),
+        rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

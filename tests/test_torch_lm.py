@@ -362,10 +362,10 @@ def test_full_config_widths_and_param_counts(key):
     _assert_same_config(tcfg, jcfg, key)
     assert tcfg.param_count() == jcfg.param_count()
     assert tcfg.active_param_count() == jcfg.active_param_count()
-    # use_flash where the kernel builds the head dim: 64 and 128, not
-    # danube's 80, and never on MLA
-    want_flash = {"smollm-360m", "internlm2-20b", "granite-34b",
-                  "internvl2-2b", "qwen3-moe-30b-a3b"}
+    # use_flash on every attention the kernel builds (head dims 64, 80 and
+    # 128), never on MLA
+    want_flash = {"smollm-360m", "h2o-danube-1.8b", "internlm2-20b",
+                  "granite-34b", "internvl2-2b", "qwen3-moe-30b-a3b"}
     assert (tcfg.attn is not None and tcfg.attn.use_flash) \
         == (key in want_flash)
 

@@ -403,7 +403,10 @@ def test_smoke_configs_batches_and_params_are_the_jax_ones(key):
     _, jinit, jbatch, jcfg = JAX_SMOKE[key]()
     _, tinit, tbatch, tcfg = RECURRENT_FACTORIES[key](kernels=True)
     _assert_same_config(tcfg, jcfg, key)
+    # flash on every attention: whisper's, Zamba2's shared one
     assert getattr(tcfg, "use_flash", False) == (key == "whisper-base")
+    if key == "zamba2-2.7b":
+        assert tcfg.shared_attn.use_flash
     assert tcfg.param_count() == jcfg.param_count()
     gen = torch.Generator().manual_seed(0)
     want = jax.eval_shape(lambda: jbatch(KEY))
@@ -445,9 +448,9 @@ def test_full_config_widths_and_both_param_counts(key):
     assert sum(x.numel() for x in tree_leaves(got)) == leaves
     assert sum(int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(
         jax.eval_shape(lambda: jinit(KEY, jcfg)))) == leaves
-    # flash at head dim 64 (whisper); Zamba2's 80 is not built: dense
+    # flash at head dim 64 (whisper) and 80 (Zamba2's shared attention)
     if key == "whisper-base":
         assert tcfg.use_flash and tcfg.head_dim == 64
     if key == "zamba2-2.7b":
-        assert not tcfg.shared_attn.use_flash
+        assert tcfg.shared_attn.use_flash
         assert tcfg.shared_attn.head_dim == 80
