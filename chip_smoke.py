@@ -48,7 +48,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``serve ...``; SDPA with the boolean mask the library call) and at
    head dim 80 (zamba2-2.7b's shared attention at its training shape,
    h2o-danube-1.8b's full shape with its window; SDPA with the boolean
-   mask wherever a window is set) (the gated linear scan at zamba2-2.7b's carry across
+   mask wherever a window is set) and of the ``registry`` phase (flash
+   causal GQA at sequence 4096 at a microbatch of 1: smollm-360m's 15:5 at
+   head dim 64, internlm2-20b's 48:8 at 128; rows ``registry ...``) (the
+   gated linear scan at zamba2-2.7b's carry across
    chunks on the ``recurrent`` path, R=2 T=32 C=327,680, at its Mamba2
    width over 4k steps and at R=32 over 2k steps, forward and backward
    kernels, with mixed dtypes of a and x, and with decays near 1, whose
@@ -149,7 +152,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     weights from seed 0) at sequence 4096, global batch 16, through
     ``auto_pipeline(lm_pipeline_graph(CFG), lm_model_fns(CFG), 4)`` at
     D=4, M=8 on two plans, the folded wave (``force_wave=True``: the tied
-    embedding and readout on device 0) and the linear table plan, three
+    embedding and readout on device 0) and the linear table plan, two
     AdamW steps each from the same weights: step seconds, peak memory,
     every loss finite, every step's loss within 1e-4 relative of the
     reference's (the non-pipeline ``lm_loss`` on the same weights and
@@ -226,6 +229,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     and on the CPU from the same params and prompts: tokens equal,
     logits within ``SERVE_SMOKE_BAR`` relative, flash once an attention
     call a step;
+19. registry (``registry_bundles``, ``registry_smollm``,
+    ``registry_internlm2``, ``registry_qwen3_int8``, ``registry_serve``),
+    after phase 18, each run after checking that less than 1 GB is still
+    allocated; bf16, seed-0 weights, full width, sequence 4096, global
+    batch 16, every model from ``repro_torch.configs.get_arch`` and every
+    step from ``repro_torch.train.steps``: (a) every one of the 13
+    bundles: each supported shape's ``batch_struct`` (a train shape's
+    also under a ``pp_1f1b`` plan of 16 microbatches) and ``cache_struct``
+    on the meta device, their bytes and the bundle's param counts printed;
+    (b) smollm-360m on its own ``train_4k`` plan (``pp_wave``, M=16),
+    ``make_adapter`` with ``{"data": 1, "model": 4}`` (the folded
+    closed-form wave at D=4) and ``build_pp_train_step``, 2 AdamW steps,
+    against ``build_sharded_train_step`` over the bundle's ``loss_fn`` (a
+    chunk of 2 rows at a time) on the same weights and batch, 2 steps:
+    step 0's loss within 1e-4, the first gradient norm and the second loss
+    within 1e-2, flash 32 x 16 x 2 = 1,024 a step (the reference 32 x 8 x
+    2); (c) internlm2-20b at 4 of its 48 layers (``scaled_cfg``, about
+    2.7e9 params) on its own ``train_4k`` plan (``pp_1f1b``, M=16): the
+    linear closed form at D=4, 2 AdamW steps, step 0's loss within 1e-4
+    of ``build_forward_step``'s on the same weights and batch, flash 4 x
+    16 x 2 = 128 a step (the forward 4 x 8); (d) qwen3-moe-30b-a3b at 2
+    of 48 layers, its ``train_4k`` plan with ``int8_optimizer``: one step
+    of ``build_sharded_train_step`` at batch 2, then the loss again:
+    finite, flash 4 + 2, the peak below the lm phase's fp32-AdamW run
+    (43.91 GB), the moments' bytes equal to 2 x (n + 4 n / 256) with each
+    leaf's padding; (e) a smollm-360m prefill of 16 prompts of 2048, then
+    8 steps of ``build_sharded_serve_step`` on its ``decode_32k`` plan:
+    tokens equal ``launch.serve.generate``'s from the same weights, flash
+    256; the kernel phase holds flash at the two pipelines' microbatch of
+    1 (rows ``registry ...``);
 11. supervisor over ranks (``supervisor_phase``), run last, after phase
     14 (its UViT-H part is held to phase 13's losses), after releasing
     this process's memory; every generation is a world of rank processes
@@ -331,7 +364,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     qwen3-moe-30b-a3b``, ``lm smoke``, ``recurrent whisper-base``,
     ``recurrent xlstm-125m``, ``recurrent zamba2-2.7b``, ``recurrent
     smoke``, ``serve smollm-360m``, ``serve whisper-base``, ``serve
-    xlstm-125m``, ``serve zamba2-2.7b``, ``serve smoke``,
+    xlstm-125m``, ``serve zamba2-2.7b``, ``serve smoke``, ``registry
+    smollm-360m pp_wave``, ``registry smollm-360m reference``, ``registry
+    internlm2-20b pp_1f1b``, ``registry internlm2-20b forward``,
+    ``registry qwen3-moe-30b-a3b int8``, ``registry smollm-360m serve``,
     ``ranks``, ``hybrid``, ``rank checkpoint``, ``supervisor ranks`` and
     ``host workers``, the last five read from the ranks' and the workers'
     result files, among them), then
@@ -635,6 +671,11 @@ FLASH_CASES = [  # path, B, S, T, Hq, Hkv, D, causal, window
          None),
         ("serve zamba2-2.7b decode", 2, 1, 288, 32, 32, 80, True, None, 270,
          271),
+        # the registry phase's pipelines, a microbatch of 1 of 16 at
+        # sequence 4096: smollm-360m's pp_wave (causal GQA 15:5 at 64) and
+        # internlm2-20b's pp_1f1b (causal GQA 48:8 at 128)
+        ("registry smollm-360m", 1, 4096, 4096, 15, 5, 64, True, None),
+        ("registry internlm2-20b", 1, 4096, 4096, 48, 8, 128, True, None),
 ]
 
 
@@ -2142,7 +2183,7 @@ def skipvit_wave_asym(torch, rec) -> dict:
 
 LM_SEQ = 4096            # the JAX train_4k shape's sequence
 LM_BATCH = 16            # global batch of smollm's pipeline steps
-LM_D, LM_M, LM_STEPS = 4, 8, 3
+LM_D, LM_M, LM_STEPS = 4, 8, 2   # two steps: the script's 1200 s
 LM_BAR = 1e-2            # bf16: a plan's first gradient norm vs lm_loss's
 LM_TRAJ_BAR = 1e-4       # bf16: a plan's losses vs lm_loss + AdamW's, and
 #                          the two plans' vs each other, every step
@@ -2771,8 +2812,9 @@ def _fp32(torch, params, cfg, **over):
                                 param_dtype=torch.float32, **over))
 
 
-def _cache_bytes(caches) -> int:
-    return sum(t.numel() * t.element_size() for t in _leaves(caches)
+def _tree_bytes(tree) -> int:
+    """Bytes of a tree's tensor leaves (meta tensors included)."""
+    return sum(t.numel() * t.element_size() for t in _leaves(tree)
                if hasattr(t, "numel"))
 
 
@@ -2859,7 +2901,7 @@ def serve_smollm(torch, rec, smi_line: str) -> dict:
     want["flash_attention"] = CFG.n_layers * G
     a = CFG.attn
     caches = lm.init_caches(CFG, B, P + G)
-    cache = _cache_bytes(caches)
+    cache = _tree_bytes(caches)
     del caches
     dense = dataclasses.replace(a, use_flash=False)
     p32, c32 = _fp32(torch, params, CFG)
@@ -2970,7 +3012,7 @@ def serve_whisper(torch, rec, smi_line: str) -> dict:
     L = CFG.n_dec_layers
     want = dict.fromkeys(launched, 0)
     want["flash_attention"] = CFG.n_enc_layers + 2 * L + (G - 1) * 2 * L
-    cache = _cache_bytes(wh.init_dec_caches(CFG, B, max_len))
+    cache = _tree_bytes(wh.init_dec_caches(CFG, B, max_len))
     p32, c32 = _fp32(torch, params, CFG)
     with torch.inference_mode():
         held = {"prefill_vs_decode": _held(
@@ -3041,11 +3083,11 @@ def serve_recurrent(torch, rec, arch: str, smi_line: str) -> dict:
         a = CFG.shared_attn
         formula = (2 * sites * B * (P + G) * a.n_kv_heads * a.head_dim
                    * CFG.dtype.itemsize)
-        cache = _cache_bytes(states["shared"])
+        cache = _tree_bytes(states["shared"])
     else:
         states = mod.init_states(CFG, B)
         formula = cache = 0
-    state_bytes = _cache_bytes(states)
+    state_bytes = _tree_bytes(states)
     del states
 
     def readout(p, cfg, tokens, rows=slice(None)):
@@ -3132,6 +3174,456 @@ def serve_smoke(torch, rec) -> dict:
             f"launches {launched}")
     rec.setdefault("serve", {})["smoke"] = rows
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 19: registry -- every bundle through get_arch; smollm-360m and
+# internlm2-20b on their own train_4k plans through build_pp_train_step,
+# qwen3-moe-30b-a3b with int8 AdamW moments, a smollm-360m serve step
+# ---------------------------------------------------------------------------
+
+REG_SEQ, REG_BATCH = 4096, 16   # the lm phase's sequence and global batch
+REG_D, REG_STEPS = 4, 2         # the lm phase's D; the plans' M (16) stays
+REG_MESH = {"data": 1, "model": REG_D}   # D pipeline devices, one process
+REG_ONE = {"data": 1, "model": 1}
+REG_REF_CHUNK = 2        # the references' microbatch (the lm phase's b)
+REG_LOSS_BAR = 1e-4      # bf16: step 0's loss against the reference's
+REG_BAR = 1e-2           # bf16: first gradient norm, the second loss
+INTERNLM_LAYERS = 4      # of 48, at full width: about 2.7e9 params
+QWEN_FP32_PEAK_GB = 43.91   # the lm phase's fp32-AdamW peak (H100, 700 W)
+REG_SERVE_STEPS = 8      # serve steps after the prefill (serve's B, prompt)
+
+
+def _chunked(loss_fn, chunk: int):
+    """``loss_fn`` over a batch as the mean of its losses over equal
+    chunks of ``chunk`` rows (the mean of equal means is the mean): the
+    references' batch of 16 at S=4096 in one piece would hold 16 GB of
+    fp32 scores in flash's plain backward."""
+    def loss(params, batch, rng=None):
+        tok = batch["tokens"]
+        n = tok.shape[0] // chunk
+        return sum(loss_fn(params, {"tokens": tok[i * chunk:(i + 1) * chunk]})
+                   for i in range(n)) / n
+    return loss
+
+
+def registry_bundles(torch, rec) -> None:
+    """``get_arch`` of every name ``list_archs`` gives: every supported
+    shape's ``batch_struct`` (also under a ``pp_*`` plan's microbatches for
+    a train shape) and ``cache_struct`` built on the meta device, their
+    bytes printed beside the bundle's param counts."""
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.train.steps import ParallelPlan
+    from repro_torch.tree import tree_leaves
+
+    pp = ParallelPlan(strategy="pp_1f1b", microbatches=16)
+    rows = {}
+    for name in list_archs():
+        b = get_arch(name)
+        shapes = {}
+        for s, spec in SHAPES.items():
+            if not b.supported(s):
+                continue
+            structs = {"batch": b.batch_struct(spec)}
+            if spec.kind == "train":
+                structs["batch pp"] = b.batch_struct(spec, pp)
+            if b.cache_struct is not None:
+                structs["cache"] = b.cache_struct(spec)
+            for k, v in structs.items():
+                if not all(x.is_meta for x in tree_leaves(v)
+                           if isinstance(x, torch.Tensor)):
+                    fail(f"registry {name} {s} {k}: a tensor off the meta "
+                         "device")
+            shapes[s] = {k: _tree_bytes(v) for k, v in structs.items()}
+        rows[name] = dict(family=b.family, params=b.param_count,
+                          active_params=b.active_param_count,
+                          plans=sorted(b.plans), shapes=shapes)
+        log(f"[registry] {name} ({b.family}): {b.param_count} params, "
+            f"{b.active_param_count} active; plans {sorted(b.plans)}; "
+            f"bytes by shape {shapes}")
+    rec.setdefault("registry", {})["bundles"] = rows
+
+
+def _reg_params(torch, bundle, gen):
+    with torch.no_grad():
+        return bundle.init_fn(gen, "cuda")
+
+
+def registry_smollm(torch, rec, smi_line: str) -> dict:
+    """smollm-360m from ``get_arch`` at full width and depth (bf16, seed-0
+    weights) on its own ``train_4k`` plan (``pp_wave``, M=16) through
+    ``make_adapter`` with ``REG_MESH`` (the folded closed-form wave at
+    D=4) and ``build_pp_train_step``: ``REG_STEPS`` AdamW steps at S=4096,
+    global batch 16 (microbatches of 1).  The reference:
+    ``build_sharded_train_step`` over the bundle's ``loss_fn`` (a chunk of
+    ``REG_REF_CHUNK`` rows at a time) on the same weights and batch, the
+    same steps.  Held: step 0's loss within ``REG_LOSS_BAR``, the first
+    gradient norm and the second loss within ``REG_BAR``; every loss
+    finite; flash launches of each step = layers x microbatches x 2
+    (forward and the stage remat's recompute), the reference's layers x
+    chunks x 2 (the config's per-layer remat).  Returns the launches by
+    run."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec, meta
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.optim import adamw_init, global_norm
+    from repro_torch.train.steps import (build_pp_train_step,
+                                         build_sharded_train_step)
+    from repro_torch.tree import tree_map
+
+    b = get_arch("smollm-360m")
+    cfg, plan = b.cfg, b.plans["train_4k"]
+    M = plan.microbatches
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = _reg_params(torch, b, gen)
+    tokens = torch.randint(0, cfg.vocab, (REG_BATCH, REG_SEQ), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    shape = ShapeSpec("registry", "train", REG_SEQ, REG_BATCH)
+    runs, counts = {}, {}
+
+    def run(what, step, p, o, batch, flash_want):
+        norms, losses, secs, flash = [], [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        for _ in range(REG_STEPS):
+            before = launch_counts()["flash_attention"]
+            t0 = time.perf_counter()
+            p, o, loss = step(p, o, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            flash.append(launch_counts()["flash_attention"] - before)
+        counts[what] = launch_counts()
+        out = dict(losses=losses, step_seconds=secs, flash_per_step=flash,
+                   flash_predicted=flash_want, grad_norms=norms_of[what],
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        if not all(math.isfinite(x) for x in losses + out["grad_norms"]):
+            fail(f"registry smollm-360m {what}: losses {losses}, gradient "
+                 f"norms {out['grad_norms']}")
+        if any(n != flash_want for n in flash):
+            fail(f"registry smollm-360m {what}: flash {flash} a step, "
+                 f"want {flash_want}")
+        log(f"[registry] smollm-360m {what}: losses {losses}; first "
+            f"gradient norm {out['grad_norms'][0]!r}; step s "
+            f"{[round(x, 3) for x in secs]}; peak "
+            f"{out['peak_bytes'] / 1e9:.2f} GB; flash {flash} a step, want "
+            f"{flash_want} ({smi_line})")
+        runs[what] = out
+
+    norms_of = {"reference": [], "pp_wave": []}
+    # the reference: the whole model, the bundle's loss_fn, AdamW
+    ref_plan = dataclasses.replace(plan, strategy="sharded")
+    step, _ = build_sharded_train_step(
+        _chunked(b.loss_fn, REG_REF_CHUNK), b.init_fn,
+        {"tokens": meta(tokens.shape, torch.int32)}, REG_ONE, ref_plan,
+        on_grads=lambda g: norms_of["reference"].append(
+            float(global_norm(g))))
+    p = tree_map(torch.clone, params)
+    run("reference", step, p, adamw_init(p), {"tokens": tokens},
+        cfg.n_layers * (REG_BATCH // REG_REF_CHUNK) * 2)
+    del p, step
+    release(torch)
+    # the plan: pp_wave, the folded closed form at D=4
+    adapter = b.make_adapter(plan, REG_MESH)
+    if not (adapter.wave and adapter.pcfg.num_devices == REG_D
+            and adapter.pcfg.num_microbatches == M):
+        fail(f"registry smollm-360m: adapter {adapter.pcfg}, wave "
+             f"{adapter.wave}")
+    struct = b.batch_struct(shape, plan)
+    step, _ = build_pp_train_step(
+        adapter, REG_MESH, struct, plan, b.make_microbatches,
+        on_grads=lambda g: norms_of["pp_wave"].append(float(global_norm(g))))
+    p = adapter.split_params(tree_map(torch.clone, params))
+    run("pp_wave", step, p, adamw_init(p),
+        {"tokens": tokens.reshape(struct["tokens"].shape)},
+        cfg.n_layers * M * 2)
+    del p, step, adapter, params
+    release(torch)
+    ref, got = runs["reference"], runs["pp_wave"]
+    rel0 = abs(got["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+    rel1 = abs(got["losses"][1] - ref["losses"][1]) / abs(ref["losses"][1])
+    reln = abs(got["grad_norms"][0] - ref["grad_norms"][0]) \
+        / abs(ref["grad_norms"][0])
+    if not (rel0 <= REG_LOSS_BAR and rel1 <= REG_BAR and reln <= REG_BAR):
+        fail(f"registry smollm-360m pp_wave vs the sharded reference: step "
+             f"0 loss rel {rel0:.3e} (bar {REG_LOSS_BAR}), step 1 loss rel "
+             f"{rel1:.3e} and first gradient norm rel {reln:.3e} (bar "
+             f"{REG_BAR})")
+    rec.setdefault("registry", {})["smollm-360m"] = dict(
+        plan="train_4k", strategy=plan.strategy, D=REG_D, M=M,
+        seq=REG_SEQ, global_batch=REG_BATCH, loss0_rel_err=rel0,
+        loss1_rel_err=rel1, grad_norm_rel_err=reln, **runs)
+    log(f"[registry] smollm-360m pp_wave vs reference: step 0 loss rel "
+        f"{rel0:.3e}, step 1 {rel1:.3e}, first gradient norm {reln:.3e}")
+    return {"registry smollm-360m pp_wave": counts["pp_wave"],
+            "registry smollm-360m reference": counts["reference"]}
+
+
+def registry_internlm2(torch, rec, smi_line: str) -> dict:
+    """internlm2-20b from ``get_arch`` at full width, ``scaled_cfg`` to
+    ``INTERNLM_LAYERS`` of its 48 layers (bf16, seed-0 weights), on its own
+    ``train_4k`` plan (``pp_1f1b``, M=16): the linear closed form at D=4
+    through ``LMPipelineAdapter`` and ``build_pp_train_step``,
+    ``REG_STEPS`` AdamW steps at S=4096, global batch 16.  The reference
+    for step 0's loss: ``build_forward_step`` on the same weights and
+    batch (a chunk of ``REG_REF_CHUNK`` rows at a time), within
+    ``REG_LOSS_BAR``.  Flash launches: layers x microbatches x 2 a step,
+    layers x chunks in the forward.  Returns the launches by run."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec, meta
+    from repro_torch.configs.lm_common import lm_bundle
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.optim import adamw_init, global_norm
+    from repro_torch.train.steps import build_forward_step, build_pp_train_step
+    from repro_torch.tree import tree_leaves
+
+    full = get_arch("internlm2-20b")
+    cfg = full.scaled_cfg(INTERNLM_LAYERS)
+    b = lm_bundle(full.name, cfg, full.plans)
+    plan = b.plans["train_4k"]
+    M = plan.microbatches
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = _reg_params(torch, b, gen)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    tokens = torch.randint(0, cfg.vocab, (REG_BATCH, REG_SEQ), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    # the reference's loss first, on the same weights and batch
+    fwd, _ = build_forward_step(
+        _chunked(b.loss_fn, REG_REF_CHUNK), b.init_fn,
+        {"tokens": meta(tokens.shape, torch.int32)}, REG_ONE,
+        dataclasses.replace(plan, strategy="sharded"))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ref_loss = float(fwd(params, {"tokens": tokens}))
+    t_fwd = time.perf_counter() - t0
+    fwd_counts = launch_counts()
+    fwd_want = cfg.n_layers * (REG_BATCH // REG_REF_CHUNK)
+    if fwd_counts["flash_attention"] != fwd_want:
+        fail(f"registry internlm2-20b forward: flash "
+             f"{fwd_counts['flash_attention']}, want {fwd_want}")
+    adapter = b.make_adapter(plan, REG_MESH)
+    if adapter.wave or adapter.pcfg.num_devices != REG_D:
+        fail(f"registry internlm2-20b: adapter {adapter.pcfg}, wave "
+             f"{adapter.wave}")
+    struct = b.batch_struct(ShapeSpec("registry", "train", REG_SEQ,
+                                      REG_BATCH), plan)
+    norms = []
+    step, _ = build_pp_train_step(
+        adapter, REG_MESH, struct, plan, b.make_microbatches,
+        on_grads=lambda g: norms.append(float(global_norm(g))))
+    p = adapter.split_params(params)
+    o = adamw_init(p)
+    batch = {"tokens": tokens.reshape(struct["tokens"].shape)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, secs, flash = [], [], []
+    for _ in range(REG_STEPS):
+        before = launch_counts()["flash_attention"]
+        t0 = time.perf_counter()
+        p, o, loss = step(p, o, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        flash.append(launch_counts()["flash_attention"] - before)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.n_layers * M * 2
+    rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    what = f"internlm2-20b ({INTERNLM_LAYERS} of 48 layers)"
+    if not all(math.isfinite(x) for x in losses + norms + [ref_loss]):
+        fail(f"registry {what}: losses {losses}, forward {ref_loss}, "
+             f"gradient norms {norms}")
+    if any(n != want for n in flash):
+        fail(f"registry {what}: flash {flash} a step, want {want}")
+    if not rel <= REG_LOSS_BAR:
+        fail(f"registry {what}: step 0 loss {losses[0]!r} vs "
+             f"build_forward_step's "
+             f"{ref_loss!r} (rel {rel:.3e} > {REG_LOSS_BAR})")
+    rec.setdefault("registry", {})["internlm2-20b"] = dict(
+        layers=INTERNLM_LAYERS, params=n_params, plan="train_4k",
+        strategy=plan.strategy, D=REG_D, M=M, seq=REG_SEQ,
+        global_batch=REG_BATCH, losses=losses, grad_norms=norms,
+        step_seconds=secs, peak_bytes=peak, flash_per_step=flash,
+        flash_predicted=want, forward_loss=ref_loss, forward_s=t_fwd,
+        loss0_rel_err=rel)
+    log(f"[registry] {what}: {n_params} params; pp_1f1b D={REG_D} M={M}; "
+        f"losses {losses} (step 0 vs build_forward_step {ref_loss!r}: rel "
+        f"{rel:.3e}); gradient norms {norms}; step s "
+        f"{[round(x, 3) for x in secs]}; forward {t_fwd:.3f} s; peak "
+        f"{peak / 1e9:.2f} GB; flash {flash} a step, want {want} "
+        f"({smi_line})")
+    del p, o, step, adapter, params
+    return {"registry internlm2-20b pp_1f1b": counts,
+            "registry internlm2-20b forward": fwd_counts}
+
+
+def _int8_formula_bytes(params) -> tuple[int, int, int]:
+    """Both int8 moments' bytes: 2 x (n + 4 n / 256) for n params, the
+    same with each leaf's blocks padded to a multiple of 32 x 256, and
+    fp32's 8 n."""
+    n = padded = 0
+    for x in _leaves(params):
+        n += x.numel()
+        padded += -(-x.numel() // 8192) * 8192
+    return 2 * (n + 4 * n // 256), 2 * (padded + 4 * padded // 256), 8 * n
+
+
+def registry_qwen3_int8(torch, rec, smi_line: str) -> dict:
+    """qwen3-moe-30b-a3b from ``get_arch``, ``scaled_cfg(2)`` (2 of 48
+    layers at full width, the lm phase's cut; bf16, seed-0 weights), its
+    ``train_4k`` plan with ``int8_optimizer=True`` (its TP/EP axis of size
+    1 a no-op): one step of ``build_sharded_train_step`` (a value-and-grad
+    and an int8 AdamW step) at S=4096, batch 2, then the loss again.
+    Held: finite losses and gradient norm; flash 2 a layer in the step and
+    1 a layer after; the peak below the lm phase's fp32-AdamW run
+    (``QWEN_FP32_PEAK_GB``); the moments' bytes equal to their formula
+    with padding.  Returns the launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import meta
+    from repro_torch.configs.lm_common import lm_bundle
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.optim import global_norm, int8_adamw_init
+    from repro_torch.train.steps import build_sharded_train_step
+
+    full = get_arch("qwen3-moe-30b-a3b")
+    cfg = full.scaled_cfg(QWEN_LAYERS)
+    b = lm_bundle(full.name, cfg, full.plans)
+    plan = dataclasses.replace(b.plans["train_4k"], int8_optimizer=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = _reg_params(torch, b, gen)
+    n_params = sum(x.numel() for x in _leaves(params))
+    tokens = torch.randint(0, cfg.vocab, (QWEN_BATCH, REG_SEQ),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    norms = []
+    step, (_, o_struct, _) = build_sharded_train_step(
+        b.loss_fn, b.init_fn, {"tokens": meta(tokens.shape, torch.int32)},
+        REG_ONE, plan, on_grads=lambda g: norms.append(float(global_norm(g))))
+    opt = int8_adamw_init(params)
+    moment_bytes = _tree_bytes((opt["m"], opt["v"]))
+    formula, formula_padded, fp32_bytes = _int8_formula_bytes(params)
+    if moment_bytes != formula_padded or \
+            _tree_bytes((o_struct["m"], o_struct["v"])) != formula_padded:
+        fail(f"registry qwen3 int8: moments {moment_bytes} B, the formula "
+             f"with padding {formula_padded}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    params, opt, loss = step(params, opt, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    in_step = launch_counts()
+    with torch.no_grad():
+        after = float(b.loss_fn(params, {"tokens": tokens}))
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(loss)
+    what = f"qwen3-moe-30b-a3b int8 ({QWEN_LAYERS} of 48 layers)"
+    if not all(math.isfinite(x) for x in [loss, after] + norms):
+        fail(f"registry {what}: loss {loss}, after {after}, gradient norm "
+             f"{norms}")
+    want = 2 * QWEN_LAYERS
+    if in_step["flash_attention"] != want or \
+            launch_counts()["flash_attention"] != want + QWEN_LAYERS:
+        fail(f"registry {what}: flash {in_step['flash_attention']} in the step (want "
+             f"{want}), {launch_counts()['flash_attention']} with the loss "
+             f"after (want {want + QWEN_LAYERS})")
+    if not peak < QWEN_FP32_PEAK_GB * 1e9:
+        fail(f"registry {what}: peak {peak / 1e9:.2f} GB, not below the "
+             f"fp32-AdamW "
+             f"run's {QWEN_FP32_PEAK_GB} GB")
+    rec.setdefault("registry", {})["qwen3-moe-30b-a3b int8"] = dict(
+        layers=QWEN_LAYERS, params=n_params, seq=REG_SEQ, batch=QWEN_BATCH,
+        loss=loss, loss_after=after, grad_norm=norms[0], step_s=t_step,
+        peak_bytes=peak, fp32_adamw_peak_gb=QWEN_FP32_PEAK_GB,
+        moment_bytes=moment_bytes, formula_bytes=formula,
+        formula_padded_bytes=formula_padded, fp32_moment_bytes=fp32_bytes,
+        launches=launch_counts())
+    log(f"[registry] {what}: {n_params} params; S={REG_SEQ} B={QWEN_BATCH}; "
+        f"loss {loss!r}, after the int8 AdamW step {after!r}; gradient norm "
+        f"{norms[0]!r}; step {t_step:.3f} s; peak {peak / 1e9:.2f} GB "
+        f"(fp32 AdamW, lm phase: {QWEN_FP32_PEAK_GB} GB); moments "
+        f"{moment_bytes} B = 2 x (n + 4n/256) with padding ({formula} B "
+        f"without; fp32 8n = {fp32_bytes} B) ({smi_line})")
+    del params, opt, step
+    return launch_counts()
+
+
+def registry_serve(torch, rec, smi_line: str) -> dict:
+    """smollm-360m from ``get_arch`` (seed-0 weights): the serve phase's
+    batch of 16 prompts of 2048 prefilled (``lm.prefill``, caches of
+    prompt + 1 + ``REG_SERVE_STEPS`` rows), then ``REG_SERVE_STEPS`` greedy
+    steps of ``build_sharded_serve_step`` over the bundle's
+    ``make_decode_fn`` on its ``decode_32k`` plan (TP over a ``model``
+    axis of size 1: a no-op).  Held: the tokens equal
+    ``launch.serve.generate``'s from the same weights and prompts; the
+    caches' shapes the bundle's ``cache_struct``'s; flash once a layer a
+    step.  Returns the launches of the serve steps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec, meta
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    from repro_torch.train.steps import build_sharded_serve_step
+
+    b = get_arch("smollm-360m")
+    cfg = b.cfg
+    B, P, G = SERVE_LM["batch"], SERVE_LM["prompt"], REG_SERVE_STEPS + 1
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = _reg_params(torch, b, gen)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    shape = ShapeSpec("registry", "decode", P + G, B)
+    struct = b.cache_struct(shape)
+    step, _ = build_sharded_serve_step(
+        b.make_decode_fn(shape), b.init_fn, struct,
+        meta((B, 1), torch.int32), REG_ONE, b.plans["decode_32k"])
+    with torch.inference_mode():
+        logits, caches = lm.prefill(params, prompts, cfg, P + G)
+    got = {k: (tuple(v.shape), v.dtype) for k, v in caches["layers"].items()
+           if k != "pos"}
+    if got != {k: (tuple(v.shape), v.dtype) for k, v in
+               struct["layers"].items() if k != "pos"}:
+        fail(f"registry serve: caches {got} vs cache_struct "
+             f"{struct['layers']}")
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    toks = [tok]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(REG_SERVE_STEPS):
+        tok, caches = step(params, tok, caches)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    tokens = torch.cat(toks, 1)
+    want = generate(params, cfg, prompts, G).tokens
+    equal = bool(torch.equal(tokens, want))
+    flash_want = cfg.n_layers * REG_SERVE_STEPS
+    if not equal:
+        fail(f"registry serve: tokens differ from generate's at "
+             f"{int((tokens != want).sum())} of {tokens.numel()}")
+    if counts["flash_attention"] != flash_want:
+        fail(f"registry serve: flash {counts['flash_attention']}, want "
+             f"{flash_want}")
+    rec.setdefault("registry", {})["serve smollm-360m"] = dict(
+        batch=B, prompt=P, steps=REG_SERVE_STEPS, tokens_equal=equal,
+        step_ms=1e3 * secs / REG_SERVE_STEPS, launches=counts)
+    log(f"[registry] smollm-360m serve: B={B} prompt {P}, "
+        f"{REG_SERVE_STEPS} steps of build_sharded_serve_step, "
+        f"{1e3 * secs / REG_SERVE_STEPS:.2f} ms a step; tokens equal "
+        f"generate's; flash {counts['flash_attention']} ({smi_line})")
+    del params, caches
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -4853,6 +5345,29 @@ def main() -> None:
     counts["serve smoke"] = serve_smoke(torch, rec)
     rec["phase_s"]["serve"] = time.perf_counter() - t0
     log(f"[serve] phase {rec['phase_s']['serve']:.1f} s")
+
+    # 19. registry: every bundle through get_arch; smollm-360m (pp_wave) and
+    # internlm2-20b (pp_1f1b) on their own plans, qwen3-moe with int8
+    # moments, a smollm serve step, each through train/steps.py
+    t0 = time.perf_counter()
+    registry_bundles(torch, rec)
+    for what, phase in (("smollm-360m", registry_smollm),
+                        ("internlm2-20b", registry_internlm2),
+                        ("qwen3-moe-30b-a3b int8", registry_qwen3_int8),
+                        ("serve", registry_serve)):
+        left = release(torch)
+        if left >= 1e9:
+            fail(f"registry {what}: {left / 1e9:.2f} GB still allocated; "
+                 "the previous phase was not released")
+        c = phase(torch, rec, smi_line)
+        if what == "qwen3-moe-30b-a3b int8":
+            c = {"registry qwen3-moe-30b-a3b int8": c}
+        elif what == "serve":
+            c = {"registry smollm-360m serve": c}
+        counts.update(c)
+    release(torch)
+    rec["phase_s"]["registry"] = time.perf_counter() - t0
+    log(f"[registry] phase {rec['phase_s']['registry']:.1f} s")
 
     # 12. ranks: one process per pipeline device, four on the one card
     left = release(torch)

@@ -23,10 +23,11 @@ import dataclasses
 
 import torch
 
+from repro_torch.configs.base import ArchBundle, ShapeSpec, ddpm_draws, meta
 from repro_torch.configs.smoke import bundle
-
 from repro_torch.models import diffusion as dm
 from repro_torch.models.diffusion import UNetConfig
+from repro_torch.train.steps import ParallelPlan
 
 CFG = UNetConfig(
     name="sdv2-unet", img_size=32, in_ch=4, base_ch=448,
@@ -35,18 +36,30 @@ CFG = UNetConfig(
     dtype=torch.bfloat16, param_dtype=torch.bfloat16)
 
 
-def batch_struct(global_batch: int) -> dict:
-    """name -> (shape, dtype) of a training batch."""
+PLANS = {
+    "train_4k": ParallelPlan(tp_axis=None, fsdp_axes=("model", "data"),
+                             batch_axes=("pod", "data")),
+}
+SUPPORT = {"train_4k": "ok",
+           "prefill_32k": "n/a: diffusion training arch",
+           "decode_32k": "n/a: diffusion training arch",
+           "long_500k": "n/a: diffusion training arch"}
+
+
+def batch_struct(shape: ShapeSpec, plan=None):
+    B = shape.global_batch
     return {
-        "latents": ((global_batch, CFG.img_size, CFG.img_size, CFG.in_ch),
-                    torch.bfloat16),
-        "text_embeds": ((global_batch, CFG.ctx_len, CFG.ctx_dim),
+        "latents": meta((B, CFG.img_size, CFG.img_size, CFG.in_ch),
                         torch.bfloat16),
+        "text_embeds": meta((B, CFG.ctx_len, CFG.ctx_dim), torch.bfloat16),
     }
 
 
-def loss_fn(params, batch, t, noise, cfg: UNetConfig = CFG):
-    return dm.unet_loss(params, batch, t, noise, cfg)
+def loss_fn(params, batch, rng=None, *, t=None, noise=None):
+    """The DDPM loss; the draws ``t`` and ``noise`` as given, else from
+    ``rng``."""
+    t, noise = ddpm_draws(batch["latents"], rng, t, noise)
+    return dm.unet_loss(params, batch, t, noise, CFG)
 
 
 def factory(kernels: bool = False):
@@ -55,4 +68,15 @@ def factory(kernels: bool = False):
     ``kernels=True`` sends attention through the flash kernel."""
     return bundle(dataclasses.replace(CFG, use_flash=kernels), dm.unet_loss,
                   dm.init_unet,
-                  {k: shape for k, (shape, _) in batch_struct(2).items()})
+                  {k: tuple(x.shape) for k, x in batch_struct(
+                      ShapeSpec("smoke", "train", 0, 2)).items()})
+
+
+def get_bundle():
+    return ArchBundle(
+        name="sdv2-unet", family="diffusion", cfg=CFG,
+        init_fn=lambda gen, device="cuda": dm.init_unet(gen, CFG, device),
+        loss_fn=loss_fn, batch_struct=batch_struct, plans=PLANS,
+        shape_support=dict(SUPPORT), param_count=CFG.param_count(),
+        active_param_count=CFG.param_count(),
+        notes="heterogeneous UNet; partitioner showcase")

@@ -655,6 +655,57 @@ def unet_loss(params: Params, batch: dict, t: torch.Tensor,
 # Block graphs for the compile path
 # --------------------------------------------------------------------------
 
+def uvit_block_graph(cfg: UViTConfig, batch: int,
+                     hw: Hardware = H100_SXM) -> BlockGraph:
+    """UViT as the analytic planner graph: ``embed``, the encoder blocks,
+    the decoder blocks (each with its skip-in projection), ``out``; a skip
+    edge from each encoder block to its mirror decoder block.  Costs are
+    analytic (bf16 bytes, matmul FLOPs) on ``hw``, which defaults to
+    ``H100_SXM`` where the JAX function defaults to its TPU preset."""
+    d, n, ff = cfg.d_model, cfg.n_tokens, cfg.d_ff
+    act = batch * n * d * 2                     # bf16 activation bytes
+    attn_fl = 2 * batch * (4 * n * d * d + 2 * n * n * d)
+    mlp_fl = 2 * batch * (2 * n * d * ff)
+    blk_fl = attn_fl + mlp_fl
+    per_param = (4 * d * d + 2 * d * ff) * 2
+    blocks = [Block("embed", 0.0, cfg.n_classes * d * 2, act, 0,
+                    2 * batch * n * (cfg.patch ** 2 * cfg.in_ch) * d)]
+    for i in range(cfg.half):
+        blocks.append(Block(f"enc{i}", 0.0, per_param, act, act, blk_fl))
+    for i in range(cfg.half):
+        blocks.append(Block(f"dec{i}", 0.0, per_param + 2 * d * d * 2, act, 0,
+                            blk_fl + 2 * batch * n * 2 * d * d))
+    blocks.append(Block("out", 0.0, d * cfg.patch ** 2 * cfg.in_ch * 2, act, 0,
+                        2 * batch * n * d * (cfg.patch ** 2 * cfg.in_ch)))
+    total = len(blocks)
+    skips = tuple(SkipEdge(1 + i, total - 2 - i, act) for i in range(cfg.half))
+    return BlockGraph(analytic_block_costs(blocks, hw), skips)
+
+
+def hunyuan_block_graph(cfg: HunyuanDiTConfig, batch: int,
+                        hw: Hardware = H100_SXM) -> BlockGraph:
+    """Hunyuan-DiT as the analytic planner graph, as
+    :func:`uvit_block_graph` (the blocks' adaLN and text cross-attention
+    counted in their params and FLOPs); ``hw`` defaults to ``H100_SXM``."""
+    d, n, ff, lt = cfg.d_model, cfg.n_tokens, cfg.d_ff, cfg.ctx_len
+    act = batch * n * d * 2
+    blk_fl = 2 * batch * (4 * n * d * d + 2 * n * n * d + 2 * n * d * ff
+                          + 2 * n * d * d + cfg.ctx_dim * 2 * d * lt
+                          + 2 * n * lt * d + 6 * n * d * d // n)
+    per_param = (4 * d * d + 2 * d * ff + 2 * d * d + cfg.ctx_dim * 2 * d
+                 + 6 * d * d) * 2
+    blocks = [Block("embed", 0.0, d * 8, act, 0, 2 * batch * n * 16 * d)]
+    for i in range(cfg.half):
+        blocks.append(Block(f"enc{i}", 0.0, per_param, act, act, blk_fl))
+    for i in range(cfg.half):
+        blocks.append(Block(f"dec{i}", 0.0, per_param + 8 * d * d, act, 0,
+                            blk_fl + 2 * batch * n * 2 * d * d))
+    blocks.append(Block("out", 0.0, d * 16 * 2, act, 0, 2 * batch * n * d * 16))
+    total = len(blocks)
+    skips = tuple(SkipEdge(1 + i, total - 2 - i, act) for i in range(cfg.half))
+    return BlockGraph(analytic_block_costs(blocks, hw), skips)
+
+
 def unet_block_graph(cfg: UNetConfig, batch: int,
                      hw: Hardware = H100_SXM) -> BlockGraph:
     """Exports the UNet as a heterogeneous BlockGraph (paper Fig. 6: per-block

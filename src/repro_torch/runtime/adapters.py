@@ -2,14 +2,15 @@
 UViT, Hunyuan-DiT, SkipViT and the decoder LMs):
 :class:`DiffusionPipelineAdapter`, which regroups a model's block stacks
 into even per-device stage stacks for the closed-form wave executor and
-for the paper's skip-carry baseline; block-level callables for
+for the paper's skip-carry baseline; :class:`LMPipelineAdapter`, the same
+for the decoder LMs over the closed-form linear and folded executors (the
+executors of the registry's ``pp_1f1b`` and ``pp_wave`` plans); block-level
+callables for
 :func:`runtime.compile.auto_pipeline` (:func:`lm_model_fns` for the LMs,
 whose skip-free graph plans linear, or folded under ``force_wave``); and
 the DDPM and token microbatch splits.  SkipViT's microbatches are UViT's
 (class labels and a time token), as in the JAX trainer; :func:`model_fns`
-picks the callables of a model kind.  The JAX ``LMPipelineAdapter`` (its
-even-split stacks for the closed forms) is not ported: ``auto_pipeline``
-lowers the LMs through the same executors.
+picks the callables of a model kind.
 """
 from __future__ import annotations
 
@@ -21,8 +22,10 @@ import torch
 from repro_torch.models import diffusion as diff_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.runtime.compile import PipelineModelFns
-from repro_torch.runtime.pipeline import (PipelineConfig, make_wave_pipeline,
-                                          make_skip_carry_pipeline)
+from repro_torch.runtime.pipeline import (PipelineConfig, check_one_replica,
+                                          make_linear_pipeline,
+                                          make_skip_carry_pipeline,
+                                          make_wave_pipeline)
 from repro_torch.tree import tree_map
 
 Pytree = Any
@@ -55,6 +58,98 @@ def _ungroup(stack: Pytree, reverse: bool = False) -> Pytree:
         y = x.flip(0) if reverse else x
         return y.reshape(y.shape[0] * y.shape[1], *y.shape[2:])
     return tree_map(f, stack)
+
+
+# ===========================================================================
+# LM family
+# ===========================================================================
+
+@dataclasses.dataclass(frozen=True)
+class LMPipelineAdapter:
+    """Linear (1F1B) or folded-wave pipeline for the decoder LMs, over the
+    closed-form executors: ``wave=False`` regroups ``params["layers"]``
+    evenly into D stages (``make_linear_pipeline``), ``wave=True`` folds
+    them symmetrically, S = 2D (``make_wave_pipeline``): device d runs
+    layer group d of the first half and, in reverse order, group 2D-1-d of
+    the second, so the embedding and the (tied) readout share device 0.
+
+    Every other param is an edge param.  As in JAX the loss is
+    ``softmax_xent`` alone (no MoE aux, no MTP term) and deepseek's dense
+    prelude does not run; each stage call is recomputed in the backward
+    when ``pcfg.remat`` (the layers themselves are not, as in JAX's scan).
+    Microbatches: ``{"tokens": (M, b, S)}``.
+    """
+
+    cfg: lm_mod.LMConfig
+    pcfg: PipelineConfig
+    wave: bool = False       # True: fold layers symmetrically (S = 2D)
+
+    def init_pipeline_params(self, gen: torch.Generator,
+                             device="cuda") -> tuple:
+        return self.split_params(lm_mod.init_lm(gen, self.cfg, device))
+
+    def split_params(self, params: Pytree) -> tuple:
+        """-> ``(stacks, edge)``: ``([D, L/D, ...],)`` or, folded, the
+        first half's and the second half's ``[D, L/2D, ...]`` stacks."""
+        D = self.pcfg.num_devices
+        layers = params["layers"]
+        edge = {k: v for k, v in params.items() if k != "layers"}
+        if not self.wave:
+            return (_regroup(layers, D),), edge
+        half = tree_map(lambda x: x[: x.shape[0] // 2], layers)
+        rest = tree_map(lambda x: x[x.shape[0] // 2:], layers)
+        return (_regroup(half, D), _regroup(rest, D, reverse=True)), edge
+
+    def merge_params(self, stacks: tuple, edge: Pytree) -> Pytree:
+        if not self.wave:
+            layers = _ungroup(stacks[0])
+        else:
+            enc = _ungroup(stacks[0])
+            dec = _ungroup(stacks[1], reverse=True)
+            layers = tree_map(lambda a, b: torch.cat([a, b], 0), enc, dec)
+        return {**edge, "layers": layers}
+
+    # ---- callbacks ----
+    def embed_fn(self, edge_p, mb, aux=None):
+        return lm_mod.embed_tokens(edge_p, mb["tokens"], self.cfg)
+
+    def _run_layers(self, rows, x):
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        for lp in rows:
+            x, _, _ = lm_mod.apply_layer(lp, x, self.cfg, dense_ffn=False,
+                                         positions=positions)
+        return x
+
+    def stage_fn(self, rows, x, d=None):
+        return self._run_layers(rows, x)
+
+    def enc_stage_fn(self, rows, x, aux, d=None):
+        return self._run_layers(rows, x), {}
+
+    def dec_stage_fn(self, rows, x, skips, aux, d=None):
+        return self._run_layers(rows, x)
+
+    def loss_fn(self, edge_p, x, mb, aux=None):
+        logits = lm_mod.unembed(edge_p, x[:, :-1], self.cfg)
+        return lm_mod.softmax_xent(logits, mb["tokens"][:, 1:])
+
+    # ---- builders ----
+    def build(self) -> Callable:
+        """``fn(stack, edge, mbs)`` (linear) or ``fn(enc, dec, edge, mbs)``
+        (folded) -> the mean loss over the M microbatches."""
+        check_one_replica(self.pcfg)
+        if self.wave:
+            wave = make_wave_pipeline(
+                self.pcfg,
+                embed_fn=lambda e, mb, aux: self.embed_fn(e, mb),
+                enc_stage_fn=self.enc_stage_fn,
+                dec_stage_fn=self.dec_stage_fn,
+                loss_fn=lambda e, x, mb, aux: self.loss_fn(e, x, mb))
+            # LM graphs have no skip tensors: aux rides along empty
+            return lambda enc, dec, edge, mbs: wave(enc, dec, edge, mbs, {})
+        return make_linear_pipeline(
+            self.pcfg, embed_fn=self.embed_fn, stage_fn=self.stage_fn,
+            loss_fn=self.loss_fn)
 
 
 # ===========================================================================
@@ -194,7 +289,8 @@ class DiffusionPipelineAdapter:
 def make_diffusion_microbatches(batch: dict, M: int, cfg=None,
                                 kind: str = "uvit", *,
                                 t: torch.Tensor, noise: torch.Tensor,
-                                params: Pytree | None = None
+                                params: Pytree | None = None,
+                                temb_grad: bool = False
                                 ) -> tuple[dict, dict]:
     """DDPM (t, noise) for a batch, split [B, ...] -> [M, B/M, ...].
 
@@ -209,7 +305,10 @@ def make_diffusion_microbatches(batch: dict, M: int, cfg=None,
     conditioning ``temb`` to every stage.  ``temb`` is computed here from
     ``params["time_mlp"]`` under ``no_grad``: it enters the pipeline as
     data, as it does in the JAX package, whose compile-path loss gives
-    ``time_mlp`` a zero gradient for the same reason.
+    ``time_mlp`` a zero gradient for the same reason.  ``temb_grad=True``
+    keeps its graph instead, so ``time_mlp`` gets the gradient the stages
+    send back through it, as under the JAX ``build_pp_train_step``, which
+    draws the microbatches inside its differentiated loss.
     """
     _check_kind(kind, DIFFUSION_KINDS)
     lat = batch["latents"]
@@ -226,7 +325,7 @@ def make_diffusion_microbatches(batch: dict, M: int, cfg=None,
     if kind != "hunyuan":
         mb["labels"] = split(batch["labels"])
     else:
-        with torch.no_grad():
+        with torch.set_grad_enabled(temb_grad and torch.is_grad_enabled()):
             temb = diff_mod.hunyuan_temb(params, t, cfg)
         aux["ctx"] = split(batch["text_embeds"].to(cfg.dtype))
         aux["temb"] = split(temb)

@@ -577,7 +577,7 @@ class CompiledPipeline:
             if self.executor != "table":
                 raise NotImplementedError(
                     "the closed-form executors over ranks are not ported "
-                    "(ROADMAP A1); lower through executor='table'")
+                    "(ROADMAP A3); lower through executor='table'")
             if ring.index != self.rank:
                 raise ValueError(f"ring index {ring.index} for rank "
                                  f"{self.rank}'s plan")

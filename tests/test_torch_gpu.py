@@ -894,3 +894,92 @@ def test_two_ranks_on_one_card_train_as_one_process(tmp_path):
                                 rel_tol=1e-4), (r, s)
         for k in ("flash_attention", "skip_concat_matmul"):
             assert doc["launches"][k] > 0, (r, doc["launches"])
+
+
+@pytest.mark.gpu
+def test_int8_adamw_update_on_cuda_matches_cpu():
+    """Three int8 AdamW steps on the card and on the CPU from the same
+    params and gradients (clipping off: its global norm is a reduction in
+    another order): codes and scales equal, params at rtol 1e-6.  Every
+    other operation is elementwise or a max, correctly rounded on both."""
+    from repro_torch.optim import (AdamWConfig, int8_adamw_init,
+                                   int8_adamw_update)
+    from repro_torch.tree import tree_map, tree_paths
+
+    gen = torch.Generator().manual_seed(3)
+    shapes = {"a": (37, 50), "b": (8192,), "c": {"d": (3, 3, 3)}}
+    params = {"a": torch.randn(37, 50, generator=gen),
+              "b": torch.randn(8192, generator=gen),
+              "c": {"d": torch.randn(3, 3, 3, generator=gen)}}
+    cfg = AdamWConfig(lr=1e-2, clip_norm=0.0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda x: x.to(dev).clone(), params)
+        s = int8_adamw_init(p)
+        g = torch.Generator().manual_seed(4)
+        for step in range(3):
+            grads = tree_map(lambda x: (torch.randn(x.shape, generator=g)
+                                        * (step + 1)).to(dev), p)
+            int8_adamw_update(p, grads, s, cfg)
+        runs[dev] = (p, s)
+    assert sorted(shapes) == sorted(runs["cuda"][0])
+    (pc, sc), (pg, sg) = runs["cpu"], runs["cuda"]
+    for k, x in tree_paths(pg):
+        torch.testing.assert_close(x.cpu(), dict(tree_paths(pc))[k],
+                                   rtol=1e-6, atol=0.0)
+    for mom in ("m", "v"):
+        want = dict(tree_paths(sc[mom]))
+        for k, x in tree_paths(sg[mom]):
+            assert x.device.type == "cuda"
+            assert torch.equal(x.cpu(), want[k]), (mom, k)
+
+
+@pytest.mark.gpu
+def test_lm_pipeline_adapter_wave_with_flash_matches_dense_cpu():
+    """``LMPipelineAdapter``'s folded wave (D=2, M=4) on a bf16 LM with
+    heads of 64 (flash's tensor-core route) on the card, against the same
+    params through dense attention on the CPU: the loss and every gradient
+    at this file's bf16 rtol/atol 2e-2, each gradient also at ||err|| /
+    ||g|| <= 5e-2, the bf16 pipeline parity bar of ``chip_smoke.py`` (bf16
+    rounding alone puts these gradients 1.6-2.1e-2 from fp32 on the CPU);
+    flash once a layer and microbatch, twice with the stage remat."""
+    import dataclasses
+
+    from repro_torch.models import lm
+    from repro_torch.models.layers import AttnConfig
+    from repro_torch.runtime.adapters import LMPipelineAdapter
+    from repro_torch.runtime.pipeline import PipelineConfig
+    from repro_torch.tree import tree_leaves, tree_map, tree_paths
+
+    cfg = lm.LMConfig("wave-smoke", vocab=256, d_model=128, n_layers=4,
+                      attn=AttnConfig(128, 2, 1, 64, use_flash=True),
+                      d_ff=256, tied_embeddings=True, dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16)
+    dense = dataclasses.replace(
+        cfg, attn=dataclasses.replace(cfg.attn, use_flash=False))
+    gen = torch.Generator().manual_seed(5)
+    params = lm.init_lm(gen, cfg, "cpu")
+    tokens = torch.randint(0, 256, (4, 2, 64), generator=gen,
+                           dtype=torch.int32)
+    out = {}
+    for dev, c in (("cuda", cfg), ("cpu", dense)):
+        ad = LMPipelineAdapter(c, PipelineConfig(2, 4), wave=True)
+        stacks, edge = ad.split_params(tree_map(lambda x: x.to(dev).clone(),
+                                                params))
+        for x in tree_leaves((stacks, edge)):
+            x.requires_grad_(True)
+        before = LAUNCHES["flash_attention"]
+        loss = ad.build()(*stacks, edge, {"tokens": tokens.to(dev)})
+        loss.backward()
+        launched = LAUNCHES["flash_attention"] - before
+        grads = ad.merge_params(*tree_map(lambda x: x.grad, (stacks, edge)))
+        out[dev] = (float(loss.detach()), {k: v.float().cpu()
+                                  for k, v in tree_paths(grads)}, launched)
+    assert out["cuda"][2] == cfg.n_layers * 4 * 2 and out["cpu"][2] == 0
+    assert math.isclose(out["cuda"][0], out["cpu"][0], rel_tol=2e-2)
+    for k, want in out["cpu"][1].items():
+        got = out["cuda"][1][k]
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+        err = float(torch.linalg.vector_norm(got - want)
+                    / torch.linalg.vector_norm(want))
+        assert err <= 5e-2, (k, err)

@@ -489,7 +489,10 @@ def test_port_imports_neither_jax_nor_repro():
                 "repro_torch.configs.xlstm_125m",
                 "repro_torch.configs.zamba2_2_7b",
                 "repro_torch.launch.serve",
-                "repro_torch.runtime.collectives"):
+                "repro_torch.runtime.collectives",
+                "repro_torch.configs.base",
+                "repro_torch.configs.lm_common",
+                "repro_torch.train.steps"):
         assert mod in walked, mod
     # chip_smoke.py imports none of them either
     src = (REPO / "chip_smoke.py").read_text()

@@ -401,10 +401,12 @@ def test_sdv2_config_and_both_param_counts():
     assert torch_sdv2.CFG.param_count() == jax_sdv2.CFG.param_count() == \
         PARAM_COUNT
     assert INIT_UNET_PARAMS - PARAM_COUNT == 859_808_768
-    shapes = torch_sdv2.batch_struct(16)
-    jb = jax_sdv2.batch_struct(type("S", (), {"global_batch": 16})())
-    assert {k: tuple(v[0]) for k, v in shapes.items()} == \
-        {k: tuple(v.shape) for k, v in jb.items()}
+    shape = type("S", (), {"global_batch": 16})()
+    shapes = torch_sdv2.batch_struct(shape)
+    jb = jax_sdv2.batch_struct(shape)
+    assert {k: (tuple(v.shape), str(v.dtype)) for k, v in shapes.items()} == \
+        {k: (tuple(v.shape), f"torch.{v.dtype}") for k, v in jb.items()}
+    assert all(v.is_meta for v in shapes.values())
 
 
 @pytest.mark.parametrize("name", sorted(torch_smoke.SMOKE_FACTORIES))
