@@ -68,6 +68,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    it), and ``device_ms``, ``plain_device_ms`` and ``library_device_ms``
    as the replay of the same 20 calls captured in one CUDA graph (the
    device's time alone); each flash row names its route (``flash_route``);
+3b. kernel_check (``kernel_check_phase``): the launch predicates of
+   ``repro_torch.analysis.kernel_check`` against the kernels: every shape
+   of a grid (the table's paths and each side of each rule, both dtypes)
+   that a predicate accepts launches and equals its plain version, every
+   one it refuses raises before a launch; each route's predicted tiles
+   and shared memory equal the kernel's own report, and the budget the
+   card's opt-in shared memory a block;
 4. pipeline parity: the port's wave executor at ``uvit-pp`` size (D=4, M=8),
    at ``hunyuan-pp`` size (D=2 and D=4, M=4) and at the supervisor drills'
    ``uvit-nano`` pipeline (D=2, M=4, global batch 8), each config the trainer's
@@ -301,16 +308,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     skip and flash kernels in its own process (they load what phase 2
     built).  Each rank runs 3 AdamW steps (the first one's
     forward+backward, read before its update, is the probe), then one
-    forward+backward of the skip-carry baseline from the seed-0 params.  Held: the first loss to phase 6's
+    forward+backward each of the skip-carry baseline and of the
+    closed-form wave (``executor="closed_form"`` over the ranks) from the
+    seed-0 params.  Held: the first loss to phase 6's
     at rtol 1e-5 and AdamW steps 1-2 at 2e-2; every gradient leaf's
     fingerprint (norm and 8 seeded random dots) to phase 6's step 0 at
     ||err||/||g|| <= 1e-2; the ring bytes, forward and backward, sent and
     received, to phase 6's ``HOP_BYTES`` live count a step (table walk,
     bf16 wire) and to the baseline phase's (skip-carry), exactly; the
     ranks' flash and skip launches of one forward+backward to phase 6's a
-    step; the skip-carry loss to the table walk's at rtol 1e-5.  Prints
+    step; the skip-carry loss to the table walk's at rtol 1e-5; the
+    closed-form wave's loss to the table walk's at rtol 1e-5, its
+    fingerprints to phase 6's step 0 at 1e-2, its ring bytes to the table
+    walk's and ``HOP_BYTES``' live count, exactly, its flash and skip
+    launches to phase 6's a step.  Prints
     each rank's peak memory beside Eq. 14's per-device prediction, the
     step seconds, and that NCCL was not run (one card);
+12b. lm ranks (``lm_ranks_phase``), after phase 12: smollm-360m at full
+    width and depth (32 layers, S=4096, global batch 16, bf16, the ``lm``
+    phase's seed-0 weights and batch) on the JAX ``wave-zero2`` config's
+    plan shape (folded wave, P=2, dp=2, ZeRO-2, M=8) as four rank
+    processes of this script (``--lm-rank``) on the one card, gloo staged
+    through pinned host memory, 2 AdamW steps.  Held: the weights' and
+    batch's digest to the ``lm`` phase's; the losses to its non-pipeline
+    ``lm_loss`` + AdamW reference, every step at 1e-4; every rank's
+    gradient finite every step (no update skipped) and its step-0 norm
+    over the grid to the reference's at 1e-2; each replica's ring bytes to its live hops x a microbatch's activation;
+    each rank's data-group bytes and calls of a step to ``hybrid_bytes``;
+    the flash launches of a step to the tables' count for both replicas.
+    Prints each rank's step seconds and peaks; rank logs in
+    ``chiprun_out/lm_ranks.r<rank>.log``;
 13. hybrid (``hybrid_phase``), after checking that less than 1 GB is
     still allocated: the tuner's own N=4 plan for UViT-H at full width,
     its depth cut to 16 of its 32 blocks (``--layers``, to keep the
@@ -368,14 +395,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     smollm-360m pp_wave``, ``registry smollm-360m reference``, ``registry
     internlm2-20b pp_1f1b``, ``registry internlm2-20b forward``,
     ``registry qwen3-moe-30b-a3b int8``, ``registry smollm-360m serve``,
-    ``ranks``, ``hybrid``, ``rank checkpoint``, ``supervisor ranks`` and
-    ``host workers``, the last five read from the ranks' and the workers'
-    result files, among them), then
+    ``ranks``, ``lm ranks``, ``hybrid``, ``rank checkpoint``,
+    ``supervisor ranks`` and ``host workers``, the last six read from the
+    ranks' and the workers' result files, among them), then
     the device line as the last line.
 
 The full record goes to ``chiprun_out/chip_smoke.json``.  Without a CUDA
 device the script exits 1 at once and prints no result.
 """
+import argparse
 import gc
 import itertools
 import json
@@ -938,6 +966,230 @@ def check_scan(torch, rec) -> dict:
     rec["gated_linear_scan"] = rows
     rec["gated_linear_scan_op_launches"] = launches
     return main
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: kernel_check -- the launch predicates against real launches
+# ---------------------------------------------------------------------------
+
+# flash: B, S, T, Hq, Hkv, D, causal, window, q_offset, kv_valid_len; every
+# case in both dtypes.  The table's paths (UViT-H's b=2 at D=128, a rank's
+# smollm-360m microbatch of the lm ranks phase), each head dim built and
+# three that are not, each side of Hq % Hkv and of the cache's valid
+# length, a window of 1 and of 0 (every key masked: a warning, zeros)
+KC_FLASH = (
+    [(2, 258, 258, 20, 20, 128, False, None, 0, None),
+     (1, 4096, 4096, 15, 5, 64, True, None, 0, None)]
+    + [(2, 70, 70, 4, 2, D, True, None, 0, None)
+       for D in (8, 16, 32, 48, 64, 80, 96, 112, 128, 224, 256)]
+    + [(1, 64, 64, 6, 3, 64, True, None, 0, None),
+       (1, 64, 64, 6, 4, 64, True, None, 0, None),
+       (2, 1, 96, 4, 2, 64, True, None, 40, 41),
+       (2, 1, 96, 4, 2, 64, True, None, 40, 96),
+       (2, 1, 96, 4, 2, 64, True, None, 40, 97),
+       (1, 64, 64, 2, 2, 64, True, 1, 0, None),
+       (1, 64, 64, 2, 2, 64, True, 0, 0, None)])
+# skip: M, D, N; every case in both dtypes.  UViT-H's and Hunyuan-DiT's
+# train shapes, each side of the bf16 TMA rule and of a thin last row tile
+KC_SKIP = [(516, 2560, 2560), (2048, 2048, 2048), (64, 24, 40),
+           (64, 12, 8), (64, 16, 12), (64, 12, 7), (1, 8, 8), (128, 64, 64),
+           (159, 64, 64), (160, 64, 64)]
+# scan: R, T, C in each of the four dtype pairs, both directions: zamba2's
+# chunk carry (the kernel table's path), a ragged small shape, rows of a
+# byte length that is not a multiple of 16 (no TMA)
+KC_SCAN = [(2, 32, 80 * 64 * 64), (2, 200, 520), (1, 65, 3)]
+
+
+def _kc_run(torch, report, launch, plain, dtype: str, what: str,
+            name: str) -> str:
+    """Launch one case the way its predicate says: accepted -> the kernel
+    runs and equals its plain version; refused -> the wrapper raises
+    before any launch.  Returns "launched" or "refused"."""
+    from repro_torch.kernels import LAUNCHES
+    before = LAUNCHES[name]
+    if report.ok:
+        got = launch()
+        torch.cuda.synchronize()
+        if LAUNCHES[name] != before + 1:
+            fail(f"kernel_check {what}: accepted, but the wrapper counted "
+                 f"{LAUNCHES[name] - before} launches")
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        plain() if isinstance(got, tuple) else (plain(),)):
+            check_close(torch, g, w, dtype, f"kernel_check {what}")
+        return "launched"
+    try:
+        launch()
+    except (ValueError, TypeError):
+        pass
+    else:
+        fail(f"kernel_check {what}: refused ({report.errors()}), but the "
+             "wrapper launched")
+    if LAUNCHES[name] != before:
+        fail(f"kernel_check {what}: refused, but the wrapper launched")
+    return "refused"
+
+
+def _misaligned(torch, x):
+    """``x``'s values at a base 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    y = buf[1:1 + x.numel()].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def kernel_check_phase(torch, rec) -> None:
+    """``repro_torch.analysis.kernel_check`` held to the kernels: every
+    case of ``KC_FLASH``, ``KC_SKIP`` and ``KC_SCAN`` (and, on each bf16
+    TMA route, a base 2 bytes off and float16 inputs) that the predicate
+    accepts launches and equals its plain version; every case it refuses
+    raises before a launch; each route's predicted tiles and shared memory
+    equal the kernel's own report (``bf16_config`` /
+    ``scan_config``, blocks per SM aside), and the budget equals the
+    card's opt-in shared memory a block."""
+    from repro_torch.analysis import kernel_check as kc
+    from repro_torch.kernels.flash_attention import (attention_plain,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ops import \
+        bf16_config as flash_cfg
+    from repro_torch.kernels.linear_scan import (gated_linear_scan_bwd_cuda,
+                                                 gated_linear_scan_bwd_plain,
+                                                 gated_linear_scan_cuda,
+                                                 gated_linear_scan_plain,
+                                                 scan_config)
+    from repro_torch.kernels.skip_matmul import (skip_concat_matmul_cuda,
+                                                 skip_concat_matmul_plain)
+    from repro_torch.kernels.skip_matmul.ops import bf16_config as skip_cfg
+
+    t0 = time.perf_counter()
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    if optin != kc.SMEM_OPTIN:
+        fail(f"kernel_check: the card's opt-in shared memory a block is "
+             f"{optin}, the predicates' budget {kc.SMEM_OPTIN}")
+
+    def same(pred: dict, cuda: dict, what: str):
+        got = {k: v for k, v in cuda.items() if k != "blocks_per_sm"}
+        want = {k: v for k, v in pred.items() if k != "route"}
+        if got != want:
+            fail(f"kernel_check {what}: predicted tiling {want}, the "
+                 f"kernel's {got}")
+    for D in kc.WGMMA_HEAD_DIMS:
+        same(kc.flash_tiling("bfloat16", D), flash_cfg(D),
+             f"flash bf16 D={D}")
+    same(kc.skip_tiling("bfloat16"), skip_cfg(), "skip bf16")
+    for a in kc.DTYPES:
+        for x in kc.DTYPES:
+            for bwd in (False, True):
+                same(kc.scan_tiling(a, x, bwd),
+                     scan_config(getattr(torch, a), getattr(torch, x), bwd),
+                     f"scan a={a} x={x} backward={bwd}")
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tally = {k: {"launched": 0, "refused": 0, "warned": 0}
+             for k in ("flash_attention", "skip_concat_matmul",
+                       "gated_linear_scan")}
+
+    def count(name, verdict, report):
+        tally[name][verdict] += 1
+        tally[name]["warned"] += any(f.level == "warn"
+                                     for f in report.findings)
+
+    def rnd(*shape, dtype="float32"):
+        return torch.randn(*shape, device="cuda", generator=gen).to(
+            getattr(torch, dtype))
+
+    name = "flash_attention"
+    for B, S, T, Hq, Hkv, D, causal, window, q_off, valid in KC_FLASH:
+        for dtype in kc.DTYPES:
+            q, k, v = (rnd(B, S, Hq, D, dtype=dtype),
+                       rnd(B, T, Hkv, D, dtype=dtype),
+                       rnd(B, T, Hkv, D, dtype=dtype))
+            args = (causal, window, q_off, valid)
+            rep = kc.check_flash_attention(B, S, T, Hq, Hkv, D, dtype=dtype,
+                                           q_offset=q_off,
+                                           kv_valid_len=valid, window=window)
+            what = (f"flash {dtype} B={B} S={S} T={T} Hq={Hq} Hkv={Hkv} D={D}"
+                    f" causal={causal} window={window} q_offset={q_off} "
+                    f"kv_valid_len={valid}")
+            # the plain version masks what the kernel refuses differently:
+            # only an accepted case reaches it
+            count(name, _kc_run(
+                torch, rep, lambda: flash_attention_cuda(q, k, v, *args),
+                lambda: attention_plain(q, k, v, *args), dtype, what, name),
+                rep)
+    for D in (16, 64):        # a base 2 bytes off: SIMT takes it, TMA not
+        q = _misaligned(torch, rnd(1, 64, 2, D, dtype="bfloat16"))
+        rep = kc.check_flash_attention(1, 64, 64, 2, 2, D, dtype="bfloat16",
+                                       bases_aligned=False)
+        count(name, _kc_run(
+            torch, rep, lambda: flash_attention_cuda(q, q, q),
+            lambda: attention_plain(q, q, q), "bfloat16",
+            f"flash bf16 D={D} misaligned", name), rep)
+    h = rnd(1, 64, 2, 64, dtype="float16")
+    rep = kc.check_flash_attention(1, 64, 64, 2, 2, 64, dtype="float16")
+    count(name, _kc_run(torch, rep, lambda: flash_attention_cuda(h, h, h),
+                        None, "float16", "flash float16", name), rep)
+
+    name = "skip_concat_matmul"
+    for M, D, N in KC_SKIP:
+        for dtype in kc.DTYPES:
+            h, s_, w = (rnd(M, D, dtype=dtype), rnd(M, D, dtype=dtype),
+                        rnd(2 * D, N, dtype=dtype) / math.sqrt(D))
+            rep = kc.check_skip_concat_matmul(M, D, N, dtype=dtype)
+            count(name, _kc_run(
+                torch, rep, lambda: skip_concat_matmul_cuda(h, s_, w),
+                lambda: skip_concat_matmul_plain(h, s_, w), dtype,
+                f"skip {dtype} M={M} D={D} N={N}", name), rep)
+    for dtype in kc.DTYPES:
+        h = _misaligned(torch, rnd(64, 64, dtype=dtype))
+        w = rnd(128, 64, dtype=dtype) / 8
+        rep = kc.check_skip_concat_matmul(64, 64, 64, dtype=dtype,
+                                          bases_aligned=False)
+        count(name, _kc_run(
+            torch, rep, lambda: skip_concat_matmul_cuda(h, h, w),
+            lambda: skip_concat_matmul_plain(h, h, w), dtype,
+            f"skip {dtype} misaligned", name), rep)
+    h = rnd(64, 64, dtype="float16")
+    rep = kc.check_skip_concat_matmul(64, 64, 64, dtype="float16")
+    count(name, _kc_run(
+        torch, rep, lambda: skip_concat_matmul_cuda(h, h, torch.cat([h, h])),
+        None, "float16", "skip float16", name), rep)
+
+    name = "gated_linear_scan"
+    for R, T, C in KC_SCAN:
+        for da in kc.DTYPES:
+            for dx in kc.DTYPES:
+                a = torch.sigmoid(rnd(R, T, C)).to(getattr(torch, da))
+                x = rnd(R, T, C, dtype=dx)
+                rep = kc.check_gated_linear_scan(R, T, C, dtype_a=da,
+                                                 dtype_x=dx)
+                tol = "bfloat16" if "bfloat16" in (da, dx) else "float32"
+                count(name, _kc_run(
+                    torch, rep, lambda: gated_linear_scan_cuda(a, x),
+                    lambda: gated_linear_scan_plain(a, x), tol,
+                    f"scan a={da} x={dx} R={R} T={T} C={C}", name), rep)
+                h = gated_linear_scan_plain(a, x)
+                g = rnd(R, T, C, dtype=dx)
+                rep = kc.check_gated_linear_scan(R, T, C, dtype_a=da,
+                                                 dtype_x=dx, backward=True)
+                count(name, _kc_run(
+                    torch, rep, lambda: gated_linear_scan_bwd_cuda(a, h, g),
+                    lambda: gated_linear_scan_bwd_plain(a, h, g), tol,
+                    f"scan backward a={da} x={dx} R={R} T={T} C={C}", name),
+                    rep)
+    a = rnd(2, 64, 256, dtype="float16")
+    rep = kc.check_gated_linear_scan(2, 64, 256, dtype_a="float16")
+    count(name, _kc_run(torch, rep, lambda: gated_linear_scan_cuda(a, a),
+                        None, "float16", "scan float16", name), rep)
+    torch.cuda.empty_cache()
+    rec["kernel_check"] = dict(smem_optin=optin, cases=tally,
+                               seconds=time.perf_counter() - t0)
+    for k, v in tally.items():
+        log(f"[kernel_check] {k}: {v['launched']} accepted shapes launched "
+            f"and equal to the plain version, {v['refused']} refused before "
+            f"a launch, {v['warned']} with a warning")
+    log(f"[kernel_check] tiles and shared memory of every route = the "
+        f"kernels' reports; budget {optin} bytes a block = the card's "
+        f"opt-in; {rec['kernel_check']['seconds']:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2192,6 +2444,15 @@ LM_SMOKE_BATCH = 4
 LM_SMOKE_BAR = 1e-5      # fp32: a smoke key's loss, card vs CPU
 
 
+def lm_digest(torch, params, tokens) -> dict:
+    """What identifies smollm's seed-0 weights and batch: the sum of every
+    weight (fp64) and of the tokens."""
+    from repro_torch.tree import tree_leaves
+    return dict(params=sum(float(x.double().sum())
+                           for x in tree_leaves(params)),
+                tokens=int(tokens.long().sum()))
+
+
 def _lm_predicted_flash(cp) -> int:
     """Flash launches of one forward+backward of a plan, from its step
     tables: every stage task runs its blocks' attention once forward, and
@@ -2239,6 +2500,7 @@ def lm_smollm(torch, rec) -> dict:
     n_params = sum(x.numel() for x in tree_leaves(params))
     tokens = torch.randint(0, CFG.vocab, (LM_BATCH, LM_SEQ), generator=gen,
                            device="cuda", dtype=torch.int32)
+    digest = lm_digest(torch, params, tokens)
     # the reference: the whole model's loss on the same weights and batch,
     # a microbatch at a time (equal sizes: the mean of the means is the
     # mean), its gradients summed in place, the same AdamW steps
@@ -2351,6 +2613,7 @@ def lm_smollm(torch, rec) -> dict:
              f"{LM_TRAJ_BAR})")
     rec.setdefault("lm", {})["smollm-360m"] = dict(
         params=n_params, seq=LM_SEQ, global_batch=LM_BATCH, D=LM_D, M=LM_M,
+        digest=digest,
         reference_losses=ref_losses, reference_grad_norms=ref_norms,
         reference_step_seconds=ref_secs, plans_rel_err=between, **out)
     log(f"[lm] smollm-360m: {n_params} params; both plans' losses within "
@@ -3798,6 +4061,7 @@ def ranks_phase(torch, rec, smi_line: str) -> dict:
     if not math.isclose(base_loss, loss0, rel_tol=1e-5):
         fail(f"{what}: skip-carry loss {base_loss} vs the table walk's "
              f"{loss0} (rtol 1e-5)")
+    cf = closed_form_probe(docs, one, loss0, table_bytes, live, want, what)
     launched = {k: sum(d["launches"][k] for d in docs)
                 for k in docs[0]["launches"]}
 
@@ -3836,7 +4100,8 @@ def ranks_phase(torch, rec, smi_line: str) -> dict:
                                train=d["train"]["peak_bytes"],
                                baseline=d["baseline"]["peak_bytes"])
                for d in docs},
-        eq14_per_device_bytes=predicted, nccl="not run (1 card)")
+        eq14_per_device_bytes=predicted, nccl="not run (1 card)",
+        closed_form=cf)
     rec["ranks"] = out
     log(f"[ranks] UViT-H D={RANKS_D} M=8 b=2, four ranks on one card over "
         f"the gloo ring (staged through pinned host memory); torchrun "
@@ -3852,6 +4117,14 @@ def ranks_phase(torch, rec, smi_line: str) -> dict:
     log(f"[ranks] launches of the forward+backward summed over the ranks: "
         f"table {probe_launches}, skip-carry {base_launches}; whole run "
         f"{launched}")
+    log(f"[ranks] closed-form wave over the ranks: loss {cf['loss']!r} "
+        f"(table walk {loss0!r}, rel {cf['loss_rel_err']:.2e}); gradient "
+        f"fingerprints vs phase 6's step 0: worst ||err||/||g|| "
+        f"{cf['worst_rel_grad_err']:.3e} ({cf['worst_grad']}); ring bytes "
+        f"{cf['ring_bytes']} = the table walk's = HOP_BYTES live {live}; "
+        f"launches {cf['launches']}; seconds "
+        f"{[round(x, 3) for x in cf['seconds']]}; peak GB "
+        f"{[round(x / 1e9, 3) for x in cf['peak_bytes']]}")
     for d in docs:
         pk = out["peaks"][d["rank"]]
         log(f"[ranks] rank {d['rank']}: peak GB set-up (the whole model "
@@ -3863,6 +4136,339 @@ def ranks_phase(torch, rec, smi_line: str) -> dict:
     log(f"[ranks] step s (slowest rank) {[round(x, 4) for x in step_max]}; "
         f"spread after step 0 {out['spread_after_first']}; "
         f"nccl: not run (1 card); phase {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
+def closed_form_probe(docs: list, one: dict, loss0: float, table_bytes: dict,
+                      live: int, want: dict, what: str) -> dict:
+    """The ranks' closed-form wave (``executor="closed_form"`` over the
+    same ring, the same seed-0 params and step 0's batch): its loss
+    against the table walk's probe at rtol 1e-5 (the bar the skip-carry
+    baseline meets), its gradient fingerprints against phase 6's step 0
+    at ``FINGERPRINT_BAR``, its ring bytes, each direction, equal to the
+    table walk's and to ``HOP_BYTES``' live count (the stash never crosses
+    the ring), its flash and skip launches summed over the ranks equal to
+    phase 6's a step."""
+    cfs = [d["closed_form"] for d in docs]
+    if any(c is None for c in cfs):
+        fail(f"{what}: a rank ran no closed-form probe")
+    losses = {c["loss"] for c in cfs}
+    if len(losses) != 1:
+        fail(f"{what}: the ranks disagree on the closed form's loss "
+             f"{sorted(losses)}")
+    loss = cfs[0]["loss"]
+    rel = abs(loss - loss0) / abs(loss0)
+    if not rel <= 1e-5:
+        fail(f"{what}: closed-form loss {loss} vs the table walk's {loss0} "
+             "(rtol 1e-5)")
+    got = {}
+    for d in docs:
+        for k, v in d["closed_form"]["fingerprints"].items():
+            got[f"{k} (rank {d['rank']})" if k.startswith("edge/") else k] = v
+    if sorted(got) != sorted(want):
+        fail(f"{what}: closed-form fingerprint keys differ: "
+             f"{sorted(set(got) ^ set(want))[:10]}")
+    worst, worst_at = _fingerprint_errs(got, want)
+    if worst > FINGERPRINT_BAR:
+        fail(f"{what}: closed-form gradient {worst_at} ||err||/||g|| "
+             f"{worst:.3e} against phase 6's step 0 (bar {FINGERPRINT_BAR})")
+    nbytes = {f"{p} {k}": sum(c["ring_bytes"][p][k] for c in cfs)
+              for p in ("fwd", "bwd") for k in ("sent", "received")}
+    if nbytes != table_bytes or set(nbytes.values()) != {live}:
+        fail(f"{what}: closed-form ring bytes {nbytes}, the table walk's "
+             f"{table_bytes}, HOP_BYTES live {live}")
+    launches = {k: sum(c["launches"][k] for c in cfs)
+                for k in cfs[0]["launches"]}
+    for k in ("flash_attention", "skip_concat_matmul"):
+        if launches[k] != one["launches_per_step"][k]:
+            fail(f"{what}: the closed form launched {k} {launches[k]} times, "
+                 f"phase 6's step {one['launches_per_step'][k]}")
+    return dict(loss=loss, loss_rel_err=rel, worst_rel_grad_err=worst,
+                worst_grad=worst_at, ring_bytes=nbytes, launches=launches,
+                seconds=[c["seconds"] for c in cfs],
+                peak_bytes=[c["peak_bytes"] for c in cfs])
+
+
+# ---------------------------------------------------------------------------
+# phase 12b: lm ranks -- smollm-360m at full width and depth on wave-zero2's
+# plan shape (P=2, dp=2, ZeRO-2), four rank processes on the one card
+# ---------------------------------------------------------------------------
+
+LM_RANKS_DP, LM_RANKS_PP = 2, 2
+LM_RANKS_STEPS = 2
+LM_RANKS_TIMEOUT = 900
+
+
+def _lm_ranks_plan():
+    """wave-zero2's plan shape at smollm-360m's full width and depth: the
+    folded wave (``force_wave``) over P=2 pipeline devices, two ZeRO-2
+    data replicas, M=8; each replica's microbatch is one sequence."""
+    from repro_torch.configs.smollm_360m import CFG
+    from repro_torch.models import lm
+    from repro_torch.runtime.adapters import lm_model_fns
+    from repro_torch.runtime.compile import auto_pipeline
+    b = LM_BATCH // LM_M // LM_RANKS_DP
+    return auto_pipeline(lm.lm_pipeline_graph(CFG, batch=b, seq=LM_SEQ),
+                         lm_model_fns(CFG), LM_RANKS_DP * LM_RANKS_PP,
+                         pipeline_devices=LM_RANKS_PP,
+                         dp_size=LM_RANKS_DP, zero_stage=2,
+                         microbatches=LM_M, force_wave=True)
+
+
+def lm_rank_worker(rank: int, port: int, out_dir: str) -> None:
+    """One rank of the ``lm ranks`` phase (``chip_smoke.py --lm-rank R
+    --port P --out DIR``): smollm-360m's seed-0 weights and batch drawn as
+    the ``lm`` phase draws them, the rank's shard of its rows kept,
+    ``LM_RANKS_STEPS`` AdamW steps (lr 3e-4, the norm over the grid),
+    each step's loss, seconds, peak, ring and data-group bytes and
+    launches written to DIR/rank<R>.json."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs.smollm_360m import CFG
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.mesh import make_rank_grid
+    from repro_torch.launch.train import Ranks
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.runtime.adapters import make_lm_microbatches
+    from repro_torch.runtime.ring import DataGroup, Ring
+    from repro_torch.tree import tree_leaves, tree_map
+
+    dev = torch.device("cuda", 0)
+    world = LM_RANKS_DP * LM_RANKS_PP
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    grid = make_rank_grid(LM_RANKS_PP, dp=LM_RANKS_DP)
+    ring = Ring(grid.model_group, grid.pipe_index, LM_RANKS_PP, dev,
+                staged=True)
+    data = DataGroup(grid.data_group, grid.data_index, LM_RANKS_DP, dev,
+                     staged=True)
+    cp = _lm_ranks_plan().for_rank(grid.pipe_index, grid.data_index)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        whole = lm.init_lm(gen, CFG, "cuda")
+    tokens = torch.randint(0, CFG.vocab, (LM_BATCH, LM_SEQ), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    digest = lm_digest(torch, whole, tokens)
+    with torch.no_grad():
+        params = tree_map(torch.clone, cp.split_params(whole))
+    del whole
+    torch.cuda.empty_cache()
+    init_peak = torch.cuda.max_memory_allocated()
+    for x in tree_leaves(params):
+        x.requires_grad_(True)
+    stacks, edge = params
+    mbs = make_lm_microbatches({"tokens": tokens}, LM_M)
+    fn = cp.build(ring, data)
+    ranks = Ranks(grid, ring, dev, "gloo", data)
+    opt = adamw_init(cp.optimizer_view(params))
+    steps = []
+    for step in range(LM_RANKS_STEPS):
+        ring.reset_bytes()
+        data.reset_bytes()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        loss = fn(*stacks, edge, mbs, {})
+        grads = tree_map(lambda x: x.grad if x.grad is not None
+                         else torch.zeros_like(x), params)
+        finite, norm = ranks.reduce(loss, grads, cp)
+        if finite:
+            adamw_update(cp.optimizer_view(params), cp.optimizer_view(grads),
+                         opt, AdamWConfig(lr=3e-4), norm=norm)
+            cp.gather_params_(params, data)
+        for x in tree_leaves(params):
+            x.grad = None
+        torch.cuda.synchronize()
+        after = launch_counts()
+        steps.append(dict(
+            loss=float(loss), finite=bool(finite), norm=float(norm),
+            seconds=time.perf_counter() - t0,
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            ring_bytes=json.loads(json.dumps(ring.bytes)),
+            data_bytes=dict(data.bytes), data_calls=dict(data.calls),
+            data_seconds=dict(data.seconds),
+            launches={k: v - before[k] for k, v in after.items()}))
+        del grads, loss
+    doc = dict(rank=rank, pipe=grid.pipe_index, data=grid.data_index,
+               digest=digest, init_peak_bytes=init_peak, steps=steps,
+               launches=launch_counts())
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(doc, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def lm_ranks_phase(torch, rec, smi_line: str) -> dict:
+    """smollm-360m (32 layers, S=4096, global batch 16, bf16, seed-0) over
+    four rank processes on the one card (gloo, staged through pinned host
+    memory): ``_lm_ranks_plan``'s two ZeRO-2 replicas of a P=2 wave,
+    ``LM_RANKS_STEPS`` AdamW steps.  Held: every rank's loss equal, every
+    step's against the ``lm`` phase's non-pipeline ``lm_loss`` + AdamW
+    reference at ``LM_TRAJ_BAR`` (the same weights and batch: its digest
+    is checked, else the reference is not reused and the phase fails), so
+    the steps after the first hold the update each rank applied; every
+    rank's gradient finite on every step (a step it skips fails the
+    phase); every rank's step-0 gradient norm over the grid against the
+    reference's at ``LM_BAR``; each replica's ring bytes, each
+    direction, equal to its live hops times a microbatch's activation
+    bytes; each rank's data-group bytes and calls of a step equal to
+    ``hybrid_bytes``; the flash launches of a step, summed over the ranks,
+    equal to the tables' count for both replicas.  Printed: each rank's
+    step seconds and peak memory.  Returns the ranks' launches."""
+    import shutil
+    import socket
+
+    from repro_torch.configs.smollm_360m import CFG
+    t_phase = time.perf_counter()
+    what = "lm ranks"
+    ref = rec["lm"]["smollm-360m"]
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_lm_ranks")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, REPRO_TORCH_NO_BUILD="1")
+    world = LM_RANKS_DP * LM_RANKS_PP
+    logs = [open(os.path.join(OUT_DIR, f"lm_ranks.r{r}.log"), "w")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--lm-rank", str(r),
+         "--port", str(port), "--out", out_dir], env=env, cwd=ROOT,
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        codes = [p.wait(timeout=LM_RANKS_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    if any(codes):
+        tails = []
+        for r in range(world):
+            with open(os.path.join(OUT_DIR, f"lm_ranks.r{r}.log")) as f:
+                tails.append(f"rank {r}:\n{f.read()[-2000:]}")
+        fail(f"{what}: rank exit codes {codes}\n" + "\n".join(tails))
+    docs = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            docs.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # the weights and batch are the lm phase's: its reference applies
+    for d in docs:
+        if d["digest"] != ref["digest"]:
+            fail(f"{what}: rank {d['rank']} drew weights and batch "
+                 f"{d['digest']}, the lm phase {ref['digest']}")
+    losses = [[st["loss"] for st in d["steps"]] for d in docs]
+    if any(x != losses[0] for x in losses):
+        fail(f"{what}: the ranks disagree on the losses {losses}")
+    losses = losses[0]
+    rel = [abs(x - r) / abs(r) for x, r in zip(losses,
+                                                 ref["reference_losses"])]
+    if not all(math.isfinite(x) for x in losses) or not max(rel) <= \
+            LM_TRAJ_BAR:
+        fail(f"{what}: losses {losses} vs the lm phase's non-pipeline "
+             f"lm_loss + AdamW {ref['reference_losses']} (relative {rel}, "
+             f"bar {LM_TRAJ_BAR})")
+    # every rank's gradient finite (else it skipped the update), and the
+    # step-0 norm over the grid the reference's
+    for d in docs:
+        skipped = [s for s, st in enumerate(d["steps"]) if not st["finite"]]
+        if skipped:
+            fail(f"{what}: rank {d['rank']} found a non-finite gradient and "
+                 f"skipped the update at steps {skipped}")
+    norms = {d["rank"]: [st["norm"] for st in d["steps"]] for d in docs}
+    first = {r: n[0] for r, n in norms.items()}
+    ref_norm = ref["reference_grad_norms"][0]
+    norm_rel = {r: abs(n - ref_norm) / abs(ref_norm)
+                for r, n in first.items()}
+    if not max(norm_rel.values()) <= LM_BAR:
+        fail(f"{what}: step-0 gradient norms by rank {first} vs the "
+             f"non-pipeline {ref_norm} (relative {norm_rel}, bar {LM_BAR})")
+
+    # bytes: each replica's ring, each rank's data group, every step
+    cp = _lm_ranks_plan()
+    live_d, live_u = cp.step_tables().live_hops
+    act = (LM_BATCH // LM_M // LM_RANKS_DP) * LM_SEQ * CFG.d_model * 2
+    ring_want = (live_d + live_u) * act
+    for di in range(LM_RANKS_DP):
+        for s in range(LM_RANKS_STEPS):
+            got = {f"{p} {k}": sum(d["steps"][s]["ring_bytes"][p][k]
+                                   for d in docs if d["data"] == di)
+                   for p in ("fwd", "bwd") for k in ("sent", "received")}
+            if set(got.values()) != {ring_want}:
+                fail(f"{what}: replica {di} step {s} ring bytes {got}, want "
+                     f"{ring_want} ({live_d}+{live_u} live hops x {act} "
+                     "bytes) each")
+    data_want = {}
+    for d in docs:
+        nb, calls = hybrid_bytes(cp.for_rank(d["pipe"], d["data"]),
+                                 d["pipe"], True)
+        data_want[d["rank"]] = nb
+        for s, st in enumerate(d["steps"]):
+            if st["data_bytes"] != nb or st["data_calls"] != calls:
+                fail(f"{what}: rank {d['rank']} step {s} data group "
+                     f"{st['data_bytes']} in {st['data_calls']}, want {nb} "
+                     f"in {calls}")
+
+    # launches: flash a step, summed over the ranks, is both replicas'
+    flash_want = LM_RANKS_DP * _lm_predicted_flash(cp)
+    flash = [sum(d["steps"][s]["launches"]["flash_attention"] for d in docs)
+             for s in range(LM_RANKS_STEPS)]
+    if any(n != flash_want for n in flash):
+        fail(f"{what}: flash launches a step {flash}, the tables predict "
+             f"{flash_want}")
+    launched = {k: sum(d["launches"][k] for d in docs)
+                for k in docs[0]["launches"]}
+    secs = {d["rank"]: [round(st["seconds"], 3) for st in d["steps"]]
+            for d in docs}
+    peaks = {d["rank"]: [st["peak_bytes"] for st in d["steps"]]
+             for d in docs}
+    rec["lm_ranks"] = dict(
+        card=smi_line, dp=LM_RANKS_DP, pp=LM_RANKS_PP, zero_stage=2, M=LM_M,
+        seq=LM_SEQ, global_batch=LM_BATCH, cuts=list(cp.partition.cuts),
+        wall_s=wall, losses=losses, reference_losses=ref["reference_losses"],
+        loss_rel_err=rel, grad_norms=norms,
+        reference_grad_norm=ref_norm, first_grad_norm_rel_err=norm_rel,
+        step_seconds=secs, peak_bytes=peaks,
+        init_peak_bytes={d["rank"]: d["init_peak_bytes"] for d in docs},
+        ring_bytes_per_replica_step=ring_want, live_hops=[live_d, live_u],
+        data_bytes_per_step=data_want,
+        data_seconds={d["rank"]: [st["data_seconds"] for st in d["steps"]]
+                      for d in docs},
+        flash_per_step=flash, flash_predicted=flash_want, launches=launched)
+    log(f"[lm ranks] smollm-360m, 32 layers, S={LM_SEQ}, global batch "
+        f"{LM_BATCH}: P={LM_RANKS_PP} wave x dp={LM_RANKS_DP} ZeRO-2, M={LM_M}"
+        f", cuts {list(cp.partition.cuts)}; four ranks on one card (gloo, "
+        f"staged); {wall:.1f} s; {smi_line}")
+    log(f"[lm ranks] losses {losses} vs lm_loss + AdamW "
+        f"{ref['reference_losses']} (relative "
+        f"{[f'{x:.2e}' for x in rel]}, bar {LM_TRAJ_BAR})")
+    log(f"[lm ranks] step-0 gradient norm by rank {first} vs lm_loss's "
+        f"{ref_norm!r} (relative {max(norm_rel.values()):.2e} at most, bar "
+        f"{LM_BAR}); every rank's gradient finite every step")
+    log(f"[lm ranks] ring bytes a replica's step, each direction: "
+        f"{ring_want} = {live_d}+{live_u} live hops x {act}; data group a "
+        f"step by rank: {data_want} = their arithmetic")
+    log(f"[lm ranks] flash a step over the ranks {flash} = the tables' "
+        f"{flash_want} (B=1 Hq=15 Hkv=5 D=64, causal)")
+    for d in docs:
+        log(f"[lm ranks] rank {d['rank']} (pipe {d['pipe']}, data "
+            f"{d['data']}): step s {secs[d['rank']]}; peak GB "
+            f"{[round(x / 1e9, 3) for x in peaks[d['rank']]]} (set-up "
+            f"{d['init_peak_bytes'] / 1e9:.3f})")
+    log(f"[lm ranks] phase {time.perf_counter() - t_phase:.1f} s")
     return launched
 
 
@@ -5150,7 +5756,22 @@ def _leaves(tree):
     return tree_leaves(tree)
 
 
+def _args() -> argparse.Namespace:
+    ap = argparse.ArgumentParser(
+        description="the port's smoke test on one H100 (no arguments: "
+                    "every phase)")
+    ap.add_argument("--lm-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
+    return ap.parse_args()
+
+
 def main() -> None:
+    args = _args()
+    if args.lm_rank is not None:
+        lm_rank_worker(args.lm_rank, args.port, args.out)
+        return
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device visible (torch.cuda.is_available() is False); "
@@ -5238,6 +5859,9 @@ def main() -> None:
                  "flash_attention": check_flash(torch, rec)}
     main_rows["gated_linear_scan"] = check_scan(torch, rec)
     torch.cuda.empty_cache()
+
+    # 3b. kernel_check: the launch predicates against real launches
+    kernel_check_phase(torch, rec)
 
     # 4. pipeline parity, then the UNet's card-vs-CPU parity
     for kind, D, M, over in PARITY_CASES:
@@ -5377,6 +6001,15 @@ def main() -> None:
     t0 = time.perf_counter()
     counts["ranks"] = ranks_phase(torch, rec, smi_line)
     rec["phase_s"]["ranks"] = time.perf_counter() - t0
+
+    # 12b. lm ranks: smollm-360m over four ranks, P=2 x dp=2 ZeRO-2
+    left = release(torch)
+    if left >= 1e9:
+        fail(f"lm ranks: {left / 1e9:.2f} GB still allocated; the previous "
+             "phase was not released")
+    t0 = time.perf_counter()
+    counts["lm ranks"] = lm_ranks_phase(torch, rec, smi_line)
+    rec["phase_s"]["lm ranks"] = time.perf_counter() - t0
 
     # 13. hybrid: the tuner's N=4 plan, two data replicas, ZeRO-1 and 2
     left = release(torch)

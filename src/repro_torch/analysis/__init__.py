@@ -1,8 +1,13 @@
 """Static plan verification: prove a lowered plan safe before it runs.
 
 The port's copy of ``repro.analysis``: the dataflow proof and the plan
-certificate, which import neither JAX nor torch.  The JAX package's
-``verify`` CLI, ``kernel_check`` and ``lint`` are not ported yet.
+certificate, which import neither JAX nor torch; the offline certifying
+CLI (``python -m repro_torch.analysis.verify``); the launch constraints
+of the port's CUDA kernels in plain arithmetic
+(:mod:`repro_torch.analysis.kernel_check`, whose verdicts the kernel
+wrappers raise); and the AST policy linter (``python -m
+repro_torch.analysis.lint``: the port's import boundary, a lazy torch in
+``core/``, guarded extrema in the scheduler).
 
 The compile path validates *schedules* (``core.schedule.validate_schedule``,
 constraint families 6-11) and the lowering rejects shapes the executors

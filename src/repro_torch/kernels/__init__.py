@@ -24,3 +24,9 @@ def tma_aligned(t):
     view that starts elsewhere is copied to a fresh tensor."""
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 16 else t
+
+
+def dtype_name(dtype) -> str:
+    """``torch.bfloat16`` -> ``"bfloat16"``: the names
+    ``repro_torch.analysis.kernel_check`` takes dtypes by."""
+    return str(dtype).removeprefix("torch.")

@@ -32,15 +32,18 @@ import math
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build, tma_aligned
+from repro_torch.analysis import kernel_check
+from repro_torch.kernels import (LAUNCHES, build, dtype_name,
+                                 tma_aligned)
 
 NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (8, 16, 32, 64, 80, 112, 128, 224)
-# bf16 head dims on the tensor-core route (80, 112 and 224 -- zamba2's and
-# danube's, the SDv2 UNet's -- padded to whole 64-column boxes inside the
-# kernel)
-WGMMA_HEAD_DIMS = (64, 80, 112, 128, 224)
+# the head dims the kernel is built for, and the bf16 ones on the
+# tensor-core route (80, 112 and 224 -- zamba2's and danube's, the SDv2
+# UNet's -- padded to whole 64-column boxes inside the kernel): the launch
+# rules of repro_torch.analysis.kernel_check
+HEAD_DIMS = kernel_check.HEAD_DIMS
+WGMMA_HEAD_DIMS = kernel_check.WGMMA_HEAD_DIMS
 # q, k, v, out, B, S, T, Hq, Hkv, D, causal, has_window, window, q_offset,
 # kv_valid_len, scale, dtype, stream
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
@@ -99,15 +102,16 @@ def flash_route(dtype: torch.dtype, D: int) -> str:
     if D not in HEAD_DIMS:
         raise ValueError(f"{NAME}: head dim {D} not built; the kernel takes "
                          f"{HEAD_DIMS}")
-    return "wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS \
-        else "simt"
+    return kernel_check.flash_route(dtype_name(dtype), D)
 
 
-def _check_cuda_args(q, k, v) -> None:
+def _check_cuda_args(q, k, v, q_offset: int = 0,
+                     kv_valid_len: int | None = None,
+                     window: int | None = None) -> None:
+    """Refuse what the kernel does not take: the layout here, the shapes,
+    dtypes and TMA strides by :func:`kernel_check.check_flash_attention`'s
+    verdict, then the device."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype not in _DTYPES:
-            raise TypeError(f"{NAME}: {name} has dtype {t.dtype}; the "
-                            "kernel takes float32 or bfloat16")
         if t.dim() != 4:
             raise ValueError(f"{NAME}: {name} must be 4-D, got {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -119,17 +123,13 @@ def _check_cuda_args(q, k, v) -> None:
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"{NAME}: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}; want (B,S,Hq,D), (B,T,Hkv,D) x2")
-    if Hq % k.shape[2] != 0:
-        raise ValueError(f"{NAME}: Hq={Hq} is not a multiple of "
-                         f"Hkv={k.shape[2]}")
-    if flash_route(q.dtype, D) == "wgmma" and any(
-            t.data_ptr() % 16 for t in (q, k, v)):
-        # a layer's slice of a stacked KV cache starts 16-byte aligned iff
-        # B * max_len * Hkv * D * 2 is a multiple of 16: it is never copied
-        raise ValueError(
-            f"{NAME}: the bf16 route at head dim {D} loads through TMA, "
-            "which needs 16-byte-aligned bases (bases mod 16: "
-            f"{[t.data_ptr() % 16 for t in (q, k, v)]})")
+    # a layer's slice of a stacked KV cache starts 16-byte aligned iff
+    # B * max_len * Hkv * D * 2 is a multiple of 16: it is never copied
+    kernel_check.check_flash_attention(
+        B, S, k.shape[1], Hq, k.shape[2], D, dtype=dtype_name(q.dtype),
+        q_offset=q_offset, kv_valid_len=kv_valid_len, window=window,
+        bases_aligned=all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    ).raise_if_refused()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"{NAME}: {name} is on {t.device}, not cuda")
@@ -144,14 +144,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the CUDA forward kernel on contiguous (B,S,Hq,D) / (B,T,Hkv,D)
     tensors of one dtype (float32 or bfloat16) on one card; over a KV cache
     with ``q_offset`` and ``kv_valid_len`` (host ints, launch arguments)."""
-    _check_cuda_args(q, k, v)
+    _check_cuda_args(q, k, v, q_offset, kv_valid_len, window)
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     valid = T if kv_valid_len is None else int(kv_valid_len)
-    if not (0 < valid <= T and q_offset >= 0):
-        raise ValueError(f"{NAME}: kv_valid_len {kv_valid_len} and q_offset "
-                         f"{q_offset} for {T} cache rows; want 0 < "
-                         "kv_valid_len <= T and q_offset >= 0")
     out = torch.empty_like(q)
     build.call("flash_attention", "flash_attention_fwd_launch", _ARGTYPES,
                q.device, NAME, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -29,7 +29,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.analysis import kernel_check
+from repro_torch.kernels import LAUNCHES, build, dtype_name
 
 NAME = "gated_linear_scan"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -83,25 +84,31 @@ def scan_config(dtype_a: torch.dtype, dtype_x: torch.dtype,
                      "blocks_per_sm"), out))
 
 
-def _check_cuda_args(**tensors) -> None:
+def _check_cuda_args(backward: bool = False, **tensors) -> None:
+    """Refuse what the kernel does not take: the layout here, the dtypes
+    and the grid by :func:`kernel_check.check_gated_linear_scan`'s verdict
+    (``a`` and the first other tensor name the instantiation), then the
+    device."""
     for name, t in tensors.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"{NAME}: {name} is on {t.device}, not cuda")
-        if t.dtype not in _DTYPES:
-            raise TypeError(f"{NAME}: {name} has dtype {t.dtype}; the "
-                            "kernel takes float32 or bfloat16")
         if t.dim() != 3:
             raise ValueError(f"{NAME}: {name} must be 3-D (R, T, C), got "
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{NAME}: {name} must be contiguous")
     first = next(iter(tensors.values()))
+    if any(t.shape != first.shape for t in tensors.values()):
+        raise ValueError(f"{NAME}: shapes differ: " + ", ".join(
+            f"{k}{tuple(v.shape)}" for k, v in tensors.items()))
+    a, x = tensors["a"], [t for k, t in tensors.items() if k != "a"][0]
+    kernel_check.check_gated_linear_scan(
+        *a.shape, dtype_a=dtype_name(a.dtype), dtype_x=dtype_name(x.dtype),
+        backward=backward
+    ).raise_if_refused()
     for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{NAME}: {name} is on {t.device}, not cuda")
         if t.device != first.device:
             raise ValueError(f"{NAME}: tensors on different devices")
-        if t.shape != first.shape:
-            raise ValueError(f"{NAME}: shapes differ: " + ", ".join(
-                f"{k}{tuple(v.shape)}" for k, v in tensors.items()))
 
 
 def _scratch(R: int, T: int, C: int, cfg: dict, device):
@@ -135,10 +142,10 @@ def gated_linear_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor,
     """Launch the kernel's backward mode: a, h = scan(a, x) and the
     cotangent g (R, T, C) contiguous on one card, g in ``h.dtype`` ->
     (da in ``a.dtype``, dx in ``g.dtype``), one launch."""
-    _check_cuda_args(a=a, h=h, g=g)
     if g.dtype != h.dtype:
         raise TypeError(f"{NAME}: g has dtype {g.dtype}, h {h.dtype}; the "
                         "cotangent takes the output's dtype")
+    _check_cuda_args(True, a=a, h=h, g=g)
     R, T, C = h.shape
     da, dx = torch.empty_like(a), torch.empty_like(g)
     vals, flags = _scratch(R, T, C, scan_config(a.dtype, h.dtype, True),

@@ -20,7 +20,9 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build, tma_aligned
+from repro_torch.analysis import kernel_check
+from repro_torch.kernels import (LAUNCHES, build, dtype_name,
+                                 tma_aligned)
 
 NAME = "skip_concat_matmul"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -36,10 +38,11 @@ def skip_concat_matmul_plain(h: torch.Tensor, s: torch.Tensor,
 
 
 def _check_cuda_args(h, s, w) -> tuple[int, int, int]:
+    """Refuse what the kernel does not take: the layout here, the shapes,
+    dtypes and TMA strides by
+    :func:`kernel_check.check_skip_concat_matmul`'s verdict, then the
+    device."""
     for name, t in (("h", h), ("s", s), ("w", w)):
-        if t.dtype not in _DTYPES:
-            raise TypeError(f"{NAME}: {name} has dtype {t.dtype}; the "
-                            "kernel takes float32 or bfloat16")
         if t.dim() != 2:
             raise ValueError(f"{NAME}: {name} must be 2-D, got {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -52,12 +55,10 @@ def _check_cuda_args(h, s, w) -> tuple[int, int, int]:
         raise ValueError(f"{NAME}: shapes h{tuple(h.shape)} s{tuple(s.shape)} "
                          f"w{tuple(w.shape)}; want (M, D), (M, D), (2D, N)")
     N = w.shape[1]
-    if h.dtype == torch.bfloat16 and (
-            D % 8 or N % 8 or any(t.data_ptr() % 16 for t in (h, s, w))):
-        raise ValueError(
-            f"{NAME}: the bf16 kernel loads through TMA, which needs D % 8 == "
-            f"N % 8 == 0 and 16-byte-aligned bases (D={D}, N={N}, bases mod "
-            f"16: {[t.data_ptr() % 16 for t in (h, s, w)]})")
+    kernel_check.check_skip_concat_matmul(
+        M, D, N, dtype=dtype_name(h.dtype),
+        bases_aligned=all(t.data_ptr() % 16 == 0 for t in (h, s, w))
+    ).raise_if_refused()
     for name, t in (("h", h), ("s", s), ("w", w)):
         if t.device.type != "cuda":
             raise ValueError(f"{NAME}: {name} is on {t.device}, not cuda")

@@ -401,6 +401,10 @@ class Supervisor:
             beats = read_heartbeats(self.hb_dir, gen=gen)
             dog.observe(beats)
             straggle.observe(beats)
+            # the hosts' ranks run in lockstep: a straggler shows in when
+            # its ranks enter each step, not in the step times
+            straggle.observe_entries(read_heartbeats(
+                os.path.join(self.hb_dir, ENTRY_BEATS), gen=gen))
 
             if live and beats and all(
                     beats[h].phase in ("train", "ckpt", "done")

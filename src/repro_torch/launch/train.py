@@ -111,7 +111,8 @@ data-group bytes, launches, peak memory), the data group's bytes of each
 training step, its saves and its restore (with a SHA-256 of each block it
 held at each save and after the restore, ``held_digests``), and, with one
 replica and no resume, one
-forward+backward of the paper's skip-carry baseline from the initial
+forward+backward each of the paper's skip-carry baseline and of the
+closed-form wave (a folded V = 1 plan with M >= D) from the initial
 params after training.  Without torchrun's environment the one-process
 executor runs one replica (``--dp > 1`` raises ``ValueError``).
 
@@ -288,7 +289,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="ranks: write DIR/rank<r>.json with the first "
                          "step's forward+backward (read before its update), "
                          "every step's data-group bytes and, with one "
-                         "replica, the skip-carry baseline's after training")
+                         "replica, the skip-carry baseline's and the "
+                         "closed-form wave's after training")
     return ap
 
 
@@ -1058,12 +1060,50 @@ def _whole_leaf(tr: Trainer) -> Callable | None:
     return whole
 
 
+def _closed_form_probe(args, tr: Trainer, draw) -> dict | None:
+    """One forward+backward of the closed-form wave over the ranks
+    (``executor="closed_form"``: the same cuts as the trainer's table
+    plan) from the initial (seed-0) params and step 0's batch, with its
+    gradient fingerprints; None where the closed form does not apply (a
+    linear or interleaved plan, M < D)."""
+    import torch
+
+    from repro_torch.runtime.adapters import (make_diffusion_microbatches,
+                                              model_fns)
+    from repro_torch.tree import tree_leaves, tree_map
+    cp, kind = tr.compiled, _kind(args)
+    pcfg = cp.pcfg
+    if not cp.folded or cp.layout.V > 1 \
+            or pcfg.num_microbatches < pcfg.num_devices:
+        return None
+    cf = dataclasses.replace(cp, executor="closed_form")
+    cfg, device = _model_config(args), tr.device
+    gen = torch.Generator(device=device).manual_seed(0)
+    with torch.no_grad():
+        params = cf.split_params(model_fns(cfg, kind).init_fn(gen, device))
+    for x in tree_leaves(params):
+        x.requires_grad_(True)
+    stacks, edge = params
+    fn = cf.build(tr.ranks.ring)
+    batch, (t, noise) = _step_inputs(tr, 0, draw)
+    mb, aux = make_diffusion_microbatches(
+        batch, pcfg.num_microbatches, cfg, kind, t=t, noise=noise,
+        params=edge)
+    _, out = _timed_walk(tr, lambda: fn(*stacks, edge, mb, aux))
+    out["fingerprints"] = grad_fingerprints(
+        tree_map(lambda p: p.grad if p.grad is not None
+                 else torch.zeros_like(p), params),
+        rank=tr.ranks.ring.index)
+    return out
+
+
 def _rank_report(args, tr: Trainer, res: TrainResult, probe: dict,
                  draw) -> str:
-    """After training: one forward+backward of the paper's skip-carry
-    baseline on this rank from the initial (seed-0) params and step 0's
-    batch (UViT and Hunyuan-DiT, one data replica), then
-    ``--rank-report``'s file for this rank.  Returns its path."""
+    """After training: one forward+backward each of the paper's skip-carry
+    baseline and of the closed-form wave on this rank from the initial
+    (seed-0) params and step 0's batch (UViT and Hunyuan-DiT, one data
+    replica), then ``--rank-report``'s file for this rank.  Returns its
+    path."""
     import torch
 
     from repro_torch.kernels import launch_counts
@@ -1072,7 +1112,7 @@ def _rank_report(args, tr: Trainer, res: TrainResult, probe: dict,
                                               model_fns)
     from repro_torch.tree import tree_leaves
     ranks, device, kind = tr.ranks, tr.device, _kind(args)
-    base = None
+    base = closed = None
     if kind != "skipvit" and ranks.data is None and res.resumed is None:
         cfg, pcfg = _model_config(args), tr.compiled.pcfg
         ad = DiffusionPipelineAdapter(cfg, pcfg, kind)
@@ -1089,6 +1129,7 @@ def _rank_report(args, tr: Trainer, res: TrainResult, probe: dict,
             params=edge)
         _, base = _timed_walk(tr, lambda: fn(enc, dec, edge, mb, aux))
         del enc, dec, edge, mb, aux
+        closed = _closed_form_probe(args, tr, draw)
     doc = dict(rank=ranks.grid.rank, world=ranks.grid.world, ring=ranks.kind,
                pipe=ranks.grid.pipe_index, data=ranks.grid.data_index,
                dp=ranks.grid.dp, spec=tr.compiled.state_spec(),
@@ -1101,7 +1142,7 @@ def _rank_report(args, tr: Trainer, res: TrainResult, probe: dict,
                                         res.step_seconds.items()},
                           peak_bytes=res.peak_bytes,
                           skipped_steps=res.skipped_steps),
-               baseline=base, launches=launch_counts(),
+               baseline=base, closed_form=closed, launches=launch_counts(),
                restore=res.restore, saves=res.saves,
                resumed=dataclasses.asdict(res.resumed) if res.resumed
                else None)

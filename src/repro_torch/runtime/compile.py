@@ -546,16 +546,16 @@ class CompiledPipeline:
         Folded: ``fn(enc_stack, dec_stack, edge, mbs, aux) -> loss``.
         Linear: ``fn(stack, edge, mbs) -> loss``.
 
-        A rank's plan (:meth:`for_rank`) lowers the table executors to
-        that rank's executor over ``ring``
+        A rank's plan (:meth:`for_rank`) lowers either executor to that
+        rank's executor over ``ring``
         (:class:`~repro_torch.runtime.ring.Ring`): its stacks are its own
         rows, it returns the loss summed over the group with every leaf's
         ``.grad`` filled (no ``loss.backward()``).  With ``dp_size > 1``
         it also needs the rank's ``data`` group
         (:class:`~repro_torch.runtime.ring.DataGroup`): it runs its data
         shard of each microbatch, and the loss and gradients come back
-        averaged over the replicas (``schedule_exec``).  The closed forms
-        stay one-process.
+        averaged over the replicas (``schedule_exec``; the closed forms at
+        ZeRO 0 and 1, ``runtime.pipeline``).
         """
         if self.executor not in ("table", "closed_form"):
             raise ValueError(
@@ -574,10 +574,6 @@ class CompiledPipeline:
                 "a rank's plan (for_rank) builds with its ring, and only "
                 f"it: rank={self.rank}, ring={ring}")
         if ring is not None:
-            if self.executor != "table":
-                raise NotImplementedError(
-                    "the closed-form executors over ranks are not ported "
-                    "(ROADMAP A3); lower through executor='table'")
             if ring.index != self.rank:
                 raise ValueError(f"ring index {ring.index} for rank "
                                  f"{self.rank}'s plan")
@@ -637,7 +633,10 @@ class CompiledPipeline:
 
             wave = make_wave_pipeline(
                 pcfg, embed_fn=fns.embed_fn, enc_stage_fn=enc_stage_cf,
-                dec_stage_fn=dec_stage_cf, loss_fn=fns.loss_fn)
+                dec_stage_fn=dec_stage_cf, loss_fn=fns.loss_fn, ring=ring,
+                data=data, zero_dims=zero_dims)
+            if ring is not None:          # a rank's [1, pad, ...] rows
+                return wave
             return lambda enc, dec, edge, mbs, aux: wave(
                 squeeze_slot(enc), squeeze_slot(dec), edge, mbs, aux)
 
@@ -660,7 +659,10 @@ class CompiledPipeline:
                                None)
 
         linear = make_linear_pipeline(pcfg, embed_fn=embed, stage_fn=stage_cf,
-                                      loss_fn=loss)
+                                      loss_fn=loss, ring=ring, data=data,
+                                      zero_dims=zero_dims)
+        if ring is not None:
+            return linear
         return lambda stack, edge, mbs: linear(squeeze_slot(stack), edge, mbs)
 
     def describe(self) -> str:

@@ -16,7 +16,9 @@ of the JAX package's collective-permute bytes read from the compiled HLO
 (``runtime/hlo_analysis.collective_bytes``).  It counts the forward walk
 only; on a real ring the backward moves the same bytes in reverse.  The
 rank executors (``ring=`` on the makers; ``runtime/ring.py``) run one
-device per process and send only the live payloads over a process group.
+device per process and send only the live payloads over a process group;
+the closed forms and the skip-carry baseline take ``ring=`` as well, their
+arrivals and sends read off the same index arithmetic.
 
 The closed-form executors realize the wave / 1F1B template orders through
 index arithmetic (``my_mb = t - d``, ``skip_row = t2 - (D-1) + 2d``), the
@@ -48,7 +50,7 @@ from typing import Any, Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.runtime.ring import (DOWN, StepPlan, rank_walk,
+from repro_torch.runtime.ring import (DOWN, UP, StepPlan, rank_walk,
                                       reduce_edge_grads, reduce_loss)
 from repro_torch.runtime.sharding import batch_shard, leaf_dims
 from repro_torch.tree import tree_index, tree_leaves, tree_map
@@ -299,6 +301,20 @@ def reduce_stage_grads(data, stacks: tuple, dims: tuple | None,
                         part.zero_()
 
 
+def finish_rank(cfg: "PipelineConfig", ring, data, zero_dims, local,
+                dones, stacks: tuple, edge_p) -> torch.Tensor:
+    """A rank walk's epilogue: each ``done()`` adds its rows' gradients to
+    the stack leaves, the stage gradients are averaged over ``data``
+    (:func:`reduce_stage_grads`), the edge gradients summed over the ring
+    and ``data``; returns the loss reduced over both."""
+    for done in dones:
+        done()
+    reduce_stage_grads(data, stacks, zero_dims, cfg.zero_stage)
+    reduce_edge_grads(ring, [x for x in tree_leaves(edge_p)
+                             if x.requires_grad], data)
+    return reduce_loss(ring, local, data)
+
+
 def _wrap_remat(fn: Callable, cfg: "PipelineConfig") -> Callable:
     """Recompute ``fn`` in the backward pass instead of keeping its
     activations (``jax.checkpoint`` in the JAX package)."""
@@ -373,7 +389,8 @@ class PipelineConfig:
     #   themselves rest sharded, all-gathered on use inside each step the
     #   rank walk runs (and again in its recompute), the gather's backward
     #   reduce-scattering the gradient.  The closed forms and the
-    #   skip-carry baseline refuse stage 2 with dp_size > 1
+    #   skip-carry baseline refuse stage 2 with dp_size > 1 (their rows
+    #   rest whole)
 
 
 def _zero_activation(embed_fn: Callable, *args) -> torch.Tensor:
@@ -401,6 +418,9 @@ def make_wave_pipeline(
     enc_stage_fn: Callable,   # (rows, x, aux, device) -> (x_out, skips)
     dec_stage_fn: Callable,   # (rows, x, skips, aux, device) -> x_out
     loss_fn: Callable,        # (edge_p, x_final, mb, aux) -> scalar
+    ring=None,                # runtime.ring.Ring: this rank's executor
+    data=None,                # runtime.ring.DataGroup: its data replicas
+    zero_dims=None,           # ZeRO-1 slot-view dims per stack leaf
 ) -> Callable:
     """``fn(enc_stack, dec_stack, edge_p, mbs, aux) -> loss``.
 
@@ -409,6 +429,12 @@ def make_wave_pipeline(
       (the stage collocated with encoder stage d).
     - ``mbs``: ``[M, ...]`` microbatch inputs; ``aux``: ``[M, ...]``
       per-microbatch conditioning every stage sees (may be ``{}``).
+
+    With ``ring`` it is rank ``ring.index``'s executor over its own
+    ``[1, rows, ...]`` stacks (a rank plan's one slot), run as the rank
+    walk of ``runtime.ring`` (see :func:`_wave_rank`); ``data`` and
+    ``zero_dims`` as in :func:`make_skip_carry_pipeline` and the table
+    executors.
     """
     D, M = cfg.num_devices, cfg.num_microbatches
     if M < D:
@@ -420,6 +446,10 @@ def make_wave_pipeline(
             "short iterations.  Lower through the table-driven executor "
             "(auto_pipeline(executor='table')) or raise num_microbatches.")
     T = M + D - 1
+    if ring is not None:
+        return _wave_rank(cfg, ring, data, zero_dims, embed_fn, enc_stage_fn,
+                          dec_stage_fn, loss_fn)
+    check_one_replica(cfg)
     enc_stage = _wrap_remat(enc_stage_fn, cfg)
     dec_stage = _wrap_remat(dec_stage_fn, cfg)
 
@@ -473,6 +503,138 @@ def make_wave_pipeline(
     return fn
 
 
+def _closed_form_rank(cfg: PipelineConfig, ring, data) -> tuple[int, int]:
+    """``(dp, data index)`` of a closed-form rank, after its refusals: a
+    ring of D ranks, a data group of ``dp_size`` members, and rows that
+    rest whole (ZeRO-2 over data replicas is the table executors')."""
+    D = cfg.num_devices
+    if ring.size != D:
+        raise ValueError(f"a {ring.size}-rank ring for a D={D} pipeline")
+    if cfg.dp_size > 1 and cfg.zero_stage >= 2:
+        raise ValueError(
+            "closed-form executors keep stage stacks replicated over the "
+            f"data replicas; zero_stage={cfg.zero_stage} shards them at "
+            "rest -- lower through executor='table'")
+    check_data_group(cfg, data)
+    return cfg.dp_size, (0 if data is None else data.index)
+
+
+def _wave_rank(cfg: PipelineConfig, ring, data, zero_dims,
+               embed_fn: Callable, enc_stage: Callable, dec_stage: Callable,
+               loss_fn: Callable) -> Callable:
+    """Rank ``ring.index`` of the closed-form wave (see
+    :func:`make_wave_pipeline`): 2T walk steps, phase 1's T ticks and then
+    phase 2's, the same index arithmetic as the one-process walk.  Device
+    d runs microbatch ``m = t - d`` at phase-1 tick t (embedding on device
+    0, a send down from every device but D-1, whose output is the
+    turnaround), and ``m = t2 - (D-1-d)`` at phase-2 tick t2 (a send up
+    from every device but 0, which takes the loss).  The stash and the
+    turnaround stay on the rank as outputs of the phase-1 step that made
+    them: microbatch m's skips are those of step ``m + d``
+    (``t2 - (D-1) + 2d``), device D-1's turnaround that of step
+    ``m + D - 1``.  Every arrival is read at the step it arrives, so one
+    receive slot a channel serves.  The stage functions run without
+    ``_wrap_remat``: the rank walk recomputes whole steps itself."""
+    D, M = cfg.num_devices, cfg.num_microbatches
+    T = M + D - 1
+    d = ring.index
+    dp, di = _closed_form_rank(cfg, ring, data)
+
+    def mb_at(s: int) -> int | None:
+        """The microbatch device d runs at walk step s, or None."""
+        m = s - d if s < T else (s - T) - (D - 1 - d)
+        return m if 0 <= m < M else None
+
+    def arrivals(s):
+        if mb_at(s) is None:
+            return []
+        if s < T:
+            return [(DOWN, 0)] if d > 0 else []
+        return [(UP, 0)] if d < D - 1 else []
+
+    def sends(s):
+        if mb_at(s) is None:
+            return []
+        if s < T:
+            return [DOWN] if d < D - 1 else []
+        return [UP] if d > 0 else []
+
+    def fn(enc_stack, dec_stack, edge_p, mbs, aux):
+        mbs, aux = batch_shard(mbs, dp, di), batch_shard(aux, dp, di)
+        enc_rows, enc_done = rank_rows(enc_stack, 2)
+        dec_rows, dec_done = rank_rows(dec_stack, 2)
+        enc_rows, dec_rows = enc_rows[0], dec_rows[0]     # the one slot
+        zero_x = _zero_activation(embed_fn, edge_p, tree_index(mbs, 0),
+                                  tree_index(aux, 0))
+        spec = [(tuple(zero_x.shape), zero_x.dtype)]
+        del zero_x
+        stash: dict[int, list] = {}      # phase-1 step -> its skips
+        turn: dict[int, Any] = {}        # phase-1 step -> device D-1's out
+        rx: dict = {}
+
+        def received(chan):
+            pend, t_arr = rx[(chan, 0)]
+            return pend.wait()[0], ("rx", chan, t_arr, 0)
+
+        def encode(s, m):
+            ins = {"x": received(DOWN)} if d > 0 else {}
+
+            def step(x):
+                a = tree_index(aux, m)
+                x_in = (embed_fn(edge_p, tree_index(mbs, m), a) if d == 0
+                        else x["x"])
+                x_out, skips = enc_stage(enc_rows, x_in, a, d)
+                out = {"send/0" if d < D - 1 else "turn": x_out}
+                out.update((f"skip/{i}", y) for i, y in enumerate(skips)
+                           if y is not None)
+                return out
+
+            def after(out):
+                stash[s] = [out.get(f"skip/{i}")
+                            for i in range(len(enc_rows))]
+                if d == D - 1:
+                    turn[s] = out["turn"]
+
+            return StepPlan(ins, step, after)
+
+        def decode(m):
+            if d == D - 1:
+                s_turn = m + D - 1
+                ins = {"x": (turn[s_turn], ("out", s_turn, "turn"))}
+            else:
+                ins = {"x": received(UP)}
+            s_enc = m + d                  # the step that stashed m's skips
+            ins.update((f"skip/{i}", (y, ("out", s_enc, f"skip/{i}")))
+                       for i, y in enumerate(stash[s_enc]) if y is not None)
+
+            def step(x):
+                a = tree_index(aux, m)
+                skips = [x.get(f"skip/{i}") for i in range(len(enc_rows))]
+                x_out = dec_stage(dec_rows, x["x"], skips, a, d)
+                if d > 0:
+                    return {"send/0": x_out}
+                return {"loss": loss_fn(edge_p, x_out, tree_index(mbs, m),
+                                        a)}
+
+            return StepPlan(ins, step)
+
+        def plan(s):
+            m = mb_at(s)
+            if m is None:
+                return None
+            return encode(s, m) if s < T else decode(m)
+
+        local = rank_walk(ring, T=2 * T, M=M, remat=cfg.remat,
+                          overlap=cfg.overlap, specs={DOWN: spec, UP: spec},
+                          arrivals=arrivals, sends=sends, plan=plan, rx=rx,
+                          dp=dp)
+        return finish_rank(cfg, ring, data, zero_dims, local,
+                           (enc_done, dec_done), (enc_stack, dec_stack),
+                           edge_p)
+
+    return fn
+
+
 # ===========================================================================
 # Linear pipeline (1F1B dataflow; skip-free models)
 # ===========================================================================
@@ -483,11 +645,20 @@ def make_linear_pipeline(
     embed_fn: Callable,       # (edge_p, mb) -> x (b, s, d)
     stage_fn: Callable,       # (rows, x, device) -> x
     loss_fn: Callable,        # (edge_p, x_final, mb) -> scalar
+    ring=None,                # runtime.ring.Ring: this rank's executor
+    data=None,                # runtime.ring.DataGroup: its data replicas
+    zero_dims=None,           # ZeRO-1 slot-view dims per stack leaf
 ) -> Callable:
     """``fn(stack, edge_p, mbs) -> loss`` over a ``[D, rows, ...]`` stack.
-    S = D stages; embedding on device 0, head and loss on device D-1."""
+    S = D stages; embedding on device 0, head and loss on device D-1.
+    With ``ring``: rank ``ring.index``'s executor over its ``[1, rows,
+    ...]`` stack, as :func:`make_wave_pipeline`'s."""
     D, M = cfg.num_devices, cfg.num_microbatches
     T = M + D - 1
+    if ring is not None:
+        return _linear_rank(cfg, ring, data, zero_dims, embed_fn, stage_fn,
+                            loss_fn)
+    check_one_replica(cfg)
     stage = _wrap_remat(stage_fn, cfg)
 
     def fn(stack, edge_p, mbs):
@@ -510,6 +681,61 @@ def make_linear_pipeline(
             h_in, _ = hop(out, None, up_used=False, wrap=False,
                           down_live=live)
         return _mean_loss(losses, M)
+
+    return fn
+
+
+def _linear_rank(cfg: PipelineConfig, ring, data, zero_dims,
+                 embed_fn: Callable, stage: Callable,
+                 loss_fn: Callable) -> Callable:
+    """Rank ``ring.index`` of the closed-form linear walk (see
+    :func:`make_linear_pipeline`): device d runs microbatch ``m = t - d``
+    at tick t, receiving from d-1 and sending to d+1, down only."""
+    D, M = cfg.num_devices, cfg.num_microbatches
+    T = M + D - 1
+    d = ring.index
+    dp, di = _closed_form_rank(cfg, ring, data)
+
+    def live(t: int) -> bool:
+        return 0 <= t - d < M
+
+    def fn(stack, edge_p, mbs):
+        mbs = batch_shard(mbs, dp, di)
+        rows, done = rank_rows(stack, 2)
+        rows = rows[0]                                    # the one slot
+        zero_x = _zero_activation(embed_fn, edge_p, tree_index(mbs, 0))
+        spec = [(tuple(zero_x.shape), zero_x.dtype)]
+        del zero_x
+        rx: dict = {}
+
+        def plan(t):
+            if not live(t):
+                return None
+            m = t - d
+            ins = {}
+            if d > 0:
+                pend, t_arr = rx[(DOWN, 0)]
+                ins["x"] = (pend.wait()[0], ("rx", DOWN, t_arr, 0))
+
+            def step(x):
+                mb = tree_index(mbs, m)
+                x_in = embed_fn(edge_p, mb) if d == 0 else x["x"]
+                x_out = stage(rows, x_in, d)
+                if d < D - 1:
+                    return {"send/0": x_out}
+                return {"loss": loss_fn(edge_p, x_out, mb)}
+
+            return StepPlan(ins, step)
+
+        local = rank_walk(
+            ring, T=T, M=M, remat=cfg.remat, overlap=cfg.overlap,
+            specs={DOWN: spec},
+            arrivals=lambda t: ([(DOWN, 0)] if d > 0 and t < T and live(t)
+                                else []),
+            sends=lambda t: [DOWN] if d < D - 1 and live(t) else [],
+            plan=plan, rx=rx, dp=dp)
+        return finish_rank(cfg, ring, data, zero_dims, local, (done,),
+                           (stack,), edge_p)
 
     return fn
 
@@ -699,11 +925,8 @@ def _skip_carry_rank(cfg: PipelineConfig, ring, data, body: Callable,
                           overlap=cfg.overlap, specs={DOWN: [spec] * n},
                           arrivals=arrivals, sends=sends, plan=plan, rx=rx,
                           dp=dp)
-        enc_done()
-        dec_done()
-        reduce_stage_grads(data, (enc_stack, dec_stack), None, 0)
-        reduce_edge_grads(ring, [x for x in tree_leaves(edge_p)
-                                 if x.requires_grad], data)
-        return reduce_loss(ring, local, data)
+        return finish_rank(cfg, ring, data, None, local,
+                           (enc_done, dec_done), (enc_stack, dec_stack),
+                           edge_p)
 
     return fn

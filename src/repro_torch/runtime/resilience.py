@@ -1131,6 +1131,12 @@ class StragglerDetector:
     steps flags the host (streaks are counted in steps advanced, not in
     observations, for the same sparse-poll reason).  Needs >= 2 hosts (a
     cluster of one has no peers to straggle behind).
+
+    Hosts whose ranks form one world run in lockstep: a host's step time
+    is the slowest host's, the others waiting for it inside the step's
+    collectives, so ``step_s`` hides a straggler.  :meth:`observe_entries`
+    reads the step-entry beats instead; once it has a sample, the
+    ``step_s`` ones are no longer recorded.
     """
 
     def __init__(self, *, factor: float = 2.0, patience: int = 3,
@@ -1141,8 +1147,45 @@ class StragglerDetector:
         self._prev: dict[int, tuple[int, float]] = {}   # host -> (step, t)
         self._durs: dict[int, list[float]] = {}
         self._streak: dict[int, int] = {}
+        self._enter: dict[int, dict[int, float]] = {}  # step -> host -> t
+        self._hosts: set[int] = set()
+        self._lockstep = False
+
+    def observe_entries(self, entries: dict[int, Heartbeat]) -> None:
+        """Step-entry beats (``ENTRY_BEATS``, one a host, the step its
+        ranks last entered) of a lockstep world.  A host's own time for
+        step s runs from the last host's entry of s -- when the step could
+        proceed -- to its own entry of s+1: the slowest host's is the
+        whole step, a host that waited for it only its own work.  A step
+        counts once every host's entries of s and s+1 were seen."""
+        for h, hb in entries.items():
+            if hb.step >= 0:
+                self._enter.setdefault(hb.step, {})[h] = hb.t
+                self._hosts.add(h)
+        if len(self._hosts) < 2:
+            return
+        for step in sorted(self._enter):
+            cur, nxt = self._enter[step], self._enter.get(step + 1)
+            if nxt is None or set(cur) != self._hosts \
+                    or set(nxt) != self._hosts:
+                continue
+            start = max(cur.values())
+            self._lockstep = True
+            for h in self._hosts:
+                durs = self._durs.setdefault(h, [])
+                durs.append(nxt[h] - start)
+                del durs[:-self.window]
+            for h in self._hosts:
+                self._streak[h] = (self._streak.get(h, 0) + 1
+                                   if self._ratio(h) >= self.factor else 0)
+            del self._enter[step]
+        last = max(self._enter, default=0)
+        for step in [s for s in self._enter if s < last - 4]:
+            del self._enter[step]       # a step whose entries were missed
 
     def observe(self, heartbeats: dict[int, Heartbeat]) -> None:
+        if self._lockstep:
+            return
         for h, hb in heartbeats.items():
             if hb.phase != "train" or hb.step < 0:
                 continue

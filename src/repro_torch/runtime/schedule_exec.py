@@ -49,11 +49,10 @@ from repro_torch.core.schedule import (Schedule, placement_bounds_error,
                                        slot_maps)
 from repro_torch.runtime.pipeline import (WIRE_DTYPES, PipelineConfig,
                                           _wrap_remat, check_data_group,
-                                          check_one_replica, hop, rank_rows,
-                                          rank_slots, reduce_stage_grads,
+                                          check_one_replica, finish_rank,
+                                          hop, rank_rows, rank_slots,
                                           unbind_rows)
-from repro_torch.runtime.ring import (DOWN, UP, StepPlan, rank_walk,
-                                      reduce_edge_grads, reduce_loss)
+from repro_torch.runtime.ring import DOWN, UP, StepPlan, rank_walk
 from repro_torch.runtime.sharding import batch_shard
 from repro_torch.tree import tree_index, tree_leaves
 
@@ -827,16 +826,6 @@ def _data_rank(cfg, data, zero_dims) -> tuple:
     return data.size, data.index, lambda stack, i: rank_rows(stack, 2)
 
 
-def _finish_rank(cfg, ring, data, zero_dims, local, dones, stacks,
-                 edge_p) -> torch.Tensor:
-    for done in dones:
-        done()
-    reduce_stage_grads(data, stacks, zero_dims, cfg.zero_stage)
-    reduce_edge_grads(ring, [x for x in tree_leaves(edge_p)
-                             if x.requires_grad], data)
-    return reduce_loss(ring, local, data)
-
-
 def _wave_rank(cfg, tables, tab, ring, data, zero_dims, wire, skip_consumers,
                embed_fn, enc_stage_fn, dec_stage_fn, loss_fn) -> Callable:
     """Rank ``ring.index`` of the folded walk (see
@@ -920,9 +909,9 @@ def _wave_rank(cfg, tables, tab, ring, data, zero_dims, wire, skip_consumers,
             specs={DOWN: spec, UP: spec},
             arrivals=lambda t: _arrivals(tab, d, t, T),
             sends=lambda t: _sends(tab, d, t), plan=plan, rx=rx, dp=dp)
-        return _finish_rank(cfg, ring, data, zero_dims, local,
-                            (enc_done, dec_done), (enc_stack, dec_stack),
-                            edge_p)
+        return finish_rank(cfg, ring, data, zero_dims, local,
+                           (enc_done, dec_done), (enc_stack, dec_stack),
+                           edge_p)
 
     return fn
 
@@ -1073,7 +1062,7 @@ def _linear_rank(cfg, tables, tab, ring, data, zero_dims, wire, embed_fn,
             ring, T=T, M=M, remat=cfg.remat, overlap=cfg.overlap,
             specs={DOWN: spec}, arrivals=lambda t: _arrivals(tab, d, t, T),
             sends=lambda t: _sends(tab, d, t), plan=plan, rx=rx, dp=dp)
-        return _finish_rank(cfg, ring, data, zero_dims, local, (done,),
-                            (stack,), edge_p)
+        return finish_rank(cfg, ring, data, zero_dims, local, (done,),
+                           (stack,), edge_p)
 
     return fn

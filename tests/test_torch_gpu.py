@@ -983,3 +983,103 @@ def test_lm_pipeline_adapter_wave_with_flash_matches_dense_cpu():
         err = float(torch.linalg.vector_norm(got - want)
                     / torch.linalg.vector_norm(want))
         assert err <= 5e-2, (k, err)
+
+
+# ---------------------------------------------------------------------------
+# the launch predicates against the kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_kernel_check_tilings_are_the_kernels_reports():
+    """Every route's predicted tiles and shared memory are what the kernel
+    reports (blocks per SM aside), and the budget is the card's opt-in
+    shared memory a block."""
+    from repro_torch.analysis import kernel_check as kc
+    from repro_torch.kernels.linear_scan import scan_config
+    from repro_torch.kernels.skip_matmul.ops import bf16_config as skip_cfg
+
+    def same(pred, cuda):
+        assert {k: v for k, v in cuda.items() if k != "blocks_per_sm"} == \
+            {k: v for k, v in pred.items() if k != "route"}
+    assert kc.SMEM_OPTIN == torch.cuda.get_device_properties(
+        0).shared_memory_per_block_optin
+    for D in WGMMA_HEAD_DIMS:
+        same(kc.flash_tiling("bfloat16", D), bf16_config(D))
+    same(kc.skip_tiling("bfloat16"), skip_cfg())
+    for a in kc.DTYPES:
+        for x in kc.DTYPES:
+            for bwd in (False, True):
+                same(kc.scan_tiling(a, x, bwd), scan_config(
+                    getattr(torch, a), getattr(torch, x), bwd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [
+    (2, 70, 70, 4, 2, 64), (2, 70, 70, 4, 2, 48), (1, 64, 64, 6, 4, 64),
+    (1, 64, 64, 6, 3, 224)])
+def test_flash_predicate_agrees_with_the_launch(dtype, shape):
+    """An accepted shape launches (one count) and equals the plain
+    version; a refused one raises before a launch."""
+    from repro_torch.analysis import kernel_check as kc
+    B, S, T, Hq, Hkv, D = shape
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, S, Hq, D, device="cuda").to(dt)
+    k = torch.randn(B, T, Hkv, D, device="cuda").to(dt)
+    before = LAUNCHES["flash_attention"]
+    if kc.flash_attention_supported(*shape, dtype=dtype):
+        got = flash_attention_cuda(q, k, k, True, None)
+        tol = 1e-4 if dtype == "float32" else 2e-2
+        torch.testing.assert_close(got.float(), attention_plain(
+            q, k, k, True, None).float(), rtol=tol, atol=tol)
+        assert LAUNCHES["flash_attention"] == before + 1
+    else:
+        with pytest.raises(ValueError):
+            flash_attention_cuda(q, k, k, True, None)
+        assert LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,D,N", [(516, 256, 256), (64, 12, 8),
+                                   (64, 16, 12), (64, 12, 7)])
+def test_skip_predicate_agrees_with_the_launch(dtype, M, D, N):
+    from repro_torch.analysis import kernel_check as kc
+    dt = getattr(torch, dtype)
+    h = torch.randn(M, D, device="cuda").to(dt)
+    w = (torch.randn(2 * D, N, device="cuda") / math.sqrt(D)).to(dt)
+    before = LAUNCHES["skip_concat_matmul"]
+    if kc.skip_concat_matmul_supported(M, D, N, dtype=dtype):
+        got = skip_concat_matmul_cuda(h, h, w)
+        tol = 1e-4 if dtype == "float32" else 2e-2
+        torch.testing.assert_close(got.float(), skip_concat_matmul_plain(
+            h, h, w).float(), rtol=tol, atol=tol)
+        assert LAUNCHES["skip_concat_matmul"] == before + 1
+    else:
+        with pytest.raises(ValueError, match="D % 8 == N % 8 == 0"):
+            skip_concat_matmul_cuda(h, h, w)
+        assert LAUNCHES["skip_concat_matmul"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype_a,dtype_x", [
+    ("float32", "float32"), ("float32", "bfloat16"),
+    ("bfloat16", "float32"), ("bfloat16", "bfloat16"),
+    ("float16", "float32")])
+def test_scan_predicate_agrees_with_the_launch(dtype_a, dtype_x):
+    from repro_torch.analysis import kernel_check as kc
+    a = torch.sigmoid(torch.randn(2, 130, 300, device="cuda")).to(
+        getattr(torch, dtype_a))
+    x = torch.randn(2, 130, 300, device="cuda").to(getattr(torch, dtype_x))
+    before = LAUNCHES["gated_linear_scan"]
+    if kc.gated_linear_scan_supported(2, 130, 300, dtype_a=dtype_a,
+                                      dtype_x=dtype_x):
+        tol = 1e-4 if "bfloat16" not in (dtype_a, dtype_x) else 2e-2
+        torch.testing.assert_close(
+            gated_linear_scan_cuda(a, x).float(),
+            gated_linear_scan_plain(a, x).float(), rtol=tol, atol=tol)
+        assert LAUNCHES["gated_linear_scan"] == before + 1
+    else:
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            gated_linear_scan_cuda(a, x)
+        assert LAUNCHES["gated_linear_scan"] == before

@@ -492,7 +492,10 @@ def test_port_imports_neither_jax_nor_repro():
                 "repro_torch.runtime.collectives",
                 "repro_torch.configs.base",
                 "repro_torch.configs.lm_common",
-                "repro_torch.train.steps"):
+                "repro_torch.train.steps",
+                "repro_torch.analysis.verify",
+                "repro_torch.analysis.kernel_check",
+                "repro_torch.analysis.lint"):
         assert mod in walked, mod
     # chip_smoke.py imports none of them either
     src = (REPO / "chip_smoke.py").read_text()
