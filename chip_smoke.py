@@ -50,7 +50,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    h2o-danube-1.8b's full shape with its window; SDPA with the boolean
    mask wherever a window is set) and of the ``registry`` phase (flash
    causal GQA at sequence 4096 at a microbatch of 1: smollm-360m's 15:5 at
-   head dim 64, internlm2-20b's 48:8 at 128; rows ``registry ...``) (the
+   head dim 64, internlm2-20b's 48:8 at 128; rows ``registry ...``) and
+   of the ``sharded ranks`` phase (a data replica's rows: the UNet's six
+   at B=8, whisper-base's encoder, decoder, cross and a serve step's two
+   at B=4; rows ``sharded ...``) (the
    gated linear scan at zamba2-2.7b's carry across
    chunks on the ``recurrent`` path, R=2 T=32 C=327,680, at its Mamba2
    width over 4k steps and at R=32 over 2k steps, forward and backward
@@ -191,9 +194,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     tokens 448, batch 8, flash on every attention: finite losses, flash
     exactly 18 launches a step (encoder self, decoder causal self, cross;
     forward only), the first loss within 1e-2 relative of the same loss
-    with the dense attention; (b) xlstm-125m at full width and depth (12
-    blocks, 2 sLSTM; 187,494,144 params), S=4096, batch 2: finite losses,
-    no kernel; (c) one value-and-grad of a full-width Mamba2 block of
+    with the dense attention; (b) xlstm-125m at full width, its depth
+    cut to 6 of 12 blocks (one sLSTM), S=4096,
+    batch 2: finite losses, no kernel; (c) one value-and-grad of a full-width Mamba2 block of
     zamba2-2.7b (fp32, S=4096, batch 2) through the scan route
     (``_ssd_chunked``) and the plain chunk loop, the output and every
     gradient leaf at rtol 1e-4; (d) zamba2-2.7b at full width, its depth
@@ -207,15 +210,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 18. serve (``serve_smollm``, ``serve_whisper``, ``serve_recurrent``,
     ``serve_smoke``), after phase 17, each model after checking that
     less than 1 GB is still allocated; bf16, random weights from seed 0,
-    full width and depth, launch counts reset just before the serving
+    full width (depth: smollm and whisper whole; xLSTM and Zamba2 at the
+    recurrent phase's 6 and 12 blocks), launch
+    counts reset just before the serving
     loop and read just after: (a) smollm-360m, batch 16, prompt 2048,
     64 tokens through ``repro_torch.launch.serve.generate`` (KV caches
     of 2112 rows; flash 32 x 64 = 2,048); (b) whisper-base, batch 8,
     4096 frames, prompt 64, 64 tokens through ``whisper.prefill`` and
     ``decode_step`` (flash 6 + 12 + 63 x 12 = 774); (c) xlstm-125m,
-    batch 4, prompt 256, 32 tokens (no kernel); (d) zamba2-2.7b, all 54
-    blocks, batch 2, prompt 256, 32 tokens (287 steps, flash 9 sites x
-    287 = 2,583; the SSM steps ``ssd_recurrent``).  Held: the KV caches'
+    batch 4, prompt 256, 32 tokens (no kernel); (d) zamba2-2.7b, 12 of
+    its 54 blocks, batch 2, prompt 256, 32 tokens (287 steps, flash 2
+    sites x 287 = 574; the SSM steps ``ssd_recurrent``).  Held: the KV caches'
     bytes = 2 x layers x B x max_len x Hkv x D x 2 exactly; smollm's and
     whisper's prefill logits against the same model without a cache at
     ``FLASH_BF16_REL`` (the same kernel tiles: equal); every step's
@@ -225,7 +230,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     prompt's steps against ``forward`` over the prompt -- in bf16 at
     ``SERVE_BF16_BAR`` (``FLASH_BF16_REL``, or for smollm and Zamba2,
     whose 32 random layers and 54 blocks put bf16 rounding alone past
-    1e-2, a bar set from the card's readings); then each model served
+    1e-2, a bar set from the card's readings at those depths); then each model served
     again from the same weights in fp32, every step held to its fp32
     reference at ``SERVE_FP32_BAR`` (xLSTM's and Zamba2's first
     prompt_len steps against ``forward`` over the tokens fed).  Prints
@@ -245,13 +250,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     bundles: each supported shape's ``batch_struct`` (a train shape's
     also under a ``pp_1f1b`` plan of 16 microbatches) and ``cache_struct``
     on the meta device, their bytes and the bundle's param counts printed;
-    (b) smollm-360m on its own ``train_4k`` plan (``pp_wave``, M=16),
+    (b) smollm-360m at 8 of its 32 layers (``scaled_cfg``) on its own
+    ``train_4k`` plan (``pp_wave``, M=16),
     ``make_adapter`` with ``{"data": 1, "model": 4}`` (the folded
     closed-form wave at D=4) and ``build_pp_train_step``, 2 AdamW steps,
     against ``build_sharded_train_step`` over the bundle's ``loss_fn`` (a
     chunk of 2 rows at a time) on the same weights and batch, 2 steps:
     step 0's loss within 1e-4, the first gradient norm and the second loss
-    within 1e-2, flash 32 x 16 x 2 = 1,024 a step (the reference 32 x 8 x
+    within 1e-2, flash 8 x 16 x 2 = 256 a step (the reference 8 x 8 x
     2); (c) internlm2-20b at 4 of its 48 layers (``scaled_cfg``, about
     2.7e9 params) on its own ``train_4k`` plan (``pp_1f1b``, M=16): the
     linear closed form at D=4, 2 AdamW steps, step 0's loss within 1e-4
@@ -287,7 +293,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     step 8, host 0 stops after step 10; one host of P=2 resumes step 8
     elastically; every host's losses at rtol 1e-4 to the same run;
     launches under path ``host workers``; (b) UViT-H at full width and
-    the hybrid phase's depth (16 of 32 blocks) on its ZeRO-2 plan at V=1 (P=2 G=2, M=2, global
+    the hybrid phase's depth (8 of 32 blocks) on its ZeRO-2 plan at V=1 (P=2 G=2, M=2, global
     batch 16, bf16) as 2 hosts x 2 ranks with ``hostdown@1:1`` and no
     checkpoint (3 steps, a save past the run, the relaunch ``stop@3``):
     hostdown on host 1, rollback (None), shrink to (1, 2, 0), one host of
@@ -336,11 +342,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     over the grid to the reference's at 1e-2; each replica's ring bytes to its live hops x a microbatch's activation;
     each rank's data-group bytes and calls of a step to ``hybrid_bytes``;
     the flash launches of a step to the tables' count for both replicas.
-    Prints each rank's step seconds and peaks; rank logs in
-    ``chiprun_out/lm_ranks.r<rank>.log``;
+    The ranks' steps come from ``build_pp_train_step`` over the rank grid
+    on that ``CompiledPipeline``.  Prints each rank's step seconds and
+    peaks; rank logs in ``chiprun_out/lm_ranks.r<rank>.log``;
+12c. sharded ranks (``sharded_ranks_phase``), after 12b: the JAX package's
+    sharded strategy over a (data=2, model=2) grid of four rank processes
+    of this script (``--sharded-rank``) on the one card, gloo staged
+    through pinned host memory.  The SDv2 UNet at full width
+    (1,839,817,728 params, bf16, the norm leaves fp32, flash on) on its own
+    ``train_4k`` plan (FSDP over model x data, batch over data), global
+    batch 16 (8 rows a data replica), 2 AdamW steps through
+    ``build_sharded_train_step`` over the grid, held to the one-process
+    step on the same weights, batch and DDPM draws (run first, and freed
+    before the ranks start): every rank's loss equal, step 0's at 1e-3
+    and step 1's at 1e-2, the step-0 gradient norm over the grid at 1e-2,
+    every rank's gradient finite, each rank's block of every sharded leaf
+    after the last step within 1e-2 (relative norm) of the reference's
+    same block (a zero-drawn bias: at most 1e-2 of its entries more than
+    lr off), flash 32 times a step on every rank, each rank's FSDP group
+    bytes and calls by collective equal to their arithmetic from the
+    specs.  whisper-base at full width on its ``prefill_32k`` plan
+    (``build_forward_step``, B=8, 4096 frames) and ``decode_32k`` plan
+    (``build_sharded_serve_step``, 16 greedy steps, B=8, 4 rows a data
+    replica; FSDP over model, batch over data): in fp32 the loss at 1e-5
+    and every token equal to the one-process steps' (bf16 printed).
+    Prints each rank's step seconds, peak and gloo seconds; rank logs in
+    ``chiprun_out/sharded_ranks.r<rank>.log``;
 13. hybrid (``hybrid_phase``), after checking that less than 1 GB is
     still allocated: the tuner's own N=4 plan for UViT-H at full width,
-    its depth cut to 16 of its 32 blocks (``--layers``, to keep the
+    its depth cut to 8 of its 32 blocks (``--layers``, to keep the
     script's time: this phase's gloo collectives scale with the params)
     (P=2, G=2, V=2, M=2; global batch 16, bf16) as ``torchrun
     --nproc-per-node 4 ... --dp 2 --pp 2 --interleave 2 --zero-stage Z
@@ -395,10 +425,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     smollm-360m pp_wave``, ``registry smollm-360m reference``, ``registry
     internlm2-20b pp_1f1b``, ``registry internlm2-20b forward``,
     ``registry qwen3-moe-30b-a3b int8``, ``registry smollm-360m serve``,
-    ``ranks``, ``lm ranks``, ``hybrid``, ``rank checkpoint``,
-    ``supervisor ranks`` and ``host workers``, the last six read from the
-    ranks' and the workers' result files, among them), then
-    the device line as the last line.
+    ``ranks``, ``lm ranks``, ``sharded ranks``, ``hybrid``, ``rank
+    checkpoint``, ``supervisor ranks`` and ``host workers``, the last
+    seven read from the ranks' and the workers' result files, among
+    them), then the device line as the last line.
 
 The full record goes to ``chiprun_out/chip_smoke.json``.  Without a CUDA
 device the script exits 1 at once and prints no result.
@@ -445,16 +475,27 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+TIMED_MS = 250.0     # a timing's span: calls over 12.5 ms take fewer than 20
+
+
 def time_ms(torch, fn, warmup: int = 3, iters: int = 20,
             graph: bool = False) -> float:
     """Mean ms per call of ``fn``: CUDA events around ``iters`` calls as
     issued from Python, so a call whose host cost exceeds its device time
-    is timed by the host.  With ``graph`` the ``iters`` calls are captured
-    in one CUDA graph and its replay is timed instead: the device's time
-    for the work alone."""
+    is timed by the host (a call slower than ``TIMED_MS / iters``: over as
+    many calls as fit in ``TIMED_MS``, at least 3).  With ``graph`` the
+    calls are captured in one CUDA graph and its replay is timed instead:
+    the device's time for the work alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    # a slow call (a plain version) is timed over fewer calls, at least 3,
+    # about TIMED_MS in all: its mean moves less than its own spread
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = (time.perf_counter() - t0) * 1e3
+    iters = max(3, min(iters, int(TIMED_MS / max(one, 1e-3))))
     run = fn
     if graph:
         g = torch.cuda.CUDAGraph()
@@ -647,6 +688,27 @@ FLASH_CASES = [  # path, B, S, T, Hq, Hkv, D, causal, window
         ("sdv2-unet L2 cross", 16, 64, 77, 8, 8, 224, False, None),
         ("sdv2-unet L3+mid self", 16, 16, 16, 8, 8, 224, False, None),
         ("sdv2-unet L3+mid cross", 16, 16, 77, 8, 8, 224, False, None),
+        # the sharded ranks phase: the UNet's rows of a data replica, B=8,
+        # and whisper-base's, B=4 (the encoder over 4096 frames, the
+        # decoder's causal self-attention over 447 tokens, its cross over
+        # the frames; a serve step's self-attention over the cache of 81
+        # and its cross over the frames)
+        ("sharded sdv2-unet L1 self", 8, 256, 256, 8, 8, 112, False, None),
+        ("sharded sdv2-unet L1 cross", 8, 256, 77, 8, 8, 112, False, None),
+        ("sharded sdv2-unet L2 self", 8, 64, 64, 8, 8, 224, False, None),
+        ("sharded sdv2-unet L2 cross", 8, 64, 77, 8, 8, 224, False, None),
+        ("sharded sdv2-unet L3+mid self", 8, 16, 16, 8, 8, 224, False,
+         None),
+        ("sharded sdv2-unet L3+mid cross", 8, 16, 77, 8, 8, 224, False,
+         None),
+        ("sharded whisper-base encoder", 4, 4096, 4096, 8, 8, 64, False,
+         None),
+        ("sharded whisper-base decoder", 4, 447, 447, 8, 8, 64, True, None),
+        ("sharded whisper-base cross", 4, 447, 4096, 8, 8, 64, False, None),
+        ("sharded whisper-base decode", 4, 1, 81, 8, 8, 64, True, None, 70,
+         71),
+        ("sharded whisper-base cross decode", 4, 1, 4096, 8, 8, 64, False,
+         None),
         # the small models of the skipvit and supervisor phases, b=2
         ("uvit-nano", 2, 6, 6, 2, 2, 16, False, None),
         ("uvit-nano dp=2", 1, 6, 6, 2, 2, 16, False, None),
@@ -2783,6 +2845,10 @@ WHISPER_BATCH = 8
 WHISPER_FLASH_PER_STEP = 18   # 6 encoder self, 6 decoder self, 6 cross
 WHISPER_DENSE_BAR = 1e-2      # bf16: the first loss vs use_flash=False's
 XLSTM_BATCH = 2
+# xlstm-125m cut to 6 of its 12 blocks (one sLSTM block, whose loop over
+# the sequence is most of a step) in the recurrent and serve phases, to keep
+# the script's time
+XLSTM_LAYERS = 6
 ZAMBA2_LAYERS, ZAMBA2_BATCH = 12, 2   # 12 of 54 Mamba2 blocks: 2 sites
 MAMBA2_BAR = 1e-4             # fp32: the scan route vs the chunk loop
 
@@ -2893,16 +2959,19 @@ def recurrent_whisper(torch, rec, smi_line: str) -> dict:
 
 
 def recurrent_xlstm(torch, rec, smi_line: str) -> dict:
-    """xlstm-125m at full width and depth (12 blocks, 2 of them sLSTM,
-    d=768, 4 heads; bf16, seed-0 weights) at sequence ``RECURRENT_SEQ``,
-    batch ``XLSTM_BATCH`` (each mLSTM block's fp32 (B, S, S, H) tensors
-    0.54 GB): ``RECURRENT_STEPS`` AdamW steps; finite losses; no kernel on
-    this path.  Returns the launches."""
+    """xlstm-125m at full width (d=768, 4 heads; bf16, seed-0 weights) and
+    ``XLSTM_LAYERS`` of its 12 blocks (one of them sLSTM) at sequence
+    ``RECURRENT_SEQ``, batch ``XLSTM_BATCH`` (each mLSTM block's fp32 (B,
+    S, S, H) tensors 0.54 GB): ``RECURRENT_STEPS`` AdamW steps; finite
+    losses; no kernel on this path.  Returns the launches."""
+    import dataclasses
+
     from repro_torch.configs.xlstm_125m import CFG
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import xlstm as xm
     from repro_torch.tree import tree_leaves
 
+    CFG = dataclasses.replace(CFG, n_layers=XLSTM_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.no_grad():
         params = xm.init_xlstm(gen, CFG, "cuda")
@@ -3301,7 +3370,9 @@ def serve_whisper(torch, rec, smi_line: str) -> dict:
 
 
 def serve_recurrent(torch, rec, arch: str, smi_line: str) -> dict:
-    """xlstm-125m or zamba2-2.7b at full width and depth (seed-0 weights)
+    """xlstm-125m or zamba2-2.7b at full width (seed-0 weights), at the
+    recurrent phase's depths (``XLSTM_LAYERS``, ``ZAMBA2_LAYERS``: its
+    prompt steps were most of the serve phase's time),
     through ``launch.serve.generate`` in bf16: ``SERVE_RECURRENT``'s prompt
     stepped a token at a time (its first prompt_len - 1 tokens, as JAX
     ``serve.main``), then gen steps; launch counts reset just before and
@@ -3313,6 +3384,8 @@ def serve_recurrent(torch, rec, arch: str, smi_line: str) -> dict:
     prompt_len steps (the prompt's and the first generated, fed the
     prompt's first token again) against ``forward`` over those prompt_len
     tokens at ``SERVE_FP32_BAR``."""
+    import dataclasses
+
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import generate
 
@@ -3320,10 +3393,12 @@ def serve_recurrent(torch, rec, arch: str, smi_line: str) -> dict:
         from repro_torch.configs.xlstm_125m import CFG
         from repro_torch.models import xlstm as mod
         init = mod.init_xlstm
+        CFG = dataclasses.replace(CFG, n_layers=XLSTM_LAYERS)
     else:
         from repro_torch.configs.zamba2_2_7b import CFG
         from repro_torch.models import mamba as mod
         init = mod.init_zamba2
+        CFG = dataclasses.replace(CFG, n_layers=ZAMBA2_LAYERS)
     B, P, G = SERVE_RECURRENT["batch"][arch], SERVE_RECURRENT["prompt"], \
         SERVE_RECURRENT["gen"]
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3453,6 +3528,7 @@ REG_REF_CHUNK = 2        # the references' microbatch (the lm phase's b)
 REG_LOSS_BAR = 1e-4      # bf16: step 0's loss against the reference's
 REG_BAR = 1e-2           # bf16: first gradient norm, the second loss
 INTERNLM_LAYERS = 4      # of 48, at full width: about 2.7e9 params
+REG_SMOLLM_LAYERS = 8    # of 32: one a stage of the D=4 fold (S = 8)
 QWEN_FP32_PEAK_GB = 43.91   # the lm phase's fp32-AdamW peak (H100, 700 W)
 REG_SERVE_STEPS = 8      # serve steps after the prefill (serve's B, prompt)
 
@@ -3514,8 +3590,9 @@ def _reg_params(torch, bundle, gen):
 
 
 def registry_smollm(torch, rec, smi_line: str) -> dict:
-    """smollm-360m from ``get_arch`` at full width and depth (bf16, seed-0
-    weights) on its own ``train_4k`` plan (``pp_wave``, M=16) through
+    """smollm-360m from ``get_arch`` at full width, ``scaled_cfg`` to
+    ``REG_SMOLLM_LAYERS`` of its 32 layers (bf16, seed-0 weights; the
+    ``lm`` and ``lm ranks`` phases run all 32) on its own ``train_4k`` plan (``pp_wave``, M=16) through
     ``make_adapter`` with ``REG_MESH`` (the folded closed-form wave at
     D=4) and ``build_pp_train_step``: ``REG_STEPS`` AdamW steps at S=4096,
     global batch 16 (microbatches of 1).  The reference:
@@ -3531,13 +3608,15 @@ def registry_smollm(torch, rec, smi_line: str) -> dict:
 
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeSpec, meta
+    from repro_torch.configs.lm_common import lm_bundle
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.optim import adamw_init, global_norm
     from repro_torch.train.steps import (build_pp_train_step,
                                          build_sharded_train_step)
     from repro_torch.tree import tree_map
 
-    b = get_arch("smollm-360m")
+    full = get_arch("smollm-360m")
+    b = lm_bundle(full.name, full.scaled_cfg(REG_SMOLLM_LAYERS), full.plans)
     cfg, plan = b.cfg, b.plans["train_4k"]
     M = plan.microbatches
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4219,9 +4298,11 @@ def lm_rank_worker(rank: int, port: int, out_dir: str) -> None:
     """One rank of the ``lm ranks`` phase (``chip_smoke.py --lm-rank R
     --port P --out DIR``): smollm-360m's seed-0 weights and batch drawn as
     the ``lm`` phase draws them, the rank's shard of its rows kept,
-    ``LM_RANKS_STEPS`` AdamW steps (lr 3e-4, the norm over the grid),
-    each step's loss, seconds, peak, ring and data-group bytes and
-    launches written to DIR/rank<R>.json."""
+    ``LM_RANKS_STEPS`` AdamW steps (lr 3e-4, the norm over the grid)
+    through ``build_pp_train_step`` over the rank grid on
+    ``_lm_ranks_plan``'s ``CompiledPipeline``, each step's loss, seconds,
+    peak, ring and data-group bytes and launches written to
+    DIR/rank<R>.json."""
     import datetime
 
     import torch
@@ -4230,71 +4311,58 @@ def lm_rank_worker(rank: int, port: int, out_dir: str) -> None:
     from repro_torch.configs.smollm_360m import CFG
     from repro_torch.kernels import launch_counts
     from repro_torch.launch.mesh import make_rank_grid
-    from repro_torch.launch.train import Ranks
     from repro_torch.models import lm
-    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.runtime.adapters import make_lm_microbatches
-    from repro_torch.runtime.ring import DataGroup, Ring
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.train.steps import ParallelPlan, build_pp_train_step
+    from repro_torch.tree import tree_map
 
-    dev = torch.device("cuda", 0)
     world = LM_RANKS_DP * LM_RANKS_PP
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=600))
     grid = make_rank_grid(LM_RANKS_PP, dp=LM_RANKS_DP)
-    ring = Ring(grid.model_group, grid.pipe_index, LM_RANKS_PP, dev,
-                staged=True)
-    data = DataGroup(grid.data_group, grid.data_index, LM_RANKS_DP, dev,
-                     staged=True)
-    cp = _lm_ranks_plan().for_rank(grid.pipe_index, grid.data_index)
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.no_grad():
         whole = lm.init_lm(gen, CFG, "cuda")
     tokens = torch.randint(0, CFG.vocab, (LM_BATCH, LM_SEQ), generator=gen,
                            device="cuda", dtype=torch.int32)
     digest = lm_digest(torch, whole, tokens)
+    plan = ParallelPlan(strategy="pp_wave", pp_degree=LM_RANKS_PP,
+                        microbatches=LM_M, zero_stage=2)
+    step, _ = build_pp_train_step(
+        _lm_ranks_plan(), grid, {"tokens": tokens.to("meta")}, plan,
+        lambda batch, rng, edge: (make_lm_microbatches(batch, LM_M), {}),
+        AdamWConfig(lr=3e-4))
     with torch.no_grad():
-        params = tree_map(torch.clone, cp.split_params(whole))
+        params = tree_map(torch.clone, step.split_params(whole))
     del whole
     torch.cuda.empty_cache()
     init_peak = torch.cuda.max_memory_allocated()
-    for x in tree_leaves(params):
-        x.requires_grad_(True)
-    stacks, edge = params
-    mbs = make_lm_microbatches({"tokens": tokens}, LM_M)
-    fn = cp.build(ring, data)
-    ranks = Ranks(grid, ring, dev, "gloo", data)
-    opt = adamw_init(cp.optimizer_view(params))
+    opt = adamw_init(step.optimizer_view(params))
     steps = []
-    for step in range(LM_RANKS_STEPS):
-        ring.reset_bytes()
-        data.reset_bytes()
+    for _ in range(LM_RANKS_STEPS):
+        for g in (step.state.get("ring"), step.state.get("data")):
+            if g is not None:
+                g.reset_bytes()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = launch_counts()
         t0 = time.perf_counter()
-        loss = fn(*stacks, edge, mbs, {})
-        grads = tree_map(lambda x: x.grad if x.grad is not None
-                         else torch.zeros_like(x), params)
-        finite, norm = ranks.reduce(loss, grads, cp)
-        if finite:
-            adamw_update(cp.optimizer_view(params), cp.optimizer_view(grads),
-                         opt, AdamWConfig(lr=3e-4), norm=norm)
-            cp.gather_params_(params, data)
-        for x in tree_leaves(params):
-            x.grad = None
+        params, opt, loss = step(params, opt, {"tokens": tokens})
         torch.cuda.synchronize()
         after = launch_counts()
+        ring, data = step.state["ring"], step.state["data"]
         steps.append(dict(
-            loss=float(loss), finite=bool(finite), norm=float(norm),
+            loss=float(loss), finite=bool(step.finite),
+            norm=float(step.grad_norm),
             seconds=time.perf_counter() - t0,
             peak_bytes=torch.cuda.max_memory_allocated(),
             ring_bytes=json.loads(json.dumps(ring.bytes)),
             data_bytes=dict(data.bytes), data_calls=dict(data.calls),
             data_seconds=dict(data.seconds),
             launches={k: v - before[k] for k, v in after.items()}))
-        del grads, loss
+        del loss
     doc = dict(rank=rank, pipe=grid.pipe_index, data=grid.data_index,
                digest=digest, init_peak_bytes=init_peak, steps=steps,
                launches=launch_counts())
@@ -4473,6 +4541,535 @@ def lm_ranks_phase(torch, rec, smi_line: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12c: sharded ranks -- the JAX package's sharded strategy over a
+# (data=2, model=2) grid of four rank processes on the one card: the SDv2
+# UNet at full width on its own train_4k plan (FSDP over model x data,
+# batch over data), whisper-base's prefill and decode plans (FSDP over
+# model, batch over data)
+# ---------------------------------------------------------------------------
+
+SHARDED_DP, SHARDED_PP = 2, 2
+SHARDED_STEPS = 2
+SHARDED_BATCH = 16           # the UNet's global batch, 8 a data replica
+SHARDED_LR = 3e-4
+SHARDED_LOSS0_BAR = 1e-3     # bf16: step 0's loss vs the one-process step
+SHARDED_BAR = 1e-2           # bf16: step 1's loss, the norm, each block
+SHARDED_WH_BAR = 1e-5        # fp32: whisper's forward loss vs one process
+SHARDED_SERVE_STEPS = 16
+SHARDED_TIMEOUT = 900
+WHISPER_SERVE_FLASH = 12     # a decode step: 6 self over the cache, 6 cross
+
+
+def _sharded_unet(torch):
+    """The UNet of the phase (``configs/sdv2_unet.CFG``, flash on, as
+    ``factory(kernels=True)``) as ``(loss_fn, init_fn, cfg)``."""
+    import dataclasses
+
+    from repro_torch.configs.sdv2_unet import CFG
+    from repro_torch.models import diffusion as dm
+    cfg = dataclasses.replace(CFG, use_flash=True)
+
+    def loss_fn(p, b, rng=None, *, t, noise):
+        return dm.unet_loss(p, b, t, noise, cfg)
+    return loss_fn, (lambda gen, device="cuda": dm.init_unet(gen, cfg,
+                                                              device)), cfg
+
+
+def _sharded_unet_inputs(torch, init_fn, cfg):
+    """Seed-0 UNet weights, the global batch and each step's DDPM draws of
+    it (the draws of the whole batch: a rank takes its rows of them), and
+    their digest (fp64 sums)."""
+    from repro_torch.configs.base import ddpm_draws
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        params = init_fn(gen, "cuda")
+    B = SHARDED_BATCH
+    batch = {"latents": torch.randn((B, cfg.img_size, cfg.img_size,
+                                     cfg.in_ch), generator=gen,
+                                    device="cuda").to(torch.bfloat16),
+             "text_embeds": torch.randn((B, cfg.ctx_len, cfg.ctx_dim),
+                                        generator=gen, device="cuda").to(
+                                            torch.bfloat16)}
+    draws = [dict(zip(("t", "noise"), ddpm_draws(batch["latents"], gen,
+                                                 None, None)))
+             for _ in range(SHARDED_STEPS)]
+    digest = dict(params=sum(float(x.double().sum()) for x in
+                             _leaves(params)),
+                  inputs=sum(float(x.double().sum()) for x in
+                             _leaves([batch, draws])))
+    return params, batch, draws, digest
+
+
+def _sharded_whisper_inputs(torch):
+    """Seed-0 whisper-base weights (bf16), the prefill plan's batch (the
+    ``recurrent`` phase's: ``WHISPER_BATCH`` x 4096 frames, 448 tokens)
+    and the serve phase's frames and prompts."""
+    from repro_torch.configs.whisper_base import CFG, MAX_TGT
+    from repro_torch.models import whisper as wh
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        params = wh.init_whisper(gen, CFG, "cuda")
+    B = WHISPER_BATCH
+    batch = {"frames": torch.randn((B, RECURRENT_SEQ, CFG.d_model),
+                                   generator=gen, device="cuda"),
+             "tokens": torch.randint(0, CFG.vocab, (B, MAX_TGT),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+    S = SERVE_WHISPER
+    frames = torch.randn((S["batch"], S["frames"], CFG.d_model),
+                         generator=gen, device="cuda")
+    prompts = torch.randint(0, CFG.vocab, (S["batch"], S["prompt"]),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    return params, batch, frames, prompts
+
+
+def _whisper_runs(torch, mesh) -> dict:
+    """whisper-base's forward (``prefill_32k``) and ``SHARDED_SERVE_STEPS``
+    greedy serve steps (``decode_32k``) on ``mesh`` (a RankGrid, or one
+    process's axis sizes), in bf16 and in fp32: each loss and the greedy
+    tokens, the flash launches of the forward and of a serve step, the
+    seconds, and each group's bytes."""
+    from repro_torch.configs.whisper_base import CFG, PLANS
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import whisper as wh
+    from repro_torch.train import steps as tsteps
+    from repro_torch.tree import tree_map
+
+    params, batch, frames, prompts = _sharded_whisper_inputs(torch)
+    B = frames.shape[0]
+    max_len = SERVE_WHISPER["prompt"] + SHARDED_SERVE_STEPS + 1
+    out = {}
+    for tag in ("bf16", "fp32"):
+        p, cfg = (params, CFG) if tag == "bf16" else _fp32(torch, params,
+                                                           CFG)
+        init = lambda gen, device="cuda", cfg=cfg: wh.init_whisper(
+            gen, cfg, device)
+
+        def decode(params, token, cache, cfg=cfg):
+            logits, dec = wh.decode_step(params, token, cache["enc_out"],
+                                         cache["dec"], cfg)
+            return logits, {"enc_out": cache["enc_out"], "dec": dec}
+
+        fstep, _ = tsteps.build_forward_step(
+            lambda q, b, rng=None, cfg=cfg: wh.whisper_loss(q, b, cfg),
+            init, tree_map(lambda x: x.to("meta"), batch), mesh,
+            PLANS["prefill_32k"])
+        blocks = fstep.shard(p, fstep.in_specs[0])
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(fstep(blocks, batch))
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        fwd_flash = launch_counts()["flash_attention"] - \
+            before["flash_attention"]
+        del blocks
+        cache_struct = {"enc_out": torch.empty(
+            (B, frames.shape[1], cfg.d_model), dtype=cfg.dtype,
+            device="meta"), "dec": wh.init_dec_caches(cfg, B, max_len,
+                                                      device="meta")}
+        sstep, _ = tsteps.build_sharded_serve_step(
+            decode, init, cache_struct,
+            torch.empty((B, 1), dtype=torch.int32, device="meta"), mesh,
+            PLANS["decode_32k"])
+        blocks = sstep.shard(p, sstep.in_specs[0])
+        rows = sstep.in_specs[1]          # the token's spec cuts the rows
+        with torch.inference_mode():
+            logits, enc, dec = wh.prefill(
+                p, sstep.local(frames, rows), sstep.local(prompts, rows),
+                cfg, max_len)
+            tok = sstep.gather_rows(torch.argmax(logits, -1).to(
+                torch.int32))
+            cache = {"enc_out": enc, "dec": dec}
+            toks, flash = [tok], []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SHARDED_SERVE_STEPS):
+                before = launch_counts()["flash_attention"]
+                mine, cache = sstep(blocks, tok, cache)
+                flash.append(launch_counts()["flash_attention"] - before)
+                tok = sstep.gather_rows(mine)
+                toks.append(tok)
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+        groups = {}
+        for st in (fstep, sstep):
+            if st.comm is not None:
+                for k, g in st.comm.groups.items():
+                    groups.setdefault(",".join(k), []).append(
+                        dict(bytes=dict(g.bytes), calls=dict(g.calls)))
+        out[tag] = dict(loss=loss, tokens=torch.cat(toks, 1).tolist(),
+                        forward_s=fwd_s, serve_s=serve_s,
+                        forward_flash=fwd_flash, serve_flash=flash,
+                        groups=groups)
+        del blocks, cache, enc, dec, logits, p
+    del params, batch, frames, prompts
+    return out
+
+
+def sharded_rank_worker(rank: int, port: int, out_dir: str) -> None:
+    """One rank of the ``sharded ranks`` phase (``chip_smoke.py
+    --sharded-rank R --port P --out DIR``): the UNet's ``SHARDED_STEPS``
+    steps through ``build_sharded_train_step`` over the grid from the
+    seed-0 weights, batch and draws (each step's loss, gradient norm over
+    the grid, seconds, peak, launches and FSDP group traffic; after the
+    last step every block against the one-process reference's same block,
+    read from DIR/reference.pt), then ``_whisper_runs`` over the grid;
+    all of it to DIR/rank<R>.json."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs.sdv2_unet import PLANS
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.mesh import make_rank_grid
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import sharding as shard_rules
+    from repro_torch.train import steps as tsteps
+    from repro_torch.tree import tree_map, tree_paths
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank,
+                            world_size=SHARDED_DP * SHARDED_PP,
+                            timeout=datetime.timedelta(seconds=600))
+    grid = make_rank_grid(SHARDED_PP, dp=SHARDED_DP)
+    loss_fn, init_fn, cfg = _sharded_unet(torch)
+    params, batch, draws, digest = _sharded_unet_inputs(torch, init_fn, cfg)
+    step, _ = tsteps.build_sharded_train_step(
+        loss_fn, init_fn, tree_map(lambda x: x.to("meta"), batch), grid,
+        PLANS["train_4k"], AdamWConfig(lr=SHARDED_LR))
+    p_specs = step.in_specs[0]
+    blocks = step.shard(params, p_specs)
+    # the leaves drawn as zeros (biases): their first AdamW updates go as
+    # the sign of the gradient, so their blocks are held entry by entry
+    zero_init = {k for k, x in tree_paths(params) if not bool(x.any())}
+    del params
+    torch.cuda.empty_cache()
+    opt = adamw_init(blocks)
+    init_peak = torch.cuda.max_memory_allocated()
+    steps = []
+    for i in range(SHARDED_STEPS):
+        for g in (step.comm.groups.values()):
+            g.reset_bytes()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        blocks, opt, loss = step(blocks, opt, batch, **draws[i])
+        torch.cuda.synchronize()
+        after = launch_counts()
+        steps.append(dict(
+            loss=float(loss), norm=float(step.grad_norm),
+            seconds=time.perf_counter() - t0,
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            launches={k: v - before[k] for k, v in after.items()},
+            groups={",".join(k): dict(bytes=dict(g.bytes),
+                                      calls=dict(g.calls),
+                                      seconds=dict(g.seconds))
+                    for k, g in step.comm.groups.items()}))
+        del loss
+    # every block after the last step against the reference's same block
+    # (written by the parent before the ranks started)
+    ref = torch.load(os.path.join(out_dir, "reference.pt"), mmap=True)
+    sizes = {"data": SHARDED_DP, "model": SHARDED_PP}
+    worst, where = {}, {}
+    for k, spec, x in shard_rules.spec_items(p_specs, blocks):
+        want = shard_rules.spec_view(ref[k], spec, grid.coords, sizes).to(
+            "cuda")
+        kind = "sharded" if shard_rules.sharded_dims(spec, sizes) else \
+            "whole"
+        if k in zero_init:
+            # the share of entries more than one step's lr off
+            err = float(((x.float() - want.float()).abs()
+                         > SHARDED_LR).float().mean())
+            kind += " zero-init off-lr share"
+        else:
+            err = _rel(torch, x, want)
+            kind += " rel"
+        if kind not in worst or not err <= worst[kind]:
+            worst[kind], where[kind] = err, k
+        del want, x
+    del ref, blocks, opt, step, batch, draws
+    torch.cuda.empty_cache()
+    unet_launches = launch_counts()
+    whisper = _whisper_runs(torch, grid)
+    doc = dict(rank=rank, coords=grid.coords, digest=digest,
+               init_peak_bytes=init_peak, steps=steps,
+               block_rel_err=worst, block_worst_leaf=where,
+               unet_launches=unet_launches, whisper=whisper,
+               launches=launch_counts())
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(doc, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _sharded_traffic(p_struct, p_specs, sizes) -> dict:
+    """The UNet step's FSDP group traffic from the specs and the leaves'
+    shapes: one all-gather and one reduce-scatter a dtype of the split
+    leaves' whole bytes (the gathered tensors; gloo's scatter moves the
+    gradients' dtype), one fp32 all-reduce of the whole leaves' gradients
+    and one of the loss and the squared norm (8 bytes)."""
+    from repro_torch.runtime import sharding as shard_rules
+    split, whole = {}, 0
+    for _, s, x in shard_rules.spec_items(p_specs, p_struct):
+        if shard_rules.sharded_dims(s, sizes):
+            split[x.dtype] = split.get(x.dtype, 0) + \
+                x.numel() * x.element_size()
+        else:
+            whole += 4 * x.numel()
+    nb = sum(split.values())
+    return dict(bytes={"all_reduce": whole + 8, "all_gather": nb,
+                       "reduce_scatter": nb},
+                calls={"all_reduce": 2, "all_gather": len(split),
+                       "reduce_scatter": len(split)})
+
+
+def sharded_ranks_phase(torch, rec, smi_line: str) -> dict:
+    """The sharded strategy over four rank processes on the one card (gloo,
+    staged through pinned host memory), a ``(data=2, model=2)`` grid.
+
+    The SDv2 UNet at full width (1,839,817,728 params, bf16, the norm
+    leaves fp32, flash on), its own ``train_4k`` plan, global batch
+    ``SHARDED_BATCH`` (8 rows a data replica, computed on both model ranks
+    of it), ``SHARDED_STEPS`` AdamW steps, held to the one-process
+    ``build_sharded_train_step`` on the same weights, batch and draws (run
+    here first, and freed before the ranks start): every rank's loss
+    equal, step 0's at ``SHARDED_LOSS0_BAR`` and step 1's at
+    ``SHARDED_BAR``, the step-0 gradient norm over the grid at
+    ``SHARDED_BAR``, every rank's gradient finite, and after the last step
+    each rank's block of every sharded leaf within ``SHARDED_BAR``
+    (relative norm) of the reference's same block (a leaf drawn as zeros:
+    at most ``SHARDED_BAR`` of its entries more than lr off; the whole
+    leaves' worst printed); flash ``UNET_FLASH_PER_STEP`` times a
+    step on every rank; each rank's FSDP group traffic equal to
+    ``_sharded_traffic``.  whisper-base at full width on its
+    ``prefill_32k`` and ``decode_32k`` plans: in fp32 the forward's loss
+    at ``SHARDED_WH_BAR`` of the one-process step's and every greedy token
+    equal (the bf16 ones printed).  Returns the ranks' launches."""
+    import shutil
+    import socket
+
+    from repro_torch.configs.sdv2_unet import PLANS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.optim import AdamWConfig, adamw_init, global_norm
+    from repro_torch.train import steps as tsteps
+    from repro_torch.tree import tree_map, tree_paths
+
+    t_phase = time.perf_counter()
+    what = "sharded ranks"
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_sharded")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+
+    # the one-process reference on the card
+    loss_fn, init_fn, cfg = _sharded_unet(torch)
+    params, batch, draws, digest = _sharded_unet_inputs(torch, init_fn, cfg)
+    n_params = sum(x.numel() for x in _leaves(params))
+    norms = []
+    ref_step, (p_struct, _, _) = tsteps.build_sharded_train_step(
+        loss_fn, init_fn, tree_map(lambda x: x.to("meta"), batch),
+        {"data": 1, "model": 1}, PLANS["train_4k"],
+        AdamWConfig(lr=SHARDED_LR),
+        on_grads=lambda g: norms.append(float(global_norm(g))))
+    opt = adamw_init(params)
+    ref = dict(losses=[], seconds=[], peak_bytes=[], flash=[])
+    for i in range(SHARDED_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()["flash_attention"]
+        t0 = time.perf_counter()
+        params, opt, loss = ref_step(params, opt, batch, **draws[i])
+        torch.cuda.synchronize()
+        ref["seconds"].append(time.perf_counter() - t0)
+        ref["losses"].append(float(loss))
+        ref["peak_bytes"].append(torch.cuda.max_memory_allocated())
+        ref["flash"].append(launch_counts()["flash_attention"] - before)
+    ref["grad_norms"] = norms
+    t0 = time.perf_counter()
+    torch.save({k: x.cpu() for k, x in tree_paths(params)},
+               os.path.join(out_dir, "reference.pt"))
+    ref["save_s"] = time.perf_counter() - t0
+    del params, opt, batch, draws, loss
+    one_whisper = _whisper_runs(torch, {"data": 1, "model": 1})
+    left = release(torch)
+    if left >= 1e9:
+        fail(f"{what}: {left / 1e9:.2f} GB still allocated before the ranks")
+    ref_s = time.perf_counter() - t_phase
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, REPRO_TORCH_NO_BUILD="1")
+    world = SHARDED_DP * SHARDED_PP
+    logs = [open(os.path.join(OUT_DIR, f"sharded_ranks.r{r}.log"), "w")
+            for r in range(world)]
+    reset_launch_counts()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sharded-rank", str(r),
+         "--port", str(port), "--out", out_dir], env=env, cwd=ROOT,
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        codes = [p.wait(timeout=SHARDED_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    if any(codes):
+        tails = []
+        for r in range(world):
+            with open(os.path.join(OUT_DIR, f"sharded_ranks.r{r}.log")) as f:
+                tails.append(f"rank {r}:\n{f.read()[-2000:]}")
+        fail(f"{what}: rank exit codes {codes}\n" + "\n".join(tails))
+    docs = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            docs.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # the UNet: the reference's weights, batch and draws
+    for d in docs:
+        if d["digest"] != digest:
+            fail(f"{what}: rank {d['rank']} drew {d['digest']}, the "
+                 f"reference {digest}")
+    losses = [[st["loss"] for st in d["steps"]] for d in docs]
+    if any(x != losses[0] for x in losses):
+        fail(f"{what}: the ranks disagree on the losses {losses}")
+    losses = losses[0]
+    rel = [abs(x - r) / abs(r) for x, r in zip(losses, ref["losses"])]
+    bars = [SHARDED_LOSS0_BAR] + [SHARDED_BAR] * (SHARDED_STEPS - 1)
+    if not all(math.isfinite(x) for x in losses) or \
+            not all(e <= b for e, b in zip(rel, bars)):
+        fail(f"{what}: losses {losses} vs the one-process step's "
+             f"{ref['losses']} (relative {rel}, bars {bars})")
+    norms = {d["rank"]: [st["norm"] for st in d["steps"]] for d in docs}
+    if not all(math.isfinite(x) for n in norms.values() for x in n):
+        fail(f"{what}: gradient norms over the grid {norms}: a rank's "
+             "gradient is not finite")
+    norm_rel = {r: abs(n[0] - ref["grad_norms"][0]) / ref["grad_norms"][0]
+                for r, n in norms.items()}
+    if not max(norm_rel.values()) <= SHARDED_BAR:
+        fail(f"{what}: step-0 gradient norms over the grid {norms} vs "
+             f"{ref['grad_norms'][0]} (relative {norm_rel}, bar "
+             f"{SHARDED_BAR})")
+    # the sharded leaves' blocks are held (an update applied to another
+    # block, or to none, shows there): a leaf drawn from a distribution by
+    # its relative norm; a leaf drawn as zeros (a bias), whose first AdamW
+    # updates go as the sign of its gradient (an entry near zero flips
+    # with bf16 sums over other rows, 2 lr apart), by the share of its
+    # entries more than lr off, which an update to another block or to
+    # none puts near 1.  The whole leaves, updated alike on every rank
+    # from one all-reduced gradient, are printed
+    blocks = {d["rank"]: d["block_rel_err"] for d in docs}
+    held = [v for b in blocks.values() for k, v in b.items()
+            if k.startswith("sharded")]
+    if not held or not max(held) <= SHARDED_BAR:
+        fail(f"{what}: blocks after step {SHARDED_STEPS - 1} vs the "
+             f"reference's (relative norm) {blocks} at "
+             f"{[d['block_worst_leaf'] for d in docs]}, bar {SHARDED_BAR}")
+    flash = [sum(d["steps"][s]["launches"]["flash_attention"] for d in docs)
+             for s in range(SHARDED_STEPS)]
+    if any(n != world * UNET_FLASH_PER_STEP for n in flash):
+        fail(f"{what}: flash launches a step over the ranks {flash}, want "
+             f"{world} x {UNET_FLASH_PER_STEP}")
+    sizes = {"data": SHARDED_DP, "model": SHARDED_PP}
+    fsdp = ",".join(a for a in PLANS["train_4k"].fsdp_axes if a in sizes)
+    traffic = _sharded_traffic(
+        p_struct, tsteps.param_specs_for(p_struct, sizes, PLANS["train_4k"]),
+        sizes)
+    for d in docs:
+        for s, st in enumerate(d["steps"]):
+            g = st["groups"]
+            if set(g) != {fsdp} or {k: g[fsdp][k] for k in
+                                    ("bytes", "calls")} != traffic:
+                fail(f"{what}: rank {d['rank']} step {s} groups {g}, want "
+                     f"{fsdp}: {traffic}")
+
+    # whisper: fp32 held to the one-process steps, bf16 printed
+    for d in docs:
+        w = d["whisper"]
+        got = w["fp32"]
+        e = abs(got["loss"] - one_whisper["fp32"]["loss"]) / abs(
+            one_whisper["fp32"]["loss"])
+        if not e <= SHARDED_WH_BAR:
+            fail(f"{what}: rank {d['rank']} whisper fp32 forward loss "
+                 f"{got['loss']} vs one process {one_whisper['fp32']['loss']}"
+                 f" (relative {e:.3e} > {SHARDED_WH_BAR})")
+        if got["tokens"] != one_whisper["fp32"]["tokens"]:
+            fail(f"{what}: rank {d['rank']} whisper fp32 tokens differ from "
+                 "the one-process serve step's")
+        for tag in ("bf16", "fp32"):
+            if w[tag]["forward_flash"] != WHISPER_FLASH_PER_STEP or any(
+                    n != WHISPER_SERVE_FLASH for n in w[tag]["serve_flash"]):
+                fail(f"{what}: rank {d['rank']} whisper {tag} flash "
+                     f"{w[tag]['forward_flash']} a forward, "
+                     f"{w[tag]['serve_flash']} a serve step")
+    launched = {k: sum(d["launches"][k] for d in docs)
+                for k in docs[0]["launches"]}
+    want_bf16 = list(itertools.chain(*one_whisper["bf16"]["tokens"]))
+    bf16_equal = [sum(a == b for a, b in zip(itertools.chain(
+        *d["whisper"]["bf16"]["tokens"]), want_bf16)) / len(want_bf16)
+        for d in docs]
+    secs = {d["rank"]: [round(st["seconds"], 3) for st in d["steps"]]
+            for d in docs}
+    peaks = {d["rank"]: [st["peak_bytes"] for st in d["steps"]]
+             for d in docs}
+    gloo_s = {d["rank"]: [{k: round(v, 3) for k, v in
+                           st["groups"][fsdp]["seconds"].items()}
+                          for st in d["steps"]] for d in docs}
+    rec["sharded_ranks"] = dict(
+        card=smi_line, dp=SHARDED_DP, pp=SHARDED_PP, params=n_params,
+        global_batch=SHARDED_BATCH, reference=ref, reference_s=ref_s,
+        ranks_wall_s=wall, losses=losses, loss_rel_err=rel,
+        grad_norms=norms, first_grad_norm_rel_err=norm_rel,
+        block_rel_err=blocks, step_seconds=secs, peak_bytes=peaks,
+        init_peak_bytes={d["rank"]: d["init_peak_bytes"] for d in docs},
+        traffic=traffic, gloo_seconds=gloo_s, flash_per_step=flash,
+        whisper={d["rank"]: d["whisper"] for d in docs},
+        whisper_one_process=one_whisper, whisper_bf16_tokens_equal=bf16_equal,
+        launches=launched)
+    log(f"[sharded ranks] sdv2-unet {n_params} params, bf16, flash; "
+        f"train_4k (FSDP {fsdp}, batch over data), global batch "
+        f"{SHARDED_BATCH}; four ranks on one card (gloo, staged); ranks "
+        f"{wall:.1f} s; {smi_line}")
+    log(f"[sharded ranks] losses {losses} vs one process {ref['losses']} "
+        f"(relative {[f'{x:.2e}' for x in rel]}, bars {bars}); step-0 norm "
+        f"over the grid {norms[0][0]!r} vs {ref['grad_norms'][0]!r} (relative"
+        f" {max(norm_rel.values()):.2e}); blocks after step "
+        f"{SHARDED_STEPS - 1} vs the reference's: {blocks}")
+    log(f"[sharded ranks] one process: step s "
+        f"{[round(x, 3) for x in ref['seconds']]}, peak GB "
+        f"{[round(x / 1e9, 3) for x in ref['peak_bytes']]}, flash a step "
+        f"{ref['flash']}; reference saved in {ref['save_s']:.1f} s")
+    log(f"[sharded ranks] FSDP group ({fsdp}) a step, each rank: "
+        f"{traffic} = the arithmetic of the specs; gloo seconds {gloo_s}")
+    log(f"[sharded ranks] flash a step over the ranks {flash}")
+    for d in docs:
+        log(f"[sharded ranks] rank {d['rank']} {d['coords']}: step s "
+            f"{secs[d['rank']]}; peak GB "
+            f"{[round(x / 1e9, 3) for x in peaks[d['rank']]]} (set-up "
+            f"{d['init_peak_bytes'] / 1e9:.3f})")
+    w0 = docs[0]["whisper"]
+    log(f"[sharded ranks] whisper-base prefill_32k B={WHISPER_BATCH}: fp32 "
+        f"loss {w0['fp32']['loss']!r} vs one process "
+        f"{one_whisper['fp32']['loss']!r}; bf16 {w0['bf16']['loss']!r} vs "
+        f"{one_whisper['bf16']['loss']!r}; decode_32k "
+        f"{SHARDED_SERVE_STEPS} greedy steps B={SERVE_WHISPER['batch']}: "
+        f"fp32 tokens equal on every rank; bf16 tokens equal to one "
+        f"process's {bf16_equal}; forward s {w0['bf16']['forward_s']:.3f}, "
+        f"serve s {w0['bf16']['serve_s']:.3f} (bf16); groups "
+        f"{w0['bf16']['groups']}")
+    log(f"[sharded ranks] phase {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
+# ---------------------------------------------------------------------------
 # phase 13: hybrid -- the tuner's N=4 plan for UViT-H (P=2, G=2, V=2, M=2):
 # two data replicas of a 2-device pipeline, four ranks on the one card, at
 # ZeRO-1 and ZeRO-2
@@ -4480,10 +5077,11 @@ def lm_ranks_phase(torch, rec, smi_line: str) -> dict:
 
 HYBRID_DP, HYBRID_PP, HYBRID_V, HYBRID_M = 2, 2, 2, 2
 HYBRID_STEPS = 3
-# UViT-H cut to 16 of its 32 blocks in the hybrid, rank checkpoint and
+# UViT-H cut to 8 of its 32 blocks in the hybrid, rank checkpoint and
 # supervisor phases: their gloo collectives and checkpoint bytes scale with
-# the params, and these three phases took most of the script's time
-HYBRID_LAYERS = 16
+# the params, and these three phases took most of the script's time (16
+# blocks until the sharded ranks phase came; 32 before that)
+HYBRID_LAYERS = 8
 HYBRID_ZERO = (1, 2)
 # the plan in one process (one data replica), then as the ranks run it
 HYBRID_ONE_ARGV = ["--arch", "uvit-h", "--pipeline", "--pp", str(HYBRID_PP),
@@ -5762,6 +6360,8 @@ def _args() -> argparse.Namespace:
                     "every phase)")
     ap.add_argument("--lm-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     return ap.parse_args()
@@ -5771,6 +6371,9 @@ def main() -> None:
     args = _args()
     if args.lm_rank is not None:
         lm_rank_worker(args.lm_rank, args.port, args.out)
+        return
+    if args.sharded_rank is not None:
+        sharded_rank_worker(args.sharded_rank, args.port, args.out)
         return
     import torch
     if not torch.cuda.is_available():
@@ -5854,29 +6457,40 @@ def main() -> None:
             f"on {sms} SMs")
     log(f"[tiling] grids (blocks): {grids}")
 
-    # 3. kernels
+    # 3. kernels (each phase's seconds in rec["phase_s"])
+    phase_s = rec.setdefault("phase_s", {})
+    t0 = time.perf_counter()
     main_rows = {"skip_concat_matmul": check_skip_matmul(torch, rec),
                  "flash_attention": check_flash(torch, rec)}
+    phase_s["kernels skip, flash"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     main_rows["gated_linear_scan"] = check_scan(torch, rec)
     torch.cuda.empty_cache()
+    phase_s["kernels scan"] = time.perf_counter() - t0
 
     # 3b. kernel_check: the launch predicates against real launches
+    t0 = time.perf_counter()
     kernel_check_phase(torch, rec)
+    phase_s["kernel_check"] = time.perf_counter() - t0
 
     # 4. pipeline parity, then the UNet's card-vs-CPU parity
+    t0 = time.perf_counter()
     for kind, D, M, over in PARITY_CASES:
         pipeline_parity(torch, rec, kind, D, M, **over)
     pipeline_parity_bf16(torch, rec)
     linear_parity(torch, rec)
     unet_parity(torch, rec)
     torch.cuda.empty_cache()
+    phase_s["parity"] = time.perf_counter() - t0
 
     # 5. plan: measured block costs, the tuner, UViT-H on the tuner's plan
     counts = {}
     left = release(torch)
     if left >= 1e9:
         fail(f"plan: {left / 1e9:.2f} GB still allocated before the phase")
+    t0 = time.perf_counter()
     counts["plan"] = plan_phase(torch, rec)
+    phase_s["plan"] = time.perf_counter() - t0
 
     # 6-8. train, one model at a time; after UViT-H, its checkpoint phase
     for arch in TRAIN_ARCHS:
@@ -5885,30 +6499,38 @@ def main() -> None:
         if left >= 1e9:
             fail(f"train {arch}: {left / 1e9:.2f} GB still allocated; the "
                  "previous phase was not released")
+        t0 = time.perf_counter()
         counts[arch] = train(torch, rec, arch)
+        phase_s[f"train {arch}"] = time.perf_counter() - t0
         if arch == "uvit-h":
             # 6b. PULSE against the skip-carry baseline at UViT-H's width
             left = release(torch)
             if left >= 1e9:
                 fail(f"baseline: {left / 1e9:.2f} GB still allocated; the "
                      "previous phase was not released")
+            t0 = time.perf_counter()
             counts["baseline"] = baseline_phase(torch, rec)
+            phase_s["baseline"] = time.perf_counter() - t0
             release(torch)
+            t0 = time.perf_counter()
             counts.update(checkpoint_phase(torch, rec, smi_line))
+            phase_s["checkpoint"] = time.perf_counter() - t0
 
     # 9. train the SDv2 UNet at full width, without the pipeline
     left = release(torch)
     if left >= 1e9:
         fail(f"train sdv2-unet-full: {left / 1e9:.2f} GB still allocated; "
              "the previous phase was not released")
+    t0 = time.perf_counter()
     counts["sdv2-unet-full"] = train(torch, rec, "sdv2-unet-full")
+    phase_s["train sdv2-unet-full"] = time.perf_counter() - t0
     release(torch)
 
     # 10. SkipViT on the wave pipeline, card vs CPU
     t0 = time.perf_counter()
     counts["skipvit train"] = skipvit_train(torch, rec)
     counts["skipvit wave-asym"] = skipvit_wave_asym(torch, rec)
-    rec.setdefault("phase_s", {})["skipvit"] = time.perf_counter() - t0
+    phase_s["skipvit"] = time.perf_counter() - t0
     log(f"[skipvit] phase {rec['phase_s']['skipvit']:.1f} s")
 
     # 16. lm: smollm-360m on both D=4 plans, qwen3-moe at full width, the
@@ -6011,6 +6633,16 @@ def main() -> None:
     counts["lm ranks"] = lm_ranks_phase(torch, rec, smi_line)
     rec["phase_s"]["lm ranks"] = time.perf_counter() - t0
 
+    # 12c. sharded ranks: the SDv2 UNet's train_4k plan and whisper-base's
+    # prefill and decode plans over a (data=2, model=2) grid of ranks
+    left = release(torch)
+    if left >= 1e9:
+        fail(f"sharded ranks: {left / 1e9:.2f} GB still allocated; the "
+             "previous phase was not released")
+    t0 = time.perf_counter()
+    counts["sharded ranks"] = sharded_ranks_phase(torch, rec, smi_line)
+    rec["phase_s"]["sharded ranks"] = time.perf_counter() - t0
+
     # 13. hybrid: the tuner's N=4 plan, two data replicas, ZeRO-1 and 2
     left = release(torch)
     if left >= 1e9:
@@ -6077,7 +6709,8 @@ def main() -> None:
     rec["wall_s"] = time.perf_counter() - t_start
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)
-    log(f"[done] {rec['wall_s']:.1f} s")
+    log(f"[done] {rec['wall_s']:.1f} s; phase s "
+        f"{ {k: round(v, 1) for k, v in rec['phase_s'].items()} }")
     log(smi_line)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ shapes and dtypes (its ``ShapeDtypeStruct``s): nothing is allocated.
 JAX function takes a key, and the diffusion bundles take the step's DDPM
 draws ``t=`` and ``noise=`` instead, as ``make_diffusion_microbatches``
 does.  ``make_adapter(plan, mesh)`` takes the mesh's axis sizes (a dict
-such as ``{"data": 1, "model": 4}``, or a one-rank ``RankGrid``).
+such as ``{"data": 1, "model": 4}``, everything in this process) or a
+``RankGrid``, whose rank's adapter it builds.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.runtime.pipeline import PipelineConfig
-from repro_torch.train.steps import ParallelPlan, check_one_process
+from repro_torch.train.steps import (ParallelPlan, check_one_process,
+                                     check_ranks, rank_grid)
 
 Pytree = Any
 
@@ -85,10 +87,15 @@ def token_batch_struct(shape: ShapeSpec, vocab: int,
 
 def pipeline_config(plan: ParallelPlan, mesh) -> PipelineConfig:
     """The ``PipelineConfig`` of a ``pp_*`` plan on ``mesh``: D = its
-    ``"model"`` axis, the plan's microbatches, stage remat.  Data replicas
-    run as ranks, so an axis of the plan's batch axes larger than 1 is
-    refused (``check_one_process``)."""
-    sizes = check_one_process(mesh, plan, pipeline_axis="model")
+    ``"model"`` axis, dp = the product of the plan's batch axes, the plan's
+    microbatches, stage remat.  Data replicas run as ranks: on a
+    ``RankGrid`` the config is a rank's (its adapter builds with the
+    rank's ring and data group); in one process a batch axis larger than
+    1 is refused (``check_one_process``)."""
+    grid = rank_grid(mesh)
+    sizes = (check_one_process(mesh, plan, pipeline_axis="model")
+             if grid is None else
+             check_ranks(grid, plan, pipeline_axis="model"))
     dp = math.prod(sizes[a] for a in plan.batch_axes if a in sizes)
     return PipelineConfig(num_devices=sizes["model"],
                           num_microbatches=plan.microbatches, dp_size=dp,

@@ -26,12 +26,16 @@ The rank grid is the counterpart of ``make_production_mesh``,
 index, the JAX mesh's row-major device order), one process per pipeline
 device: a rank's pipeline ring runs over its ``model_group`` and the
 collectives of data parallelism and ZeRO over its ``data_group``.
-``torch.distributed`` is imported inside the function, so the rest of the
-module stays importable without it.
+A sharded step's collectives run over a subset of the axes
+(``RankGrid.axis_group``): the data group, the model group, or the whole
+world, each holding its members in the order of the spec's axes.
+``torch.distributed`` is imported inside the functions, so the rest of
+the module stays importable without it.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
 
@@ -66,6 +70,40 @@ class RankGrid:
         """The rank of grid point (pipeline index ``pipe``, data index
         ``data``)."""
         return data * self.pp + pipe
+
+    @property
+    def coords(self) -> dict:
+        """This rank's index on each mesh axis."""
+        return {"data": self.data_index, "model": self.pipe_index}
+
+    def axis_group(self, axes) -> tuple:
+        """``(group, members)`` of this rank's peers over the mesh axes
+        ``axes`` (a subset of ``("data", "model")``, in any order; axes of
+        size 1 and axes the grid lacks drop out): the ranks that share
+        this rank's index on every other axis, ``members`` their global
+        ranks in block order, the first axis of ``axes`` major -- the
+        order in which a ``NamedSharding`` over those axes places a dim's
+        blocks (:func:`repro_torch.runtime.sharding.block_index`).  The
+        group is the grid's ``data_group`` or ``model_group`` for one axis,
+        the world for both; ``(None, [rank])`` for none."""
+        import torch.distributed as dist
+        sizes = mesh_axis_sizes(self)
+        axes = tuple(a for a in axes if sizes.get(a, 1) > 1)
+        if not axes:
+            return None, [self.rank]
+        if set(axes) == {"data"}:
+            group = self.data_group
+        elif set(axes) == {"model"}:
+            group = self.model_group
+        else:
+            group = dist.group.WORLD
+        members = []
+        for i in range(math.prod(sizes[a] for a in axes)):
+            at, rest = dict(self.coords), i
+            for a in reversed(axes):
+                at[a], rest = rest % sizes[a], rest // sizes[a]
+            members.append(self.rank_of(at["model"], at["data"]))
+        return group, members
 
 
 def make_rank_grid(pp: int, *, dp: int = 1) -> RankGrid:

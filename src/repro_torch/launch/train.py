@@ -503,36 +503,17 @@ class Ranks:
         return out
 
     def reduce(self, loss, grads, compiled) -> tuple[bool, Any]:
-        """(finite, global norm) of the step's gradient over the grid,
-        each element counted once: a stage leaf ZeRO shards by its data
-        replicas (``compiled.zero_dims()``; its ``.grad`` is the rank's
-        shard, zeros elsewhere at ZeRO-1) on every rank, a stage leaf
-        every replica holds whole on data index 0 only, the edge leaves
-        (equal on every rank after their all-reduce) on rank 0 only."""
-        import torch
-
-        from repro_torch.runtime.resilience import all_finite
-        from repro_torch.runtime.sharding import leaf_dims
-        from repro_torch.tree import tree_leaves
-        stacks, edge = grads
-        first = self.grid.data_index == 0
-        dims = compiled.zero_dims()
-        leaves = []
-        for i, st in enumerate(stacks):
-            leaves += [g for g, d in leaf_dims(st, dims and dims[i])
-                       if d >= 0 or first]
-        if self.leader:
-            leaves += tree_leaves(edge)
-        sq = torch.zeros((), dtype=torch.float32, device=self.device)
-        for g in leaves:
-            sq = sq + torch.linalg.vector_norm(g, dtype=torch.float32
-                                               ).square()
-        bad = (~all_finite(loss, grads)).to(sq.device, torch.float32)
-        buf = torch.stack([sq, bad])
-        self.ring.all_reduce_([buf])
-        if self.data is not None:
-            self.data.all_reduce_([buf])
-        return bool(buf[1] == 0), torch.sqrt(buf[0])
+        """(finite, global norm) of the step's gradient over the grid, each
+        element counted once (``runtime.ring.grid_grad_norm``): a stage
+        leaf ZeRO shards by its data replicas (``compiled.zero_dims()``;
+        its ``.grad`` is the rank's shard, zeros elsewhere at ZeRO-1) on
+        every rank, a stage leaf every replica holds whole on data index 0
+        only, the edge leaves on rank 0 only."""
+        from repro_torch.runtime.ring import grid_grad_norm
+        return grid_grad_norm(loss, grads, grads, compiled.zero_dims(),
+                              first=self.grid.data_index == 0,
+                              leader=self.leader, ring=self.ring,
+                              data=self.data)
 
 
 def _init_ranks(args, env: dict) -> Ranks:

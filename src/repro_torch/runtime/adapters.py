@@ -134,22 +134,28 @@ class LMPipelineAdapter:
         return lm_mod.softmax_xent(logits, mb["tokens"][:, 1:])
 
     # ---- builders ----
-    def build(self) -> Callable:
+    def build(self, ring=None, data=None) -> Callable:
         """``fn(stack, edge, mbs)`` (linear) or ``fn(enc, dec, edge, mbs)``
-        (folded) -> the mean loss over the M microbatches."""
-        check_one_replica(self.pcfg)
+        (folded) -> the mean loss over the M microbatches.  With ``ring``
+        (``runtime.ring.Ring``) rank ``ring.index``'s closed-form executor
+        over its ``[1, rows, ...]`` stacks, and with ``pcfg.dp_size > 1``
+        its ``data`` group: the loss reduced over both, every leaf's
+        ``.grad`` filled (``runtime.pipeline``)."""
+        if ring is None:
+            check_one_replica(self.pcfg)
         if self.wave:
             wave = make_wave_pipeline(
                 self.pcfg,
                 embed_fn=lambda e, mb, aux: self.embed_fn(e, mb),
                 enc_stage_fn=self.enc_stage_fn,
                 dec_stage_fn=self.dec_stage_fn,
-                loss_fn=lambda e, x, mb, aux: self.loss_fn(e, x, mb))
+                loss_fn=lambda e, x, mb, aux: self.loss_fn(e, x, mb),
+                ring=ring, data=data)
             # LM graphs have no skip tensors: aux rides along empty
             return lambda enc, dec, edge, mbs: wave(enc, dec, edge, mbs, {})
         return make_linear_pipeline(
             self.pcfg, embed_fn=self.embed_fn, stage_fn=self.stage_fn,
-            loss_fn=self.loss_fn)
+            loss_fn=self.loss_fn, ring=ring, data=data)
 
 
 # ===========================================================================
@@ -239,12 +245,14 @@ class DiffusionPipelineAdapter:
         return torch.mean(torch.square(pred.float() - mb["noise"].float()))
 
     # ---- builders ----
-    def build(self) -> Callable:
-        """The closed-form wave executor on :meth:`split_params`' stacks."""
+    def build(self, ring=None, data=None) -> Callable:
+        """The closed-form wave executor on :meth:`split_params`' stacks;
+        with ``ring`` (and ``data``) a rank's, as
+        :meth:`LMPipelineAdapter.build`'s."""
         return make_wave_pipeline(
             self.pcfg, embed_fn=self.embed_fn,
             enc_stage_fn=self.enc_stage_fn, dec_stage_fn=self.dec_stage_fn,
-            loss_fn=self.loss_fn)
+            loss_fn=self.loss_fn, ring=ring, data=data)
 
     def build_skip_carry_baseline(self, ring=None, data=None) -> Callable:
         """Paper-baseline executor: sequential partition + skip payload,

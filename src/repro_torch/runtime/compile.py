@@ -59,8 +59,8 @@ from repro_torch.runtime.pipeline import (PipelineConfig, check_one_replica,
 from repro_torch.runtime.schedule_exec import (
     StepTables, make_linear_pipeline_from_schedule,
     make_wave_pipeline_from_schedule)
-from repro_torch.runtime.sharding import (leaf_dims, shard, shard_view,
-                                          zero_stack_dims)
+from repro_torch.runtime.sharding import (gather_shards_, shard,
+                                          shard_view, zero_stack_dims)
 from repro_torch.tree import tree_leaves, tree_map
 
 Pytree = Any
@@ -448,17 +448,8 @@ class CompiledPipeline:
                 or self.pcfg.dp_size <= 1:
             return
         stacks, _ = params
-        with torch.no_grad():
-            for st, dims in zip(stacks, self.zero_dims()):
-                sharded = [(x, d + 1) for x, d in leaf_dims(st, dims)
-                           if d >= 0]
-                if not sharded:
-                    continue
-                xs, ds = zip(*sharded)
-                data.all_gather(
-                    [x.narrow(d, data.index * (x.shape[d] // data.size),
-                              x.shape[d] // data.size)
-                     for x, d in sharded], list(ds), out=list(xs))
+        for st, dims in zip(stacks, self.zero_dims()):
+            gather_shards_(st, dims, data)
 
     # ---- parameter plumbing ----------------------------------------------
     def split_params(self, params: Pytree) -> tuple:

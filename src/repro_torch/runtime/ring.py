@@ -133,17 +133,24 @@ class GroupView:
     what = "group"
 
     def __init__(self, group, index: int, size: int, device, *,
-                 staged: bool = False):
+                 staged: bool = False, members: list | None = None):
         dist = _dist()
         self.group, self.index, self.size = group, index, size
         self.device = torch.device(device)
         self.staged = staged
         self.backend = str(dist.get_backend(group)).lower()
-        self._global = dist.get_process_group_ranks(group)
-        if len(self._global) != size or dist.get_rank(group) != index:
+        ranks = dist.get_process_group_ranks(group)
+        # the members' global ranks in index order (the group's own rank
+        # order unless ``members`` gives another), and each one's rank in
+        # the group, where a collective that orders by it places its part
+        self._global = list(ranks if members is None else members)
+        if sorted(self._global) != sorted(ranks) or len(ranks) != size \
+                or self._global[index] != dist.get_rank():
             raise ValueError(
                 f"{self.what} index {index} of {size} does not match the "
-                f"group: rank {dist.get_rank(group)} of {len(self._global)}")
+                f"group: rank {dist.get_rank(group)} of {len(ranks)}, "
+                f"members {self._global}")
+        self._slot = [dist.get_group_rank(group, g) for g in self._global]
         cuda = self.device.type == "cuda"
         if self.backend == "nccl":
             if not cuda or staged:
@@ -361,13 +368,19 @@ class DataGroup(GroupView):
 
     Every data peer of a pipeline index runs the same step tables, so the
     peers issue their collectives in the same order without a message;
-    the callers rely on it."""
+    the callers rely on it.
+
+    ``members`` gives the members' global ranks in index order when it is
+    not the group's own rank order (a sharded step's group over the
+    ``("model", "data")`` axes of a grid: ``RankGrid.axis_group``): index
+    ``i`` holds a gathered or scattered tensor's block ``i``."""
 
     what = "data group"
 
     def __init__(self, group, index: int, size: int, device, *,
-                 staged: bool = False):
-        super().__init__(group, index, size, device, staged=staged)
+                 staged: bool = False, members: list | None = None):
+        super().__init__(group, index, size, device, staged=staged,
+                         members=members)
         self.bytes = dict.fromkeys(COLLECTIVES, 0)
         self.calls = dict.fromkeys(COLLECTIVES, 0)
         self.seconds = dict.fromkeys(COLLECTIVES, 0.0)
@@ -427,9 +440,11 @@ class DataGroup(GroupView):
             typed[off:off + x.numel()].view(x.shape).copy_(x.detach())
             off += x.numel()
         if self.backend == "nccl":
-            got = torch.empty((self.size, n * esize), dtype=torch.uint8,
-                              device=self.device)
-            dist.all_gather_into_tensor(got.view(-1), send, group=self.group)
+            rows = torch.empty((self.size, n * esize), dtype=torch.uint8,
+                               device=self.device)
+            dist.all_gather_into_tensor(rows.view(-1), send,
+                                        group=self.group)
+            got = [rows[self._slot[i]] for i in range(self.size)]
         else:
             got = [send if i == self.index else self._empty(
                 (n * esize,), torch.uint8, ("ag_recv", i))
@@ -483,7 +498,7 @@ class DataGroup(GroupView):
             rows = torch.empty((self.size, n), dtype=torch.float32,
                                device=self.device)
             for i in range(self.size):
-                pack(i, rows[i])
+                pack(i, rows[self._slot[i]])
             summed = torch.empty(n, dtype=torch.float32, device=self.device)
             dist.reduce_scatter_tensor(summed, rows.view(-1),
                                        group=self.group)
@@ -711,6 +726,45 @@ def reduce_loss(ring: Ring, local: torch.Tensor,
         data.all_reduce_([total])
         total /= data.size
     return total
+
+
+def grid_grad_norm(loss: torch.Tensor, grads: tuple, view: tuple, dims,
+                   *, first: bool, leader: bool, ring: Ring,
+                   data: "DataGroup | None" = None
+                   ) -> tuple[bool, torch.Tensor]:
+    """(finite, global norm) of a pipeline rank's step gradient ``(stacks,
+    edge)`` over the grid, each element counted once: a stage leaf that
+    ZeRO shards over the data replicas (its ``dims`` entry >= 0) by its
+    leaf in ``view`` (the gradients as the rank's optimizer sees them:
+    its shard) on every rank, a stage leaf every replica holds whole on
+    the replica with ``first`` alone, the edge leaves (equal on every rank
+    after their all-reduce) on the ``leader`` alone.  One all-reduce of
+    the squared norm and a non-finite flag over ``ring``, one over
+    ``data``."""
+    from repro_torch.runtime.resilience import all_finite
+    from repro_torch.runtime.sharding import leaf_dims
+    from repro_torch.tree import tree_leaves
+    stacks, edge = grads
+    leaves = []
+    for i, (st, vst) in enumerate(zip(stacks, view[0])):
+        for (g, d), v in zip(leaf_dims(st, dims and dims[i]),
+                             tree_leaves(vst)):
+            if d >= 0:
+                leaves.append(v)
+            elif first:
+                leaves.append(g)
+    if leader:
+        leaves += tree_leaves(edge)
+    dev = ring.device
+    sq = torch.zeros((), dtype=torch.float32, device=dev)
+    for g in leaves:
+        sq = sq + torch.linalg.vector_norm(g, dtype=torch.float32).square()
+    bad = (~all_finite(loss, grads)).to(dev, torch.float32)
+    buf = torch.stack([sq, bad])
+    ring.all_reduce_([buf])
+    if data is not None:
+        data.all_reduce_([buf])
+    return bool(buf[1] == 0), torch.sqrt(buf[0])
 
 
 def reduce_edge_grads(ring: Ring, leaves: list,

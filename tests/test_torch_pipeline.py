@@ -493,6 +493,8 @@ def test_port_imports_neither_jax_nor_repro():
                 "repro_torch.configs.base",
                 "repro_torch.configs.lm_common",
                 "repro_torch.train.steps",
+                "repro_torch.runtime.sharding",
+                "repro_torch.runtime.ring",
                 "repro_torch.analysis.verify",
                 "repro_torch.analysis.kernel_check",
                 "repro_torch.analysis.lint"):

@@ -691,8 +691,12 @@ def test_pp_adapters_refuse_data_replicas_and_a_grid_of_ranks():
     plan = tb.plans["train_4k"]
     with pytest.raises(NotImplementedError, match="data parallelism"):
         tb.make_adapter(plan, {"data": 2, "model": 4})
-    with pytest.raises(NotImplementedError, match="a grid of 8 ranks"):
-        tb.make_adapter(plan, RankGrid(world=8, dp=2, pp=4, rank=0))
+    # a grid of ranks gives a rank's adapter (D = pp, dp replicas), which
+    # builds only with the rank's ring and data group: one process refuses
+    grid = tb.make_adapter(plan, RankGrid(world=8, dp=2, pp=4, rank=0))
+    assert (grid.pcfg.num_devices, grid.pcfg.dp_size) == (4, 2)
+    with pytest.raises(ValueError, match="dp_size=2"):
+        grid.build()
     one = tb.make_adapter(plan, RankGrid(world=1, dp=1, pp=1, rank=0))
     assert one.pcfg.num_devices == 1 and one.wave
     # size-1 axes are no-ops: smollm's own decode plan (TP over "model")
