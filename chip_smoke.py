@@ -53,7 +53,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    head dim 64, internlm2-20b's 48:8 at 128; rows ``registry ...``) and
    of the ``sharded ranks`` phase (a data replica's rows: the UNet's six
    at B=8, whisper-base's encoder, decoder, cross and a serve step's two
-   at B=4; rows ``sharded ...``) (the
+   at B=4; rows ``sharded ...``; its TP runs' rank heads, rows ``tp ...``:
+   h2o-danube-1.8b's 16 q over 4 kv heads at D=80 with its window (its
+   prefill of 32768 tokens held on 512 query rows: ``check_flash_long``),
+   smollm-360m's runs of 6:2 and 2:1 heads at D=64) (the
    gated linear scan at zamba2-2.7b's carry across
    chunks on the ``recurrent`` path, R=2 T=32 C=327,680, at its Mamba2
    width over 4k steps and at R=32 over 2k steps, forward and backward
@@ -157,8 +160,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     the skip matmul never (SkipViT's skip is additive);
 16. lm (``lm_smollm``, ``lm_qwen3``, ``lm_smoke``), after phase 10 and
     after checking that less than 1 GB is still allocated: (a)
-    smollm-360m at full width and depth (32 layers, d=960, 15 heads over
-    5 KV heads of 64, vocab 49152 tied; 361,821,120 params; bf16, random
+    smollm-360m at full width, 8 of its 32 layers (``LM_LAYERS``: d=960,
+    15 heads over 5 KV heads of 64, vocab 49152 tied; bf16, random
     weights from seed 0) at sequence 4096, global batch 16, through
     ``auto_pipeline(lm_pipeline_graph(CFG), lm_model_fns(CFG), 4)`` at
     D=4, M=8 on two plans, the folded wave (``force_wave=True``: the tied
@@ -331,9 +334,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     each rank's peak memory beside Eq. 14's per-device prediction, the
     step seconds, and that NCCL was not run (one card);
 12b. lm ranks (``lm_ranks_phase``), after phase 12: smollm-360m at full
-    width and depth (32 layers, S=4096, global batch 16, bf16, the ``lm``
-    phase's seed-0 weights and batch) on the JAX ``wave-zero2`` config's
-    plan shape (folded wave, P=2, dp=2, ZeRO-2, M=8) as four rank
+    width, 8 of its 32 layers (``LM_LAYERS``; S=4096, global batch 16,
+    bf16, the ``lm`` phase's seed-0 weights and batch) on the JAX
+    ``wave-zero2`` config's plan shape (folded wave, P=2, dp=2, ZeRO-2, M=8) as four rank
     processes of this script (``--lm-rank``) on the one card, gloo staged
     through pinned host memory, 2 AdamW steps.  Held: the weights' and
     batch's digest to the ``lm`` phase's; the losses to its non-pipeline
@@ -366,8 +369,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     (``build_sharded_serve_step``, 16 greedy steps, B=8, 4 rows a data
     replica; FSDP over model, batch over data): in fp32 the loss at 1e-5
     and every token equal to the one-process steps' (bf16 printed).
-    Prints each rank's step seconds, peak and gloo seconds; rank logs in
-    ``chiprun_out/sharded_ranks.r<rank>.log``;
+    Then tensor parallelism over ``model`` in the same world
+    (``TP_RUNS``; ``_tp_rank``, held by ``_tp_check`` to the one-process
+    steps the parent ran before the ranks, ``_tp_reference``), at full
+    width and depth, seed-0 weights: h2o-danube-1.8b's ``train_4k`` (bf16,
+    2 AdamW steps, S=4096, global batch 4; TP over model, FSDP over data),
+    ``prefill_32k`` (bf16, one forward, S=32768, global batch 2) and
+    ``decode_32k`` (bf16, a 4160-token prompt prefilled through TP into a
+    32768-row cache, 16 greedy serve steps, batch 4); smollm-360m's
+    ``prefill_32k`` (fp32, S=4096) and ``decode_32k`` (fp32, a 2048-token
+    prompt, 16 steps, batch 4).  Bars: train
+    as the UNet's (losses, step-0 norm, every TP, FSDP and whole block
+    after the last step); a forward's loss at 1e-5 (fp32) or 1e-3 (bf16);
+    the prefill's logits and each rank's cache block of the prompt rows
+    at 1e-5 (fp32) or 5e-2 (bf16); fp32 tokens all equal (bf16 printed);
+    each step's model group bytes and calls by collective equal to
+    ``lm_traffic`` (no all-gather of a weight's TP dim but the tied
+    matrix), the train step's data group to ``_tp_data_traffic``; flash
+    the rank's head runs times the layers a step (twice in a train step:
+    remat).  Prints each rank's step seconds, peak and gloo seconds; rank
+    logs in ``chiprun_out/sharded_ranks.r<rank>.log``;
 13. hybrid (``hybrid_phase``), after checking that less than 1 GB is
     still allocated: the tuner's own N=4 plan for UViT-H at full width,
     its depth cut to 8 of its 32 blocks (``--layers``, to keep the
@@ -666,6 +687,8 @@ def check_skip_matmul(torch, rec) -> dict:
 
 
 FLASH_BF16_REL = 1e-2    # bf16 flash vs fp32 plain, relative Frobenius
+# rows whose path runs bf16 alone: no fp32 row (the script's time)
+FLASH_BF16_ONLY = {"tp h2o-danube-1.8b train", "tp h2o-danube-1.8b decode"}
 
 
 FLASH_CASES = [  # path, B, S, T, Hq, Hkv, D, causal, window
@@ -744,6 +767,26 @@ FLASH_CASES = [  # path, B, S, T, Hq, Hkv, D, causal, window
         ("zamba2-2.7b shared attention", 2, 4096, 4096, 32, 32, 80, True,
          None),
         ("h2o-danube-1.8b", 2, 4096, 4096, 32, 8, 80, True, 4096),
+        # the sharded ranks phase's tensor parallelism, a rank's heads:
+        # h2o-danube-1.8b's 16 q heads over 4 kv heads (D=80, window
+        # 4096), a train step's B=2 of 4096 and a decode step over the
+        # rank's block of the 32768-row cache (after the 4160-token
+        # prompt; its prefill's 32768 tokens: FLASH_LONG_CASES), bf16
+        # alone (``FLASH_BF16_ONLY``); smollm-360m's runs of heads (two
+        # whole GQA groups, 6:2, and two heads of a group, 2:1, at D=64)
+        # over a decode step's copy of the valid rows of their kv heads,
+        # and its fp32 prefill's B=1 of 4096
+        ("tp h2o-danube-1.8b train", 2, 4096, 4096, 16, 4, 80, True, 4096),
+        ("tp h2o-danube-1.8b decode", 2, 1, 32768, 16, 4, 80, True, 4096,
+         4168, 4169),
+        ("tp smollm-360m decode, whole groups", 2, 1, 2057, 6, 2, 64, True,
+         None, 2056, None),
+        ("tp smollm-360m decode, part of a group", 2, 1, 2057, 2, 1, 64,
+         True, None, 2056, None),
+        ("tp smollm-360m prefill, whole groups", 1, 4096, 4096, 6, 2, 64,
+         True, None),
+        ("tp smollm-360m prefill, part of a group", 1, 4096, 4096, 2, 1,
+         64, True, None),
         # the serve phase, over KV caches (+ q_offset, kv_valid_len): the
         # kernel reads the whole cache of T rows in place, its key loop
         # stopping at the valid length.  smollm-360m's prefill (batch 16,
@@ -783,7 +826,8 @@ def check_flash(torch, rec) -> dict:
     for path, B, S, T, Hq, Hkv, D, causal, window, *cache in FLASH_CASES:
         q_off, valid = cache or (0, None)
         args = (causal, window, q_off, valid)
-        for dtype in ("bfloat16", "float32"):
+        for dtype in ("bfloat16",) + (() if path in FLASH_BF16_ONLY
+                                      else ("float32",)):
             dt = getattr(torch, dtype)
             q = torch.randn(B, S, Hq, D, device="cuda", generator=gen).to(dt)
             k = torch.randn(B, T, Hkv, D, device="cuda", generator=gen).to(dt)
@@ -862,6 +906,99 @@ def check_flash(torch, rec) -> dict:
                  "supervisor uvit-h gen 1": main["plan uvit-h"]})
     rec["flash_attention"] = rows
     return main
+
+
+# the sharded ranks phase's TP prefill of 32768 tokens, a rank's heads,
+# bf16: path, B, S, Hq, Hkv, D, window (causal)
+FLASH_LONG_CASES = [
+    ("tp h2o-danube-1.8b prefill", 1, 32768, 16, 4, 80, 4096),
+]
+FLASH_LONG_ROWS = 256        # query rows held at each end of S
+
+
+def check_flash_long(torch, rec) -> None:
+    """Flash at S=32768 (``FLASH_LONG_CASES``, bf16, causal): the plain
+    version's S x S scores do not fit on the card, so the kernel's output
+    rows ``[0, 256)`` and ``[S - 256, S)`` of the whole-shape launch are
+    held to the plain version of those query rows (``q_offset``) over
+    every key, at ``check_close``'s bf16 bar and against fp32 plain at
+    ``FLASH_BF16_REL``.  Timed as issued and as a graph replay beside SDPA
+    over K/V repeated to the q heads (outside the timing), with the
+    boolean mask where a window is set, on its fused backends only (None
+    where they refuse: the math backend's fp32 scores would not fit); no
+    plain time.  The backward recomputes through the plain version, which
+    ``check_flash`` holds at the shorter shapes.  Rows appended to
+    ``rec["flash_attention"]``."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import (attention_plain,
+                                                     flash_attention_cuda,
+                                                     flash_route)
+    from repro_torch.kernels.flash_attention.ops import _mask
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    n = FLASH_LONG_ROWS
+    for path, B, S, Hq, Hkv, D, window in FLASH_LONG_CASES:
+        q, k, v = (torch.randn(B, S, H, D, device="cuda",
+                               generator=gen).to(torch.bfloat16)
+                   for H in (Hq, Hkv, Hkv))
+        what = (f"flash_attention bfloat16 B={B} S={S} T={S} Hq={Hq} "
+                f"Hkv={Hkv} D={D} causal=True window={window}")
+        got = flash_attention_cuda(q, k, v, True, window)
+        torch.cuda.synchronize()
+        err, rel = 0.0, 0.0
+        for lo in (0, S - n):
+            part = got[:, lo:lo + n]
+            want = attention_plain(q[:, lo:lo + n], k, v, True, window,
+                                   q_offset=lo)
+            err = max(err, check_close(torch, part, want, "bfloat16",
+                                       f"{what} rows {lo}:{lo + n}"))
+            want = attention_plain(q[:, lo:lo + n].float(), k.float(),
+                                   v.float(), True, window, q_offset=lo)
+            rel = max(rel, _rel(torch, part, want))
+            del want
+        if not rel <= FLASH_BF16_REL:
+            fail(f"{what}: ||flash - fp32 plain|| / ||fp32 plain|| {rel:.3e}"
+                 f" > {FLASH_BF16_REL} on the held rows")
+        del got
+        g = Hq // Hkv
+        qh, kh, vh = (x.transpose(1, 2) for x in (
+            q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)))
+        vis = _mask(S, S, True, window, "cuda")
+        mask = vis if window is not None else None
+        pairs = int(vis.sum())
+        del vis
+
+        def library():
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION]):
+                return F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, is_causal=mask is None)
+        try:
+            library()
+        except RuntimeError as exc:
+            log(f"[kernels] {what}: SDPA's fused backends refuse it ({exc})"
+                "; library_ms None")
+            library = None
+        times = _times(torch, lambda: flash_attention_cuda(q, k, v, True,
+                                                           window),
+                       None, library)
+        b_ms, b_by = bound(4.0 * B * Hq * pairs * D,
+                           2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D),
+                           "bfloat16")
+        row = dict(path=path, dtype="bfloat16", B=B, S=S, T=S, Hq=Hq,
+                   Hkv=Hkv, D=D, causal=True, window=window, q_offset=0,
+                   kv_valid_len=None, route=flash_route(torch.bfloat16, D),
+                   max_abs_err=err, rel_err_vs_fp32=rel,
+                   held_rows=f"[0, {n}) and [{S - n}, {S})", **times,
+                   device_tflops=(4.0 * B * Hq * pairs * D
+                                  / times["device_ms"] / 1e9),
+                   bound_ms=b_ms, bound_by=b_by)
+        rec["flash_attention"].append(row)
+        log(_row_line(f"{what} route={row['route']} (rows {row['held_rows']}"
+                      f" held; vs fp32 plain: rel {rel:.3e})", row,
+                      "sdpa, K/V repeated"))
+        del q, k, v, qh, kh, vh, mask
 
 
 # zamba2's carry across chunks: batch 2, 4096 / 128 chunks, H*N*P
@@ -2490,7 +2627,7 @@ def skipvit_wave_asym(torch, rec) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 16: lm -- the decoder LMs: smollm-360m at full width and depth on
+# phase 16: lm -- the decoder LMs: smollm-360m at full width (8 layers) on
 # the folded and linear pipelines, qwen3-moe-30b-a3b at full width (2 of
 # its 48 layers), and the seven smoke keys through the trainer
 # ---------------------------------------------------------------------------
@@ -2498,12 +2635,25 @@ def skipvit_wave_asym(torch, rec) -> dict:
 LM_SEQ = 4096            # the JAX train_4k shape's sequence
 LM_BATCH = 16            # global batch of smollm's pipeline steps
 LM_D, LM_M, LM_STEPS = 4, 8, 2   # two steps: the script's 1200 s
+# smollm-360m at full width cut to 8 of its 32 layers in the lm and lm
+# ranks phases, one a stage of the D=4 fold (the registry's cut): the
+# sharded ranks phase's TP runs took the script past 1200 s on a slower
+# host (1282.7 s), and these two phases' steps scale with the layers
+LM_LAYERS = 8
 LM_BAR = 1e-2            # bf16: a plan's first gradient norm vs lm_loss's
 LM_TRAJ_BAR = 1e-4       # bf16: a plan's losses vs lm_loss + AdamW's, and
 #                          the two plans' vs each other, every step
 QWEN_LAYERS, QWEN_BATCH = 2, 2   # qwen3 cut to 2 of 48 layers to fit a card
 LM_SMOKE_BATCH = 4
 LM_SMOKE_BAR = 1e-5      # fp32: a smoke key's loss, card vs CPU
+
+
+def _lm_smollm_cfg():
+    """smollm-360m's config at full width, ``LM_LAYERS`` deep."""
+    import dataclasses
+
+    from repro_torch.configs.smollm_360m import CFG
+    return dataclasses.replace(CFG, n_layers=LM_LAYERS)
 
 
 def lm_digest(torch, params, tokens) -> dict:
@@ -2533,7 +2683,7 @@ def _lm_predicted_flash(cp) -> int:
 
 
 def lm_smollm(torch, rec) -> dict:
-    """smollm-360m at full width and depth (bf16, seed-0 weights) at
+    """smollm-360m at full width, ``LM_LAYERS`` deep (bf16, seed-0 weights) at
     sequence ``LM_SEQ``, global batch ``LM_BATCH``, through ``auto_pipeline``
     at D=4, M=8 on the folded wave (``force_wave``; the tied embedding and
     readout on device 0) and the linear table plan, each from the same
@@ -2547,7 +2697,7 @@ def lm_smollm(torch, rec) -> dict:
     reference's at ``LM_BAR``; every loss finite; the flash launches of
     each step equal to the tables' count.  Returns the launches by
     plan."""
-    from repro_torch.configs.smollm_360m import CFG
+    CFG = _lm_smollm_cfg()
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import lm
     from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
@@ -4269,7 +4419,7 @@ def closed_form_probe(docs: list, one: dict, loss0: float, table_bytes: dict,
 
 
 # ---------------------------------------------------------------------------
-# phase 12b: lm ranks -- smollm-360m at full width and depth on wave-zero2's
+# phase 12b: lm ranks -- smollm-360m at full width (8 layers) on wave-zero2's
 # plan shape (P=2, dp=2, ZeRO-2), four rank processes on the one card
 # ---------------------------------------------------------------------------
 
@@ -4282,7 +4432,7 @@ def _lm_ranks_plan():
     """wave-zero2's plan shape at smollm-360m's full width and depth: the
     folded wave (``force_wave``) over P=2 pipeline devices, two ZeRO-2
     data replicas, M=8; each replica's microbatch is one sequence."""
-    from repro_torch.configs.smollm_360m import CFG
+    CFG = _lm_smollm_cfg()
     from repro_torch.models import lm
     from repro_torch.runtime.adapters import lm_model_fns
     from repro_torch.runtime.compile import auto_pipeline
@@ -4308,7 +4458,7 @@ def lm_rank_worker(rank: int, port: int, out_dir: str) -> None:
     import torch
     import torch.distributed as dist
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.configs.smollm_360m import CFG
+    CFG = _lm_smollm_cfg()
     from repro_torch.kernels import launch_counts
     from repro_torch.launch.mesh import make_rank_grid
     from repro_torch.models import lm
@@ -4373,8 +4523,8 @@ def lm_rank_worker(rank: int, port: int, out_dir: str) -> None:
 
 
 def lm_ranks_phase(torch, rec, smi_line: str) -> dict:
-    """smollm-360m (32 layers, S=4096, global batch 16, bf16, seed-0) over
-    four rank processes on the one card (gloo, staged through pinned host
+    """smollm-360m (``LM_LAYERS`` layers, S=4096, global batch 16, bf16,
+    seed-0) over four rank processes on the one card (gloo, staged through pinned host
     memory): ``_lm_ranks_plan``'s two ZeRO-2 replicas of a P=2 wave,
     ``LM_RANKS_STEPS`` AdamW steps.  Held: every rank's loss equal, every
     step's against the ``lm`` phase's non-pipeline ``lm_loss`` + AdamW
@@ -4392,7 +4542,7 @@ def lm_ranks_phase(torch, rec, smi_line: str) -> dict:
     import shutil
     import socket
 
-    from repro_torch.configs.smollm_360m import CFG
+    CFG = _lm_smollm_cfg()
     t_phase = time.perf_counter()
     what = "lm ranks"
     ref = rec["lm"]["smollm-360m"]
@@ -4516,8 +4666,8 @@ def lm_ranks_phase(torch, rec, smi_line: str) -> dict:
         data_seconds={d["rank"]: [st["data_seconds"] for st in d["steps"]]
                       for d in docs},
         flash_per_step=flash, flash_predicted=flash_want, launches=launched)
-    log(f"[lm ranks] smollm-360m, 32 layers, S={LM_SEQ}, global batch "
-        f"{LM_BATCH}: P={LM_RANKS_PP} wave x dp={LM_RANKS_DP} ZeRO-2, M={LM_M}"
+    log(f"[lm ranks] smollm-360m, {LM_LAYERS} layers, S={LM_SEQ}, global "
+        f"batch {LM_BATCH}: P={LM_RANKS_PP} wave x dp={LM_RANKS_DP} ZeRO-2, M={LM_M}"
         f", cuts {list(cp.partition.cuts)}; four ranks on one card (gloo, "
         f"staged); {wall:.1f} s; {smi_line}")
     log(f"[lm ranks] losses {losses} vs lm_loss + AdamW "
@@ -4707,6 +4857,457 @@ def _whisper_runs(torch, mesh) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the sharded ranks phase's tensor parallelism over model: the dense LMs'
+# TP plans over the same (data=2, model=2) world, held to the one-process
+# steps the parent runs first (tp_reference.pt)
+# ---------------------------------------------------------------------------
+
+TP_DEVICE = "cuda"           # the runs' device
+TP_TRAIN = dict(seq=4096, batch=4, steps=2)        # train_4k
+TP_PREFILL_BATCH = 2                               # prefill_32k
+# smollm's fp32 forward at 4096 tokens, the least the plan's check allows:
+# fp32 runs the SIMT route and moves twice the bf16 bytes over gloo
+TP_PREFILL_SEQ = {"bf16": 32768, "fp32": 4096}
+TP_SERVE = dict(batch=4, steps=16, cache=32768)    # decode_32k
+# the prompt prefilled into the cache: danube's longer than its window of
+# 4096, so that its decode steps read a window of the cache
+TP_PROMPT = {"h2o-danube-1.8b": 4160, "smollm-360m": 2048}
+TP_RUNS = (  # arch, run, dtype: danube in bf16, smollm in fp32 (its
+    # tokens all equal, its loss at 1e-5; bf16 too took the script past
+    # its 1200 s on a slower host)
+    ("h2o-danube-1.8b", "train", "bf16"),
+    ("h2o-danube-1.8b", "forward", "bf16"),
+    ("h2o-danube-1.8b", "serve", "bf16"),
+    ("smollm-360m", "forward", "fp32"),
+    ("smollm-360m", "serve", "fp32"),
+)
+TP_PLAN = {"train": "train_4k", "forward": "prefill_32k",
+           "serve": "decode_32k"}
+TP_FP32_LOSS_BAR = 1e-5      # fp32: a forward's loss vs one process
+TP_FP32_BAR = 1e-5           # fp32: the prefill's logits, the cache blocks
+TP_BF16_BAR = 5e-2           # bf16: the prefill's logits, the cache blocks
+
+
+def _tp_key(arch: str, run: str, tag: str) -> str:
+    return f"{arch} {run} {tag}"
+
+
+def _tp_config(torch, arch: str, tag: str):
+    """``(cfg, plans)`` of ``arch`` at full width and depth (its config,
+    flash on, bf16; ``tag`` fp32: in fp32)."""
+    import dataclasses
+    import importlib
+    mod = importlib.import_module(
+        "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
+    cfg = mod.CFG
+    if tag == "fp32":
+        cfg = dataclasses.replace(cfg, dtype=torch.float32,
+                                  param_dtype=torch.float32)
+    return cfg, mod.PLANS
+
+
+def _tp_setup(torch, arch: str, tag: str):
+    """``(cfg, bundle, params)``: the config and bundle of ``arch``
+    (:func:`_tp_config`) and its seed-0 bf16 weights on the card (fp32:
+    the same weights cast)."""
+    from repro_torch.configs import lm_common
+    from repro_torch.models import lm as tlm
+    cfg, plans = _tp_config(torch, arch, tag)
+    bf16, _ = _tp_config(torch, arch, "bf16")
+    gen = torch.Generator(device=TP_DEVICE).manual_seed(0)
+    with torch.no_grad():
+        params = tlm.init_lm(gen, bf16, TP_DEVICE)
+    if tag == "fp32":
+        params, _ = _fp32(torch, params, bf16)
+    return cfg, lm_common.lm_bundle(arch, cfg, plans), params
+
+
+def _tp_inputs(torch, arch: str, run: str, tag: str, cfg):
+    """The run's tokens, drawn on the card from a seed of their own: a
+    train or forward batch ``{"tokens": (B, S)}``, or a serve prompt
+    ``(B, prompt)``."""
+    seed = 1 + TP_RUNS.index((arch, run, tag))
+    gen = torch.Generator(device=TP_DEVICE).manual_seed(seed)
+    if run == "serve":
+        shape = (TP_SERVE["batch"], TP_PROMPT[arch])
+    elif run == "train":
+        shape = (TP_TRAIN["batch"], TP_TRAIN["seq"])
+    else:
+        shape = (TP_PREFILL_BATCH, TP_PREFILL_SEQ[tag])
+    toks = torch.randint(0, cfg.vocab, shape, generator=gen, device=TP_DEVICE,
+                         dtype=torch.int32)
+    return toks if run == "serve" else {"tokens": toks}
+
+
+def _tp_flash_per_layer(cfg, tp: int, index: int) -> int:
+    """Flash calls a layer on model rank ``index``: the head runs of its
+    q heads (``layers.head_segments``)."""
+    from repro_torch.models.layers import head_segments
+    a = cfg.attn
+    W = a.n_heads * a.head_dim // tp
+    c0, c1 = index * W, (index + 1) * W
+    return len(head_segments(c0 // a.head_dim, -(-c1 // a.head_dim),
+                             a.n_heads // a.n_kv_heads))
+
+
+def _tp_data_traffic(p_struct, p_specs, sizes) -> dict:
+    """A TP train step's data group (FSDP over data): one all-gather and
+    one reduce-scatter of the rank's TP blocks of the FSDP leaves, whole
+    over data; one fp32 all-reduce of the leaves with no FSDP dim."""
+    from repro_torch.runtime import sharding as shard_rules
+    split, whole = 0, 0
+    for _, s, x in shard_rules.spec_items(p_specs, p_struct):
+        fs, tps = shard_rules.split_kinds(s, sizes, "model")
+        n = x.numel() // math.prod(c for _, _, c in tps)
+        if fs:
+            split += n * x.element_size()
+        else:
+            whole += 4 * n
+    return dict(bytes={"all_reduce": whole, "all_gather": split,
+                       "reduce_scatter": split},
+                calls={"all_reduce": 1, "all_gather": 1,
+                       "reduce_scatter": 1})
+
+
+def _tp_reference(torch, out_dir: str) -> dict:
+    """The one-process steps of every TP run on the same weights and
+    tokens (``{"data": 1, "model": 1}``), in this process before the ranks
+    start: losses, the train step's gradient norms and params after its
+    steps, the serve run's prefill logits, greedy tokens and the cache's
+    prompt rows; the tensors to ``out_dir/tp_reference.pt`` (host
+    memory), the rest returned.  Each run's seconds, peak and flash
+    launches."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import lm as tlm
+    from repro_torch.optim import AdamWConfig, adamw_init, global_norm
+    from repro_torch.train import steps as tsteps
+    from repro_torch.tree import tree_map, tree_paths
+    one = {"data": 1, "model": 1}
+    meta = lambda t: tree_map(lambda x: x.to("meta") if isinstance(
+        x, torch.Tensor) else x, t)
+    saved, out = {}, {}
+    for arch, run, tag in TP_RUNS:
+        key = _tp_key(arch, run, tag)
+        cfg, bundle, params = _tp_setup(torch, arch, tag)
+        inputs = _tp_inputs(torch, arch, run, tag, cfg)
+        plan = bundle.plans[TP_PLAN[run]]
+        res = dict(flash=[], seconds=[], peak_bytes=[])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def timed(fn):
+            before = launch_counts()["flash_attention"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            res["seconds"].append(time.perf_counter() - t0)
+            res["flash"].append(launch_counts()["flash_attention"] - before)
+            res["peak_bytes"].append(torch.cuda.max_memory_allocated())
+            return r
+
+        if run == "train":
+            norms = []
+            step, _ = tsteps.build_sharded_train_step(
+                bundle.loss_fn, bundle.init_fn, meta(inputs), one, plan,
+                AdamWConfig(lr=SHARDED_LR),
+                on_grads=lambda g: norms.append(float(global_norm(g))))
+            opt = adamw_init(params)
+            res["losses"] = []
+            for _ in range(TP_TRAIN["steps"]):
+                params, opt, loss = timed(lambda: step(params, opt, inputs))
+                res["losses"].append(float(loss))
+            res["grad_norms"] = norms
+            for k, x in tree_paths(params):
+                saved[f"{key}|{k}"] = x.cpu()
+            del opt, loss
+        elif run == "forward":
+            step, _ = tsteps.build_forward_step(
+                bundle.loss_fn, bundle.init_fn, meta(inputs), one, plan)
+            res["loss"] = float(timed(lambda: step(params, inputs)))
+        else:
+            B, T = TP_SERVE["batch"], TP_SERVE["cache"]
+            with torch.inference_mode():
+                logits, caches = timed(lambda: tlm.prefill(
+                    params, inputs, cfg, T))
+                step, _ = tsteps.build_sharded_serve_step(
+                    bundle.make_decode_fn(None), bundle.init_fn,
+                    meta(caches), torch.empty((B, 1), dtype=torch.int32,
+                                              device="meta"), one, plan)
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                toks = [tok]
+                for _ in range(TP_SERVE["steps"]):
+                    tok, caches = timed(lambda: step(params, tok, caches))
+                    toks.append(tok)
+            P = TP_PROMPT[arch]
+            saved[f"{key}|logits"] = logits.float().cpu()
+            for k in ("k", "v"):
+                saved[f"{key}|cache/{k}"] = caches["layers"][k][
+                    :, :, :P].cpu()
+            res["tokens"] = torch.cat(toks, 1).tolist()
+            del caches, logits
+        out[key] = res
+        del params, step
+        release(torch)
+    t0 = time.perf_counter()
+    torch.save(saved, os.path.join(out_dir, "tp_reference.pt"))
+    out["save_s"] = time.perf_counter() - t0
+    del saved
+    return out
+
+
+def _tp_rank(torch, grid, out_dir: str) -> dict:
+    """The TP runs over the grid, each from the same weights and tokens
+    as the reference: the rank's losses, gradient norms, tokens, per step
+    seconds, peak, flash launches and groups' bytes, calls and seconds;
+    its blocks after the train steps, the prefill's logits and the cache's
+    prompt rows against the same views of the reference's, relative
+    norms."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import lm as tlm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import sharding as shard_rules
+    from repro_torch.runtime.tensor_parallel import greedy
+    from repro_torch.train import steps as tsteps
+    from repro_torch.tree import tree_map
+    sizes = {"data": SHARDED_DP, "model": SHARDED_PP}
+    meta = lambda t: tree_map(lambda x: x.to("meta") if isinstance(
+        x, torch.Tensor) else x, t)
+    ref = torch.load(os.path.join(out_dir, "tp_reference.pt"), mmap=True)
+    out = {}
+    for arch, run, tag in TP_RUNS:
+        key = _tp_key(arch, run, tag)
+        cfg, bundle, params = _tp_setup(torch, arch, tag)
+        inputs = _tp_inputs(torch, arch, run, tag, cfg)
+        plan = bundle.plans[TP_PLAN[run]]
+        res = dict(flash=[], seconds=[], peak_bytes=[], groups=[])
+
+        def timed(step, fn):
+            for g in step.comm.groups.values():
+                g.reset_bytes()
+            before = launch_counts()["flash_attention"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            res["seconds"].append(time.perf_counter() - t0)
+            res["flash"].append(launch_counts()["flash_attention"] - before)
+            res["peak_bytes"].append(torch.cuda.max_memory_allocated())
+            res["groups"].append({",".join(k): dict(
+                bytes=dict(g.bytes), calls=dict(g.calls),
+                seconds=dict(g.seconds)) for k, g in step.comm.groups.items()})
+            return r
+
+        if run == "train":
+            step, (p_struct, _, _) = tsteps.build_sharded_train_step(
+                bundle.loss_fn, bundle.init_fn, meta(inputs), grid, plan,
+                AdamWConfig(lr=SHARDED_LR))
+            p_specs = step.in_specs[0]
+            blocks = step.shard(params, p_specs)
+            del params
+            opt = adamw_init(blocks)
+            res.update(losses=[], grad_norms=[])
+            for _ in range(TP_TRAIN["steps"]):
+                blocks, opt, loss = timed(step, lambda: step(blocks, opt,
+                                                             inputs))
+                res["losses"].append(float(loss))
+                res["grad_norms"].append(float(step.grad_norm))
+            worst, where = {}, {}
+            for k, s, x in shard_rules.spec_items(p_specs, blocks):
+                fs, tps = shard_rules.split_kinds(s, sizes, "model")
+                kind = "tp" if tps else "fsdp" if fs else "whole"
+                want = shard_rules.spec_view(ref[f"{key}|{k}"], s,
+                                             grid.coords, sizes).to(TP_DEVICE)
+                err = _rel(torch, x, want)
+                if kind not in worst or not err <= worst[kind]:
+                    worst[kind], where[kind] = err, k
+                del want
+            res.update(block_rel_err=worst, block_worst_leaf=where,
+                       data_traffic=_tp_data_traffic(p_struct, p_specs,
+                                                     sizes))
+            del blocks, opt, loss
+        elif run == "forward":
+            step, _ = tsteps.build_forward_step(
+                bundle.loss_fn, bundle.init_fn, meta(inputs), grid, plan)
+            blocks = step.shard(params, step.in_specs[0])
+            del params
+            res["loss"] = float(timed(step, lambda: step(blocks, inputs)))
+            del blocks
+        else:
+            B, T, P = TP_SERVE["batch"], TP_SERVE["cache"], TP_PROMPT[arch]
+            struct = tlm.init_caches(cfg, B, T, device="meta")
+            step, _ = tsteps.build_sharded_serve_step(
+                bundle.make_decode_fn(None), bundle.init_fn, struct,
+                torch.empty((B, 1), dtype=torch.int32, device="meta"), grid,
+                plan)
+            p_specs, c_specs = step.in_specs[0], step.in_specs[2]
+            blocks = step.shard(params, p_specs)
+            del params
+            rows = step.local(inputs, step.in_specs[1])
+            caches = shard_rules.spec_map(
+                lambda s, x: torch.zeros(shard_rules.spec_view(
+                    x, s, grid.coords, sizes).shape, dtype=x.dtype,
+                    device=TP_DEVICE) if isinstance(x, torch.Tensor) else x,
+                c_specs, struct)
+            tp = step.tp
+            with torch.inference_mode():
+                t0 = time.perf_counter()
+                logits, caches = tlm.prefill(
+                    step.gather(blocks, p_specs), rows, cfg, T,
+                    caches=caches, tp=tp)
+                tok = step.gather_rows(greedy(logits, tp))
+                torch.cuda.synchronize()
+                res["prefill_s"] = time.perf_counter() - t0
+                want = shard_rules.spec_view(
+                    ref[f"{key}|logits"], shard_rules.Spec(["data"]),
+                    grid.coords, sizes)[..., logits.start:logits.start
+                                        + logits.local.shape[-1]]
+                res["prefill_logits_rel_err"] = _rel(
+                    torch, logits.local, want.to(TP_DEVICE))
+                toks = [tok]
+                for _ in range(TP_SERVE["steps"]):
+                    mine, caches = timed(step, lambda: step(blocks, tok,
+                                                            caches))
+                    tok = step.gather_rows(mine)
+                    toks.append(tok)
+            res["tokens"] = torch.cat(toks, 1).tolist()
+            errs = {}
+            for k in ("k", "v"):
+                spec = c_specs["layers"][k]
+                want = shard_rules.spec_view(ref[f"{key}|cache/{k}"], spec,
+                                             grid.coords, sizes)
+                errs[k] = _rel(torch, caches["layers"][k][:, :, :P],
+                               want.to(TP_DEVICE))
+            res["cache_rel_err"] = errs
+            res["cache_block_shape"] = list(caches["layers"]["k"].shape)
+            del blocks, caches, logits
+        out[key] = res
+        del step
+        release(torch)
+    del ref
+    return out
+
+
+def _tp_check(torch, rec: dict, docs: list, ref: dict, smi_line: str) -> None:
+    """Hold the ranks' TP runs to the one-process references: every rank
+    alike; train (bf16): the losses (step 0 at ``SHARDED_LOSS0_BAR``, then
+    ``SHARDED_BAR``), the step-0 norm and every block after the last step
+    (TP blocks, FSDP blocks, whole leaves) at ``SHARDED_BAR``; forward:
+    the loss at ``TP_FP32_LOSS_BAR`` (fp32) or ``SHARDED_LOSS0_BAR``
+    (bf16); serve: the prefill's logits and the cache's prompt rows (each
+    rank's block) at ``TP_FP32_BAR`` / ``TP_BF16_BAR``, fp32 tokens all
+    equal (bf16: the share equal printed); each step's model group bytes
+    and calls = ``lm_traffic``, the train step's data group =
+    ``_tp_data_traffic``; flash launches a layer's head runs times the
+    layers (a train step twice: remat)."""
+    from repro_torch.runtime.tensor_parallel import lm_traffic
+    what = "sharded ranks tp"
+    summary = {}
+    for arch, run, tag in TP_RUNS:
+        key = _tp_key(arch, run, tag)
+        one = ref[key]
+        got = {d["rank"]: d["tp"][key] for d in docs}
+        cfg, _ = _tp_config(torch, arch, tag)
+        e = 4 if tag == "fp32" else 2
+        B = (TP_TRAIN["batch"] if run == "train" else TP_SERVE["batch"]
+             if run == "serve" else TP_PREFILL_BATCH) // SHARDED_DP
+        S = TP_TRAIN["seq"] if run == "train" else TP_PREFILL_SEQ[tag]
+        traffic = lm_traffic(cfg, run, B=B, S=S, tp=SHARDED_PP, esize=e)
+        for r, g in got.items():
+            m = r % SHARDED_PP
+            flash = (_tp_flash_per_layer(cfg, SHARDED_PP, m) * cfg.n_layers
+                     * (2 if run == "train" else 1))
+            if any(n != flash for n in g["flash"]):
+                fail(f"{what}: {key} rank {r} flash a step {g['flash']}, "
+                     f"want {flash}")
+            for s, st in enumerate(g["groups"]):
+                mg = {k: st["model"][k] for k in ("bytes", "calls")}
+                if mg != traffic:
+                    fail(f"{what}: {key} rank {r} step {s} model group "
+                         f"{mg}, want {traffic}")
+                if run == "train":
+                    dg = {k: st["data"][k] for k in ("bytes", "calls")}
+                    if dg != g["data_traffic"]:
+                        fail(f"{what}: {key} rank {r} step {s} data group "
+                             f"{dg}, want {g['data_traffic']}")
+        if run == "train":
+            losses = [g["losses"] for g in got.values()]
+            if any(x != losses[0] for x in losses):
+                fail(f"{what}: {key} ranks disagree on the losses {losses}")
+            rel = [abs(x - w) / abs(w)
+                   for x, w in zip(losses[0], one["losses"])]
+            bars = ([SHARDED_LOSS0_BAR]
+                    + [SHARDED_BAR] * (TP_TRAIN["steps"] - 1))
+            if not all(math.isfinite(x) for x in losses[0]) or not all(
+                    x <= b for x, b in zip(rel, bars)):
+                fail(f"{what}: {key} losses {losses[0]} vs one process "
+                     f"{one['losses']} (relative {rel}, bars {bars})")
+            norm_rel = max(abs(g["grad_norms"][0] - one["grad_norms"][0])
+                           / one["grad_norms"][0] for g in got.values())
+            if not norm_rel <= SHARDED_BAR:
+                fail(f"{what}: {key} step-0 norms "
+                     f"{[g['grad_norms'][0] for g in got.values()]} vs "
+                     f"{one['grad_norms'][0]} (relative {norm_rel:.3e})")
+            blocks = {r: g["block_rel_err"] for r, g in got.items()}
+            worst = max(v for b in blocks.values() for v in b.values())
+            if not worst <= SHARDED_BAR:
+                fail(f"{what}: {key} blocks vs the reference's {blocks} at "
+                     f"{[g['block_worst_leaf'] for g in got.values()]}")
+            held = dict(losses=losses[0], loss_rel_err=rel,
+                        first_norm_rel_err=norm_rel, block_rel_err=blocks)
+        elif run == "forward":
+            losses = [g["loss"] for g in got.values()]
+            rel = max(abs(x - one["loss"]) / abs(one["loss"])
+                      for x in losses)
+            bar = TP_FP32_LOSS_BAR if tag == "fp32" else SHARDED_LOSS0_BAR
+            if not (all(math.isfinite(x) for x in losses) and rel <= bar):
+                fail(f"{what}: {key} losses {losses} vs one process "
+                     f"{one['loss']} (relative {rel:.3e} > {bar})")
+            held = dict(losses=losses, loss_rel_err=rel, bar=bar)
+        else:
+            bar = TP_FP32_BAR if tag == "fp32" else TP_BF16_BAR
+            errs = {r: dict(logits=g["prefill_logits_rel_err"],
+                            **g["cache_rel_err"]) for r, g in got.items()}
+            worst = max(v for x in errs.values() for v in x.values())
+            if not worst <= bar:
+                fail(f"{what}: {key} prefill logits and cache blocks vs "
+                     f"the reference's {errs} (bar {bar})")
+            want = one["tokens"]
+            equal = {r: sum(a == b for x, y in zip(g["tokens"], want)
+                            for a, b in zip(x, y)) / sum(map(len, want))
+                     for r, g in got.items()}
+            if tag == "fp32" and any(v != 1.0 for v in equal.values()):
+                fail(f"{what}: {key} fp32 tokens differ from one process's "
+                     f"(share equal {equal})")
+            held = dict(rel_err=errs, bar=bar, tokens_equal=equal,
+                        cache_block_shape={r: g["cache_block_shape"]
+                                           for r, g in got.items()})
+        secs = {r: [round(x, 3) for x in g["seconds"]]
+                for r, g in got.items()}
+        peaks = {r: [round(x / 1e9, 3) for x in g["peak_bytes"]]
+                 for r, g in got.items()}
+        model_s = {r: [round(sum(st["model"]["seconds"].values()), 3)
+                       for st in g["groups"]] for r, g in got.items()}
+        summary[key] = dict(held=held, traffic=traffic, step_seconds=secs,
+                            peak_gb=peaks, model_group_seconds=model_s,
+                            flash_per_step={r: g["flash"][0]
+                                            for r, g in got.items()},
+                            one_process=one)
+        log(f"[sharded ranks tp] {key} ({TP_PLAN[run]}, B={B} a replica"
+            f"{'' if run == 'serve' else f', S={S}'}): held {held}")
+        log(f"[sharded ranks tp] {key}: model group a step {traffic} = "
+            f"the arithmetic; its seconds a step {model_s}; step s {secs}; "
+            f"peak GB {peaks}; flash a step "
+            f"{summary[key]['flash_per_step']}; one process: step s "
+            f"{[round(x, 3) for x in one['seconds']]}, peak GB "
+            f"{[round(x / 1e9, 3) for x in one['peak_bytes']]}, flash "
+            f"{one['flash'][:2]}; {smi_line}")
+    rec["sharded_ranks"]["tp"] = summary
+
+
+
 def sharded_rank_worker(rank: int, port: int, out_dir: str) -> None:
     """One rank of the ``sharded ranks`` phase (``chip_smoke.py
     --sharded-rank R --port P --out DIR``): the UNet's ``SHARDED_STEPS``
@@ -4794,10 +5395,12 @@ def sharded_rank_worker(rank: int, port: int, out_dir: str) -> None:
     torch.cuda.empty_cache()
     unet_launches = launch_counts()
     whisper = _whisper_runs(torch, grid)
+    release(torch)
+    tp = _tp_rank(torch, grid, out_dir)
     doc = dict(rank=rank, coords=grid.coords, digest=digest,
                init_peak_bytes=init_peak, steps=steps,
                block_rel_err=worst, block_worst_leaf=where,
-               unet_launches=unet_launches, whisper=whisper,
+               unet_launches=unet_launches, whisper=whisper, tp=tp,
                launches=launch_counts())
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(doc, f)
@@ -4893,6 +5496,8 @@ def sharded_ranks_phase(torch, rec, smi_line: str) -> dict:
     ref["save_s"] = time.perf_counter() - t0
     del params, opt, batch, draws, loss
     one_whisper = _whisper_runs(torch, {"data": 1, "model": 1})
+    release(torch)
+    tp_ref = _tp_reference(torch, out_dir)
     left = release(torch)
     if left >= 1e9:
         fail(f"{what}: {left / 1e9:.2f} GB still allocated before the ranks")
@@ -5034,6 +5639,7 @@ def sharded_ranks_phase(torch, rec, smi_line: str) -> dict:
         whisper={d["rank"]: d["whisper"] for d in docs},
         whisper_one_process=one_whisper, whisper_bf16_tokens_equal=bf16_equal,
         launches=launched)
+    _tp_check(torch, rec, docs, tp_ref, smi_line)
     log(f"[sharded ranks] sdv2-unet {n_params} params, bf16, flash; "
         f"train_4k (FSDP {fsdp}, batch over data), global batch "
         f"{SHARDED_BATCH}; four ranks on one card (gloo, staged); ranks "
@@ -6462,6 +7068,7 @@ def main() -> None:
     t0 = time.perf_counter()
     main_rows = {"skip_concat_matmul": check_skip_matmul(torch, rec),
                  "flash_attention": check_flash(torch, rec)}
+    check_flash_long(torch, rec)
     phase_s["kernels skip, flash"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     main_rows["gated_linear_scan"] = check_scan(torch, rec)

@@ -40,12 +40,14 @@ def lm_bundle(
             bs["prefix_embeds"] = vision_prefix_struct(shape, mb)
         return bs
 
-    def loss_fn(params, batch, rng=None):
-        return lm_mod.lm_loss(params, batch, cfg)
+    def loss_fn(params, batch, rng=None, tp=None):
+        """``tp``: the sharded builders' tensor-parallel context, where the
+        plan's TP axis is larger than 1 (``models.lm``)."""
+        return lm_mod.lm_loss(params, batch, cfg, tp=tp)
 
     def make_decode_fn(shape: ShapeSpec):
-        def decode(params, token, caches):
-            return lm_mod.decode_step(params, token, caches, cfg)
+        def decode(params, token, caches, tp=None):
+            return lm_mod.decode_step(params, token, caches, cfg, tp=tp)
         return decode
 
     def cache_struct(shape: ShapeSpec):

@@ -14,8 +14,9 @@ The port of ``repro.kernels.flash_attention`` (TPU kernel
 - :func:`flash_attention`: the differentiable op ``apply_attention`` calls
   with ``use_flash``.  Its forward takes the plain version for CPU tensors
   and the kernel for CUDA tensors (never falling back); its backward
-  recomputes through the plain version, as the JAX custom VJP does.  A
-  backward kernel is later work.
+  recomputes through the plain version, as the JAX custom VJP does (a run
+  of kv heads at a time where the scores are large).  A backward kernel
+  is later work.
 
 All three take the model's layout: q ``(B, S, Hq, D)``, k and v
 ``(B, T, Hkv, D)`` with ``Hq % Hkv == 0``; the output is ``(B, S, Hq, D)``.
@@ -48,6 +49,9 @@ WGMMA_HEAD_DIMS = kernel_check.WGMMA_HEAD_DIMS
 # kv_valid_len, scale, dtype, stream
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# the backward's plain recompute holds a run of kv heads' fp32 scores at
+# a time within this many bytes (every head at once below it)
+BACKWARD_SCORE_BYTES = 1 << 30
 
 
 def _mask(S: int, T: int, causal: bool, window: int | None, device,
@@ -183,11 +187,33 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        """The plain version's gradient, a run of kv heads (with their q
+        heads) at a time: as many as keep the run's fp32 scores within
+        :data:`BACKWARD_SCORE_BYTES` (all of them at the test shapes), so
+        that a long sequence's recompute does not hold every head's ``S x
+        T`` scores at once (a rank of h2o-danube-1.8b's TP train step: 16
+        heads of 4096 x 4096, 2.1 GB a copy)."""
         q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
-            out = attention_plain(qd, kd, vd, *ctx.args)
-        dq, dk, dv = torch.autograd.grad(out, (qd, kd, vd), g)
+        B, S, Hq, _ = q.shape
+        T, Hkv = k.shape[1], k.shape[2]
+        G = Hq // Hkv
+        run = max(1, min(Hkv, BACKWARD_SCORE_BYTES // (4 * B * G * S * T)))
+        if run == Hkv:
+            with torch.enable_grad():
+                qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+                out = attention_plain(qd, kd, vd, *ctx.args)
+            dq, dk, dv = torch.autograd.grad(out, (qd, kd, vd), g)
+            return dq, dk, dv, None, None, None, None
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        for h in range(0, Hkv, run):
+            kv, qs = slice(h, h + run), slice(h * G, (h + run) * G)
+            with torch.enable_grad():
+                qd, kd, vd = (t[:, :, s].detach().requires_grad_()
+                              for t, s in ((q, qs), (k, kv), (v, kv)))
+                out = attention_plain(qd, kd, vd, *ctx.args)
+            dq[:, :, qs], dk[:, :, kv], dv[:, :, kv] = torch.autograd.grad(
+                out, (qd, kd, vd), g[:, :, qs])
+            del out
         return dq, dk, dv, None, None, None, None
 
 

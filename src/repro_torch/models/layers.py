@@ -169,10 +169,22 @@ def init_attention(gen: torch.Generator, cfg: AttnConfig, dtype=torch.float32,
     return p
 
 
+def _attend(q, k, v, cfg: AttnConfig, causal: bool, q_offset: int,
+            valid: int | None) -> torch.Tensor:
+    """The flash kernel (``use_flash``) or the dense ``attention``."""
+    if cfg.use_flash:
+        return flash_attention(q.to(k.dtype), k, v, causal, cfg.window,
+                               q_offset=q_offset,
+                               kv_valid_len=valid).to(q.dtype)
+    return attention(q, k, v, causal=causal, window=cfg.window,
+                     q_offset=q_offset, kv_valid_len=valid)
+
+
 def apply_attention(p: Params, x: torch.Tensor, cfg: AttnConfig, *,
                     positions: torch.Tensor | None = None,
                     cache: Params | None = None,
                     cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+                    tp=None, reduce: bool = True,
                     ) -> tuple[torch.Tensor, Params | None]:
     """Self- or cross-attention (``cross_kv`` supplies precomputed K/V).
     With ``cache`` (prefill or decode, self-attention), this step's K/V are
@@ -184,7 +196,15 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: AttnConfig, *,
     kernel computes in k's dtype, so over a bf16 cache an fp32 q (that
     Zamba2 decode step) is rounded to bf16: a departure from JAX, which
     computes that attention in fp32 (the kernel takes one dtype, and
-    promoting the cache would copy it every step)."""
+    promoting the cache would copy it every step).
+
+    ``tp`` (a ``runtime.tensor_parallel.TensorParallel``): ``wq`` is this
+    rank's block of columns and ``wo`` its block of rows (see
+    :func:`_apply_attention_tp`); ``reduce=False`` returns the rank's
+    partial sum of the output before the all-reduce."""
+    if tp is not None:
+        return _apply_attention_tp(p, x, cfg, tp, positions=positions,
+                                   cache=cache, reduce=reduce)
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = promoted_matmul(x, p["wq"]).reshape(B, S, H, Dh)
@@ -211,15 +231,118 @@ def apply_attention(p: Params, x: torch.Tensor, cfg: AttnConfig, *,
         k, v = cache["k"], cache["v"]
         new_cache = {"k": k, "v": v, "pos": pos + S}
         q_offset, valid = pos, pos + S
-    if cfg.use_flash:
-        out = flash_attention(q.to(k.dtype), k, v, causal, cfg.window,
-                              q_offset=q_offset,
-                              kv_valid_len=valid).to(q.dtype)
-    else:
-        out = attention(q, k, v, causal=causal, window=cfg.window,
-                        q_offset=q_offset, kv_valid_len=valid)
+    out = _attend(q, k, v, cfg, causal, q_offset, valid)
     out = promoted_matmul(out.reshape(B, S, H * Dh), p["wo"])
     return out, new_cache
+
+
+def head_segments(ha: int, hb: int, groups: int) -> list[tuple[int, int]]:
+    """q heads ``[ha, hb)`` cut into runs that one attention call takes
+    (``Hq % Hkv == 0``, q head ``j`` of a run reading its kv head ``j //
+    (Hq / Hkv)``): whole GQA groups of ``groups`` heads together, and the
+    heads of a group the range holds in part (one kv head) apart.  At most
+    three runs."""
+    segs, h = [], ha
+    while h < hb:
+        if h % groups == 0 and h + groups <= hb:
+            e = h + (hb - h) // groups * groups
+        else:
+            e = min(hb, (h // groups + 1) * groups)
+        segs.append((h, e))
+        h = e
+    return segs
+
+
+def _apply_attention_tp(p: Params, x: torch.Tensor, cfg: AttnConfig, tp, *,
+                        positions, cache, reduce: bool):
+    """Self-attention over tensor parallelism: this rank's columns ``[c0,
+    c1)`` of ``wq`` (its block) and the same rows of ``wo``.
+
+    The rank computes the q heads ``[ha, hb)`` that cover its columns.
+    When the columns cut through a head (smollm-360m's 15 heads of 64 at
+    model=2: 480 columns a rank, 7.5 heads), q is gathered whole from the
+    ranks (``tp.gather(partial=True)``, whose backward reduce-scatters q's
+    gradient) and the rank computes the whole heads its columns touch, at
+    most ``ceil(Hq / tp) + 1``, then keeps its columns of their output.  A
+    head range that is not whole GQA groups runs as at most three
+    attention calls (:func:`head_segments`: the part of a group at each
+    end, one kv head each, and the whole groups between), so the rank's
+    attention work stays within ``ceil(Hq / tp)`` heads plus one group.
+
+    K and V: only the kv heads ``[ka, kb)`` those q heads read, from their
+    columns of the whole ``wk``/``wv`` (the TP plans' ``custom_rules``
+    replicate them), read through ``tp.copy`` so that the rank's partial
+    gradient is all-reduced whole.  Over a cache: a cache block of
+    ``Hkv / tp`` heads (``cache_specs`` split it) holds exactly those
+    heads and is written and read in place; a whole cache is written whole
+    (every kv head computed) and its valid rows of heads ``[ka, kb)`` are
+    read (copied when they are not all of it).
+
+    The input goes through ``tp.copy``; the output, the rank's columns
+    times its rows of ``wo``, is a partial sum that ``tp.reduce``
+    all-reduces (``reduce=False``: returned as it is)."""
+    B, S, _ = x.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // Hkv
+    W = p["wq"].shape[-1]
+    if p["wo"].shape[-2] != W or W * tp.size != H * Dh:
+        raise ValueError(f"wq's {W} columns and wo's {p['wo'].shape[-2]} "
+                         f"rows are not one of {tp.size} blocks of "
+                         f"{H * Dh}")
+    c0 = tp.index * W
+    c1 = c0 + W
+    ha, hb = c0 // Dh, -(-c1 // Dh)
+    ka, kb = ha // G, (hb - 1) // G + 1
+    if p["wk"].shape[-1] != Hkv * Dh:
+        raise NotImplementedError(
+            "wk/wv split over the TP axis: the TP plans replicate them "
+            "(custom_rules)")
+    x, wk, wv = tp.copy(x, p["wk"], p["wv"])
+    q = promoted_matmul(x, p["wq"])
+    if W % Dh:
+        q = tp.gather(q, -1, partial=True)[..., ha * Dh:hb * Dh]
+    q = q.reshape(B, S, hb - ha, Dh)
+    # the cache's kv heads: all, or this rank's block
+    cached = None if cache is None else cache["k"].shape[-2]
+    if cached is not None and cached not in (Hkv, (kb - ka)):
+        raise ValueError(f"a cache of {cached} kv heads: want {Hkv} (whole) "
+                         f"or this rank's {kb - ka}")
+    k_all = cached == Hkv
+    if not k_all:
+        wk, wv = wk[..., ka * Dh:kb * Dh], wv[..., ka * Dh:kb * Dh]
+    nk = Hkv if k_all else kb - ka
+    k = promoted_matmul(x, wk).reshape(B, S, nk, Dh)
+    v = promoted_matmul(x, wv).reshape(B, S, nk, Dh)
+    if cfg.qk_norm:
+        q_norm, k_norm = tp.copy(p["q_norm"], p["k_norm"])
+        q, k = rms_norm(q, q_norm), rms_norm(k, k_norm)
+    if cfg.rope_theta > 0:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    q_offset, valid, new_cache = 0, None, None
+    if cache is not None:
+        pos = cache["pos"]
+        cache["k"][:, pos:pos + S] = k
+        cache["v"][:, pos:pos + S] = v
+        k, v = cache["k"], cache["v"]
+        new_cache = {"k": k, "v": v, "pos": pos + S}
+        q_offset, valid = pos, pos + S
+        if k_all and (ka, kb) != (0, Hkv):
+            # the valid rows of this rank's kv heads: a copy, read whole
+            k, v = k[:, :valid, ka:kb], v[:, :valid, ka:kb]
+            valid = None
+    outs = []
+    for h0, h1 in head_segments(ha, hb, G):
+        j0, j1 = h0 // G - ka, (h1 - 1) // G + 1 - ka
+        outs.append(_attend(q[:, :, h0 - ha:h1 - ha], k[:, :, j0:j1],
+                            v[:, :, j0:j1], cfg, cfg.causal, q_offset,
+                            valid))
+    out = torch.cat(outs, dim=2) if len(outs) > 1 else outs[0]
+    out = out.reshape(B, S, (hb - ha) * Dh)[..., c0 - ha * Dh:c1 - ha * Dh]
+    out = promoted_matmul(out, p["wo"])
+    return (tp.reduce(out) if reduce else out), new_cache
 
 
 def init_kv_cache(batch: int, max_len: int, cfg: AttnConfig,
@@ -335,10 +458,18 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def apply_swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Weights of another float dtype than ``x`` are promoted, as in JAX."""
+def apply_swiglu(p: Params, x: torch.Tensor, tp=None,
+                 reduce: bool = True) -> torch.Tensor:
+    """Weights of another float dtype than ``x`` are promoted, as in JAX.
+    ``tp``: ``w_gate``/``w_up`` are this rank's column blocks and
+    ``w_down`` its row block; the input goes through ``tp.copy`` and the
+    partial output through ``tp.reduce`` (``reduce=False``: returned as it
+    is)."""
     mm = promoted_matmul
-    return mm(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]), p["w_down"])
+    if tp is not None:
+        x = tp.copy(x)
+    out = mm(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]), p["w_down"])
+    return tp.reduce(out) if tp is not None and reduce else out
 
 
 def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
@@ -351,10 +482,29 @@ def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def apply_gelu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+def apply_gelu_mlp(p: Params, x: torch.Tensor, tp=None,
+                   reduce: bool = True) -> torch.Tensor:
+    """``tp``: ``w_up`` is this rank's column block and ``w_down`` its row
+    block.  ``b_up`` is sliced to the rank's columns where it is whole (its
+    default FSDP rule splits it over no TP axis), through ``tp.copy`` with
+    the input, so that its partial gradient is all-reduced whole;
+    ``b_down`` is added once, after ``tp.reduce`` (``reduce=False``: the
+    partial sum, before the all-reduce and without ``b_down``)."""
+    b_up = p["b_up"]
+    if tp is not None:
+        cols = p["w_up"].shape[-1]
+        if b_up.shape[-1] != cols:
+            x, b_up = tp.copy(x, b_up)
+            lo = tp.index * cols
+            b_up = b_up[..., lo:lo + cols]
+        else:
+            x = tp.copy(x)
     # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
-    return h @ p["w_down"] + p["b_down"]
+    h = F.gelu(x @ p["w_up"] + b_up, approximate="tanh")
+    if tp is None:
+        return h @ p["w_down"] + p["b_down"]
+    out = h @ p["w_down"]
+    return tp.reduce(out) + p["b_down"] if reduce else out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,6 +21,12 @@ token; a layer's cache is its row of the stack, written in place.  Not
 ported: the JAX config's ``remat_policy`` and ``seq_shard_activations``
 (a GSPMD sharding hint, with no meaning in one process), which are no
 fields here: no config sets them.
+
+Tensor parallelism over ranks (``tp``, a
+``runtime.tensor_parallel.TensorParallel``, which ``train.steps``' sharded
+builders pass where the plan's TP axis is larger than 1): each leaf's own
+shape says whether it is the rank's TP block or whole, and the functions
+below take the matching path (dense layers only: MLA, MoE and MTP raise).
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from repro_torch.core.hw import Hardware, H100_SXM
 from repro_torch.core.profiler import analytic_block_costs
 from repro_torch.models import layers as L
 from repro_torch.models.layers import AttnConfig, MLAConfig, MoEConfig, Params
+from repro_torch.runtime.tensor_parallel import VocabLogits
 from repro_torch.tree import tree_index
 
 
@@ -153,55 +160,153 @@ def init_lm(gen: torch.Generator, cfg: LMConfig, device="cuda") -> Params:
 # apply
 # --------------------------------------------------------------------------
 
+def _tp_parts(p: Params, cfg: LMConfig, tp) -> tuple:
+    """``(tp_attn, tp_ffn)``: ``tp`` for a layer's attention and FFN where
+    their leaves are TP blocks (``wq``'s columns, the FFN's inner dim
+    fewer than whole), else None (whole on every rank, computed alike)."""
+    if tp is None:
+        return None, None
+    if cfg.mla is not None or cfg.moe is not None or cfg.mtp:
+        raise NotImplementedError(
+            "tensor parallelism of MLA, MoE and MTP layers is not ported "
+            "(expert parallelism comes first)")
+    a = cfg.attn
+    attn = tp if p["attn"]["wq"].shape[-1] != a.n_heads * a.head_dim \
+        else None
+    inner = p["ffn"]["w_up"].shape[-1]
+    return attn, (tp if inner != cfg.d_ff else None)
+
+
 def apply_layer(p: Params, x: torch.Tensor, cfg: LMConfig, *,
                 dense_ffn: bool, positions: torch.Tensor | None = None,
-                cache: Params | None = None
+                cache: Params | None = None, tp=None
                 ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
-    """One decoder layer.  Returns ``(x, new_cache, moe_aux_loss)``."""
+    """One decoder layer.  Returns ``(x, new_cache, moe_aux_loss)``.
+    ``tp``: the attention and the FFN over tensor parallelism where their
+    leaves are TP blocks (:func:`_tp_parts`)."""
+    tp_attn, tp_ffn = _tp_parts(p, cfg, tp)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         a, new_cache = L.apply_mla(p["attn"], h, cfg.mla,
                                    positions=positions, cache=cache)
     else:
         a, new_cache = L.apply_attention(p["attn"], h, cfg.attn,
-                                         positions=positions, cache=cache)
+                                         positions=positions, cache=cache,
+                                         tp=tp_attn)
     x = x + a
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if dense_ffn or cfg.moe is None:
         mlp = L.apply_gelu_mlp if cfg.mlp_gelu else L.apply_swiglu
-        f, aux = mlp(p["ffn"], h), torch.zeros((), device=x.device)
+        f, aux = mlp(p["ffn"], h, tp_ffn), torch.zeros((), device=x.device)
     else:
         f, aux = L.apply_moe(p["ffn"], h, cfg.moe, dispatch=cfg.moe_dispatch)
     return x + f, new_cache, aux
 
 
+def _apply_layer_remat_tp(p: Params, x: torch.Tensor, cfg: LMConfig, *,
+                          positions: torch.Tensor, tp) -> torch.Tensor:
+    """:func:`apply_layer` (no cache) recomputed in the backward region by
+    region: the attention's and the FFN's rank-local parts are each
+    checkpointed up to their partial sums, and the all-reduces after them
+    stay outside, so the backward re-issues no forward collective (every
+    rank issues the same ones in the same order: the copies' all-reduces
+    of the backward).  Saves two activations a layer, the layer's input
+    and the attention's residual sum."""
+    tp_attn, tp_ffn = _tp_parts(p, cfg, tp)
+
+    def attn(lp, x):
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        return L.apply_attention(lp["attn"], h, cfg.attn,
+                                 positions=positions, tp=tp_attn,
+                                 reduce=False)[0]
+
+    def ffn(lp, x):
+        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        mlp = L.apply_gelu_mlp if cfg.mlp_gelu else L.apply_swiglu
+        return mlp(lp["ffn"], h, tp_ffn, reduce=False)
+
+    a = checkpoint(attn, p, x, use_reentrant=False)
+    x = x + (tp_attn.reduce(a) if tp_attn is not None else a)
+    f = checkpoint(ffn, p, x, use_reentrant=False)
+    if tp_ffn is not None:
+        f = tp_ffn.reduce(f)
+        if cfg.mlp_gelu:
+            f = f + p["ffn"]["b_down"]
+    return x + f
+
+
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: LMConfig,
-                 prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
+                 prefix_embeds: torch.Tensor | None = None,
+                 tp=None) -> torch.Tensor:
     """The embedding gather (its gradient a scatter-add into ``embed``),
-    with the vision prefix's rows in front."""
-    x = params["embed"][tokens.long()].to(cfg.dtype)
+    with the vision prefix's rows in front.  ``tp`` with ``embed`` the
+    rank's block of d: the ``(B, S, d / tp)`` lookup gathered whole
+    (``tp.gather``), then the prefix."""
+    emb = params["embed"]
+    x = emb[tokens.long()].to(cfg.dtype)
+    if tp is not None and emb.shape[-1] != cfg.d_model:
+        x = tp.gather(x, -1)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(cfg.dtype), x], dim=1)
     return x
 
 
-def unembed(params: Params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+def unembed(params: Params, x: torch.Tensor, cfg: LMConfig, tp=None):
+    """The final norm and the logits.  With ``tp``, a
+    ``runtime.tensor_parallel.VocabLogits``:
+
+    - an untied ``head`` split on its vocab: vocab-parallel logits of the
+      rank's block (the input through ``tp.copy``);
+    - a ``head`` whole over the TP axis (internvl2-2b's odd vocab of
+      92,553, which ``fit_spec`` leaves whole): whole logits, alike on
+      every rank;
+    - tied, ``embed`` the rank's ``(V, d / tp)`` block: of the two ways,
+      an all-gather of the matrix's d blocks (each rank sends ``V d /
+      tp`` elements a peer) followed by vocab-parallel logits (``tp.gather
+      (partial=True)``: the backward reduce-scatters the matrix's
+      gradient), or an all-reduce of every rank's partial ``(rows, V)``
+      logits of its d block (``rows x V`` elements a peer), the cheaper:
+      the gather when ``rows x tp > d`` (smollm-360m's prefill at S=32768:
+      94 MB against 3.2 GB a row in bf16), the all-reduce for a few rows
+      (a decode step: 2 rows, 196 KB against 94 MB).  Every rank of the
+      axis holds the same rows, so all take the same way."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    w = params["embed"].T if cfg.tied_embeddings else params["head"]
-    return x @ w.to(x.dtype)
+    V = cfg.vocab
+    if tp is None:
+        w = params["embed"].T if cfg.tied_embeddings else params["head"]
+        return x @ w.to(x.dtype)
+    if not cfg.tied_embeddings:
+        head = params["head"]
+        if head.shape[-1] == V:
+            return VocabLogits(x @ head.to(x.dtype), 0, V)
+        v0, _ = tp.block(V)
+        return VocabLogits(tp.copy(x) @ head.to(x.dtype), v0, V)
+    emb = params["embed"]
+    if emb.shape[-1] == cfg.d_model:
+        return VocabLogits(x @ emb.T.to(x.dtype), 0, V)
+    rows = x.numel() // x.shape[-1]
+    if rows * tp.size <= cfg.d_model:
+        part = tp.split(x, -1) @ emb.T.to(x.dtype)
+        return VocabLogits(tp.reduce(part), 0, V)
+    if V % tp.size:
+        return VocabLogits(x @ tp.gather(emb, -1).T.to(x.dtype), 0, V)
+    v0, v1 = tp.block(V)
+    w = tp.gather(emb, -1, partial=True)[v0:v1]
+    return VocabLogits(tp.copy(x) @ w.T.to(x.dtype), v0, V)
 
 
 def _scan_layers(stack: Params, x: torch.Tensor, cfg: LMConfig, *,
                  dense_ffn: bool, positions: torch.Tensor,
-                 caches: Params | None = None
+                 caches: Params | None = None, tp=None
                  ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
     """The stack's rows in order (``lax.scan`` in JAX); with ``remat`` and
-    no caches each layer is recomputed in the backward.  ``caches``: the
-    stack's caches (one ``pos``), row ``i`` layer ``i``'s, written in
-    place.  Returns ``(x, new_caches, aux)``."""
+    no caches each layer is recomputed in the backward (over tensor
+    parallelism region by region: :func:`_apply_layer_remat_tp`).
+    ``caches``: the stack's caches (one ``pos``), row ``i`` layer ``i``'s,
+    written in place.  Returns ``(x, new_caches, aux)``."""
     def body(lp, x):
         x, _, a = apply_layer(lp, x, cfg, dense_ffn=dense_ffn,
-                              positions=positions)
+                              positions=positions, tp=tp)
         return x, a
 
     n = stack["ln1"].shape[0]
@@ -211,7 +316,10 @@ def _scan_layers(stack: Params, x: torch.Tensor, cfg: LMConfig, *,
         if caches is not None:
             cache = {k: v if k == "pos" else v[i] for k, v in caches.items()}
             x, new, a = apply_layer(lp, x, cfg, dense_ffn=dense_ffn,
-                                    positions=positions, cache=cache)
+                                    positions=positions, cache=cache, tp=tp)
+        elif cfg.remat and torch.is_grad_enabled() and tp is not None:
+            x, a = _apply_layer_remat_tp(lp, x, cfg, positions=positions,
+                                         tp=tp), 0.0
         elif cfg.remat and torch.is_grad_enabled():
             x, a = checkpoint(body, lp, x, use_reentrant=False)
         else:
@@ -225,12 +333,13 @@ def _scan_layers(stack: Params, x: torch.Tensor, cfg: LMConfig, *,
 def forward(params: Params, tokens: torch.Tensor, cfg: LMConfig, *,
             prefix_embeds: torch.Tensor | None = None,
             caches: Params | None = None,
-            positions: torch.Tensor | None = None,
+            positions: torch.Tensor | None = None, tp=None,
             ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
     """Full forward -> ``(hidden (B,S,d), new_caches, moe_aux)``.
 
-    ``caches``: ``{"dense": stacked, "layers": stacked}`` or None."""
-    x = embed_tokens(params, tokens, cfg, prefix_embeds)
+    ``caches``: ``{"dense": stacked, "layers": stacked}`` or None; ``tp``:
+    tensor parallelism (the module docstring)."""
+    x = embed_tokens(params, tokens, cfg, prefix_embeds, tp=tp)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), device=x.device)
@@ -238,12 +347,14 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LMConfig, *,
     if "dense_layers" in params:
         x, nc, a = _scan_layers(params["dense_layers"], x, cfg,
                                 dense_ffn=True, positions=positions,
-                                caches=caches["dense"] if caches else None)
+                                caches=caches["dense"] if caches else None,
+                                tp=tp)
         aux = aux + a
         new_caches["dense"] = nc
     x, nc, a = _scan_layers(params["layers"], x, cfg, dense_ffn=False,
                             positions=positions,
-                            caches=caches["layers"] if caches else None)
+                            caches=caches["layers"] if caches else None,
+                            tp=tp)
     new_caches["layers"] = nc
     return x, (new_caches if caches is not None else None), aux + a
 
@@ -252,27 +363,34 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LMConfig, *,
 # losses / serving steps
 # --------------------------------------------------------------------------
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean token cross-entropy, the log-sum-exp in fp32."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels.long()[..., None])[..., 0] - logz
-    nll = -ll
+def softmax_xent(logits, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None, tp=None) -> torch.Tensor:
+    """Mean token cross-entropy, the log-sum-exp in fp32.  With ``tp``,
+    ``logits`` are ``VocabLogits`` (:func:`unembed`'s): the vocab-parallel
+    cross-entropy (``TensorParallel.xent``)."""
+    if tp is not None:
+        nll = tp.xent(logits, labels)
+    else:
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels.long()[..., None])[..., 0] - logz
+        nll = -ll
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
 
 
-def lm_loss(params: Params, batch: dict, cfg: LMConfig) -> torch.Tensor:
-    """Causal LM loss. batch: {"tokens": (B,S) int, "prefix_embeds"?}."""
+def lm_loss(params: Params, batch: dict, cfg: LMConfig,
+            tp=None) -> torch.Tensor:
+    """Causal LM loss. batch: {"tokens": (B,S) int, "prefix_embeds"?};
+    ``tp``: tensor parallelism (the module docstring)."""
     tokens = batch["tokens"]
     prefix = batch.get("prefix_embeds")
-    h, _, aux = forward(params, tokens, cfg, prefix_embeds=prefix)
+    h, _, aux = forward(params, tokens, cfg, prefix_embeds=prefix, tp=tp)
     P = cfg.vision_prefix if prefix is not None else 0
     h_text = h[:, P:]
-    logits = unembed(params, h_text[:, :-1], cfg)
-    loss = softmax_xent(logits, tokens[:, 1:])
+    logits = unembed(params, h_text[:, :-1], cfg, tp=tp)
+    loss = softmax_xent(logits, tokens[:, 1:], tp=tp)
     if cfg.mtp:
         loss = loss + cfg.mtp_weight * _mtp_loss(params, h_text, tokens, cfg)
     return loss + cfg.moe_aux_weight * aux
@@ -316,23 +434,30 @@ def init_caches(cfg: LMConfig, batch: int, max_len: int, dtype=None,
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig,
-            max_len: int, *, prefix_embeds: torch.Tensor | None = None
+            max_len: int, *, prefix_embeds: torch.Tensor | None = None,
+            caches: Params | None = None, tp=None
             ) -> tuple[torch.Tensor, Params]:
-    """Prime a KV cache with a prompt; returns (last-token logits, caches)."""
-    caches = init_caches(cfg, tokens.shape[0], max_len, device=tokens.device)
+    """Prime a KV cache with a prompt; returns (last-token logits, caches).
+    ``caches``: zero caches to prime (else ``init_caches``' of ``max_len``
+    rows); with ``tp`` they are the rank's blocks under the serve step's
+    cache specs, and the logits ``VocabLogits``."""
+    if caches is None:
+        caches = init_caches(cfg, tokens.shape[0], max_len,
+                             device=tokens.device)
     h, caches, _ = forward(params, tokens, cfg, prefix_embeds=prefix_embeds,
-                           caches=caches)
-    return unembed(params, h[:, -1:], cfg), caches
+                           caches=caches, tp=tp)
+    return unembed(params, h[:, -1:], cfg, tp=tp), caches
 
 
 def decode_step(params: Params, token: torch.Tensor, caches: Params,
-                cfg: LMConfig) -> tuple[torch.Tensor, Params]:
-    """One greedy decode step. token: (B,1) int."""
+                cfg: LMConfig, tp=None) -> tuple[torch.Tensor, Params]:
+    """One greedy decode step. token: (B,1) int.  With ``tp`` the logits
+    are ``VocabLogits`` (:func:`unembed`)."""
     pos = caches["layers"]["pos"]
     positions = torch.full((1, 1), pos, device=token.device)
     h, caches, _ = forward(params, token, cfg, caches=caches,
-                           positions=positions)
-    return unembed(params, h, cfg), caches
+                           positions=positions, tp=tp)
+    return unembed(params, h, cfg, tp=tp), caches
 
 
 # --------------------------------------------------------------------------

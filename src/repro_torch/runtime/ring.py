@@ -420,6 +420,67 @@ class DataGroup(GroupView):
             raise ValueError(f"one {what} moves tensors of one dtype")
         return xs[0].dtype
 
+    def _gather_parts(self, xs: list, what: str) -> tuple[list, torch.dtype]:
+        """Every member's ``xs`` (one dtype) as one flat buffer of their
+        bytes each, in index order (this member's own is its send buffer):
+        over NCCL one ``all_gather_into_tensor``, over gloo point-to-point
+        sends to every peer."""
+        dist = _dist()
+        dtype = self._one_dtype(xs, what)
+        nbytes = sum(x.numel() for x in xs) * xs[0].element_size()
+        send = self._empty((nbytes,), torch.uint8, "ag_send")
+        typed, off = send.view(dtype), 0
+        for x in xs:
+            typed[off:off + x.numel()].view(x.shape).copy_(x.detach())
+            off += x.numel()
+        if self.backend == "nccl":
+            rows = torch.empty((self.size, nbytes), dtype=torch.uint8,
+                               device=self.device)
+            dist.all_gather_into_tensor(rows.view(-1), send,
+                                        group=self.group)
+            return [rows[self._slot[i]] for i in range(self.size)], dtype
+        got = [send if i == self.index else self._empty(
+            (nbytes,), torch.uint8, ("ag_recv", i))
+            for i in range(self.size)]
+        self._p2p({i: send for i in self._peers()},
+                  {i: got[i] for i in self._peers()})
+        return got, dtype
+
+    def all_reduce_parts_(self, tensors: list[torch.Tensor],
+                          op: str = "sum") -> None:
+        """Sum (``op="sum"``) or take the maximum (``"max"``) of
+        ``tensors`` (one dtype) over the group, in place: every member's
+        tensors travel in their own dtype (gathered as
+        :meth:`all_gather` gathers them) and every member reduces the
+        parts in fp32 in index order on its device, so every member holds
+        the same bits.  Counted as an ``all_reduce`` of the tensors' own
+        bytes.  Tensor parallelism's all-reduces of activations: a bf16
+        tensor moves half the bytes of :meth:`all_reduce_`'s fp32 buffer,
+        and over gloo point to point, about twice gloo's all-reduce rate
+        (``tools/time_gloo.py``); with two members the fp32 sum of the two
+        parts, rounded once, is the sum in the tensor's dtype."""
+        if not tensors:
+            return
+        if op not in ("sum", "max"):
+            raise ValueError(f"op {op!r}: 'sum' or 'max'")
+        t0 = time.perf_counter()
+        got, dtype = self._gather_parts(tensors, "all-reduce")
+        off = 0
+        for x in tensors:
+            acc = None
+            for i, part in enumerate(got):
+                y = x if i == self.index else part.view(dtype)[
+                    off:off + x.numel()].view(x.shape).to(self.device)
+                if acc is None:
+                    acc = y.to(torch.float32, copy=True)
+                elif op == "sum":
+                    acc.add_(y)
+                else:
+                    torch.maximum(acc, y.to(torch.float32), out=acc)
+            x.copy_(acc)
+            off += x.numel()
+        self._count("all_reduce", off * tensors[0].element_size(), t0)
+
     def all_gather(self, xs: list, dims: list, out: list | None = None
                    ) -> list:
         """Each tensor's shards over the group concatenated along its dim,
@@ -429,28 +490,10 @@ class DataGroup(GroupView):
         one buffer of their bytes: one collective for the list, exact
         whatever the dtype; each shard is copied straight into its place,
         so no whole-size temporary is made."""
-        dist = _dist()
         t0 = time.perf_counter()
-        dtype = self._one_dtype(xs, "all-gather")
+        got, dtype = self._gather_parts(xs, "all-gather")
         esize = xs[0].element_size()
         n = sum(x.numel() for x in xs)
-        send = self._empty((n * esize,), torch.uint8, "ag_send")
-        typed, off = send.view(dtype), 0
-        for x in xs:
-            typed[off:off + x.numel()].view(x.shape).copy_(x.detach())
-            off += x.numel()
-        if self.backend == "nccl":
-            rows = torch.empty((self.size, n * esize), dtype=torch.uint8,
-                               device=self.device)
-            dist.all_gather_into_tensor(rows.view(-1), send,
-                                        group=self.group)
-            got = [rows[self._slot[i]] for i in range(self.size)]
-        else:
-            got = [send if i == self.index else self._empty(
-                (n * esize,), torch.uint8, ("ag_recv", i))
-                for i in range(self.size)]
-            self._p2p({i: send for i in self._peers()},
-                      {i: got[i] for i in self._peers()})
         full, off = [], 0
         for j, (x, d) in enumerate(zip(xs, dims)):
             shape = list(x.shape)

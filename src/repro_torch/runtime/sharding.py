@@ -444,6 +444,27 @@ def sharded_dims(spec, axis_sizes: dict) -> list[tuple[int, tuple]]:
             for d, e in enumerate(spec) if _axes_product(e, axis_sizes) > 1]
 
 
+def split_kinds(spec, axis_sizes: dict, tp_axis: str | None,
+                coords: dict | None = None) -> tuple[list, list]:
+    """``(fsdp, tp)``: the dims ``spec`` splits (over axes of size > 1),
+    told apart by the plan's ``tp_axis``.  A dim whose entry is exactly
+    ``tp_axis`` is a tensor-parallel dim: ``tp`` lists it as ``(dim,
+    index, count)``, the block the grid point at ``coords`` holds of it
+    (``index`` 0 without ``coords``).  Every other split dim is an FSDP
+    dim, ``(dim, axes)`` in ``fsdp`` as :func:`sharded_dims` gives it --
+    also an entry naming the TP axis's mesh axis among others, or when
+    the plan has no TP axis (the SDv2 plan's FSDP over ``("model",
+    "data")``)."""
+    fsdp, tp = [], []
+    for d, axes in sharded_dims(spec, axis_sizes):
+        if tp_axis is not None and spec[d] == tp_axis:
+            i, n = block_index(spec[d], coords or {}, axis_sizes)
+            tp.append((d, i, n))
+        else:
+            fsdp.append((d, axes))
+    return fsdp, tp
+
+
 def zero_stack_specs(stacks: Pytree, *, dp: int, axis: str = "model",
                      data_axes: tuple = ("data",)) -> Pytree:
     """The JAX package's ``zero_stack_specs`` specs of a whole plan's

@@ -23,8 +23,8 @@ no-ops), or a ``launch.mesh.RankGrid``, one process per (data, model)
 grid point.  Over a grid of ranks:
 
 - the sharded steps hold each param leaf as the rank's block of it under
-  :func:`param_specs_for` (FSDP), gather it whole on use over the group of
-  its spec's axes (``RankGrid.axis_group``) and reduce-scatter its
+  :func:`param_specs_for`, gather its FSDP dims whole on use over the
+  group of their axes (``RankGrid.axis_group``) and reduce-scatter its
   gradient back; a replicated leaf's gradient is all-reduced.  AdamW runs
   on the blocks.  Data (a batch, its draws, a token) comes whole and each
   rank reads its rows under ``batch_specs``; state (params, moments,
@@ -33,15 +33,21 @@ grid point.  Over a grid of ranks:
   FSDP axis that does not split the batch) compute them again, as
   GSPMD's specs place them; the gradient and the loss are the sums over
   the grid divided by the world, the global batch's mean;
+- tensor parallelism (a plan's ``tp_axis`` larger than 1): a dim whose
+  spec entry is the TP axis stays the rank's block, and the bundle's loss
+  or decode function computes on it, given ``tp=``, the rank's
+  ``runtime.tensor_parallel.TensorParallel`` (``step.tp``); the ranks
+  along the axis compute their data index's loss together, so a
+  gradient is summed over the other axes only (``GridComm``);
 - the pipeline step runs the adapter's rank executor over the rank's ring
   and data group (ZeRO as the plan and the adapter's ``pcfg`` say; the
   edge params and their moments stay whole on every rank).
 
-Refused with ``NotImplementedError`` naming what is missing: tensor and
-expert parallelism and the sequence sharding of the caches over an axis
-larger than 1, int8 moments over a grid with FSDP (and under the pipeline
-over ranks), and in one process, data parallelism or FSDP over an axis
-larger than 1.
+Refused with ``NotImplementedError`` naming what is missing: expert
+parallelism and the sequence sharding of the caches over an axis larger
+than 1, int8 moments over a grid with FSDP (and under the pipeline over
+ranks), FSDP of the stage stacks over the pipeline axis, and in one
+process, tensor or data parallelism or FSDP over an axis larger than 1.
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                int8_adamw_init, int8_adamw_update)
 from repro_torch.runtime import sharding as shard_rules
 from repro_torch.runtime.sharding import Spec, spec_map
+from repro_torch.runtime.tensor_parallel import TensorParallel, greedy
 from repro_torch.tree import tree_leaves, tree_map
 
 Pytree = Any
@@ -113,7 +120,10 @@ def check_one_process(mesh, plan: ParallelPlan, *,
         what = "expert and tensor" if plan.ep else "tensor"
         raise NotImplementedError(
             f"{what} parallelism over {plan.tp_axis!r} "
-            f"(size {size(plan.tp_axis)}) is not ported")
+            f"(size {size(plan.tp_axis)}) in one process: "
+            + ("expert parallelism is not ported" if plan.ep else
+               "run it over ranks (a RankGrid of one process per (data, "
+               "model) grid point)"))
     if size(plan.seq_shard_axis) > 1:
         raise NotImplementedError(
             f"sequence sharding of the caches over {plan.seq_shard_axis!r} "
@@ -132,20 +142,21 @@ def check_one_process(mesh, plan: ParallelPlan, *,
 def check_ranks(grid, plan: ParallelPlan, *,
                 pipeline_axis: str | None = None) -> dict:
     """The axis sizes of the grid of ranks ``grid``, after refusing what
-    the port does not run over ranks yet: tensor and expert parallelism,
-    the sequence sharding of the caches, and int8 moments with FSDP (the
-    JAX package shards their flat block dim, which does not line up with
-    a param's block when the param shards on a trailing dim) -- or, under
-    the pipeline (``pipeline_axis``), int8 moments at all and FSDP over
-    the pipeline axis."""
+    the port does not run over ranks yet: expert parallelism, the sequence
+    sharding of the caches, and int8 moments with FSDP (the JAX package
+    shards their flat block dim, which does not line up with a param's
+    block when the param shards on a trailing dim) -- or, under the
+    pipeline (``pipeline_axis``), int8 moments at all and FSDP over the
+    pipeline axis.  Tensor parallelism over ``plan.tp_axis`` runs (the
+    dense decoder LMs' layers: ``models.lm``)."""
     sizes = axis_sizes(grid)
     size = lambda a: sizes.get(a, 1) if a is not None else 1
     where = f"on a grid of {grid.world} ranks"
-    if pipeline_axis is None and size(plan.tp_axis) > 1:
-        what = "expert and tensor" if plan.ep else "tensor"
+    if pipeline_axis is None and plan.ep and size(plan.tp_axis) > 1:
         raise NotImplementedError(
-            f"{what} parallelism over {plan.tp_axis!r} (size "
-            f"{size(plan.tp_axis)}) {where} is not ported yet")
+            f"expert and tensor parallelism over {plan.tp_axis!r} (size "
+            f"{size(plan.tp_axis)}) {where}: expert parallelism (the MoE "
+            "dispatch as the model group's all-to-all) is not ported yet")
     if size(plan.seq_shard_axis) > 1:
         raise NotImplementedError(
             f"sequence sharding of the caches over {plan.seq_shard_axis!r} "
@@ -261,18 +272,34 @@ class GridComm:
     staged through pinned host memory, the one-card case), holding its
     members in that tuple's block order.  ``groups`` maps each axis tuple
     to its group: their ``bytes``, ``calls`` and ``seconds`` count what
-    the steps moved."""
+    the steps moved (tensor parallelism's collectives too, on the group
+    of ``(tp_axis,)``).
 
-    def __init__(self, grid):
+    ``tp_axis``: the plan's tensor-parallel axis.  When it is larger than
+    1, a leaf's dim whose spec entry is exactly that axis is a TP dim
+    (``sharding.split_kinds``): the rank keeps and computes on its block
+    of it, never gathers it, and the ranks along the axis compute one loss
+    together (each the loss of its data index's rows)."""
+
+    def __init__(self, grid, tp_axis: str | None = None):
         from repro_torch.launch.mesh import mesh_axis_sizes
         self.grid = grid
         self.sizes = mesh_axis_sizes(grid)
         self.coords = grid.coords
+        self.tp_axis = (tp_axis if tp_axis is not None
+                        and self.sizes.get(tp_axis, 1) > 1 else None)
         self.groups: dict = {}
 
     @property
     def world_axes(self) -> tuple:
         return tuple(a for a in ("data", "model") if self.sizes[a] > 1)
+
+    @property
+    def row_axes(self) -> tuple:
+        """The axes a gradient sums over: every axis of the world but the
+        TP axis (along which the ranks hold blocks of one computation, not
+        the computations of other rows or copies of them)."""
+        return tuple(a for a in self.world_axes if a != self.tp_axis)
 
     def group(self, axes, device, *, any_order: bool = False):
         """The data group over ``axes`` (size-1 axes dropped; None when
@@ -299,13 +326,16 @@ class GridComm:
         return self.groups[axes]
 
     def _split(self, spec) -> tuple:
-        """``(dim, axes)`` of the one dim ``spec`` splits, or ``(-1, ())``."""
-        dims = shard_rules.sharded_dims(spec, self.sizes)
-        if len(dims) > 1:
+        """``(dim, axes, tp_blocks)``: the one FSDP dim ``spec`` splits and
+        its axes (``(-1, ())`` for none), and the number of TP blocks of
+        the leaf (1 for none)."""
+        fsdp, tp = shard_rules.split_kinds(spec, self.sizes, self.tp_axis)
+        if len(fsdp) > 1:
             raise NotImplementedError(
-                f"a leaf split on {len(dims)} dims ({spec}): one FSDP dim "
-                "a leaf is ported")
-        return dims[0] if dims else (-1, ())
+                f"a leaf split on {len(fsdp)} FSDP dims ({spec}): one FSDP "
+                "dim a leaf is ported")
+        d, axes = fsdp[0] if fsdp else (-1, ())
+        return d, axes, math.prod(n for _, _, n in tp)
 
     def local(self, tree: Pytree, specs: Pytree) -> Pytree:
         """Views of this rank's blocks of ``tree`` (whole leaves as they
@@ -320,14 +350,15 @@ class GridComm:
             x, s, self.coords, self.sizes), specs, tree)
 
     def gather(self, tree: Pytree, specs: Pytree) -> Pytree:
-        """``tree`` of this rank's blocks gathered whole: one all-gather a
-        (axes, dtype) over the group of the axes, in ``specs``' leaf
-        order; whole leaves are the leaves themselves."""
+        """``tree`` of this rank's blocks with their FSDP dims gathered
+        whole (their TP blocks kept): one all-gather a (axes, dtype) over
+        the group of the axes, in ``specs``' leaf order; leaves with no
+        FSDP dim are the leaves themselves."""
         pairs = _pairs(tree, specs)
         out = [x for x, _ in pairs]
         buckets: dict = {}
         for i, (x, s) in enumerate(pairs):
-            d, axes = self._split(s)
+            d, axes, _ = self._split(s)
             if d >= 0:
                 buckets.setdefault((axes, x.dtype), []).append((i, d))
         for (axes, _), items in buckets.items():
@@ -340,18 +371,32 @@ class GridComm:
 
     def reduce_grads(self, grads: Pytree, specs: Pytree
                      ) -> tuple[Pytree, torch.Tensor]:
-        """The whole gradients of every rank's loss -> this rank's blocks
-        of their sum over the grid divided by the world (a split leaf:
-        reduce-scattered over its axes, all-reduced over the others; a
-        whole one all-reduced over the world), and this rank's share of
-        the squared global norm (its blocks' squares over their copies)."""
+        """The gradients of every rank's loss (each leaf's FSDP dims whole,
+        its TP block) -> this rank's blocks of their sum over the
+        :attr:`row_axes` divided by those axes' size, the global batch's
+        mean (a leaf split over FSDP axes: reduce-scattered over them and
+        all-reduced over the other row axes; a leaf with no FSDP dim
+        all-reduced over the row axes), and this rank's share of the
+        squared global norm (its blocks' squares over their copies: the
+        ranks that hold the same block).
+
+        Over the row axes every rank holds the whole gradient of its own
+        rows' loss, or a copy of another rank's (the SDv2 plan's model
+        ranks compute the same rows), so the sum over them divided by
+        their size is the mean.  Along the TP axis nothing is summed: a
+        TP block's gradient is complete on its rank, and a leaf whole over
+        the TP axis has the same whole gradient on each rank of it (the
+        TP context's copies all-reduce the partial ones in the backward:
+        ``runtime.tensor_parallel``)."""
         world = self.grid.world
+        rows = self.row_axes
+        scale = math.prod(self.sizes[a] for a in rows)
         pairs = _pairs(grads, specs)
         out = [g for g, _ in pairs]
         split: dict = {}
         whole: list = []
         for i, (g, s) in enumerate(pairs):
-            d, axes = self._split(s)
+            d, axes, _ = self._split(s)
             if d >= 0:
                 split.setdefault((axes, g.dtype), []).append((i, d))
             else:
@@ -362,22 +407,22 @@ class GridComm:
             grp = self.group(axes, dev)
             blocks = grp.reduce_scatter([pairs[i][0] for i, _ in items],
                                         [d for _, d in items])
-            others = tuple(a for a in self.world_axes if a not in axes)
+            others = tuple(a for a in rows if a not in axes)
             for (i, _), b in zip(items, blocks):
                 out[i] = b
                 rest.setdefault(others, []).append(i)
+        if whole:
+            rest.setdefault(rows, []).extend(whole)
         for others, idx in rest.items():
             grp = self.group(others, dev, any_order=True)
             if grp is not None:
                 grp.all_reduce_([out[i] for i in idx])
-        if whole:
-            self.group(self.world_axes, dev, any_order=True).all_reduce_(
-                [out[i] for i in whole])
         sq = torch.zeros((), dtype=torch.float32, device=dev)
         for i, g in enumerate(out):
-            g.div_(world)
-            d, axes = self._split(pairs[i][1])
-            copies = world // math.prod(self.sizes[a] for a in axes)
+            g.div_(scale)
+            _, axes, tp_blocks = self._split(pairs[i][1])
+            copies = world // (math.prod(self.sizes[a] for a in axes)
+                               * tp_blocks)
             sq = sq + torch.linalg.vector_norm(
                 g, dtype=torch.float32).square() / copies
         return _rebuild(specs, grads, out), sq
@@ -385,7 +430,8 @@ class GridComm:
     def loss_and_norm(self, loss: torch.Tensor, sq: torch.Tensor | None
                       ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The mean of every rank's loss and the global norm from each
-        rank's share of its square: one all-reduce over the world."""
+        rank's share of its square: one all-reduce over the world (the
+        ranks along the TP axis hold the same loss, their data index's)."""
         parts = [loss.detach().float().reshape(())]
         if sq is not None:
             parts.append(sq.reshape(()).to(parts[0].device))
@@ -400,8 +446,10 @@ class Step:
     """A built step: call it as the function it wraps.  ``in_specs`` and
     ``out_specs`` are the JAX builder's shardings as data; ``local``,
     ``shard`` and ``gather`` cut a tree into this rank's blocks (views,
-    copies) and gather one whole (one process: the tree itself); ``comm``
-    is the rank's :class:`GridComm` (None in one process).  A train step
+    copies) and gather its FSDP dims whole, TP blocks kept (one process:
+    the tree itself); ``comm`` is the rank's :class:`GridComm` and ``tp``
+    its tensor-parallel context (None in one process, or without TP on
+    the grid).  A train step
     over ranks keeps its last gradient norm over the grid in
     ``grad_norm`` (and the pipeline's, whether every rank's loss and
     gradient were finite, in ``finite``)."""
@@ -454,13 +502,25 @@ def _device(tree: Pytree) -> torch.device:
 # ===========================================================================
 
 def _sharded_setup(init_fn: Callable, mesh, plan: ParallelPlan):
+    """``(comm, tp, sizes, params_struct, p_specs)``: the rank's
+    :class:`GridComm` and, where the plan's TP axis is larger than 1, its
+    ``runtime.tensor_parallel.TensorParallel`` (None in one process)."""
     grid = rank_grid(mesh)
     sizes = (check_one_process(mesh, plan) if grid is None
              else check_ranks(grid, plan))
     params_struct = _meta_params(init_fn)
     p_specs = param_specs_for(params_struct, sizes, plan)
-    return (None if grid is None else GridComm(grid)), sizes, \
-        params_struct, p_specs
+    comm = None if grid is None else GridComm(grid, plan.tp_axis)
+    tp = (TensorParallel(comm, comm.tp_axis)
+          if comm is not None and comm.tp_axis is not None else None)
+    return comm, tp, sizes, params_struct, p_specs
+
+
+def _tp_kw(tp) -> dict:
+    """The keyword a bundle's loss or decode function takes the TP context
+    by: given only where there is one (a bundle without TP rules is never
+    given it)."""
+    return {} if tp is None else {"tp": tp}
 
 
 def build_sharded_train_step(loss_fn: Callable, init_fn: Callable,
@@ -478,8 +538,8 @@ def build_sharded_train_step(loss_fn: Callable, init_fn: Callable,
     block's: ``adamw_init(blocks)``), ``batch`` and the draws the global
     batch's, and the loss the global batch's mean on every rank.  Example
     inputs: ``(params, opt_state, batch)`` on the meta device."""
-    comm, sizes, params_struct, p_specs = _sharded_setup(init_fn, mesh,
-                                                         plan)
+    comm, tp, sizes, params_struct, p_specs = _sharded_setup(init_fn, mesh,
+                                                             plan)
     o_init, o_update = _optimizer(plan)
     opt_struct = o_init(params_struct)
     o_specs = opt_specs_like(p_specs, plan.int8_optimizer,
@@ -495,7 +555,7 @@ def build_sharded_train_step(loss_fn: Callable, init_fn: Callable,
             rows, draws = _rows(comm, sizes, plan, rng, batch, draws)
             whole = comm.gather(params, p_specs)
             loss, grads = _value_and_grad(loss_fn, whole, rows, rng,
-                                          **draws)
+                                          **draws, **_tp_kw(tp))
             del whole
             grads, sq = comm.reduce_grads(grads, p_specs)
             loss, norm = comm.loss_and_norm(loss, sq)
@@ -509,7 +569,7 @@ def build_sharded_train_step(loss_fn: Callable, init_fn: Callable,
         return params, opt_state, loss
 
     step = Step(train_step, (p_specs, o_specs, b_specs, Spec()),
-                (p_specs, o_specs, Spec()), comm, grad_norm=None)
+                (p_specs, o_specs, Spec()), comm, grad_norm=None, tp=tp)
     return step, (params_struct, opt_struct, batch_struct)
 
 
@@ -517,11 +577,12 @@ def build_forward_step(loss_fn: Callable, init_fn: Callable,
                        batch_struct: Pytree, mesh, plan: ParallelPlan):
     """Inference-prefill proxy: ``step(params, batch, rng=None, **draws)
     -> loss``, the forward pass only (no grad, no optimizer); over a grid
-    of ranks the params are the rank's blocks, gathered whole for the
-    call, and the loss the global batch's mean.  Example inputs:
-    ``(params, batch)`` on the meta device."""
-    comm, sizes, params_struct, p_specs = _sharded_setup(init_fn, mesh,
-                                                         plan)
+    of ranks the params are the rank's blocks, their FSDP dims gathered
+    whole for the call (TP blocks kept: the loss computes on them), and
+    the loss the global batch's mean.  Example inputs: ``(params, batch)``
+    on the meta device."""
+    comm, tp, sizes, params_struct, p_specs = _sharded_setup(init_fn, mesh,
+                                                             plan)
     b_specs = _batch_specs(batch_struct, sizes, plan)
 
     @torch.no_grad()
@@ -529,10 +590,12 @@ def build_forward_step(loss_fn: Callable, init_fn: Callable,
         if comm is None:
             return loss_fn(params, batch, rng, **draws)
         rows, draws = _rows(comm, sizes, plan, rng, batch, draws)
-        loss = loss_fn(comm.gather(params, p_specs), rows, rng, **draws)
+        loss = loss_fn(comm.gather(params, p_specs), rows, rng, **draws,
+                       **_tp_kw(tp))
         return comm.loss_and_norm(loss, None)[0]
 
-    step = Step(forward_step, (p_specs, b_specs, Spec()), Spec(), comm)
+    step = Step(forward_step, (p_specs, b_specs, Spec()), Spec(), comm,
+                tp=tp)
     return step, (params_struct, batch_struct)
 
 
@@ -543,13 +606,17 @@ def build_sharded_serve_step(decode_fn: Callable, init_fn: Callable,
     ``step(params, token, caches) -> (next_token, caches)``: the greedy
     next token ``(B, 1)`` int32 of the last position's logits; the caches
     are written in place (the JAX step donates them).  Over a grid of
-    ranks the params are the rank's blocks (gathered whole each call), the
-    caches its rows (``step.shard(caches, step.in_specs[2])``), the token
-    the whole batch's, and the next token the rank's rows
-    (``step.out_specs[0]``; ``step.gather_rows`` gathers it whole).
-    Example inputs: ``(params, token, caches)`` on the meta device."""
-    comm, sizes, params_struct, p_specs = _sharded_setup(init_fn, mesh,
-                                                         plan)
+    ranks the params are the rank's blocks (their FSDP dims gathered whole
+    each call), the caches its blocks (``step.shard(caches,
+    step.in_specs[2])``: its rows, and under TP its kv heads where
+    ``cache_specs`` splits them), the token the whole batch's, and the
+    next token the rank's rows (``step.out_specs[0]``; ``step.gather_rows``
+    gathers it whole).  Under TP ``decode_fn`` is called with ``tp=`` and
+    returns ``VocabLogits``; the greedy token is then the vocab-parallel
+    argmax.  Example inputs: ``(params, token, caches)`` on the meta
+    device."""
+    comm, tp, sizes, params_struct, p_specs = _sharded_setup(init_fn, mesh,
+                                                             plan)
     dp_axes = _filter_axes(sizes, plan.batch_axes)
     c_specs = shard_rules.cache_specs(
         cache_struct, dp_axes=dp_axes,
@@ -567,12 +634,11 @@ def build_sharded_serve_step(decode_fn: Callable, init_fn: Callable,
         if comm is not None:
             params = comm.gather(params, p_specs)
             token = comm.local(token, t_specs)
-        logits, caches = decode_fn(params, token, caches)
-        next_tok = torch.argmax(logits[..., -1:, :], dim=-1).to(torch.int32)
-        return next_tok, caches
+        logits, caches = decode_fn(params, token, caches, **_tp_kw(tp))
+        return greedy(logits, tp), caches
 
     step = Step(serve_step, (p_specs, t_specs, c_specs), (tok_spec, c_specs),
-                comm)
+                comm, tp=tp)
     step.gather_rows = lambda tok: step.gather(tok, tok_spec)
     return step, (params_struct, token_struct, cache_struct)
 

@@ -672,7 +672,8 @@ REFUSALS = [
      "sequence sharding"),
     ({"data": 2, "model": 1}, P(tp_axis=None), "data parallelism"),
     ({"model": 2}, P(tp_axis=None, fsdp_axes=("model",)), "FSDP"),
-    (RankGrid(world=2, dp=1, pp=2, rank=0), P(), "a grid of 2 ranks"),
+    # over ranks, what a grid still refuses (tensor parallelism runs)
+    (RankGrid(world=2, dp=1, pp=2, rank=0), P(ep=True), "a grid of 2 ranks"),
 ]
 
 

@@ -14,7 +14,15 @@ One JAX subprocess on four forced host devices
   ``d_ff`` raised to 256, so that ZeRO's rules shard a leaf of the
   ``[D, L/D, ...]`` stacks) on a ``pp_wave`` plan, P = 2 pipeline
   devices x dp = 2, M = 4, at ZeRO 0 and 2 (the optimizer state sharded
-  over data), two steps each.
+  over data), two steps each (the merged moments too);
+- tensor parallelism over ``model`` (``TP_CASES``), each LM smoke config
+  on its bundle's own TP plans: h2o-danube-1.8b's ``train_4k`` (two
+  AdamW steps, remat), ``prefill_32k`` forward and four ``decode_32k``
+  serve steps after a prompt prefilled in one process; a head cut
+  through (3 heads of 16, 1.5 a rank; tied embeddings): forward and
+  serve; internvl2-2b with a vocab of 255 (its head whole over model)
+  and its vision prefix: ``train_4k``; granite-34b (MQA, the GELU MLP):
+  forward.
 
 It saves the losses, the params and moments after each step (whole, and
 every device's ``addressable_shards``), the tokens, and the steps'
@@ -51,11 +59,38 @@ WH_B, WH_FRAMES, WH_PROMPT, WH_GEN, WH_MAX = 4, 12, 3, 4, 8
 LM_B, LM_S, LM_M = 8, 16, 4
 LM_FF = 256         # the smoke LM's d_ff raised so that ZeRO shards a leaf
 LR, EPS = 1e-3, 1e-6
+# tensor parallelism over model: the LM smoke cases on their bundles' own
+# plans, (key, config module, config changes, what runs) -- danube (GQA
+# 4:2 aligned on heads, window 8, remat); a head cut through (3 heads of 16 over model=2: 24
+# columns a rank, 1.5 heads; MQA; tied embeddings); internvl2 with an odd
+# vocab of 255 (head whole over model) and its vision prefix; granite
+# (MQA, the GELU MLP with its biases)
+TP_CASES = {
+    "danube": ("h2o-danube-1.8b", "h2o_danube_1_8b", {"remat": True},
+               ("train", "forward", "serve")),
+    "cut": ("smollm-360m", "smollm_360m", {"attn": (64, 3, 1, 16)},
+            ("forward", "serve")),
+    "vl": ("internvl2-2b", "internvl2_2b", {"vocab": 255}, ("train",)),
+    "granite": ("granite-34b", "granite_34b", {"mlp_gelu": True},
+                ("forward",)),
+}
+# 24 tokens: the tied head's 2 x 23 rows a rank take the matrix's gather
+# (a serve step's 2 rows, the partial logits' all-reduce)
+TP_B, TP_S, TP_PROMPT, TP_GEN, TP_MAX = 4, 24, 5, 4, 12
+TP_RUNS = {"train": "train_4k", "forward": "prefill_32k",
+           "serve": "decode_32k"}
 # the pipeline's params after an AdamW step: an entry whose gradient is
 # near zero (|g| ~ eps) takes an update m / (sqrt(v) + eps) that fp32
 # summation order moves by a fraction of lr (one entry of 65,536 here:
 # 3.2e-6 away, with lr 1e-3); held within 1 % of lr there
 UPDATE_ATOL = ATOL + 1e-2 * LR
+# the pipeline's moments after a step (and the TP caches), held at rtol
+# 1e-4 and this share of the leaf's largest entry: one entry of 65,536 of ``m`` after step 0 is
+# 8.7e-10 off (6.5e-4 relative), 2.5e-6 of its leaf's largest -- a
+# gradient entry near zero, its rows' terms summed in another order (the
+# cause of the params' one entry above); a wrong or missing contribution
+# moves an entry by about the gradient's own scale
+MOMENT_ATOL = 1e-5
 
 
 def _flatten(tree, prefix=""):
@@ -85,6 +120,26 @@ def _unflatten(flat):
 
 def _spec_json(entries):
     return [list(e) if isinstance(e, tuple) else e for e in entries]
+
+
+def _tp_cfg(factories, attn_config, name):
+    """The smoke config of a TP case (JAX's or the port's, from their
+    smoke factories and ``AttnConfig``)."""
+    key, _, over, _ = TP_CASES[name]
+    cfg = factories[key]()[3]
+    over = dict(over)
+    if "attn" in over:
+        over["attn"] = attn_config(*over["attn"])
+    return dataclasses.replace(cfg, **over)
+
+
+def _tp_batch(rng, cfg):
+    batch = {"tokens": rng.integers(0, cfg.vocab, (TP_B, TP_S)).astype(
+        np.int32)}
+    if cfg.vision_prefix:
+        batch["prefix_embeds"] = rng.standard_normal(
+            (TP_B, cfg.vision_prefix, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +283,68 @@ def _jax_main(out_dir):
             p, o, loss = pstep(p, o, {"tokens": ltok}, jax.random.PRNGKey(0))
             arrays[f"pp{zero} loss{i}"] = np.asarray(float(loss))
             put(f"pp{zero} params{i}", adapter.merge_params(*p))
+            put(f"pp{zero} opt{i}", {"m": adapter.merge_params(*o["m"]),
+                                     "v": adapter.merge_params(*o["v"])})
+
+    # 4. tensor parallelism over model: the TP cases on their plans
+    import importlib
+
+    from repro.models.layers import AttnConfig as JAttn
+    for c, name in enumerate(TP_CASES):
+        _, mod, _, runs_ = TP_CASES[name]
+        plans = importlib.import_module(f"repro.configs.{mod}").PLANS
+        cfg = _tp_cfg(JS, JAttn, name)
+        tloss = lambda p, b, r, cfg=cfg: jlm.lm_loss(p, b, cfg)
+        tinit = lambda k, cfg=cfg: jlm.init_lm(k, cfg)
+        tparams = tinit(jax.random.PRNGKey(10 + c))
+        put(f"tp {name} init", tparams)
+        tbatch = _tp_batch(rng, cfg)
+        for k, v in tbatch.items():
+            arrays[f"tp {name} batch|{k}"] = v
+        tstruct = {k: jax.ShapeDtypeStruct(v.shape, v.dtype)
+                   for k, v in tbatch.items()}
+        if "train" in runs_:
+            step, _, in_sh, out_sh = jsteps.build_sharded_train_step(
+                tloss, tinit, tstruct, mesh, plans["train_4k"], opt)
+            put_specs(f"tp {name} train in", in_sh)
+            put_specs(f"tp {name} train out", out_sh)
+            p = jax.device_put(tparams, in_sh[0])
+            o = jax.device_put(jadamw.adamw_init(tparams), in_sh[1])
+            b = jax.device_put(tbatch, in_sh[2])
+            for i in range(STEPS):
+                p, o, loss = step(p, o, b, jax.random.PRNGKey(0))
+                arrays[f"tp {name} loss{i}"] = np.asarray(float(loss))
+                put(f"tp {name} params{i}", p, shards=True)
+                put(f"tp {name} opt{i}", {"m": o["m"], "v": o["v"]},
+                    shards=True)
+        if "forward" in runs_:
+            fstep, _, in_sh, out_sh = jsteps.build_forward_step(
+                tloss, tinit, tstruct, mesh, plans["prefill_32k"])
+            put_specs(f"tp {name} forward in", in_sh)
+            put_specs(f"tp {name} forward out", out_sh)
+            arrays[f"tp {name} forward loss"] = np.asarray(float(fstep(
+                jax.device_put(tparams, in_sh[0]),
+                jax.device_put(tbatch, in_sh[1]), jax.random.PRNGKey(0))))
+        if "serve" in runs_:
+            logits, caches = jlm.prefill(
+                tparams, tbatch["tokens"][:, :TP_PROMPT], cfg, TP_MAX)
+            sstep, _, in_sh, out_sh = jsteps.build_sharded_serve_step(
+                lambda p, t, c, cfg=cfg: jlm.decode_step(p, t, c, cfg),
+                tinit, jax.eval_shape(lambda: caches),
+                jax.ShapeDtypeStruct((TP_B, 1), jnp.int32), mesh,
+                plans["decode_32k"])
+            put_specs(f"tp {name} serve in", in_sh)
+            put_specs(f"tp {name} serve out", out_sh)
+            tok = jnp.argmax(logits, -1).astype(jnp.int32)
+            sp = jax.device_put(tparams, in_sh[0])
+            cache = jax.device_put(caches, in_sh[2])
+            toks = [np.asarray(tok)]
+            for _ in range(TP_GEN):
+                tok, cache = sstep(sp, jax.device_put(tok, in_sh[1]), cache)
+                toks.append(np.asarray(tok))
+            arrays[f"tp {name} serve tokens"] = np.concatenate(toks, 1)
+            put(f"tp {name} cache", {k: cache["layers"][k] for k in "kv"},
+                shards=True)
 
     np.savez(os.path.join(out_dir, "jax.npz"), **arrays)
     with open(os.path.join(out_dir, "jax_specs.json"), "w") as f:
@@ -433,7 +550,93 @@ def _run_builders(mesh, pp_mesh, res, out, doc):
         if hasattr(pstep, "state"):
             data = pstep.state["data"]
             doc[f"pp{zero} data"] = dict(data.bytes)
+
+    # 4. tensor parallelism over model: the TP cases on their plans
+    _run_tp(mesh, res, out, doc, specs_json, save, counts)
     return out, doc
+
+
+def _run_tp(mesh, res, out, doc, specs_json, save, counts):
+    """The TP cases through the port's three sharded builders on ``mesh``
+    from JAX's params and batches: losses, the rank's blocks after each
+    train step, greedy tokens and cache blocks, specs, and the groups'
+    bytes and calls (each train step's, the forward's, the serve loop's)."""
+    import importlib
+
+    from repro_torch.configs import lm_common
+    from repro_torch.configs.smoke import LM_FACTORIES
+    from repro_torch.models import lm as tlm
+    from repro_torch.models.layers import AttnConfig
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import steps as tsteps
+    from repro_torch.tree import tree_map
+
+    opt = AdamWConfig(lr=LR, eps=EPS)
+
+    def reset(step):
+        for g in (step.comm.groups.values() if step.comm else ()):
+            g.reset_bytes()
+
+    for name, (key, mod, _, runs_) in TP_CASES.items():
+        plans = importlib.import_module(f"repro_torch.configs.{mod}").PLANS
+        cfg = _tp_cfg(LM_FACTORIES, AttnConfig, name)
+        bundle = lm_common.lm_bundle(key, cfg, plans)
+        params = _tree(res, f"tp {name} init", bundle.init_fn(None, "meta"))
+        batch = {k: torch.from_numpy(res[f"tp {name} batch|{k}"])
+                 for k in ("tokens", "prefix_embeds")
+                 if f"tp {name} batch|{k}" in res}
+        meta = tree_map(_meta, batch)
+        if "train" in runs_:
+            step, _ = tsteps.build_sharded_train_step(
+                bundle.loss_fn, bundle.init_fn, meta, mesh,
+                plans["train_4k"], opt)
+            doc[f"tp {name} train in"] = specs_json(step.in_specs)
+            doc[f"tp {name} train out"] = specs_json(step.out_specs)
+            p = step.shard(tree_map(torch.clone, params), step.in_specs[0])
+            o = adamw_init(p)
+            doc[f"tp {name} train bytes"] = []
+            for i in range(STEPS):
+                reset(step)
+                p, o, loss = step(p, o, batch)
+                out[f"tp {name} loss{i}"] = np.asarray(float(loss))
+                save(f"tp {name} params{i}", p)
+                save(f"tp {name} opt{i}", {"m": o["m"], "v": o["v"]})
+                doc[f"tp {name} train bytes"].append(counts(step))
+        if "forward" in runs_:
+            fstep, _ = tsteps.build_forward_step(
+                bundle.loss_fn, bundle.init_fn, meta, mesh,
+                plans["prefill_32k"])
+            doc[f"tp {name} forward in"] = specs_json(fstep.in_specs)
+            doc[f"tp {name} forward out"] = specs_json(fstep.out_specs)
+            out[f"tp {name} forward loss"] = np.asarray(float(fstep(
+                fstep.shard(params, fstep.in_specs[0]), batch)))
+            doc[f"tp {name} forward bytes"] = counts(fstep)
+        if "serve" in runs_:
+            with torch.inference_mode():
+                logits, caches = tlm.prefill(
+                    params, batch["tokens"][:, :TP_PROMPT], cfg, TP_MAX)
+            sstep, _ = tsteps.build_sharded_serve_step(
+                bundle.make_decode_fn(None), bundle.init_fn,
+                tree_map(_meta, caches),
+                torch.empty((TP_B, 1), dtype=torch.int32, device="meta"),
+                mesh, plans["decode_32k"])
+            doc[f"tp {name} serve in"] = specs_json(sstep.in_specs)
+            doc[f"tp {name} serve out"] = specs_json(sstep.out_specs)
+            sp = sstep.shard(params, sstep.in_specs[0])
+            cache = sstep.shard(caches, sstep.in_specs[2])
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            toks, rows = [tok], []
+            for i in range(TP_GEN):
+                reset(sstep)
+                mine, cache = sstep(sp, tok, cache)
+                if i == 0:
+                    doc[f"tp {name} serve bytes"] = counts(sstep)
+                rows.append(mine)
+                tok = sstep.gather_rows(mine)
+                toks.append(tok)
+            out[f"tp {name} serve tokens"] = torch.cat(toks, 1).numpy()
+            out[f"tp {name} serve rows"] = torch.cat(rows, 1).numpy()
+            save(f"tp {name} cache", {k: cache["layers"][k] for k in "kv"})
 
 
 def _rank_main(jax_dir, out_dir):
@@ -573,7 +776,9 @@ def test_unet_blocks_over_ranks_match_the_one_process_step(runs):
 
 
 SPEC_SETS = ["unet in", "unet out", "forward in", "forward out", "serve in",
-             "serve out", "pp0 in", "pp0 out", "pp2 in", "pp2 out"]
+             "serve out", "pp0 in", "pp0 out", "pp2 in", "pp2 out"] + [
+    f"tp {name} {run} {io}" for name, case in TP_CASES.items()
+    for run in case[3] for io in ("in", "out")]
 
 
 @pytest.mark.parametrize("name", SPEC_SETS)
@@ -631,14 +836,47 @@ def _merge_lm(runs, name):
                                 _unflatten(edge))
 
 
+def _merge_lm_moments(runs, name):
+    """``{"m/<path>": whole, "v/<path>": whole}``: the pp ranks' moments
+    merged back into whole LM trees.  At ZeRO-2 of the plan a sharded
+    leaf's moments are its data replica's shard of the rank's rows (along
+    the dim where they are narrower than the rows): put back over the data
+    replicas first."""
+    from repro_torch.tree import tree_paths
+    pname = name.replace(" opt", " params")
+    out = {}
+    for mv in ("m", "v"):
+        ranks = {}
+        for r in range(PP):
+            rows = _leaves(runs["ranks"][r], pname)
+            mine = {}
+            for k, x in _leaves(runs["ranks"][r], name).items():
+                if not k.startswith(f"{mv}/"):
+                    continue
+                k = k[2:]
+                dims = [i for i in range(x.ndim)
+                        if x.shape[i] != rows[k].shape[i]]
+                if dims:
+                    x = np.concatenate(
+                        [_leaves(runs["ranks"][d * PP + r], name)[f"{mv}/{k}"]
+                         for d in range(DP)], dims[0])
+                mine[f"{pname}|{k}"] = x
+            ranks[r] = mine
+        for k, v in tree_paths(_merge_lm({"ranks": ranks}, pname)):
+            out[f"{mv}/{k}"] = v.numpy()
+    return out
+
+
 @pytest.mark.parametrize("zero", [0, 2, "cp"])
 def test_pp_train_step_over_ranks_matches_jax(runs, zero):
     """``build_pp_train_step`` over the grid (``make_adapter``'s rank
     adapter at the plan's ZeRO 0 and 2, and a ``CompiledPipeline`` at
     ZeRO-2 with its rows at rest sharded) against JAX's under the mesh:
     every rank's loss, and (the adapters) the params merged back from the
-    ranks after each step; against the one-process step's losses at
-    rtol 1e-5."""
+    ranks after each step, and the AdamW moments ``m`` and ``v`` at rtol
+    1e-4 (``MOMENT_ATOL`` of the leaf's largest entry), so that a wrong
+    update cannot hide under the params' ``UPDATE_ATOL``; against the
+    one-process step's losses at rtol 1e-5."""
     from repro_torch.tree import tree_paths
     jz = 2 if zero == "cp" else zero
     for step in range(STEPS):
@@ -655,6 +893,12 @@ def test_pp_train_step_over_ranks_matches_jax(runs, zero):
         assert sorted(merged) == sorted(jp)
         for k, v in merged.items():
             _close(v.numpy(), jp[k], f"step {step} {k}", atol=UPDATE_ATOL)
+        moments = _merge_lm_moments(runs, f"pp{zero} opt{step}")
+        jm = _leaves(runs["jax"], f"pp{zero} opt{step}")
+        assert sorted(moments) == sorted(jm)
+        for k, v in moments.items():
+            _close(v, jm[k], f"step {step} {k}",
+                   atol=MOMENT_ATOL * float(np.abs(jm[k]).max()))
 
 
 def _bytes_want(specs: dict, shapes: dict, esize: int = 4):
@@ -711,6 +955,118 @@ def test_group_bytes_match_their_arithmetic(runs):
         p = runs["ranks"][r]["pp2 params0|0/0/ffn/w_up"]
         assert m.shape == p.shape[:-1] + (LM_FF // DP,), (m.shape, p.shape)
     assert runs["one_doc"]["unet bytes"] == [None] * STEPS
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over model
+# ---------------------------------------------------------------------------
+
+def _tp_runs(run):
+    return [n for n, case in TP_CASES.items() if run in case[3]]
+
+
+def _tp_specs(runs, name, run, pre):
+    return {k[len(pre):]: _spec_tuple(v) for k, v in
+            runs["specs"][f"tp {name} {run} in"].items() if k.startswith(pre)}
+
+
+@pytest.mark.parametrize("step", range(STEPS))
+@pytest.mark.parametrize("name", _tp_runs("train"))
+def test_tp_train_step_over_ranks_matches_jax(runs, name, step):
+    """The train_4k plan (TP over model, FSDP over data): every rank's
+    loss equals JAX's global loss; each rank's param and moment blocks --
+    TP blocks of ``wq/wk/wv/wo``, the FFN, ``embed``/``head``, their FSDP
+    dims over data -- equal the ``addressable_shards`` of its mesh device
+    (d, m) after the step, and the one-process step's whole params and
+    moments cut by the same specs (its loss at rtol 1e-5).  The blocks at
+    rtol 1e-4, the params at ``UPDATE_ATOL`` (the AdamW update of a
+    near-zero gradient entry moves with the sums' order: one entry of
+    4,096 of ``wo`` 1.9e-6 off), the moments at ``MOMENT_ATOL`` of the
+    leaf's largest entry."""
+    want = float(runs["jax"][f"tp {name} loss{step}"])
+    for r in range(WORLD):
+        got = runs["ranks"][r]
+        _close(float(got[f"tp {name} loss{step}"]), want, f"rank {r} loss")
+        _close(float(got[f"tp {name} loss{step}"]),
+               float(runs["one"][f"tp {name} loss{step}"]),
+               f"rank {r} loss", rtol=ONE_RTOL)
+        d, m = _coords(runs, r)
+        for what, pre in (("params", "0/"), ("opt", "1/")):
+            key = f"tp {name} {what}{step}"
+            mine = _leaves(got, key)
+            shards = _leaves(runs["jax"], f"{key}@{d}{m}")
+            assert sorted(mine) == sorted(shards), key
+            blocks = _one_block(runs, key, r,
+                                _tp_specs(runs, name, "train", pre))
+            for k, v in mine.items():
+                assert v.shape == shards[k].shape, (r, k)
+                atol = (UPDATE_ATOL if what == "params" else
+                        MOMENT_ATOL * float(np.abs(shards[k]).max()))
+                _close(v, shards[k], f"rank {r} {key} {k}", atol=atol)
+                _close(v, blocks[k], f"rank {r} {key} {k}", atol=atol)
+
+
+@pytest.mark.parametrize("name", _tp_runs("forward"))
+def test_tp_forward_over_ranks_matches_jax(runs, name):
+    """The prefill_32k plan's loss on every rank against JAX's under the
+    mesh and the one process's."""
+    want = float(runs["jax"][f"tp {name} forward loss"])
+    for r in range(WORLD):
+        got = float(runs["ranks"][r][f"tp {name} forward loss"])
+        _close(got, want, f"rank {r} forward")
+        _close(got, float(runs["one"][f"tp {name} forward loss"]),
+               f"rank {r} forward", rtol=ONE_RTOL)
+
+
+@pytest.mark.parametrize("name", _tp_runs("serve"))
+def test_tp_serve_over_ranks_matches_jax(runs, name):
+    """The decode_32k plan's greedy tokens (the vocab-parallel argmax, or
+    the tied head's whole logits) equal JAX's and the one process's, each
+    rank returning its data replica's rows; each rank's K/V cache block
+    (its rows, and its kv heads where the cache splits over model) equals
+    its mesh device's ``addressable_shards`` after the steps (atol
+    ``MOMENT_ATOL`` of the largest entry: an entry is a sum of ``d``
+    products, one of 1,536 near zero is 2.4e-6 off)."""
+    toks = runs["jax"][f"tp {name} serve tokens"]
+    np.testing.assert_array_equal(runs["one"][f"tp {name} serve tokens"],
+                                  toks)
+    for r in range(WORLD):
+        got = runs["ranks"][r]
+        np.testing.assert_array_equal(got[f"tp {name} serve tokens"], toks)
+        d, m = _coords(runs, r)
+        rows = slice(d * TP_B // DP, (d + 1) * TP_B // DP)
+        np.testing.assert_array_equal(got[f"tp {name} serve rows"],
+                                      toks[rows, 1:])
+        for k in "kv":
+            shard = runs["jax"][f"tp {name} cache@{d}{m}|{k}"]
+            mine = got[f"tp {name} cache|{k}"]
+            assert mine.shape == shard.shape, (r, k, mine.shape)
+            _close(mine, shard, f"rank {r} cache {k}",
+                   atol=MOMENT_ATOL * float(np.abs(shard).max()))
+
+
+@pytest.mark.parametrize("name", list(TP_CASES))
+def test_tp_model_group_bytes_match_their_arithmetic(runs, name):
+    """Each run's ``model`` group (the TP collectives) against
+    ``tensor_parallel.lm_traffic``, on every rank; no all-gather of a
+    weight's TP dim (the tied matrix aside: the arithmetic has no other),
+    and the FSDP gathers stay on the ``data`` group."""
+    from repro_torch.configs.smoke import LM_FACTORIES
+    from repro_torch.models.layers import AttnConfig
+    from repro_torch.runtime.tensor_parallel import lm_traffic
+    cfg = _tp_cfg(LM_FACTORIES, AttnConfig, name)
+    B = TP_B // DP
+    for r in range(WORLD):
+        doc = runs["docs"][r]
+        for run in TP_CASES[name][3]:
+            got = doc[f"tp {name} {run} bytes"]
+            steps_ = got if run == "train" else [got]
+            for st in steps_:
+                want = lm_traffic(
+                    cfg, run, B=B, S=TP_S, tp=PP, esize=4,
+                    prefix=cfg.vision_prefix if run == "train" else 0)
+                assert st["model"] == want, (r, run, st["model"])
+                assert st["data"]["calls"]["all_gather"] >= 1, (r, run)
 
 
 if __name__ == "__main__":

@@ -223,17 +223,61 @@ def test_diffusion_adapters_over_a_grid_are_a_ranks(mod):
 
 PLAN = tsteps.ParallelPlan
 RANK_REFUSALS = [
-    # plan, pipeline, the words the error names
-    (PLAN(), False, "tensor parallelism over 'model' .* on a grid of 4"),
-    (PLAN(ep=True), False, "expert and tensor parallelism"),
-    (PLAN(tp_axis=None, seq_shard_axis="data"), False, "sequence sharding"),
-    (PLAN(tp_axis=None, int8_optimizer=True), False,
-     "int8 AdamW moments with FSDP"),
-    (PLAN(strategy="pp_wave", int8_optimizer=True), True,
-     "int8 AdamW moments under the pipeline"),
-    (PLAN(strategy="pp_wave", fsdp_axes=("model",)), True,
-     "extra_stack_fsdp"),
+    # plan, pipeline, the words the error names (the ids the cases had
+    # when tensor parallelism was the first of them)
+    pytest.param(PLAN(ep=True), False, "expert and tensor parallelism",
+                 id="plan1-False-expert and tensor parallelism"),
+    pytest.param(PLAN(tp_axis=None, seq_shard_axis="data"), False,
+                 "sequence sharding", id="plan2-False-sequence sharding"),
+    pytest.param(PLAN(tp_axis=None, int8_optimizer=True), False,
+                 "int8 AdamW moments with FSDP",
+                 id="plan3-False-int8 AdamW moments with FSDP"),
+    pytest.param(PLAN(strategy="pp_wave", int8_optimizer=True), True,
+                 "int8 AdamW moments under the pipeline",
+                 id="plan4-True-int8 AdamW moments under the pipeline"),
+    pytest.param(PLAN(strategy="pp_wave", fsdp_axes=("model",)), True,
+                 "extra_stack_fsdp", id="plan5-True-extra_stack_fsdp"),
 ]
+
+
+@pytest.mark.parametrize("build", ["train", "forward", "serve"])
+def test_tp_over_ranks_builds_and_names_its_specs(build):
+    """Tensor parallelism over ``model`` on a grid of ranks builds (it was
+    refused before it was ported): each builder's param specs are JAX's
+    rules, ``wq``'s columns and ``wo``'s rows over the TP axis beside FSDP
+    over data, ``wk``/``wv`` whole under the plan's custom rules, and the
+    step carries the rank's TP context (index 1 of 2 here)."""
+    grid = RankGrid(world=4, dp=2, pp=2, rank=3)
+    tb = tconfigs.get_arch("h2o-danube-1.8b")
+    shape = {"train": "train_4k", "forward": "prefill_32k",
+             "serve": "decode_32k"}[build]
+    plan = tb.plans[shape]
+    assert tsteps.check_ranks(grid, plan) == {"data": 2, "model": 2}
+    if build == "serve":
+        step, _ = tsteps.build_sharded_serve_step(
+            tb.make_decode_fn(tbase.SHAPES[shape]), tb.init_fn,
+            tb.cache_struct(tbase.SHAPES[shape]),
+            tbase.meta((tbase.SHAPES[shape].global_batch, 1), torch.int32),
+            grid, plan)
+        assert step.in_specs[2]["layers"]["k"] == Spec(
+            [None, "data", None, "model", None])
+    else:
+        builder = (tsteps.build_sharded_train_step if build == "train"
+                   else tsteps.build_forward_step)
+        step, _ = builder(tb.loss_fn, tb.init_fn,
+                          tb.batch_struct(tbase.SHAPES[shape]), grid, plan)
+    specs = step.in_specs[0]
+    fsdp = "data"           # every danube plan's FSDP axes
+    assert specs["layers"]["attn"]["wq"] == Spec([None, fsdp, "model"])
+    assert specs["layers"]["attn"]["wo"] == Spec([None, "model", fsdp])
+    assert specs["layers"]["attn"]["wk"] == Spec([None, None, None])
+    assert specs["head"] == Spec([fsdp, "model"])
+    assert (step.tp.index, step.tp.size) == (1, 2)
+    assert step.comm.tp_axis == "model" and step.comm.row_axes == ("data",)
+    fs, tps = tsharding.split_kinds(specs["layers"]["attn"]["wq"],
+                                    {"data": 2, "model": 2}, "model",
+                                    grid.coords)
+    assert (fs, tps) == ([(1, ("data",))], [(2, 1, 2)])
 
 
 @pytest.mark.parametrize("plan,pipeline,words", RANK_REFUSALS)
